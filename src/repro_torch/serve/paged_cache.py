@@ -1,0 +1,99 @@
+"""Paged KV cache: a fixed-size physical block pool + per-slot block tables.
+
+Counterpart of ``repro.serve.paged_cache``.  The time axis of every attention
+cache is cut into fixed-size blocks that live in one shared physical pool; a
+slot owns an ordered *block table* of pool indices, and slots with very
+different lengths share the pool densely.  Block 0 is the *null block*:
+padding entries of every block table point at it, so writes of inactive slots
+and padded positions land there harmlessly and every read masks them.
+
+The pool is a bfloat16 container, ``[n_layers, num_blocks, bs, K, dh]`` for K
+and for V, updated in place by the engine's steps.  (The JAX package widens
+it to float32 on its CPU backend to keep scatters in place; PyTorch updates a
+bfloat16 tensor in place on any device.)  Only the paged decode path of the
+dense family is ported in this slice; the gathered path, slot export/import
+and the recurrent families' slot-state leaves arrive with later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+
+
+class PoolExhausted(RuntimeError):
+    """No free physical blocks — the scheduler should preempt."""
+
+
+class BlockAllocator:
+    """Free-list allocator over ``num_blocks`` fixed-size physical blocks.
+
+    Block ids ``[reserved, num_blocks)`` are allocatable; ``[0, reserved)``
+    (the null block) never leave the allocator.
+    """
+
+    def __init__(self, num_blocks: int, reserved: int = 1):
+        if num_blocks <= reserved:
+            raise ValueError(f"need > {reserved} blocks, got {num_blocks}")
+        self.num_blocks = num_blocks
+        self.reserved = reserved
+        # LIFO free list: recently-freed blocks are reused first (warm)
+        self._free: list[int] = list(range(num_blocks - 1, reserved - 1, -1))
+        self._held: set[int] = set()
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int = 1) -> list[int]:
+        if n > len(self._free):
+            raise PoolExhausted(f"want {n} blocks, {len(self._free)} free")
+        out = [self._free.pop() for _ in range(n)]
+        self._held.update(out)
+        return out
+
+    def try_alloc(self, n: int = 1) -> list[int] | None:
+        if n > len(self._free):
+            return None
+        return self.alloc(n)
+
+    def free(self, blocks: list[int]) -> None:
+        for b in blocks:
+            if b not in self._held:
+                raise ValueError(f"block {b} not held (double free?)")
+            self._held.remove(b)
+            self._free.append(b)
+
+
+def blocks_for(n_tokens: int, block_size: int) -> int:
+    """Blocks needed to hold ``n_tokens`` cache positions."""
+    return -(-n_tokens // block_size)
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= ``n``: the bucketing of prefill lengths and of
+    the decode-table high-water mark, as in the JAX package."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@dataclass(frozen=True)
+class PoolSpec:
+    num_slots: int
+    num_blocks: int          # physical blocks incl. the reserved null block
+    block_size: int
+    max_blocks: int          # block-table width per slot
+
+
+class PagedKVCache:
+    """The physical KV pool of a dense model: ``self.pool`` is
+    ``{"k", "v"}``, each ``[n_layers, num_blocks, bs, K, dh]`` bfloat16 on
+    ``device``, written in place by the engine steps."""
+
+    def __init__(self, cfg: ModelConfig, spec: PoolSpec, device: torch.device):
+        self.cfg = cfg
+        self.spec = spec
+        self.pool = lm.init_pool(cfg, spec.num_blocks, spec.block_size, device)
