@@ -8,17 +8,27 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device  — requires a CUDA card; prints its name and power limit;
 2. build   — compiles the CUDA kernels from ``src/repro_torch`` with nvcc and
              prints ptxas' registers / shared memory / spills;
-3. kernels — holds each kernel against its plain PyTorch version on the card
-             at qwen2-0.5b widths (H=14, K=2, dh=64, block 16, bfloat16), then
-             times kernel, plain version and a library yardstick
-             (``scaled_dot_product_attention`` over a gathered dense view,
-             which the port never calls) at the main path's shapes;
+3. kernels — holds each kernel against its plain PyTorch version on the card:
+             paged decode and prefill (K3, K4) at qwen2-0.5b widths (H=14,
+             K=2, dh=64, block 16), RMSNorm forward and backward (K1, Triton)
+             and flash attention forward and backward (K2) at the training
+             path's shapes and at small ragged ones, all bfloat16; then times
+             kernel, plain version and a library yardstick the port never
+             calls (``scaled_dot_product_attention``, ``F.rms_norm``) at the
+             main paths' shapes;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
-             every prompt must launch each kernel once per layer;
+             every prompt must launch each paged kernel once per layer and
+             the RMSNorm kernel once per norm;
 5. check   — replays finished streams teacher-forced through the kernel path
              and through the plain path on the card and compares the logits;
-6. summary — a ``{"kernels": [...]}`` line, then the last line
+6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
+             through ``repro_torch.train.loop.train``; launches per step must
+             equal the counts worked out from the depth and full remat, every
+             loss must be finite and the last below the first;
+7. step    — one train step from one state and batch through the kernels and
+             through the plain versions: loss and grad_norm must agree;
+8. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
@@ -27,6 +37,7 @@ Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +61,29 @@ KERNEL_TOL = 3e-2
 LOGIT_TOL = 0.25
 SERVE = dict(n=32, rate=40.0, prompt_lens=(128, 512, 2048),
              max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
+
+# the training path's shapes: qwen2-0.5b, seq 2048 x batch 8
+TRAIN = dict(seq_len=2048, global_batch=8, steps=8)
+NORM_ROWS, D_MODEL = TRAIN["seq_len"] * TRAIN["global_batch"], 896
+# K1 on bfloat16: kernel and plain version each round one float32 result per
+# element to bfloat16 once; float32 sums in another order can flip one
+# rounding, one bfloat16 ulp of that element, at most 2^-7 of the largest
+# |value| (8 significant bits): the error is taken relative to it.  dscale
+# sums all rows in float32 in another order before its rounding: 1 % of its
+# largest entry.
+NORM_TOL = 2.0 ** -7
+DSCALE_RTOL = 1e-2
+# K2 on bfloat16: both round p to bfloat16 before the PV product, but the
+# kernel's running max moves between kv tiles, so some roundings differ; o
+# and the gradients agree to a few bfloat16 ulps of their largest entries,
+# lse (float32) to float32 rounding of sums over 2048 keys
+FLASH_TOL = 3e-2
+LSE_TOL = 1e-3
+# one train step, kernels vs plain versions, from one state and batch: 24
+# bfloat16 layers of a few-ulp differences move the loss (about 12) by a few
+# bfloat16 ulps of the hidden states, and the gradient norm by percents at most
+STEP_LOSS_TOL = 0.02
+STEP_GNORM_RTOL = 0.02
 
 
 def log(msg: str) -> None:
@@ -252,11 +286,172 @@ def time_kernels(torch, dev, worst: dict) -> dict:
     return out
 
 
+def _err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return r(B, S, H_, D), r(B, T, K_, D), r(B, T, K_, D), r(B, S, H_, D)
+
+
+def check_training_kernels(torch, dev) -> dict:
+    """K1 and K2 against their plain versions; returns the worst errors."""
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_bwd_kernel, rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # per kernel, the case nearest its tolerance: (max |error|, the absolute
+    # tolerance that case was held to)
+    worst = dict.fromkeys(("rmsnorm_fwd", "rmsnorm_bwd", "flash_fwd", "flash_bwd"),
+                          (0.0, 1.0))
+
+    def record(name, err, tol):
+        if err / tol >= worst[name][0] / worst[name][1]:
+            worst[name] = (err, tol)
+
+    def norm(rows, D, sdtype, what):
+        x = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
+        sc = (1 + 0.3 * torch.randn((D,), generator=gen, device=dev)).to(sdtype)
+        dy = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
+        y, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
+        dx, ds = rmsnorm_bwd_kernel(x, sc, rstd, dy)
+        torch.cuda.synchronize()
+        ry = rmsnorm_plain(x, sc, 1e-6)
+        a_y, m_y = _err(y, ry), ry.float().abs().max().item()
+        rdx, rds = rmsnorm_bwd_plain(x, sc, dy, 1e-6)
+        a_dx, m_dx = _err(dx, rdx), rdx.float().abs().max().item()
+        e_y, e_dx = a_y / m_y, a_dx / m_dx
+        e_ds = _err(ds, rds) / rds.float().abs().max().item()
+        ok = e_y <= NORM_TOL and e_dx <= NORM_TOL and e_ds <= DSCALE_RTOL
+        log(f"[kernels] rmsnorm       {what:50s} y_rel_err={e_y:.3e} dx_rel_err={e_dx:.3e} "
+            f"dscale_rel_err={e_ds:.3e} tol={NORM_TOL:.2e}/{DSCALE_RTOL:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rmsnorm disagrees with its plain version: {what}")
+        record("rmsnorm_fwd", a_y, NORM_TOL * m_y)
+        record("rmsnorm_bwd", a_dx, NORM_TOL * m_dx)
+
+    def flash(B, S, T, H_, K_, D, causal, window, what):
+        q, k, v, do = _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D)
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        o, lse = flash_fwd_kernel(q, k, v, **kw)
+        grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = flash_fwd_plain(q, k, v, **kw)
+        e_o, e_lse = _err(o, ro), _err(lse, rlse)
+        refs = flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        g_err = [(_err(g, r), FLASH_TOL * max(1.0, r.float().abs().max().item()))
+                 for g, r in zip(grads, refs)]
+        e_g = max(err / tol for err, tol in g_err) * FLASH_TOL  # relative
+        del ro, rlse, refs
+        ok = e_o <= FLASH_TOL and e_lse <= LSE_TOL and e_g <= FLASH_TOL
+        log(f"[kernels] flash         {what:50s} o_err={e_o:.3e} lse_err={e_lse:.3e} "
+            f"grad_rel_err={e_g:.3e} tol={FLASH_TOL:.0e}/{LSE_TOL:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash attention disagrees with its plain version: {what}")
+        record("flash_fwd", e_o, FLASH_TOL)
+        for err, tol in g_err:
+            record("flash_bwd", err, tol)
+
+    norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale")
+    norm(8 * 2048 * 40, 128, torch.bfloat16, "[B*S*H=655360, 128] qwen3 qk_norm shape")
+    norm(16383, D_MODEL, torch.float32, f"[16383, {D_MODEL}] odd rows, f32 scale")
+    flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal")
+    flash(2, 300, 300, H, K, DH, True, 100, "B=2 S=T=300 window 100")
+    flash(2, 200, 333, 4, 2, 128, False, None, "B=2 S=200 T=333 bidirectional dh=128")
+    flash(1, 77, 77, 8, 8, 64, True, None, "B=1 S=T=77 MHA causal")
+    return worst
+
+
+def time_training_kernels(torch, dev, worst: dict) -> dict:
+    """K1 and K2: kernel, plain and library times at the train path's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_bwd_kernel, rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    N, D = NORM_ROWS, D_MODEL
+    x = torch.randn((N, D), generator=gen, device=dev).bfloat16()
+    sc = (1 + 0.3 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
+    dy = torch.randn((N, D), generator=gen, device=dev).bfloat16()
+    _, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
+    xl = x.clone().requires_grad_(True)
+    sl = sc.clone().requires_grad_(True)
+
+    def lib_norm_fb():
+        y = F.rms_norm(xl, (D,), weight=sl, eps=1e-6)
+        torch.autograd.grad(y, (xl, sl), dy)
+
+    rows = {
+        "rmsnorm_fwd": (lambda: rmsnorm_fwd_kernel(x, sc, 1e-6),
+                        lambda: rmsnorm_plain(x, sc, 1e-6),
+                        lambda: F.rms_norm(x, (D,), weight=sc, eps=1e-6),
+                        bound(0, 2 * 2 * N * D + 4 * N + 2 * D)),
+        "rmsnorm_bwd": (lambda: rmsnorm_bwd_kernel(x, sc, rstd, dy),
+                        lambda: rmsnorm_bwd_plain(x, sc, dy, 1e-6),
+                        lib_norm_fb,
+                        bound(0, 3 * 2 * N * D + 4 * N + 2 * 2 * D)),
+    }
+    for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
+        out[name] = dict(ms=cuda_ms(kern, 50), plain_ms=cuda_ms(plain, 20),
+                         library_ms=cuda_ms(lib, 50), bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=worst[name][0], tolerance=worst[name][1])
+
+    B, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H, K, DH)
+    kw = dict(scale=DH ** -0.5, causal=True, window=None)
+    o, lse = flash_fwd_kernel(q, k, v, **kw)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=DH ** -0.5, enable_gqa=True)
+
+    def sdpa_fb():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    pairs = B * H * S * (S + 1) // 2
+    io_bytes = 2 * (2 * B * S * H * DH + 2 * B * S * K * DH)
+    rows = {
+        "flash_fwd": (lambda: flash_fwd_kernel(q, k, v, **kw),
+                      lambda: flash_fwd_plain(q, k, v, **kw), sdpa,
+                      bound(4 * pairs * DH, io_bytes + 4 * B * H * S)),
+        "flash_bwd": (lambda: flash_bwd_kernel(q, k, v, o, lse, do, **kw),
+                      lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_fb,
+                      bound(10 * pairs * DH, 2 * io_bytes + 4 * B * H * S)),
+    }
+    for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
+        out[name] = dict(ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
+                         library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=worst[name][0], tolerance=worst[name][1])
+    for name, t in out.items():
+        what = ("[16384, 896] bf16" if name.startswith("rms")
+                else "B=8 S=T=2048 H=14 K=2 dh=64 causal")
+        lib = ("F.rms_norm" if name.startswith("rms") else "SDPA") + (
+            " fwd+bwd" if name.endswith("bwd") else "")
+        log(f"[timing] {name:13s} {what}: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} ({lib}) "
+            f"bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------- phase 4-5
 
 
 def serve(torch, dev):
     from repro_torch.configs import get_config
+    from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.paged_attention import launches, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve.server import MegaServe, make_poisson_workload
@@ -281,11 +476,12 @@ def serve(torch, dev):
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
+    rmsnorm.reset_launches()
     for s in specs:
         srv.submit(prompts[s.rid], s.max_new, arrival=s.arrival, rid=s.rid)
     streams = srv.drain()
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = {**launches, **rmsnorm.launches}
     met = srv.metrics()
 
     events = srv.trace_events()
@@ -306,6 +502,14 @@ def serve(torch, dev):
         raise AssertionError("decode kernel launches != decode ticks x layers")
     if counts["paged_prefill"] != n_prefill * L or counts["paged_prefill"] == 0:
         raise AssertionError("prefill kernel launches != prompts x layers")
+    # every forward runs two norms a layer and the final norm (qwen2 has no
+    # qk_norm), and nothing takes a gradient
+    want_norm = (2 * L + 1) * (len(ticks) + n_prefill)
+    log(f"[serve] rmsnorm launches fwd {counts['rmsnorm_fwd']} bwd "
+        f"{counts['rmsnorm_bwd']} expected fwd (2x{L}+1)x{len(ticks) + n_prefill}"
+        f"={want_norm} bwd 0")
+    if counts["rmsnorm_fwd"] != want_norm or counts["rmsnorm_bwd"] != 0:
+        raise AssertionError("rmsnorm launches != (2 x layers + 1) x forwards")
     if met["finished"] != len(specs):
         raise AssertionError("not every request finished")
     for s in specs:
@@ -363,6 +567,94 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams) -> None:
         raise AssertionError("the kernel-path replay launched no kernel")
 
 
+# ---------------------------------------------------------------- phase 6-7
+
+
+def train_phase(torch, dev):
+    """Full-width qwen2-0.5b, 8 steps at seq 2048 x batch 8 through the loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models.model import count_params
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optim import OptimizerConfig
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = get_config("qwen2-0.5b").replace(remat="full")
+    steps = TRAIN["steps"]
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                      global_batch=TRAIN["global_batch"], seed=0)
+    # the CLI's defaults: lr 3e-4, cosine, warmup max(steps // 10, 5)
+    ocfg = OptimizerConfig(lr=3e-4, schedule="cosine",
+                           warmup_steps=max(steps // 10, 5), total_steps=steps)
+    state = init_train_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.padded_vocab} "
+        f"params={count_params(state.master)} remat={cfg.remat} "
+        f"seq={data.seq_len} batch={data.global_batch}")
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.reset_launches()
+    rmsnorm.reset_launches()
+    state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
+                           state=state, device=dev)
+    torch.cuda.synchronize()
+    counts = {**flash_attention.launches, **rmsnorm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for h in history:
+        log(f"[train] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
+            f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
+            f"tokens_per_s={h['tokens_per_s']:.1f}")
+    # per step, with full remat every layer's forward runs twice (once in the
+    # forward, once recomputed in the backward) and its backward once; each
+    # layer has two RMSNorms (ln1, ln2; qwen2 has no qk_norm) and one
+    # attention above attn_kv_chunk (2048 > 1024: the flash branch), and the
+    # final norm runs once each way:
+    #   flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
+    #   rmsnorm_bwd 2L + 1 = 49
+    L = cfg.num_layers
+    per_step = {"flash_fwd": 2 * L, "flash_bwd": L, "rmsnorm_fwd": 4 * L + 1,
+                "rmsnorm_bwd": 2 * L + 1}
+    steady = sorted(h["step_s"] for h in history[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = data.seq_len * data.global_batch
+    log(f"[train] launches per step {dict((k, v / steps) for k, v in counts.items())} "
+        f"expected {per_step}")
+    log(f"[train] median step (steps 2-{steps}) {1e3 * step_s:.1f} ms, "
+        f"{tokens / step_s:.1f} tokens/s; first step {1e3 * history[0]['step_s']:.1f} ms; "
+        f"max_memory_allocated={peak}")
+    if any(counts[k] != steps * n for k, n in per_step.items()):
+        raise AssertionError(f"train launches {counts} != {steps} x {per_step}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    return cfg, ocfg, data, state, counts, dict(step_s=step_s, tokens_per_s=tokens / step_s,
+                                               peak=peak)
+
+
+def one_step_check(torch, cfg, ocfg, data, state) -> None:
+    """One step from one state and batch, kernels vs plain versions."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.train_step import make_train_step
+
+    batch = SyntheticTokens(data).batch_at(TRAIN["steps"])
+    res = {}
+    for plain in (False, True):
+        _, m = make_train_step(cfg, ocfg, plain=plain)(state, batch)
+        res[plain] = (m["loss"].item(), m["grad_norm"].item())
+        del m
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = res[False], res[True]
+    d_loss, d_gn = abs(lk - lp), abs(gk - gp) / gp
+    ok = d_loss <= STEP_LOSS_TOL and d_gn <= STEP_GNORM_RTOL and math.isfinite(lk)
+    log(f"[step] kernels loss={lk:.5f} grad_norm={gk:.5f}; plain loss={lp:.5f} "
+        f"grad_norm={gp:.5f}; |dloss|={d_loss:.2e} (tol {STEP_LOSS_TOL}) "
+        f"rel dgrad_norm={d_gn:.2e} (tol {STEP_GNORM_RTOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("one train step through the kernels disagrees with "
+                             "the plain versions")
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -375,6 +667,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import shared_memory_bytes as flash_smem
     from repro_torch.kernels.paged_attention.ops import shared_memory_bytes
 
     t_start = time.perf_counter()
@@ -393,27 +686,52 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name):
             log(f"[build] {name}: {line}")
-        smem = shared_memory_bytes(name, H=H, K=K, dh=DH, bs=BS)
+        if name.startswith("paged"):
+            smem = shared_memory_bytes(name, H=H, K=K, dh=DH, bs=BS)
+        else:
+            smem = flash_smem(name, DH)
         log(f"[build] {name}: {smem} bytes of dynamic shared memory per block "
-            f"at H={H} K={K} dh={DH} bs={BS}")
+            f"at H={H} K={K} dh={DH}" + (f" bs={BS}" if name.startswith("paged") else ""))
 
     worst = check_kernels(torch, dev)
+    worst.update(check_training_kernels(torch, dev))
     timings = time_kernels(torch, dev, worst)
+    timings.update(time_training_kernels(torch, dev, worst))
+    torch.cuda.empty_cache()
     cfg, srv, specs, prompts, streams, counts = serve(torch, dev)
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
+    del srv
+    torch.cuda.empty_cache()
+    tcfg, ocfg, data, state, train_counts, _ = train_phase(torch, dev)
+    one_step_check(torch, tcfg, ocfg, data, state)
+    del state
 
-    replaces = {
-        "paged_decode": "src/repro/kernels/paged_attention/kernel.py:139",
-        "paged_prefill": "src/repro/kernels/paged_attention/prefill_kernel.py:176",
-    }
+    # launches: the paged kernels' from the serve phase, K1's and K2's from
+    # the train phase (K1's serve-phase count is checked in the serve phase);
+    # K1's and K2's tolerance: the absolute bound of their case nearest it
+    counts.update(train_counts)
+    flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
+    norm_src = "src/repro/kernels/rmsnorm/kernel.py:26"
+    norm_path = REPO / "src/repro_torch/kernels/rmsnorm/rmsnorm_triton.py"
+    rows = [
+        ("paged_decode", "cuda", _build.SOURCES["paged_decode"],
+         "src/repro/kernels/paged_attention/kernel.py:139", KERNEL_TOL),
+        ("paged_prefill", "cuda", _build.SOURCES["paged_prefill"],
+         "src/repro/kernels/paged_attention/prefill_kernel.py:176", KERNEL_TOL),
+        ("rmsnorm_fwd", "triton", norm_path, norm_src, None),
+        ("rmsnorm_bwd", "triton", norm_path, norm_src, None),
+        ("flash_fwd", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
+        ("flash_bwd", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
+    ]
     kernels = []
-    for name, path in _build.SOURCES.items():
+    for name, route, path, replaces, tol in rows:
         t = timings[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": str(path.relative_to(REPO)), "replaces": replaces[name],
+            "name": name, "route": route,
+            "source": str(path.relative_to(REPO)), "replaces": replaces,
             "launches": counts[name], "max_abs_err": t["max_abs_err"],
-            "tolerance": KERNEL_TOL, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "tolerance": t.get("tolerance", tol), "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })

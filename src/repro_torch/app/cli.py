@@ -1,14 +1,18 @@
 """`python -m repro_torch` — the port's CLI.
 
+    python -m repro_torch train --arch qwen2-0.5b --seq-len 2048 --global-batch 8 --steps 8
+    python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
     python -m repro_torch serve --arch qwen2-0.5b --continuous
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu
 
-Counterpart of ``python -m repro serve --continuous``: random weights from
-``--seed``, a Poisson workload (``make_poisson_workload``) and MegaServe
-draining it, with the same flag names and defaults as the JAX CLI.  Runs on
-the card unless ``--device cpu`` is given.  This slice ports continuous
-serving only; flags that select a later slice's path are accepted and
-refused with ``NotImplementedError``'s message.
+``train`` is the counterpart of ``python -m repro train``: random weights
+from ``--seed``, ``SyntheticTokens`` batches, AdamW, one line per step, with
+the JAX CLI's flag names and defaults (sequence 128 smoke / 4096 full, global
+batch 8 smoke / 256 full, warmup ``max(steps // 10, 5)``).  ``serve`` is
+``python -m repro serve --continuous``: a Poisson workload
+(``make_poisson_workload``) and MegaServe draining it.  Both run on the card
+unless ``--device cpu`` is given.  Flags that select a later slice's path
+are accepted and refused with ``NotImplementedError``'s message.
 """
 
 from __future__ import annotations
@@ -24,6 +28,23 @@ def build_parser() -> argparse.ArgumentParser:
         description="MegatronApp repro, PyTorch/CUDA port.",
     )
     sub = ap.add_subparsers(dest="workload", required=True)
+    t = sub.add_parser("train")
+    t.add_argument("--arch", required=True)
+    t.add_argument("--smoke", action="store_true")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--global-batch", type=int, default=0,
+                   help="0 = 8 smoke / 256 full")
+    t.add_argument("--seq-len", type=int, default=0,
+                   help="0 = 128 smoke / 4096 full")
+    t.add_argument("--lr", type=float, default=3e-4)
+    t.add_argument("--schedule", default="cosine",
+                   choices=("cosine", "wsd", "constant"))
+    t.add_argument("--warmup-steps", type=int, default=0,
+                   help="0 = max(steps // 10, 5)")
+    t.add_argument("--grad-accum", type=int, default=1)
     p = sub.add_parser("serve")
     p.add_argument("--arch", required=True)
     p.add_argument("--smoke", action="store_true")
@@ -52,8 +73,46 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv: list[str]) -> dict:
-    """Parse + serve; returns ``{"metrics", "streams", "serve_config"}``."""
+    """Parse and run a workload; returns ``train``'s ``{"history"}`` or
+    ``serve``'s ``{"metrics", "streams", "serve_config"}``."""
     args = build_parser().parse_args(argv)
+    if args.workload == "train":
+        return run_train(args)
+    return run_serve(args)
+
+
+def run_train(args: argparse.Namespace) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optim import OptimizerConfig
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    seq = args.seq_len or (128 if args.smoke else 4096)
+    batch = args.global_batch or (8 if args.smoke else 256)
+    if batch % max(args.grad_accum, 1):
+        raise ValueError(f"global batch {batch} not divisible by "
+                         f"--grad-accum {args.grad_accum}")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    ocfg = OptimizerConfig(
+        lr=args.lr, schedule=args.schedule,
+        warmup_steps=args.warmup_steps or max(args.steps // 10, 5),
+        total_steps=args.steps,
+    )
+    loop = LoopConfig(n_steps=args.steps, log_every=max(args.steps // 10, 1),
+                      grad_accum=args.grad_accum, seed=args.seed)
+    print(f"arch={cfg.name} device={args.device} seq_len={seq} "
+          f"global_batch={batch} grad_accum={args.grad_accum} "
+          f"steps={args.steps}", flush=True)
+    _, history = train(cfg, ocfg, data, loop, device=args.device)
+    for h in history:
+        print(f"step {h['step']:>5}  loss {h['loss']:.4f}  lr {h['lr']:.2e}  "
+              f"grad_norm {h['grad_norm']:.4f}  step_ms {1e3 * h['step_s']:.1f}")
+    return {"history": history}
+
+
+def run_serve(args: argparse.Namespace) -> dict:
     if not args.continuous:
         raise NotImplementedError(
             "static lockstep serving is not ported yet: it arrives with the "

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface.  ``nvcc`` compiles it for
 Hopper (``sm_90a``) into a shared library that ``ctypes`` loads; no PyTorch
 header is included, so a build takes seconds.  Libraries go to
-``build/repro_torch/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is reused.
+``build/repro_torch/`` at the repository root, named by a hash of the source,
+the headers beside it and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
 The build runs at the first CUDA call of a kernel, never at import; each
 ``nvcc`` run starts before any is waited on, so sources compile in parallel.
 ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
@@ -24,6 +25,8 @@ _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "paged_decode": _KERNELS / "paged_attention" / "csrc" / "paged_decode.cu",
     "paged_prefill": _KERNELS / "paged_attention" / "csrc" / "paged_prefill.cu",
+    "flash_fwd": _KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_bwd": _KERNELS / "flash_attention" / "csrc" / "flash_bwd.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 FLAGS = (
@@ -49,8 +52,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Keyed by the source, the headers beside it (``*.cuh``) and the flags."""
     src = SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

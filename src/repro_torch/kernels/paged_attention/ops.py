@@ -241,10 +241,11 @@ def write_kv(
     k_norm: torch.Tensor | None = None,
     eps: float = 1e-6,
     rope_theta: float = 10000.0,
+    plain: bool = False,
 ) -> torch.Tensor:
     """The K-side entry into the pool: optional qk_norm on K, rope, the
     bfloat16 quantization, and the scatter into the blocks owning each
-    slot's write positions.  The pools are updated in place (the JAX package
+    slot's write positions (``plain`` selects the plain qk_norm).  The pools are updated in place (the JAX package
     donates them).  Write positions beyond the table's reach go to the null
     block 0, like inactive slots' writes at position 0; duplicate writes
     there are harmless because every read masks them.  Returns ``kv_len``
@@ -253,7 +254,7 @@ def write_kv(
     from repro_torch.models.layers import apply_rope, rms_head_norm
 
     if k_norm is not None:
-        kk = rms_head_norm(k_norm, kk, eps)
+        kk = rms_head_norm(k_norm, kk, eps, plain=plain)
     kk = apply_rope(kk, positions, rope_theta)
     pos = positions.long()
     bs = block_size

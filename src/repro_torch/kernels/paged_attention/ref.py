@@ -121,7 +121,7 @@ def paged_prefill_plain_from_raw(
     # layers imports ops, which imports this module: load the helpers late
     from repro_torch.models.layers import apply_rope, rms_head_norm
 
-    qq = q if q_norm is None else rms_head_norm(q_norm, q, eps)
+    qq = q if q_norm is None else rms_head_norm(q_norm, q, eps, plain=True)
     qq = apply_rope(qq, positions, rope_theta)
     return paged_prefill_plain(
         qq, k_pool, v_pool, tables, kv_len, scale=scale, window=window,

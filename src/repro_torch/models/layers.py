@@ -3,15 +3,22 @@
 Counterparts of ``repro.models.layers`` with the same names and the same
 layouts: ``wq [D, H, dh]``, ``wk``/``wv [D, K, dh]``, ``wo [H, dh, D]``, MLP
 ``w_gate``/``w_up [D, F]``, ``w_down [F, D]``, the embedding ``[padded_V, D]``.
-Parameters are float32; each matrix and bias is cast to the compute dtype at
-use, as ``p[...].astype(x.dtype)`` does there (a copy cast once at load gives
-the same values), while norm scales enter the float32 norm math uncast.
-Rounding follows the JAX functions: norms and rope compute in float32 and
-return the input dtype.
+Each matrix and bias is cast to the compute dtype at use, as
+``p[...].astype(x.dtype)`` does there, while norm scales enter the float32
+norm math in their own dtype (float32 when serving, the compute dtype in a
+``TrainState``).  Rounding follows the JAX functions: norms and rope compute
+in float32 and return the input dtype; products the JAX side asks in float32
+(``preferred_element_type``) are float32 here.
 
-Only the two paged branches of the attention block are ported in this slice
-(flash prefill and paged decode over a layer-stacked bfloat16 pool); the dense
-cached, gathered and training paths arrive with later slices.
+Kernels: every RMSNorm goes through ``kernels.rmsnorm`` (K1) and the flash
+branch of :func:`attention` through ``kernels.flash_attention`` (K2); the
+paged branches of :func:`gqa_apply` go through ``kernels.paged_attention``
+(K3, K4).  ``plain=True`` (``PagedInfo.plain`` when serving) selects the
+plain PyTorch versions on any device: the card's reference runs.
+
+Ported: the paged serving branches and the non-cached training branch of
+the attention block; the dense cached, gathered and local-block paths arrive
+with later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     PagedInfo,
     paged_attention,
@@ -32,6 +40,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_plain,
     paged_prefill_plain_from_raw,
 )
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
 BIG_NEG = -1e30
 
@@ -92,21 +101,18 @@ def norm_init(b: ParamBuilder, name: str, dim: int, kind: str) -> None:
     b.sub(name).param("scale", (dim,), init="ones")
 
 
-def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float, *,
+               plain: bool = False) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(
             f"{kind}: ported with the families that use it (ROADMAP queue 1)")
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
-    return y.to(x.dtype)
+    return rmsnorm(x, p["scale"], eps, plain=plain)
 
 
-def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float, *,
+                  plain: bool = False) -> torch.Tensor:
     """Per-head-dim RMSNorm (qwen3 qk_norm): x [..., dh], scale [dh]."""
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return rmsnorm(x, scale, eps, plain=plain)
 
 
 def rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -154,21 +160,89 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(D, h * k)).view(*x.shape[:-1], h, k)
 
 
+def _mask(pq: torch.Tensor, pk: torch.Tensor, causal: bool,
+          window: int | None, kv_len: torch.Tensor | None) -> torch.Tensor:
+    """Bool mask broadcastable to ``[B?, S, C]``: True = attend."""
+    q = pq[..., :, None]
+    k = pk[None, :]
+    m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                   device=pk.device)
+    if causal:
+        m = m & (k <= q)
+    if window is not None:
+        m = m & (k > q - window)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=pk.device)
+        m = m & (k < (kl[:, None, None] if kl.dim() == 1 else kl))
+    return m
+
+
+def attention(
+    q: torch.Tensor,             # [B, S, H, D]
+    k: torch.Tensor,             # [B, T, K, D]
+    v: torch.Tensor,             # [B, T, K, D]
+    *,
+    scale: float,
+    positions_q: torch.Tensor,   # [S] absolute positions of the queries
+    causal: bool = True,
+    window: int | None = None,
+    kv_len: torch.Tensor | None = None,
+    impl: str = "chunked",
+    kv_chunk: int = 1024,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Non-paged attention with ``repro.models.layers.attention``'s dispatch.
+
+    The naive branch (``S == 1``, ``impl == "naive"`` or ``T <= kv_chunk``)
+    is plain PyTorch, as the JAX package leaves it to XLA.  The flash branch
+    (``impl="chunked"``) and the Pallas branch (``impl="pallas"``) both go
+    to the flash-attention kernel (K2) and its backward; that branch places
+    query row ``i`` at position ``i`` (``positions_q == arange(S)``, as on
+    the training path), as the Pallas kernel does.
+    """
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    if S == 1 or impl == "naive" or T <= kv_chunk:
+        qg = q.reshape(B, S, K, G, D)
+        s = torch.einsum("bskgd,btkd->bskgt", qg.float(), k.float()) * scale
+        m = _mask(positions_q, torch.arange(T, device=q.device), causal,
+                  window, kv_len)
+        m = m.reshape(B if m.dim() == 3 else 1, S, 1, 1, T)
+        p = torch.softmax(torch.where(m, s, BIG_NEG), dim=-1)
+        o = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype).float(), v.float())
+        return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    if impl == "local_block" and window is not None and S == T and S % window == 0:
+        raise NotImplementedError(
+            "local_block attention is ported with Griffin (ROADMAP queue 1, "
+            "item 13)")
+    if kv_len is not None:
+        raise NotImplementedError(
+            "flash attention over a dense cache (kv_len) is ported with the "
+            "dense cached serving path (ROADMAP queue 1, item 5)")
+    return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
+                           plain=plain)
+
+
 def gqa_apply(
     p: dict,
     cfg: ModelConfig,
     x: torch.Tensor,             # [B, S, D]
     *,
-    positions: torch.Tensor,     # [B, S] absolute positions
-    pool: dict,                  # {"k", "v"}: [n_layers, NB, bs, K, dh], in place
-    paged: PagedInfo,
+    positions: torch.Tensor,     # [S] (training) or [B, S] (paged) positions
+    pool: dict | None = None,    # {"k", "v"}: [n_layers, NB, bs, K, dh], in place
+    paged: PagedInfo | None = None,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """The attention block straight against the paged pool.
+    """The attention block.
 
-    ``paged.prefill`` with more than one query is the fused flash-prefill
-    branch: the raw q goes to the kernel, whose prologue applies qk_norm and
-    rope.  Otherwise this is paged decode: rope q, write the new K/V into the
-    pool at ``positions``, and attend with ``kv_len = positions[:, -1] + 1``.
+    Without a pool this is the training branch (``cache is None`` in JAX):
+    qk_norm on q and k, rope on both, then :func:`attention`; ``plain``
+    selects the plain norm and attention.  With a pool, ``paged.prefill``
+    with more than one query is the fused flash-prefill branch: the raw q
+    goes to the kernel, whose prologue applies qk_norm and rope.  Otherwise
+    this is paged decode: rope q, write the new K/V into the pool at
+    ``positions``, and attend with ``kv_len = positions[:, -1] + 1``.
     """
     B, S, D = x.shape
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -181,33 +255,50 @@ def gqa_apply(
     scale = 1.0 / math.sqrt(dh)
     q_norm = p["q_norm"] if cfg.qk_norm else None
     k_norm = p["k_norm"] if cfg.qk_norm else None
+    if pool is None:
+        if cfg.qk_norm:
+            q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=plain)
+            kk = rms_head_norm(k_norm, kk, cfg.norm_eps, plain=plain)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kk = apply_rope(kk, positions, cfg.rope_theta)
+        o = attention(q, kk, vv, scale=scale, positions_q=positions,
+                      impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
+                      plain=plain)
+    else:
+        o = _paged_attention_block(q, kk, vv, cfg, positions, pool, paged,
+                                   scale, q_norm, k_norm)
+    wo = p["wo"].to(dt)
+    return o.to(dt).reshape(B, S, H * dh) @ wo.reshape(H * dh, D)
+
+
+def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
+                           q_norm, k_norm):
+    S = q.shape[1]
+    dt = q.dtype
     kv = dict(tables=paged.tables, positions=positions,
               block_size=paged.block_size, layer=paged.layer, k_norm=k_norm,
-              eps=cfg.norm_eps, rope_theta=cfg.rope_theta)
+              eps=cfg.norm_eps, rope_theta=cfg.rope_theta, plain=paged.plain)
     if paged.prefill and S > 1:
         if paged.plain:
             kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
-            o = paged_prefill_plain_from_raw(
+            return paged_prefill_plain_from_raw(
                 q, pool["k"], pool["v"], paged.tables, kv_len,
                 positions=positions, scale=scale, layer=paged.layer,
                 q_norm=q_norm, eps=cfg.norm_eps, rope_theta=cfg.rope_theta,
                 q_start=paged.q_start,
             )
-        else:
-            o = paged_prefill(
-                q, kk, vv, pool["k"], pool["v"], scale=scale, q_norm=q_norm,
-                q_start=paged.q_start, **kv,
-            )
-    else:
-        if cfg.qk_norm:
-            q = rms_head_norm(q_norm, q, cfg.norm_eps)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
-        attend = paged_attention_plain if paged.plain else paged_attention
-        o = attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
-                   kv_len=kv_len, scale=scale, layer=paged.layer)
-    wo = p["wo"].to(dt)
-    return o.to(dt).reshape(B, S, H * dh) @ wo.reshape(H * dh, D)
+        kv.pop("plain")
+        return paged_prefill(
+            q, kk, vv, pool["k"], pool["v"], scale=scale, q_norm=q_norm,
+            q_start=paged.q_start, **kv,
+        )
+    if cfg.qk_norm:
+        q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=paged.plain)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
+    attend = paged_attention_plain if paged.plain else paged_attention
+    return attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
+                  kv_len=kv_len, scale=scale, layer=paged.layer)
 
 
 # ---------------------------------------------------------------------------
@@ -268,3 +359,82 @@ def logits_fn(p: dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
     if cfg.dim_model_base:
         y = y / (cfg.d_model / cfg.dim_model_base)
     return _mask_padded_vocab(cfg, y @ w)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result from operands of one dtype, as JAX's
+    ``preferred_element_type=float32``: bfloat16 products accumulate and
+    return in float32 (on the CPU through float32 copies of the operands)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """``_make_ce``'s custom VJP: the forward sums ``(lse - target logit) *
+    mask`` chunk by chunk over the sequence; the backward recomputes each
+    chunk's logits, takes the analytic softmax gradient and rounds ``dlog``
+    to the weight dtype before its two products, so ``dy`` and ``dw`` leave
+    in the model dtype.  Never materialises ``[B, S, V]``."""
+
+    @staticmethod
+    def forward(ctx, y, w, t, m, nchunks, c, vocab_real):
+        ctx.save_for_backward(y, w, t, m)
+        ctx.shape = (nchunks, c, vocab_real)
+        total = torch.zeros((), dtype=torch.float32, device=y.device)
+        for i in range(nchunks):
+            sl = slice(i * c, (i + 1) * c)
+            logits = _ce_logits(y[:, sl], w, vocab_real)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, t[:, sl, None].long())[..., 0]
+            total = total + ((lse - tgt) * m[:, sl]).sum()
+        return total, m.sum()
+
+    @staticmethod
+    def backward(ctx, g_total, _g_count):
+        y, w, t, m = ctx.saved_tensors
+        nchunks, c, vocab_real = ctx.shape
+        g = g_total.float()
+        B, _, D = y.shape
+        dy_chunks, dw = [], None
+        for i in range(nchunks):
+            sl = slice(i * c, (i + 1) * c)
+            yc = y[:, sl]
+            prob = torch.softmax(_ce_logits(yc, w, vocab_real), dim=-1)
+            prob.scatter_add_(-1, t[:, sl, None].long(),
+                              torch.full_like(prob[..., :1], -1.0))
+            dlog = (prob * (m[:, sl] * g)[..., None]).to(w.dtype)
+            dlog2 = dlog.reshape(-1, dlog.shape[-1])
+            dy_chunks.append(_mm_f32(dlog2, w.t()).reshape(B, -1, D).to(y.dtype))
+            dw_c = _mm_f32(yc.reshape(-1, D).t(), dlog2)
+            dw = dw_c if dw is None else dw + dw_c
+        return (torch.cat(dy_chunks, dim=1), dw.to(w.dtype), None, None, None,
+                None, None)
+
+
+def _ce_logits(yc: torch.Tensor, w: torch.Tensor, vocab_real: int) -> torch.Tensor:
+    B, c, D = yc.shape
+    logits = _mm_f32(yc.reshape(B * c, D), w).reshape(B, c, -1)
+    if logits.shape[-1] != vocab_real:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(col >= vocab_real, BIG_NEG)
+    return logits
+
+
+def chunked_xent(p: dict, cfg: ModelConfig, y: torch.Tensor,
+                 targets: torch.Tensor, loss_mask: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-chunked cross entropy over the (tied or separate) unembed;
+    returns ``(sum_loss, sum_count)`` in float32."""
+    B, S, _ = y.shape
+    w = _unembed_matrix(p, cfg, y.dtype)
+    if cfg.dim_model_base:
+        y = y / (cfg.d_model / cfg.dim_model_base)
+    c = min(cfg.logits_chunk, S)
+    nchunks = max(S // c, 1)
+    c = S // nchunks
+    mask = (loss_mask.float() if loss_mask is not None
+            else torch.ones((B, S), dtype=torch.float32, device=y.device))
+    return _ChunkedCE.apply(y, w, targets, mask, nchunks, c, cfg.vocab_size)

@@ -4,9 +4,12 @@ Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_layers, ...]`` under
 ``params["seg{i}"]["b0"]``.  ``forward`` is a Python loop over layers that
 indexes each layer's parameters and its layer of the stacked KV pool in place
-(``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Only the paged
-serving forward is ported in this slice; the training forward and the dense
-cached path arrive with later slices.
+(``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Two forwards
+are ported: the paged serving forward (``pool`` given) and the training
+forward (``pool=None``, the ``cache is None`` path of JAX ``lm.forward``)
+that :func:`loss_fn` differentiates, with ``cfg.remat`` as
+``torch.utils.checkpoint`` around each layer.  The dense cached path arrives
+with a later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 from dataclasses import replace
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -87,38 +91,89 @@ def _resid(cfg: ModelConfig, x: torch.Tensor, delta: torch.Tensor) -> torch.Tens
     return x + delta
 
 
+def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+           pool: dict | None, paged: PagedInfo | None, plain: bool) -> torch.Tensor:
+    """One dense decoder layer (``_block_apply``'s dense branch)."""
+    h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
+    a = L.gqa_apply(p["attn"], cfg, h, positions=positions, pool=pool,
+                    paged=paged, plain=plain)
+    x = _resid(cfg, x, a)
+    h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
+    return _resid(cfg, x, L.mlp_apply(p["mlp"], cfg, h))
+
+
+def _layers(cfg: ModelConfig, params: dict):
+    """``(layer index, that layer's parameter views)`` over every segment."""
+    layer = 0
+    for i, (kinds, n) in enumerate(segment_layout(cfg)):
+        seg = params[f"seg{i}"]
+        for g in range(n):
+            for j, _ in enumerate(kinds):
+                yield layer, _layer(seg[f"b{j}"], g)
+                layer += 1
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,        # [B, S] token ids
     *,
-    pool: dict,                  # layer-stacked KV pool, updated in place
-    cache_pos: torch.Tensor,     # [B] per-slot write position of token 0
-    paged: PagedInfo,
+    pool: dict | None = None,    # layer-stacked KV pool, updated in place
+    cache_pos: torch.Tensor | None = None,  # [B] per-slot write position
+    paged: PagedInfo | None = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Returns the final hidden states ``[B, S, D]``.
 
-    Attention blocks write their new K/V into ``pool`` at per-slot positions
-    ``cache_pos + arange(S)`` and read it through ``paged.tables``.  The pool
-    is updated in place; the JAX package donates it to the same effect.
+    With ``pool`` (serving), attention blocks write their new K/V into
+    ``pool`` at per-slot positions ``cache_pos + arange(S)`` and read it
+    through ``paged.tables``; the pool is updated in place (the JAX package
+    donates it to the same effect), and ``paged.plain`` selects the plain
+    versions.  Without (training), positions are ``arange(S)``, attention
+    is non-cached, ``plain`` selects the plain versions, and ``cfg.remat``
+    decides what each layer keeps for the backward: ``"full"`` recomputes
+    the layer in the backward (``jax.checkpoint`` with
+    ``nothing_saveable``), ``"none"`` keeps everything.
     """
     if cfg.input_kind != "tokens":
         raise NotImplementedError(f"{cfg.name}: embeds inputs are a later slice")
     dtype = getattr(torch, cfg.compute_dtype)
     x = L.embed_apply(params, cfg, tokens, dtype)
     B, S, _ = x.shape
-    positions = cache_pos.long()[:, None] + torch.arange(S, device=x.device)[None, :]
-    layer = 0
-    for i, (kinds, n) in enumerate(segment_layout(cfg)):
-        seg = params[f"seg{i}"]
-        for g in range(n):
-            for j, _ in enumerate(kinds):
-                p = _layer(seg[f"b{j}"], g)
-                h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-                a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
-                                pool=pool, paged=replace(paged, layer=layer))
-                x = _resid(cfg, x, a)
-                h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-                x = _resid(cfg, x, L.mlp_apply(p["mlp"], cfg, h))
-                layer += 1
-    return L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if pool is not None:
+        plain = paged.plain
+        positions = (cache_pos.long()[:, None]
+                     + torch.arange(S, device=x.device)[None, :])
+        for layer, p in _layers(cfg, params):
+            x = _block(p, cfg, x, positions, pool, replace(paged, layer=layer),
+                       plain)
+    else:
+        if cfg.remat == "dots":
+            raise NotImplementedError(
+                'remat="dots" (save the matmul outputs) is ported in a later '
+                'slice (ROADMAP queue 1, item 4); use "full" or "none"')
+        if cfg.remat not in ("full", "none"):
+            raise ValueError(f"unknown remat {cfg.remat!r}")
+        positions = torch.arange(S, device=x.device)
+        for _, p in _layers(cfg, params):
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(_block, p, cfg, x, positions, None, None, plain,
+                               use_reentrant=False)
+            else:
+                x = _block(p, cfg, x, positions, None, None, plain)
+    return L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
+                        plain=plain)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            plain: bool = False) -> tuple[torch.Tensor, dict]:
+    """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
+    cross entropy of ``batch`` (``tokens``, ``targets``, optional
+    ``loss_mask``); the dense family has no auxiliary loss."""
+    hidden = forward(cfg, params, batch["tokens"], plain=plain)
+    total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
+                                  batch.get("loss_mask"))
+    ce = total / torch.clamp(count, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux_loss": aux}

@@ -124,3 +124,79 @@ def test_kernel_wrappers_refuse_wrong_operands(cuda):
         paged_decode_kernel(q, kp, kp, tbl, kvl, scale=0.1)
     with pytest.raises(ValueError):
         paged_decode_kernel(q.bfloat16(), kp, kp, tbl.t(), kvl, scale=0.1)
+
+
+# ------------------------------------------- card: K1 and K2 (training) ---
+
+# K1 on bfloat16: both round one float32 result per element to bfloat16; the
+# kernel's float32 sums add in another order, which can flip a rounding: one
+# ulp of that element, at most 2^-7 of the largest |value|.  dscale sums rows
+# in float32 in another order before its bfloat16 rounding: 1 % of its
+# largest entry.
+K1_RTOL = 2.0 ** -7
+K1_DSCALE_RTOL = 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,D,sdtype", [(512, 896, torch.bfloat16),
+                                          (1001, 128, torch.float32),
+                                          (37, 64, torch.bfloat16)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
+    from repro_torch.kernels.rmsnorm import (
+        launches as k1, reset_launches as reset_k1, rmsnorm_bwd_kernel,
+        rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((rows, D), generator=g, device=cuda).bfloat16()
+    s = (1 + 0.3 * torch.randn((D,), generator=g, device=cuda)).to(sdtype)
+    dy = torch.randn((rows, D), generator=g, device=cuda).bfloat16()
+    reset_k1()
+    y, rstd = rmsnorm_fwd_kernel(x, s, 1e-6)
+    dx, ds = rmsnorm_bwd_kernel(x, s, rstd, dy)
+    torch.cuda.synchronize()
+    assert k1 == {"rmsnorm_fwd": 1, "rmsnorm_bwd": 1}
+    ry = rmsnorm_plain(x, s, 1e-6).float()
+    assert (y.float() - ry).abs().max() <= K1_RTOL * ry.abs().max()
+    rdx, rds = rmsnorm_bwd_plain(x, s, dy, 1e-6)
+    rdx = rdx.float()
+    assert (dx.float() - rdx).abs().max() <= K1_RTOL * rdx.abs().max()
+    assert ds.dtype == sdtype
+    assert ((ds.float() - rds.float()).abs().max()
+            <= K1_DSCALE_RTOL * rds.float().abs().max())
+
+
+# K2 on bfloat16: both round p to bfloat16 before PV, but the kernel's
+# online max moves between kv tiles, so a few roundings differ; outputs and
+# gradients agree to a few bfloat16 ulps of their largest entries
+K2_TOL = 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", [
+    (2, 200, 200, 14, 2, 64, True, None),
+    (1, 130, 130, 4, 2, 128, True, 50),
+    (2, 100, 77, 4, 1, 64, False, None),
+    (1, 65, 65, 8, 8, 64, True, None),
+    (2, 90, 90, 4, 2, 16, True, None),
+    (1, 40, 70, 2, 1, 32, False, 20),
+])
+def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, K, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, K, D), generator=g, device=cuda).bfloat16()
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    o, lse = flash_fwd_kernel(q, k, v, **kw)
+    grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = flash_fwd_plain(q, k, v, **kw)
+    assert (o.float() - ro.float()).abs().max() <= K2_TOL
+    assert (lse - rlse).abs().max() <= 1e-3
+    for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
+        ref = ref.float()
+        assert ((ours.float() - ref).abs().max()
+                <= K2_TOL * max(1.0, ref.abs().max().item()))
