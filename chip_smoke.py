@@ -27,7 +27,8 @@ Phases, each of which fails the run (non-zero exit) on error:
              equal the counts worked out from the depth and full remat, every
              loss must be finite and the last below the first;
 7. step    — one train step from one state and batch through the kernels and
-             through the plain versions: loss and grad_norm must agree;
+             through the plain versions: loss, grad_norm and each layer's
+             attention and norm gradient norms must agree;
 8. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -73,17 +74,35 @@ NORM_ROWS, D_MODEL = TRAIN["seq_len"] * TRAIN["global_batch"], 896
 # largest entry.
 NORM_TOL = 2.0 ** -7
 DSCALE_RTOL = 1e-2
-# K2 on bfloat16: both round p to bfloat16 before the PV product, but the
-# kernel's running max moves between kv tiles, so some roundings differ; o
-# and the gradients agree to a few bfloat16 ulps of their largest entries,
-# lse (float32) to float32 rounding of sums over 2048 keys
-FLASH_TOL = 3e-2
-LSE_TOL = 1e-3
-# one train step, kernels vs plain versions, from one state and batch: 24
-# bfloat16 layers of a few-ulp differences move the loss (about 12) by a few
-# bfloat16 ulps of the hidden states, and the gradient norm by percents at most
-STEP_LOSS_TOL = 0.02
-STEP_GNORM_RTOL = 0.02
+# K2 on bfloat16, held row by row: a row of o, dq, dk or dv is one (batch,
+# position, head) vector of D entries, and its error is max |kernel - plain|
+# over the row divided by the row's largest |plain| entry.  Late causal rows
+# average ~2000 values, so their |o| is ~0.03 where early rows are O(1): a
+# limit on the whole tensor would be as large as a late row itself.  Both
+# sides round each entry to bfloat16 once (one ulp is at most 2^-7 of the
+# row's largest entry), and both round p to bfloat16 before the PV product,
+# but the kernel's running max moves between kv tiles, so a few of those
+# roundings differ (2^-9 of a p each, averaging out over a row).  Measured
+# on the H100: at most 2^-7, one ulp, at every shape below.  The limit is
+# four bfloat16 ulps of the row's largest entry; a kernel that drops one kv
+# tile of 64 keys from rows past 1500 misses it by 24x (row error 0.75,
+# plain versus plain with those keys masked, B=1 at the main shape).
+FLASH_ROW_RTOL = 2.0 ** -5
+# lse is float32 on both sides, m + log(l) with l summed over up to 2048
+# keys in another order: a few float32 ulps of |lse| ~ 8 (ulp 9.5e-7, the
+# largest difference measured on the H100).  One dropped key moves it by
+# that key's probability, about 1/2048 = 4.9e-4.
+LSE_TOL = 1e-5
+# one train step, kernels vs plain versions, from one state and batch: the
+# bfloat16 roundings that differ inside K1 and K2 (see above) move the loss
+# (about 7.5) and the global gradient norm (about 91) by 6.2e-5 and 1.27e-4
+# relative (measured on the H100); the global norm is dominated by the
+# embedding and unembedding, so each layer's attention and norm gradients
+# are also compared on their own (norm of the leaf's slice for that layer;
+# at most 2.2e-3 relative, on the H100, for the k bias)
+STEP_LOSS_TOL = 1e-3
+STEP_GNORM_RTOL = 1e-3
+STEP_LEAF_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -290,6 +309,17 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def _row_err(a, ref) -> float:
+    """Largest over rows (the last axis) of max |a - ref| / max |ref|.  A row
+    whose largest entry is below 1 % of the median row's is divided by that
+    1 % instead: such rows are sums that cancel to about zero (dq of query
+    row 0, which sees one key, is exactly zero in exact arithmetic), and
+    there both sides hold float32 rounding noise of ~1e-8."""
+    d = (a.float() - ref.float()).abs().amax(-1)
+    m = ref.float().abs().amax(-1)
+    return (d / m.clamp_min(1e-2 * m.median()).clamp_min(1e-30)).max().item()
+
+
 def _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D):
     def r(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -304,14 +334,18 @@ def check_training_kernels(torch, dev) -> dict:
         rmsnorm_bwd_kernel, rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    # per kernel, the case nearest its tolerance: (max |error|, the absolute
-    # tolerance that case was held to)
-    worst = dict.fromkeys(("rmsnorm_fwd", "rmsnorm_bwd", "flash_fwd", "flash_bwd"),
-                          (0.0, 1.0))
+    # K1: the case nearest its tolerance, (max |error|, the absolute
+    # tolerance that case was held to); K2: the largest |error| and the
+    # largest row error over the cases, held to FLASH_ROW_RTOL
+    worst = dict.fromkeys(("rmsnorm_fwd", "rmsnorm_bwd"), (0.0, 1.0))
+    worst.update(dict.fromkeys(("flash_fwd", "flash_bwd"), (0.0, 0.0)))
 
     def record(name, err, tol):
         if err / tol >= worst[name][0] / worst[name][1]:
             worst[name] = (err, tol)
+
+    def record_flash(name, abs_err, row_err):
+        worst[name] = tuple(map(max, worst[name], (abs_err, row_err)))
 
     def norm(rows, D, sdtype, what):
         x = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
@@ -342,21 +376,20 @@ def check_training_kernels(torch, dev) -> dict:
         grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         ro, rlse = flash_fwd_plain(q, k, v, **kw)
-        e_o, e_lse = _err(o, ro), _err(lse, rlse)
+        a_o, r_o, e_lse = _err(o, ro), _row_err(o, ro), _err(lse, rlse)
         refs = flash_bwd_plain(q, k, v, o, lse, do, **kw)
-        g_err = [(_err(g, r), FLASH_TOL * max(1.0, r.float().abs().max().item()))
-                 for g, r in zip(grads, refs)]
-        e_g = max(err / tol for err, tol in g_err) * FLASH_TOL  # relative
+        a_g = max(_err(g, r) for g, r in zip(grads, refs))
+        r_g = {n: _row_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
         del ro, rlse, refs
-        ok = e_o <= FLASH_TOL and e_lse <= LSE_TOL and e_g <= FLASH_TOL
-        log(f"[kernels] flash         {what:50s} o_err={e_o:.3e} lse_err={e_lse:.3e} "
-            f"grad_rel_err={e_g:.3e} tol={FLASH_TOL:.0e}/{LSE_TOL:.0e} "
-            f"{'ok' if ok else 'FAIL'}")
+        ok = r_o <= FLASH_ROW_RTOL and e_lse <= LSE_TOL and max(r_g.values()) <= FLASH_ROW_RTOL
+        log(f"[kernels] flash         {what:50s} o_row_err={r_o:.3e} lse_err={e_lse:.3e} "
+            + " ".join(f"{n}_row_err={e:.3e}" for n, e in r_g.items())
+            + f" o_abs_err={a_o:.3e} grad_abs_err={a_g:.3e} "
+            f"tol={FLASH_ROW_RTOL:.2e}/{LSE_TOL:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash attention disagrees with its plain version: {what}")
-        record("flash_fwd", e_o, FLASH_TOL)
-        for err, tol in g_err:
-            record("flash_bwd", err, tol)
+        record_flash("flash_fwd", a_o, r_o)
+        record_flash("flash_bwd", a_g, max(r_g.values()))
 
     norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale")
     norm(8 * 2048 * 40, 128, torch.bfloat16, "[B*S*H=655360, 128] qwen3 qk_norm shape")
@@ -434,7 +467,8 @@ def time_training_kernels(torch, dev, worst: dict) -> dict:
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
         out[name] = dict(ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
                          library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=worst[name][0], tolerance=worst[name][1])
+                         max_abs_err=worst[name][0], max_row_err=worst[name][1],
+                         tolerance=FLASH_ROW_RTOL)
     for name, t in out.items():
         what = ("[16384, 896] bf16" if name.startswith("rms")
                 else "B=8 S=T=2048 H=14 K=2 dh=64 causal")
@@ -633,23 +667,42 @@ def train_phase(torch, dev):
 
 
 def one_step_check(torch, cfg, ocfg, data, state) -> None:
-    """One step from one state and batch, kernels vs plain versions."""
+    """One step from one state and batch, kernels vs plain versions: loss,
+    global gradient norm, and per layer the gradient norm of every attention
+    and norm leaf (plus the final norm's)."""
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.optim import leaves
     from repro_torch.train.train_step import make_train_step
+
+    def leaf_norms(grads):
+        # layer-stacked leaves carry the layer on axis 0: one norm per layer
+        norms.update({".".join(path): (g.float().flatten(1).norm(dim=1)
+                                       if path[0].startswith("seg") else g.float().norm())
+                      for path, g in leaves(grads)
+                      if "attn" in path or path[-1] == "scale"})
+        return grads
 
     batch = SyntheticTokens(data).batch_at(TRAIN["steps"])
     res = {}
     for plain in (False, True):
-        _, m = make_train_step(cfg, ocfg, plain=plain)(state, batch)
-        res[plain] = (m["loss"].item(), m["grad_norm"].item())
+        norms: dict = {}
+        _, m = make_train_step(cfg, ocfg, plain=plain, grad_transform=leaf_norms)(
+            state, batch)
+        res[plain] = (m["loss"].item(), m["grad_norm"].item(), norms)
         del m
         torch.cuda.empty_cache()
-    (lk, gk), (lp, gp) = res[False], res[True]
+    (lk, gk, nk), (lp, gp, np_) = res[False], res[True]
     d_loss, d_gn = abs(lk - lp), abs(gk - gp) / gp
-    ok = d_loss <= STEP_LOSS_TOL and d_gn <= STEP_GNORM_RTOL and math.isfinite(lk)
+    d_leaf = {name: ((nk[name] - np_[name]).abs() / np_[name]).max().item()
+              for name in np_}
+    ok = (d_loss <= STEP_LOSS_TOL and d_gn <= STEP_GNORM_RTOL
+          and max(d_leaf.values()) <= STEP_LEAF_RTOL and math.isfinite(lk))
     log(f"[step] kernels loss={lk:.5f} grad_norm={gk:.5f}; plain loss={lp:.5f} "
         f"grad_norm={gp:.5f}; |dloss|={d_loss:.2e} (tol {STEP_LOSS_TOL}) "
-        f"rel dgrad_norm={d_gn:.2e} (tol {STEP_GNORM_RTOL}) {'ok' if ok else 'FAIL'}")
+        f"rel dgrad_norm={d_gn:.2e} (tol {STEP_GNORM_RTOL})")
+    log(f"[step] per-layer leaf gradient norms, largest relative difference: "
+        + " ".join(f"{n}={e:.2e}" for n, e in sorted(d_leaf.items()))
+        + f" (tol {STEP_LEAF_RTOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("one train step through the kernels disagrees with "
                              "the plain versions")
@@ -708,7 +761,8 @@ def main() -> int:
 
     # launches: the paged kernels' from the serve phase, K1's and K2's from
     # the train phase (K1's serve-phase count is checked in the serve phase);
-    # K1's and K2's tolerance: the absolute bound of their case nearest it
+    # K1's tolerance: the absolute bound of its case nearest it; K2's: the
+    # row-relative limit its ``max_row_err`` is held to
     counts.update(train_counts)
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
     norm_src = "src/repro/kernels/rmsnorm/kernel.py:26"
@@ -730,6 +784,7 @@ def main() -> int:
             "name": name, "route": route,
             "source": str(path.relative_to(REPO)), "replaces": replaces,
             "launches": counts[name], "max_abs_err": t["max_abs_err"],
+            **({"max_row_err": t["max_row_err"]} if "max_row_err" in t else {}),
             "tolerance": t.get("tolerance", tol), "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -32,7 +32,6 @@ log = logging.getLogger("repro_torch.train")
 class LoopConfig:
     n_steps: int = 100
     log_every: int = 10
-    ckpt_every: int = 50
     ckpt_dir: str | None = None
     seed: int = 0
     grad_accum: int = 1
@@ -54,7 +53,6 @@ def train(
     tracer: Tracer | None = None,
     state=None,
     device: str | torch.device = "cuda",
-    plain: bool = False,
     hooks=None,
     plan=None,
     registry=None,
@@ -74,8 +72,7 @@ def train(
     if state is None:
         with tracer.scope("init", op="init"):
             state = init_train_state(cfg, seed=loop.seed, device=dev)
-    step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum, plan=plan,
-                              plain=plain)
+    step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum, plan=plan)
     tokens_per_step = data_cfg.global_batch * data_cfg.seq_len
 
     history: list[dict] = []

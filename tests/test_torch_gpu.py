@@ -165,10 +165,24 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
             <= K1_DSCALE_RTOL * rds.float().abs().max())
 
 
-# K2 on bfloat16: both round p to bfloat16 before PV, but the kernel's
-# online max moves between kv tiles, so a few roundings differ; outputs and
-# gradients agree to a few bfloat16 ulps of their largest entries
-K2_TOL = 3e-2
+# K2 on bfloat16, held row by row (one (batch, position, head) vector): both
+# sides round each entry to bfloat16 once (an ulp is at most 2^-7 of the
+# row's largest entry) and both round p to bfloat16 before PV, but the
+# kernel's online max moves between kv tiles, so a few of those roundings
+# differ; the limit is four ulps of the row's largest entry.  A limit on the
+# whole tensor would not do: late causal rows average many values and are
+# small.  lse is float32 on both sides: a few float32 ulps of |lse|.
+K2_ROW_RTOL = 2.0 ** -5
+K2_LSE_TOL = 1e-5
+
+
+def _row_err(a, ref):
+    """Largest over rows of max |a - ref| / max |ref| (last axis); rows below
+    1 % of the median row (sums that cancel to about zero, such as dq of
+    query row 0) are divided by that 1 %."""
+    d = (a.float() - ref.float()).abs().amax(-1)
+    m = ref.float().abs().amax(-1)
+    return (d / m.clamp_min(1e-2 * m.median()).clamp_min(1e-30)).max().item()
 
 
 @pytest.mark.gpu
@@ -194,9 +208,7 @@ def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     ro, rlse = flash_fwd_plain(q, k, v, **kw)
-    assert (o.float() - ro.float()).abs().max() <= K2_TOL
-    assert (lse - rlse).abs().max() <= 1e-3
+    assert _row_err(o, ro) <= K2_ROW_RTOL
+    assert (lse - rlse).abs().max() <= K2_LSE_TOL
     for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
-        ref = ref.float()
-        assert ((ours.float() - ref).abs().max()
-                <= K2_TOL * max(1.0, ref.abs().max().item()))
+        assert _row_err(ours, ref) <= K2_ROW_RTOL

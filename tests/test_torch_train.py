@@ -260,19 +260,3 @@ def test_make_batch_and_count_params():
         assert 0 <= int(a[k].min()) and int(a[k].max()) < cfg.vocab_size
     params = _jax_params(jcfg)
     assert count_params(from_jax_params(params, device="cpu")) == jcount(params)
-
-
-def test_profile_step_runs_on_the_cpu():
-    """The profiling script runs a profiled step; the CPU has no device
-    time, so every bucket reads 0."""
-    from repro_torch.train.profile_step import bucket_of, profile
-
-    out = profile("qwen2-0.5b", smoke=True, device="cpu", seq_len=32, batch=2,
-                  warmup=1, top=3)
-    assert np.isfinite(out["loss"]) and out["wall_ms"] > 0
-    assert out["device_ms"] == 0.0 and set(out["buckets_ms"].values()) == {0.0}
-    assert bucket_of("void (anonymous namespace)::flash_bwd_dq_kernel<64>") == (
-        "flash attention (K2)")
-    assert bucket_of("rmsnorm_fwd") == "rmsnorm (K1)"
-    assert bucket_of("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NTT") == "matrix products"
-    assert bucket_of("elementwise_kernel") == "other"
