@@ -10,9 +10,10 @@ Phases, each of which fails the run (non-zero exit) on error:
              prints ptxas' registers / shared memory / spills;
 3. kernels — holds each kernel against its plain PyTorch version on the card:
              paged decode and prefill (K3, K4) at qwen2-0.5b widths (H=14,
-             K=2, dh=64, block 16), RMSNorm forward and backward (K1, Triton)
-             and flash attention forward and backward (K2) at the training
-             path's shapes and at small ragged ones, all bfloat16; then times
+             K=2, dh=64, block 16), RMSNorm forward and backward (K1, Triton;
+             also at rwkv6-3b's width 2560) and flash attention forward and
+             backward (K2) at the training path's shapes and at small ragged
+             ones, all bfloat16; then times
              kernel, plain version and a library yardstick the port never
              calls (``scaled_dot_product_attention``, ``F.rms_norm``) at the
              main paths' shapes;
@@ -29,7 +30,14 @@ Phases, each of which fails the run (non-zero exit) on error:
 7. step    — one train step from one state and batch through the kernels and
              through the plain versions: loss, grad_norm and each layer's
              attention and norm gradient norms must agree;
-8. summary — a ``{"kernels": [...]}`` line, then the last line
+8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
+             their plain version in float64 at the rwkv6-3b training shape
+             and at ragged, brutal-decay, long-memory and clamped-decay
+             ones, and timed; then full-width, full-depth rwkv6-3b trained 6
+             steps at seq 2048 x batch 4 (launches per step exact, losses
+             finite and falling), and one step at 4 layers through the
+             kernels and through the plain versions;
+9. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
@@ -50,6 +58,7 @@ REPO = Path(__file__).resolve().parent
 H, K, DH, BS = 14, 2, 64, 16           # qwen2-0.5b attention widths
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cores
 # kernel vs plain on bfloat16 N(0, 1) inputs: the plain version rounds the
 # softmax probabilities to bfloat16 before the PV product (the kernels keep
 # them float32, like the Pallas kernels) and both round the O(1) output to
@@ -104,6 +113,47 @@ STEP_LOSS_TOL = 1e-3
 STEP_GNORM_RTOL = 1e-3
 STEP_LEAF_RTOL = 1e-2
 
+# rwkv6-3b: 40 WKV heads of 64, trained at seq 2048 x batch 4
+RWKV_TRAIN = dict(seq_len=2048, global_batch=4, steps=6)
+RWKV_H, RWKV_N, RWKV_D = 40, 64, 2560
+RWKV_STEP_LAYERS = 4       # the one-step check: full width, 4 layers
+# K5 against its plain version evaluated in float64 on the same inputs (the
+# float32 chunked plain form loses digits of its own under brutal decay),
+# held row by row as K2 is: a row is one token's (or one state row's, or
+# one head's du) N entries, its error max |kernel - plain| over the row
+# divided by the row's largest |plain| entry.  y, the final state, dw and du
+# are float32 sums of up to T terms in another order: measured on an H100
+# 80GB HBM3 at 700 W at the shapes below, at most 1.7e-5 (y) and 7.1e-5
+# (dw), both under brutal decay, 3.4e-6 or less elsewhere; the limit is 7x
+# the largest.  dr, dk and dv come back bfloat16: one rounding each, half a
+# bfloat16 ulp, measured 2^-8 of the row's largest entry at every shape;
+# the limit is one ulp, 2^-7.  A kernel that drops 8 tokens from
+# the state in the long-memory case (w = 0.99966, where every token reaches
+# the last) moves rows by far more than either: y by 0.36 of a row's
+# largest entry, the state by 0.25, dr by 0.44, dw by 0.40 (plain versus
+# plain with those keys zeroed, float64, B*H = 2, T = 512, on the CPU:
+# tests/test_torch_wkv6.py::test_card_limits_catch_a_dropped_chunk_of_tokens).
+WKV_F32_ROW_RTOL = 5e-4
+WKV_BF16_ROW_RTOL = 2.0 ** -7
+# one rwkv6 train step (4 layers, full width, seq 2048 x batch 4), kernels
+# vs plain versions.  The loss keeps the qwen2 check's limit (measured
+# 2.9e-4 on the H100).  The gradients cannot: at bf16 compute, the gradients of u, of the
+# r, k and decay projections and of what feeds them are sums over 8192
+# tokens whose terms nearly cancel (du = sum_t r_t * k_t (v_t . dy_t)), so
+# a one-ulp bf16 difference upstream, such as K1's or K5's summation order
+# flipping one rounding, moves them by percents.  The phase measures that
+# floor in the same run (the noise probe: the plain path against itself with
+# only the WKV evaluated in float64 instead of float32; on an H100 80GB HBM3
+# at 700 W it moved grad_norm by 3.1e-3 and a layer's leaf norm by up to
+# 1.3e-2, w0).  Kernels against plain measured 1.7e-2 on grad_norm and
+# 4.9e-2 on the worst leaf (w_r), the K1 kernel flipping more roundings than
+# the probe does; the limits are 3x those.  A wrong layout, a dropped bonus
+# term or a wrong decay gradient moves these norms by O(1); the kernel
+# checks above hold K5 row by row.
+RWKV_STEP_LOSS_TOL = 1e-3
+RWKV_STEP_GNORM_RTOL = 5e-2
+RWKV_STEP_LEAF_RTOL = 0.15
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -126,8 +176,9 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -394,6 +445,8 @@ def check_training_kernels(torch, dev) -> dict:
     norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale")
     norm(8 * 2048 * 40, 128, torch.bfloat16, "[B*S*H=655360, 128] qwen3 qk_norm shape")
     norm(16383, D_MODEL, torch.float32, f"[16383, {D_MODEL}] odd rows, f32 scale")
+    norm(RWKV_TRAIN["seq_len"] * RWKV_TRAIN["global_batch"], RWKV_D, torch.bfloat16,
+         f"[8192, {RWKV_D}] rwkv6-3b width, bf16 scale")
     flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal")
     flash(2, 300, 300, H, K, DH, True, 100, "B=2 S=T=300 window 100")
     flash(2, 200, 333, 4, 2, 128, False, None, "B=2 S=200 T=333 bidirectional dh=128")
@@ -477,6 +530,132 @@ def time_training_kernels(torch, dev, worst: dict) -> dict:
         log(f"[timing] {name:13s} {what}: kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} ({lib}) "
             f"bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
+    return out
+
+
+def _wkv6_inputs(torch, gen, dev, B, T, kind):
+    """r, k, v ~ N(0, 1) bfloat16, u ~ N(0, 0.25) and w float32: ``model``
+    w = exp(-exp(U(-6, -1))) (log w from -0.0025 to -0.37, the spread a
+    trained decay LoRA gives around w0), ``brutal`` 1e-4, ``long``
+    exp(-exp(-8)) = 0.99966, ``clamp`` model decays with every third
+    token's even channels at 1 - 1e-8 (1.0 in float32) and the next
+    token's every fourth at 0.9999999, where the log clamp holds."""
+    BH, N = B * RWKV_H, RWKV_N
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (rn(BH, T, N).bfloat16() for _ in range(3))
+    if kind == "brutal":
+        w = torch.full((BH, T, N), 1e-4, device=dev)
+    elif kind == "long":
+        w = torch.full((BH, T, N), math.exp(-math.exp(-8.0)), device=dev)
+    else:
+        w = torch.exp(-torch.exp(-6 + 5 * torch.rand((BH, T, N), generator=gen,
+                                                      device=dev)))
+        if kind == "clamp":
+            w[:, ::3, ::2] = 1 - 1e-8
+            w[:, 1::3, 1::4] = 0.9999999
+    return r, k, v, w, 0.5 * rn(RWKV_H, N), rn(BH, T, N)
+
+
+def check_wkv6_kernels(torch, dev) -> dict:
+    """K5 forward and backward against the plain version in float64."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # (max |error|, largest row error of the float32 outputs, of the
+    # bfloat16 outputs)
+    worst = {"wkv6_fwd": (0.0, 0.0, 0.0), "wkv6_bwd": (0.0, 0.0, 0.0)}
+
+    def case(B, T, kind, what):
+        r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, kind)
+        y, st = wkv6_fwd_kernel(r, k, v, w, u)
+        grads = wkv6_bwd_kernel(r, k, v, w, u, dy)
+        torch.cuda.synchronize()
+        f64 = [t.double() for t in (r, k, v, w, u, dy)]
+        ry, rs = wkv6_plain(*f64[:5])
+        refs = wkv6_bwd_plain(*f64)
+        e = {"y": _row_err(y, ry), "state": _row_err(st, rs)}
+        e.update({n: _row_err(g, rg) for n, g, rg
+                  in zip(("dr", "dk", "dv", "dw", "du"), grads, refs)})
+        a_f = max(_err(y, ry), _err(st, rs))
+        a_b = max(_err(g, rg) for g, rg in zip(grads, refs))
+        del ry, rs, refs, f64
+        torch.cuda.empty_cache()
+        lim = {n: WKV_BF16_ROW_RTOL if n in ("dr", "dk", "dv") else WKV_F32_ROW_RTOL
+               for n in e}
+        ok = all(e[n] <= lim[n] for n in e)
+        log(f"[kernels] wkv6          {what:50s} "
+            + " ".join(f"{n}_row_err={x:.3e}" for n, x in e.items())
+            + f" tol={WKV_F32_ROW_RTOL:.0e}/{WKV_BF16_ROW_RTOL:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wkv6 disagrees with its plain version: {what}")
+        worst["wkv6_fwd"] = tuple(map(max, worst["wkv6_fwd"],
+                                      (a_f, max(e["y"], e["state"]), 0.0)))
+        worst["wkv6_bwd"] = tuple(map(max, worst["wkv6_bwd"], (
+            a_b, max(e["dw"], e["du"]), max(e["dr"], e["dk"], e["dv"]))))
+
+    B, T = RWKV_TRAIN["global_batch"], RWKV_TRAIN["seq_len"]
+    case(B, T, "model", f"B={B} T={T} H=40 N=64 (main shape)")
+    case(B, 100, "model", "B=4 T=100 H=40 ragged")
+    case(1, 512, "brutal", "B=1 T=512 brutal decay w=1e-4")
+    case(1, T, "long", f"B=1 T={T} long memory w=0.99966")
+    case(1, 100, "clamp", "B=1 T=100 w >= 1-1e-7 in places (clamped)")
+    return worst
+
+
+def time_wkv6_kernels(torch, dev, worst: dict) -> dict:
+    """K5: kernel and plain times at the training path's shape, and bounds."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, T = RWKV_TRAIN["global_batch"], RWKV_TRAIN["seq_len"]
+    r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, "model")
+    BH, N = B * RWKV_H, RWKV_N
+    elems = BH * T * N
+    # forward: r, k, v bf16 and w float32 in; y float32 and the state out;
+    # 4 N^2 flops per token and head.  backward: r, k, v bf16, w and dy
+    # float32 in; dr, dk, dv bf16, dw float32 and du out; two N x N
+    # recurrences and four N x N contractions, 12 N^2 flops per token and
+    # head; float32 on the CUDA cores
+    fwd_bytes = 3 * 2 * elems + 4 * elems + 4 * elems + 4 * BH * N * N + 4 * RWKV_H * N
+    bwd_bytes = 3 * 2 * elems + 2 * 4 * elems + 4 * RWKV_H * N + 3 * 2 * elems \
+        + 4 * elems + 4 * RWKV_H * N
+    rows = {
+        "wkv6_fwd": (lambda: wkv6_fwd_kernel(r, k, v, w, u),
+                     lambda: wkv6_plain(r, k, v, w, u),
+                     bound(4 * N * N * BH * T, fwd_bytes, F32_FLOPS_PER_S)),
+        "wkv6_bwd": (lambda: wkv6_bwd_kernel(r, k, v, w, u, dy),
+                     lambda: wkv6_bwd_plain(r, k, v, w, u, dy),
+                     bound(12 * N * N * BH * T, bwd_bytes, F32_FLOPS_PER_S)),
+    }
+    out = {}
+    for name, (kern, plain, (b_ms, b_by)) in rows.items():
+        out[name] = dict(ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=worst[name][0], max_row_err=worst[name][1],
+                         tolerance=WKV_F32_ROW_RTOL)
+        if name == "wkv6_bwd":  # dr, dk, dv are bfloat16
+            out[name].update(max_row_err_bf16=worst[name][2],
+                             tolerance_bf16=WKV_BF16_ROW_RTOL)
+        t = out[name]
+        log(f"[timing] {name:13s} B={B} T={T} H=40 N=64: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
+            f"computes WKV-6) bound_ms={b_ms:.6f} ({b_by})")
+
+    # K1 at the rwkv6 train path's shape, for the step's breakdown
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_kernel, rmsnorm_fwd_kernel
+
+    x = torch.randn((B * T, RWKV_D), generator=gen, device=dev).bfloat16()
+    sc = torch.ones((RWKV_D,), device=dev).bfloat16()
+    _, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
+    log(f"[timing] rmsnorm at [{B * T}, {RWKV_D}] bf16: fwd kernel_ms="
+        f"{cuda_ms(lambda: rmsnorm_fwd_kernel(x, sc, 1e-6), 50):.4f} bwd kernel_ms="
+        f"{cuda_ms(lambda: rmsnorm_bwd_kernel(x, sc, rstd, x), 50):.4f}")
     return out
 
 
@@ -604,108 +783,140 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams) -> None:
 # ---------------------------------------------------------------- phase 6-7
 
 
-def train_phase(torch, dev):
-    """Full-width qwen2-0.5b, 8 steps at seq 2048 x batch 8 through the loop."""
+def train_phase(torch, dev, arch: str, shape: dict, modules: tuple, per_layer: dict,
+                tag: str):
+    """Full-width ``arch`` trained ``shape["steps"]`` steps at its sequence
+    and batch through the loop, from a seed, at the CLI's optimizer
+    defaults.  ``per_layer`` maps each kernel of ``modules`` to its launches
+    per layer and step, plus one more (the final norm) for the RMSNorm
+    kernels."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.models.model import count_params
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.optim import OptimizerConfig
     from repro_torch.train.train_step import init_train_state
 
-    cfg = get_config("qwen2-0.5b").replace(remat="full")
-    steps = TRAIN["steps"]
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
-                      global_batch=TRAIN["global_batch"], seed=0)
+    cfg = get_config(arch).replace(remat="full")
+    steps = shape["steps"]
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq_len"],
+                      global_batch=shape["global_batch"], seed=0)
     # the CLI's defaults: lr 3e-4, cosine, warmup max(steps // 10, 5)
     ocfg = OptimizerConfig(lr=3e-4, schedule="cosine",
                            warmup_steps=max(steps // 10, 5), total_steps=steps)
     state = init_train_state(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.padded_vocab} "
         f"params={count_params(state.master)} remat={cfg.remat} "
         f"seq={data.seq_len} batch={data.global_batch}")
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.reset_launches()
-    rmsnorm.reset_launches()
+    for m in modules:
+        m.reset_launches()
     state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
                            state=state, device=dev)
     torch.cuda.synchronize()
-    counts = {**flash_attention.launches, **rmsnorm.launches}
+    counts = {k: v for m in modules for k, v in m.launches.items()}
     peak = torch.cuda.max_memory_allocated()
     for h in history:
-        log(f"[train] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
+        log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
             f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
             f"tokens_per_s={h['tokens_per_s']:.1f}")
-    # per step, with full remat every layer's forward runs twice (once in the
-    # forward, once recomputed in the backward) and its backward once; each
-    # layer has two RMSNorms (ln1, ln2; qwen2 has no qk_norm) and one
-    # attention above attn_kv_chunk (2048 > 1024: the flash branch), and the
-    # final norm runs once each way:
-    #   flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
-    #   rmsnorm_bwd 2L + 1 = 49
     L = cfg.num_layers
-    per_step = {"flash_fwd": 2 * L, "flash_bwd": L, "rmsnorm_fwd": 4 * L + 1,
-                "rmsnorm_bwd": 2 * L + 1}
+    per_step = {k: n * L + (k.startswith("rmsnorm")) for k, n in per_layer.items()}
     steady = sorted(h["step_s"] for h in history[1:])
     step_s = steady[len(steady) // 2]
     tokens = data.seq_len * data.global_batch
-    log(f"[train] launches per step {dict((k, v / steps) for k, v in counts.items())} "
+    log(f"[{tag}] launches per step {dict((k, v / steps) for k, v in counts.items())} "
         f"expected {per_step}")
-    log(f"[train] median step (steps 2-{steps}) {1e3 * step_s:.1f} ms, "
+    log(f"[{tag}] median step (steps 2-{steps}) {1e3 * step_s:.1f} ms, "
         f"{tokens / step_s:.1f} tokens/s; first step {1e3 * history[0]['step_s']:.1f} ms; "
         f"max_memory_allocated={peak}")
     if any(counts[k] != steps * n for k, n in per_step.items()):
-        raise AssertionError(f"train launches {counts} != {steps} x {per_step}")
+        raise AssertionError(f"{tag} launches {counts} != {steps} x {per_step}")
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses not finite and falling: {losses}")
+        raise AssertionError(f"{tag} losses not finite and falling: {losses}")
     return cfg, ocfg, data, state, counts, dict(step_s=step_s, tokens_per_s=tokens / step_s,
                                                peak=peak)
 
 
-def one_step_check(torch, cfg, ocfg, data, state) -> None:
+def _wkv_in_float64(wkv):
+    """The model's WKV call with its plain version evaluated in float64 on
+    the same inputs, outputs back in float32: the noise probe below."""
+    def call(r, k, v, w, u, plain=False):
+        y, s = wkv(*(t.double() for t in (r, k, v, w, u)), plain=True)
+        return y.float(), s.float()
+    return call
+
+
+def one_step_check(torch, cfg, ocfg, data, state, *, mixer: str, tag: str,
+                   batch_step: int, tols: tuple[float, float, float],
+                   probe_wkv64: bool = False) -> None:
     """One step from one state and batch, kernels vs plain versions: loss,
-    global gradient norm, and per layer the gradient norm of every attention
-    and norm leaf (plus the final norm's)."""
+    global gradient norm, and per layer the gradient norm of every leaf of
+    the token mixer (``mixer``: attention or time mix) and of every norm
+    scale (plus the final norm's), held to ``tols`` (absolute loss,
+    relative grad_norm, relative leaf norm).  ``probe_wkv64`` also runs the
+    plain path with only its WKV evaluated in float64 and logs how far that
+    moves the same numbers: the bf16 noise floor of the comparison."""
+    from repro_torch.models import rwkv as rwkv_model
+
+    loss_tol, gnorm_rtol, leaf_rtol = tols
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.train.optim import leaves
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import copy_state, make_train_step
 
     def leaf_norms(grads):
         # layer-stacked leaves carry the layer on axis 0: one norm per layer
         norms.update({".".join(path): (g.float().flatten(1).norm(dim=1)
                                        if path[0].startswith("seg") else g.float().norm())
                       for path, g in leaves(grads)
-                      if "attn" in path or path[-1] == "scale"})
+                      if mixer in path or path[-1] == "scale"})
         return grads
 
-    batch = SyntheticTokens(data).batch_at(TRAIN["steps"])
+    batch = SyntheticTokens(data).batch_at(batch_step)
     res = {}
-    for plain in (False, True):
+    for run in ("kernels", "plain") + (("plain_wkv64",) if probe_wkv64 else ()):
         norms: dict = {}
-        _, m = make_train_step(cfg, ocfg, plain=plain, grad_transform=leaf_norms)(
-            state, batch)
-        res[plain] = (m["loss"].item(), m["grad_norm"].item(), norms)
+        wkv = rwkv_model.wkv6
+        if run == "plain_wkv64":
+            rwkv_model.wkv6 = _wkv_in_float64(wkv)
+        try:
+            # a step consumes its state: each run steps from its own copy
+            _, m = make_train_step(cfg, ocfg, plain=run != "kernels",
+                                   grad_transform=leaf_norms)(copy_state(state), batch)
+        finally:
+            rwkv_model.wkv6 = wkv
+        res[run] = (m["loss"].item(), m["grad_norm"].item(), norms)
         del m
         torch.cuda.empty_cache()
-    (lk, gk, nk), (lp, gp, np_) = res[False], res[True]
-    d_loss, d_gn = abs(lk - lp), abs(gk - gp) / gp
-    d_leaf = {name: ((nk[name] - np_[name]).abs() / np_[name]).max().item()
-              for name in np_}
-    ok = (d_loss <= STEP_LOSS_TOL and d_gn <= STEP_GNORM_RTOL
-          and max(d_leaf.values()) <= STEP_LEAF_RTOL and math.isfinite(lk))
-    log(f"[step] kernels loss={lk:.5f} grad_norm={gk:.5f}; plain loss={lp:.5f} "
-        f"grad_norm={gp:.5f}; |dloss|={d_loss:.2e} (tol {STEP_LOSS_TOL}) "
-        f"rel dgrad_norm={d_gn:.2e} (tol {STEP_GNORM_RTOL})")
-    log(f"[step] per-layer leaf gradient norms, largest relative difference: "
+
+    def gaps(a, b):
+        (la, ga, na), (lb, gb, nb) = res[a], res[b]
+        return abs(la - lb), abs(ga - gb) / gb, {
+            name: ((na[name] - nb[name]).abs() / nb[name]).max().item() for name in nb}
+
+    (lk, gk, _), (lp, gp, _) = res["kernels"], res["plain"]
+    d_loss, d_gn, d_leaf = gaps("kernels", "plain")
+    if probe_wkv64:
+        p_loss, p_gn, p_leaf = gaps("plain_wkv64", "plain")
+        worst = max(p_leaf, key=p_leaf.get)
+        log(f"[{tag}] noise probe, plain path with its WKV in float64 vs float32: "
+            f"|dloss|={p_loss:.2e} rel dgrad_norm={p_gn:.2e} largest leaf "
+            f"{worst}={p_leaf[worst]:.2e}")
+    ok = (d_loss <= loss_tol and d_gn <= gnorm_rtol
+          and max(d_leaf.values()) <= leaf_rtol and math.isfinite(lk))
+    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers) kernels loss={lk:.5f} "
+        f"grad_norm={gk:.5f}; plain loss={lp:.5f} grad_norm={gp:.5f}; "
+        f"|dloss|={d_loss:.2e} (tol {loss_tol}) "
+        f"rel dgrad_norm={d_gn:.2e} (tol {gnorm_rtol})")
+    log(f"[{tag}] per-layer leaf gradient norms, largest relative difference: "
         + " ".join(f"{n}={e:.2e}" for n, e in sorted(d_leaf.items()))
-        + f" (tol {STEP_LEAF_RTOL}) {'ok' if ok else 'FAIL'}")
+        + f" (tol {leaf_rtol}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("one train step through the kernels disagrees with "
-                             "the plain versions")
+        raise AssertionError(f"{tag}: one train step through the kernels disagrees "
+                             "with the plain versions")
 
 
 # -------------------------------------------------------------------- main
@@ -720,8 +931,11 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention, rmsnorm, wkv6
     from repro_torch.kernels.flash_attention.ops import shared_memory_bytes as flash_smem
     from repro_torch.kernels.paged_attention.ops import shared_memory_bytes
+    from repro_torch.kernels.wkv6.ops import shared_memory_bytes as wkv6_smem
+    from repro_torch.train.train_step import init_train_state
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns off TF32 / reduced-precision bf16 sums
@@ -740,31 +954,80 @@ def main() -> int:
         for line in _build.ptxas_report(name):
             log(f"[build] {name}: {line}")
         if name.startswith("paged"):
-            smem = shared_memory_bytes(name, H=H, K=K, dh=DH, bs=BS)
+            smem, at = (shared_memory_bytes(name, H=H, K=K, dh=DH, bs=BS),
+                        f"H={H} K={K} dh={DH} bs={BS}")
+        elif name.startswith("flash"):
+            smem, at = flash_smem(name, DH), f"dh={DH}"
         else:
-            smem = flash_smem(name, DH)
-        log(f"[build] {name}: {smem} bytes of dynamic shared memory per block "
-            f"at H={H} K={K} dh={DH}" + (f" bs={BS}" if name.startswith("paged") else ""))
+            smem, at = wkv6_smem(name, RWKV_N), f"N={RWKV_N}"
+        log(f"[build] {name}: {smem} bytes of shared memory per block at {at}")
+
+    clock = {"t": time.perf_counter()}
+
+    def phase(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[wall] {name} {now - clock['t']:.1f} s")
+        clock["t"] = now
 
     worst = check_kernels(torch, dev)
     worst.update(check_training_kernels(torch, dev))
+    worst.update(check_wkv6_kernels(torch, dev))
+    phase("kernel checks")
     timings = time_kernels(torch, dev, worst)
     timings.update(time_training_kernels(torch, dev, worst))
+    timings.update(time_wkv6_kernels(torch, dev, worst))
     torch.cuda.empty_cache()
+    phase("kernel timings")
     cfg, srv, specs, prompts, streams, counts = serve(torch, dev)
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
     del srv
     torch.cuda.empty_cache()
-    tcfg, ocfg, data, state, train_counts, _ = train_phase(torch, dev)
-    one_step_check(torch, tcfg, ocfg, data, state)
+    phase("serve and teacher-forced check")
+    # per step, with full remat every layer's forward runs twice (once in
+    # the forward, once recomputed in the backward) and its backward once;
+    # the final norm runs once each way.  qwen2-0.5b: two RMSNorms a layer
+    # (no qk_norm) and one attention above attn_kv_chunk (2048 > 1024: the
+    # flash branch), so flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd
+    # 2*2L + 1 = 97, rmsnorm_bwd 2L + 1 = 49
+    tcfg, ocfg, data, state, train_counts, _ = train_phase(
+        torch, dev, "qwen2-0.5b", TRAIN, (flash_attention, rmsnorm),
+        {"flash_fwd": 2, "flash_bwd": 1, "rmsnorm_fwd": 4, "rmsnorm_bwd": 2}, "train")
+    one_step_check(torch, tcfg, ocfg, data, state, mixer="attn", tag="step",
+                   batch_step=TRAIN["steps"],
+                   tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL))
     del state
+    torch.cuda.empty_cache()
+    phase("qwen2 train and one-step check")
+    # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
+    # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
+    # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65
+    rcfg, rocfg, rdata, state, rwkv_counts, _ = train_phase(
+        torch, dev, "rwkv6-3b", RWKV_TRAIN, (wkv6, rmsnorm),
+        {"wkv6_fwd": 2, "wkv6_bwd": 1, "rmsnorm_fwd": 4, "rmsnorm_bwd": 2},
+        "train-rwkv")
+    del state
+    torch.cuda.empty_cache()
+    phase("rwkv6 train")
+    # full width at 4 layers, so that the state and its copy fit side by side
+    rcfg = rcfg.replace(num_layers=RWKV_STEP_LAYERS)
+    state = init_train_state(rcfg, seed=0, device=dev)
+    one_step_check(torch, rcfg, rocfg, rdata, state, mixer="att", tag="step-rwkv",
+                   batch_step=RWKV_TRAIN["steps"],
+                   tols=(RWKV_STEP_LOSS_TOL, RWKV_STEP_GNORM_RTOL, RWKV_STEP_LEAF_RTOL),
+                   probe_wkv64=True)
+    del state
+    torch.cuda.empty_cache()
+    phase("rwkv6 one-step check")
 
     # launches: the paged kernels' from the serve phase, K1's and K2's from
-    # the train phase (K1's serve-phase count is checked in the serve phase);
-    # K1's tolerance: the absolute bound of its case nearest it; K2's: the
-    # row-relative limit its ``max_row_err`` is held to
+    # the qwen2 train phase, K5's from the rwkv6 train phase (K1's serve and
+    # rwkv6 counts are checked in those phases); K1's tolerance: the
+    # absolute bound of its case nearest it; K2's and K5's: the row-relative
+    # limits their ``max_row_err`` are held to
     counts.update(train_counts)
+    counts.update({k: v for k, v in rwkv_counts.items() if k.startswith("wkv6")})
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
+    wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
     norm_src = "src/repro/kernels/rmsnorm/kernel.py:26"
     norm_path = REPO / "src/repro_torch/kernels/rmsnorm/rmsnorm_triton.py"
     rows = [
@@ -776,6 +1039,8 @@ def main() -> int:
         ("rmsnorm_bwd", "triton", norm_path, norm_src, None),
         ("flash_fwd", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
         ("flash_bwd", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
+        ("wkv6_fwd", "cuda", _build.SOURCES["wkv6_fwd"], wkv6_src, None),
+        ("wkv6_bwd", "cuda", _build.SOURCES["wkv6_bwd"], wkv6_src, None),
     ]
     kernels = []
     for name, route, path, replaces, tol in rows:
@@ -784,7 +1049,8 @@ def main() -> int:
             "name": name, "route": route,
             "source": str(path.relative_to(REPO)), "replaces": replaces,
             "launches": counts[name], "max_abs_err": t["max_abs_err"],
-            **({"max_row_err": t["max_row_err"]} if "max_row_err" in t else {}),
+            **{k: t[k] for k in ("max_row_err", "max_row_err_bf16", "tolerance_bf16")
+               if k in t},
             "tolerance": t.get("tolerance", tol), "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

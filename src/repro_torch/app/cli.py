@@ -2,6 +2,7 @@
 
     python -m repro_torch train --arch qwen2-0.5b --seq-len 2048 --global-batch 8 --steps 8
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
+    python -m repro_torch train --arch rwkv6-3b --seq-len 2048 --global-batch 4 --steps 6
     python -m repro_torch serve --arch qwen2-0.5b --continuous
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu
 
@@ -125,6 +126,7 @@ def run_serve(args: argparse.Namespace) -> dict:
     from repro_torch.serve.server import MegaServe, make_poisson_workload
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    lm.require_paged(cfg)
     params = lm.init(cfg, seed=args.seed, device=args.device)
     specs, prompts, serve_cfg = make_poisson_workload(
         cfg, n=args.requests, rate=args.rate,

@@ -143,7 +143,7 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import importlib
 
-    # the dense GQA archs this slice serves; the other families arrive with
-    # their own slices (ROADMAP queue 1)
-    for mod in ("qwen2_0_5b", "qwen3_14b"):
+    # the dense GQA archs and RWKV-6; the other families arrive with their
+    # own slices (ROADMAP queue 1)
+    for mod in ("qwen2_0_5b", "qwen3_14b", "rwkv6_3b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

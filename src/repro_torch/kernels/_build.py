@@ -27,6 +27,8 @@ SOURCES = {
     "paged_prefill": _KERNELS / "paged_attention" / "csrc" / "paged_prefill.cu",
     "flash_fwd": _KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu",
     "flash_bwd": _KERNELS / "flash_attention" / "csrc" / "flash_bwd.cu",
+    "wkv6_fwd": _KERNELS / "wkv6" / "csrc" / "wkv6_fwd.cu",
+    "wkv6_bwd": _KERNELS / "wkv6" / "csrc" / "wkv6_bwd.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 FLAGS = (

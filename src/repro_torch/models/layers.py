@@ -18,7 +18,9 @@ plain PyTorch versions on any device: the card's reference runs.
 
 Ported: the paged serving branches and the non-cached training branch of
 the attention block; the dense cached, gathered and local-block paths arrive
-with later slices.
+with later slices.  ``norm_init`` also builds layernorm parameters (scale
+and bias, for RWKV-6's ``ln_x`` group norm, which ``models/rwkv.py``
+applies inline); ``norm_apply`` takes rmsnorm only.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ class ParamBuilder:
         self.params: dict = {}
 
     def param(self, name: str, shape: tuple[int, ...], init: str = "normal",
-              fan_in: int | None = None, scale: float = 1.0) -> None:
+              fan_in: int | None = None, scale: float = 1.0,
+              fill: float = 0.0) -> None:
         full = (*self.lead, *shape)
         kw = dict(dtype=torch.float32, device=self.device)
         if init == "normal":
@@ -79,6 +82,8 @@ class ParamBuilder:
             val = torch.zeros(full, **kw)
         elif init == "ones":
             val = torch.ones(full, **kw)
+        elif init == "const":
+            val = torch.full(full, fill, **kw)
         else:
             raise ValueError(init)
         self.params[name] = val
@@ -95,10 +100,12 @@ class ParamBuilder:
 
 
 def norm_init(b: ParamBuilder, name: str, dim: int, kind: str) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"{kind}: ported with the families that use it (ROADMAP queue 1)")
-    b.sub(name).param("scale", (dim,), init="ones")
+    if kind not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm kind {kind!r}")
+    s = b.sub(name)
+    s.param("scale", (dim,), init="ones")
+    if kind == "layernorm":
+        s.param("bias", (dim,), init="zeros")
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float, *,

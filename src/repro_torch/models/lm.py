@@ -1,15 +1,16 @@
-"""Decoder-only LM assembly for the dense GQA family, in PyTorch.
+"""Decoder-only LM assembly for the dense GQA and RWKV-6 families, in
+PyTorch.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_layers, ...]`` under
 ``params["seg{i}"]["b0"]``.  ``forward`` is a Python loop over layers that
 indexes each layer's parameters and its layer of the stacked KV pool in place
 (``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Two forwards
-are ported: the paged serving forward (``pool`` given) and the training
-forward (``pool=None``, the ``cache is None`` path of JAX ``lm.forward``)
-that :func:`loss_fn` differentiates, with ``cfg.remat`` as
-``torch.utils.checkpoint`` around each layer.  The dense cached path arrives
-with a later slice.
+are ported: the paged serving forward (``pool`` given; dense family only)
+and the training forward (``pool=None``, the ``cache is None`` path of JAX
+``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
+``torch.utils.checkpoint`` around each layer.  The dense cached path and
+recurrent serving arrive with later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import PagedInfo
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as rk
 
 # leaves that enter float32 norm math uncast; every other leaf is cast to the
 # compute dtype at use, so a copy cast once at load gives the same values
@@ -32,11 +34,24 @@ _NORM_LEAVES = ("scale", "q_norm", "k_norm")
 
 def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     """Returns [(block_kinds_per_group, n_groups), ...] covering all layers."""
+    if cfg.family == "rwkv6":
+        return [(("rwkv",), cfg.num_layers)]
     if cfg.family != "dense" or cfg.use_mla:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is ported in a later slice "
-            "(ROADMAP queue 1); this slice serves dense GQA models")
+            "(ROADMAP queue 1); dense GQA and RWKV-6 models are ported")
     return [(("dense",), cfg.num_layers)]
+
+
+def require_paged(cfg: ModelConfig) -> None:
+    """Serving runs over the paged KV pool, which only the dense family has
+    in the port so far."""
+    segment_layout(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.family} family (a carried "
+            "recurrent state, pow2 segment prefill) is ported with the RWKV "
+            "serving slice (ROADMAP queue 1, item 13)")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
@@ -48,8 +63,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
     L.norm_init(b, "final_norm", cfg.d_model, cfg.norm_kind)
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
         seg = b.sub(f"seg{i}", lead=(n,))
-        for j, _ in enumerate(kinds):
+        for j, kind in enumerate(kinds):
             blk = seg.sub(f"b{j}")
+            if kind == "rwkv":
+                rk.rwkv_block_init(blk, cfg)
+                continue
             L.norm_init(blk, "ln1", cfg.d_model, cfg.norm_kind)
             L.norm_init(blk, "ln2", cfg.d_model, cfg.norm_kind)
             L.gqa_init(blk.sub("attn"), cfg)
@@ -91,9 +109,12 @@ def _resid(cfg: ModelConfig, x: torch.Tensor, delta: torch.Tensor) -> torch.Tens
     return x + delta
 
 
-def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-           pool: dict | None, paged: PagedInfo | None, plain: bool) -> torch.Tensor:
-    """One dense decoder layer (``_block_apply``'s dense branch)."""
+def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+           positions: torch.Tensor, pool: dict | None, paged: PagedInfo | None,
+           plain: bool) -> torch.Tensor:
+    """One decoder layer (``_block_apply``'s rwkv and dense branches)."""
+    if kind == "rwkv":
+        return rk.rwkv_block_apply(p, cfg, x, plain=plain)[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     a = L.gqa_apply(p["attn"], cfg, h, positions=positions, pool=pool,
                     paged=paged, plain=plain)
@@ -103,13 +124,14 @@ def _block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _layers(cfg: ModelConfig, params: dict):
-    """``(layer index, that layer's parameter views)`` over every segment."""
+    """``(layer index, block kind, that layer's parameter views)`` over every
+    segment."""
     layer = 0
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
         seg = params[f"seg{i}"]
         for g in range(n):
-            for j, _ in enumerate(kinds):
-                yield layer, _layer(seg[f"b{j}"], g)
+            for j, kind in enumerate(kinds):
+                yield layer, kind, _layer(seg[f"b{j}"], g)
                 layer += 1
 
 
@@ -141,12 +163,13 @@ def forward(
     x = L.embed_apply(params, cfg, tokens, dtype)
     B, S, _ = x.shape
     if pool is not None:
+        require_paged(cfg)
         plain = paged.plain
         positions = (cache_pos.long()[:, None]
                      + torch.arange(S, device=x.device)[None, :])
-        for layer, p in _layers(cfg, params):
-            x = _block(p, cfg, x, positions, pool, replace(paged, layer=layer),
-                       plain)
+        for layer, kind, p in _layers(cfg, params):
+            x = _block(p, cfg, kind, x, positions, pool,
+                       replace(paged, layer=layer), plain)
     else:
         if cfg.remat == "dots":
             raise NotImplementedError(
@@ -155,12 +178,12 @@ def forward(
         if cfg.remat not in ("full", "none"):
             raise ValueError(f"unknown remat {cfg.remat!r}")
         positions = torch.arange(S, device=x.device)
-        for _, p in _layers(cfg, params):
+        for _, kind, p in _layers(cfg, params):
             if cfg.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(_block, p, cfg, x, positions, None, None, plain,
-                               use_reentrant=False)
+                x = checkpoint(_block, p, cfg, kind, x, positions, None, None,
+                               plain, use_reentrant=False)
             else:
-                x = _block(p, cfg, x, positions, None, None, plain)
+                x = _block(p, cfg, kind, x, positions, None, None, plain)
     return L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
                         plain=plain)
 
@@ -169,7 +192,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
             plain: bool = False) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
     cross entropy of ``batch`` (``tokens``, ``targets``, optional
-    ``loss_mask``); the dense family has no auxiliary loss."""
+    ``loss_mask``); the dense and RWKV-6 families have no auxiliary loss."""
     hidden = forward(cfg, params, batch["tokens"], plain=plain)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
                                   batch.get("loss_mask"))

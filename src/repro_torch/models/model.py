@@ -1,8 +1,9 @@
 """Family dispatch and helpers, counterpart of ``repro.models.model``.
 
-Only the dense decoder LM is ported: :func:`get_model` returns its entry
-points and refuses the encoder-decoder family, which arrives with a later
-slice (ROADMAP queue 1, item 13).
+The decoder LM is ported for the dense and RWKV-6 families:
+:func:`get_model` returns its entry points (``lm.segment_layout`` refuses
+the families still to come) and refuses the encoder-decoder family, which
+arrives with a later slice (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations

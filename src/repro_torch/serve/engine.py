@@ -26,7 +26,7 @@ from repro_torch.models import lm
 def _check_servable(cfg: ModelConfig) -> None:
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: continuous batching serves token archs")
-    lm.segment_layout(cfg)  # raises for the families of later slices
+    lm.require_paged(cfg)  # raises for the families of later slices
 
 
 def make_paged_decode_step(

@@ -67,6 +67,7 @@ class MegaServe:
         tracer: Tracer | None = None,
         clock: Callable[[], float] | None = None,
     ):
+        lm.require_paged(cfg)
         if serve_cfg.decode_path not in ("auto", "paged"):
             _refuse(f"decode_path={serve_cfg.decode_path!r}", "gathered-path")
         if serve_cfg.prefill_path not in ("auto", "flash"):

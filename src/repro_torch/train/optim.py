@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterator, Literal
+from typing import Callable, Iterator, Literal
 
 import numpy as np
 import torch
@@ -86,15 +86,38 @@ def init_opt_state(master: dict) -> dict:
             "v": tree_map(torch.zeros_like, master), "step": 0}
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    sq = g.to(torch.float32, copy=True)
+    return sq.mul_(sq).sum()
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum((g.float() * g.float()).sum() for _, g in leaves(tree)))
+    """sqrt of the float32 sums of squares, leaf by leaf in ``leaves`` order;
+    one leaf's float32 copy at a time."""
+    return torch.sqrt(sum(_square_sum(g) for _, g in leaves(tree)))
+
+
+def parent(tree: dict, path: tuple[str, ...]) -> dict:
+    """The dict that holds the leaf at ``path``."""
+    for key in path[:-1]:
+        tree = tree[key]
+    return tree
 
 
 @torch.no_grad()
-def adamw_update(ocfg: OptimizerConfig, grads: dict, master: dict, opt: dict
-                 ) -> tuple[dict, dict, dict]:
-    """Returns ``(new_master, new_opt_state, stats)``; grads are float32 and
-    shaped like ``master``."""
+def adamw_update(ocfg: OptimizerConfig, grads: dict, master: dict, opt: dict,
+                 on_leaf: Callable[[tuple[str, ...], torch.Tensor], None] | None = None
+                 ) -> dict:
+    """AdamW in place, leaf by leaf; returns ``stats``.
+
+    ``master``, ``opt["m"]`` and ``opt["v"]`` are updated in place and
+    ``opt["step"]`` advanced, with the reference's arithmetic in its order
+    (``repro.train.optim.adamw_update``).  ``grads`` (shaped like
+    ``master``, any float dtype) is consumed: each leaf is cast to float32
+    inside its own update and dropped from the tree once applied, so at
+    most a few float32 temporaries of one leaf exist at a time; the JAX
+    step gets the same effect by donating the state.  ``on_leaf(path,
+    master_leaf)`` runs after each leaf's update."""
     step = opt["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -102,19 +125,21 @@ def adamw_update(ocfg: OptimizerConfig, grads: dict, master: dict, opt: dict
     lr = schedule_lr(ocfg, step)
     bc1 = _f(1) - _f(b1) ** _f(step)
     bc2 = _f(1) - _f(b2) ** _f(step)
-    mask = _decay_mask(master)
+    mask = dict(leaves(_decay_mask(master)))
 
-    def upd(g, p, m, v, wd):
-        g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * (g * g)
-        mhat = m / float(bc1)
-        vhat = v / float(bc2)
-        delta = mhat / (torch.sqrt(vhat) + ocfg.eps) + ocfg.weight_decay * wd * p
-        return p - float(lr) * delta, m, v
-
-    out = tree_map(upd, grads, master, opt["m"], opt["v"], mask)
-    pick = lambda i: tree_map(lambda t: t[i], out)  # noqa: E731
-    stats = {"grad_norm": gnorm,
-             "lr": torch.tensor(lr, dtype=torch.float32, device=gnorm.device)}
-    return pick(0), {"m": pick(1), "v": pick(2), "step": step}, stats
+    for path, p in list(leaves(master)):
+        g = parent(grads, path).pop(path[-1]).to(torch.float32, copy=True).mul_(scale)
+        m, v = parent(opt["m"], path)[path[-1]], parent(opt["v"], path)[path[-1]]
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(g.mul_(g).mul_(1 - b2))
+        del g
+        delta = m / float(bc1)                                  # mhat
+        delta.div_((v / float(bc2)).sqrt_().add_(ocfg.eps))     # / (sqrt(vhat) + eps)
+        delta.add_(p * (ocfg.weight_decay * mask[path]))
+        p.sub_(delta.mul_(float(lr)))
+        del delta
+        if on_leaf is not None:
+            on_leaf(path, p)
+    opt["step"] = step
+    return {"grad_norm": gnorm,
+            "lr": torch.tensor(lr, dtype=torch.float32, device=gnorm.device)}

@@ -5,8 +5,12 @@ accumulation over microbatches, an optional ``grad_transform`` hook.
 
 The gradient is taken with respect to the compute-dtype params and cast to
 float32 for the update, as the reference does; under gradient accumulation
-the microbatch gradients are summed in float32 and averaged.  The pipeline
-path (``plan.pp > 1``) and int8 gradient compression are later slices.
+the microbatch gradients are summed in float32 and averaged.  The step
+consumes the state it is given, as the JAX loop donates it: master and
+moments are updated in place and each compute-dtype leaf is replaced as its
+update lands, so a caller that takes two steps from one state copies it
+first (:func:`copy_state`).  The pipeline path (``plan.pp > 1``) and int8
+gradient compression are later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from repro_torch.train.optim import (
     adamw_update,
     init_opt_state,
     leaves,
+    parent,
     tree_map,
 )
 
@@ -40,6 +45,17 @@ def compute_params(master: dict, dtype: torch.dtype) -> dict:
     with torch.no_grad():
         return tree_map(
             lambda x: x.to(dtype, copy=True).requires_grad_(True), master)
+
+
+def copy_state(state: TrainState) -> TrainState:
+    """An independent copy: a step consumes the state it is given."""
+    with torch.no_grad():
+        clone = lambda x: x.detach().clone().requires_grad_(x.requires_grad)  # noqa: E731
+        return TrainState(params=tree_map(clone, state.params),
+                          master=tree_map(clone, state.master),
+                          opt={"m": tree_map(clone, state.opt["m"]),
+                               "v": tree_map(clone, state.opt["v"]),
+                               "step": state.opt["step"]})
 
 
 def init_train_state(cfg: ModelConfig, *, seed: int = 0,
@@ -69,10 +85,11 @@ def make_train_step(
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens``, ``targets`` and optionally ``loss_mask``
-    (numpy or tensors).  ``metrics`` holds the last microbatch's loss
-    metrics (as the reference's scan keeps them) plus ``grad_norm`` and
-    ``lr``, as 0-dim tensors.  ``plain=True`` runs the plain PyTorch
-    versions of the kernels on any device.
+    (numpy or tensors).  The step updates ``state`` in place and returns
+    it.  ``metrics`` holds the last microbatch's loss metrics (as the
+    reference's scan keeps them) plus ``grad_norm`` and ``lr``, as 0-dim
+    tensors.  ``plain=True`` runs the plain PyTorch versions of the kernels
+    on any device.
     """
     if plan is not None and plan.pp > 1:
         raise NotImplementedError(
@@ -124,11 +141,13 @@ def make_train_step(
         _, metrics, grads = compute_grads(state.params, batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        grads = tree_map(lambda g: g.float(), grads)
-        master, opt, stats = adamw_update(ocfg, grads, state.master, state.opt)
-        new = TrainState(params=compute_params(master, dtype), master=master,
-                         opt=opt)
-        return new, {**metrics, **stats}
+
+        def refresh(path, master_leaf):
+            parent(state.params, path)[path[-1]] = (
+                master_leaf.to(dtype, copy=True).requires_grad_(True))
+
+        stats = adamw_update(ocfg, grads, state.master, state.opt, on_leaf=refresh)
+        return state, {**metrics, **stats}
 
     return step
 

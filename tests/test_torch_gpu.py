@@ -140,7 +140,8 @@ K1_DSCALE_RTOL = 1e-2
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,D,sdtype", [(512, 896, torch.bfloat16),
                                           (1001, 128, torch.float32),
-                                          (37, 64, torch.bfloat16)])
+                                          (37, 64, torch.bfloat16),
+                                          (8192, 2560, torch.bfloat16)])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
     from repro_torch.kernels.rmsnorm import (
         launches as k1, reset_launches as reset_k1, rmsnorm_bwd_kernel,
@@ -212,3 +213,85 @@ def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     assert (lse - rlse).abs().max() <= K2_LSE_TOL
     for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
         assert _row_err(ours, ref) <= K2_ROW_RTOL
+
+
+# ------------------------------------------------ card: K5 (WKV6) ---
+
+# K5 against its plain version evaluated in float64 on the same inputs,
+# held row by row (one token's, state row's or head's N entries, relative to
+# the row's largest entry).  y, the state, dw and du are float32 sums in
+# another order (chip_smoke.py measured at most 7.1e-5 on the H100, dw
+# under brutal decay); dr, dk and dv are rounded to bfloat16 once (half an
+# ulp: 2^-8 of the row's largest entry).  Limits: 7x the float32
+# measurement, one bfloat16 ulp.
+K5_F32_ROW_RTOL = 5e-4
+K5_BF16_ROW_RTOL = 2.0 ** -7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,N,kind", [
+    (4, 2048, 40, 64, "model"),     # the rwkv6-3b training shape
+    (2, 100, 40, 64, "model"),      # ragged T
+    (1, 300, 8, 64, "brutal"),      # w = 1e-4
+    (1, 2048, 4, 64, "long"),       # w = exp(-exp(-8)) = 0.99966
+    (2, 90, 4, 64, "near1"),        # w >= 1 - 1e-7: the clamp holds
+    (1, 77, 3, 16, "model"),        # the smoke configs' head size
+])
+def test_wkv6_kernels_match_plain(cuda, B, T, H, N, kind):
+    import math
+
+    from repro_torch.kernels.wkv6 import (
+        launches as k5, reset_launches as reset_k5, wkv6_bwd_kernel,
+        wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    BH = B * H
+    r, k, v = (torch.randn((BH, T, N), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    if kind == "brutal":
+        w = torch.full((BH, T, N), 1e-4, device=cuda)
+    elif kind == "long":
+        w = torch.full((BH, T, N), math.exp(-math.exp(-8.0)), device=cuda)
+    else:
+        w = torch.exp(-torch.exp(-6 + 5 * torch.rand((BH, T, N), generator=g,
+                                                      device=cuda)))
+        if kind == "near1":
+            w[:, ::3, ::2] = 1 - 1e-8
+            w[:, 1::3, 1::4] = 0.9999999
+    u = 0.5 * torch.randn((H, N), generator=g, device=cuda)
+    dy = torch.randn((BH, T, N), generator=g, device=cuda)
+    reset_k5()
+    y, s = wkv6_fwd_kernel(r, k, v, w, u)
+    grads = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    assert k5 == {"wkv6_fwd": 1, "wkv6_bwd": 1}
+    f64 = [t.double() for t in (r, k, v, w, u, dy)]
+    ry, rs = wkv6_plain(*f64[:5])
+    assert _row_err(y, ry) <= K5_F32_ROW_RTOL
+    assert _row_err(s, rs) <= K5_F32_ROW_RTOL
+    refs = wkv6_bwd_plain(*f64)
+    for name, ours, ref in zip(("dr", "dk", "dv", "dw", "du"), grads, refs):
+        assert ours.shape == ref.shape, name
+        lim = K5_BF16_ROW_RTOL if name in ("dr", "dk", "dv") else K5_F32_ROW_RTOL
+        assert _row_err(ours, ref) <= lim, name
+    if kind == "near1":
+        held = w >= 1 - 1e-7
+        assert (grads[3][held] == 0).all()
+
+
+@pytest.mark.gpu
+def test_wkv6_wrappers_refuse_wrong_operands(cuda):
+    from repro_torch.kernels.wkv6 import wkv6_fwd_kernel
+
+    r = torch.zeros((4, 8, 64), device=cuda)              # float32, not bf16
+    w = torch.zeros((4, 8, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        wkv6_fwd_kernel(r, r, r, w, u)
+    rb = r.bfloat16()
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_fwd_kernel(rb[..., :32].contiguous(), rb[..., :32].contiguous(),
+                        rb[..., :32].contiguous(), w[..., :32].contiguous(),
+                        u[:, :32].contiguous())
+    with pytest.raises(ValueError, match="heads"):
+        wkv6_fwd_kernel(rb, rb, rb, w, torch.zeros((3, 64), device=cuda))
