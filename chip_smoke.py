@@ -8,12 +8,13 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device  — requires a CUDA card; prints its name and power limit;
 2. build   — compiles the CUDA kernels from ``src/repro_torch`` with nvcc and
              prints ptxas' registers / shared memory / spills;
-3. kernels — holds each kernel against its plain PyTorch version on the card:
+3. kernels — holds each kernel against its plain PyTorch version on the card
+             (the K5 and K6 checks are listed under their phases below):
              paged decode and prefill (K3, K4) at qwen2-0.5b widths (H=14,
              K=2, dh=64, block 16), RMSNorm forward and backward (K1, Triton;
-             also at rwkv6-3b's width 2560) and flash attention forward and
-             backward (K2) at the training path's shapes and at small ragged
-             ones, all bfloat16; then times
+             also at rwkv6-3b's width 2560 and recurrentgemma-9b's 4096) and
+             flash attention forward and backward (K2) at the training
+             path's shapes and at small ragged ones, all bfloat16; then times
              kernel, plain version and a library yardstick the port never
              calls (``scaled_dot_product_attention``, ``F.rms_norm``) at the
              main paths' shapes;
@@ -27,17 +28,26 @@ Phases, each of which fails the run (non-zero exit) on error:
              through ``repro_torch.train.loop.train``; launches per step must
              equal the counts worked out from the depth and full remat, every
              loss must be finite and the last below the first;
-7. step    — one train step from one state and batch through the kernels and
-             through the plain versions: loss, grad_norm and each layer's
-             attention and norm gradient norms must agree;
+7. step    — the loss and gradients of one batch, from the parameters of the
+             seed, through the kernels and through the plain versions: loss,
+             grad_norm and each layer's attention and norm gradient norms
+             must agree;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory and clamped-decay
              ones, and timed; then full-width, full-depth rwkv6-3b trained 6
              steps at seq 2048 x batch 4 (launches per step exact, losses
-             finite and falling), and one step at 4 layers through the
-             kernels and through the plain versions;
-9. summary — a ``{"kernels": [...]}`` line, then the last line
+             finite and falling), and the step check at 4 layers;
+9. griffin — the RG-LRU kernels (K6, forward and backward) held row by row
+             to their plain version in float64 at the recurrentgemma-9b
+             training shape [2, 4096, 4096] and at ragged and brutal-decay
+             ones, K2 at head dim 256 (MQA, window 2048) at the training
+             shape and at S < window, K1 at width 4096, all timed; then
+             full-width recurrentgemma-9b cut to 5 of its 38 layers trained
+             6 steps at seq 4096 x batch 2 (parameter count, launches per
+             step exact, losses finite and falling), and the step check at
+             the same 5 layers;
+10. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
@@ -72,8 +82,9 @@ LOGIT_TOL = 0.25
 SERVE = dict(n=32, rate=40.0, prompt_lens=(128, 512, 2048),
              max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
 
-# the training path's shapes: qwen2-0.5b, seq 2048 x batch 8
-TRAIN = dict(seq_len=2048, global_batch=8, steps=8)
+# the training path's shapes: qwen2-0.5b, seq 2048 x batch 8, the data of
+# SyntheticTokens' seed 0
+TRAIN = dict(seq_len=2048, global_batch=8, steps=8, seed=0)
 NORM_ROWS, D_MODEL = TRAIN["seq_len"] * TRAIN["global_batch"], 896
 # K1 on bfloat16: kernel and plain version each round one float32 result per
 # element to bfloat16 once; float32 sums in another order can flip one
@@ -102,21 +113,26 @@ FLASH_ROW_RTOL = 2.0 ** -5
 # largest difference measured on the H100).  One dropped key moves it by
 # that key's probability, about 1/2048 = 4.9e-4.
 LSE_TOL = 1e-5
-# one train step, kernels vs plain versions, from one state and batch: the
+# the loss and gradients of one batch, kernels vs plain versions: the
 # bfloat16 roundings that differ inside K1 and K2 (see above) move the loss
-# (about 7.5) and the global gradient norm (about 91) by 6.2e-5 and 1.27e-4
-# relative (measured on the H100); the global norm is dominated by the
+# and the global gradient norm; the global norm is dominated by the
 # embedding and unembedding, so each layer's attention and norm gradients
-# are also compared on their own (norm of the leaf's slice for that layer;
-# at most 2.2e-3 relative, on the H100, for the k bias)
+# are also compared on their own (norm of the leaf's slice for that layer).
+# Measured on an H100 80GB HBM3 at 700 W from the parameters of the seed
+# (loss about 12.4, grad_norm about 16): 3.7e-4 absolute, 3.7e-4 relative,
+# leaves at most 6.6e-3 relative, the k bias (from the state after 8 train
+# steps, where these limits were set: 6.2e-5, 1.27e-4 and 2.2e-3, the k
+# bias too).
 STEP_LOSS_TOL = 1e-3
 STEP_GNORM_RTOL = 1e-3
 STEP_LEAF_RTOL = 1e-2
 
 # rwkv6-3b: 40 WKV heads of 64, trained at seq 2048 x batch 4
-RWKV_TRAIN = dict(seq_len=2048, global_batch=4, steps=6)
+RWKV_TRAIN = dict(seq_len=2048, global_batch=4, steps=6, seed=0)
 RWKV_H, RWKV_N, RWKV_D = 40, 64, 2560
-RWKV_STEP_LAYERS = 4       # the one-step check: full width, 4 layers
+# the step check at full width and 4 layers: the bf16 noise it is held
+# above grows with depth, and the limits below were measured at 4
+RWKV_STEP_LAYERS = 4
 # K5 against its plain version evaluated in float64 on the same inputs (the
 # float32 chunked plain form loses digits of its own under brutal decay),
 # held row by row as K2 is: a row is one token's (or one state row's, or
@@ -135,7 +151,7 @@ RWKV_STEP_LAYERS = 4       # the one-step check: full width, 4 layers
 # tests/test_torch_wkv6.py::test_card_limits_catch_a_dropped_chunk_of_tokens).
 WKV_F32_ROW_RTOL = 5e-4
 WKV_BF16_ROW_RTOL = 2.0 ** -7
-# one rwkv6 train step (4 layers, full width, seq 2048 x batch 4), kernels
+# the rwkv6 step check (4 layers, full width, seq 2048 x batch 4), kernels
 # vs plain versions.  The loss keeps the qwen2 check's limit (measured
 # 2.9e-4 on the H100).  The gradients cannot: at bf16 compute, the gradients of u, of the
 # r, k and decay projections and of what feeds them are sums over 8192
@@ -153,6 +169,36 @@ WKV_BF16_ROW_RTOL = 2.0 ** -7
 RWKV_STEP_LOSS_TOL = 1e-3
 RWKV_STEP_GNORM_RTOL = 5e-2
 RWKV_STEP_LEAF_RTOL = 0.15
+
+# recurrentgemma-9b (Griffin) at full width, cut to 5 of its 38 layers
+# (rec, rec, attn, rec, rec: one full pattern group and a 2-block
+# remainder, as the published model ends), trained at seq 4096 x batch 2.
+# Its data is SyntheticTokens' seed 2, not 0: the rule x -> a x + b mod V
+# of seed 0 has a = 60, which shares the factors 2 and 5 of V = 256000 =
+# 2^11 5^3, so every start reaches the rule's one fixed point within 6
+# tokens and 94 % of the targets are one token (AdamW's sign-like first
+# steps then overshoot and the loss swings between ~1 and ~30).  Seed 2's
+# a = 56 is prime to 5, so the rule permutes the residues mod 5^3: apart
+# from the noise, the targets run through cycles of at most 125 tokens,
+# none over 1 % of them, a bigram rule to learn.
+GRIFFIN_TRAIN = dict(seq_len=4096, global_batch=2, steps=6, seed=2)
+GRIFFIN_LAYERS = 5
+GRIFFIN_PARAMS = 3_223_498_752     # jax.eval_shape(lm.init) at 5 layers
+GRIFFIN_W, GRIFFIN_H, GRIFFIN_DH, GRIFFIN_WINDOW = 4096, 16, 256, 2048
+# K6 against its plain version evaluated in float64 on the same inputs, held
+# row by row (one token's W channels; y, h_last, da, db are float32): each
+# step of the kernel's walk is one float32 FMA whose rounding error decays
+# with a as the state does, so a row stays within a few float32 ulps (2^-24
+# = 6e-8) of its largest entry.  Measured on an H100 80GB HBM3 at 700 W at
+# the shapes below: at most 1.8e-7 (da under brutal decay); the limit is 5x
+# that.  A walk that drops one token's input moves later rows by over 1e-2
+# (tests/test_torch_rglru.py::test_card_limits_catch_a_dropped_token).
+RGLRU_ROW_RTOL = 1e-6
+# K2 at head dim 256 keeps K2's row-wise limits (FLASH_ROW_RTOL, LSE_TOL),
+# and the Griffin step check the qwen2 step check's limits.
+GRIFFIN_STEP_LOSS_TOL = 1e-3
+GRIFFIN_STEP_GNORM_RTOL = 1e-3
+GRIFFIN_STEP_LEAF_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -389,7 +435,8 @@ def check_training_kernels(torch, dev) -> dict:
     # tolerance that case was held to); K2: the largest |error| and the
     # largest row error over the cases, held to FLASH_ROW_RTOL
     worst = dict.fromkeys(("rmsnorm_fwd", "rmsnorm_bwd"), (0.0, 1.0))
-    worst.update(dict.fromkeys(("flash_fwd", "flash_bwd"), (0.0, 0.0)))
+    worst.update(dict.fromkeys(("flash_fwd", "flash_bwd", "flash_fwd_dh256",
+                                "flash_bwd_dh256"), (0.0, 0.0)))
 
     def record(name, err, tol):
         if err / tol >= worst[name][0] / worst[name][1]:
@@ -420,7 +467,7 @@ def check_training_kernels(torch, dev) -> dict:
         record("rmsnorm_fwd", a_y, NORM_TOL * m_y)
         record("rmsnorm_bwd", a_dx, NORM_TOL * m_dx)
 
-    def flash(B, S, T, H_, K_, D, causal, window, what):
+    def flash(B, S, T, H_, K_, D, causal, window, what, key=""):
         q, k, v, do = _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D)
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         o, lse = flash_fwd_kernel(q, k, v, **kw)
@@ -439,33 +486,56 @@ def check_training_kernels(torch, dev) -> dict:
             f"tol={FLASH_ROW_RTOL:.2e}/{LSE_TOL:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash attention disagrees with its plain version: {what}")
-        record_flash("flash_fwd", a_o, r_o)
-        record_flash("flash_bwd", a_g, max(r_g.values()))
+        record_flash(f"flash_fwd{key}", a_o, r_o)
+        record_flash(f"flash_bwd{key}", a_g, max(r_g.values()))
 
     norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale")
     norm(8 * 2048 * 40, 128, torch.bfloat16, "[B*S*H=655360, 128] qwen3 qk_norm shape")
     norm(16383, D_MODEL, torch.float32, f"[16383, {D_MODEL}] odd rows, f32 scale")
     norm(RWKV_TRAIN["seq_len"] * RWKV_TRAIN["global_batch"], RWKV_D, torch.bfloat16,
          f"[8192, {RWKV_D}] rwkv6-3b width, bf16 scale")
+    norm(GRIFFIN_TRAIN["seq_len"] * GRIFFIN_TRAIN["global_batch"], GRIFFIN_W,
+         torch.bfloat16, f"[8192, {GRIFFIN_W}] recurrentgemma-9b width, bf16 scale")
     flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal")
     flash(2, 300, 300, H, K, DH, True, 100, "B=2 S=T=300 window 100")
     flash(2, 200, 333, 4, 2, 128, False, None, "B=2 S=200 T=333 bidirectional dh=128")
     flash(1, 77, 77, 8, 8, 64, True, None, "B=1 S=T=77 MHA causal")
+    # Griffin's attention: head dim 256, MQA, window 2048 (its own rows)
+    B, S, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_WINDOW
+    flash(B, S, S, GRIFFIN_H, 1, GRIFFIN_DH, True, W,
+          f"B={B} S=T={S} H=16 K=1 dh=256 window {W}", "_dh256")
+    flash(1, 1000, 1000, GRIFFIN_H, 1, GRIFFIN_DH, True, W,
+          f"B=1 S=T=1000 H=16 K=1 dh=256 window {W} > S", "_dh256")
     return worst
 
 
 def time_training_kernels(torch, dev, worst: dict) -> dict:
-    """K1 and K2: kernel, plain and library times at the train path's shapes."""
+    """K1 and K2 (head dims 64 and 256): kernel, plain and library times at
+    the train paths' shapes; K1's rows are qwen2-0.5b's, the other widths
+    are logged."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = _time_norm(torch, gen, dev, NORM_ROWS, D_MODEL)
+    for name, t in out.items():
+        t.update(max_abs_err=worst[name][0], tolerance=worst[name][1])
+    for shape, width in ((RWKV_TRAIN, RWKV_D), (GRIFFIN_TRAIN, GRIFFIN_W)):
+        _time_norm(torch, gen, dev, shape["seq_len"] * shape["global_batch"], width)
+    out.update(_time_flash(torch, gen, dev, worst, TRAIN["global_batch"],
+                           TRAIN["seq_len"], H, K, DH, None, ""))
+    out.update(_time_flash(torch, gen, dev, worst, GRIFFIN_TRAIN["global_batch"],
+                           GRIFFIN_TRAIN["seq_len"], GRIFFIN_H, 1, GRIFFIN_DH,
+                           GRIFFIN_WINDOW, "_dh256"))
+    return out
+
+
+def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
+    """K1 at ``[N, D]`` bf16 with a bf16 scale: kernel, plain and library
+    (``F.rms_norm``; forward and backward for the backward row) times and
+    bounds, rows ``rmsnorm_fwd`` and ``rmsnorm_bwd``."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (
-        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
     from repro_torch.kernels.rmsnorm import (
         rmsnorm_bwd_kernel, rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    out = {}
-    N, D = NORM_ROWS, D_MODEL
     x = torch.randn((N, D), generator=gen, device=dev).bfloat16()
     sc = (1 + 0.3 * torch.randn((D,), generator=gen, device=dev)).bfloat16()
     dy = torch.randn((N, D), generator=gen, device=dev).bfloat16()
@@ -487,49 +557,71 @@ def time_training_kernels(torch, dev, worst: dict) -> dict:
                         lib_norm_fb,
                         bound(0, 3 * 2 * N * D + 4 * N + 2 * 2 * D)),
     }
+    out = {}
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
-        out[name] = dict(ms=cuda_ms(kern, 50), plain_ms=cuda_ms(plain, 20),
-                         library_ms=cuda_ms(lib, 50), bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=worst[name][0], tolerance=worst[name][1])
+        out[name] = t = dict(ms=cuda_ms(kern, 50), plain_ms=cuda_ms(plain, 20),
+                             library_ms=cuda_ms(lib, 50), bound_ms=b_ms, bound_by=b_by)
+        lib_name = "F.rms_norm" + (" fwd+bwd" if name.endswith("bwd") else "")
+        log(f"[timing] {name:13s} [{N}, {D}] bf16: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} ({lib_name}) "
+            f"bound_ms={b_ms:.6f} ({b_by})")
+    return out
 
-    B, S = TRAIN["global_batch"], TRAIN["seq_len"]
-    q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H, K, DH)
-    kw = dict(scale=DH ** -0.5, causal=True, window=None)
+
+def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
+    """K2 (causal) at one training shape: kernel, plain and library times,
+    rows ``flash_fwd{key}`` and ``flash_bwd{key}``.  The library yardstick is
+    SDPA; a window enters it as a boolean mask, with the kv heads expanded
+    to the query heads beforehand (not timed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H_, K_, D)
+    kw = dict(scale=D ** -0.5, causal=True, window=window)
     o, lse = flash_fwd_kernel(q, k, v, **kw)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    if window is None:
+        kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (k, v))
+        lib_kw = dict(is_causal=True, enable_gqa=True)
+    else:
+        kt, vt = (t.transpose(1, 2).repeat_interleave(H_ // K_, 1).contiguous()
+                  .requires_grad_(True) for t in (k, v))
+        lib_kw = dict(attn_mask=visible(S, S, True, window, dev))
     dot = do.transpose(1, 2).contiguous()
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              scale=DH ** -0.5, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=D ** -0.5, **lib_kw)
 
     def sdpa_fb():
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
-    pairs = B * H * S * (S + 1) // 2
-    io_bytes = 2 * (2 * B * S * H * DH + 2 * B * S * K * DH)
+    pairs = B * H_ * _window_pairs(S, window or S)
+    io_bytes = 2 * (2 * B * S * H_ * D + 2 * B * S * K_ * D)
     rows = {
-        "flash_fwd": (lambda: flash_fwd_kernel(q, k, v, **kw),
-                      lambda: flash_fwd_plain(q, k, v, **kw), sdpa,
-                      bound(4 * pairs * DH, io_bytes + 4 * B * H * S)),
-        "flash_bwd": (lambda: flash_bwd_kernel(q, k, v, o, lse, do, **kw),
-                      lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_fb,
-                      bound(10 * pairs * DH, 2 * io_bytes + 4 * B * H * S)),
+        f"flash_fwd{key}": (lambda: flash_fwd_kernel(q, k, v, **kw),
+                            lambda: flash_fwd_plain(q, k, v, **kw), sdpa,
+                            bound(4 * pairs * D, io_bytes + 4 * B * H_ * S)),
+        f"flash_bwd{key}": (lambda: flash_bwd_kernel(q, k, v, o, lse, do, **kw),
+                            lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_fb,
+                            bound(10 * pairs * D, 2 * io_bytes + 4 * B * H_ * S)),
     }
+    out = {}
+    what = f"B={B} S=T={S} H={H_} K={K_} dh={D} " + (
+        "causal" if window is None else f"window {window}")
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
-        out[name] = dict(ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
-                         library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=worst[name][0], max_row_err=worst[name][1],
-                         tolerance=FLASH_ROW_RTOL)
-    for name, t in out.items():
-        what = ("[16384, 896] bf16" if name.startswith("rms")
-                else "B=8 S=T=2048 H=14 K=2 dh=64 causal")
-        lib = ("F.rms_norm" if name.startswith("rms") else "SDPA") + (
-            " fwd+bwd" if name.endswith("bwd") else "")
-        log(f"[timing] {name:13s} {what}: kernel_ms={t['ms']:.4f} "
-            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} ({lib}) "
-            f"bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
+        out[name] = t = dict(
+            ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
+            library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=worst[name][0], max_row_err=worst[name][1],
+            tolerance=FLASH_ROW_RTOL)
+        torch.cuda.empty_cache()
+        lib_name = "SDPA" + (" fwd+bwd" if name.startswith("flash_bwd") else "")
+        log(f"[timing] {name:15s} {what}: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+            f"({lib_name}) bound_ms={b_ms:.6f} ({b_by})")
     return out
 
 
@@ -646,17 +738,102 @@ def time_wkv6_kernels(torch, dev, worst: dict) -> dict:
         log(f"[timing] {name:13s} B={B} T={T} H=40 N=64: kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
             f"computes WKV-6) bound_ms={b_ms:.6f} ({b_by})")
-
-    # K1 at the rwkv6 train path's shape, for the step's breakdown
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_kernel, rmsnorm_fwd_kernel
-
-    x = torch.randn((B * T, RWKV_D), generator=gen, device=dev).bfloat16()
-    sc = torch.ones((RWKV_D,), device=dev).bfloat16()
-    _, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
-    log(f"[timing] rmsnorm at [{B * T}, {RWKV_D}] bf16: fwd kernel_ms="
-        f"{cuda_ms(lambda: rmsnorm_fwd_kernel(x, sc, 1e-6), 50):.4f} bwd kernel_ms="
-        f"{cuda_ms(lambda: rmsnorm_bwd_kernel(x, sc, rstd, x), 50):.4f}")
     return out
+
+
+def _rglru_inputs(torch, gen, dev, B, T, W, kind):
+    """a, b float32 ``[B, T, W]`` as Griffin makes them (``model``: log a =
+    -8 softplus(lam) r, lam ~ U(-1, 1), r = sigmoid(N(0, 1)); b = sqrt(1 -
+    a^2) x) or under ``brutal`` decay (log a ~ U(-12, 0)); dy ~ N(0, 1)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if kind == "brutal":
+        log_a = -12 * torch.rand((B, T, W), generator=gen, device=dev)
+    else:
+        lam = 2 * torch.rand((W,), generator=gen, device=dev) - 1
+        log_a = -8 * torch.logaddexp(lam, torch.zeros_like(lam)) * torch.sigmoid(
+            rn(B, T, W))
+    b = torch.sqrt(-torch.expm1(2 * log_a)) * rn(B, T, W)
+    return torch.exp(log_a), b, rn(B, T, W)
+
+
+def check_rglru_kernels(torch, dev) -> dict:
+    """K6 forward and backward against the plain version in float64."""
+    from repro_torch.kernels.rglru import (
+        rglru_bwd_kernel, rglru_bwd_plain, rglru_fwd_kernel, rglru_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = {"rglru_fwd": (0.0, 0.0), "rglru_bwd": (0.0, 0.0)}
+
+    def case(B, T, W, kind, with_dh, what):
+        a, b, dy = _rglru_inputs(torch, gen, dev, B, T, W, kind)
+        dh = torch.randn((B, W), generator=gen, device=dev) if with_dh else None
+        y, h_last = rglru_fwd_kernel(a, b)
+        da, db = rglru_bwd_kernel(a, y, dy, dh)
+        torch.cuda.synchronize()
+        a64 = a.double()
+        ry, rh = rglru_plain(a64, b.double())
+        rda, rdb = rglru_bwd_plain(a64, ry, dy.double(),
+                                   None if dh is None else dh.double())
+        e = {"y": _row_err(y, ry), "h_last": _row_err(h_last, rh),
+             "da": _row_err(da, rda), "db": _row_err(db, rdb)}
+        a_f = max(_err(y, ry), _err(h_last, rh))
+        a_b = max(_err(da, rda), _err(db, rdb))
+        del a64, ry, rh, rda, rdb
+        ok = max(e.values()) <= RGLRU_ROW_RTOL
+        log(f"[kernels] rglru         {what:50s} "
+            + " ".join(f"{n}_row_err={x:.3e}" for n, x in e.items())
+            + f" tol={RGLRU_ROW_RTOL:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rglru disagrees with its plain version: {what}")
+        worst["rglru_fwd"] = tuple(map(max, worst["rglru_fwd"],
+                                       (a_f, max(e["y"], e["h_last"]))))
+        worst["rglru_bwd"] = tuple(map(max, worst["rglru_bwd"],
+                                       (a_b, max(e["da"], e["db"]))))
+
+    B, T, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_W
+    case(B, T, W, "model", False, f"[{B}, {T}, {W}] Griffin decays (main shape)")
+    case(1, 1000, 1000, "model", True, "[1, 1000, 1000] ragged T and W, dh_last")
+    case(1, 512, W, "brutal", True, f"[1, 512, {W}] brutal decay log a in [-12, 0]")
+    return worst
+
+
+def time_rglru_kernels(torch, dev, worst: dict) -> dict:
+    """K6: kernel and plain times at the Griffin training shape, and bounds."""
+    from repro_torch.kernels.rglru import (
+        rglru_bwd_kernel, rglru_bwd_plain, rglru_fwd_kernel, rglru_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, T, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_W
+    a, b, dy = _rglru_inputs(torch, gen, dev, B, T, W, "model")
+    y, _ = rglru_fwd_kernel(a, b)
+    n = B * T * W
+    # forward: a, b in, y out (float32) and the last state; one FMA an
+    # element.  backward: a, y, dy in, da, db out; three flops an element
+    rows = {
+        "rglru_fwd": (lambda: rglru_fwd_kernel(a, b), lambda: rglru_plain(a, b),
+                      bound(2 * n, 3 * 4 * n + 4 * B * W, F32_FLOPS_PER_S)),
+        "rglru_bwd": (lambda: rglru_bwd_kernel(a, y, dy),
+                      lambda: rglru_bwd_plain(a, y, dy),
+                      bound(3 * n, 5 * 4 * n, F32_FLOPS_PER_S)),
+    }
+    out = {}
+    for name, (kern, plain, (b_ms, b_by)) in rows.items():
+        out[name] = dict(ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 2, warmup=1),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=worst[name][0], max_row_err=worst[name][1],
+                         tolerance=RGLRU_ROW_RTOL)
+        t = out[name]
+        log(f"[timing] {name:13s} [{B}, {T}, {W}] float32: kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
+            f"computes the recurrence exactly) bound_ms={b_ms:.6f} ({b_by})")
+    return out
+
+
+def _window_pairs(S: int, window: int) -> int:
+    """Query-key pairs one head sees under the causal window."""
+    return sum(min(i + 1, window) for i in range(S))
 
 
 # ---------------------------------------------------------------- phase 4-5
@@ -783,47 +960,67 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams) -> None:
 # ---------------------------------------------------------------- phase 6-7
 
 
-def train_phase(torch, dev, arch: str, shape: dict, modules: tuple, per_layer: dict,
-                tag: str):
-    """Full-width ``arch`` trained ``shape["steps"]`` steps at its sequence
-    and batch through the loop, from a seed, at the CLI's optimizer
-    defaults.  ``per_layer`` maps each kernel of ``modules`` to its launches
-    per layer and step, plus one more (the final norm) for the RMSNorm
-    kernels."""
-    from repro_torch.configs import get_config
+def per_step_launches(cfg) -> dict:
+    """Kernel launches one train step makes with full remat: every layer's
+    forward runs twice (once in the forward, once recomputed in the
+    backward) and its backward once; two RMSNorms a layer (no qk_norm in
+    the trained configs) and the final norm, which is not recomputed."""
+    from repro_torch.models.lm import segment_layout
+
+    kinds = [k for pat, n in segment_layout(cfg) for _ in range(n) for k in pat]
+    mixer = {"dense": "flash", "attn": "flash", "rwkv": "wkv6", "rec": "rglru"}
+    out = {"rmsnorm_fwd": 4 * len(kinds) + 1, "rmsnorm_bwd": 2 * len(kinds) + 1}
+    for kind in kinds:
+        for way, n in (("fwd", 2), ("bwd", 1)):
+            name = f"{mixer[kind]}_{way}"
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
+    """``cfg`` (full width) trained ``shape["steps"]`` steps at its sequence
+    and batch, on ``SyntheticTokens`` of ``shape["seed"]``, through the
+    loop, from the parameters of seed 0, at the CLI's optimizer defaults;
+    each kernel of ``modules`` must launch exactly :func:`per_step_launches`
+    times a step, and every loss must be finite and the last below the
+    first.  Returns the config (remat full), the data config, the launch
+    counts and the step's numbers."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.model import count_params
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.optim import OptimizerConfig
     from repro_torch.train.train_step import init_train_state
 
-    cfg = get_config(arch).replace(remat="full")
+    cfg = cfg.replace(remat="full")
     steps = shape["steps"]
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq_len"],
-                      global_batch=shape["global_batch"], seed=0)
+                      global_batch=shape["global_batch"], seed=shape["seed"])
     # the CLI's defaults: lr 3e-4, cosine, warmup max(steps // 10, 5)
     ocfg = OptimizerConfig(lr=3e-4, schedule="cosine",
                            warmup_steps=max(steps // 10, 5), total_steps=steps)
     state = init_train_state(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
+    n_params = count_params(state.master)
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.padded_vocab} "
-        f"params={count_params(state.master)} remat={cfg.remat} "
-        f"seq={data.seq_len} batch={data.global_batch}")
+        f"params={n_params} remat={cfg.remat} "
+        f"seq={data.seq_len} batch={data.global_batch} data seed={data.seed}")
     torch.cuda.reset_peak_memory_stats()
     for m in modules:
         m.reset_launches()
     state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
                            state=state, device=dev)
     torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
     counts = {k: v for m in modules for k, v in m.launches.items()}
     peak = torch.cuda.max_memory_allocated()
     for h in history:
         log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
             f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
             f"tokens_per_s={h['tokens_per_s']:.1f}")
-    L = cfg.num_layers
-    per_step = {k: n * L + (k.startswith("rmsnorm")) for k, n in per_layer.items()}
+    want = per_step_launches(cfg)
+    per_step = {k: want.get(k, 0) for k in counts}
     steady = sorted(h["step_s"] for h in history[1:])
     step_s = steady[len(steady) // 2]
     tokens = data.seq_len * data.global_batch
@@ -837,72 +1034,86 @@ def train_phase(torch, dev, arch: str, shape: dict, modules: tuple, per_layer: d
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag} losses not finite and falling: {losses}")
-    return cfg, ocfg, data, state, counts, dict(step_s=step_s, tokens_per_s=tokens / step_s,
-                                               peak=peak)
+    return cfg, data, counts, dict(step_s=step_s, tokens_per_s=tokens / step_s,
+                                   peak=peak, params=n_params, losses=losses)
 
 
-def _wkv_in_float64(wkv):
-    """The model's WKV call with its plain version evaluated in float64 on
-    the same inputs, outputs back in float32: the noise probe below."""
-    def call(r, k, v, w, u, plain=False):
-        y, s = wkv(*(t.double() for t in (r, k, v, w, u)), plain=True)
-        return y.float(), s.float()
+def _in_float64(fn):
+    """``fn`` (the model's WKV or RG-LRU call) with its plain version
+    evaluated in float64 on the same inputs, outputs back in float32: the
+    noise probe below."""
+    import torch
+
+    def call(*args, plain=False):
+        outs = fn(*(t.double() if isinstance(t, torch.Tensor) else t for t in args),
+                  plain=True)
+        return tuple(t.float() for t in outs)
     return call
 
 
-def one_step_check(torch, cfg, ocfg, data, state, *, mixer: str, tag: str,
-                   batch_step: int, tols: tuple[float, float, float],
-                   probe_wkv64: bool = False) -> None:
-    """One step from one state and batch, kernels vs plain versions: loss,
-    global gradient norm, and per layer the gradient norm of every leaf of
-    the token mixer (``mixer``: attention or time mix) and of every norm
-    scale (plus the final norm's), held to ``tols`` (absolute loss,
-    relative grad_norm, relative leaf norm).  ``probe_wkv64`` also runs the
-    plain path with only its WKV evaluated in float64 and logs how far that
-    moves the same numbers: the bf16 noise floor of the comparison."""
-    from repro_torch.models import rwkv as rwkv_model
-
-    loss_tol, gnorm_rtol, leaf_rtol = tols
-    from repro_torch.data.pipeline import SyntheticTokens
+def _leaf_norms(grads: dict, mixer: str) -> dict:
+    """Per layer, the gradient norm of every leaf of the token mixer
+    (``mixer``: attention, time mix or Griffin's mix) and of every norm
+    scale; layer-stacked leaves carry the layer on axis 0."""
     from repro_torch.train.optim import leaves
-    from repro_torch.train.train_step import copy_state, make_train_step
 
-    def leaf_norms(grads):
-        # layer-stacked leaves carry the layer on axis 0: one norm per layer
-        norms.update({".".join(path): (g.float().flatten(1).norm(dim=1)
-                                       if path[0].startswith("seg") else g.float().norm())
-                      for path, g in leaves(grads)
-                      if mixer in path or path[-1] == "scale"})
-        return grads
+    return {".".join(path): (g.float().flatten(1).norm(dim=1)
+                             if path[0].startswith("seg") else g.float().norm())
+            for path, g in leaves(grads) if mixer in path or path[-1] == "scale"}
 
-    batch = SyntheticTokens(data).batch_at(batch_step)
+
+def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
+               tols: tuple[float, float, float], probe: tuple | None = None) -> None:
+    """The loss and gradients of one batch, from the bfloat16 parameters of
+    seed 0, through the kernels and through the plain versions: loss,
+    global gradient norm and :func:`_leaf_norms`, held to ``tols``
+    (absolute loss, relative grad_norm, relative leaf norm).  A train step
+    would add AdamW, the same code on both sides.  ``probe`` =
+    (module, name) also runs the plain path with only that module's
+    ``name`` call evaluated in float64 and logs how far that moves the same
+    numbers: the bf16 noise floor of the comparison."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import lm
+    from repro_torch.train.optim import global_norm, leaves
+    from repro_torch.train.train_step import compute_params, to_device_batch
+
+    params = compute_params(lm.init(cfg, seed=0, device=dev), torch.bfloat16)
+    batch = to_device_batch(SyntheticTokens(data).batch_at(batch_step), dev)
+    paths, flat = zip(*leaves(params))
     res = {}
-    for run in ("kernels", "plain") + (("plain_wkv64",) if probe_wkv64 else ()):
-        norms: dict = {}
-        wkv = rwkv_model.wkv6
-        if run == "plain_wkv64":
-            rwkv_model.wkv6 = _wkv_in_float64(wkv)
+    for run in ("kernels", "plain") + (("probe",) if probe else ()):
+        if run == "probe":
+            real = getattr(*probe)
+            setattr(*probe, _in_float64(real))
         try:
-            # a step consumes its state: each run steps from its own copy
-            _, m = make_train_step(cfg, ocfg, plain=run != "kernels",
-                                   grad_transform=leaf_norms)(copy_state(state), batch)
+            loss, _ = lm.loss_fn(cfg, params, batch, plain=run != "kernels")
+            grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
         finally:
-            rwkv_model.wkv6 = wkv
-        res[run] = (m["loss"].item(), m["grad_norm"].item(), norms)
-        del m
+            if run == "probe":
+                setattr(*probe, real)
+        tree: dict = {}
+        for path, g in grads.items():
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = g
+        res[run] = (loss.item(), global_norm(tree).item(), _leaf_norms(tree, mixer))
+        del loss, grads, tree
         torch.cuda.empty_cache()
+    del params
 
     def gaps(a, b):
         (la, ga, na), (lb, gb, nb) = res[a], res[b]
         return abs(la - lb), abs(ga - gb) / gb, {
             name: ((na[name] - nb[name]).abs() / nb[name]).max().item() for name in nb}
 
+    loss_tol, gnorm_rtol, leaf_rtol = tols
     (lk, gk, _), (lp, gp, _) = res["kernels"], res["plain"]
     d_loss, d_gn, d_leaf = gaps("kernels", "plain")
-    if probe_wkv64:
-        p_loss, p_gn, p_leaf = gaps("plain_wkv64", "plain")
+    if probe:
+        p_loss, p_gn, p_leaf = gaps("probe", "plain")
         worst = max(p_leaf, key=p_leaf.get)
-        log(f"[{tag}] noise probe, plain path with its WKV in float64 vs float32: "
+        log(f"[{tag}] noise probe, plain path with its {probe[1]} in float64 vs float32: "
             f"|dloss|={p_loss:.2e} rel dgrad_norm={p_gn:.2e} largest leaf "
             f"{worst}={p_leaf[worst]:.2e}")
     ok = (d_loss <= loss_tol and d_gn <= gnorm_rtol
@@ -915,8 +1126,8 @@ def one_step_check(torch, cfg, ocfg, data, state, *, mixer: str, tag: str,
         + " ".join(f"{n}={e:.2e}" for n, e in sorted(d_leaf.items()))
         + f" (tol {leaf_rtol}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{tag}: one train step through the kernels disagrees "
-                             "with the plain versions")
+        raise AssertionError(f"{tag}: the loss and gradients through the kernels "
+                             "disagree with the plain versions")
 
 
 # -------------------------------------------------------------------- main
@@ -931,12 +1142,13 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention, rmsnorm, wkv6
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rglru, rmsnorm, wkv6
     from repro_torch.kernels.flash_attention.ops import shared_memory_bytes as flash_smem
+    from repro_torch.models import griffin as griffin_model
+    from repro_torch.models import rwkv as rwkv_model
     from repro_torch.kernels.paged_attention.ops import shared_memory_bytes
     from repro_torch.kernels.wkv6.ops import shared_memory_bytes as wkv6_smem
-    from repro_torch.train.train_step import init_train_state
-
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns off TF32 / reduced-precision bf16 sums
     smi = subprocess.run(
@@ -957,9 +1169,12 @@ def main() -> int:
             smem, at = (shared_memory_bytes(name, H=H, K=K, dh=DH, bs=BS),
                         f"H={H} K={K} dh={DH} bs={BS}")
         elif name.startswith("flash"):
-            smem, at = flash_smem(name, DH), f"dh={DH}"
-        else:
+            smem, at = (f"{flash_smem(name, DH)} / {flash_smem(name, GRIFFIN_DH)}",
+                        f"dh={DH} / {GRIFFIN_DH}")
+        elif name.startswith("wkv6"):
             smem, at = wkv6_smem(name, RWKV_N), f"N={RWKV_N}"
+        else:
+            continue  # K6 uses no shared memory
         log(f"[build] {name}: {smem} bytes of shared memory per block at {at}")
 
     clock = {"t": time.perf_counter()}
@@ -972,10 +1187,12 @@ def main() -> int:
     worst = check_kernels(torch, dev)
     worst.update(check_training_kernels(torch, dev))
     worst.update(check_wkv6_kernels(torch, dev))
+    worst.update(check_rglru_kernels(torch, dev))
     phase("kernel checks")
     timings = time_kernels(torch, dev, worst)
     timings.update(time_training_kernels(torch, dev, worst))
     timings.update(time_wkv6_kernels(torch, dev, worst))
+    timings.update(time_rglru_kernels(torch, dev, worst))
     torch.cuda.empty_cache()
     phase("kernel timings")
     cfg, srv, specs, prompts, streams, counts = serve(torch, dev)
@@ -983,51 +1200,65 @@ def main() -> int:
     del srv
     torch.cuda.empty_cache()
     phase("serve and teacher-forced check")
-    # per step, with full remat every layer's forward runs twice (once in
-    # the forward, once recomputed in the backward) and its backward once;
-    # the final norm runs once each way.  qwen2-0.5b: two RMSNorms a layer
-    # (no qk_norm) and one attention above attn_kv_chunk (2048 > 1024: the
-    # flash branch), so flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd
-    # 2*2L + 1 = 97, rmsnorm_bwd 2L + 1 = 49
-    tcfg, ocfg, data, state, train_counts, _ = train_phase(
-        torch, dev, "qwen2-0.5b", TRAIN, (flash_attention, rmsnorm),
-        {"flash_fwd": 2, "flash_bwd": 1, "rmsnorm_fwd": 4, "rmsnorm_bwd": 2}, "train")
-    one_step_check(torch, tcfg, ocfg, data, state, mixer="attn", tag="step",
-                   batch_step=TRAIN["steps"],
-                   tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL))
-    del state
-    torch.cuda.empty_cache()
-    phase("qwen2 train and one-step check")
+    # launches per step (per_step_launches): qwen2-0.5b's one attention a
+    # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
+    # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
+    # rmsnorm_bwd 2L + 1 = 49
+    tcfg, data, train_counts, _ = train_phase(
+        torch, dev, get_config("qwen2-0.5b"), TRAIN, (flash_attention, rmsnorm),
+        "train")
+    step_check(torch, dev, tcfg, data, mixer="attn", tag="step",
+               batch_step=TRAIN["steps"],
+               tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL))
+    phase("qwen2 train and step check")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
     # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65
-    rcfg, rocfg, rdata, state, rwkv_counts, _ = train_phase(
-        torch, dev, "rwkv6-3b", RWKV_TRAIN, (wkv6, rmsnorm),
-        {"wkv6_fwd": 2, "wkv6_bwd": 1, "rmsnorm_fwd": 4, "rmsnorm_bwd": 2},
-        "train-rwkv")
-    del state
-    torch.cuda.empty_cache()
+    rcfg, rdata, rwkv_counts, _ = train_phase(
+        torch, dev, get_config("rwkv6-3b"), RWKV_TRAIN, (wkv6, rmsnorm), "train-rwkv")
     phase("rwkv6 train")
-    # full width at 4 layers, so that the state and its copy fit side by side
-    rcfg = rcfg.replace(num_layers=RWKV_STEP_LAYERS)
-    state = init_train_state(rcfg, seed=0, device=dev)
-    one_step_check(torch, rcfg, rocfg, rdata, state, mixer="att", tag="step-rwkv",
-                   batch_step=RWKV_TRAIN["steps"],
-                   tols=(RWKV_STEP_LOSS_TOL, RWKV_STEP_GNORM_RTOL, RWKV_STEP_LEAF_RTOL),
-                   probe_wkv64=True)
-    del state
-    torch.cuda.empty_cache()
-    phase("rwkv6 one-step check")
+    step_check(torch, dev, rcfg.replace(num_layers=RWKV_STEP_LAYERS), rdata,
+               mixer="att", tag="step-rwkv", batch_step=RWKV_TRAIN["steps"],
+               tols=(RWKV_STEP_LOSS_TOL, RWKV_STEP_GNORM_RTOL, RWKV_STEP_LEAF_RTOL),
+               probe=(rwkv_model, "wkv6"))
+    phase("rwkv6 step check")
+    # recurrentgemma-9b at full width, depth cut to 5 of 38 layers (rec,
+    # rec, attn, rec, rec): the full model's train state (~150 GB) does not
+    # fit one card.  rglru_fwd 2 x 4 rec layers = 8, rglru_bwd 4, flash_fwd
+    # 2 x 1 attention layer = 2, flash_bwd 1, rmsnorm_fwd 2*2*5 + 1 = 21,
+    # rmsnorm_bwd 2*5 + 1 = 11
+    gcfg = get_config("recurrentgemma-9b").replace(num_layers=GRIFFIN_LAYERS)
+    log(f"[train-griffin] depth cut: {GRIFFIN_LAYERS} of "
+        f"{get_config('recurrentgemma-9b').num_layers} layers, full width")
+    gcfg, gdata, griffin_counts, gstats = train_phase(
+        torch, dev, gcfg, GRIFFIN_TRAIN, (rglru, flash_attention, rmsnorm),
+        "train-griffin")
+    if gstats["params"] != GRIFFIN_PARAMS:
+        raise AssertionError(f"recurrentgemma-9b at {GRIFFIN_LAYERS} layers has "
+                             f"{gstats['params']} parameters, not {GRIFFIN_PARAMS}")
+    log(f"[train-griffin] first loss {gstats['losses'][0]:.4f}, ln V = "
+        f"{math.log(gcfg.vocab_size):.4f}")
+    phase("griffin train")
+    step_check(torch, dev, gcfg, gdata, mixer="mix", tag="step-griffin",
+               batch_step=GRIFFIN_TRAIN["steps"],
+               tols=(GRIFFIN_STEP_LOSS_TOL, GRIFFIN_STEP_GNORM_RTOL,
+                     GRIFFIN_STEP_LEAF_RTOL),
+               probe=(griffin_model, "rglru_scan"))
+    phase("griffin step check")
 
     # launches: the paged kernels' from the serve phase, K1's and K2's from
-    # the qwen2 train phase, K5's from the rwkv6 train phase (K1's serve and
-    # rwkv6 counts are checked in those phases); K1's tolerance: the
-    # absolute bound of its case nearest it; K2's and K5's: the row-relative
-    # limits their ``max_row_err`` are held to
+    # the qwen2 train phase (K2 at dh 256: the griffin train phase), K5's
+    # from the rwkv6 train phase, K6's from the griffin train phase (K1's
+    # serve, rwkv6 and griffin counts are checked in those phases); K1's
+    # tolerance: the absolute bound of its case nearest it; K2's, K5's and
+    # K6's: the row-relative limits their ``max_row_err`` are held to
     counts.update(train_counts)
     counts.update({k: v for k, v in rwkv_counts.items() if k.startswith("wkv6")})
+    counts.update({k: v for k, v in griffin_counts.items() if k.startswith("rglru")})
+    counts.update({f"{k}_dh256": griffin_counts[k] for k in ("flash_fwd", "flash_bwd")})
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
     wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
+    rglru_src = "src/repro/kernels/rglru/kernel.py:49"
     norm_src = "src/repro/kernels/rmsnorm/kernel.py:26"
     norm_path = REPO / "src/repro_torch/kernels/rmsnorm/rmsnorm_triton.py"
     rows = [
@@ -1041,6 +1272,10 @@ def main() -> int:
         ("flash_bwd", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
         ("wkv6_fwd", "cuda", _build.SOURCES["wkv6_fwd"], wkv6_src, None),
         ("wkv6_bwd", "cuda", _build.SOURCES["wkv6_bwd"], wkv6_src, None),
+        ("flash_fwd_dh256", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
+        ("flash_bwd_dh256", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
+        ("rglru_fwd", "cuda", _build.SOURCES["rglru_fwd"], rglru_src, None),
+        ("rglru_bwd", "cuda", _build.SOURCES["rglru_bwd"], rglru_src, None),
     ]
     kernels = []
     for name, route, path, replaces, tol in rows:

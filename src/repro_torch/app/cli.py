@@ -3,6 +3,7 @@
     python -m repro_torch train --arch qwen2-0.5b --seq-len 2048 --global-batch 8 --steps 8
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
     python -m repro_torch train --arch rwkv6-3b --seq-len 2048 --global-batch 4 --steps 6
+    python -m repro_torch train --arch recurrentgemma-9b --smoke --device cpu --steps 3
     python -m repro_torch serve --arch qwen2-0.5b --continuous
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu
 

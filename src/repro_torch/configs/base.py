@@ -4,8 +4,8 @@ Every architecture module in this package defines a ``CONFIG`` (full size,
 exact published values) and a ``SMOKE_CONFIG`` (same family, tiny dims) used
 by CPU tests.  The fields and defaults match the JAX package's
 ``ModelConfig`` one for one, so a config built here describes the same model
-as its namesake there.  Only the dense GQA family is served by this slice of
-the port; the other families' sub-configs are kept so the dataclass stays a
+as its namesake there.  Only the dense GQA family is served by the port so
+far; the other families' sub-configs are kept so the dataclass stays a
 faithful copy.
 """
 
@@ -108,6 +108,10 @@ class ModelConfig:
         p = self.vocab_pad_to
         return ((self.vocab_size + p - 1) // p) * p
 
+    @property
+    def lru_width(self) -> int:
+        return self.griffin.lru_width or self.d_model
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -143,7 +147,7 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import importlib
 
-    # the dense GQA archs and RWKV-6; the other families arrive with their
-    # own slices (ROADMAP queue 1)
-    for mod in ("qwen2_0_5b", "qwen3_14b", "rwkv6_3b"):
+    # the dense GQA archs, RWKV-6 and Griffin; the other families arrive
+    # with their own slices (ROADMAP queue 1)
+    for mod in ("qwen2_0_5b", "qwen3_14b", "rwkv6_3b", "recurrentgemma_9b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

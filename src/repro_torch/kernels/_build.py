@@ -29,6 +29,8 @@ SOURCES = {
     "flash_bwd": _KERNELS / "flash_attention" / "csrc" / "flash_bwd.cu",
     "wkv6_fwd": _KERNELS / "wkv6" / "csrc" / "wkv6_fwd.cu",
     "wkv6_bwd": _KERNELS / "wkv6" / "csrc" / "wkv6_bwd.cu",
+    "rglru_fwd": _KERNELS / "rglru" / "csrc" / "rglru_fwd.cu",
+    "rglru_bwd": _KERNELS / "rglru" / "csrc" / "rglru_bwd.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 FLAGS = (
@@ -102,7 +104,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> list[str]:
-    """What ptxas said about kernel ``name``: registers, stack, spills."""
+    """What ptxas said about kernel ``name``: each entry function (its
+    mangled name names the template instantiation), then its registers,
+    stack and spills."""
     log = library_path(name).with_suffix(".log").read_text()
     return [ln.strip() for ln in log.splitlines()
-            if "Used" in ln or "spill" in ln]
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln]

@@ -35,6 +35,13 @@
 //      the forward: S = Q K^T and dP = dO V^T, then dQ += dS K.
 // Q, dO (and K for dq) are also stored transposed in shared memory, so every
 // B operand loads as 32-bit words.
+//
+// Head dim 256 (Griffin): dK and dV in registers would take 2 x 128 float32
+// registers a thread, over the 255 cap.  As in the forward, the output
+// columns are split across the grid (flash_common.cuh:col_split): blockIdx.z
+// owns 128 of them, both blocks compute the score products (S^T and dP^T,
+// or S and dP) over the full 256 dims and each its half of the output
+// products, so each accumulator is 64 registers a thread, as at head dim 128.
 #include "flash_common.cuh"
 
 namespace {
@@ -67,7 +74,7 @@ constexpr int DKV_QT = 32;          // queries per step of its loop
 constexpr int DQ_QT = 16 * WARPS;   // queries per dq block
 constexpr int DQ_KT = 64;           // keys per step of its loop
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -75,15 +82,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
     int S, int T, int H, int K, float scale, int causal, int window) {
   constexpr int KT = DKV_KT, QT = DKV_QT, LD = D + 8, TLD = QT + 8;
   const int t0 = blockIdx.x * KT, bk = blockIdx.y, b = bk / K, kh = bk - b * K;
-  const int G = H / K;
+  const int G = H / K, c0 = blockIdx.z * DC;
   extern __shared__ uint4 smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [KT][LD]
   bf16* v_s = k_s + KT * LD;                      // [KT][LD]
   bf16* q_s = v_s + KT * LD;                      // [QT][LD]
   bf16* do_s = q_s + QT * LD;                     // [QT][LD]
-  bf16* qt_s = do_s + QT * LD;                    // [D][TLD], Q transposed
-  bf16* dot_s = qt_s + D * TLD;                   // [D][TLD], dO transposed
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * TLD);  // [QT]
+  bf16* qt_s = do_s + QT * LD;                    // [DC][TLD], Q^T columns c0..
+  bf16* dot_s = qt_s + DC * TLD;                  // [DC][TLD], dO^T columns c0..
+  float* lse_s = reinterpret_cast<float*>(dot_s + DC * TLD);  // [QT]
   float* dl_s = lse_s + QT;                                   // [QT]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
@@ -93,9 +100,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   load_rows<D, KT>(k_s, k + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
   load_rows<D, KT>(v_s, v + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
   const int row_lo = causal ? t0 : 0;
@@ -110,8 +117,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
       const bf16* dp = dout + (((size_t)b * S + qlo) * H + h) * D;
       load_rows<D, QT>(q_s, qp, q_stride, nq);
       load_rows<D, QT>(do_s, dp, q_stride, nq);
-      load_rows_t<D, QT>(qt_s, qp, q_stride, nq);
-      load_rows_t<D, QT>(dot_s, dp, q_stride, nq);
+      load_rows_t<DC, QT>(qt_s, qp + c0, q_stride, nq);
+      load_rows_t<DC, QT>(dot_s, dp + c0, q_stride, nq);
       for (int i = threadIdx.x; i < QT; i += THREADS) {
         const size_t at = ((size_t)b * H + h) * S + qlo + i;
         lse_s[i] = i < nq ? lse[at] : 0.f;
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
         c_to_a(sa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
         for (int kk = 0; kk < QT / 16; ++kk) {
           uint32_t b0, b1;
@@ -173,9 +180,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= T) continue;
-    const size_t at = (((size_t)b * T + key[i]) * K + kh) * D + 2 * t;
+    const size_t at = (((size_t)b * T + key[i]) * K + kh) * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
           __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
@@ -184,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -192,13 +199,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     float scale, int causal, int window) {
   constexpr int QT = DQ_QT, KT = DQ_KT, LD = D + 8, TLD = KT + 8;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / (H / K);
-  const int qlo = blockIdx.x * QT;
+  const int qlo = blockIdx.x * QT, c0 = blockIdx.z * DC;
   extern __shared__ uint4 smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [QT][LD]
   bf16* do_s = q_s + QT * LD;                     // [QT][LD]
   bf16* k_s = do_s + QT * LD;                     // [KT][LD]
   bf16* v_s = k_s + KT * LD;                      // [KT][LD]
-  bf16* kt_s = v_s + KT * LD;                     // [D][TLD], K transposed
+  bf16* kt_s = v_s + KT * LD;                     // [DC][TLD], K^T columns c0..
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
   const int row[2] = {qlo + r0 + g, qlo + r0 + g + 8};
@@ -213,9 +220,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     row_dl[i] = row[i] < S ? delta[(size_t)bh * S + row[i]] : 0.f;
   }
 
-  float acc[D / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   const int col_hi = causal ? min(T, qlo + nq) : T;
   const int col_lo = window >= 0 ? max(0, qlo - window + 1) : 0;
 
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const bf16* kp = k + (((size_t)b * T + t0) * K + kh) * D;
     load_rows<D, KT>(k_s, kp, kv_stride, nk);
     load_rows<D, KT>(v_s, v + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
-    load_rows_t<D, KT>(kt_s, kp, kv_stride, nk);
+    load_rows_t<DC, KT>(kt_s, kp + c0, kv_stride, nk);
     __syncthreads();
 
     float s[KT / 8][4], dp[KT / 8][4];
@@ -263,7 +270,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) c_to_a(sa[kk], s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk) {
         uint32_t b0, b1;
@@ -275,9 +282,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= S) continue;
-    bf16* out = dq + (((size_t)b * S + row[i]) * H + h) * D + 2 * t;
+    bf16* out = dq + (((size_t)b * S + row[i]) * H + h) * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
           __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
   }
@@ -286,14 +293,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 template <int D>
 size_t dkdv_smem() {
   return sizeof(bf16) * ((size_t)(2 * DKV_KT + 2 * DKV_QT) * (D + 8) +
-                         2 * (size_t)D * (DKV_QT + 8)) +
+                         2 * (size_t)col_split<D>() * (DKV_QT + 8)) +
          sizeof(float) * 2 * DKV_QT;
 }
 
 template <int D>
 size_t dq_smem() {
   return sizeof(bf16) * ((size_t)(2 * DQ_QT + 2 * DQ_KT) * (D + 8) +
-                         (size_t)D * (DQ_KT + 8));
+                         (size_t)col_split<D>() * (DQ_KT + 8));
 }
 
 template <int D>
@@ -306,11 +313,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
            void* dv, int B, int S, int T, int H, int K, float scale, int causal,
            int window, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  constexpr int DC = col_split<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, DC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)dkdv_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dq_smem<D>());
   if (err != cudaSuccess) return (int)err;
@@ -319,15 +327,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       (const bf16*)o, (const bf16*)dout, (float*)delta, B, S, H, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<D><<<dim3((T + DKV_KT - 1) / DKV_KT, B * K), THREADS,
-                             dkdv_smem<D>(), st>>>(
+  flash_bwd_dkdv_kernel<D, DC><<<dim3((T + DKV_KT - 1) / DKV_KT, B * K, D / DC),
+                                 THREADS, dkdv_smem<D>(), st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S, T, H, K, scale,
       causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<dim3((S + DQ_QT - 1) / DQ_QT, B * H), THREADS,
-                           dq_smem<D>(), st>>>(
+  flash_bwd_dq_kernel<D, DC><<<dim3((S + DQ_QT - 1) / DQ_QT, B * H, D / DC),
+                               THREADS, dq_smem<D>(), st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dq, S, T, H, K, scale, causal,
       window);
@@ -344,6 +352,7 @@ extern "C" size_t flash_bwd_smem_bytes(int D) {
     case 32: return bwd_smem<32>();
     case 64: return bwd_smem<64>();
     case 128: return bwd_smem<128>();
+    case 256: return bwd_smem<256>();
     default: return 0;
   }
 }
@@ -365,6 +374,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
     FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(64)
     FLASH_BWD_CASE(128)
+    FLASH_BWD_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_CASE

@@ -28,6 +28,17 @@ constexpr float NEG = -1e30f;
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 
+// Output columns one block owns at head dim D: all of them up to 128; at
+// 256, half, blockIdx.z choosing which.  A warp keeps a float32 accumulator
+// of 16 rows x DC columns, DC/2 registers a thread for each output it sums
+// (O in the forward, dK and dV or dQ in the backward): above 128 columns
+// that passes the 255-register cap with the score tiles beside it, so
+// instead the two blocks of a tile each recompute the scores over all D.
+template <int D>
+__host__ __device__ constexpr int col_split() {
+  return D > 128 ? 128 : D;
+}
+
 __device__ __forceinline__ bool visible(int row, int col, int S, int T, int causal,
                                         int window) {
   bool ok = row < S && col < T;

@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_bwd_plain, flash_fwd_plain
 
 launches = {"flash_fwd": 0, "flash_bwd": 0}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

@@ -17,10 +17,10 @@ paged branches of :func:`gqa_apply` go through ``kernels.paged_attention``
 plain PyTorch versions on any device: the card's reference runs.
 
 Ported: the paged serving branches and the non-cached training branch of
-the attention block; the dense cached, gathered and local-block paths arrive
-with later slices.  ``norm_init`` also builds layernorm parameters (scale
-and bias, for RWKV-6's ``ln_x`` group norm, which ``models/rwkv.py``
-applies inline); ``norm_apply`` takes rmsnorm only.
+the attention block (windowed for Griffin); the dense cached, gathered and
+local-block paths arrive with later slices.  ``norm_init`` also builds
+layernorm parameters (scale and bias, for RWKV-6's ``ln_x`` group norm,
+which ``models/rwkv.py`` applies inline); ``norm_apply`` takes rmsnorm only.
 """
 
 from __future__ import annotations
@@ -84,6 +84,8 @@ class ParamBuilder:
             val = torch.ones(full, **kw)
         elif init == "const":
             val = torch.full(full, fill, **kw)
+        elif init == "uniform":  # U(-scale, scale)
+            val = (2 * torch.rand(full, generator=self.gen, **kw) - 1) * scale
         else:
             raise ValueError(init)
         self.params[name] = val
@@ -221,8 +223,8 @@ def attention(
         return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
     if impl == "local_block" and window is not None and S == T and S % window == 0:
         raise NotImplementedError(
-            "local_block attention is ported with Griffin (ROADMAP queue 1, "
-            "item 13)")
+            "local_block attention (no config selects it) is ported with the "
+            "Griffin serving slice (ROADMAP queue 1, item 13)")
     if kv_len is not None:
         raise NotImplementedError(
             "flash attention over a dense cache (kv_len) is ported with the "
@@ -237,6 +239,7 @@ def gqa_apply(
     x: torch.Tensor,             # [B, S, D]
     *,
     positions: torch.Tensor,     # [S] (training) or [B, S] (paged) positions
+    window: int | None = None,   # sliding window (Griffin's local attention)
     pool: dict | None = None,    # {"k", "v"}: [n_layers, NB, bs, K, dh], in place
     paged: PagedInfo | None = None,
     plain: bool = False,
@@ -244,8 +247,9 @@ def gqa_apply(
     """The attention block.
 
     Without a pool this is the training branch (``cache is None`` in JAX):
-    qk_norm on q and k, rope on both, then :func:`attention`; ``plain``
-    selects the plain norm and attention.  With a pool, ``paged.prefill``
+    qk_norm on q and k, rope on both, then :func:`attention` over the
+    ``window``; ``plain`` selects the plain norm and attention.  With a
+    pool (no window yet: the dense family has none), ``paged.prefill``
     with more than one query is the fused flash-prefill branch: the raw q
     goes to the kernel, whose prologue applies qk_norm and rope.  Otherwise
     this is paged decode: rope q, write the new K/V into the pool at
@@ -269,9 +273,13 @@ def gqa_apply(
         q = apply_rope(q, positions, cfg.rope_theta)
         kk = apply_rope(kk, positions, cfg.rope_theta)
         o = attention(q, kk, vv, scale=scale, positions_q=positions,
-                      impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
-                      plain=plain)
+                      window=window, impl=cfg.attn_impl,
+                      kv_chunk=cfg.attn_kv_chunk, plain=plain)
     else:
+        if window is not None:
+            raise NotImplementedError(
+                "windowed paged attention is ported with the Griffin serving "
+                "slice (ROADMAP queue 1, item 13)")
         o = _paged_attention_block(q, kk, vv, cfg, positions, pool, paged,
                                    scale, q_norm, k_norm)
     wo = p["wo"].to(dt)
@@ -322,14 +330,17 @@ def mlp_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.mlp_kind != "swiglu":
+    """SwiGLU or GeGLU; the GeGLU gate is the tanh form of gelu, which
+    ``jax.nn.gelu`` computes by default."""
+    if cfg.mlp_kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_kind={cfg.mlp_kind}: ported with the families that use it "
             "(ROADMAP queue 1)")
     dt = x.dtype
     h = x @ p["w_up"].to(dt)
     g = x @ p["w_gate"].to(dt)
-    return (F.silu(g) * h) @ p["w_down"].to(dt)
+    act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
+    return (act * h) @ p["w_down"].to(dt)
 
 
 def embed_init(b: ParamBuilder, cfg: ModelConfig) -> None:

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense GQA and RWKV-6 families, in
-PyTorch.
+"""Decoder-only LM assembly for the dense GQA, RWKV-6 and Griffin families,
+in PyTorch.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_layers, ...]`` under
@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import PagedInfo
+from repro_torch.models import griffin as gf
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as rk
 
@@ -36,11 +37,19 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     """Returns [(block_kinds_per_group, n_groups), ...] covering all layers."""
     if cfg.family == "rwkv6":
         return [(("rwkv",), cfg.num_layers)]
+    if cfg.family == "griffin":  # pattern groups, then the remainder
+        pat = cfg.griffin.pattern
+        n_full, rem = divmod(cfg.num_layers, len(pat))
+        return ([(pat, n_full)] if n_full else []) + (
+            [(pat[:rem], 1)] if rem else [])
     if cfg.family != "dense" or cfg.use_mla:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is ported in a later slice "
-            "(ROADMAP queue 1); dense GQA and RWKV-6 models are ported")
+            "(ROADMAP queue 1); dense GQA, RWKV-6 and Griffin models are ported")
     return [(("dense",), cfg.num_layers)]
+
+
+_SERVING_SLICE = {"rwkv6": "RWKV serving slice", "griffin": "Griffin serving slice"}
 
 
 def require_paged(cfg: ModelConfig) -> None:
@@ -50,8 +59,8 @@ def require_paged(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: serving the {cfg.family} family (a carried "
-            "recurrent state, pow2 segment prefill) is ported with the RWKV "
-            "serving slice (ROADMAP queue 1, item 13)")
+            "recurrent state, pow2 segment prefill) is ported with the "
+            f"{_SERVING_SLICE[cfg.family]} (ROADMAP queue 1, item 13)")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
@@ -67,6 +76,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
             blk = seg.sub(f"b{j}")
             if kind == "rwkv":
                 rk.rwkv_block_init(blk, cfg)
+                continue
+            if kind in ("rec", "attn"):
+                gf.griffin_block_init(blk, cfg, kind)
                 continue
             L.norm_init(blk, "ln1", cfg.d_model, cfg.norm_kind)
             L.norm_init(blk, "ln2", cfg.d_model, cfg.norm_kind)
@@ -112,9 +124,13 @@ def _resid(cfg: ModelConfig, x: torch.Tensor, delta: torch.Tensor) -> torch.Tens
 def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
            positions: torch.Tensor, pool: dict | None, paged: PagedInfo | None,
            plain: bool) -> torch.Tensor:
-    """One decoder layer (``_block_apply``'s rwkv and dense branches)."""
+    """One decoder layer (``_block_apply``'s rwkv, griffin and dense
+    branches)."""
     if kind == "rwkv":
         return rk.rwkv_block_apply(p, cfg, x, plain=plain)[0]
+    if kind in ("rec", "attn"):
+        return gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
+                                      plain=plain)[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     a = L.gqa_apply(p["attn"], cfg, h, positions=positions, pool=pool,
                     paged=paged, plain=plain)
@@ -192,7 +208,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
             plain: bool = False) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
     cross entropy of ``batch`` (``tokens``, ``targets``, optional
-    ``loss_mask``); the dense and RWKV-6 families have no auxiliary loss."""
+    ``loss_mask``); the ported families have no auxiliary loss."""
     hidden = forward(cfg, params, batch["tokens"], plain=plain)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
                                   batch.get("loss_mask"))

@@ -1,6 +1,6 @@
 """Family dispatch and helpers, counterpart of ``repro.models.model``.
 
-The decoder LM is ported for the dense and RWKV-6 families:
+The decoder LM is ported for the dense, RWKV-6 and Griffin families:
 :func:`get_model` returns its entry points (``lm.segment_layout`` refuses
 the families still to come) and refuses the encoder-decoder family, which
 arrives with a later slice (ROADMAP queue 1, item 13).

@@ -63,11 +63,24 @@ def test_plain_forward_matches_pallas_interpret(case):
 @pytest.mark.parametrize("case", [c for c in CASES if c[1] == c[2]],
                          ids=[i for c, i in zip(CASES, IDS) if c[1] == c[2]])
 def test_lse_and_grads_match_flash_custom_vjp(case):
+    _check_against_custom_vjp(case, D=16)
+
+
+@pytest.mark.parametrize("case", [(1, 70, 70, 4, 1, True, 16),
+                                  (2, 40, 40, 2, 1, True, 24)],
+                         ids=["mqa-window16", "mqa-window24"])
+def test_head_dim_256_matches_flash_custom_vjp(case):
+    """Griffin's attention: head dim 256 (K2 splits its output columns
+    across the grid there), MQA, a window shorter than the sequence."""
+    _check_against_custom_vjp(case, D=256)
+
+
+def _check_against_custom_vjp(case, D):
     B, S, T, H, K, causal, window = case
-    q, k, v = _qkv(B, S, T, H, K, seed=1)
+    q, k, v = _qkv(B, S, T, H, K, D=D, seed=1)
     do = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
-    scale, chunk = 0.25, 16
-    G, D = H // K, q.shape[-1]
+    scale, chunk = D ** -0.5, 16
+    G = H // K
     pq = jnp.arange(S)
 
     qg = jnp.asarray(q).reshape(B, S, K, G, D)

@@ -295,3 +295,130 @@ def test_wkv6_wrappers_refuse_wrong_operands(cuda):
                         u[:, :32].contiguous())
     with pytest.raises(ValueError, match="heads"):
         wkv6_fwd_kernel(rb, rb, rb, w, torch.zeros((3, 64), device=cuda))
+
+
+# ------------------------------------------------ card: K6 (RG-LRU) ---
+
+# K6 against its plain version evaluated in float64 on the same inputs, held
+# row by row (one token's W channels, relative to the row's largest entry):
+# y, h_last, da and db are float32 FMA chains whose rounding decays with a;
+# the limit is chip_smoke.py's RGLRU_ROW_RTOL.
+K6_ROW_RTOL = 1e-6
+
+
+def _rglru_card_inputs(g, dev, B, T, W, kind):
+    if kind == "brutal":
+        log_a = -12 * torch.rand((B, T, W), generator=g, device=dev)
+    else:
+        lam = 2 * torch.rand((W,), generator=g, device=dev) - 1
+        log_a = -8 * torch.logaddexp(lam, torch.zeros_like(lam)) * torch.sigmoid(
+            torch.randn((B, T, W), generator=g, device=dev))
+    b = torch.sqrt(-torch.expm1(2 * log_a)) * torch.randn((B, T, W), generator=g,
+                                                           device=dev)
+    return torch.exp(log_a), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,W,kind,with_dh", [
+    (2, 4096, 4096, "model", False),   # the Griffin training shape
+    (1, 1000, 1000, "model", True),    # ragged T and W, the last state's cotangent
+    (1, 512, 4096, "brutal", True),    # log a down to -12
+    (3, 5, 130, "model", True),        # fewer tokens than the loads ahead
+])
+def test_rglru_kernels_match_plain(cuda, B, T, W, kind, with_dh):
+    from repro_torch.kernels.rglru import (
+        launches as k6, reset_launches as reset_k6, rglru_bwd_kernel,
+        rglru_bwd_plain, rglru_fwd_kernel, rglru_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a, b = _rglru_card_inputs(g, cuda, B, T, W, kind)
+    dy = torch.randn((B, T, W), generator=g, device=cuda)
+    dh = torch.randn((B, W), generator=g, device=cuda) if with_dh else None
+    reset_k6()
+    y, h_last = rglru_fwd_kernel(a, b)
+    da, db = rglru_bwd_kernel(a, y, dy, dh)
+    torch.cuda.synchronize()
+    assert k6 == {"rglru_fwd": 1, "rglru_bwd": 1}
+    ry, rh = rglru_plain(a.double(), b.double())
+    assert _row_err(y, ry) <= K6_ROW_RTOL
+    assert _row_err(h_last, rh) <= K6_ROW_RTOL
+    rda, rdb = rglru_bwd_plain(a.double(), ry, dy.double(),
+                               None if dh is None else dh.double())
+    assert _row_err(da, rda) <= K6_ROW_RTOL
+    assert _row_err(db, rdb) <= K6_ROW_RTOL
+
+
+@pytest.mark.gpu
+def test_rglru_wrappers_refuse_wrong_operands(cuda):
+    from repro_torch.kernels.rglru import rglru_fwd_kernel
+
+    a = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        rglru_fwd_kernel(a.bfloat16(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_fwd_kernel(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        rglru_fwd_kernel(a, a[:, :4].contiguous())
+
+
+# --------------------------------- card: K2 at Griffin's head dim 256 ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,window", [
+    (1, 700, 16, 256),     # MQA (G = 16), window < S
+    (2, 130, 4, 2048),     # window > S: plain causal
+    (1, 333, 8, 100),      # ragged S, several window tiles
+])
+def test_flash_kernels_at_head_dim_256_match_plain(cuda, B, S, H, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+
+    D = 256
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, 1, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, 1, D), generator=g, device=cuda).bfloat16()
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=D ** -0.5, causal=True, window=window)
+    o, lse = flash_fwd_kernel(q, k, v, **kw)
+    grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    ro, rlse = flash_fwd_plain(q, k, v, **kw)
+    assert _row_err(o, ro) <= K2_ROW_RTOL
+    assert (lse - rlse).abs().max() <= K2_LSE_TOL
+    for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
+        assert _row_err(ours, ref) <= K2_ROW_RTOL
+
+
+# ------------------------------------ card: one Griffin smoke train step ---
+
+
+@pytest.mark.gpu
+def test_griffin_smoke_train_step_launches_its_kernels(cuda):
+    """One train step of the recurrentgemma-9b smoke config on the card goes
+    through K6 (3 rec layers), K2 (1 windowed attention layer) and K1, as
+    often as full remat says, and gives a finite loss near the plain
+    path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rglru, rmsnorm
+    from repro_torch.train.optim import OptimizerConfig
+    from repro_torch.train.train_step import (
+        copy_state, init_train_state, make_train_step)
+
+    cfg = get_config("recurrentgemma-9b", smoke=True)
+    state = init_train_state(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    ocfg = OptimizerConfig(warmup_steps=1, total_steps=2)
+    for m in (flash_attention, rglru, rmsnorm):
+        m.reset_launches()
+    _, plain = make_train_step(cfg, ocfg, plain=True)(copy_state(state), batch)
+    _, ours = make_train_step(cfg, ocfg)(state, batch)
+    torch.cuda.synchronize()
+    assert rglru.launches == {"rglru_fwd": 6, "rglru_bwd": 3}
+    assert flash_attention.launches == {"flash_fwd": 2, "flash_bwd": 1}
+    assert rmsnorm.launches == {"rmsnorm_fwd": 17, "rmsnorm_bwd": 9}
+    assert np.isfinite(ours["loss"].item())
+    assert abs(ours["loss"].item() - plain["loss"].item()) <= 1e-2
