@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source has a plain C interface.  ``nvcc`` compiles it for
 Hopper (``sm_90a``) into a shared library that ``ctypes`` loads; no PyTorch
 header is included, so a build takes seconds.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the source,
-the headers beside it and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+every header it includes with quotes (directly or through another header,
+wherever it lies) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 The build runs at the first CUDA call of a kernel, never at import; each
 ``nvcc`` run starts before any is waited on, so sources compile in parallel.
 ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,6 +41,7 @@ FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -55,11 +58,27 @@ def _nvcc() -> str:
     return str(path)
 
 
+def included_headers(src: Path) -> list[Path]:
+    """The headers ``src`` includes with quotes, directly or through another
+    header, each resolved beside the file that names it; a name not found
+    there is left to the compiler's search path (the toolkit's)."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = (path.parent / inc).resolve()
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    """Keyed by the source, the headers beside it (``*.cuh``) and the flags."""
+    """Keyed by the source, the headers it includes and the flags."""
     src = SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in included_headers(src):
         digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

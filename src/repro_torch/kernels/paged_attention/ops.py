@@ -28,18 +28,18 @@ from repro_torch.kernels.paged_attention.ref import (
 
 launches = {"paged_decode": 0, "paged_prefill": 0}
 
-# the flash-prefill kernel's query tile: 16 rows x G heads share one block
-PREFILL_Q_TILE = 16
+# head dims both kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k_pool, v_pool, tables, kv_len, out, S, Q, H, K, dh, bs, M, NB,
-    # layer offset, scale, window, stream
-    "paged_decode": [_P] * 6 + [_I] * 8
+    # q, k_pool, v_pool, tables, kv_len, scratch, out, S, Q, H, K, dh, bs, M,
+    # NB, layer offset, scale, window, stream
+    "paged_decode": [_P] * 7 + [_I] * 8
     + [ctypes.c_longlong, ctypes.c_float, _I, _P],
     # q, q_norm, k_pool, v_pool, tables, kv_len, out, S, Q, H, K, dh, bs, M,
-    # NB, QB, layer offset, scale, window, eps, rope_theta, stream
-    "paged_prefill": [_P] * 7 + [_I] * 9
+    # NB, layer offset, scale, window, eps, rope_theta, stream
+    "paged_prefill": [_P] * 7 + [_I] * 8
     + [ctypes.c_longlong, ctypes.c_float, _I, ctypes.c_float, ctypes.c_float, _P],
 }
 _functions: dict[str, ctypes._CFuncPtr] = {}
@@ -82,15 +82,24 @@ def _kernel(name: str):
     return fn
 
 
-def shared_memory_bytes(name: str, *, H: int, K: int, dh: int, bs: int,
-                        Q: int = 1) -> int:
+def _c_size(name: str, symbol: str, n_ints: int):
+    """The ``size_t symbol(int, ...)`` export of kernel ``name``'s library."""
+    fn = _functions.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes, fn.restype = [_I] * n_ints, ctypes.c_size_t
+        _functions[symbol] = fn
+    return fn
+
+
+def shared_memory_bytes(name: str, *, H: int, K: int, dh: int, Q: int = 1) -> int:
     """Dynamic shared memory one block of kernel ``name`` takes (ptxas
-    reports static shared memory only): the decode kernel holds the ``Q``
-    queries of a kv head, the prefill kernel a tile of ``PREFILL_Q_TILE``."""
-    fn = getattr(_build.load(name), f"{name}_smem_bytes")
-    fn.argtypes, fn.restype = [_I] * 5, ctypes.c_size_t
-    rows = PREFILL_Q_TILE if name == "paged_prefill" else Q
-    return fn(rows, H, K, dh, bs)
+    reports static shared memory only): a decode split block holds the
+    ``Q`` queries of a kv head beside its K/V rows, a prefill block a tile
+    of 64 queries beside its K/V rings (H, K and Q do not enter)."""
+    if name == "paged_prefill":
+        return _c_size(name, "paged_prefill_smem_bytes", 1)(dh)
+    return _c_size(name, "paged_decode_smem_bytes", 4)(Q, H, K, dh)
 
 
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
@@ -122,6 +131,8 @@ def _pool_geometry(q, k_pool, v_pool, tables, kv_len, layer):
         raise ValueError(f"pools must be 4-D or 5-D, got {tuple(k_pool.shape)}")
     if H % K:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh}: the paged kernels take {HEAD_DIMS}")
     M = tables.shape[1] if tables.dim() == 2 else -1
     dev, bf16 = q.device, torch.bfloat16
     _require(q, "q", bf16, (S, Q, H, dh), dev)
@@ -129,6 +140,9 @@ def _pool_geometry(q, k_pool, v_pool, tables, kv_len, layer):
     _require(v_pool, "v_pool", bf16, tuple(k_pool.shape), dev)
     _require(tables, "tables", torch.int32, (S, M), dev)
     _require(kv_len, "kv_len", torch.int32, (S,), dev)
+    for t, what in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start 16-byte aligned (16-byte copies)")
     return S, Q, H, K, dh, bs, M, NB, layer * NB * bs * K * dh
 
 
@@ -143,15 +157,21 @@ def paged_decode_kernel(
     window: int | None = None,
     layer: int | None = None,
 ) -> torch.Tensor:
-    """Launch the paged decode kernel (``csrc/paged_decode.cu``)."""
+    """Launch the paged decode kernel (``csrc/paged_decode.cu``): a split
+    kernel over the table walk and the combine of its float32 partials,
+    which live in a scratch buffer allocated here on the same stream."""
     S, Q, H, K, dh, bs, M, NB, off = _pool_geometry(
         q, k_pool, v_pool, tables, kv_len, layer)
     out = torch.empty_like(q)
+    nbytes = _c_size("paged_decode", "paged_decode_scratch_bytes", 7)(
+        S, Q, H, K, dh, bs, M)
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("paged_decode")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), S, Q, H, K, dh, bs, M, NB, off,
-        float(scale), -1 if window is None else int(window), stream,
+        kv_len.data_ptr(), scratch.data_ptr(), out.data_ptr(), S, Q, H, K, dh,
+        bs, M, NB, off, float(scale), -1 if window is None else int(window),
+        stream,
     )
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
@@ -176,8 +196,6 @@ def paged_prefill_kernel(
     """Launch the flash-prefill kernel (``csrc/paged_prefill.cu``)."""
     S, Q, H, K, dh, bs, M, NB, off = _pool_geometry(
         q, k_pool, v_pool, tables, kv_len, layer)
-    if dh % 2:
-        raise ValueError(f"rope needs an even head dim, got {dh}")
     qn_ptr = None
     if q_norm is not None:
         _require(q_norm, "q_norm", torch.float32, (dh,), q.device)
@@ -187,7 +205,7 @@ def paged_prefill_kernel(
     err = _kernel("paged_prefill")(
         q.data_ptr(), qn_ptr, k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        S, Q, H, K, dh, bs, M, NB, PREFILL_Q_TILE, off, float(scale),
+        S, Q, H, K, dh, bs, M, NB, off, float(scale),
         -1 if window is None else int(window), float(eps), float(rope_theta),
         stream,
     )

@@ -66,3 +66,32 @@ def test_no_nvcc_is_an_error(throwaway):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("k_a")
     assert not os.listdir(throwaway / "build")
+
+
+def test_library_is_rebuilt_when_a_header_it_includes_changes(throwaway):
+    """A header outside the source's directory, and one it includes in
+    turn, are part of the key; a source that does not include them is not
+    rebuilt."""
+    inc = throwaway / "shared"
+    inc.mkdir()
+    (inc / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (inc / "inner.cuh").write_text("// inner\n")
+    _build.SOURCES["k_a"].write_text('#include "shared/outer.cuh"\n// k_a\n')
+    assert _build.included_headers(_build.SOURCES["k_a"]) == [
+        (inc / "inner.cuh").resolve(), (inc / "outer.cuh").resolve()]
+    first_a, first_b = _build.library_path("k_a"), _build.library_path("k_b")
+    (inc / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n// edited\n')
+    second_a = _build.library_path("k_a")
+    assert second_a != first_a
+    (inc / "inner.cuh").write_text("// inner, edited\n")
+    assert _build.library_path("k_a") not in (first_a, second_a)
+    assert _build.library_path("k_b") == first_b
+
+
+def test_the_paged_sources_are_keyed_by_the_headers_they_share():
+    """K4 includes K2's fragment helpers from another directory: both they
+    and the paged helpers beside it enter its key."""
+    names = {h.name for h in _build.included_headers(_build.SOURCES["paged_prefill"])}
+    assert names == {"flash_common.cuh", "paged_common.cuh"}
+    names = {h.name for h in _build.included_headers(_build.SOURCES["paged_decode"])}
+    assert names == {"paged_common.cuh"}

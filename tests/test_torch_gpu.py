@@ -44,6 +44,15 @@ DECODE_CASES = [
 # ---------------------------------------------------- card: kernels ---
 
 
+def _row_err(a, ref):
+    """Largest over rows of max |a - ref| / max |ref| (last axis); rows below
+    1 % of the median row (sums that cancel to about zero, such as dq of
+    query row 0) are divided by that 1 %."""
+    d = (a.float() - ref.float()).abs().amax(-1)
+    m = ref.float().abs().amax(-1)
+    return (d / m.clamp_min(1e-2 * m.median()).clamp_min(1e-30)).max().item()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -53,17 +62,25 @@ def cuda():
     return resolve_device("cuda")
 
 
-# bfloat16 on the card: the plain version rounds the softmax probabilities to
-# bfloat16 before the PV product and the kernel keeps them float32, and both
-# round the output to bfloat16 (2^-8 relative); on N(0, 1) values the two
-# agree to a few bfloat16 ulps of O(1) outputs
-BF16_TOL = 3e-2
+# K3 and K4 on bfloat16, held row by row as K2 is (one (slot, query, head)
+# output vector, relative to the row's largest entry; _row_err above): a
+# row of a long kv_len averages many values and is small, so a limit on the
+# whole tensor would miss a dropped split or kv tile.  Both sides round each
+# entry to bfloat16 once; the plain version rounds the normalised
+# probabilities to bfloat16 before PV, K3 keeps them float32 and K4 rounds
+# the unnormalised ones; the limit is four ulps of the row's largest entry.
+PAGED_ROW_RTOL = 2.0 ** -5
 
 
 def _card_pools(rng, lead, nb, bs, K, dh, dev):
     shape = lead + (nb, bs, K, dh)
     return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
             .to(dev, torch.bfloat16) for _ in range(2)]
+
+
+def _card_queries(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -76,8 +93,7 @@ def test_decode_kernel_matches_plain(cuda, case):
     K, Q = H // case["gqa"], case["Q"]
     lead = (3,) if case["layered"] else ()
     kp, vp = _card_pools(rng, lead, 30, bs, K, dh, cuda)
-    q = torch.from_numpy(rng.standard_normal((S, Q, H, dh)).astype(np.float32)
-                         ).to(cuda, torch.bfloat16)
+    q = _card_queries(rng, (S, Q, H, dh), cuda)
     tbl = torch.from_numpy(_tables(S, M, case["kv_lens"], bs)).to(cuda)
     kvl = torch.tensor(case["kv_lens"], dtype=torch.int32, device=cuda)
     layer = 2 if case["layered"] else None
@@ -87,7 +103,56 @@ def test_decode_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert launches["paged_decode"] == 1
     ref = paged_attention_plain(q, kp, vp, tbl, kvl, **kw)
-    assert (o.float() - ref.float()).abs().max().item() < BF16_TOL
+    assert _row_err(o, ref) <= PAGED_ROW_RTOL
+
+
+# the decode kernel splits the table walk every 128 positions: kv_len at a
+# split edge and one past it, 1, a window across an edge (and one starting
+# on it), Q = 5 across edges, a table width M not a multiple of the split,
+# qwen3-14b's heads at dh 128, the smoke width, another block size
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,dh,bs,M,Q,kv_lens,window", [
+    (14, 2, 64, 16, 17, 1, [128, 129, 256, 257, 1], None),
+    (14, 2, 64, 16, 23, 1, [300, 260, 356], 100),
+    (14, 2, 64, 16, 17, 5, [130, 260, 5], None),
+    (14, 2, 64, 16, 132, 1, [2112, 544, 160, 140], None),
+    (40, 8, 128, 16, 44, 5, [129, 700], None),
+    (4, 2, 16, 16, 20, 1, [1, 200, 300], None),
+    (8, 2, 32, 8, 40, 2, [127, 129, 300], 64),
+])
+def test_decode_kernel_across_split_edges(cuda, H, K, dh, bs, M, Q, kv_lens, window):
+    rng = np.random.default_rng(13)
+    S = len(kv_lens)
+    kp, vp = _card_pools(rng, (), 1 + M * S, bs, K, dh, cuda)
+    q = _card_queries(rng, (S, Q, H, dh), cuda)
+    tbl = torch.from_numpy(_tables(S, M, kv_lens, bs)).to(cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(scale=dh ** -0.5, window=window)
+    o = paged_decode_kernel(q, kp, vp, tbl, kvl, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_plain(q, kp, vp, tbl, kvl, **kw)
+    assert _row_err(o, ref) <= PAGED_ROW_RTOL
+
+
+def _prefill_case(cuda, rng, *, S, Q, H, K, dh, bs, M, kv_lens, window, qk_norm,
+                  layered):
+    lead = (2,) if layered else ()
+    kp, vp = _card_pools(rng, lead, 1 + M * S, bs, K, dh, cuda)
+    q = _card_queries(rng, (S, Q, H, dh), cuda)
+    tbl = torch.from_numpy(_tables(S, M, kv_lens, bs)).to(cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    positions = (kvl.long()[:, None] - Q + torch.arange(Q, device=cuda)[None])
+    qn = (torch.from_numpy(rng.standard_normal(dh).astype(np.float32)).to(cuda)
+          if qk_norm else None)
+    kw = dict(scale=dh ** -0.5, window=window, layer=1 if layered else None,
+              q_norm=qn, rope_theta=1e6)
+    reset_launches()
+    o = paged_prefill_kernel(q, kp, vp, tbl, kvl, **kw)
+    torch.cuda.synchronize()
+    assert launches["paged_prefill"] == 1
+    ref = paged_prefill_plain_from_raw(q, kp, vp, tbl, kvl, positions=positions,
+                                       **kw)
+    return _row_err(o, ref)
 
 
 @pytest.mark.gpu
@@ -96,22 +161,32 @@ def test_decode_kernel_matches_plain(cuda, case):
                                              (64, 64, 24)])
 def test_prefill_kernel_matches_plain(cuda, qk_norm, Q, kv_len, window):
     rng = np.random.default_rng(12)
-    H, K, dh, bs, M = 14, 2, 64, 16, 8
-    kp, vp = _card_pools(rng, (2,), 20, bs, K, dh, cuda)
-    q = torch.from_numpy(rng.standard_normal((1, Q, H, dh)).astype(np.float32)
-                         ).to(cuda, torch.bfloat16)
-    tbl = torch.from_numpy(_tables(1, M, [kv_len], bs)).to(cuda)
-    kvl = torch.tensor([kv_len], dtype=torch.int32, device=cuda)
-    positions = (kvl.long()[:, None] - Q + torch.arange(Q, device=cuda)[None])
-    qn = (torch.from_numpy(rng.standard_normal(dh).astype(np.float32)).to(cuda)
-          if qk_norm else None)
-    kw = dict(scale=dh ** -0.5, window=window, layer=1, q_norm=qn,
-              rope_theta=1e6)
-    o = paged_prefill_kernel(q, kp, vp, tbl, kvl, **kw)
-    torch.cuda.synchronize()
-    ref = paged_prefill_plain_from_raw(q, kp, vp, tbl, kvl,
-                                       positions=positions, **kw)
-    assert (o.float() - ref.float()).abs().max().item() < BF16_TOL
+    err = _prefill_case(cuda, rng, S=1, Q=Q, H=14, K=2, dh=64, bs=16, M=8,
+                        kv_lens=[kv_len], window=window, qk_norm=qk_norm,
+                        layered=True)
+    assert err <= PAGED_ROW_RTOL
+
+
+# the prefill kernel walks 64-position kv tiles for 64-query tiles: P not a
+# multiple of 64, a mid-sequence chunk under a window, qwen3-14b's heads at
+# dh 128 with qk_norm, the smoke width with slots at different kv_len,
+# another block size
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,Q,H,K,dh,bs,kv_lens,window,qk_norm", [
+    (1, 100, 14, 2, 64, 16, [100], None, False),
+    (1, 65, 14, 2, 64, 16, [1000], 300, False),
+    (1, 300, 40, 8, 128, 16, [300], None, True),
+    (2, 77, 4, 2, 16, 16, [77, 200], None, False),
+    (2, 130, 8, 2, 32, 8, [130, 131], 70, True),
+])
+def test_prefill_kernel_across_tile_edges(cuda, S, Q, H, K, dh, bs, kv_lens, window,
+                                          qk_norm):
+    rng = np.random.default_rng(14)
+    M = max(-(-k // bs) for k in kv_lens)
+    err = _prefill_case(cuda, rng, S=S, Q=Q, H=H, K=K, dh=dh, bs=bs, M=M,
+                        kv_lens=kv_lens, window=window, qk_norm=qk_norm,
+                        layered=False)
+    assert err <= PAGED_ROW_RTOL
 
 
 @pytest.mark.gpu
@@ -175,15 +250,6 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
 # small.  lse is float32 on both sides: a few float32 ulps of |lse|.
 K2_ROW_RTOL = 2.0 ** -5
 K2_LSE_TOL = 1e-5
-
-
-def _row_err(a, ref):
-    """Largest over rows of max |a - ref| / max |ref| (last axis); rows below
-    1 % of the median row (sums that cancel to about zero, such as dq of
-    query row 0) are divided by that 1 %."""
-    d = (a.float() - ref.float()).abs().amax(-1)
-    m = ref.float().abs().amax(-1)
-    return (d / m.clamp_min(1e-2 * m.median()).clamp_min(1e-30)).max().item()
 
 
 @pytest.mark.gpu

@@ -25,7 +25,9 @@ from repro.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
+    paged_decode_kernel,
     paged_prefill,
+    paged_prefill_kernel,
 )
 
 F32_TOL = 2e-5
@@ -207,3 +209,33 @@ def test_plain_prefill_redirects_out_of_reach_writes_to_null_block():
                   block_size=bs, scale=0.3)
     written = {(b, o) for b in range(6) for o in range(bs) if kp[b, o].abs().sum() > 0}
     assert written == {(4, 2), (4, 3), (0, 0), (0, 1), (0, 2)}
+
+
+# ------------------------------------------- the CUDA wrappers' checks ---
+
+
+@pytest.mark.parametrize("dh", [8, 48, 256])
+def test_kernel_wrappers_refuse_head_dims_they_are_not_built_for(dh):
+    """K3 and K4 are instantiated for head dims 16, 32, 64 and 128; any other
+    is refused before anything is built or launched (the check runs first,
+    so it shows on CPU tensors too)."""
+    q = torch.zeros((1, 2, 4, dh), dtype=torch.bfloat16)
+    pool = torch.zeros((3, 16, 2, dh), dtype=torch.bfloat16)
+    tbl = torch.ones((1, 1), dtype=torch.int32)
+    kvl = torch.full((1,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_kernel(q, pool, pool, tbl, kvl, scale=0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_prefill_kernel(q, pool, pool, tbl, kvl, scale=0.1)
+
+
+def test_kernel_wrappers_refuse_operands_not_16_byte_aligned():
+    """The kernels copy pool rows and queries 16 bytes at a time."""
+    q = torch.zeros(1 + 2 * 4 * 64, dtype=torch.bfloat16)[1:].view(1, 2, 4, 64)
+    assert q.is_contiguous()
+    pool = torch.zeros((3, 16, 2, 64), dtype=torch.bfloat16)
+    tbl = torch.ones((1, 1), dtype=torch.int32)
+    kvl = torch.full((1,), 2, dtype=torch.int32)
+    for kernel in (paged_decode_kernel, paged_prefill_kernel):
+        with pytest.raises(ValueError, match="aligned"):
+            kernel(q, pool, pool, tbl, kvl, scale=0.1)
