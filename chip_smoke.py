@@ -16,10 +16,13 @@ Phases, each of which fails the run (non-zero exit) on error:
              held row by row; RMSNorm forward and backward (K1, Triton;
              also at rwkv6-3b's width 2560 and recurrentgemma-9b's 4096) and
              flash attention forward and backward (K2) at the training
-             path's shapes and at small ragged ones, all bfloat16; then times
-             kernel, plain version and a library yardstick the port never
-             calls (``scaled_dot_product_attention``, ``F.rms_norm``) at the
-             main paths' shapes;
+             path's shapes, at small ragged ones and across its tiles'
+             edges (head dims 16 to 256), its backward bit-identical on a
+             second run, all bfloat16; then times kernel, plain version and
+             a library yardstick the port never calls
+             (``scaled_dot_product_attention``, its backward alone for K2's
+             backward; ``F.rms_norm``) at the main paths' shapes, and splits
+             K2's backward into its kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
              every prompt must launch each paged kernel once per layer and
@@ -32,7 +35,9 @@ Phases, each of which fails the run (non-zero exit) on error:
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
              through ``repro_torch.train.loop.train``; launches per step must
              equal the counts worked out from the depth and full remat, every
-             loss must be finite and the last below the first;
+             loss must be finite and the last below the first; one more step
+             under ``torch.profiler`` splits its device time by kernel
+             family (also in phases 8 and 9);
 7. step    — the loss and gradients of one batch, from the parameters of the
              seed, through the kernels and through the plain versions: loss,
              grad_norm and each layer's attention and norm gradient norms
@@ -538,11 +543,17 @@ def check_training_kernels(torch, dev) -> dict:
         record("rmsnorm_fwd", a_y, NORM_TOL * m_y)
         record("rmsnorm_bwd", a_dx, NORM_TOL * m_dx)
 
-    def flash(B, S, T, H_, K_, D, causal, window, what, key=""):
+    def flash(B, S, T, H_, K_, D, causal, window, what, key="", twice=False):
         q, k, v, do = _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D)
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         o, lse = flash_fwd_kernel(q, k, v, **kw)
         grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+        if twice:  # no float atomics: a second run is bit-identical
+            again = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"flash backward differs between runs: {what}")
+            log(f"[kernels] flash         {what:50s} backward bit-identical on a second run")
+            del again
         torch.cuda.synchronize()
         ro, rlse = flash_fwd_plain(q, k, v, **kw)
         a_o, r_o, e_lse = _err(o, ro), _row_err(o, ro), _err(lse, rlse)
@@ -567,16 +578,26 @@ def check_training_kernels(torch, dev) -> dict:
          f"[8192, {RWKV_D}] rwkv6-3b width, bf16 scale")
     norm(GRIFFIN_TRAIN["seq_len"] * GRIFFIN_TRAIN["global_batch"], GRIFFIN_W,
          torch.bfloat16, f"[8192, {GRIFFIN_W}] recurrentgemma-9b width, bf16 scale")
-    flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal")
+    flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal",
+          twice=True)
     flash(2, 300, 300, H, K, DH, True, 100, "B=2 S=T=300 window 100")
     flash(2, 200, 333, 4, 2, 128, False, None, "B=2 S=200 T=333 bidirectional dh=128")
     flash(1, 77, 77, 8, 8, 64, True, None, "B=1 S=T=77 MHA causal")
+    # the tiles' edges: 128-row query blocks (forward, dq), 128-key tiles and
+    # dk/dv blocks (64 at dh 256), 64-row steps; dh 16 and 32 in one
+    # zero-padded 64-column chunk
+    flash(1, 129, 127, H, K, DH, True, None, "B=1 S=129 T=127 causal (tile edges)")
+    flash(2, 257, 257, 4, 1, 128, True, 40, "B=2 S=T=257 dh=128 window 40 < a tile")
+    flash(1, 300, 300, H, K, 16, True, 100, "B=1 S=T=300 dh=16 window ends mid-tile")
+    flash(1, 100, 60, 2, 1, 32, False, 10, "B=1 S=100 T=60 dh=32 bidir. window 10")
     # Griffin's attention: head dim 256, MQA, window 2048 (its own rows)
     B, S, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_WINDOW
     flash(B, S, S, GRIFFIN_H, 1, GRIFFIN_DH, True, W,
           f"B={B} S=T={S} H=16 K=1 dh=256 window {W}", "_dh256")
     flash(1, 1000, 1000, GRIFFIN_H, 1, GRIFFIN_DH, True, W,
           f"B=1 S=T=1000 H=16 K=1 dh=256 window {W} > S", "_dh256")
+    flash(1, 193, 193, GRIFFIN_H, 1, GRIFFIN_DH, True, 40,
+          "B=1 S=T=193 H=16 K=1 dh=256 window 40 (tile edges)", "_dh256", twice=True)
     return worst
 
 
@@ -643,7 +664,9 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
     """K2 (causal) at one training shape: kernel, plain and library times,
     rows ``flash_fwd{key}`` and ``flash_bwd{key}``.  The library yardstick is
     SDPA; a window enters it as a boolean mask, with the kv heads expanded
-    to the query heads beforehand (not timed)."""
+    to the query heads beforehand (not timed).  The backward row's yardstick
+    is SDPA's backward alone (``autograd.grad`` from one kept forward); its
+    forward plus backward is logged beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -669,6 +692,11 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
     def sdpa_fb():
         torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
 
+    out_lib = sdpa()
+
+    def sdpa_bwd():  # SDPA's backward alone, from one forward kept alive
+        torch.autograd.grad(out_lib, (qt, kt, vt), dot, retain_graph=True)
+
     pairs = B * H_ * _window_pairs(S, window or S)
     io_bytes = 2 * (2 * B * S * H_ * D + 2 * B * S * K_ * D)
     rows = {
@@ -676,7 +704,7 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
                             lambda: flash_fwd_plain(q, k, v, **kw), sdpa,
                             bound(4 * pairs * D, io_bytes + 4 * B * H_ * S)),
         f"flash_bwd{key}": (lambda: flash_bwd_kernel(q, k, v, o, lse, do, **kw),
-                            lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_fb,
+                            lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_bwd,
                             bound(10 * pairs * D, 2 * io_bytes + 4 * B * H_ * S)),
     }
     out = {}
@@ -688,12 +716,37 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
             library_ms=cuda_ms(lib, 20), bound_ms=b_ms, bound_by=b_by,
             max_abs_err=worst[name][0], max_row_err=worst[name][1],
             tolerance=FLASH_ROW_RTOL)
+        lib_name = "SDPA"
+        if name.startswith("flash_bwd"):
+            log(f"[timing] {name:15s} its kernels (torch.profiler, one call): "
+                + ", ".join(f"{k} {ms:.4f} ms" for k, ms in _kernel_split(torch, kern)))
+            fb_ms = cuda_ms(sdpa_fb, 20)
+            lib_name = f"SDPA bwd alone; SDPA fwd+bwd {fb_ms:.4f}"
         torch.cuda.empty_cache()
-        lib_name = "SDPA" + (" fwd+bwd" if name.startswith("flash_bwd") else "")
         log(f"[timing] {name:15s} {what}: kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
             f"({lib_name}) bound_ms={b_ms:.6f} ({b_by})")
     return out
+
+
+def _kernel_split(torch, fn) -> list[tuple[str, float]]:
+    """Device ms of each kernel one call of ``fn`` launches, by name (the
+    name cut at its template arguments), under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split("::")[-1]
+            split[name] = split.get(name, 0.0) + e.device_time_total / 1e3
+    return list(split.items())
 
 
 def _wkv6_inputs(torch, gen, dev, B, T, kind):
@@ -1093,6 +1146,49 @@ def per_step_launches(cfg) -> dict:
     return out
 
 
+def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float) -> None:
+    """One more train step (after the run, outside its launch counts) under
+    ``torch.profiler``: the device time of its kernels, summed, and split
+    by kernel family (K2 ``flash``, K1 ``rmsnorm``, K5 ``wkv6``, K6
+    ``rglru``, cuBLAS's matrix products ``gemm``, the rest); against the
+    median unprofiled step ``step_s`` that gives the device's idle share of
+    a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.train_step import make_train_step
+
+    step = make_train_step(cfg, ocfg)
+    batch = SyntheticTokens(data).batch_at(0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"[{tag}] the profiler recorded no device time: the step's split not measured")
+        return
+    families = {"flash": 0.0, "rmsnorm": 0.0, "wkv6": 0.0, "rglru": 0.0, "gemm": 0.0,
+                "other": 0.0}
+    others: dict[str, float] = {}
+    for e in kernels:
+        name = e.name.lower()
+        fam = next((f for f in ("flash", "rmsnorm", "wkv6", "rglru") if f in name),
+                   "gemm" if any(w in name for w in ("gemm", "matmul", "cutlass", "nvjet",
+                                                     "xmma")) else "other")
+        families[fam] += e.device_time_total / 1e3
+        if fam == "other":
+            others[e.name[:70]] = others.get(e.name[:70], 0.0) + e.device_time_total / 1e3
+    busy = sum(families.values())
+    log(f"[{tag}] one step under torch.profiler: device busy {busy:.1f} ms in "
+        f"{len(kernels)} kernels ("
+        + ", ".join(f"{f} {ms:.1f}" for f, ms in families.items() if ms)
+        + f" ms); median step {1e3 * step_s:.1f} ms; device idle share "
+        f"{1 - busy / (1e3 * step_s):.3f}")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[{tag}] largest of the rest: " + "; ".join(f"{n} {ms:.1f} ms" for n, ms in top))
+
+
 def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     """``cfg`` (full width) trained ``shape["steps"]`` steps at its sequence
     and batch, on ``SyntheticTokens`` of ``shape["seed"]``, through the
@@ -1127,9 +1223,11 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
                            state=state, device=dev)
     torch.cuda.synchronize()
+    counts = {k: v for m in modules for k, v in m.launches.items()}
+    steady = sorted(h["step_s"] for h in history[1:])
+    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
     del state
     torch.cuda.empty_cache()
-    counts = {k: v for m in modules for k, v in m.launches.items()}
     peak = torch.cuda.max_memory_allocated()
     for h in history:
         log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
@@ -1137,7 +1235,6 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
             f"tokens_per_s={h['tokens_per_s']:.1f}")
     want = per_step_launches(cfg)
     per_step = {k: want.get(k, 0) for k in counts}
-    steady = sorted(h["step_s"] for h in history[1:])
     step_s = steady[len(steady) // 2]
     tokens = data.seq_len * data.global_batch
     log(f"[{tag}] launches per step {dict((k, v / steps) for k, v in counts.items())} "

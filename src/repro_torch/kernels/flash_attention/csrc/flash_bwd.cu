@@ -16,329 +16,570 @@
 // bfloat16 resolution of the result.
 //
 // What bounds it on the H100: operations, about 2.5x the forward's flops over
-// the same O(S * dh) bytes.  All five products run on the tensor cores
-// (mma.sync bf16 tiles, float32 accumulators, flash_common.cuh); every
-// operand the reference rounds to bf16 (q, k, v, dO, p, ds) is bf16 there.
+// the same O(S * dh) bytes.  Every product is a warpgroup product (wgmma,
+// flash_sm90.cuh) on bf16 operands with float32 accumulators; every operand
+// the reference rounds to bf16 (q, k, v, dO, p, ds) is bf16 there.
 //
 // Design: three launches on one stream, no float atomics, so the result is
 // the same from run to run.
-//   1. delta: one warp per (b, s, h) row.
-//   2. dk/dv: one block per (64-key tile, b*kv head), each warp owning 16
-//      keys, looping over the G query heads and the 32-query tiles that can
-//      see the key tile (causal: rows >= the tile's first key; window: rows
-//      < its last key + window).  S^T = K Q^T and dP^T = V dO^T land in
-//      registers, p and ds are formed there and repacked as the A operands
-//      of dV += P^T dO and dK += dS^T Q, whose accumulators stay in
-//      registers across the whole loop.
-//   3. dq: one block per (64-query tile, b*h), each warp owning 16 queries,
-//      looping over the kv tiles in the tile's causal / window reach like
-//      the forward: S = Q K^T and dP = dO V^T, then dQ += dS K.
-// Q, dO (and K for dq) are also stored transposed in shared memory, so every
-// B operand loads as 32-bit words.
+//   1. prep: delta = rowsum(dO * O) with 16-byte loads (a row of D / 8
+//      lanes), written with lse * log2(e) into a float32 scratch whose rows
+//      are padded to a multiple of 64 queries (delta 0, lse +inf: p = 0
+//      there), so a 64-query slice of either is one aligned bulk copy.
+//   2. dk/dv: one block per (kv head, 128-key tile; 64 at dh 256), a
+//      consumer warpgroup per 64 keys with K and V resident in shared
+//      memory, and a producer warp walking the G query heads and the
+//      64-query tiles the key tile can see (causal: queries >= its first
+//      key; window: queries < its last key + window), bringing Q, dO and
+//      their lse and delta slices by TMA and bulk copies through a ring of
+//      three stages (two at dh 256).  S^T = K Q^T and dP^T = V dO^T are
+//      wgmma from shared memory; p and ds are formed in registers and are,
+//      rounded to bf16, the register A operands of dV += P^T dO and
+//      dK += dS^T Q, whose B operands (dO, Q) are read MN-major: no tile
+//      is transposed by hand.  dK and dV stay in registers across the
+//      walk; the heaviest key tiles (the first, under a causal mask) launch
+//      first.
+//   3. dq: one block per (b*h, 128-query tile; 64 at dh 256), Q and dO
+//      resident, K and V streamed through the ring as in the forward:
+//      S = Q K^T and dP = dO V^T, then dQ += dS K with K read MN-major.
+//      dQ takes its own kernel, recomputing S and dP (7 products where one
+//      fused walk needs 5): the price of a result that does not depend on
+//      the order blocks finish in, with no float atomics and no ordered
+//      semaphores.
+// Where registers allow (dk/dv up to dh 64, dq up to dh 128; ptxas spills
+// beyond), a consumer pipelines its walk as the forward does: the products
+// of step i + 1's scores and step i's gradients are in flight together
+// while the pointwise work of step i + 1 runs.  Masks are evaluated only on
+// tiles some row or key does not see whole.
+// The old design's costs and what replaced them: register-staged copies
+// with block-wide barriers and element-by-element transposes (four
+// synchronous copies per 32-query step) -> TMA ring, MN-major operands;
+// 32-bit fragment loads and mma.sync -> wgmma; a delta pass reading one bf16
+// a lane -> 16-byte loads.
 //
-// Head dim 256 (Griffin): dK and dV in registers would take 2 x 128 float32
-// registers a thread, over the 255 cap.  As in the forward, the output
-// columns are split across the grid (flash_common.cuh:col_split): blockIdx.z
-// owns 128 of them, both blocks compute the score products (S^T and dP^T,
-// or S and dP) over the full 256 dims and each its half of the output
-// products, so each accumulator is 64 registers a thread, as at head dim 128.
-#include "flash_common.cuh"
+// Head dim 256 (Griffin): dK and dV for all 256 columns would take 2 x 128
+// float32 registers a thread, over the 240 a consumer gets.  So the two
+// consumer warpgroups of a dk/dv block share its 64 keys, each owning 128
+// of the output columns; both compute the score products over all 256
+// dims (the old design split the columns across two blocks instead, which
+// also loaded every Q and dO tile twice).  The dq kernel holds all 256
+// columns of dQ (128 registers) in its one consumer warpgroup.
+#include "flash_sm90.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace sm90;
 
-// delta[(b*H + h)*S + s] = sum_d dO * O, one warp per row
-__global__ void flash_delta_kernel(const bf16* __restrict__ o,
-                                   const bf16* __restrict__ dout,
-                                   float* __restrict__ delta, int B, int S, int H,
-                                   int D) {
-  const int lane = threadIdx.x & 31;
-  const size_t rowid = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (rowid >= (size_t)B * S * H) return;
-  const size_t base = rowid * D;  // row (b, s, h) of [B, S, H, D]
+constexpr int STEP = 64;  // queries (dk/dv) or keys (dq) per step of a walk
+constexpr int MAX_THREADS = 3 * WG;
+constexpr int STATS_BYTES = 1024;  // a stage's lse and delta slices, padded
+
+// lanes per row = min(32, D / 8), a 16-byte unit each
+template <int D>
+__global__ void flash_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse, float* __restrict__ lse2,
+                                  float* __restrict__ delta, int B, int S, int H, int Sp) {
+  constexpr int V = D / 8, LP = V < 32 ? V : 32, RPW = 32 / LP;
+  const size_t gid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, sub = lane % LP;
+  const size_t rows = (size_t)B * S * H, rowid = (gid >> 5) * RPW + lane / LP;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(__bfloat162float(dout[base + d]), __bfloat162float(o[base + d]), acc);
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+  if (rowid < rows) {
+    const uint4* op = reinterpret_cast<const uint4*>(o + rowid * D);
+    const uint4* dp = reinterpret_cast<const uint4*>(dout + rowid * D);
+    for (int u = sub; u < V; u += LP) {
+      const uint4 a = op[u], d = dp[u];
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 af = __bfloat1622float2(a2[i]), df = __bfloat1622float2(d2[i]);
+        acc = fmaf(df.x, af.x, acc);
+        acc = fmaf(df.y, af.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = LP / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (rowid < rows && sub == 0) {
     const int h = (int)(rowid % H);
     const size_t bs = rowid / H;
     const int s = (int)(bs % S), b = (int)(bs / S);
-    delta[((size_t)b * H + h) * S + s] = acc;
+    const size_t bh = (size_t)b * H + h;
+    delta[bh * Sp + s] = acc;
+    lse2[bh * Sp + s] = lse[bh * S + s] * LOG2E;
+  }
+  const int pad = Sp - S;
+  if (pad > 0 && gid < (size_t)B * H * pad) {
+    const size_t at = (gid / pad) * Sp + S + gid % pad;
+    delta[at] = 0.f;
+    lse2[at] = INFINITY;
   }
 }
 
-constexpr int DKV_KT = 16 * WARPS;  // keys per dk/dv block
-constexpr int DKV_QT = 32;          // queries per step of its loop
-constexpr int DQ_QT = 16 * WARPS;   // queries per dq block
-constexpr int DQ_KT = 64;           // keys per step of its loop
+// NWG consumer warpgroups; CW of them share each 64 keys, each owning DC of
+// the output columns
+template <int D, int DC, int NWG>
+struct Dkdv {
+  static constexpr int CW = padded(D) / padded(DC);
+  static constexpr int BN = 64 * NWG / CW;  // keys per block
+  static constexpr uint32_t KV = tile_bytes<D, BN>();
+  static constexpr uint32_t QT = tile_bytes<D, STEP>();
+  static constexpr uint32_t STAGE = 2 * QT + STATS_BYTES;
+  static constexpr int STAGES = D > 128 ? 2 : 3;  // as many as shared memory holds
+  static constexpr size_t bytes = 2 * (size_t)KV + STAGES * (size_t)STAGE;
+};
 
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int S, int T, int H, int K, float scale, int causal, int window) {
-  constexpr int KT = DKV_KT, QT = DKV_QT, LD = D + 8, TLD = QT + 8;
-  const int t0 = blockIdx.x * KT, bk = blockIdx.y, b = bk / K, kh = bk - b * K;
-  const int G = H / K, c0 = blockIdx.z * DC;
-  extern __shared__ uint4 smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [KT][LD]
-  bf16* v_s = k_s + KT * LD;                      // [KT][LD]
-  bf16* q_s = v_s + KT * LD;                      // [QT][LD]
-  bf16* do_s = q_s + QT * LD;                     // [QT][LD]
-  bf16* qt_s = do_s + QT * LD;                    // [DC][TLD], Q^T columns c0..
-  bf16* dot_s = qt_s + DC * TLD;                  // [DC][TLD], dO^T columns c0..
-  float* lse_s = reinterpret_cast<float*>(dot_s + DC * TLD);  // [QT]
-  float* dl_s = lse_s + QT;                                   // [QT]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
-  const int key[2] = {t0 + r0 + g, t0 + r0 + g + 8};
-  const int nk = min(KT, T - t0);
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
-  load_rows<D, KT>(k_s, k + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
-  load_rows<D, KT>(v_s, v + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
+template <int D, int DC, int NWG>
+__global__ void __launch_bounds__(MAX_THREADS, 1) flash_dkdv_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    const float* __restrict__ lse2, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int T, int H, int K, int Sp, float scale, int causal,
+    int window) {
+  using L = Dkdv<D, DC, NWG>;
+  constexpr int BN = L::BN, DP = padded(D), NO = padded(DC) / CHUNK, STAGES = L::STAGES;
+  constexpr bool PIPE = NO == 1;  // registers for two steps in flight (ptxas spills at 2)
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* v_s = k_s + L::KV;
+  uint8_t* ring = v_s + L::KV;  // stage st: Q, dO, lse2 slice, delta slice
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
 
-  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const int bk = blockIdx.x, b = bk / K, kh = bk - b * K, G = H / K;
+  const int t0 = blockIdx.y * BN, nk = min(BN, T - t0);
   const int row_lo = causal ? t0 : 0;
   const int row_hi = window >= 0 ? min(S, t0 + nk - 1 + window) : S;
+  const int i_lo = row_lo / STEP;
+  const int ni = row_hi > row_lo ? (row_hi + STEP - 1) / STEP - i_lo : 0;
+  const int steps = G * ni;
 
-  for (int gq = 0; gq < G; ++gq) {
-    const int h = kh * G + gq;
-    for (int qlo = (row_lo / QT) * QT; qlo < row_hi; qlo += QT) {
-      const int nq = min(QT, S - qlo);
-      __syncthreads();  // the previous tile's reads are done
-      const bf16* qp = q + (((size_t)b * S + qlo) * H + h) * D;
-      const bf16* dp = dout + (((size_t)b * S + qlo) * H + h) * D;
-      load_rows<D, QT>(q_s, qp, q_stride, nq);
-      load_rows<D, QT>(do_s, dp, q_stride, nq);
-      load_rows_t<DC, QT>(qt_s, qp + c0, q_stride, nq);
-      load_rows_t<DC, QT>(dot_s, dp + c0, q_stride, nq);
-      for (int i = threadIdx.x; i < QT; i += THREADS) {
-        const size_t at = ((size_t)b * H + h) * S + qlo + i;
-        lse_s[i] = i < nq ? lse[at] : 0.f;
-        dl_s[i] = i < nq ? delta[at] : 0.f;
-      }
-      __syncthreads();
-
-      float st[QT / 8][4], dpt[QT / 8][4];  // S^T and dP^T: keys x queries
-#pragma unroll
-      for (int j = 0; j < QT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, k_s, LD, r0, 16 * kk, g, t);
-        load_a(va, v_s, LD, r0, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < QT / 8; ++j) {
-          uint32_t b0, b1;
-          load_b(b0, b1, q_s, LD, 8 * j, 16 * kk, g, t);
-          mma(st[j], ka, b0, b1);
-          load_b(b0, b1, do_s, LD, 8 * j, 16 * kk, g, t);
-          mma(dpt[j], va, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < QT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          float p = 0.f, ds = 0.f;
-          if (visible(qlo + qi, key[e >> 1], S, T, causal, window)) {
-            p = expf(st[j][e] * scale - lse_s[qi]);
-            ds = p * (dpt[j][e] - dl_s[qi]) * scale;
-          }
-          st[j][e] = p;
-          dpt[j][e] = ds;
-        }
-      uint32_t pa[QT / 16][4], sa[QT / 16][4];  // bf16(p)^T, bf16(ds)^T
-#pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        c_to_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
-        c_to_a(sa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
-      }
-#pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
-#pragma unroll
-        for (int kk = 0; kk < QT / 16; ++kk) {
-          uint32_t b0, b1;
-          load_b(b0, b1, dot_s, TLD, 8 * j, 16 * kk, g, t);
-          mma(dv_acc[j], pa[kk], b0, b1);
-          load_b(b0, b1, qt_s, TLD, 8 * j, 16 * kk, g, t);
-          mma(dk_acc[j], sa[kk], b0, b1);
-        }
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 4 * NWG);
     }
+    bar_fence_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * WG) {  // ---------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * WG) {
+      bar_expect(kv_full, 2 * L::KV);
+      tma_tile<D, BN>(k_s, &kmap, kv_full, kh, t0, b);
+      tma_tile<D, BN>(v_s, &vmap, kv_full, kh, t0, b);
+      for (int it = 0; it < steps; ++it) {
+        const int st = it % STAGES, ph = (it / STAGES) & 1;
+        const int h = kh * G + it / ni, q0 = (i_lo + it % ni) * STEP;
+        uint8_t* stage = ring + st * L::STAGE;
+        const size_t at = ((size_t)b * H + h) * Sp + q0;
+        bar_wait(&empty[st], ph ^ 1);
+        bar_expect(&full[st], 2 * L::QT + 2 * STEP * 4);
+        tma_tile<D, STEP>(stage, &qmap, &full[st], h, q0, b);
+        tma_tile<D, STEP>(stage + L::QT, &domap, &full[st], h, q0, b);
+        bulk_load(stage + 2 * L::QT, lse2 + at, STEP * 4, &full[st]);
+        bulk_load(stage + 2 * L::QT + STEP * 4, delta + at, STEP * 4, &full[st]);
+      }
+    }
+  } else {  // ------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int k0 = 64 * (wg / L::CW), oc = (wg % L::CW) * NO;  // keys, output chunk
+    const int kmin = t0 + k0, kmax = kmin + 63;
+    const int key[2] = {kmin + 16 * warp + g, kmin + 16 * warp + g + 8};
+    const float c = scale * LOG2E;
+
+    float dk_acc[NO][32], dv_acc[NO][32];
+    float sT[32], dpT[32];        // keys x queries: S^T and dP^T, then p and ds
+    uint32_t pa[4][4], sa[4][4];  // bf16(p)^T, bf16(ds)^T: A operands of dV, dK
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+    auto stage_of = [&](int it) { return ring + (it % STAGES) * L::STAGE; };
+    // S^T = K Q^T and dP^T = V dO^T of step `it`, committed, not waited for
+    auto issue_scores = [&](int it) {
+      const uint8_t* q_t = stage_of(it);
+      bar_wait(&full[it % STAGES], (it / STAGES) & 1);
+      fence_regs<32>(sT);
+      fence_regs<32>(dpT);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        mma_ss(sT, desc_k<BN>(k_s, k0, kk), desc_k<STEP>(q_t, 0, kk), kk > 0);
+        mma_ss(dpT, desc_k<BN>(v_s, k0, kk), desc_k<STEP>(q_t + L::QT, 0, kk), kk > 0);
+      }
+      wg_commit();
+    };
+    // dV += P^T dO and dK += dS^T Q of step `it`, committed, not waited for
+    auto issue_grads = [&](int it) {
+      const uint8_t* q_t = stage_of(it);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        fence_regs<32>(dv_acc[n]);
+        fence_regs<32>(dk_acc[n]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs<4>(pa[kk]);
+        fence_regs<4>(sa[kk]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_rs(dv_acc[n], pa[kk], desc_mn<STEP>(q_t + L::QT, oc + n, kk));
+          mma_rs(dk_acc[n], sa[kk], desc_mn<STEP>(q_t, oc + n, kk));
+        }
+      wg_commit();
+    };
+    auto grads_done = [&](int it) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        fence_regs<32>(dv_acc[n]);
+        fence_regs<32>(dk_acc[n]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs<4>(pa[kk]);
+        fence_regs<4>(sa[kk]);
+      }
+      warp_release(&empty[it % STAGES]);
+    };
+    // p and ds of step `it` from its landed S^T and dP^T
+    auto pointwise = [&](int it) {
+      fence_regs<32>(sT);
+      fence_regs<32>(dpT);
+      const int q0 = (i_lo + it % ni) * STEP;
+      const float* lse_t = reinterpret_cast<const float*>(stage_of(it) + 2 * L::QT);
+      const float* dl_t = lse_t + STEP;
+      const bool whole =
+          (!causal || kmax <= q0) && (window < 0 || kmin > q0 + STEP - 1 - window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+        float p = exp2_fast(fmaf(sT[i], c, -lse_t[col]));
+        float ds = p * (dpT[i] - dl_t[col]) * scale;
+        if (!whole && !visible(q0 + col, key[(i >> 1) & 1], T, causal, window)) p = ds = 0.f;
+        sT[i] = p;
+        dpT[i] = ds;
+      }
+    };
+
+    bar_wait(kv_full, 0);
+    if (!PIPE) {
+      for (int it = 0; it < steps; ++it) {
+        issue_scores(it);
+        wg_wait<0>();
+        pointwise(it);
+        to_a(pa, sT);
+        to_a(sa, dpT);
+        issue_grads(it);
+        wg_wait<0>();
+        grads_done(it);
+      }
+    } else if (steps > 0) {
+      // the pipeline: the pointwise work of step it runs on the CUDA cores
+      // while the tensor cores finish dV and dK of step it - 1
+      issue_scores(0);
+      wg_wait<0>();
+      pointwise(0);
+      to_a(pa, sT);
+      to_a(sa, dpT);
+      for (int it = 1; it < steps; ++it) {
+        issue_scores(it);
+        issue_grads(it - 1);
+        wg_wait<1>();
+        pointwise(it);
+        wg_wait<0>();
+        grads_done(it - 1);
+        to_a(pa, sT);
+        to_a(sa, dpT);
+      }
+      issue_grads(steps - 1);
+      wg_wait<0>();
+      grads_done(steps - 1);
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= T) continue;
-    const size_t at = (((size_t)b * T + key[i]) * K + kh) * D + c0 + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      if (key[r] >= T) continue;
+      const size_t at = (((size_t)b * T + key[r]) * K + kh) * D + oc * CHUNK;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-          __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-          __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * n + 8 * jj + 2 * t;
+          if (DC >= CHUNK || col < DC) {
+            *reinterpret_cast<__nv_bfloat162*>(dk + at + col) = __floats2bfloat162_rn(
+                dk_acc[n][4 * jj + 2 * r], dk_acc[n][4 * jj + 2 * r + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dv + at + col) = __floats2bfloat162_rn(
+                dv_acc[n][4 * jj + 2 * r], dv_acc[n][4 * jj + 2 * r + 1]);
+          }
+        }
     }
   }
 }
 
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int S, int T, int H, int K,
-    float scale, int causal, int window) {
-  constexpr int QT = DQ_QT, KT = DQ_KT, LD = D + 8, TLD = KT + 8;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / (H / K);
-  const int qlo = blockIdx.x * QT, c0 = blockIdx.z * DC;
-  extern __shared__ uint4 smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [QT][LD]
-  bf16* do_s = q_s + QT * LD;                     // [QT][LD]
-  bf16* k_s = do_s + QT * LD;                     // [KT][LD]
-  bf16* v_s = k_s + KT * LD;                      // [KT][LD]
-  bf16* kt_s = v_s + KT * LD;                     // [DC][TLD], K^T columns c0..
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
-  const int row[2] = {qlo + r0 + g, qlo + r0 + g + 8};
-  const int nq = min(QT, S - qlo);
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
-  load_rows<D, QT>(q_s, q + (((size_t)b * S + qlo) * H + h) * D, q_stride, nq);
-  load_rows<D, QT>(do_s, dout + (((size_t)b * S + qlo) * H + h) * D, q_stride, nq);
-  float row_lse[2], row_dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_lse[i] = row[i] < S ? lse[(size_t)bh * S + row[i]] : 0.f;
-    row_dl[i] = row[i] < S ? delta[(size_t)bh * S + row[i]] : 0.f;
-  }
+template <int D, int NWG>
+struct Dq {
+  static constexpr int BM = 64 * NWG;  // queries per block
+  static constexpr uint32_t QT = tile_bytes<D, BM>();
+  static constexpr uint32_t KT = tile_bytes<D, STEP>();
+  static constexpr int STAGES = D > 128 ? 2 : 3;
+  static constexpr size_t bytes = 2 * (size_t)QT + STAGES * 2 * (size_t)KT;
+};
 
-  float acc[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+template <int D, int NWG>
+__global__ void __launch_bounds__(MAX_THREADS, 1) flash_dq_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    const float* __restrict__ lse2, const float* __restrict__ delta, bf16* __restrict__ dq,
+    int S, int T, int H, int K, int Sp, float scale, int causal, int window) {
+  using L = Dq<D, NWG>;
+  constexpr int BM = L::BM, DP = padded(D), NO = DP / CHUNK, STAGES = L::STAGES;
+  constexpr bool PIPE = D <= 128;  // registers for two steps in flight
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* do_s = q_s + L::QT;
+  uint8_t* k_s = do_s + L::QT;  // stage st at k_s + st * KT
+  uint8_t* v_s = k_s + STAGES * L::KT;
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kh = h / (H / K);
+  const int qlo = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int nq = min(BM, S - qlo);
   const int col_hi = causal ? min(T, qlo + nq) : T;
   const int col_lo = window >= 0 ? max(0, qlo - window + 1) : 0;
+  const int j_lo = col_lo / STEP;
+  const int n_it = col_hi > col_lo ? (col_hi + STEP - 1) / STEP - j_lo : 0;
 
-  for (int t0 = (col_lo / KT) * KT; t0 < col_hi; t0 += KT) {
-    const int nk = min(KT, T - t0);
-    __syncthreads();
-    const bf16* kp = k + (((size_t)b * T + t0) * K + kh) * D;
-    load_rows<D, KT>(k_s, kp, kv_stride, nk);
-    load_rows<D, KT>(v_s, v + (((size_t)b * T + t0) * K + kh) * D, kv_stride, nk);
-    load_rows_t<DC, KT>(kt_s, kp + c0, kv_stride, nk);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(&k_full[i], 1);
+      bar_init(&v_full[i], 1);
+      bar_init(&empty[i], 4 * NWG);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
 
-    float s[KT / 8][4], dp[KT / 8][4];
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, q_s, LD, r0, 16 * kk, g, t);
-      load_a(da, do_s, LD, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, 8 * j, 16 * kk, g, t);
-        mma(s[j], qa, b0, b1);
-        load_b(b0, b1, v_s, LD, 8 * j, 16 * kk, g, t);
-        mma(dp[j], da, b0, b1);
+  if (threadIdx.x >= NWG * WG) {  // ---------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * WG) {
+      bar_expect(q_full, 2 * L::QT);
+      tma_tile<D, BM>(q_s, &qmap, q_full, h, qlo, b);
+      tma_tile<D, BM>(do_s, &domap, q_full, h, qlo, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % STAGES, ph = (it / STAGES) & 1, t0 = (j_lo + it) * STEP;
+        bar_wait(&empty[st], ph ^ 1);
+        bar_expect(&k_full[st], L::KT);
+        tma_tile<D, STEP>(k_s + st * L::KT, &kmap, &k_full[st], kh, t0, b);
+        bar_expect(&v_full[st], L::KT);
+        tma_tile<D, STEP>(v_s + st * L::KT, &vmap, &v_full[st], kh, t0, b);
       }
     }
+  } else {  // ------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int m0 = 64 * wg, rmin = qlo + m0, rmax = rmin + 63;
+    const int row[2] = {rmin + 16 * warp + g, rmin + 16 * warp + g + 8};
+    const float c = scale * LOG2E;
+    float row_lse[2], row_dl[2];
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
+    for (int r = 0; r < 2; ++r) {
+      row_lse[r] = row[r] < S ? lse2[(size_t)bh * Sp + row[r]] : INFINITY;
+      row_dl[r] = row[r] < S ? delta[(size_t)bh * Sp + row[r]] : 0.f;
+    }
+
+    float acc[NO][32];
+    float s[32], dp[32];  // S and dP, then ds in s
+    uint32_t sa[4][4];    // bf16(ds): the A operand of dS K
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, col = t0 + 8 * j + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (visible(row[i], col, S, T, causal, window)) {
-          const float p = expf(s[j][e] * scale - row_lse[i]);
-          ds = p * (dp[j][e] - row_dl[i]) * scale;
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+
+    // S = Q K^T and dP = dO V^T of kv tile `it`, committed, not waited for
+    auto issue_scores = [&](int it) {
+      const int st = it % STAGES, ph = (it / STAGES) & 1;
+      bar_wait(&k_full[st], ph);
+      bar_wait(&v_full[st], ph);
+      fence_regs<32>(s);
+      fence_regs<32>(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        mma_ss(s, desc_k<BM>(q_s, m0, kk), desc_k<STEP>(k_s + st * L::KT, 0, kk), kk > 0);
+        mma_ss(dp, desc_k<BM>(do_s, m0, kk), desc_k<STEP>(v_s + st * L::KT, 0, kk), kk > 0);
+      }
+      wg_commit();
+    };
+    // dQ += dS K of kv tile `it`, committed, not waited for
+    auto issue_dq = [&](int it) {
+      const uint8_t* k_t = k_s + (it % STAGES) * L::KT;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs<32>(acc[n]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs<4>(sa[kk]);
+      wg_fence();
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs(acc[n], sa[kk], desc_mn<STEP>(k_t, n, kk));
+      wg_commit();
+    };
+    auto dq_done = [&](int it) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs<32>(acc[n]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs<4>(sa[kk]);
+      warp_release(&empty[it % STAGES]);
+    };
+    // ds of kv tile `it` from its landed S and dP, into s
+    auto pointwise = [&](int it) {
+      fence_regs<32>(s);
+      fence_regs<32>(dp);
+      const int t0 = (j_lo + it) * STEP;
+      const bool whole =
+          (!causal || t0 + STEP - 1 <= rmin) && (window < 0 || t0 > rmax - window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1, col = t0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        float ds = exp2_fast(fmaf(s[i], c, -row_lse[r])) * (dp[i] - row_dl[r]) * scale;
+        if (!whole && !visible(row[r], col, T, causal, window)) ds = 0.f;
+        s[i] = ds;
+      }
+    };
+
+    bar_wait(q_full, 0);
+    if (!PIPE) {
+      for (int it = 0; it < n_it; ++it) {
+        issue_scores(it);
+        wg_wait<0>();
+        pointwise(it);
+        to_a(sa, s);
+        issue_dq(it);
+        wg_wait<0>();
+        dq_done(it);
+      }
+    } else if (n_it > 0) {
+      // the pipeline: ds of tile it on the CUDA cores while the tensor
+      // cores finish dQ of tile it - 1
+      issue_scores(0);
+      wg_wait<0>();
+      pointwise(0);
+      to_a(sa, s);
+      for (int it = 1; it < n_it; ++it) {
+        issue_scores(it);
+        issue_dq(it - 1);
+        wg_wait<1>();
+        pointwise(it);
+        wg_wait<0>();
+        dq_done(it - 1);
+        to_a(sa, s);
+      }
+      issue_dq(n_it - 1);
+      wg_wait<0>();
+      dq_done(n_it - 1);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= S) continue;
+      bf16* out = dq + (((size_t)b * S + row[r]) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * n + 8 * jj + 2 * t;
+          if (D >= CHUNK || col < D)
+            *reinterpret_cast<__nv_bfloat162*>(out + col) =
+                __floats2bfloat162_rn(acc[n][4 * jj + 2 * r], acc[n][4 * jj + 2 * r + 1]);
         }
-        s[j][e] = ds;
-      }
-    uint32_t sa[KT / 16][4];  // bf16(ds): the A operand of dS K
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) c_to_a(sa[kk], s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, TLD, 8 * j, 16 * kk, g, t);
-        mma(acc[j], sa[kk], b0, b1);
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
-    bf16* out = dq + (((size_t)b * S + row[i]) * H + h) * D + c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
   }
 }
 
+// per head dim: the output columns a dk/dv consumer warpgroup owns (two
+// warpgroups share each 64 keys at dh 256), and the consumer warpgroups of
+// a dq block (one at dh 256, where shared memory holds 64 query rows)
 template <int D>
-size_t dkdv_smem() {
-  return sizeof(bf16) * ((size_t)(2 * DKV_KT + 2 * DKV_QT) * (D + 8) +
-                         2 * (size_t)col_split<D>() * (DKV_QT + 8)) +
-         sizeof(float) * 2 * DKV_QT;
-}
-
-template <int D>
-size_t dq_smem() {
-  return sizeof(bf16) * ((size_t)(2 * DQ_QT + 2 * DQ_KT) * (D + 8) +
-                         (size_t)col_split<D>() * (DQ_KT + 8));
-}
+struct Cfg {
+  static constexpr int KV_DC = D > 128 ? 128 : D, KV_NWG = 2, Q_NWG = D > 128 ? 1 : 2;
+  using KvL = Dkdv<D, KV_DC, KV_NWG>;
+  using QL = Dq<D, Q_NWG>;
+};
 
 template <int D>
 size_t bwd_smem() {
-  return dkdv_smem<D>() > dq_smem<D>() ? dkdv_smem<D>() : dq_smem<D>();
+  using C = Cfg<D>;
+  const size_t a = block_smem(C::KvL::bytes), b = block_smem(C::QL::bytes);
+  return a > b ? a : b;
 }
+
+// query rows of the scratch, padded to a multiple of STEP
+int padded_rows(int S) { return (S + STEP - 1) / STEP * STEP; }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq, void* dk,
+           const void* dout, const void* lse, void* scratch, void* dq, void* dk,
            void* dv, int B, int S, int T, int H, int K, float scale, int causal,
            int window, cudaStream_t st) {
-  constexpr int DC = col_split<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dkdv_smem<D>());
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dq_smem<D>());
-  if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)B * S * H;
-  flash_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, B, S, H, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<D, DC><<<dim3((T + DKV_KT - 1) / DKV_KT, B * K, D / DC),
-                                 THREADS, dkdv_smem<D>(), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, S, T, H, K, scale,
-      causal, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D, DC><<<dim3((S + DQ_QT - 1) / DQ_QT, B * H, D / DC),
-                               THREADS, dq_smem<D>(), st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, S, T, H, K, scale, causal,
-      window);
+  using C = Cfg<D>;
+  constexpr int BN = C::KvL::BN, BM = C::QL::BM;
+  const int Sp = padded_rows(S);
+  float* lse2 = (float*)scratch;
+  float* delta = lse2 + (size_t)B * H * Sp;
+  CUtensorMap qm, dom, km_kv, vm_kv, qm_q, dom_q, km_q, vm_q;
+  int err = make_map(&qm, q, B, S, H, D, STEP);
+  if (!err) err = make_map(&dom, dout, B, S, H, D, STEP);
+  if (!err) err = make_map(&km_kv, k, B, T, K, D, BN);
+  if (!err) err = make_map(&vm_kv, v, B, T, K, D, BN);
+  if (!err) err = make_map(&qm_q, q, B, S, H, D, BM);
+  if (!err) err = make_map(&dom_q, dout, B, S, H, D, BM);
+  if (!err) err = make_map(&km_q, k, B, T, K, D, STEP);
+  if (!err) err = make_map(&vm_q, v, B, T, K, D, STEP);
+  if (err) return err;
+  auto* kv_kernel = flash_dkdv_kernel<D, C::KV_DC, C::KV_NWG>;
+  auto* q_kernel = flash_dq_kernel<D, C::Q_NWG>;
+  const size_t kv_smem = block_smem(C::KvL::bytes), q_smem = block_smem(C::QL::bytes);
+  cudaError_t e = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kv_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_smem);
+  if (e != cudaSuccess) return (int)e;
+
+  constexpr int RPW = 32 / (D / 8 < 32 ? D / 8 : 32);  // rows per warp
+  const size_t rows = (size_t)B * S * H, pads = (size_t)B * H * (Sp - S);
+  size_t threads = (rows + RPW - 1) / RPW * 32;
+  if (pads > threads) threads = pads;
+  flash_prep_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const bf16*)o, (const bf16*)dout, (const float*)lse, lse2, delta, B, S, H, Sp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  kv_kernel<<<dim3(B * K, (T + BN - 1) / BN), WG * (C::KV_NWG + 1), kv_smem,
+              st>>>(qm, km_kv, vm_kv, dom, lse2, delta, (bf16*)dk, (bf16*)dv, S, T, H, K,
+                    Sp, scale, causal, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  q_kernel<<<dim3(B * H, (S + BM - 1) / BM), WG * (C::Q_NWG + 1), q_smem, st>>>(
+      qm_q, km_q, vm_q, dom_q, lse2, delta, (bf16*)dq, S, T, H, K, Sp, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -357,17 +598,24 @@ extern "C" size_t flash_bwd_smem_bytes(int D) {
   }
 }
 
-// Launches the three kernels on `stream`, allocates nothing (delta is the
-// caller's float32 [B*H, S] scratch), returns cudaGetLastError().
+// Float32 entries of the scratch flash_bwd needs: lse * log2(e) and delta,
+// each [B*H, S rounded up to 64].
+extern "C" size_t flash_bwd_scratch_floats(int B, int S, int H) {
+  return 2 * (size_t)B * H * padded_rows(S);
+}
+
+// Launches the three kernels on `stream`, allocates nothing (scratch is the
+// caller's, flash_bwd_scratch_floats entries), returns cudaGetLastError()
+// (or the error of building a tensor map).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const void* lse, void* delta, void* dq,
+                         const void* dout, const void* lse, void* scratch, void* dq,
                          void* dk, void* dv, int B, int S, int T, int H, int K, int D,
                          float scale, int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_BWD_CASE(DIM)                                                        \
-  case DIM:                                                                        \
-    return launch<DIM>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, T, H, K, scale, \
+#define FLASH_BWD_CASE(DIM)                                                               \
+  case DIM:                                                                               \
+    return launch<DIM>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, T, H, K, scale, \
                        causal, window, st);
   switch (D) {
     FLASH_BWD_CASE(16)

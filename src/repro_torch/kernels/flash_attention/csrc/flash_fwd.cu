@@ -15,178 +15,311 @@
 // What bounds it on the H100: operations.  Causal attention over S = T = 2048
 // does ~2 * 2 * S^2/2 * dh flops per head against O(S * dh) bytes, far above
 // the ~295 flops/byte where the tensor cores and not the memory set the least
-// time.  So both products run on the tensor cores (mma.sync bf16 tiles with
-// float32 accumulators, flash_common.cuh); the softmax stays float32 in
-// registers.  No wgmma or TMA yet: tiles are copied through registers and
-// each block waits for its own copies.
+// time.  So both products are warpgroup products (wgmma, flash_sm90.cuh) fed
+// from shared memory by the TMA unit, and the work between them is kept
+// short.
 //
-// Design.  The Pallas grid walks kv blocks as a sequential axis and carries
-// m, l and acc in revisited output blocks; Hopper blocks run in parallel and
-// carry nothing, so one block per (64-query tile, b*h) loops over its kv
-// tiles, from the window's first live tile to its causal reach only.  Each
-// of the four warps owns 16 query rows: their Q fragments are read from the
-// block's shared Q tile at each k-step, S = Q K^T lands in registers in the
-// mma C layout, the row max and sum take two shuffles among the four lanes
-// sharing a row, and the probabilities are repacked in registers as the A
-// operand of P V.  V is stored transposed in shared memory so its fragments
-// load as 32-bit words.  The model layout [B, S, H, dh] / [B, T, K, dh] is
-// read in place; ragged S and T are masked in the kernel, not padded in
-// memory.
+// Design, one block per (b*h, 128-query tile), three warpgroups:
+// - a producer warp (warpgroup 2, its registers dropped to 24 by setmaxnreg)
+//   loads the block's Q tile once and then K and V tiles of the kv walk by
+//   TMA into a ring of three stages (two at dh 256, where shared memory
+//   holds no more), each guarded by a "full" mbarrier per operand (the
+//   bytes arrived) and an "empty" one (both consumers are done), so the
+//   copies of later tiles run under the products of this one;
+// - two consumer warpgroups (registers raised to 240), 64 query rows each,
+//   run S = Q K^T as wgmma from shared memory, the online softmax on the
+//   float32 accumulator in registers, and O += P V as wgmma with P, rounded
+//   to bf16, in registers as the A operand and V read MN-major through the
+//   transposed-B descriptor: no element of V is moved by hand.
+// Each consumer pipelines its walk: it issues S of tile j and P V of tile
+// j - 1 together, runs the softmax of tile j while P V is still in flight,
+// and only then rescales O; the other consumer's products fill the tensor
+// cores while this one's softmax runs.
+// The softmax runs in base 2 with scale * log2(e) folded into one multiply;
+// lse returns to natural log at the end.  Masks are evaluated only on the kv
+// tiles that some row of the warpgroup does not see whole (the diagonal,
+// the window's edge, the ragged end of T); tiles no row of the block sees
+// are never loaded.  The grid runs the longest causal walks first (tile
+// index reversed, every head's heaviest tile before any lighter one) so the
+// short ones fill the card's tail.  Ragged S and T: the TMA unit fills rows
+// and columns past the tensor with zeros; columns >= T are masked, rows >= S
+// are not stored.
 //
-// Head dim 256 (Griffin): a warp's float32 O accumulator for D columns is
-// D/2 registers, 128 at D = 256, which with S, P and the addressing passes
-// the 255-register cap.  So the output columns are split across the grid
-// (flash_common.cuh:col_split): blockIdx.z owns DC = 128 of them, and each of
-// the two blocks of a query tile computes the full S = Q K^T over all 256
-// dims (the same m, l and lse, bit for bit) and its own half of P V.  That
-// repeats the score product, 1.5x the flops of one block, and keeps every
-// accumulator in registers; head dims up to 128 take one block (DC = D).
-#include "flash_common.cuh"
+// What the earlier mma.sync design lacked and this one does:
+//   copies through registers with block-wide barriers -> TMA ring + mbarriers;
+//   V transposed element by element -> MN-major wgmma operand;
+//   fragments reloaded as 32-bit words every tile -> wgmma reads shared memory;
+//   ascending tile order (a causal tail) -> heaviest tiles first;
+//   a mask on every element and expf with a per-element scale -> masks on
+//   edge tiles only, exp2 with the scale folded.
+// Head dim 256 (Griffin) needs no column split any more: one consumer
+// warpgroup holds its 64 x 256 float32 O (128 registers a thread) beside a
+// 64 x 64 score tile within 240 registers, the kv tile shrinking to 64 keys
+// so that Q and a two-stage K/V ring fit in 192 KB of shared memory.
+//
+// Where trouble was expected, and what is done: the tensor maps come from
+// libcuda's cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint
+// (no -lcuda), built on the host at every call (microseconds) and passed as
+// __grid_constant__ parameters; the 128-byte swizzle caps a box at 64 bf16
+// columns, so dh 128 and 256 load in 64-column chunks and dh 16 and 32 in
+// one chunk whose columns past D the TMA unit fills with zeros; TMA needs
+// 16-byte-aligned bases and row strides, which the wrapper checks (ops.py).
+#include "flash_sm90.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace sm90;
 
-constexpr int QT = 16 * WARPS;  // query rows per block
-constexpr int KT = 64;          // keys per kv tile
+constexpr int NWG = 2;           // consumer warpgroups
+constexpr int BM = 64 * NWG;     // query rows per block
+constexpr int THREADS = WG * (NWG + 1);
 
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-    const bf16* __restrict__ q,  // [B, S, H, D]
-    const bf16* __restrict__ k,  // [B, T, K, D]
-    const bf16* __restrict__ v,  // [B, T, K, D]
-    bf16* __restrict__ o,        // [B, S, H, D]
-    float* __restrict__ lse,     // [B*H, S]
-    int S, int T, int H, int K, float scale, int causal, int window) {
-  constexpr int LD = D + 8, VLD = KT + 8;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / (H / K);
-  const int qlo = blockIdx.x * QT, c0 = blockIdx.z * DC;
-  extern __shared__ uint4 smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [QT][LD]
-  bf16* k_s = q_s + QT * LD;                      // [KT][LD]
-  bf16* vt_s = k_s + KT * LD;                     // [DC][VLD], V^T columns c0..
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
-  const int row[2] = {qlo + r0 + g, qlo + r0 + g + 8};
-  const int nq = min(QT, S - qlo);
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)K * D;
-  load_rows<D, QT>(q_s, q + (((size_t)b * S + qlo) * H + h) * D, q_stride, nq);
+template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  return D > 128 ? 64 : 128;
+}
 
-  float acc[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  const int col_hi = causal ? min(T, qlo + nq) : T;
-  const int col_lo = window >= 0 ? max(0, qlo - window + 1) : 0;
-
-  for (int t0 = (col_lo / KT) * KT; t0 < col_hi; t0 += KT) {
-    const int nk = min(KT, T - t0);
-    __syncthreads();  // the previous tile's reads are done
-    const bf16* kp = k + (((size_t)b * T + t0) * K + kh) * D;
-    const bf16* vp = v + (((size_t)b * T + t0) * K + kh) * D;
-    load_rows<D, KT>(k_s, kp, kv_stride, nk);
-    load_rows_t<DC, KT>(vt_s, vp + c0, kv_stride, nk);
-    __syncthreads();
-
-    float s[KT / 8][4];
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4];
-      load_a(qa, q_s, LD, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, LD, 8 * j, 16 * kk, g, t);
-        mma(s[j], qa, b0, b1);
-      }
-    }
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = t0 + 8 * j + 2 * t + (e & 1);
-        const float a = visible(row[e >> 1], col, S, T, causal, window) ? s[j][e] * scale
-                                                                       : NEG;
-        s[j][e] = a;
-        mx[e >> 1] = fmaxf(mx[e >> 1], a);
-      }
-    float corr[2], m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[j][e] == NEG ? 0.f : expf(s[j][e] - m_new[e >> 1]);
-        sum[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
-      m[i] = m_new[i];
-    }
-    uint32_t pf[KT / 16][4];  // p rounded to bf16: the A operand of P V
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) c_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b(b0, b1, vt_s, VLD, 8 * j, 16 * kk, g, t);
-        mma(acc[j], pf[kk], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= S) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-    bf16* orow = o + (((size_t)b * S + row[i]) * H + h) * D + c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2 * i] / denom, acc[j][2 * i + 1] / denom);
-    if (t == 0 && blockIdx.z == 0)
-      lse[(size_t)bh * S + row[i]] = l[i] == 0.f ? 0.f : m[i] + logf(fmaxf(l[i], 1e-30f));
-  }
+// K/V ring depth: three stages where they fit in shared memory
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 128 ? 2 : 3;
 }
 
 template <int D>
-size_t smem_bytes() {
-  constexpr int DC = col_split<D>();
-  return sizeof(bf16) * ((size_t)(QT + KT) * (D + 8) + (size_t)DC * (KT + 8));
+__host__ __device__ constexpr size_t tiles_bytes() {
+  return tile_bytes<D, BM>() + 2 * stages<D>() * (size_t)tile_bytes<D, kv_tile<D>()>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // q [B, S, H, D]
+    const __grid_constant__ CUtensorMap kmap,  // k [B, T, K, D]
+    const __grid_constant__ CUtensorMap vmap,  // v [B, T, K, D]
+    bf16* __restrict__ o,                      // [B, S, H, D]
+    float* __restrict__ lse,                   // [B*H, S]
+    int S, int T, int H, int K, float scale, int causal, int window) {
+  constexpr int KT = kv_tile<D>(), DP = padded(D), NC = DP / CHUNK, NJ = KT / 64;
+  constexpr int STAGES = stages<D>();
+  constexpr uint32_t KV = tile_bytes<D, KT>();
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = q_s + tile_bytes<D, BM>();  // stage st at k_s + st * KV
+  uint8_t* v_s = k_s + STAGES * KV;
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kh = h / (H / K);
+  const int qlo = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest tiles first
+  const int nq = min(BM, S - qlo);
+  const int col_hi = causal ? min(T, qlo + nq) : T;
+  const int col_lo = window >= 0 ? max(0, qlo - window + 1) : 0;
+  const int j_lo = col_lo / KT, j_hi = col_hi > col_lo ? (col_hi + KT - 1) / KT : j_lo;
+  const int n_it = j_hi - j_lo;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(&k_full[i], 1);
+      bar_init(&v_full[i], 1);
+      bar_init(&empty[i], 4 * NWG);
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * WG) {  // ---------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * WG) {
+      bar_expect(q_full, tile_bytes<D, BM>());
+      tma_tile<D, BM>(q_s, &qmap, q_full, h, qlo, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % STAGES, ph = (it / STAGES) & 1, t0 = (j_lo + it) * KT;
+        bar_wait(&empty[st], ph ^ 1);
+        bar_expect(&k_full[st], KV);
+        tma_tile<D, KT>(k_s + st * KV, &kmap, &k_full[st], kh, t0, b);
+        bar_expect(&v_full[st], KV);
+        tma_tile<D, KT>(v_s + st * KV, &vmap, &v_full[st], kh, t0, b);
+      }
+    }
+  } else {  // ------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int m0 = 64 * wg, rmin = qlo + m0, rmax = rmin + 63;
+    const int row[2] = {rmin + 16 * warp + g, rmin + 16 * warp + g + 8};
+    const float c = scale * LOG2E;
+
+    float acc[NC][32];   // O, float32
+    float s[NJ][32];     // scores, then p
+    uint32_t pa[NJ][4][4];  // p rounded to bf16: the A operand of P V
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+    // running row max of the raw scores, and this thread's share of the row sums
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    // S = Q K^T of kv tile `it`, issued and committed, not waited for
+    auto issue_scores = [&](int it) {
+      const int st = it % STAGES;
+      bar_wait(&k_full[st], (it / STAGES) & 1);
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) fence_regs<32>(s[n]);
+      wg_fence();
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss(s[n], desc_k<BM>(q_s, m0, kk), desc_k<KT>(k_s + st * KV, 64 * n, kk),
+                 kk > 0);
+      wg_commit();
+    };
+    // O += P V of kv tile `it`, issued and committed, not waited for
+    auto issue_pv = [&](int it) {
+      const int st = it % STAGES;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) fence_regs<32>(acc[n]);
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs<4>(pa[n][kk]);
+      bar_wait(&v_full[st], (it / STAGES) & 1);
+      wg_fence();
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma_rs(acc[n], pa[jn][kk], desc_mn<KT>(v_s + st * KV, n, 4 * jn + kk));
+      wg_commit();
+    };
+    // P V of kv tile `it` has landed: its operands and its stage are free
+    auto pv_done = [&](int it) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) fence_regs<32>(acc[n]);
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs<4>(pa[n][kk]);
+      warp_release(&empty[it % STAGES]);
+    };
+    // the online softmax of the scores of kv tile `it`, once they have
+    // landed: s becomes p (relative to the new row max); returns in corr
+    // the factor that rescales what was summed before
+    auto softmax = [&](int it, float* corr) {
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) fence_regs<32>(s[n]);
+      const int t0 = (j_lo + it) * KT;
+      const bool whole = t0 + KT <= T && (!causal || t0 + KT - 1 <= rmin) &&
+                         (window < 0 || t0 > rmax - window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          if (!whole &&
+              !visible(row[r], t0 + 64 * n + 8 * (i >> 2) + 2 * t + (i & 1), T, causal, window))
+            s[n][i] = -INFINITY;
+          mx[r] = fmaxf(mx[r], s[n][i]);
+        }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        base[r] = m_new == -INFINITY ? 0.f : m_new * c;  // a row that sees nothing yet
+        corr[r] = exp2_fast(m[r] * c - base[r]);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = exp2_fast(fmaf(s[n][i], c, -base[r]));
+          l[r] += p;
+          s[n][i] = p;
+        }
+    };
+
+    bar_wait(q_full, 0);
+    if (n_it > 0) {
+      // the pipeline: while the softmax of tile it runs on the CUDA cores,
+      // the tensor cores finish P V of tile it - 1
+      float corr[2];
+      issue_scores(0);
+      wg_wait<0>();
+      softmax(0, corr);
+#pragma unroll
+      for (int n = 0; n < NJ; ++n) to_a(pa[n], s[n]);
+      for (int it = 1; it < n_it; ++it) {
+        issue_scores(it);
+        issue_pv(it - 1);
+        wg_wait<1>();  // the scores of tile it
+        softmax(it, corr);
+        wg_wait<0>();  // P V of tile it - 1
+        pv_done(it - 1);
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[n][i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int n = 0; n < NJ; ++n) to_a(pa[n], s[n]);
+      }
+      issue_pv(n_it - 1);
+      wg_wait<0>();
+      pv_done(n_it - 1);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= S) continue;
+      const float denom = l[r] == 0.f ? 1.f : l[r];
+      bf16* orow = o + (((size_t)b * S + row[r]) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * n + 8 * jj + 2 * t;
+          if (D >= CHUNK || col < D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+                acc[n][4 * jj + 2 * r] / denom, acc[n][4 * jj + 2 * r + 1] / denom);
+        }
+      if (t == 0)
+        lse[(size_t)bh * S + row[r]] =
+            l[r] == 0.f ? 0.f : m[r] * scale + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
            int S, int T, int H, int K, float scale, int causal, int window,
            cudaStream_t stream) {
-  constexpr int DC = col_split<D>();
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + QT - 1) / QT, B * H, D / DC);
-  flash_fwd_kernel<D, DC><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, S, T, H,
-      K, scale, causal, window);
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, B, S, H, D, BM);
+  if (!err) err = make_map(&km, k, B, T, K, D, kv_tile<D>());
+  if (!err) err = make_map(&vm, v, B, T, K, D, kv_tile<D>());
+  if (err) return err;
+  const size_t smem = block_smem(tiles_bytes<D>());
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (S + BM - 1) / BM);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, (bf16*)o, (float*)lse, S, T, H, K, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -195,17 +328,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // Dynamic shared memory of one block, in bytes (0: head dim not taken).
 extern "C" size_t flash_fwd_smem_bytes(int D) {
   switch (D) {
-    case 16: return smem_bytes<16>();
-    case 32: return smem_bytes<32>();
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    case 256: return smem_bytes<256>();
+    case 16: return block_smem(tiles_bytes<16>());
+    case 32: return block_smem(tiles_bytes<32>());
+    case 64: return block_smem(tiles_bytes<64>());
+    case 128: return block_smem(tiles_bytes<128>());
+    case 256: return block_smem(tiles_bytes<256>());
     default: return 0;
   }
 }
 
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
-// window < 0: no window.  Head dims 16, 32, 64, 128 and 256.
+// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
+// the error of building a tensor map).  window < 0: no window.  Head dims
+// 16, 32, 64, 128 and 256; q, k, v 16-byte aligned.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int S, int T, int H, int K, int D,
                          float scale, int causal, int window, void* stream) {

@@ -26,7 +26,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, B, S, T, H, K, D, scale, causal, window, stream
     "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
-    # q, k, v, o, dO, lse, delta, dq, dk, dv, B, S, T, H, K, D, scale,
+    # q, k, v, o, dO, lse, scratch, dq, dk, dv, B, S, T, H, K, D, scale,
     # causal, window, stream
     "flash_bwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
 }
@@ -55,6 +55,13 @@ def shared_memory_bytes(name: str, D: int) -> int:
     return fn(D)
 
 
+def _scratch_floats(B: int, S: int, H: int) -> int:
+    """Float32 scratch of the backward: lse * log2(e) and delta, rows padded."""
+    fn = getattr(_build.load("flash_bwd"), "flash_bwd_scratch_floats")
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_size_t
+    return fn(B, S, H)
+
+
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
              shape: tuple[int, ...], device: torch.device) -> None:
     if t.device != device:
@@ -67,10 +74,16 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
         raise ValueError(f"{what} must be contiguous")
 
 
-def _geometry(q, k, v):
+def _geometry(q, k, v, **more):
+    """Checks the operands (``more``: o and dO of the backward by name) and
+    returns (B, S, T, H, K, D).  Alignment is checked first, before the
+    device: the TMA unit reads every operand from a 16-byte-aligned base."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be [B, S, H, D] and k, v [B, T, K, D], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
+    for what, t in dict(q=q, k=k, v=v, **more).items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start 16-byte aligned (TMA tile loads)")
     if q.device.type != "cuda":
         raise ValueError(f"the kernel runs on the card, q is on {q.device}")
     B, S, H, D = q.shape
@@ -114,16 +127,17 @@ def flash_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, causal: bool = True, window: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward: -> (dq, dk, dv), bf16, shaped like q, k, v."""
-    B, S, T, H, K, D = _geometry(q, k, v)
+    B, S, T, H, K, D = _geometry(q, k, v, o=o, do=do)
     _require(o, "o", torch.bfloat16, tuple(q.shape), q.device)
     _require(do, "do", torch.bfloat16, tuple(q.shape), q.device)
     _require(lse, "lse", torch.float32, (B * H, S), q.device)
-    delta = torch.empty_like(lse)
+    scratch = torch.empty(_scratch_floats(B, S, H), dtype=torch.float32,
+                          device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("flash_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, T, H, K, D, float(scale), int(bool(causal)),
         _window(window), stream)
     if err:

@@ -95,3 +95,12 @@ def test_the_paged_sources_are_keyed_by_the_headers_they_share():
     assert names == {"flash_common.cuh", "paged_common.cuh"}
     names = {h.name for h in _build.included_headers(_build.SOURCES["paged_decode"])}
     assert names == {"paged_common.cuh"}
+
+
+def test_the_flash_sources_are_keyed_by_the_hopper_header():
+    """K2's forward and backward build on the wgmma/TMA helpers of
+    ``flash_sm90.cuh``; K4 keeps the mma.sync helpers of ``flash_common.cuh``,
+    so an edit to either rebuilds only the kernels that use it."""
+    for name in ("flash_fwd", "flash_bwd"):
+        names = {h.name for h in _build.included_headers(_build.SOURCES[name])}
+        assert names == {"flash_sm90.cuh"}

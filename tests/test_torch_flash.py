@@ -20,7 +20,9 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # no
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_bwd_kernel,
     flash_bwd_plain,
+    flash_fwd_kernel,
     flash_fwd_plain,
     launches,
 )
@@ -147,3 +149,25 @@ def test_flash_attention_bf16_rounding_points():
     gq, gk, gv = torch.autograd.grad(o.float().sum(), (q, k, v))
     assert gq.dtype == gk.dtype == gv.dtype == torch.bfloat16
     assert all(torch.isfinite(g.float()).all() for g in (gq, gk, gv))
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "o", "do"])
+def test_kernel_wrappers_refuse_operands_not_16_byte_aligned(operand):
+    """The kernels load every tile by TMA, which reads from 16-byte-aligned
+    bases: a contiguous view one element into its storage is refused before
+    anything is built or launched (so the check shows on CPU tensors)."""
+    B, S, H, K, D = 1, 8, 4, 2, 64
+    ops = {n: torch.zeros(shape, dtype=torch.bfloat16) for n, shape in (
+        ("q", (B, S, H, D)), ("k", (B, S, K, D)), ("v", (B, S, K, D)),
+        ("o", (B, S, H, D)), ("do", (B, S, H, D)))}
+    shape = ops[operand].shape
+    ops[operand] = torch.zeros(1 + ops[operand].numel(),
+                               dtype=torch.bfloat16)[1:].view(shape)
+    assert ops[operand].is_contiguous() and ops[operand].data_ptr() % 16
+    lse = torch.zeros((B * H, S), dtype=torch.float32)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bwd_kernel(ops["q"], ops["k"], ops["v"], ops["o"], lse, ops["do"],
+                         scale=0.125)
+    if operand in ("q", "k", "v"):
+        with pytest.raises(ValueError, match="aligned"):
+            flash_fwd_kernel(ops["q"], ops["k"], ops["v"], scale=0.125)

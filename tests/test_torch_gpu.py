@@ -260,6 +260,24 @@ K2_LSE_TOL = 1e-5
     (1, 65, 65, 8, 8, 64, True, None),
     (2, 90, 90, 4, 2, 16, True, None),
     (1, 40, 70, 2, 1, 32, False, 20),
+    # one past and one short of the tiles: 128 query rows a forward and dq
+    # block, 128 keys a forward kv tile and dk/dv block, 64-row steps
+    (1, 129, 127, 14, 2, 64, True, None),
+    (1, 127, 129, 14, 2, 64, False, None),
+    (2, 257, 257, 14, 2, 64, True, None),
+    (1, 63, 65, 4, 1, 128, True, None),
+    (1, 193, 191, 4, 2, 32, False, 50),
+    # a window narrower than a tile, and one that ends mid-tile
+    (1, 300, 300, 14, 2, 64, True, 40),
+    (1, 300, 300, 4, 2, 128, True, 100),
+    # G = 7 (qwen2's 14 query heads over 2 kv heads) at dh 128
+    (1, 150, 150, 7, 1, 128, True, None),
+    # dh 16 and 32 (one zero-padded 64-column chunk) across tile edges
+    (1, 129, 129, 4, 2, 16, True, 20),
+    (1, 257, 200, 4, 1, 32, True, None),
+    # bidirectional window: rows past T + window see no key (l = 0); a
+    # minority, so the median row that _row_err scales by is not zero
+    (1, 100, 60, 2, 1, 64, False, 10),
 ])
 def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     from repro_torch.kernels.flash_attention import (
@@ -279,6 +297,26 @@ def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     assert (lse - rlse).abs().max() <= K2_LSE_TOL
     for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
         assert _row_err(ours, ref) <= K2_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,window", [(64, None), (256, 100)])
+def test_flash_backward_is_the_same_from_run_to_run(cuda, D, window):
+    """No float atomics: dq, dk and dv are bit-identical on a second run."""
+    from repro_torch.kernels.flash_attention import flash_bwd_kernel, flash_fwd_kernel
+
+    B, S, H, K = 2, 300, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, K, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, S, K, D), generator=g, device=cuda).bfloat16()
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=D ** -0.5, causal=True, window=window)
+    o, lse = flash_fwd_kernel(q, k, v, **kw)
+    first = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    second = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------ card: K5 (WKV6) ---
@@ -435,6 +473,9 @@ def test_rglru_wrappers_refuse_wrong_operands(cuda):
     (1, 700, 16, 256),     # MQA (G = 16), window < S
     (2, 130, 4, 2048),     # window > S: plain causal
     (1, 333, 8, 100),      # ragged S, several window tiles
+    (1, 65, 4, 2048),      # S one past a 64-key tile and a 64-query step
+    (1, 127, 4, 40),       # window narrower than a tile; S one short of 128
+    (1, 257, 16, 100),     # G = 16, S one past 256, window ends mid-tile
 ])
 def test_flash_kernels_at_head_dim_256_match_plain(cuda, B, S, H, window):
     from repro_torch.kernels.flash_attention import (
