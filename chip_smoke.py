@@ -21,8 +21,10 @@ Phases, each of which fails the run (non-zero exit) on error:
              second run, all bfloat16; then times kernel, plain version and
              a library yardstick the port never calls
              (``scaled_dot_product_attention``, its backward alone for K2's
-             backward; ``F.rms_norm``) at the main paths' shapes, and splits
-             K2's backward into its kernels under ``torch.profiler``;
+             backward; ``F.rms_norm``, its backward alone for K1's backward,
+             K1 and its yardstick through CUDA graphs) at the main paths'
+             shapes, and splits K2's backward into its kernels under
+             ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
              every prompt must launch each paged kernel once per layer and
@@ -44,8 +46,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              must agree;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
-             and at ragged, brutal-decay, long-memory and clamped-decay
-             ones, and timed; then full-width, full-depth rwkv6-3b trained 6
+             and at ragged, brutal-decay, long-memory, clamped-decay and
+             chunk-edge ones, timed, and split into their kernels under
+             ``torch.profiler``; then full-width, full-depth rwkv6-3b trained 6
              steps at seq 2048 x batch 4 (launches per step exact, losses
              finite and falling), and the step check at 4 layers;
 9. griffin — the RG-LRU kernels (K6, forward and backward) held row by row
@@ -225,11 +228,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3, graph: bool = False) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 3, graph: bool = False, stream=None) -> float:
     """Mean time of ``fn`` over ``iters`` calls, by CUDA events.  Called
     back to back, a call the device finishes sooner than the host issues it
     is timed at the host's pace; ``graph`` captures the ``iters`` calls in a
-    CUDA graph and times one replay instead, the device's time for them."""
+    CUDA graph (on ``stream``, if given) and times one replay instead, the
+    device's time for them."""
     import torch
 
     for _ in range(warmup):
@@ -239,7 +243,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3, graph: bool = False) -> float:
     stop = torch.cuda.Event(enable_timing=True)
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        with torch.cuda.graph(g, stream=stream, capture_error_mode="relaxed"):
             for _ in range(iters):
                 fn()
         g.replay()
@@ -621,8 +625,12 @@ def time_training_kernels(torch, dev, worst: dict) -> dict:
 
 def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
     """K1 at ``[N, D]`` bf16 with a bf16 scale: kernel, plain and library
-    (``F.rms_norm``; forward and backward for the backward row) times and
-    bounds, rows ``rmsnorm_fwd`` and ``rmsnorm_bwd``."""
+    (``F.rms_norm``; its backward alone for the backward row: ``autograd.grad``
+    from one kept forward) times and bounds, rows ``rmsnorm_fwd`` and
+    ``rmsnorm_bwd``.  Kernel and library are timed on the device, through a
+    CUDA graph: back to back, a Triton launch costs the host more than the
+    kernel takes the card, so those times are the host's (logged beside,
+    labelled host-paced, with ``F.rms_norm``'s forward plus backward)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import (
@@ -634,6 +642,15 @@ def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
     _, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
     xl = x.clone().requires_grad_(True)
     sl = sc.clone().requires_grad_(True)
+    # the kept forward runs on the stream its backward is captured on (a
+    # backward runs on its forward's stream)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y_lib = F.rms_norm(xl, (D,), weight=sl, eps=1e-6)
+    torch.cuda.synchronize()
+
+    def lib_norm_bwd():
+        torch.autograd.grad(y_lib, (xl, sl), dy, retain_graph=True)
 
     def lib_norm_fb():
         y = F.rms_norm(xl, (D,), weight=sl, eps=1e-6)
@@ -646,17 +663,23 @@ def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
                         bound(0, 2 * 2 * N * D + 4 * N + 2 * D)),
         "rmsnorm_bwd": (lambda: rmsnorm_bwd_kernel(x, sc, rstd, dy),
                         lambda: rmsnorm_bwd_plain(x, sc, dy, 1e-6),
-                        lib_norm_fb,
+                        lib_norm_bwd,
                         bound(0, 3 * 2 * N * D + 4 * N + 2 * 2 * D)),
     }
     out = {}
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
-        out[name] = t = dict(ms=cuda_ms(kern, 50), plain_ms=cuda_ms(plain, 20),
-                             library_ms=cuda_ms(lib, 50), bound_ms=b_ms, bound_by=b_by)
-        lib_name = "F.rms_norm" + (" fwd+bwd" if name.endswith("bwd") else "")
-        log(f"[timing] {name:13s} [{N}, {D}] bf16: kernel_ms={t['ms']:.4f} "
+        out[name] = t = dict(
+            ms=cuda_ms(kern, 50, graph=True), plain_ms=cuda_ms(plain, 20),
+            library_ms=cuda_ms(lib, 50, graph=True, stream=side), bound_ms=b_ms,
+            bound_by=b_by)
+        lib_name = "F.rms_norm" + (" bwd alone" if name.endswith("bwd") else "")
+        host = (f"host-paced: kernel_ms={cuda_ms(kern, 50):.4f} "
+                f"{lib_name} {cuda_ms(lib, 50):.4f}")
+        if name.endswith("bwd"):
+            host += f"; F.rms_norm fwd+bwd {cuda_ms(lib_norm_fb, 50):.4f}"
+        log(f"[timing] {name:13s} [{N}, {D}] bf16 (CUDA graph): kernel_ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} ({lib_name}) "
-            f"bound_ms={b_ms:.6f} ({b_by})")
+            f"bound_ms={b_ms:.6f} ({b_by}); {host}")
     return out
 
 
@@ -744,7 +767,7 @@ def _kernel_split(torch, fn) -> list[tuple[str, float]]:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0].split("::")[-1]
+            name = name.split("<")[0].split("(")[0].split("::")[-1].split()[-1]
             split[name] = split.get(name, 0.0) + e.device_time_total / 1e3
     return list(split.items())
 
@@ -775,8 +798,23 @@ def _wkv6_inputs(torch, gen, dev, B, T, kind):
     return r, k, v, w, 0.5 * rn(RWKV_H, N), rn(BH, T, N)
 
 
+def _to_model(t, B: int):
+    """``[B*H, T, N]`` rows as the model's ``[B, T, H, N]`` (a strided view)."""
+    return t.view(B, RWKV_H, t.shape[1], -1).permute(0, 2, 1, 3)
+
+
+def _to_rows(t):
+    """The model's ``[B, T, H, N]`` as contiguous ``[B*H, T, N]`` rows."""
+    return t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], t.shape[3])
+
+
 def check_wkv6_kernels(torch, dev) -> dict:
-    """K5 forward and backward against the plain version in float64."""
+    """K5 forward and backward against the plain version in float64.
+    ``layout`` "model" calls the kernels as ``wkv6()`` does on the main
+    path: r, k, v, w in the model's contiguous ``[B, T, H, N]`` and dy in
+    the same layout (autograd hands it so); "model, dy strided" passes dy
+    as a permuted view of rows, a layout of its own; "rows" is ``[B*H, T,
+    N]``.  The plain version takes the same values as rows."""
     from repro_torch.kernels.wkv6 import (
         wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
 
@@ -785,11 +823,21 @@ def check_wkv6_kernels(torch, dev) -> dict:
     # bfloat16 outputs)
     worst = {"wkv6_fwd": (0.0, 0.0, 0.0), "wkv6_bwd": (0.0, 0.0, 0.0)}
 
-    def case(B, T, kind, what):
+    def case(B, T, kind, what, layout="rows"):
         r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, kind)
-        y, st = wkv6_fwd_kernel(r, k, v, w, u)
-        grads = wkv6_bwd_kernel(r, k, v, w, u, dy)
+        ins, dy_in = (r, k, v, w), dy
+        if layout != "rows":
+            ins = [_to_model(t, B).contiguous() for t in ins]
+            dy_in = _to_model(dy, B)
+            if layout == "model":
+                dy_in = dy_in.contiguous()
+        y, st = wkv6_fwd_kernel(*ins, u)
+        grads = wkv6_bwd_kernel(*ins, u, dy_in)
         torch.cuda.synchronize()
+        if layout != "rows":
+            del ins, dy_in
+            y, st = _to_rows(y), st.view(-1, RWKV_N, RWKV_N)
+            grads = [_to_rows(g) for g in grads[:4]] + [grads[4]]
         f64 = [t.double() for t in (r, k, v, w, u, dy)]
         ry, rs = wkv6_plain(*f64[:5])
         refs = wkv6_bwd_plain(*f64)
@@ -815,42 +863,58 @@ def check_wkv6_kernels(torch, dev) -> dict:
             a_b, max(e["dw"], e["du"]), max(e["dr"], e["dk"], e["dv"]))))
 
     B, T = RWKV_TRAIN["global_batch"], RWKV_TRAIN["seq_len"]
-    case(B, T, "model", f"B={B} T={T} H=40 N=64 (main shape)")
-    case(B, 100, "model", "B=4 T=100 H=40 ragged")
-    case(1, 512, "brutal", "B=1 T=512 brutal decay w=1e-4")
-    case(1, T, "long", f"B=1 T={T} long memory w=0.99966")
-    case(1, 100, "clamp", "B=1 T=100 w >= 1-1e-7 in places (clamped)")
+    case(B, T, "model", f"[B, T, H, N] B={B} T={T} H=40 N=64 (main shape)", "model")
+    case(B, 100, "model", "rows B=4 T=100 H=40 ragged")
+    case(1, 512, "brutal", "rows B=1 T=512 brutal decay w=1e-4")
+    case(1, T, "long", f"rows B=1 T={T} long memory w=0.99966")
+    case(1, 100, "clamp", "rows B=1 T=100 w >= 1-1e-7 in places (clamped)")
+    case(2, 129, "model", "[B, T, H, N], dy strided, B=2 T=129 (2 x 64 + 1)",
+         "model, dy strided")
     return worst
 
 
 def time_wkv6_kernels(torch, dev, worst: dict) -> dict:
-    """K5: kernel and plain times at the training path's shape, and bounds."""
+    """K5: kernel and plain times at the training path's shape, bounds, and
+    each call split into its kernels under ``torch.profiler``.  The kernels
+    are timed in the main path's layout (the model's ``[B, T, H, N]``, dy
+    too), with their time on ``[B*H, T, N]`` rows logged beside."""
     from repro_torch.kernels.wkv6 import (
         wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     B, T = RWKV_TRAIN["global_batch"], RWKV_TRAIN["seq_len"]
     r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, "model")
+    rm, km, vm, wm, dym = (_to_model(t, B).contiguous() for t in (r, k, v, w, dy))
     BH, N = B * RWKV_H, RWKV_N
     elems = BH * T * N
-    # forward: r, k, v bf16 and w float32 in; y float32 and the state out;
-    # 4 N^2 flops per token and head.  backward: r, k, v bf16, w and dy
-    # float32 in; dr, dk, dv bf16, dw float32 and du out; two N x N
-    # recurrences and four N x N contractions, 12 N^2 flops per token and
-    # head; float32 on the CUDA cores
+    # forward: r, k, v bf16 and w float32 in; y float32 and the state out.
+    # backward: r, k, v bf16, w and dy float32 in; dr, dk, dv bf16, dw
+    # float32 and du out (24 bytes a token and channel).  Operations: the
+    # chunk form's tensor-core products (chunk 64, sub-chunk 16; each counted
+    # once, not per bf16 part) a token and head, forward the chunk's state
+    # contribution, the state product and the sub-chunk state updates (6 N^2)
+    # and A v (32 N), backward U, W, the sub-chunk states, dy S^T, v G^T,
+    # (k e^sfx) G and the G updates (14 N^2), M and A^T dy (64 N), at the
+    # bf16 tensor-core rate; the pair scores on CUDA cores are not counted.
+    # PR 13-16's bounds counted the sequential recurrence's N^2 FMAs on
+    # float32 CUDA cores (4 N^2 forward, 12 N^2 backward): logged beside.
     fwd_bytes = 3 * 2 * elems + 4 * elems + 4 * elems + 4 * BH * N * N + 4 * RWKV_H * N
     bwd_bytes = 3 * 2 * elems + 2 * 4 * elems + 4 * RWKV_H * N + 3 * 2 * elems \
         + 4 * elems + 4 * RWKV_H * N
     rows = {
-        "wkv6_fwd": (lambda: wkv6_fwd_kernel(r, k, v, w, u),
+        "wkv6_fwd": (lambda: wkv6_fwd_kernel(rm, km, vm, wm, u),
+                     lambda: wkv6_fwd_kernel(r, k, v, w, u),
                      lambda: wkv6_plain(r, k, v, w, u),
+                     bound((6 * N * N + 32 * N) * BH * T, fwd_bytes),
                      bound(4 * N * N * BH * T, fwd_bytes, F32_FLOPS_PER_S)),
-        "wkv6_bwd": (lambda: wkv6_bwd_kernel(r, k, v, w, u, dy),
+        "wkv6_bwd": (lambda: wkv6_bwd_kernel(rm, km, vm, wm, u, dym),
+                     lambda: wkv6_bwd_kernel(r, k, v, w, u, dy),
                      lambda: wkv6_bwd_plain(r, k, v, w, u, dy),
+                     bound((14 * N * N + 64 * N) * BH * T, bwd_bytes),
                      bound(12 * N * N * BH * T, bwd_bytes, F32_FLOPS_PER_S)),
     }
     out = {}
-    for name, (kern, plain, (b_ms, b_by)) in rows.items():
+    for name, (kern, kern_rows, plain, (b_ms, b_by), (old_ms, old_by)) in rows.items():
         out[name] = dict(ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=worst[name][0], max_row_err=worst[name][1],
@@ -859,9 +923,13 @@ def time_wkv6_kernels(torch, dev, worst: dict) -> dict:
             out[name].update(max_row_err_bf16=worst[name][2],
                              tolerance_bf16=WKV_BF16_ROW_RTOL)
         t = out[name]
+        log(f"[timing] {name:13s} its kernels (torch.profiler, one call): "
+            + ", ".join(f"{kn} {ms:.4f} ms" for kn, ms in _kernel_split(torch, kern)))
         log(f"[timing] {name:13s} B={B} T={T} H=40 N=64: kernel_ms={t['ms']:.4f} "
+            f"([B, T, H, N]; on [B*H, T, N] rows {cuda_ms(kern_rows, 10):.4f}) "
             f"plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
-            f"computes WKV-6) bound_ms={b_ms:.6f} ({b_by})")
+            f"computes WKV-6) bound_ms={b_ms:.6f} ({b_by}; the sequential form's "
+            f"float32 CUDA-core bound {old_ms:.6f}, {old_by})")
     return out
 
 
@@ -1275,6 +1343,43 @@ def _leaf_norms(grads: dict, mixer: str) -> dict:
             for path, g in leaves(grads) if mixer in path or path[-1] == "scale"}
 
 
+def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: str,
+                draws: int = 2) -> None:
+    """Log how the step check's loss gap splits: the plain path with only
+    ``probe``'s call on its kernel, the kernel path with only that call
+    plain, and the kernel path with that call's output scaled by ``1 + 1e-6
+    N(0, 1)`` (seeded), which is how far a float32 rounding change in that
+    output moves the loss through the bf16 model.  Losses only, no
+    gradients; ``base`` is the plain path's loss."""
+    from repro_torch.models import lm
+
+    real = getattr(*probe)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def on_kernel(kernel: bool):
+        return lambda *a, plain=False: real(*a, plain=not kernel)
+
+    def jittered(*a, plain=False):
+        y, *rest = real(*a, plain=plain)
+        noise = torch.randn(y.shape, generator=gen, device=y.device)
+        return (y * (1 + 1e-6 * noise), *rest)
+
+    runs = [(f"only {probe[1]} on its kernel", True, on_kernel(True)),
+            (f"all but {probe[1]} on the kernels", False, on_kernel(False))] + [
+        (f"kernels, {probe[1]} x (1 + 1e-6 N(0, 1)) draw {i}", False, jittered)
+        for i in range(draws)]
+    parts = []
+    for what, plain, fn in runs:
+        setattr(*probe, fn)
+        try:
+            with torch.no_grad():
+                loss = lm.loss_fn(cfg, params, batch, plain=plain)[0].item()
+        finally:
+            setattr(*probe, real)
+        parts.append(f"{what} {loss - base:+.2e}")
+    log(f"[{tag}] loss minus the plain path's: " + "; ".join(parts))
+
+
 def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
                tols: tuple[float, float, float], probe: tuple | None = None) -> None:
     """The loss and gradients of one batch, from the bfloat16 parameters of
@@ -1284,7 +1389,8 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     would add AdamW, the same code on both sides.  ``probe`` =
     (module, name) also runs the plain path with only that module's
     ``name`` call evaluated in float64 and logs how far that moves the same
-    numbers: the bf16 noise floor of the comparison."""
+    numbers, the bf16 noise floor of the comparison, and splits the loss gap
+    (:func:`_loss_split`)."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models import lm
     from repro_torch.train.optim import global_norm, leaves
@@ -1313,7 +1419,6 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
         res[run] = (loss.item(), global_norm(tree).item(), _leaf_norms(tree, mixer))
         del loss, grads, tree
         torch.cuda.empty_cache()
-    del params
 
     def gaps(a, b):
         (la, ga, na), (lb, gb, nb) = res[a], res[b]
@@ -1338,6 +1443,9 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     log(f"[{tag}] per-layer leaf gradient norms, largest relative difference: "
         + " ".join(f"{n}={e:.2e}" for n, e in sorted(d_leaf.items()))
         + f" (tol {leaf_rtol}) {'ok' if ok else 'FAIL'}")
+    if probe:
+        _loss_split(torch, dev, cfg, params, batch, lp, probe, tag)
+    del params
     if not ok:
         raise AssertionError(f"{tag}: the loss and gradients through the kernels "
                              "disagree with the plain versions")
@@ -1385,7 +1493,8 @@ def main() -> int:
             smem, at = (f"{flash_smem(name, DH)} / {flash_smem(name, GRIFFIN_DH)}",
                         f"dh={DH} / {GRIFFIN_DH}")
         elif name.startswith("wkv6"):
-            smem, at = wkv6_smem(name, RWKV_N), f"N={RWKV_N}"
+            smem, at = (", ".join(f"{kn} {b}" for kn, b in wkv6_smem(name, RWKV_N).items()),
+                        f"N={RWKV_N}")
         else:
             continue  # K6 uses no shared memory
         log(f"[build] {name}: {smem} bytes of shared memory per block at {at}")

@@ -104,3 +104,12 @@ def test_the_flash_sources_are_keyed_by_the_hopper_header():
     for name in ("flash_fwd", "flash_bwd"):
         names = {h.name for h in _build.included_headers(_build.SOURCES[name])}
         assert names == {"flash_sm90.cuh"}
+
+
+def test_the_wkv6_sources_are_keyed_by_their_header_and_the_mma_helpers():
+    """K5's forward and backward share the chunk-form helpers of
+    ``wkv6_common.cuh``, which include K4's mma.sync helpers from
+    ``flash_common.cuh``: an edit to either rebuilds both."""
+    for name in ("wkv6_fwd", "wkv6_bwd"):
+        names = {h.name for h in _build.included_headers(_build.SOURCES[name])}
+        assert names == {"wkv6_common.cuh", "flash_common.cuh"}

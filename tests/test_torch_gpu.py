@@ -401,6 +401,143 @@ def test_wkv6_wrappers_refuse_wrong_operands(cuda):
         wkv6_fwd_kernel(rb, rb, rb, w, torch.zeros((3, 64), device=cuda))
 
 
+def _wkv6_rows(g, dev, BH, T, N, H):
+    """r, k, v bf16, model decays w, u, dy as ``[B*H, T, N]`` rows."""
+    r, k, v = (torch.randn((BH, T, N), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6 + 5 * torch.rand((BH, T, N), generator=g, device=dev)))
+    u = 0.5 * torch.randn((H, N), generator=g, device=dev)
+    dy = torch.randn((BH, T, N), generator=g, device=dev)
+    return r, k, v, w, u, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [16, 64])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129])
+def test_wkv6_kernels_at_chunk_edges(cuda, T, N):
+    """The kernels cut a row into chunks of 64 tokens (four sub-chunks of
+    16): one token, a chunk less one, one chunk, one more, two and one,
+    held to the plain version in float64 at the card's row limits."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(T + N)
+    H = 4
+    r, k, v, w, u, dy = _wkv6_rows(g, cuda, 2 * H, T, N, H)
+    y, s = wkv6_fwd_kernel(r, k, v, w, u)
+    grads = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    f64 = [t.double() for t in (r, k, v, w, u, dy)]
+    ry, rs = wkv6_plain(*f64[:5])
+    assert _row_err(y, ry) <= K5_F32_ROW_RTOL
+    assert _row_err(s, rs) <= K5_F32_ROW_RTOL
+    for name, ours, ref in zip(("dr", "dk", "dv", "dw", "du"), grads,
+                               wkv6_bwd_plain(*f64)):
+        lim = K5_BF16_ROW_RTOL if name in ("dr", "dk", "dv") else K5_F32_ROW_RTOL
+        assert _row_err(ours, ref) <= lim, name
+
+
+@pytest.mark.gpu
+def test_wkv6_model_layout_is_bit_equal_to_rows(cuda):
+    """The kernels read the model's [B, T, H, N] in place, and dy in a layout
+    of its own: y, the state and every gradient are bit-equal to the call
+    on contiguous [B*H, T, N] rows."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_kernel, wkv6_fwd_kernel
+
+    B, T, H, N = 2, 200, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rows = _wkv6_rows(g, cuda, B * H, T, N, H)
+    r, k, v, w, u, dy = rows
+
+    def to_model(t):
+        return t.view(B, H, T, N).permute(0, 2, 1, 3).contiguous()
+
+    model = [to_model(t) for t in (r, k, v, w)]
+    dy_view = dy.view(B, H, T, N).permute(0, 2, 1, 3)   # strided, not contiguous
+    y1, s1 = wkv6_fwd_kernel(r, k, v, w, u)
+    y2, s2 = wkv6_fwd_kernel(*model, u)
+    assert y2.shape == (B, T, H, N) and s2.shape == (B, H, N, N)
+    assert torch.equal(to_model(y1), y2) and torch.equal(s1.view(B, H, N, N), s2)
+    g1 = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    g2 = wkv6_bwd_kernel(*model, u, dy_view)
+    for a, b in zip(g1[:4], g2[:4]):
+        assert torch.equal(to_model(a), b)
+    assert torch.equal(g1[4], g2[4])
+
+
+@pytest.mark.gpu
+def test_wkv6_backward_is_the_same_from_run_to_run(cuda):
+    """No float atomics: every gradient, du included, is bit-identical on a
+    second run."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r, k, v, w, u, dy = _wkv6_rows(g, cuda, 8, 300, 64, 4)
+    first = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    second = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernels_take_more_rows_than_a_grid_dimension_y(cuda):
+    """The chunk kernels put every (row, chunk) block on gridDim.x: 65,540
+    rows (more than gridDim.y's 65,535) of two chunks, held to the plain
+    version in float64 (evaluated 8,192 rows at a time; du summed over the
+    groups)."""
+    from repro_torch.kernels.wkv6 import (
+        wkv6_bwd_kernel, wkv6_bwd_plain, wkv6_fwd_kernel, wkv6_plain)
+
+    BH, H, G = 65540, 4, 8192
+    g = torch.Generator(device=cuda).manual_seed(14)
+    r, k, v, w, u, dy = _wkv6_rows(g, cuda, BH, 70, 16, H)
+    y, s = wkv6_fwd_kernel(r, k, v, w, u)
+    *grads, du = wkv6_bwd_kernel(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    ref_du = torch.zeros((H, 16), dtype=torch.float64, device=cuda)
+    for i in range(0, BH, G):
+        rows = slice(i, i + G)
+        f64 = [t[rows].double() for t in (r, k, v, w)]
+        ry, rs = wkv6_plain(*f64, u.double())
+        assert _row_err(y[rows], ry) <= K5_F32_ROW_RTOL
+        assert _row_err(s[rows], rs) <= K5_F32_ROW_RTOL
+        *refs, part = wkv6_bwd_plain(*f64, u.double(), dy[rows].double())
+        for name, ours, ref in zip(("dr", "dk", "dv", "dw"), grads, refs):
+            lim = K5_BF16_ROW_RTOL if name != "dw" else K5_F32_ROW_RTOL
+            assert _row_err(ours[rows], ref) <= lim, (name, i)
+        ref_du += part
+    assert _row_err(du, ref_du) <= K5_F32_ROW_RTOL
+
+
+@pytest.mark.gpu
+def test_wkv6_model_path_makes_no_layout_copies(cuda):
+    """``wkv6`` in the model layout, forward and backward through autograd,
+    launches K5's kernels and no copy kernel (the [B*H, T, N] transposes of
+    PRs 13-16 are gone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.wkv6 import wkv6
+
+    B, T, H, N = 2, 130, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(13)
+    r, k, v, w, u, dy = _wkv6_rows(g, cuda, B * H, T, N, H)
+    ins = [t.view(B, H, T, N).permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+           for t in (r, k, v, w)] + [u.requires_grad_(True)]
+    dy = dy.view(B, H, T, N).permute(0, 2, 1, 3).contiguous()
+    y, _ = wkv6(*ins)
+    torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        y, _ = wkv6(*ins)
+        torch.autograd.grad(y, ins, dy)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("wkv6_fwd_out" in n for n in names), names
+    assert any("wkv6_bwd_grad" in n for n in names), names
+    assert not [n for n in names if "copy" in n.lower()], names
+
+
 # ------------------------------------------------ card: K6 (RG-LRU) ---
 
 # K6 against its plain version evaluated in float64 on the same inputs, held
