@@ -53,9 +53,12 @@ Phases, each of which fails the run (non-zero exit) on error:
              finite and falling), and the step check at 4 layers;
 9. griffin — the RG-LRU kernels (K6, forward and backward) held row by row
              to their plain version in float64 at the recurrentgemma-9b
-             training shape [2, 4096, 4096] and at ragged and brutal-decay
-             ones, K2 at head dim 256 (MQA, window 2048) at the training
-             shape and at S < window, K1 at width 4096, all timed; then
+             training shape [2, 4096, 4096] and at ragged, brutal-decay,
+             long-memory and window-edge ones (T not a multiple of the
+             window, a grid far below 132 blocks), bit-identical on a
+             second run, and timed through CUDA graphs; K2 at head dim
+             256 (MQA, window 2048) at the training shape and at S <
+             window, K1 at width 4096, all timed; then
              full-width recurrentgemma-9b cut to 5 of its 38 layers trained
              6 steps at seq 4096 x batch 2 (parameter count, launches per
              step exact, losses finite and falling), and the step check at
@@ -70,6 +73,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -212,10 +216,16 @@ GRIFFIN_W, GRIFFIN_H, GRIFFIN_DH, GRIFFIN_WINDOW = 4096, 16, 256, 2048
 # row by row (one token's W channels; y, h_last, da, db are float32): each
 # step of the kernel's walk is one float32 FMA whose rounding error decays
 # with a as the state does, so a row stays within a few float32 ulps (2^-24
-# = 6e-8) of its largest entry.  Measured on an H100 80GB HBM3 at 700 W at
-# the shapes below: at most 1.8e-7 (da under brutal decay); the limit is 5x
-# that.  A walk that drops one token's input moves later rows by over 1e-2
-# (tests/test_torch_rglru.py::test_card_limits_catch_a_dropped_token).
+# = 6e-8) of its largest entry.  Measured on an H100 80GB HBM3 at 700 W with
+# a walk of all T tokens in float32: at most 1.8e-7 (da under brutal decay);
+# the limit is 5x that.  The windowed chunk scan walks at most 8 tokens in
+# float32 from a carry combined in float64, so it keeps that, long memory
+# (a >= e^-0.01, where the carries dominate a row) included
+# (tests/test_torch_rglru_chunks.py holds its float32 transcription to this
+# limit).  A walk that drops one token's input moves later rows by over
+# 1e-2 (tests/test_torch_rglru.py::test_card_limits_catch_a_dropped_token),
+# one that drops a window edge's a_{t+1} or y_{t-1} by over 1e-3
+# (tests/test_torch_rglru_chunks.py).
 RGLRU_ROW_RTOL = 1e-6
 # K2 at head dim 256 keeps K2's row-wise limits (FLASH_ROW_RTOL, LSE_TOL),
 # and the Griffin step check the qwen2 step check's limits.
@@ -936,12 +946,17 @@ def time_wkv6_kernels(torch, dev, worst: dict) -> dict:
 def _rglru_inputs(torch, gen, dev, B, T, W, kind):
     """a, b float32 ``[B, T, W]`` as Griffin makes them (``model``: log a =
     -8 softplus(lam) r, lam ~ U(-1, 1), r = sigmoid(N(0, 1)); b = sqrt(1 -
-    a^2) x) or under ``brutal`` decay (log a ~ U(-12, 0)); dy ~ N(0, 1)."""
+    a^2) x), under ``brutal`` decay (log a ~ U(-12, 0)) or with ``long``
+    memory (log a ~ U(-1e-2, -1e-4), where the carries dominate); dy ~ N(0,
+    1)."""
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
     if kind == "brutal":
         log_a = -12 * torch.rand((B, T, W), generator=gen, device=dev)
+    elif kind == "long":
+        log_a = -(1e-4 + (1e-2 - 1e-4) * torch.rand((B, T, W), generator=gen,
+                                                     device=dev))
     else:
         lam = 2 * torch.rand((W,), generator=gen, device=dev) - 1
         log_a = -8 * torch.logaddexp(lam, torch.zeros_like(lam)) * torch.sigmoid(
@@ -958,12 +973,19 @@ def check_rglru_kernels(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = {"rglru_fwd": (0.0, 0.0), "rglru_bwd": (0.0, 0.0)}
 
-    def case(B, T, W, kind, with_dh, what):
+    def case(B, T, W, kind, with_dh, what, twice=False):
         a, b, dy = _rglru_inputs(torch, gen, dev, B, T, W, kind)
         dh = torch.randn((B, W), generator=gen, device=dev) if with_dh else None
         y, h_last = rglru_fwd_kernel(a, b)
         da, db = rglru_bwd_kernel(a, y, dy, dh)
         torch.cuda.synchronize()
+        if twice:  # a fixed order and no atomics: the same bits again
+            again = (*rglru_fwd_kernel(a, b), *rglru_bwd_kernel(a, y, dy, dh))
+            same = [torch.equal(x, x2) for x, x2 in zip((y, h_last, da, db), again)]
+            log(f"[kernels] rglru         {what:50s} second run bit-identical "
+                f"(y, h_last, da, db): {same}")
+            if not all(same):
+                raise AssertionError(f"rglru differs on a second run: {what}")
         a64 = a.double()
         ry, rh = rglru_plain(a64, b.double())
         rda, rdb = rglru_bwd_plain(a64, ry, dy.double(),
@@ -985,14 +1007,25 @@ def check_rglru_kernels(torch, dev) -> dict:
                                        (a_b, max(e["da"], e["db"]))))
 
     B, T, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_W
-    case(B, T, W, "model", False, f"[{B}, {T}, {W}] Griffin decays (main shape)")
+    case(B, T, W, "model", False, f"[{B}, {T}, {W}] Griffin decays (main shape)",
+         twice=True)
     case(1, 1000, 1000, "model", True, "[1, 1000, 1000] ragged T and W, dh_last")
     case(1, 512, W, "brutal", True, f"[1, 512, {W}] brutal decay log a in [-12, 0]")
+    # the windows: T = 15 x 64 + 43 ends part way through a window's sixth
+    # piece, W = 130 a block's lanes part way (and a row stride no multiple
+    # of 16 bytes); 2 blocks for 132 SMs; carries that dominate
+    case(2, 1003, 130, "model", True, "[2, 1003, 130] T mid-window, W = 130, dh_last",
+         twice=True)
+    case(1, T, 64, "model", True, f"[1, {T}, 64] a grid of 2 blocks, dh_last")
+    case(1, 2048, W, "long", True, f"[1, 2048, {W}] long memory log a in [-1e-2, -1e-4]")
     return worst
 
 
 def time_rglru_kernels(torch, dev, worst: dict) -> dict:
-    """K6: kernel and plain times at the Griffin training shape, and bounds."""
+    """K6: kernel and plain times at the Griffin training shape, and bounds.
+    The kernels are timed through CUDA graphs (a call of ~0.1 ms is near
+    what the host takes to issue one), with their host-paced times beside."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rglru import (
         rglru_bwd_kernel, rglru_bwd_plain, rglru_fwd_kernel, rglru_plain)
 
@@ -1003,23 +1036,29 @@ def time_rglru_kernels(torch, dev, worst: dict) -> dict:
     n = B * T * W
     # forward: a, b in, y out (float32) and the last state; one FMA an
     # element.  backward: a, y, dy in, da, db out; three flops an element
+    nbytes = {"rglru_fwd": 3 * 4 * n + 4 * B * W, "rglru_bwd": 5 * 4 * n}
     rows = {
         "rglru_fwd": (lambda: rglru_fwd_kernel(a, b), lambda: rglru_plain(a, b),
-                      bound(2 * n, 3 * 4 * n + 4 * B * W, F32_FLOPS_PER_S)),
+                      bound(2 * n, nbytes["rglru_fwd"], F32_FLOPS_PER_S)),
         "rglru_bwd": (lambda: rglru_bwd_kernel(a, y, dy),
                       lambda: rglru_bwd_plain(a, y, dy),
-                      bound(3 * n, 5 * 4 * n, F32_FLOPS_PER_S)),
+                      bound(3 * n, nbytes["rglru_bwd"], F32_FLOPS_PER_S)),
     }
     out = {}
     for name, (kern, plain, (b_ms, b_by)) in rows.items():
-        out[name] = dict(ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 2, warmup=1),
+        out[name] = dict(ms=cuda_ms(kern, 50, graph=True),
+                         plain_ms=cuda_ms(plain, 2, warmup=1),
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=worst[name][0], max_row_err=worst[name][1],
                          tolerance=RGLRU_ROW_RTOL)
         t = out[name]
+        regs = [ln for ln in _build.ptxas_report(name) if "registers" in ln]
         log(f"[timing] {name:13s} [{B}, {T}, {W}] float32: kernel_ms={t['ms']:.4f} "
-            f"plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
-            f"computes the recurrence exactly) bound_ms={b_ms:.6f} ({b_by})")
+            f"(CUDA graph; host-paced {cuda_ms(kern, 20):.4f}) "
+            f"{nbytes[name] / t['ms'] / 1e9:.3f} TB/s, {b_ms / t['ms']:.3f} of the "
+            f"bound; plain_ms={t['plain_ms']:.4f} library_ms=none (no PyTorch call "
+            f"computes the recurrence exactly) bound_ms={b_ms:.6f} ({b_by}, "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); ptxas: {'; '.join(regs)}")
     return out
 
 
@@ -1495,8 +1534,9 @@ def main() -> int:
         elif name.startswith("wkv6"):
             smem, at = (", ".join(f"{kn} {b}" for kn, b in wkv6_smem(name, RWKV_N).items()),
                         f"N={RWKV_N}")
-        else:
-            continue  # K6 uses no shared memory
+        else:  # K6: static shared memory, as ptxas reports it
+            smem = re.search(r"(\d+) bytes smem", " ".join(_build.ptxas_report(name)))[1]
+            at = "any shape"
         log(f"[build] {name}: {smem} bytes of shared memory per block at {at}")
 
     clock = {"t": time.perf_counter()}

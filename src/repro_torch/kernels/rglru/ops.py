@@ -5,10 +5,11 @@
 The device of the tensors decides otherwise: a CUDA tensor launches its
 kernel or raises (a or b not float32, not contiguous, not ``[B, T, W]``,
 on two devices, a failed build or launch); it never falls back to the
-plain version.  Each kernel wrapper adds one to ``launches[name]`` where it
-launches its kernel.  :class:`RGLRUScan` is the ``autograd.Function`` the
-model calls: it saves a and its output y, from which the backward kernel
-needs no recompute.
+plain version.  A call launches one kernel, a windowed chunk scan with one
+block per (batch row, 32 channels) and no scratch; each kernel wrapper adds
+one to ``launches[name]`` where it launches its kernel.  :class:`RGLRUScan`
+is the ``autograd.Function`` the model calls: it saves a and its output y,
+from which the backward kernel needs no recompute.
 """
 
 from __future__ import annotations

@@ -550,6 +550,8 @@ K6_ROW_RTOL = 1e-6
 def _rglru_card_inputs(g, dev, B, T, W, kind):
     if kind == "brutal":
         log_a = -12 * torch.rand((B, T, W), generator=g, device=dev)
+    elif kind == "long":   # log a in [-1e-2, -1e-4]: the carries dominate
+        log_a = -(1e-4 + (1e-2 - 1e-4) * torch.rand((B, T, W), generator=g, device=dev))
     else:
         lam = 2 * torch.rand((W,), generator=g, device=dev) - 1
         log_a = -8 * torch.logaddexp(lam, torch.zeros_like(lam)) * torch.sigmoid(
@@ -565,6 +567,10 @@ def _rglru_card_inputs(g, dev, B, T, W, kind):
     (1, 1000, 1000, "model", True),    # ragged T and W, the last state's cotangent
     (1, 512, 4096, "brutal", True),    # log a down to -12
     (3, 5, 130, "model", True),        # fewer tokens than the loads ahead
+    (2, 1003, 130, "model", True),     # T mid-piece and mid-window (15 x 64 + 43)
+    (1, 4096, 64, "model", True),      # 2 blocks for 132 SMs
+    (1, 1, 33, "model", True),         # one token: the top window is the first
+    (1, 2048, 512, "long", True),      # long memory: the carries dominate
 ])
 def test_rglru_kernels_match_plain(cuda, B, T, W, kind, with_dh):
     from repro_torch.kernels.rglru import (
@@ -587,6 +593,26 @@ def test_rglru_kernels_match_plain(cuda, B, T, W, kind, with_dh):
                                None if dh is None else dh.double())
     assert _row_err(da, rda) <= K6_ROW_RTOL
     assert _row_err(db, rdb) <= K6_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,W", [(2, 4096, 4096), (2, 1003, 130)])
+def test_rglru_kernels_are_deterministic(cuda, B, T, W):
+    """A fixed order and no atomics: a second run gives the same bits."""
+    from repro_torch.kernels.rglru import rglru_bwd_kernel, rglru_fwd_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a, b = _rglru_card_inputs(g, cuda, B, T, W, "model")
+    dy = torch.randn((B, T, W), generator=g, device=cuda)
+    dh = torch.randn((B, W), generator=g, device=cuda)
+    runs = []
+    for _ in range(2):
+        y, h_last = rglru_fwd_kernel(a, b)
+        runs.append((y, h_last, *rglru_bwd_kernel(a, y, dy, dh)))
+    torch.cuda.synchronize()
+    first, again = runs
+    for x, x2 in zip(first, again):
+        assert torch.equal(x, x2)
 
 
 @pytest.mark.gpu
