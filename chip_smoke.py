@@ -33,17 +33,37 @@ Phases, each of which fails the run (non-zero exit) on error:
              and through the plain path on the card and compares the logits;
              then times one decode tick at the serve shape on the host clock
              and, under torch.profiler, its kernels' device time: the
-             device's idle share of a tick;
+             device's idle share of a tick; then the same workload through
+             ``Session`` (``python -m repro_torch serve --continuous
+             --modules scan,metrics``, then in turns with ``scan``, then
+             ``none``): streams token-identical to the direct run's, the
+             paged kernels' exact launches, one TTFT sample a request in
+             the metrics registry, the tick medians beside the direct
+             run's;
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
-             through ``repro_torch.train.loop.train``; launches per step must
-             equal the counts worked out from the depth and full remat, every
-             loss must be finite and the last below the first; one more step
-             under ``torch.profiler`` splits its device time by kernel
-             family (also in phases 8 and 9);
+             through ``Session`` (``python -m repro_torch train --modules
+             scan,metrics --trace-out ... --metrics-out ... --set
+             obs.peak_tflops=989``); launches must equal the counts worked
+             out from the depth and full remat for 9 forward-and-backward
+             passes (the 8 steps and the flop count's), every loss must be
+             finite and the last below the first; one more step under
+             ``torch.profiler`` splits its device time by kernel family
+             (also in phases 8 and 9); the chrome trace, its ``.jsonl``
+             sidecar and the metrics file must hold the run's spans and
+             losses, ``mfu_est`` must lie in (0, 1); then the same run with
+             ``--modules none`` (exact launches for 8 steps), and the pair
+             again in the other order, for the median steps beside;
 7. step    — the loss and gradients of one batch, from the parameters of the
              seed, through the kernels and through the plain versions: loss,
              grad_norm and each layer's attention and norm gradient norms
              must agree;
+   runtime — qwen2-0.5b at full width cut to 2 layers trained 8 steps with
+             ``--ckpt-dir`` and ``--ckpt-every 4``, then resumed in a fresh
+             ``Session`` from its step-4 checkpoint alone: the resumed
+             losses, the two step-8 checkpoints and the restored state must
+             equal the uninterrupted run's bit for bit; one ``save_async``
+             timed (stall and background write); and ``python -m
+             repro_torch trace --slow-rank 5 --iters 2`` must detect rank 5;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -1140,6 +1160,97 @@ def serve(torch, dev):
     return cfg, srv, specs, prompts, streams, counts
 
 
+def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
+                  smi: str, tag: str = "serve-session") -> dict:
+    """The serve phase's workload again, through ``Session`` as ``python -m
+    repro_torch serve --continuous`` runs it, with ``--modules
+    scan,metrics`` and a chrome trace, then in turns with ``scan`` (four
+    runs each), then ``none``: the streams of all must be
+    token-identical to the direct run's (no plugins, its own tracer, which
+    times its ticks: ``streams_off``, ``ticks_off``), every decode tick and
+    prompt of the first must launch the paged kernels once a layer and K1
+    once a norm, and its registry's TTFT histogram must count every request
+    once.  Logs each run's median decode tick beside the direct run's, and
+    each side's ticks pooled.  Returns the first run's launch counts."""
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.paged_attention import launches, reset_launches
+
+    out_dir = RUNTIME_DIR / "trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    base = ["serve", "--arch", cfg.name, "--continuous",
+            "--requests", str(SERVE["n"]), "--rate", str(SERVE["rate"]),
+            "--prompt-lens", ",".join(map(str, SERVE["prompt_lens"])),
+            "--max-new", str(SERVE["max_new_range"][1]),
+            "--slots", str(SERVE["num_slots"]), "--block-size", str(SERVE["block_size"]),
+            "--seed", str(SERVE["seed"])]
+    argv = [*base, "--modules", "scan,metrics", "--trace-out", str(out_dir / "serve.json")]
+    if SERVE["max_new_range"][0] != max(1, SERVE["max_new_range"][1] // 4):
+        raise AssertionError("the CLI derives max_new's lower end as max_new // 4")
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
+    reset_launches()
+    rmsnorm.reset_launches()
+    with _GcPauses() as pauses:
+        session, (streams, met) = _session(argv)
+    torch.cuda.synchronize()
+    counts = {**launches, **rmsnorm.launches}
+    events = session.tracer.events
+    ticks = [e.dur for e in events if e.name == "decode"]
+    n_prefill = sum(e.name == "prefill" for e in events)
+    L = cfg.num_layers
+    snap = session.metrics_registry.snapshot()
+    log(f"[{tag}] finished={met['finished']}/{len(specs)} "
+        f"tokens_per_s={met['tokens_per_s']:.2f} ttft_p50_s={met['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={met['ttft_p99_s']:.4f} ticks={len(ticks)} prefills={n_prefill}; "
+        f"registry ttft_s count {snap['serve.ttft_s']['count']}, tokens "
+        f"{snap['serve.tokens']:.0f}; launches {counts}")
+    log(f"[{tag}] decode tick median with --modules scan,metrics "
+        f"{1e3 * statistics.median(ticks):.3f} ms over {len(ticks)} ticks; direct "
+        f"run, no plugins: {1e3 * statistics.median(ticks_off):.3f} ms over "
+        f"{len(ticks_off)} ticks ({smi}); Python during the run: {pauses}")
+    if streams != streams_off:
+        bad = [rid for rid in streams_off if streams.get(rid) != streams_off[rid]]
+        raise AssertionError(f"{tag}: streams differ from the direct run's: rids {bad}")
+    if counts["paged_decode"] != len(ticks) * L or counts["paged_prefill"] != n_prefill * L:
+        raise AssertionError(f"{tag}: paged launches {counts} != ticks/prompts x layers")
+    if (counts["rmsnorm_fwd"] != (2 * L + 1) * (len(ticks) + n_prefill)
+            or counts["rmsnorm_bwd"] != 0):
+        raise AssertionError(f"{tag}: rmsnorm launches != (2 x layers + 1) x forwards")
+    if snap["serve.ttft_s"]["count"] != len(specs) or met["finished"] != len(specs):
+        raise AssertionError(f"{tag}: TTFT histogram counts "
+                             f"{snap['serve.ttft_s']['count']} of {len(specs)} requests")
+    # --modules scan (the tracer alone: no registry, no trace file, so no
+    # writer thread) still times its ticks; --modules none does not.  In
+    # turns with the first run, four of each (on, scan, scan, on, on, scan,
+    # scan, on), so neither side holds one place in the order, as a run's
+    # median moves by several ms from run to run; then none
+    pooled = {"scan,metrics": list(ticks), "scan": []}
+    medians = {"scan,metrics": [statistics.median(ticks)], "scan": []}
+    for modules in ("scan", "scan", "scan,metrics", "scan,metrics", "scan", "scan",
+                    "scan,metrics", "none"):
+        extra = (["--trace-out", str(out_dir / "serve.json")]
+                 if modules == "scan,metrics" else [])
+        sess, (streams_m, met_m) = _session([*base, "--modules", modules, *extra])
+        ticks_m = [e.dur for e in sess.tracer.events if e.name == "decode"]
+        if modules in pooled:
+            pooled[modules].extend(ticks_m)
+            medians[modules].append(statistics.median(ticks_m))
+        median = f"{1e3 * statistics.median(ticks_m):.3f} ms" if ticks_m else "not measured"
+        log(f"[{tag}] --modules {modules}: decode tick median {median}, "
+            f"tokens_per_s={met_m['tokens_per_s']:.2f} "
+            f"ttft_p50_s={met_m['ttft_p50_s']:.4f} ttft_p99_s={met_m['ttft_p99_s']:.4f} "
+            f"wall_s={met_m['wall_s']:.3f}; streams "
+            f"{'equal' if streams_m == streams_off else 'DIFFER'}")
+        if streams_m != streams_off:
+            raise AssertionError(f"{tag}: --modules {modules} streams differ from the "
+                                 "direct run's")
+    for modules, ticks_m in pooled.items():
+        m = medians[modules]
+        log(f"[{tag}] decode ticks of the {len(m)} --modules {modules} runs pooled: "
+            f"median {1e3 * statistics.median(ticks_m):.3f} ms; run medians "
+            f"{1e3 * min(m):.3f}-{1e3 * max(m):.3f} ms ({smi})")
+    return counts
+
+
 def replay(torch, cfg, params, prompt, forced, *, plain):
     """Teacher-forced logits ``[len(forced), V]``: prefill ``prompt``, then
     decode ``forced[:-1]`` one token at a time, in a pool of its own."""
@@ -1296,6 +1407,51 @@ def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float) -
     log(f"[{tag}] largest of the rest: " + "; ".join(f"{n} {ms:.1f} ms" for n, ms in top))
 
 
+def _train_setup(cfg, shape: dict):
+    """The data and optimizer configs of a train phase: ``shape``'s sequence,
+    batch and data seed, the CLI's optimizer defaults (lr 3e-4, cosine,
+    warmup max(steps // 10, 5))."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.optim import OptimizerConfig
+
+    steps = shape["steps"]
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq_len"],
+                      global_batch=shape["global_batch"], seed=shape["seed"])
+    ocfg = OptimizerConfig(lr=3e-4, schedule="cosine",
+                           warmup_steps=max(steps // 10, 5), total_steps=steps)
+    return data, ocfg
+
+
+def _check_train(tag: str, cfg, data, history: list, counts: dict,
+                 passes: int, peak: int) -> dict:
+    """Logs a train run's steps and launches and checks them: each kernel
+    of ``counts`` launched exactly :func:`per_step_launches` times for each
+    of ``passes`` forward-and-backward passes, every loss finite and the
+    last below the first.  Returns the run's numbers."""
+    steps = len(history)
+    for h in history:
+        log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
+            f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
+            f"tokens_per_s={h['tokens_per_s']:.1f}")
+    want = per_step_launches(cfg)
+    per_step = {k: want.get(k, 0) for k in counts}
+    steady = sorted(h["step_s"] for h in history[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = data.seq_len * data.global_batch
+    log(f"[{tag}] launches per pass {dict((k, v / passes) for k, v in counts.items())} "
+        f"expected {per_step} ({passes} forward-and-backward passes)")
+    log(f"[{tag}] median step (steps 2-{steps}) {1e3 * step_s:.1f} ms, "
+        f"{tokens / step_s:.1f} tokens/s; first step {1e3 * history[0]['step_s']:.1f} ms; "
+        f"max_memory_allocated={peak}")
+    if any(counts[k] != passes * n for k, n in per_step.items()):
+        raise AssertionError(f"{tag} launches {counts} != {passes} x {per_step}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} losses not finite and falling: {losses}")
+    return dict(step_s=step_s, tokens_per_s=tokens / step_s, peak=peak,
+                losses=losses)
+
+
 def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     """``cfg`` (full width) trained ``shape["steps"]`` steps at its sequence
     and batch, on ``SyntheticTokens`` of ``shape["seed"]``, through the
@@ -1304,19 +1460,13 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     times a step, and every loss must be finite and the last below the
     first.  Returns the config (remat full), the data config, the launch
     counts and the step's numbers."""
-    from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.model import count_params
     from repro_torch.train.loop import LoopConfig, train
-    from repro_torch.train.optim import OptimizerConfig
     from repro_torch.train.train_step import init_train_state
 
     cfg = cfg.replace(remat="full")
     steps = shape["steps"]
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=shape["seq_len"],
-                      global_batch=shape["global_batch"], seed=shape["seed"])
-    # the CLI's defaults: lr 3e-4, cosine, warmup max(steps // 10, 5)
-    ocfg = OptimizerConfig(lr=3e-4, schedule="cosine",
-                           warmup_steps=max(steps // 10, 5), total_steps=steps)
+    data, ocfg = _train_setup(cfg, shape)
     state = init_train_state(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = count_params(state.master)
@@ -1335,27 +1485,257 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
     del state
     torch.cuda.empty_cache()
-    peak = torch.cuda.max_memory_allocated()
-    for h in history:
-        log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
-            f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
-            f"tokens_per_s={h['tokens_per_s']:.1f}")
-    want = per_step_launches(cfg)
-    per_step = {k: want.get(k, 0) for k in counts}
-    step_s = steady[len(steady) // 2]
-    tokens = data.seq_len * data.global_batch
-    log(f"[{tag}] launches per step {dict((k, v / steps) for k, v in counts.items())} "
-        f"expected {per_step}")
-    log(f"[{tag}] median step (steps 2-{steps}) {1e3 * step_s:.1f} ms, "
-        f"{tokens / step_s:.1f} tokens/s; first step {1e3 * history[0]['step_s']:.1f} ms; "
-        f"max_memory_allocated={peak}")
-    if any(counts[k] != steps * n for k, n in per_step.items()):
-        raise AssertionError(f"{tag} launches {counts} != {steps} x {per_step}")
-    losses = [h["loss"] for h in history]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{tag} losses not finite and falling: {losses}")
-    return cfg, data, counts, dict(step_s=step_s, tokens_per_s=tokens / step_s,
-                                   peak=peak, params=n_params, losses=losses)
+    stats = _check_train(tag, cfg, data, history, counts, steps,
+                         torch.cuda.max_memory_allocated())
+    return cfg, data, counts, dict(stats, params=n_params)
+
+
+# ------------------------------------------------- phase 6: the runtime path
+
+RUNTIME_DIR = REPO / "build" / "chip_smoke_runtime"
+# the runtime phase's checkpoint run: qwen2-0.5b at full width cut to 2 of
+# its 24 layers (2.3 GB of train state a checkpoint, where the full
+# model's ~6.9 GB would take three times the disk and time)
+RUNTIME_LAYERS = 2
+CKPT_EVERY = 4
+
+
+def _session(argv: list[str], model_cfg=None):
+    """A ``Session`` built from command-line arguments as ``python -m
+    repro_torch`` builds it, and what its workload returns."""
+    from repro_torch.app.cli import parse
+    from repro_torch.app.session import Session
+
+    _, rc = parse(argv)
+    session = Session(rc, model_cfg=model_cfg)
+    return session, session.run()
+
+
+class _GcPauses:
+    """Python's full (generation 2) garbage collections while it is
+    entered: how many, and their longest and total pause, host clock.  It
+    collects first, so a pause inside is owed to what the run itself
+    allocates, not to the earlier phases' garbage (a profiler's event
+    lists are cyclic, and only a full collection frees them)."""
+
+    def __enter__(self):
+        import gc
+
+        gc.collect()
+        self.pauses, self._t0 = [], 0.0
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def _on_gc(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append(time.perf_counter() - self._t0)
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+    def __str__(self):
+        p = self.pauses
+        return (f"{len(p)} full gc pauses, longest {1e3 * max(p, default=0):.1f} ms, "
+                f"total {1e3 * sum(p):.1f} ms")
+
+
+def _train_argv(shape: dict) -> list[str]:
+    return ["train", "--arch", "qwen2-0.5b", "--seq-len", str(shape["seq_len"]),
+            "--global-batch", str(shape["global_batch"]),
+            "--steps", str(shape["steps"]), "--seed", str(shape["seed"])]
+
+
+def _spans(events) -> dict:
+    out: dict = {}
+    for e in events:
+        if e.kind != "counter":
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def train_session_phase(torch, dev, modules: tuple, smi: str, tag: str = "train"):
+    """Full-width qwen2-0.5b trained through ``Session`` as ``python -m
+    repro_torch train`` runs it, with ``--modules scan,metrics``, a chrome
+    trace, a metrics file and ``obs.peak_tflops=989`` (the H100 SXM's dense
+    bf16 peak): the launch counts (one more forward and backward than steps,
+    the flop count's), finite and falling losses and the profiler split as
+    :func:`train_phase` checks them; then the trace (``init``, a
+    ``train_step`` a step, counter events; its ``.jsonl`` sidecar the same
+    spans), the metrics file (a row a step, ``train.loss`` equal to the
+    history's) and ``mfu_est`` in (0, 1).  The same run with ``--modules
+    none`` after it (exact launches a step), then the pair again in the
+    other order; logs the median steps of each side."""
+    from repro_torch.core.tracing import from_chrome, load_jsonl
+
+    out_dir = RUNTIME_DIR / "trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    steps = TRAIN["steps"]
+    on_argv = [*_train_argv(TRAIN), "--modules", "scan,metrics",
+               "--trace-out", str(out_dir / "train.json"),
+               "--metrics-out", str(out_dir / "train_metrics.jsonl"),
+               "--set", f"obs.peak_tflops={BF16_FLOPS_PER_S / 1e12:g}"]
+    log(f"[{tag}] python -m repro_torch {' '.join(on_argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules:
+        m.reset_launches()
+    with _GcPauses() as gc_on:
+        session, (state, history) = _session(on_argv)
+    torch.cuda.synchronize()
+    counts = {k: v for m in modules for k, v in m.launches.items()}
+    cfg = session.model_cfg
+    data, ocfg = _train_setup(cfg, TRAIN)
+    steady = sorted(h["step_s"] for h in history[1:])
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} "
+        f"remat={cfg.remat} seq={data.seq_len} batch={data.global_batch}")
+    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
+    del state
+    torch.cuda.empty_cache()
+    stats = _check_train(tag, cfg, data, history, counts, steps + 1,
+                         torch.cuda.max_memory_allocated())
+
+    spans = _spans(from_chrome(json.loads((out_dir / "train.json").read_text())))
+    n_counters = sum(e.kind == "counter" for e in session.tracer.events)
+    sidecar = _spans(load_jsonl(out_dir / "train.jsonl"))
+    rows = [json.loads(ln) for ln in
+            (out_dir / "train_metrics.jsonl").read_text().splitlines()]
+    report = session.results["metrics"]
+    mfu = report.get("mfu_est", float("nan"))
+    # each row holds the running sums: flops = (flops/step_s) * step_s
+    flops = rows[0]["train.model_flops_per_s.sum"] * rows[0]["train.step_time_s.sum"]
+    log(f"[{tag}] trace spans {spans} (+{n_counters} counter events), sidecar "
+        f"{sidecar}; metrics rows {len(rows)}; flops counted per step "
+        f"{flops:.6e}; mfu_est {mfu} at a peak of {BF16_FLOPS_PER_S / 1e12:g} "
+        f"TFLOP/s ({smi})")
+    if spans != {"init": 1, "train_step": steps} or sidecar != spans or not n_counters:
+        raise AssertionError(f"{tag}: trace spans {spans}, sidecar {sidecar}")
+    if [r["train.loss"] for r in rows] != stats["losses"]:
+        raise AssertionError(f"{tag}: the metrics file's losses differ from the history's")
+    if not 0 < mfu < 1:
+        raise AssertionError(f"{tag}: mfu_est {mfu} not in (0, 1)")
+
+    for m in modules:
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _GcPauses() as gc_off:
+        _, (state, history_off) = _session([*_train_argv(TRAIN), "--modules", "none"])
+    torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
+    off_counts = {k: v for m in modules for k, v in m.launches.items()}
+    off = _check_train(f"{tag}-modules-none", cfg, data, history_off, off_counts,
+                       steps, torch.cuda.max_memory_allocated())
+    log(f"[{tag}] median step with --modules scan,metrics {1e3 * stats['step_s']:.1f} "
+        f"ms, with --modules none {1e3 * off['step_s']:.1f} ms; steps on "
+        + ", ".join(f"{1e3 * h['step_s']:.1f}" for h in history[1:]) + "; off "
+        + ", ".join(f"{1e3 * h['step_s']:.1f}" for h in history_off[1:]) + f" ({smi})")
+    log(f"[{tag}] Python during the runs: modules on {gc_on}; modules none {gc_off}")
+    # the pair again in the other order (on, none, none, on), so neither
+    # side always runs first: steps 2-8 of both runs of a side pooled
+    _, (state, history_off2) = _session([*_train_argv(TRAIN), "--modules", "none"])
+    del state
+    _, (state, history_on2) = _session(on_argv)
+    del state
+    torch.cuda.empty_cache()
+    ms = lambda *hs: [1e3 * h["step_s"] for hist in hs for h in hist[1:]]  # noqa: E731
+    on_ms, off_ms = ms(history, history_on2), ms(history_off, history_off2)
+    log(f"[{tag}] steps 2-{steps} in turns on, none, none, on: median with --modules "
+        f"scan,metrics {statistics.median(on_ms):.1f} ms (runs "
+        f"{statistics.median(ms(history)):.1f}, {statistics.median(ms(history_on2)):.1f}; "
+        f"{min(on_ms):.1f}-{max(on_ms):.1f}), with --modules none "
+        f"{statistics.median(off_ms):.1f} ms (runs {statistics.median(ms(history_off)):.1f}, "
+        f"{statistics.median(ms(history_off2)):.1f}; {min(off_ms):.1f}-{max(off_ms):.1f}) "
+        f"({smi})")
+    return cfg, data, counts, dict(stats, flops=flops, mfu=mfu)
+
+
+def runtime_phase(torch, dev, smi: str, tag: str = "runtime") -> None:
+    """Async checkpoints and resume on the card: qwen2-0.5b at full width
+    cut to :data:`RUNTIME_LAYERS` layers trained 8 steps through ``Session``
+    with ``--ckpt-dir`` and ``--ckpt-every 4``; a fresh ``Session`` resumed
+    from a directory holding only that run's step-4 checkpoint runs steps
+    5-8.  Its losses must equal the uninterrupted run's, every leaf of the
+    two step-8 checkpoints must be equal, and the state restored from the
+    step-8 checkpoint onto the card must equal the run's final state
+    (``torch.equal``).  Then times one ``save_async`` of that state: the
+    synchronous stall (the copy to the host) and the background write."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer, restore
+    from repro_torch.configs import get_config
+    from repro_torch.train.optim import leaves
+
+    cfg = get_config("qwen2-0.5b").replace(num_layers=RUNTIME_LAYERS)
+    root = RUNTIME_DIR / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = lambda d: [*_train_argv(TRAIN), "--modules", "none",  # noqa: E731
+                      "--ckpt-dir", str(d), "--ckpt-every", str(CKPT_EVERY)]
+    log(f"[{tag}] depth cut: {RUNTIME_LAYERS} of {get_config('qwen2-0.5b').num_layers} "
+        f"layers, full width; python -m repro_torch {' '.join(argv(root / 'a'))}")
+    _, (state, hist) = _session(argv(root / "a"), model_cfg=cfg)
+    step4 = f"step_{CKPT_EVERY:08d}"
+    # the resumed run's directory holds the step-4 checkpoint alone (hard
+    # links: the files are only read)
+    shutil.copytree(root / "a" / step4, root / "b" / step4, copy_function=os.link)
+    _, (resumed, hist_res) = _session(argv(root / "b"), model_cfg=cfg)
+    torch.cuda.synchronize()
+    want = [h["loss"] for h in hist[CKPT_EVERY:]]
+    got = [h["loss"] for h in hist_res]
+    log(f"[{tag}] uninterrupted losses {[h['loss'] for h in hist]}; resumed at step "
+        f"{CKPT_EVERY}: steps {[h['step'] for h in hist_res]} losses {got}")
+    if [h["step"] for h in hist_res] != list(range(CKPT_EVERY + 1, TRAIN["steps"] + 1)) or got != want:
+        raise AssertionError(f"{tag}: resumed losses {got} != uninterrupted {want}")
+    for (path, a), (_, b) in zip(leaves(state.master), leaves(resumed.master)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: resumed master {path} differs")
+    del resumed
+    final = f"step_{TRAIN['steps']:08d}"
+    files = sorted(p.name for p in (root / "a" / final).iterdir())
+    if files != sorted(p.name for p in (root / "b" / final).iterdir()):
+        raise AssertionError(f"{tag}: the two step-8 checkpoints hold different leaves")
+    nbytes = 0
+    for name in files:
+        a, b = root / "a" / final / name, root / "b" / final / name
+        if name.endswith(".npy"):
+            nbytes += a.stat().st_size
+            if not np.array_equal(np.load(a, mmap_mode="r"), np.load(b, mmap_mode="r")):
+                raise AssertionError(f"{tag}: step-8 leaf {name} differs")
+    shutil.rmtree(root / "b")
+    back, _ = restore(root / "a", state)
+    torch.cuda.synchronize()
+    for key in ("params", "master"):
+        for (path, a), (_, b) in zip(leaves(getattr(back, key)), leaves(getattr(state, key))):
+            if a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"{tag}: restored {key} {path} differs")
+    for key in ("m", "v"):
+        for (path, a), (_, b) in zip(leaves(back.opt[key]), leaves(state.opt[key])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: restored opt.{key} {path} differs")
+    if back.opt["step"] != state.opt["step"]:
+        raise AssertionError(f"{tag}: restored step {back.opt['step']}")
+    del back
+    log(f"[{tag}] resumed losses equal, step-8 checkpoints equal leaf by leaf "
+        f"({len(files) - 1} leaves, {nbytes} bytes), restored state equal on the card")
+    ck = Checkpointer(root / "timed")
+    t0 = time.perf_counter()
+    ck.save_async(state, TRAIN["steps"])
+    t1 = time.perf_counter()
+    ck.wait()
+    t2 = time.perf_counter()
+    log(f"[{tag}] save_async of {nbytes} bytes: synchronous stall {1e3 * (t1 - t0):.1f} ms "
+        f"({nbytes / (t1 - t0) / 1e9:.2f} GB/s to the host), background write "
+        f"{t2 - t1:.2f} s ({smi})")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _in_float64(fn):
@@ -1557,23 +1937,36 @@ def main() -> int:
     timings.update(time_rglru_kernels(torch, dev, worst))
     torch.cuda.empty_cache()
     phase("kernel timings")
-    cfg, srv, specs, prompts, streams, counts = serve(torch, dev)
+    cfg, srv, specs, prompts, streams, _ = serve(torch, dev)
+    ticks_off = [e.dur for e in srv.trace_events() if e.name == "decode"]
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
     profile_decode_tick(torch, cfg, srv.params)
     del srv
     torch.cuda.empty_cache()
     phase("serve and teacher-forced check")
-    # launches per step (per_step_launches): qwen2-0.5b's one attention a
+    counts = serve_session(torch, cfg, specs, streams, ticks_off, smi)
+    torch.cuda.empty_cache()
+    phase("serve through the Session")
+    # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
-    # rmsnorm_bwd 2L + 1 = 49
-    tcfg, data, train_counts, _ = train_phase(
-        torch, dev, get_config("qwen2-0.5b"), TRAIN, (flash_attention, rmsnorm),
-        "train")
+    # rmsnorm_bwd 2L + 1 = 49; with the metrics module the flop count adds
+    # one forward and backward to the 8 steps
+    tcfg, data, train_counts, _ = train_session_phase(
+        torch, dev, (flash_attention, rmsnorm), smi)
     step_check(torch, dev, tcfg, data, mixer="attn", tag="step",
                batch_step=TRAIN["steps"],
                tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL))
-    phase("qwen2 train and step check")
+    phase("qwen2 train through the Session and step check")
+    runtime_phase(torch, dev, smi)
+    trace_session, _ = _session(["trace", "--slow-rank", "5", "--iters", "2"])
+    truth = trace_session.results["truth"]
+    log(f"[trace] python -m repro_torch trace --slow-rank 5 --iters 2: slow ranks "
+        f"{trace_session.results['diagnosis']['slow_ranks']}, truth "
+        f"{truth['slow_ranks']}")
+    if not truth["detected"]:
+        raise AssertionError("the trace workload did not detect rank 5")
+    phase("runtime: checkpoints, resume and the trace workload")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
     # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65

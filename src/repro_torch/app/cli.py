@@ -1,170 +1,251 @@
-"""`python -m repro_torch` — the port's CLI.
+"""`python -m repro_torch` — the port's CLI, counterpart of ``python -m repro``.
 
     python -m repro_torch train --arch qwen2-0.5b --seq-len 2048 --global-batch 8 --steps 8
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
-    python -m repro_torch train --arch rwkv6-3b --seq-len 2048 --global-batch 4 --steps 6
-    python -m repro_torch train --arch recurrentgemma-9b --smoke --device cpu --steps 3
+    python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 8 \\
+        --set train.seq_len=64 --modules scan,metrics --trace-out t.json \\
+        --metrics-out m.jsonl --ckpt-dir ckpt --ckpt-every 4
     python -m repro_torch serve --arch qwen2-0.5b --continuous
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu
+    python -m repro_torch trace --slow-rank 5 --iters 2 --out artifacts/megascan
 
-``train`` is the counterpart of ``python -m repro train``: random weights
-from ``--seed``, ``SyntheticTokens`` batches, AdamW, one line per step, with
-the JAX CLI's flag names and defaults (sequence 128 smoke / 4096 full, global
-batch 8 smoke / 256 full, warmup ``max(steps // 10, 5)``).  ``serve`` is
-``python -m repro serve --continuous``: a Poisson workload
-(``make_poisson_workload``) and MegaServe draining it.  Both run on the card
-unless ``--device cpu`` is given.  Flags that select a later slice's path
-are accepted and refused with ``NotImplementedError``'s message.
+The flag table is the JAX CLI's, with the same layering (most specific
+last): dataclass defaults -> workload defaults -> ``--config`` JSON ->
+``--set a.b=v`` overrides -> explicit flags, through
+:func:`repro_torch.app.config.build_run_config`.  ``--modules`` toggles
+the module plugins (``scan`` and ``metrics`` by default for train and
+serve; ``none`` disables all), ``--trace-out`` exports the run's MegaScan
+events as a chrome trace (streaming a ``.jsonl`` sidecar while it runs) and
+``--metrics-out`` streams the metrics registry as JSONL.  The port's own
+flag is ``--device``: the workloads run on the card unless ``--device cpu``
+is given.  Flags that select a later slice's path are accepted and refused
+with ``NotImplementedError``'s message, naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
+
+from repro_torch.app.config import build_run_config
+
+# (flag, dest RunConfig path, argparse kwargs) — only flags the user actually
+# passed are applied (argparse.SUPPRESS), so they override --config/--set
+_SHARED = [
+    ("--arch", "arch", dict(type=str)),
+    ("--smoke", "smoke", dict(action="store_true")),
+    ("--seed", "seed", dict(type=int)),
+    ("--device", "runtime.device", dict(
+        choices=("cuda", "cpu"),
+        help="cuda (default; raises without a card) or cpu")),
+    ("--modules", "modules", dict(
+        type=str, metavar="M1,M2",
+        help="module plugins to attach (scan,metrics; ft,scope,fbd,dpp are "
+             "later slices; 'none' = off)")),
+    ("--mesh", "mesh", dict(
+        choices=("auto", "auto-mp", "host", "pod1", "pod2"))),
+    ("--trace-out", "trace_out", dict(
+        type=str, help="export this run's TraceEvents as a chrome trace "
+                       "(a .jsonl path streams instead; non-.jsonl paths "
+                       "also stream a .jsonl sidecar while running)")),
+    ("--metrics-out", "obs.metrics_out", dict(
+        type=str, help="stream the metrics registry as JSONL time series")),
+    ("--compile-cache", "runtime.compile_cache", dict(
+        type=str, metavar="DIR",
+        help="persistent executable cache (ROADMAP item 12b; refused)")),
+    ("--detect-online", "scan.detect_online", dict(
+        action="store_true",
+        help="online straggler detection (ROADMAP item 9; refused)")),
+]
+
+_TRAIN = [
+    ("--pp", "parallel.pp", dict(
+        type=int, help="pipeline stages (ROADMAP item 8; > 1 refused)")),
+    ("--pp-schedule", "parallel.schedule", dict(
+        choices=("1f1b", "dfc", "bfc", "wave"))),
+    ("--n-micro", "parallel.n_micro", dict(type=int)),
+    ("--steps", "train.steps", dict(type=int)),
+    ("--global-batch", "train.global_batch", dict(
+        type=int, help="0 = 8 smoke / 256 full")),
+    ("--seq-len", "train.seq_len", dict(
+        type=int, help="0 = 128 smoke / 4096 full")),
+    ("--lr", "train.lr", dict(type=float)),
+    ("--schedule", "train.schedule", dict(choices=("cosine", "wsd", "constant"))),
+    ("--warmup-steps", "train.warmup_steps", dict(
+        type=int, help="0 = max(steps // 10, 5)")),
+    ("--grad-accum", "train.grad_accum", dict(type=int)),
+    ("--ckpt-dir", "train.ckpt_dir", dict(
+        type=str, help="checkpoint every --ckpt-every steps; resume from "
+                       "the latest checkpoint found there")),
+    ("--ckpt-every", "train.ckpt_every", dict(type=int)),
+    ("--max-restarts", "ft.max_restarts", dict(type=int)),
+    ("--chaos-crash-at", "ft.chaos.crash_at_step", dict(type=int, metavar="STEP")),
+    ("--multi-pod", "mesh", dict(action="store_const", const="auto-mp")),
+]
+
+_SERVE = [
+    ("--continuous", "serve.continuous", dict(
+        action="store_true",
+        help="MegaServe continuous batching (the only serving path ported "
+             "so far)")),
+    ("--batch", "serve.batch", dict(type=int)),
+    ("--prompt-len", "serve.prompt_len", dict(type=int)),
+    ("--max-new", "serve.max_new", dict(type=int)),
+    ("--temperature", "serve.temperature", dict(type=float)),
+    ("--requests", "serve.requests", dict(type=int)),
+    ("--rate", "serve.rate", dict(
+        type=float, help="Poisson arrival rate, requests/s")),
+    ("--slots", "serve.slots", dict(type=int)),
+    ("--block-size", "serve.block_size", dict(type=int)),
+    ("--num-blocks", "serve.num_blocks", dict(
+        type=int, help="physical KV blocks (0 = size for zero preemption)")),
+    ("--prompt-lens", "serve.prompt_lens", dict(type=str)),
+    ("--decode-path", "serve.decode_path",
+     dict(choices=("auto", "paged", "gathered"))),
+    ("--prefill-path", "serve.prefill_path",
+     dict(choices=("auto", "flash", "dense"))),
+    ("--spec-decode", "serve.spec_decode", dict(action="store_true")),
+    ("--spec-k", "serve.spec_k", dict(type=int)),
+    ("--drafter", "serve.drafter", dict(choices=("ngram", "random"))),
+    ("--chunked-prefill", "serve.chunked_prefill", dict(action="store_true")),
+    ("--chunk-len", "serve.chunk_len", dict(type=int)),
+    ("--traffic", "serve.traffic", dict(
+        choices=("poisson", "bursty", "diurnal"))),
+    ("--replicas", "router.replicas", dict(type=int)),
+    ("--router-policy", "router.policy", dict(
+        choices=("round_robin", "least_kv", "jsq"))),
+    ("--prefill-replicas", "router.prefill_replicas", dict(type=int)),
+    ("--slo-ttft", "router.slo_ttft_s", dict(type=float)),
+]
+
+_TRACE = [
+    ("--load", "trace.load", dict(type=str, help="analyse a JSONL trace")),
+    ("--detect", "trace.detect", dict(
+        type=str, metavar="TRACE",
+        help="load a saved trace (chrome .json or streamed .jsonl), run "
+             "align + detect, print the diagnosis summary")),
+    ("--out", "trace.out", dict(type=str)),
+    ("--slow-rank", "trace.slow_rank", dict(type=int)),
+    ("--slow-factor", "trace.slow_factor", dict(type=float)),
+    ("--dp", "trace.dp", dict(type=int)),
+    ("--pp", "trace.pp", dict(type=int)),
+    ("--tp", "trace.tp", dict(type=int)),
+    ("--n-micro", "trace.n_micro", dict(type=int)),
+    ("--iters", "trace.n_iters", dict(type=int)),
+]
+
+_DRYRUN = [
+    ("--shape", "dryrun.shape", dict(type=str)),
+    ("--all", "dryrun.all", dict(action="store_true")),
+    ("--multi-pod", "dryrun.multi_pod", dict(choices=("off", "on", "both"))),
+    ("--profile", "dryrun.profile", dict(type=str)),
+    ("--grad-accum", "dryrun.grad_accum", dict(type=int)),
+    ("--out", "dryrun.out", dict(type=str)),
+    ("--save-hlo", "dryrun.save_hlo", dict(action="store_true")),
+    ("--host-mesh", "dryrun.host_mesh", dict(action="store_true")),
+]
+
+_WORKLOAD_FLAGS = {"train": _TRAIN, "serve": _SERVE, "trace": _TRACE,
+                   "dryrun": _DRYRUN}
+
+_REPORTS = ("scan", "metrics", "trace_out")
+
+
+def _add_flags(ap: argparse.ArgumentParser, flags) -> None:
+    # the dest encodes the RunConfig path ("train.steps" -> "train__steps");
+    # build_run_config reverses the mapping
+    for flag, path, kw in flags:
+        ap.add_argument(flag, dest=path.replace(".", "__"),
+                        default=argparse.SUPPRESS, **kw)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
-        description="MegatronApp repro, PyTorch/CUDA port.",
+        description="MegatronApp repro, PyTorch/CUDA port: one CLI for every "
+                    "workload; module plugins toggle with --modules.",
     )
     sub = ap.add_subparsers(dest="workload", required=True)
-    t = sub.add_parser("train")
-    t.add_argument("--arch", required=True)
-    t.add_argument("--smoke", action="store_true")
-    t.add_argument("--seed", type=int, default=0)
-    t.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
-    t.add_argument("--steps", type=int, default=100)
-    t.add_argument("--global-batch", type=int, default=0,
-                   help="0 = 8 smoke / 256 full")
-    t.add_argument("--seq-len", type=int, default=0,
-                   help="0 = 128 smoke / 4096 full")
-    t.add_argument("--lr", type=float, default=3e-4)
-    t.add_argument("--schedule", default="cosine",
-                   choices=("cosine", "wsd", "constant"))
-    t.add_argument("--warmup-steps", type=int, default=0,
-                   help="0 = max(steps // 10, 5)")
-    t.add_argument("--grad-accum", type=int, default=1)
-    p = sub.add_parser("serve")
-    p.add_argument("--arch", required=True)
-    p.add_argument("--smoke", action="store_true")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
-    p.add_argument("--continuous", action="store_true",
-                   help="MegaServe continuous batching (the only serving "
-                        "path ported so far)")
-    p.add_argument("--requests", type=int, default=16)
-    p.add_argument("--rate", type=float, default=100.0,
-                   help="Poisson arrival rate, requests/s")
-    p.add_argument("--slots", type=int, default=4)
-    p.add_argument("--block-size", type=int, default=16)
-    p.add_argument("--num-blocks", type=int, default=0,
-                   help="physical KV blocks (0 = size for zero preemption)")
-    p.add_argument("--prompt-lens", default="16,32,64,128,256")
-    p.add_argument("--max-new", type=int, default=16)
-    p.add_argument("--decode-path", default="auto",
-                   choices=("auto", "paged", "gathered"))
-    p.add_argument("--prefill-path", default="auto",
-                   choices=("auto", "flash", "dense"))
-    p.add_argument("--spec-decode", action="store_true")
-    p.add_argument("--chunked-prefill", action="store_true")
+    for wl, flags in _WORKLOAD_FLAGS.items():
+        p = sub.add_parser(wl)
+        p.add_argument("--config", default=None,
+                       help="JSON RunConfig overlay (nested sections)")
+        p.add_argument("--set", dest="sets", action="append", default=[],
+                       metavar="KEY=VALUE",
+                       help="dotted typed override, e.g. train.seq_len=64")
+        _add_flags(p, _SHARED)
+        _add_flags(p, flags)
     return ap
 
 
-def run(argv: list[str]) -> dict:
-    """Parse and run a workload; returns ``train``'s ``{"history"}`` or
-    ``serve``'s ``{"metrics", "streams", "serve_config"}``."""
+def parse(argv: list[str]):
+    """``(workload, RunConfig)`` from command-line arguments."""
     args = build_parser().parse_args(argv)
-    if args.workload == "train":
-        return run_train(args)
-    return run_serve(args)
+    flag_overrides = {
+        k: v for k, v in vars(args).items()
+        if k not in ("workload", "config", "sets")
+    }
+    cfg = build_run_config(args.workload, config_json=args.config,
+                           sets=args.sets, **flag_overrides)
+    return args.workload, cfg
 
 
-def run_train(args: argparse.Namespace) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.train.loop import LoopConfig, train
-    from repro_torch.train.optim import OptimizerConfig
+def run(argv: list[str], *, model_cfg=None) -> dict:
+    """Parse and run a workload.  Returns ``{"session": Session}`` (its
+    ``results`` hold the plugin reports under the JAX package's names) and
+    the workload's own keys: train's ``history``; serve's ``metrics``,
+    ``streams`` and ``serve_config``; trace's ``diagnosis`` (and ``truth``
+    when simulated).  ``model_cfg`` overrides the ``--arch`` lookup."""
+    from repro_torch.app.session import Session
 
-    cfg = get_config(args.arch, smoke=args.smoke)
-    seq = args.seq_len or (128 if args.smoke else 4096)
-    batch = args.global_batch or (8 if args.smoke else 256)
-    if batch % max(args.grad_accum, 1):
-        raise ValueError(f"global batch {batch} not divisible by "
-                         f"--grad-accum {args.grad_accum}")
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                      global_batch=batch)
-    ocfg = OptimizerConfig(
-        lr=args.lr, schedule=args.schedule,
-        warmup_steps=args.warmup_steps or max(args.steps // 10, 5),
-        total_steps=args.steps,
-    )
-    loop = LoopConfig(n_steps=args.steps, log_every=max(args.steps // 10, 1),
-                      grad_accum=args.grad_accum, seed=args.seed)
-    print(f"arch={cfg.name} device={args.device} seq_len={seq} "
-          f"global_batch={batch} grad_accum={args.grad_accum} "
-          f"steps={args.steps}", flush=True)
-    _, history = train(cfg, ocfg, data, loop, device=args.device)
-    for h in history:
-        print(f"step {h['step']:>5}  loss {h['loss']:.4f}  lr {h['lr']:.2e}  "
-              f"grad_norm {h['grad_norm']:.4f}  step_ms {1e3 * h['step_s']:.1f}")
-    return {"history": history}
-
-
-def run_serve(args: argparse.Namespace) -> dict:
-    if not args.continuous:
-        raise NotImplementedError(
-            "static lockstep serving is not ported yet: it arrives with the "
-            "static-runner slice (ROADMAP queue 1); pass --continuous")
-
-    from dataclasses import replace
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    from repro_torch.serve.server import MegaServe, make_poisson_workload
-
-    cfg = get_config(args.arch, smoke=args.smoke)
-    lm.require_paged(cfg)
-    params = lm.init(cfg, seed=args.seed, device=args.device)
-    specs, prompts, serve_cfg = make_poisson_workload(
-        cfg, n=args.requests, rate=args.rate,
-        prompt_lens=tuple(int(x) for x in args.prompt_lens.split(",")),
-        max_new_range=(max(1, args.max_new // 4), args.max_new),
-        num_slots=args.slots, block_size=args.block_size,
-        num_blocks=args.num_blocks, seed=args.seed,
-    )
-    serve_cfg = replace(
-        serve_cfg, decode_path=args.decode_path,
-        prefill_path=args.prefill_path, spec_decode=args.spec_decode,
-        chunked_prefill=args.chunked_prefill,
-    )
-    srv = MegaServe(cfg, params, serve_cfg, device=args.device)
-    del params  # the server holds its own compute-dtype copy
-    for spec in specs:
-        srv.submit(prompts[spec.rid], spec.max_new, arrival=spec.arrival)
-    outs = srv.drain()
-    met = srv.metrics()
-
-    print(f"arch={cfg.name} continuous device={srv.device} "
-          f"slots={serve_cfg.num_slots} "
-          f"blocks={serve_cfg.num_blocks}x{serve_cfg.block_size} "
-          f"requests={len(outs)} decode_path={srv.decode_path} "
-          f"prefill_path={srv.prefill_path}")
-    for k in ("generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
-              "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
-              "latency_p50_s", "latency_p99_s", "preemptions", "steps"):
-        v = met[k]
-        print(f"  {k:16s} {v:.4f}" if isinstance(v, float) else f"  {k:16s} {v}")
-    for rid in list(outs)[:2]:
-        print(f"  req {rid}: {outs[rid][:12]}...")
-    config = {"num_slots": serve_cfg.num_slots,
-              "block_size": serve_cfg.block_size,
-              "num_blocks": serve_cfg.num_blocks}
-    print(json.dumps({"serve_config": config}))
-    return {"metrics": met, "streams": outs, "serve_config": config}
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    workload, cfg = parse(argv)
+    session = Session(cfg, model_cfg=model_cfg)
+    out = session.run()
+    res = session.results
+    reports = {k: res[k] for k in _REPORTS if k in res}
+    if workload == "train":
+        _, history = out
+        tc = res["train_config"]
+        print(f"arch={session.model_cfg.name} device={session.device} "
+              f"seq_len={tc['seq_len']} global_batch={tc['global_batch']} "
+              f"grad_accum={tc['grad_accum']} steps={tc['steps']}", flush=True)
+        for h in history:
+            print(f"step {h['step']:>5}  loss {h['loss']:.4f}  "
+                  f"lr {h['lr']:.2e}  grad_norm {h['grad_norm']:.4f}  "
+                  f"step_ms {1e3 * h['step_s']:.1f}")
+        print(json.dumps(reports, default=str))
+        return {"session": session, "history": history}
+    if workload == "serve":
+        outs, met = out
+        sc = res["serve_config"]
+        print(f"arch={session.model_cfg.name} continuous "
+              f"device={session.device} slots={sc['num_slots']} "
+              f"blocks={sc['num_blocks']}x{sc['block_size']} "
+              f"requests={len(outs)} decode_path={res['decode_path']} "
+              f"prefill_path={res['prefill_path']}")
+        for k in ("generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
+                  "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
+                  "latency_p50_s", "latency_p99_s", "preemptions", "steps"):
+            v = met[k]
+            print(f"  {k:16s} {v:.4f}" if isinstance(v, float) else f"  {k:16s} {v}")
+        for rid in list(outs)[:2]:
+            print(f"  req {rid}: {outs[rid][:12]}...")
+        print(json.dumps(reports, default=str))
+        print(json.dumps({"serve_config": sc}))
+        return {"session": session, "metrics": met, "streams": outs,
+                "serve_config": sc}
+    # trace
+    print(json.dumps(res["diagnosis"], indent=1))
+    if "truth" in res:
+        t = res["truth"]
+        print(f"slow-rank detection: "
+              f"{'CORRECT' if t['detected'] else 'MISMATCH'} "
+              f"(truth={t['slow_ranks']})")
+    return {"session": session,
+            **{k: res[k] for k in ("diagnosis", "truth") if k in res}}
 
 
 def main(argv: list[str] | None = None) -> None:

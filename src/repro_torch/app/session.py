@@ -1,0 +1,345 @@
+"""Session: the one runtime object behind every ``python -m repro_torch``
+workload, counterpart of ``repro.app.session``.
+
+A Session owns the pieces every entry point shares:
+
+* the **model config** (``get_config(arch, smoke=...)``, or one given),
+* the **device** (``runtime.device``: the card unless ``cpu`` is asked),
+* the **module plugins** (MegaScan and the metrics registry), each attached
+  through the uniform :class:`repro_torch.app.plugins.ModulePlugin` surface,
+* the shared **trace export** (``run_cfg.trace_out``: a chrome trace, or
+  the JSONL stream for a ``.jsonl`` path) for every workload.
+
+Workloads: ``train`` (the train loop on one device), ``serve`` (MegaServe
+continuous batching), ``trace`` (offline MegaScan: simulate/load -> align ->
+detect, host only).  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: meshes and pipeline
+parallelism (item 8), static serving (item 5), the router (item 11), the
+compile cache (item 12b), online detection and rank events (item 9) and
+``dryrun`` (item 14b).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.app.config import RunConfig
+from repro_torch.app.plugins import ModulePlugin, build_plugins
+
+log = logging.getLogger("repro_torch.app")
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is ported in a later slice (ROADMAP queue 1, {item})")
+
+
+class Session:
+    """One configured run: plugins + device + config, with a uniform
+    lifecycle.  ``run()`` dispatches on ``run_cfg.workload``, then
+    finalizes every plugin (reports land in ``session.results``) and exports
+    the trace when ``run_cfg.trace_out`` is set."""
+
+    def __init__(
+        self,
+        run_cfg: RunConfig,
+        plugins: list[ModulePlugin] | None = None,
+        *,
+        model_cfg=None,
+    ):
+        from repro_torch.core.tracing.tracer import Tracer
+
+        self.run_cfg = run_cfg
+        # an explicit ModelConfig (e.g. a depth cut) wins over the registry
+        self.model_cfg = model_cfg
+        if model_cfg is None and run_cfg.arch:
+            from repro_torch.configs import get_config
+
+            self.model_cfg = get_config(run_cfg.arch, smoke=run_cfg.smoke)
+        if run_cfg.runtime.compile_cache:
+            raise _later("the persistent compile cache (--compile-cache)",
+                         "item 12b")
+        # resolved (and checked for a card) when a workload runs on it; the
+        # trace workload runs on the host only
+        self.device = torch.device(run_cfg.runtime.device)
+        # plugin-claimable resources, with inert defaults: no scan plugin ->
+        # disabled tracer, no metrics plugin -> no registry (the loops then
+        # publish nothing)
+        self.tracer = Tracer(rank=0, enabled=False)
+        self.metrics_registry = None
+        self.results: dict[str, Any] = {}
+        self.plugins = (
+            plugins if plugins is not None
+            else build_plugins(run_cfg.modules, run_cfg)
+        )
+        for p in self.plugins:
+            p.setup(self)
+        self._finalized = False
+
+    # ------------------------------------------------------------ plumbing
+    def wrap_step(self, step_fn: Callable) -> Callable:
+        for p in self.plugins:
+            step_fn = p.wrap_step(step_fn)
+        return step_fn
+
+    def notify_step(self, events, metrics) -> None:
+        for p in self.plugins:
+            p.on_step(self, events, metrics)
+
+    def step_hooks(self):
+        from repro_torch.train.loop import StepHooks
+
+        return StepHooks(wrap_step=self.wrap_step, on_step=self.notify_step)
+
+    def finalize(self) -> dict[str, Any]:
+        """Run every plugin's finalize once; export the shared trace."""
+        if self._finalized:
+            return self.results
+        self._finalized = True
+        for p in self.plugins:
+            self.results[p.name] = p.finalize(self)
+        if self.run_cfg.trace_out:
+            # an explicit --trace-out always writes, even when the run
+            # traced nothing (--modules none): an empty trace file is
+            # debuggable, a silently missing one is not
+            if not self.tracer.events:
+                log.warning(
+                    "trace_out=%s: no TraceEvents were recorded (is the "
+                    "'scan' module enabled?)", self.run_cfg.trace_out)
+            out_path = Path(self.run_cfg.trace_out)
+            streamed = self.results.get("scan", {}).get("stream", "")
+            if out_path.suffix == ".jsonl":
+                # the scan plugin already streamed it; dump at the end only
+                # when no plugin streamed (--modules none)
+                if str(out_path) != streamed:
+                    with open(out_path, "w") as f:
+                        for e in self.tracer.events:
+                            f.write(json.dumps(e.to_json()) + "\n")
+            else:
+                from repro_torch.core.tracing.chrome import save_chrome
+
+                save_chrome(self.tracer.events, self.run_cfg.trace_out)
+            self.results["trace_out"] = self.run_cfg.trace_out
+            log.info("trace -> %s", self.run_cfg.trace_out)
+        return self.results
+
+    # ----------------------------------------------------------- dispatch
+    def run(self):
+        """Run the configured workload, then finalize plugins."""
+        fn = {
+            "train": self.train,
+            "serve": self.serve,
+            "trace": self.trace,
+            "dryrun": self.dryrun,
+        }[self.run_cfg.workload]
+        try:
+            return fn()
+        finally:
+            self.finalize()
+
+    # -------------------------------------------------------------- train
+    def _train_derived(self):
+        """Resolve the 0-means-auto training fields against smoke/full."""
+        rc, t = self.run_cfg, self.run_cfg.train
+        seq = t.seq_len or (128 if rc.smoke else 4096)
+        batch = t.global_batch or (8 if rc.smoke else 256)
+        # minicpm trains with WSD per its paper (kept from the JAX launcher)
+        schedule = t.schedule
+        if self.model_cfg.name.startswith("minicpm") and schedule == "cosine":
+            schedule = "wsd"
+        return seq, batch, schedule
+
+    def _refuse_train_plumbing(self) -> None:
+        rc = self.run_cfg
+        par = rc.parallel
+        if rc.mesh not in ("auto", "host"):
+            raise _later(f"mesh {rc.mesh!r}", "item 8")
+        if par.pp > 1 or par.dp > 1 or par.tp > 1:
+            raise _later(
+                f"parallel training (pp={par.pp}, dp={par.dp}, tp={par.tp}; "
+                "MegaDPP)", "item 8")
+        if par.fbd_backward:
+            raise _later("MegaFBD's decoupled backward", "item 7")
+        if rc.obs.rank_events or rc.obs.slow_rank >= 0:
+            raise _later("per-rank event synthesis (obs.rank_events, "
+                         "obs.slow_rank)", "item 9")
+
+    def train(self):
+        """The training workload: returns ``(state, history)``."""
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.train.loop import LoopConfig, train
+        from repro_torch.train.optim import OptimizerConfig
+
+        rc, t = self.run_cfg, self.run_cfg.train
+        cfg = self.model_cfg
+        if cfg is None:
+            raise ValueError("train workload needs an --arch")
+        self._refuse_train_plumbing()
+        seq, batch, schedule = self._train_derived()
+        if batch % max(t.grad_accum, 1):
+            raise ValueError(f"global batch {batch} not divisible by "
+                             f"train.grad_accum={t.grad_accum}")
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch)
+        ocfg = OptimizerConfig(
+            lr=t.lr, schedule=schedule,
+            warmup_steps=t.warmup_steps or max(t.steps // 10, 5),
+            total_steps=t.steps,
+        )
+        loop = LoopConfig(
+            n_steps=t.steps,
+            log_every=t.log_every or max(t.steps // 10, 1),
+            ckpt_dir=t.ckpt_dir or None,
+            ckpt_every=t.ckpt_every,
+            grad_accum=t.grad_accum,
+            seed=rc.seed,
+        )
+        log.info("arch=%s device=%s tokens/step=%d", cfg.name, self.device,
+                 batch * seq)
+        state, history = train(
+            cfg, ocfg, data, loop, tracer=self.tracer,
+            hooks=self.step_hooks(), registry=self.metrics_registry,
+            device=self.device,
+        )
+        self.results["train_config"] = {
+            "seq_len": seq, "global_batch": batch, "grad_accum": t.grad_accum,
+            "steps": t.steps,
+        }
+        self.results["history"] = history
+        return state, history
+
+    # -------------------------------------------------------------- serve
+    def serve(self):
+        """The serving workload, MegaServe continuous batching: returns
+        ``(outputs, metrics)``."""
+        cfg = self.model_cfg
+        if cfg is None:
+            raise ValueError("serve workload needs an --arch")
+        s, r = self.run_cfg.serve, self.run_cfg.router
+        if not s.continuous:
+            raise NotImplementedError(
+                "static lockstep serving is ported in a later slice (ROADMAP "
+                "queue 1, item 5); pass --continuous")
+        if cfg.input_kind != "tokens":
+            raise ValueError(f"{cfg.name}: continuous serving needs token archs")
+        if s.temperature != 0.0:
+            raise ValueError(
+                "continuous serving decodes greedily "
+                "(preemption-by-recompute needs deterministic decode)")
+        if (r.replicas > 1 or r.prefill_replicas > 0 or r.slo_ttft_s > 0
+                or r.policy != "round_robin" or s.traffic != "poisson"):
+            raise _later("MegaRoute (replicas, router policies, SLO admission, "
+                         "bursty and diurnal traffic)", "item 11")
+        return self._serve_continuous()
+
+    def _serve_continuous(self):
+        from dataclasses import replace
+
+        from repro_torch.device import resolve_device
+        from repro_torch.models import lm
+        from repro_torch.serve.server import MegaServe, make_poisson_workload
+
+        cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
+        lm.require_paged(cfg)
+        params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device))
+        specs, prompts, serve_cfg = make_poisson_workload(
+            cfg, n=s.requests, rate=s.rate, prompt_lens=tuple(s.prompt_lens),
+            max_new_range=(max(1, s.max_new // 4), s.max_new),
+            num_slots=s.slots, block_size=s.block_size,
+            num_blocks=s.num_blocks, seed=rc.seed,
+        )
+        serve_cfg = replace(
+            serve_cfg, decode_path=s.decode_path,
+            prefill_path=s.prefill_path, spec_decode=s.spec_decode,
+            chunked_prefill=s.chunked_prefill,
+        )
+        srv = MegaServe.from_session(self, params, serve_cfg)
+        del params  # the server holds its own compute-dtype copy
+        for spec in specs:
+            srv.submit(prompts[spec.rid], spec.max_new, arrival=spec.arrival)
+        outs = srv.drain(on_step=self.notify_step)
+        metrics = srv.metrics()
+        self.results["serve_config"] = {
+            "num_slots": serve_cfg.num_slots,
+            "block_size": serve_cfg.block_size,
+            "num_blocks": serve_cfg.num_blocks,
+        }
+        self.results["serve_metrics"] = metrics
+        self.results["decode_path"] = srv.decode_path
+        self.results["prefill_path"] = srv.prefill_path
+        return outs, metrics
+
+    # -------------------------------------------------------------- trace
+    def trace(self):
+        """Offline MegaScan: simulate (or load) -> align -> detect.
+
+        Returns the :class:`repro_torch.core.tracing.detect.Diagnosis`; its
+        summary (plus ground truth, when simulated) lands in
+        ``results["diagnosis"]`` and the aligned events are exported via
+        the shared ``trace_out`` / ``trace.out`` paths.
+        """
+        from repro_torch.core.simkit.engine import FaultModel
+        from repro_torch.core.simkit.workload import ModelProfile, Topology
+        from repro_torch.core.tracing import (
+            ClockModel,
+            align_clocks,
+            apply_alignment,
+            detect,
+            simulate_trace,
+        )
+        from repro_torch.core.tracing.chrome import save_chrome
+        from repro_torch.core.tracing.tracer import load_jsonl, load_trace
+
+        t = self.run_cfg.trace
+        topo = Topology(dp=t.dp, pp=t.pp, tp=t.tp)
+        truth = None
+        if t.detect:
+            # offline triage of a saved run: chrome JSON or streamed JSONL
+            events = load_trace(t.detect)
+        elif t.load:
+            events = load_jsonl(t.load)
+        else:
+            faults = FaultModel(
+                compute_slowdown={t.slow_rank: t.slow_factor},
+                jitter=0.01, seed=self.run_cfg.seed,
+            )
+            events, truth = simulate_trace(
+                topo, ModelProfile(), n_micro=t.n_micro, n_iters=t.n_iters,
+                faults=faults, clocks=ClockModel(seed=self.run_cfg.seed),
+            )
+        sc = self.run_cfg.scan
+        aligned = apply_alignment(events, align_clocks(events))
+        diag = detect(
+            aligned, topo,
+            slow_ratio=sc.slow_ratio, candidate_frac=sc.candidate_frac,
+            skew_margin=sc.skew_margin, late_frac=sc.late_frac,
+            degrade_ratio=sc.degrade_ratio,
+        )
+        self.results["diagnosis"] = diag.summary()
+        if truth is not None:
+            self.results["truth"] = {
+                "slow_ranks": truth["slow_ranks"],
+                "detected": diag.slow_ranks == truth["slow_ranks"],
+            }
+        # aligned events flow through the session tracer so the shared
+        # trace_out export (Session.finalize) sees them like any workload
+        self.tracer.enabled = True
+        self.tracer.events.extend(aligned)
+        if t.out:
+            out = Path(t.out)
+            out.mkdir(parents=True, exist_ok=True)
+            save_chrome(aligned, out / "trace.json")
+            (out / "diagnosis.json").write_text(
+                json.dumps(diag.summary(), indent=1))
+            self.results["out"] = str(out)
+        return diag
+
+    # ------------------------------------------------------------- dryrun
+    def dryrun(self):
+        raise _later("the dryrun workload (FLOP and memory estimates per "
+                     "cell)", "item 14b")

@@ -1,13 +1,15 @@
-"""Deterministic synthetic token pipeline, a copy of ``repro.data.pipeline``
-(``DataConfig`` and ``SyntheticTokens``; pure numpy).
+"""Deterministic synthetic token pipeline with background prefetch, a copy
+of ``repro.data.pipeline`` (pure numpy).
 
 Batch content is a pure function of ``(seed, step, host)``, so the same
-configuration gives the JAX package's batches bit for bit.  The background
-``Prefetcher`` is not ported: the port's loop builds each batch in line.
+configuration gives the JAX package's batches bit for bit, and a run that
+resumes at step n replays the batches of an uninterrupted one from there.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -66,3 +68,35 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+class Prefetcher:
+    """Background-thread prefetch (depth-bounded), start offset for resume."""
+
+    def __init__(self, source: SyntheticTokens, depth: int = 2, start_step: int = 0):
+        self.source = source
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self._q.put(self.source.batch_at(step), timeout=0.2)
+                step += 1
+            except queue.Full:
+                continue
+
+    def next(self) -> dict[str, np.ndarray]:
+        return self._q.get()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2)
+
+
+def make_pipeline(cfg: DataConfig, *, prefetch: int = 2, start_step: int = 0):
+    return Prefetcher(SyntheticTokens(cfg), depth=prefetch, start_step=start_step)

@@ -7,7 +7,9 @@ kernel or raises (wrong dtype, layout, head dim, failed build or launch); it
 never falls back to the plain version.  Each kernel wrapper adds one to
 ``launches[name]`` where it launches its kernel.  :class:`FlashAttention`
 is the ``autograd.Function`` the model calls: its forward keeps ``lse`` for
-its backward, as ``_make_flash``'s fwd keeps its residuals.
+its backward, as ``_make_flash``'s fwd keeps its residuals.  Each call
+reports its products to :mod:`repro_torch.core.flops` while a train step's
+flops are being counted, as no flop counter can see inside the kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import flops
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_bwd_plain, flash_fwd_plain
 
@@ -158,10 +161,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, plain):
         kw = dict(scale=scale, causal=causal, window=window)
-        if _use_plain(q, plain):
-            o, lse = flash_fwd_plain(q, k, v, **kw)
-        else:
-            o, lse = flash_fwd_kernel(q, k, v, **kw)
+        with flops.flash_call(q.shape, k.shape, causal=causal, window=window,
+                              backward=False):
+            if _use_plain(q, plain):
+                o, lse = flash_fwd_plain(q, k, v, **kw)
+            else:
+                o, lse = flash_fwd_kernel(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw, ctx.plain = kw, plain
         return o
@@ -169,10 +174,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if _use_plain(q, ctx.plain):
-            grads = flash_bwd_plain(q, k, v, o, lse, do, **ctx.kw)
-        else:
-            grads = flash_bwd_kernel(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        with flops.flash_call(q.shape, k.shape, causal=ctx.kw["causal"],
+                              window=ctx.kw["window"], backward=True):
+            if _use_plain(q, ctx.plain):
+                grads = flash_bwd_plain(q, k, v, o, lse, do, **ctx.kw)
+            else:
+                grads = flash_bwd_kernel(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.kw)
         return (*grads, None, None, None, None)
 
 

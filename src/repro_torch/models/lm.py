@@ -9,7 +9,7 @@ indexes each layer's parameters and its layer of the stacked KV pool in place
 are ported: the paged serving forward (``pool`` given; dense family only)
 and the training forward (``pool=None``, the ``cache is None`` path of JAX
 ``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
-``torch.utils.checkpoint`` around each layer.  The dense cached path and
+``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).  The dense cached path and
 recurrent serving arrive with later slices.
 """
 
@@ -19,7 +19,11 @@ import math
 from dataclasses import replace
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -151,6 +155,25 @@ def _layers(cfg: ModelConfig, params: dict):
                 layer += 1
 
 
+# the products remat "dots" keeps: matrix products without batch
+# dimensions, as jax's ``dots_with_no_batch_dims_saveable`` keeps them (the
+# projections and MLP products, and the ``mm`` that ``x @ w`` lowers to);
+# ``bmm`` (attention's batched einsums) and K2, whose output is no aten op,
+# are recomputed
+_SAVED_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of remat ``"dots"``."""
+    if op.overloadpacket in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
@@ -171,7 +194,9 @@ def forward(
     is non-cached, ``plain`` selects the plain versions, and ``cfg.remat``
     decides what each layer keeps for the backward: ``"full"`` recomputes
     the layer in the backward (``jax.checkpoint`` with
-    ``nothing_saveable``), ``"none"`` keeps everything.
+    ``nothing_saveable``), ``"dots"`` keeps the outputs of its products
+    without batch dimensions and recomputes the rest (:func:`dots_policy`),
+    ``"none"`` keeps everything.
     """
     if cfg.input_kind != "tokens":
         raise NotImplementedError(f"{cfg.name}: embeds inputs are a later slice")
@@ -187,17 +212,17 @@ def forward(
             x = _block(p, cfg, kind, x, positions, pool,
                        replace(paged, layer=layer), plain)
     else:
-        if cfg.remat == "dots":
-            raise NotImplementedError(
-                'remat="dots" (save the matmul outputs) is ported in a later '
-                'slice (ROADMAP queue 1, item 4); use "full" or "none"')
-        if cfg.remat not in ("full", "none"):
+        if cfg.remat not in ("full", "dots", "none"):
             raise ValueError(f"unknown remat {cfg.remat!r}")
         positions = torch.arange(S, device=x.device)
         for _, kind, p in _layers(cfg, params):
             if cfg.remat == "full" and torch.is_grad_enabled():
                 x = checkpoint(_block, p, cfg, kind, x, positions, None, None,
                                plain, use_reentrant=False)
+            elif cfg.remat == "dots" and torch.is_grad_enabled():
+                x = checkpoint(_block, p, cfg, kind, x, positions, None, None,
+                               plain, use_reentrant=False,
+                               context_fn=_dots_contexts)
             else:
                 x = _block(p, cfg, kind, x, positions, None, None, plain)
     return L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,

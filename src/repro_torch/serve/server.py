@@ -7,11 +7,18 @@ so their space refills next tick.  Every prefill and decode is bracketed by a
 MegaScan ``Tracer`` scope, so serving timelines are the same ``TraceEvent``s
 as in the JAX package.
 
+With a metrics registry (``registry=``, or a ``Session``'s through
+:meth:`MegaServe.from_session`) every tick publishes the JAX package's serve
+series under the same names: queue-wait, prefill, TTFT and decode-step
+histograms, token and preemption counters, queue-depth, active-slot and
+KV-occupancy gauges.  All of it is host bookkeeping around values a tick
+reads back anyway.
+
 This slice serves through the paged decode kernel and the flash-prefill
 kernel on the card (their plain versions on the CPU).  The gathered and dense
-paths, speculative decoding, chunked prefill, the router, slot migration,
-precompilation, MegaScope collectors and the metrics registry arrive with
-later slices (ROADMAP queue 1).
+paths and chunked prefill (ROADMAP queue 1, item 5), speculative decoding
+(item 10), the router and slot migration (item 11), precompilation (item
+12b) and MegaScope collectors (item 6) arrive with later slices.
 """
 
 from __future__ import annotations
@@ -40,10 +47,10 @@ class StreamItem:
     token: int
 
 
-def _refuse(what: str, slice_: str) -> None:
+def _refuse(what: str, slice_: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_} slice "
-        "(ROADMAP queue 1)")
+        f"(ROADMAP queue 1, {item})")
 
 
 class MegaServe:
@@ -54,7 +61,10 @@ class MegaServe:
     with every matrix and bias cast to the compute dtype.  ``device``
     defaults to the card and raises where there is none; ``"cpu"`` runs the
     plain attention versions.  ``clock`` injects a time source for
-    deterministic tests.  The KV pool is updated in place every step.
+    deterministic tests.  ``wrap_step`` decorates the prefill and decode
+    steps (the ``ModulePlugin.wrap_step`` attach point); ``registry``
+    receives the serve series, named ``serve.<name>``.  The KV
+    pool is updated in place every step.
     """
 
     def __init__(
@@ -66,16 +76,20 @@ class MegaServe:
         device: str = "cuda",
         tracer: Tracer | None = None,
         clock: Callable[[], float] | None = None,
+        wrap_step: Callable[[Callable], Callable] | None = None,
+        registry=None,
     ):
         lm.require_paged(cfg)
         if serve_cfg.decode_path not in ("auto", "paged"):
-            _refuse(f"decode_path={serve_cfg.decode_path!r}", "gathered-path")
+            _refuse(f"decode_path={serve_cfg.decode_path!r}", "gathered-path",
+                    "item 5")
         if serve_cfg.prefill_path not in ("auto", "flash"):
-            _refuse(f"prefill_path={serve_cfg.prefill_path!r}", "dense-prefill")
+            _refuse(f"prefill_path={serve_cfg.prefill_path!r}", "dense-prefill",
+                    "item 5")
         if serve_cfg.spec_decode:
-            _refuse("spec_decode", "speculative-decoding")
+            _refuse("spec_decode", "speculative-decoding", "item 10")
         if serve_cfg.chunked_prefill:
-            _refuse("chunked_prefill", "chunked-prefill")
+            _refuse("chunked_prefill", "chunked-prefill", "item 5")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.device = resolve_device(device)
@@ -86,6 +100,7 @@ class MegaServe:
         self.decode_path, self.prefill_path = "paged", "flash"
         self.sched = Scheduler(serve_cfg)
         self.tracer = tracer or Tracer(rank=0, enabled=True)
+        self.registry = registry
         self.streams: dict[int, list[StreamItem]] = {}
         self.step_idx = 0
         self._next_rid = 0
@@ -106,8 +121,19 @@ class MegaServe:
         )
         self.pool = self.kv.pool
         bs = serve_cfg.block_size
-        self._decode = make_paged_decode_step(cfg, block_size=bs)
-        self._prefill = make_flash_prefill_step(cfg, block_size=bs)
+        wrap = wrap_step or (lambda f: f)
+        self._decode = wrap(make_paged_decode_step(cfg, block_size=bs))
+        self._prefill = wrap(make_flash_prefill_step(cfg, block_size=bs))
+
+    @classmethod
+    def from_session(cls, session, params: Any, serve_cfg: ServeConfig, **kw):
+        """A server wired to a ``repro_torch.app.Session``: the session's
+        MegaScan tracer, metrics registry and device become this server's,
+        and its steps run through the plugins' ``wrap_step`` chain."""
+        kw.setdefault("registry", session.metrics_registry)
+        kw.setdefault("device", session.device)
+        return cls(session.model_cfg, params, serve_cfg,
+                   tracer=session.tracer, wrap_step=session.wrap_step, **kw)
 
     # -------------------------------------------------------------- intake
     def submit(
@@ -153,6 +179,10 @@ class MegaServe:
         return self._tensor(np.ascontiguousarray(self.sched.tables[:, :hb]),
                             torch.int32)
 
+    @staticmethod
+    def _m(name: str) -> str:
+        return "serve." + name
+
     # --------------------------------------------------------------- step
     def step(self) -> dict:
         """One scheduler tick; returns what happened for observability."""
@@ -160,6 +190,11 @@ class MegaServe:
         admitted, tokens_out = [], 0
 
         for adm in self.sched.admit(now):
+            if self.registry is not None and not adm.is_recompute:
+                wait = self.sched.requests[adm.rid].queue_wait
+                if wait is not None:
+                    self.registry.histogram(
+                        self._m("queue_wait_s")).observe(wait)
             n_real = len(adm.tokens)
             n_blk = self._prefill_blocks(n_real)
             # right-pad tokens to the bucketed length and the block list to
@@ -167,6 +202,7 @@ class MegaServe:
             # block 0, which every read masks out)
             toks = list(adm.tokens) + [0] * (n_blk * self.serve_cfg.block_size - n_real)
             phys = list(adm.phys) + [0] * (n_blk - len(adm.phys))
+            t_pre = self._clock()
             with self.tracer.scope(
                 "prefill", kind="compute", rid=adm.rid, slot=adm.slot,
                 tokens=n_real, recompute=adm.is_recompute,
@@ -181,6 +217,12 @@ class MegaServe:
             now = self._clock()
             self._emit(adm.slot, tok)
             self.sched.record_token(adm.slot, tok, now)
+            if self.registry is not None:
+                self.registry.histogram(self._m("prefill_s")).observe(now - t_pre)
+                if not adm.is_recompute:  # recomputes kept their first TTFT
+                    ttft = self.sched.requests[adm.rid].ttft
+                    if ttft is not None:
+                        self.registry.histogram(self._m("ttft_s")).observe(ttft)
             admitted.append(adm.rid)
             tokens_out += 1
 
@@ -197,6 +239,10 @@ class MegaServe:
         finished += self.sched.evict_finished(now)
         if admitted or active:
             self.step_idx += 1  # idle ticks don't count as engine steps
+        # preempted alone still publishes: ensure_capacity can evict every
+        # slot, and that count must not vanish
+        if self.registry is not None and (admitted or active or preempted):
+            self._publish_tick(active, preempted, tokens_out)
         return {
             "admitted": admitted,
             "preempted": preempted,
@@ -205,6 +251,21 @@ class MegaServe:
             "tokens": tokens_out,
         }
 
+    def _publish_tick(
+        self, active: list[int], preempted: list[int], tokens_out: int
+    ) -> None:
+        """Per-tick serve series into the registry (host bookkeeping only)."""
+        reg, alloc = self.registry, self.sched.allocator
+        reg.counter(self._m("tokens")).inc(tokens_out)
+        if preempted:
+            reg.counter(self._m("preemptions")).inc(len(preempted))
+        reg.gauge(self._m("queue_depth")).set(len(self.sched.waiting))
+        reg.gauge(self._m("active_slots")).set(len(active))
+        used = alloc.num_blocks - alloc.reserved - alloc.num_free
+        reg.gauge(self._m("kv_occupancy")).set(
+            used / max(self.serve_cfg.usable_blocks, 1)
+        )
+
     def _decode_tick(self, active: list[int]) -> int:
         """One fused decode step over every slot (1 token each); inactive
         slots ride along at position 0 of the null block, as in the JAX
@@ -212,6 +273,7 @@ class MegaServe:
         toks = self._tensor(self.sched.last_tok, torch.int64)
         pos = self._tensor(self.sched.pos, torch.int32)
         tables = self._live_tables(active)
+        t_dec = self._clock()
         with self.tracer.scope(
             "decode", kind="compute", step=self.step_idx,
             active=len(active), tokens=len(active),
@@ -219,6 +281,8 @@ class MegaServe:
             logits = self._decode(self.params, self.pool, tables, toks, pos)
             next_tok = torch.argmax(logits, -1).tolist()
         now = self._clock()
+        if self.registry is not None:
+            self.registry.histogram(self._m("decode_step_s")).observe(now - t_dec)
         for s in active:
             self.sched.advance(s)
             self._emit(s, next_tok[s])
@@ -230,14 +294,24 @@ class MegaServe:
         self.streams[rid].append(StreamItem(self.step_idx, tok))
 
     # -------------------------------------------------------------- drain
-    def drain(self, max_steps: int = 100_000) -> dict[int, list[int]]:
+    def drain(
+        self,
+        max_steps: int = 100_000,
+        *,
+        on_step: Callable[[list, dict], None] | None = None,
+    ) -> dict[int, list[int]]:
         """Run until every submitted request finishes; returns token streams.
 
         ``max_steps`` bounds productive engine steps and (separately) idle
-        ticks spent waiting for future arrivals."""
+        ticks spent waiting for future arrivals.  ``on_step(events,
+        report)`` observes each tick — the TraceEvents it emitted and the
+        scheduler report — which is how Session plugins attach."""
         work = idle = 0
         while not self.sched.all_done:
+            n_ev = len(self.tracer.events)
             out = self.step()
+            if on_step is not None:
+                on_step(self.tracer.events[n_ev:], out)
             if out["admitted"] or out["active"]:
                 work += 1
                 idle = 0

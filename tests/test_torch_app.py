@@ -1,0 +1,175 @@
+"""The port's app layer against ``repro.app``: ``RunConfig`` layering gives
+the same configuration for the same arguments, ``TestRunConfig`` of
+``tests/test_app.py`` runs again on the port, the ``trace`` workload writes
+the same diagnosis as JAX's, continuous serving with the ``scan`` and
+``metrics`` modules streams the same tokens as without them and publishes
+JAX ``MegaServe``'s series names, and what later slices port is refused
+with its ROADMAP item."""
+
+import json
+import re
+import types
+from pathlib import Path
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+from repro.app import cli as jcli  # noqa: E402
+from repro.app.config import build_run_config as jbuild  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.obs import MetricsRegistry as JRegistry  # noqa: E402
+from repro.serve import MegaServe as JaxMegaServe  # noqa: E402
+from repro.serve.server import make_poisson_workload as jax_workload  # noqa: E402
+from repro_torch.app import cli  # noqa: E402
+from repro_torch.app.config import build_run_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "qwen2-0.5b"
+
+ARGVS = [
+    ["train", "--arch", ARCH, "--smoke", "--steps", "8", "--set",
+     "train.seq_len=64", "--set", "train.log_every=4", "--modules",
+     "scan,metrics", "--trace-out", "t.json", "--metrics-out", "m.jsonl"],
+    ["train", "--arch", ARCH, "--set", "modules=none", "--ckpt-dir", "ck",
+     "--ckpt-every", "4", "--set", "obs.peak_tflops=989", "--lr", "1e-3",
+     "--schedule", "wsd", "--grad-accum", "2", "--seed", "3"],
+    ["serve", "--arch", ARCH, "--smoke", "--continuous", "--requests", "5",
+     "--rate", "300", "--slots", "3", "--max-new", "6", "--prompt-lens",
+     "16,40", "--num-blocks", "12", "--set", "serve.spec_k=6"],
+    ["trace", "--slow-rank", "3", "--iters", "2", "--dp", "2", "--pp", "2",
+     "--tp", "2", "--n-micro", "4", "--out", "d", "--set",
+     "scan.slow_ratio=1.3"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=["train", "train-knobs", "serve", "trace"])
+def test_run_config_equals_jax(argv, tmp_path):
+    cfg_file = tmp_path / "run.json"
+    cfg_file.write_text(json.dumps({"train": {"steps": 7, "lr": 9e-4},
+                                    "serve": {"slots": 2}, "seed": 1}))
+    argv = [*argv, "--config", str(cfg_file)]
+    jwl, jcfg = jcli._parse(argv)
+    wl, cfg = cli.parse([*argv, "--device", "cpu"])
+    assert wl == jwl
+    ours = cfg.to_dict()
+    assert ours["runtime"].pop("device") == "cpu"
+    assert ours == jcfg.to_dict()
+
+
+def test_layering_by_keyword_equals_jax():
+    kw = dict(sets=["train.lr=5e-4", "modules=scan,metrics", "smoke=1"],
+              train__steps=3, arch=ARCH)
+    assert build_run_config("train", **kw).to_dict()["train"] == \
+        jbuild("train", **kw).to_dict()["train"]
+
+
+def _port_module(name: str) -> types.ModuleType:
+    """``tests/<name>.py`` executed with its ``repro.`` imports pointed at
+    ``repro_torch.``."""
+    path = ROOT / "tests" / f"{name}.py"
+    src = re.sub(r"^(\s*)from repro\.", r"\1from repro_torch.",
+                 path.read_text(), flags=re.M)
+    mod = types.ModuleType(f"port_{name}")
+    mod.__file__ = str(path)
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+# the reference's RunConfig cases, on the port's RunConfig
+TestRunConfigOnThePort = _port_module("test_app").TestRunConfig
+
+
+def test_trace_workload_writes_jax_diagnosis(tmp_path):
+    argv = ["trace", "--slow-rank", "5", "--iters", "2"]
+    ours = cli.run([*argv, "--out", str(tmp_path / "t")])
+    jcli.run([*argv, "--out", str(tmp_path / "j")])
+    assert ours["truth"]["detected"] and ours["truth"]["slow_ranks"] == [5]
+    assert (tmp_path / "t" / "diagnosis.json").read_text() == \
+        (tmp_path / "j" / "diagnosis.json").read_text()
+    assert json.loads((tmp_path / "t" / "trace.json").read_text()) == \
+        json.loads((tmp_path / "j" / "trace.json").read_text())
+    # offline triage of the saved trace (and of JAX's) gives JAX's diagnosis
+    for side in ("t", "j"):
+        argv = ["trace", "--detect", str(tmp_path / side / "trace.json")]
+        again = cli.run(argv)
+        assert again["diagnosis"] == jcli.run(argv)["diagnosis"]
+        assert again["diagnosis"]["slow_ranks"] == [5]
+
+
+SERVE = ["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
+         "--continuous", "--requests", "6", "--rate", "400", "--slots", "3",
+         "--max-new", "6", "--prompt-lens", "16,40"]
+
+
+def test_serve_modules_on_off_identical_and_series_equal_jax(tmp_path):
+    cfg = get_config(ARCH, smoke=True).replace(compute_dtype="float32")
+    on = cli.run([*SERVE, "--modules", "scan,metrics",
+                  "--trace-out", str(tmp_path / "s.json"),
+                  "--metrics-out", str(tmp_path / "m.jsonl")], model_cfg=cfg)
+    off = cli.run([*SERVE, "--modules", "none"], model_cfg=cfg)
+    assert on["streams"] == off["streams"]
+    session = on["session"]
+    reg = session.metrics_registry
+    assert off["session"].metrics_registry is None
+    assert not off["session"].tracer.events
+    n = len(on["streams"])
+    assert reg.snapshot()["serve.ttft_s"]["count"] == n
+    assert reg.snapshot()["serve.tokens"] == sum(len(s) for s in on["streams"].values())
+    names = {e.name for e in session.tracer.events}
+    assert {"prefill", "decode"} <= names
+    # the JAX MegaServe on the same workload publishes the same series
+    jcfg = jax_get_config(ARCH, smoke=True).replace(compute_dtype="float32")
+    specs, prompts, scfg = jax_workload(
+        jcfg, n=6, rate=400.0, prompt_lens=(16, 40), max_new_range=(1, 6),
+        num_slots=3, block_size=16, num_blocks=0, seed=0)
+    from dataclasses import replace
+
+    jreg = JRegistry()
+    jsrv = JaxMegaServe(
+        jcfg, jlm.init(jcfg, jax.random.PRNGKey(0)),
+        replace(scfg, decode_path="paged", prefill_path="flash",
+                paged_attn_impl="xla"), registry=jreg)
+    for s in specs:
+        jsrv.submit(prompts[s.rid], s.max_new, arrival=s.arrival)
+    jsrv.drain()
+    assert set(reg.snapshot()) == set(jreg.snapshot())
+    rows = (tmp_path / "m.jsonl").read_text().splitlines()
+    assert len(rows) == session.results["metrics"]["rows"] > 0
+
+
+def test_peak_tflops_gives_an_mfu_estimate(tmp_path):
+    out = cli.run(["train", "--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--steps", "2", "--set", "train.seq_len=32",
+                   "--set", "train.global_batch=2",
+                   "--set", "obs.peak_tflops=0.001"])
+    report = out["session"].results["metrics"]
+    flops_s = out["session"].metrics_registry.snapshot()["train.model_flops_per_s"]
+    # the report rounds to 6 decimals, as the JAX plugin does
+    assert report["mfu_est"] == pytest.approx(flops_s["p50"] / 1e9, abs=1e-6)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["train", "--modules", "scan,ft"], "item 9"),
+    (["train", "--modules", "scope"], "item 6"),
+    (["train", "--modules", "fbd"], "item 7"),
+    (["train", "--modules", "dpp"], "item 8"),
+    (["train", "--detect-online"], "item 9"),
+    (["train", "--compile-cache", "cc"], "item 12b"),
+    (["train", "--pp", "2"], "item 8"),
+    (["train", "--multi-pod"], "item 8"),
+    (["train", "--set", "obs.rank_events=true"], "item 9"),
+    (["serve"], "item 5"),
+    (["serve", "--continuous", "--replicas", "2"], "item 11"),
+    (["serve", "--continuous", "--traffic", "bursty"], "item 11"),
+    (["serve", "--continuous", "--spec-decode"], "item 10"),
+    (["serve", "--continuous", "--chunked-prefill"], "item 5"),
+    (["serve", "--continuous", "--decode-path", "gathered"], "item 5"),
+    (["dryrun"], "item 14b"),
+], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
+def test_later_slices_are_refused_with_their_item(argv, item):
+    with pytest.raises(SystemExit, match=re.escape(item)):
+        cli.main([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
+                  *argv[1:]])

@@ -692,3 +692,75 @@ def test_griffin_smoke_train_step_launches_its_kernels(cuda):
     assert rmsnorm.launches == {"rmsnorm_fwd": 17, "rmsnorm_bwd": 9}
     assert np.isfinite(ours["loss"].item())
     assert abs(ours["loss"].item() - plain["loss"].item()) <= 1e-2
+
+
+# ------------------------------- card: the runtime (Session, checkpoints) ---
+
+
+@pytest.mark.gpu
+def test_session_trains_on_the_card_with_trace_and_metrics(cuda, tmp_path):
+    """Two qwen2 smoke steps through the CLI's Session on the card: the
+    chrome trace holds ``init`` and both steps, the metrics file a row per
+    step with the device-memory gauge, and the flop count gives an MFU
+    estimate in (0, 1)."""
+    import json
+
+    from repro_torch.app import cli
+    from repro_torch.core.tracing import load_trace
+
+    out = cli.run(["train", "--arch", "qwen2-0.5b", "--smoke", "--steps", "2",
+                   "--set", "train.seq_len=64", "--modules", "scan,metrics",
+                   "--trace-out", str(tmp_path / "t.json"),
+                   "--metrics-out", str(tmp_path / "m.jsonl"),
+                   "--set", "obs.peak_tflops=989"])
+    names = [e.name for e in load_trace(tmp_path / "t.json") if e.kind != "counter"]
+    assert sorted(names) == ["init", "train_step", "train_step"]
+    rows = [json.loads(ln) for ln in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [r["train.loss"] for r in rows] == [h["loss"] for h in out["history"]]
+    assert all(r["train.device_mem_bytes"] > 0 for r in rows)
+    assert 0 < out["session"].results["metrics"]["mfu_est"] < 1
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_card_leaves(cuda, tmp_path):
+    from repro_torch.checkpoint import restore, save
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn(64, 96, generator=gen, device=cuda).to(torch.bfloat16),
+             "m": torch.randn(7, 5, generator=gen, device=cuda),
+             "step": 11}
+    save(state, 11, tmp_path)
+    target = {"w": torch.zeros(64, 96, dtype=torch.bfloat16, device=cuda),
+              "m": torch.zeros(7, 5, device=cuda), "step": 0}
+    back, _ = restore(tmp_path, target)
+    assert back["step"] == 11
+    for k in ("w", "m"):
+        assert back[k].device == state[k].device and back[k].dtype == state[k].dtype
+        assert torch.equal(back[k], state[k])
+
+
+@pytest.mark.gpu
+def test_save_async_snapshot_survives_an_in_place_step(cuda, tmp_path):
+    """``save_async`` copies the state off the card before it returns, so a
+    train step right after (AdamW updates master and moments in place) does
+    not reach the checkpoint."""
+    from repro_torch.checkpoint import Checkpointer, restore
+    from repro_torch.configs import get_config
+    from repro_torch.train.optim import OptimizerConfig, leaves
+    from repro_torch.train.train_step import (
+        copy_state, init_train_state, make_train_step)
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    state = init_train_state(cfg, seed=0, device=cuda)
+    saved = copy_state(state)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    ck = Checkpointer(tmp_path)
+    ck.save_async(state, 1)
+    state, _ = make_train_step(cfg, OptimizerConfig(warmup_steps=1))(state, batch)
+    ck.wait()
+    back, _ = restore(tmp_path, state)
+    for (path, a), (_, b) in zip(leaves(back.master), leaves(saved.master)):
+        assert torch.equal(a, b), path
+    assert back.opt["step"] == 0 and state.opt["step"] == 1
