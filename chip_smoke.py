@@ -29,6 +29,18 @@ Phases, each of which fails the run (non-zero exit) on error:
              served by MegaServe on 32 Poisson requests; every decode tick and
              every prompt must launch each paged kernel once per layer and
              the RMSNorm kernel once per norm;
+   generate — ``generate_with_scope`` (MegaScope) on the serve phase's
+             weights: a 128-token prompt of seed 1, 32 greedy steps over the
+             dense KV cache with probes on the final hidden state and the
+             attention probabilities; its tokens against MegaServe's greedy
+             stream for the prompt, the teacher-forced logits of its tokens
+             through the serving kernels and through the dense cache within
+             ``LOGIT_TOL``, K1 once a norm a forward; ms per generated token
+             (host clock); a dashboard from the last step's attention and a
+             PCA of the final hidden states, its markers checked; then a
+             1100-token prompt of seed 2, 4 steps, held the same way, whose
+             prefill takes the dense cache's chunked attention (one call a
+             layer, counted);
 5. check   — replays finished streams teacher-forced through the kernel path
              and through the plain path on the card and compares the logits;
              then times one decode tick at the serve shape on the host clock
@@ -64,6 +76,24 @@ Phases, each of which fails the run (non-zero exit) on error:
              equal the uninterrupted run's bit for bit; one ``save_async``
              timed (stall and background write); and ``python -m
              repro_torch trace --slow-rank 5 --iters 2`` must detect rank 5;
+   scope   — ``stats_of`` on one layer's bf16 ``mlp_hidden`` against
+             float64, with its time and the memory above its input (under a
+             float32 copy's); then MegaScope through the qwen2 train step:
+             4 steps through ``Session`` with ``--modules
+             scan,metrics,scope`` (probes
+             ``mlp_hidden:stats,att_resid:stats,q:channels``) and with
+             ``--modules scan,metrics``, in turns (on, off, off, on): losses
+             bit-identical, K1's and K2's launches the same, every capture
+             finite with a leading axis of 24, one hit a step a leaf; the
+             median steps and peak memory of both sides; then one step
+             perturbed at a layer that does not exist (the same loss) and one
+             with gaussian noise on ``att_resid`` (another, finite loss);
+   fbd     — MegaFBD's decoupled forward/backward on the qwen2 loss at the
+             train phase's shape, remat full: loss and every gradient leaf
+             bit-identical to ``torch.autograd.grad``'s, also with the
+             residuals moved to host memory and back between fwd and bwd;
+             fwd and bwd timed with CUDA events; the residual bytes against
+             their hand count; the ``fbd`` plugin's report;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -82,7 +112,11 @@ Phases, each of which fails the run (non-zero exit) on error:
              full-width recurrentgemma-9b cut to 5 of its 38 layers trained
              6 steps at seq 4096 x batch 2 (parameter count, launches per
              step exact, losses finite and falling), and the step check at
-             the same 5 layers;
+             the same 5 layers; then one train step each of rwkv6-3b at 2
+             layers (probe ``wkv_decay:stats``) and recurrentgemma-9b at 3
+             (rec, rec, attn; probe ``rglru_out:stats``), full width, with
+             and without the probe: losses bit-identical, K5, K6, K2 and K1
+             launched as often, captures finite;
 10. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -1738,6 +1772,513 @@ def runtime_phase(torch, dev, smi: str, tag: str = "runtime") -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ phases 10-13: MegaScope, MegaFBD
+
+# probes of the scope phase: the widest tag (mlp_hidden, [8, 2048, 4864] a
+# layer), a residual and a per-channel profile of the roped queries
+SCOPE_PROBES = "mlp_hidden:stats,att_resid:stats,q:channels"
+SCOPE_STEPS = 4
+# the recurrent families' scope step: rwkv6-3b cut to 2 layers, Griffin to
+# 3 (rec, rec, attn), both at full width
+RWKV_SCOPE = dict(layers=2, seq_len=2048, global_batch=4, probes="wkv_decay:stats")
+GRIFFIN_SCOPE = dict(layers=3, seq_len=4096, global_batch=2, probes="rglru_out:stats")
+GEN = dict(prompt_len=128, steps=32, seed=1,
+           probes=("final_hidden:stats", "attn_probs:full", "final_hidden:full"))
+# a prompt past qwen2-0.5b's attn_kv_chunk (1024): the prefill takes the
+# dense cache's chunked online softmax (layers._chunked_attention)
+GEN_LONG = dict(prompt_len=1100, steps=4, seed=2, probes=("final_hidden:stats",))
+# stats_of on one layer's mlp_hidden, bf16, against float64: each statistic
+# within STATS_RTOL of max(|reference|, 1) (float32 sums over 80 M
+# elements); memory above the input under 4 B an element (a float32 copy
+# alone is 4)
+STATS_RTOL = 1e-4
+
+
+class _KeepCaptures:
+    """A plugin that keeps the last step's ``captures`` tree (on the card)."""
+
+    name = "keep_captures"
+
+    def __init__(self):
+        self.captures = None
+
+    def setup(self, session):
+        return None
+
+    def wrap_step(self, step_fn):
+        return step_fn
+
+    def on_step(self, session, events, metrics):
+        self.captures = metrics.get("captures")
+
+    def finalize(self, session):
+        return {}
+
+
+def _scope_session(argv: list[str], model_cfg=None):
+    """:func:`_session` with a :class:`_KeepCaptures` after the plugins the
+    arguments select; returns the session, the workload's result and the
+    last step's captures."""
+    from repro_torch.app.cli import parse
+    from repro_torch.app.plugins import build_plugins
+    from repro_torch.app.session import Session
+
+    _, rc = parse(argv)
+    keep = _KeepCaptures()
+    session = Session(rc, plugins=[*build_plugins(rc.modules, rc), keep],
+                      model_cfg=model_cfg)
+    return session, session.run(), keep.captures
+
+
+def _capture_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _capture_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _check_captures(torch, tag: str, captures: dict, n_groups: dict) -> int:
+    """Every leaf finite with its segment's leading group axis; read back
+    once.  Returns the number of leaves."""
+    if not captures:
+        raise AssertionError(f"{tag}: the step captured nothing")
+    n = 0
+    for seg, tree in captures.items():
+        for path, leaf in _capture_leaves(tree):
+            host = leaf.float().cpu()
+            if seg != "top" and host.shape[0] != n_groups[seg]:
+                raise AssertionError(f"{tag}: capture {seg}/{path} has shape "
+                                     f"{tuple(host.shape)}, not [{n_groups[seg]}, ...]")
+            if not torch.isfinite(host).all():
+                raise AssertionError(f"{tag}: capture {seg}/{path} is not finite")
+            n += 1
+    return n
+
+
+def stats_check(torch, smi: str, tag: str = "scope") -> None:
+    """``stats_of`` on a bf16 tensor of one qwen2-0.5b layer's
+    ``mlp_hidden`` at the train shape ([8, 2048, 4864], seed 3, with four
+    values at the sparsity threshold): every statistic against float64
+    within :data:`STATS_RTOL`, the sparsity count exact, the memory it
+    takes above its input under a float32 copy's, and its time (CUDA
+    events, after a warm-up)."""
+    from repro_torch.core.scope.compress import stats_of
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (TRAIN["global_batch"], TRAIN["seq_len"], 4864)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x.view(-1)[:4] = torch.tensor([1.046875 * 2.0 ** -20, -1e-7, 2e-6, 0.0],
+                                  device="cuda")
+    xd = x.double()
+    n = x.numel()
+    ref = {"mean": xd.mean(), "std": xd.std(correction=0), "min": xd.min(),
+           "max": xd.max(), "l2": torch.linalg.vector_norm(xd),
+           "sparsity": torch.count_nonzero(xd.abs() < 1e-6).double() / n}
+    del xd
+    stats_of(x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ours = stats_of(x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(10):
+        stats_of(x)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / 10
+    errs = {k: abs(ours[k].double().item() - ref[k].item()) / max(abs(ref[k].item()), 1.0)
+            for k in ref}
+    log(f"[{tag}] stats_of on bf16 {list(shape)}: {ms:.4f} ms (CUDA events, {smi}; one "
+        f"read of the input is {1e3 * 2 * n / HBM_BYTES_PER_S:.4f} ms), {extra} bytes above "
+        f"its input ({extra / n:.2f} an element), errors against float64 "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {STATS_RTOL})")
+    if max(errs.values()) > STATS_RTOL or round(ours["sparsity"].item() * n) != round(
+            ref["sparsity"].item() * n) or extra >= 4 * n:
+        raise AssertionError(f"{tag}: stats_of off on the card: {errs}, {extra} bytes")
+
+
+def scope_phase(torch, smi: str, tag: str = "scope"):
+    """MegaScope through the training forward: first :func:`stats_check`,
+    then full-width qwen2-0.5b at the train phase's recipe, :data:`SCOPE_STEPS` steps through ``Session``
+    with ``--modules scan,metrics,scope`` and :data:`SCOPE_PROBES`, and
+    with ``--modules scan,metrics``, in turns (on, off, off, on).  Every
+    run's losses must be bit-identical (probes never change numerics), K1's
+    and K2's launches of a probed run equal to an unprobed run's, every
+    capture finite with a leading axis of 24, the ``scope`` report one hit
+    a step for every leaf.  Then one step with ``scope.perturbs``
+    ``ffn_resid:offset:1.0:99`` (a layer that does not exist: the
+    unperturbed first loss) and one with ``att_resid:gaussian:0.01`` (a
+    different, finite loss).  Returns the K1 and K2 counts of the first
+    probed run."""
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models.lm import segment_layout
+
+    stats_check(torch, smi, tag)
+    torch.cuda.empty_cache()
+    kernels = (flash_attention, rmsnorm)
+    shape = dict(TRAIN, steps=SCOPE_STEPS)
+    base = _train_argv(shape)
+    on = [*base, "--modules", "scan,metrics,scope", "--set", f"scope.probes={SCOPE_PROBES}"]
+    off = [*base, "--modules", "scan,metrics"]
+    log(f"[{tag}] python -m repro_torch {' '.join(on)}; then {' '.join(off[-2:])}, "
+        "in turns on, off, off, on")
+    runs = []
+    for probed in (True, False, False, True):
+        for m in kernels:
+            m.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        session, (state, history), caps = _scope_session(on if probed else off)
+        torch.cuda.synchronize()
+        counts = {k: v for m in kernels for k, v in m.launches.items()}
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        runs.append(dict(probed=probed, session=session, history=history, caps=caps,
+                         counts=counts, peak=peak))
+    cfg = runs[0]["session"].model_cfg
+    n_groups = {f"seg{i}": n for i, (_, n) in enumerate(segment_layout(cfg))}
+    losses = [[h["loss"] for h in r["history"]] for r in runs]
+    for r in runs:
+        med = statistics.median(h["step_s"] for h in r["history"][1:])
+        log(f"[{tag}] {'--modules scan,metrics,scope' if r['probed'] else '--modules scan,metrics':28s} "
+            f"losses {[h['loss'] for h in r['history']]} median step {1e3 * med:.1f} ms "
+            f"(steps " + ", ".join(f"{1e3 * h['step_s']:.1f}" for h in r["history"][1:])
+            + f"); launches {r['counts']}; max_memory_allocated={r['peak']}")
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"{tag}: losses under probes differ from those without: {losses}")
+    for r in runs[1:]:
+        if r["counts"] != runs[0]["counts"]:
+            raise AssertionError(f"{tag}: K1/K2 launches {r['counts']} != {runs[0]['counts']}")
+    for r in runs:
+        if not r["probed"]:
+            continue
+        n = _check_captures(torch, tag, r["caps"], n_groups)
+        report = r["session"].results["scope"]
+        if not report["captured"] or set(report["captured"].values()) != {SCOPE_STEPS} \
+                or len(report["captured"]) != n:
+            raise AssertionError(f"{tag}: scope report {report}")
+    log(f"[{tag}] {len(runs[0]['session'].results['scope']['captured'])} capture leaves a "
+        f"step, each [{cfg.num_layers}, ...] and finite, counted {SCOPE_STEPS} times "
+        f"({', '.join(sorted({k.split('/')[1] for k in runs[0]['session'].results['scope']['captured']}))})")
+    pooled = {p: [h["step_s"] for r in runs if r["probed"] == p for h in r["history"][1:]]
+              for p in (True, False)}
+    log(f"[{tag}] steps 2-{SCOPE_STEPS} pooled over two runs each: median with scope "
+        f"{1e3 * statistics.median(pooled[True]):.1f} ms, without "
+        f"{1e3 * statistics.median(pooled[False]):.1f} ms; peak memory with scope "
+        f"{max(r['peak'] for r in runs if r['probed'])}, without "
+        f"{max(r['peak'] for r in runs if not r['probed'])} bytes ({smi})")
+
+    one = [*_train_argv(dict(TRAIN, steps=1)), "--modules", "scope"]
+    for spec, same in (("ffn_resid:offset:1.0:99", True), ("att_resid:gaussian:0.01", False)):
+        _, (state, hist) = _session([*one, "--set", f"scope.perturbs={spec}"])
+        del state
+        torch.cuda.empty_cache()
+        loss = hist[0]["loss"]
+        log(f"[{tag}] one step with scope.perturbs={spec}: loss {loss!r}, unperturbed "
+            f"{losses[0][0]!r}")
+        if same and loss != losses[0][0]:
+            raise AssertionError(f"{tag}: a perturbation of no layer moved the loss")
+        if not same and (loss == losses[0][0] or not math.isfinite(loss)):
+            raise AssertionError(f"{tag}: the gaussian perturbation left the loss {loss}")
+    return runs[0]["counts"]
+
+
+def recurrent_scope_phase(torch, smi: str, tag: str = "scope-recurrent") -> None:
+    """One train step of rwkv6-3b (:data:`RWKV_SCOPE`) and of
+    recurrentgemma-9b (:data:`GRIFFIN_SCOPE`), at full width cut in depth,
+    with their probe and without: losses bit-identical, K5 (rwkv6) and K6
+    and K2 (Griffin) and K1 launched as often, captures finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rglru, rmsnorm, wkv6
+    from repro_torch.models.lm import segment_layout
+
+    for arch, shp, kernels in (("rwkv6-3b", RWKV_SCOPE, (wkv6, rmsnorm)),
+                               ("recurrentgemma-9b", GRIFFIN_SCOPE,
+                                (rglru, flash_attention, rmsnorm))):
+        cfg = get_config(arch).replace(num_layers=shp["layers"])
+        argv = ["train", "--arch", arch, "--seq-len", str(shp["seq_len"]),
+                "--global-batch", str(shp["global_batch"]), "--steps", "1"]
+        out = {}
+        for probed in (True, False):
+            mods = (["--modules", "scope", "--set", f"scope.probes={shp['probes']}"]
+                    if probed else ["--modules", "none"])
+            for m in kernels:
+                m.reset_launches()
+            _, (state, hist), caps = _scope_session([*argv, *mods], model_cfg=cfg)
+            torch.cuda.synchronize()
+            del state
+            torch.cuda.empty_cache()
+            out[probed] = (hist[0]["loss"], {k: v for m in kernels for k, v in m.launches.items()},
+                           caps)
+        n_groups = {f"seg{i}": n for i, (_, n) in enumerate(segment_layout(cfg))}
+        n = _check_captures(torch, f"{tag} {arch}", out[True][2], n_groups)
+        keys = sorted(k for tree in out[True][2].values() for k in tree)
+        log(f"[{tag}] {arch} at {shp['layers']} layers, seq {shp['seq_len']} x batch "
+            f"{shp['global_batch']}, probe {shp['probes']}: loss {out[True][0]!r} with, "
+            f"{out[False][0]!r} without; launches {out[True][1]} with, {out[False][1]} "
+            f"without; {n} capture leaves ({', '.join(keys)})")
+        if out[True][0] != out[False][0]:
+            raise AssertionError(f"{tag} {arch}: the probe changed the loss")
+        if out[True][1] != out[False][1] or not all(out[True][1].values()):
+            raise AssertionError(f"{tag} {arch}: launches {out[True][1]} != {out[False][1]}")
+
+
+def _dense_replay(torch, cfg, params, prompt: list[int], forced: list[int]):
+    """Teacher-forced logits ``[len(forced), V]`` over the dense cache
+    (the path ``generate_with_scope`` takes): prefill ``prompt``, then feed
+    ``forced[:-1]`` one token at a time."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    dev = params["embedding"].device
+    cache = lm.init_cache(cfg, 1, len(prompt) + len(forced), device=dev)
+    with torch.no_grad():
+        hidden, _ = lm.forward(cfg, params, torch.tensor([prompt], device=dev),
+                               cache=cache, cache_pos=0)
+        out = [L.logits_fn(params, cfg, hidden[:, -1:])[0, 0]]
+        for i, tok in enumerate(forced[:-1]):
+            hidden, _ = lm.forward(cfg, params, torch.tensor([[tok]], device=dev),
+                                   cache=cache, cache_pos=len(prompt) + i)
+            out.append(L.logits_fn(params, cfg, hidden)[0, 0])
+    return torch.stack(out).float()
+
+
+def _generate_case(torch, cfg, srv, case: dict, smi: str, tag: str):
+    """One ``generate_with_scope`` run of ``case`` (a :data:`GEN`-like
+    dict) after a warm-up, held as :func:`generate_phase` says; returns
+    its records.  Counts the calls of the dense cache's chunked attention
+    (``layers._chunked_attention``) in the timed run: one a layer where the
+    prefill's cache exceeds ``attn_kv_chunk``, else none."""
+    import numpy as np
+
+    from repro_torch.core.scope import ProbeSpec, ScopeCollector, generate_with_scope
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(case["seed"])
+    prompt = rng.integers(0, cfg.vocab_size, case["prompt_len"]).tolist()
+    srv.reset()
+    rid = srv.submit(prompt, case["steps"], arrival=0.0)
+    stream = srv.drain()[rid]
+    probes = [ProbeSpec(*p.split(":")) for p in case["probes"]]
+    toks = torch.tensor([prompt], device=srv.device)
+    generate_with_scope(cfg, srv.params, toks, 2, ScopeCollector(probes=probes))  # warm-up
+    flash_attention.reset_launches()
+    rmsnorm.reset_launches()
+    chunked, inner = [0], layers._chunked_attention
+
+    def counted(*args, **kwargs):
+        chunked[0] += 1
+        return inner(*args, **kwargs)
+
+    layers._chunked_attention = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records, out = generate_with_scope(cfg, srv.params, toks, case["steps"],
+                                           ScopeCollector(probes=probes))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        layers._chunked_attention = inner
+    counts = {**flash_attention.launches, **rmsnorm.launches}
+    ours = out[0].tolist()
+    L_ = cfg.num_layers
+    T = case["prompt_len"] + case["steps"]
+    want_chunked = L_ if T > cfg.attn_kv_chunk else 0
+    want_norm = (2 * L_ + 1) * (case["steps"] + 1)
+    log(f"[{tag}] {cfg.name} {L_} layers, prompt {case['prompt_len']} (seed {case['seed']}), "
+        f"{case['steps']} steps: {1e3 * dt / case['steps']:.2f} ms per generated token on the "
+        f"host clock (prefill included; {1e3 * dt:.1f} ms in all, {smi}); launches {counts}, "
+        f"expected rmsnorm_fwd (2x{L_}+1)x{case['steps'] + 1}={want_norm}, no flash; "
+        f"chunked kv_len attention {chunked[0]} calls (cache {T} vs attn_kv_chunk "
+        f"{cfg.attn_kv_chunk}: expected {want_chunked})")
+    if counts["rmsnorm_fwd"] != want_norm or counts["rmsnorm_bwd"] or any(
+            counts[k] for k in flash_attention.launches) or chunked[0] != want_chunked:
+        raise AssertionError(f"{tag}: launches {counts}, chunked attention {chunked[0]}")
+    if [r.token for r in records] != ours or len(ours) != case["steps"]:
+        raise AssertionError(f"{tag}: records and tokens disagree")
+    part = next((i for i, (a, b) in enumerate(zip(ours, stream)) if a != b), None)
+    lk = replay(torch, cfg, srv.params, prompt, ours, plain=False)
+    ld = _dense_replay(torch, cfg, srv.params, prompt, ours)
+    V = cfg.vocab_size
+    err = (lk[:, :V] - ld[:, :V]).abs().max().item()
+    idx = torch.tensor(ours, device=lk.device)[:, None]
+    gap = (lk[:, :V].max(-1).values - lk.gather(1, idx)[:, 0]).max().item()
+    dense_greedy = bool((ld[:, :V].argmax(-1) == idx[:, 0]).all())
+    log(f"[{tag}] tokens {'equal to' if part is None else f'part from (at step {part})'} "
+        f"MegaServe's greedy stream; teacher-forced logits, serving kernels vs dense "
+        f"cache: max err {err:.4f}, serving path's max minus the chosen token's {gap:.4f} "
+        f"(tol {LOGIT_TOL}); dense replay greedy on the tokens: {dense_greedy}")
+    if not (err <= LOGIT_TOL and gap <= LOGIT_TOL and dense_greedy
+            and torch.isfinite(lk).all() and torch.isfinite(ld).all()):
+        raise AssertionError(f"{tag}: generation off the serving path beyond {LOGIT_TOL}")
+    return records
+
+
+def generate_phase(torch, cfg, srv, smi: str, tag: str = "generate") -> None:
+    """``generate_with_scope`` on full-width qwen2-0.5b (the serve phase's
+    seed-0 weights, bf16), twice: a :data:`GEN` prompt, greedy steps,
+    probes on the final hidden state and the attention probabilities; and
+    a :data:`GEN_LONG` prompt past ``attn_kv_chunk``, whose prefill takes
+    the chunked ``kv_len`` attention.  Each run's tokens against
+    MegaServe's greedy stream for the same prompt; the teacher-forced
+    logits of its tokens through the serving kernels (K4, K3) and through
+    its dense cached path within ``LOGIT_TOL``, and where the streams
+    part, the serving path's own choice within ``LOGIT_TOL`` of the dense
+    path's.  K1 launches once a norm a forward; no K2 (JAX takes
+    ``_make_flash`` there, outside Pallas).  Then a dashboard from the
+    first run's last ``attn_probs`` and a PCA of its final hidden states."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.core.scope import pca_fit, pca_project, write_dashboard
+
+    records = _generate_case(torch, cfg, srv, GEN, smi, tag)
+    _generate_case(torch, cfg, srv, GEN_LONG, smi, tag)
+
+    attn = records[-1].captures["attn_probs.full"]            # [L, 1, 1, K, G, T]
+    heat = attn[-1].reshape(-1, attn.shape[-1])
+    hidden = np.concatenate([r.captures["final_hidden.full"].reshape(-1, cfg.d_model)
+                             for r in records])
+    fit = pca_fit(hidden, k=2)
+    # the records' stats only: the full captures above would make ~20 MB of JSON
+    light = [replace(r, captures={k: v for k, v in r.captures.items()
+                                  if k.endswith(".stats")}) for r in records]
+    path = write_dashboard(RUNTIME_DIR / "dashboard.html", light, attention=heat,
+                           pca_points=pca_project(hidden, fit), meta=f"{cfg.name} ({smi})")
+    html = path.read_text()
+    ok = "MegaScope dashboard" in html and "const DATA" in html and len(html) > 2000
+    log(f"[{tag}] dashboard {path.relative_to(REPO)}: {len(html)} bytes, attention "
+        f"{tuple(heat.shape)} of the last layer, PCA of {hidden.shape[0]} final hidden "
+        f"states (explained {fit['explained']}); markers {'found' if ok else 'MISSING'}")
+    if not ok or not np.isfinite(heat).all() or abs(heat.sum(-1) - 1).max() > 1e-3:
+        raise AssertionError(f"{tag}: dashboard or attention probabilities off")
+
+
+def fbd_hand_count(cfg, B: int, S: int, *, batch_mask: bool) -> int:
+    """Residual bytes of the qwen2 loss under remat full on the card, by
+    hand: each layer's input (bf16 [B, S, D], what checkpoint keeps), the
+    positions (int64 [S], once), K1's input to the final norm and its rstd
+    (float32 [B*S]), the chunked cross entropy's input (bf16 [B, S, D]),
+    its mask (float32 [B, S]) unless the batch brings a float32
+    ``loss_mask`` (``batch_mask``; ``SyntheticTokens`` does), and three
+    float32 scalars of the mean.  Parameters and batch leaves are no
+    residuals."""
+    D = cfg.d_model
+    return (cfg.num_layers * B * S * D * 2 + S * 8 + B * S * D * 2 + B * S * 4
+            + B * S * D * 2 + (0 if batch_mask else B * S * 4) + 3 * 4)
+
+
+def fbd_phase(torch, dev, smi: str, tag: str = "fbd") -> None:
+    """MegaFBD's decoupled step on full-width qwen2-0.5b at the train
+    phase's shape, remat full, from the seed-0 parameters and batch 0: the
+    fused loss and gradients (``torch.autograd.grad``), then the same
+    through ``make_decoupled_step``, then again with the residuals moved
+    to host memory and back between ``fwd`` and ``bwd``.  Loss and every
+    gradient leaf bit-identical each time, and the decoupled run's K1 and
+    K2 launches equal the fused run's; ``fwd`` and ``bwd`` timed with CUDA
+    events; ``residual_bytes`` equal to :func:`fbd_hand_count`; and the
+    ``fbd`` plugin's report."""
+    import types
+
+    from repro_torch.app.config import build_run_config
+    from repro_torch.app.plugins import FbdPlugin
+    from repro_torch.configs import get_config
+    from repro_torch.core.fbd import make_decoupled_step
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models import lm
+    from repro_torch.train.optim import leaves
+    from repro_torch.train.train_step import init_train_state, to_device_batch
+
+    cfg = get_config("qwen2-0.5b").replace(remat="full")
+    data, _ = _train_setup(cfg, TRAIN)
+    state = init_train_state(cfg, seed=0, device=dev)
+    params = state.params
+    del state
+    batch = to_device_batch(SyntheticTokens(data).batch_at(0), dev)
+    flat = [p for _, p in leaves(params)]
+    loss_fn = lambda p, b: lm.loss_fn(cfg, p, b)[0]  # noqa: E731
+    kernels = (flash_attention, rmsnorm)
+
+    def counted(fn):
+        for m in kernels:
+            m.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for m in kernels for k, v in m.launches.items()}
+
+    def fused():
+        loss = loss_fn(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    counted(fused)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (ref_loss, ref), fused_counts = counted(fused)
+    fused_peak = torch.cuda.max_memory_allocated()
+    step = make_decoupled_step(loss_fn)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def decoupled(host: bool):
+        ev[0].record()
+        loss, res = step.fwd(params, batch)
+        ev[1].record()
+        moved = 0.0
+        if host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.to("cpu")
+            res.to(dev)
+            torch.cuda.synchronize()
+            moved = time.perf_counter() - t0
+            ev[1].record()
+        nbytes = res.nbytes
+        grads = step.bwd(params, batch, res, torch.ones_like(loss))
+        ev[2].record()
+        return loss, grads, nbytes, moved
+
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads, nbytes, _), dec_counts = counted(lambda: decoupled(False))
+    dec_peak = torch.cuda.max_memory_allocated()
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    hand = fbd_hand_count(cfg, data.global_batch, data.seq_len,
+                          batch_mask=batch["loss_mask"].dtype == torch.float32)
+
+    def same(loss, grads) -> list[str]:
+        bad = [".".join(p) for (p, g), r in zip(leaves(grads), ref) if not torch.equal(g, r)]
+        return bad + (["loss"] if not torch.equal(loss, ref_loss) else [])
+
+    bad = same(loss, grads)
+    del grads
+    (loss2, grads2, _, moved), _ = counted(lambda: decoupled(True))
+    bad2 = same(loss2, grads2)
+    del grads2
+    report = FbdPlugin(build_run_config("train"))
+    report.setup(types.SimpleNamespace())
+    log(f"[{tag}] {cfg.name} remat full, seq {data.seq_len} x batch {data.global_batch}: "
+        f"loss {ref_loss.item()!r}; decoupled fwd {fwd_ms:.2f} ms, bwd {bwd_ms:.2f} ms (CUDA "
+        f"events; {smi}); residual_bytes {nbytes} against a hand count of {hand}; "
+        f"round trip of the residuals through host memory {1e3 * moved:.1f} ms; peak memory "
+        f"fused {fused_peak}, decoupled {dec_peak}")
+    log(f"[{tag}] launches fused {fused_counts}, decoupled {dec_counts}; leaves differing: "
+        f"direct {bad or 'none'}, after the host round trip {bad2 or 'none'} of {len(ref)}; "
+        f"fbd plugin report {report.finalize(None)}")
+    if bad or bad2:
+        raise AssertionError(f"{tag}: decoupled grads differ from fused: {bad} / {bad2}")
+    if dec_counts != fused_counts or not all(fused_counts.values()):
+        raise AssertionError(f"{tag}: launches {dec_counts} != fused {fused_counts}")
+    if nbytes != hand:
+        raise AssertionError(f"{tag}: residual_bytes {nbytes} != hand count {hand}")
+    del params, flat, ref
+    torch.cuda.empty_cache()
+
+
 def _in_float64(fn):
     """``fn`` (the model's WKV or RG-LRU call) with its plain version
     evaluated in float64 on the same inputs, outputs back in float32: the
@@ -1941,9 +2482,12 @@ def main() -> int:
     ticks_off = [e.dur for e in srv.trace_events() if e.name == "decode"]
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
     profile_decode_tick(torch, cfg, srv.params)
+    phase("serve and teacher-forced check")
+    RUNTIME_DIR.mkdir(parents=True, exist_ok=True)
+    generate_phase(torch, cfg, srv, smi)
     del srv
     torch.cuda.empty_cache()
-    phase("serve and teacher-forced check")
+    phase("generate_with_scope and its dashboard")
     counts = serve_session(torch, cfg, specs, streams, ticks_off, smi)
     torch.cuda.empty_cache()
     phase("serve through the Session")
@@ -1967,6 +2511,10 @@ def main() -> int:
     if not truth["detected"]:
         raise AssertionError("the trace workload did not detect rank 5")
     phase("runtime: checkpoints, resume and the trace workload")
+    scope_phase(torch, smi)
+    phase("scope: probes and perturbations through the qwen2 train step")
+    fbd_phase(torch, dev, smi)
+    phase("fbd: the decoupled forward and backward")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
     # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65
@@ -2001,6 +2549,8 @@ def main() -> int:
                      GRIFFIN_STEP_LEAF_RTOL),
                probe=(griffin_model, "rglru_scan"))
     phase("griffin step check")
+    recurrent_scope_phase(torch, smi)
+    phase("scope on rwkv6 and griffin")
 
     # launches: the paged kernels' from the serve phase, K1's and K2's from
     # the qwen2 train phase (K2 at dh 256: the griffin train phase), K5's

@@ -42,7 +42,7 @@ _SHARED = [
         help="cuda (default; raises without a card) or cpu")),
     ("--modules", "modules", dict(
         type=str, metavar="M1,M2",
-        help="module plugins to attach (scan,metrics; ft,scope,fbd,dpp are "
+        help="module plugins to attach (scan,metrics,scope,fbd; ft,dpp are "
              "later slices; 'none' = off)")),
     ("--mesh", "mesh", dict(
         choices=("auto", "auto-mp", "host", "pod1", "pod2"))),
@@ -150,7 +150,7 @@ _DRYRUN = [
 _WORKLOAD_FLAGS = {"train": _TRAIN, "serve": _SERVE, "trace": _TRACE,
                    "dryrun": _DRYRUN}
 
-_REPORTS = ("scan", "metrics", "trace_out")
+_REPORTS = ("scan", "metrics", "scope", "fbd", "trace_out")
 
 
 def _add_flags(ap: argparse.ArgumentParser, flags) -> None:

@@ -11,10 +11,11 @@ Every module attaches through the same four hooks:
 * ``finalize(session)`` — return a JSON-able report (merged into
   ``session.results``) and release anything held.
 
-The port runs MegaScan (``scan``) and the metrics registry (``metrics``).
-``ft``, ``scope``, ``fbd`` and ``dpp`` are registered, so ``--modules``
-validates as in the JAX package, and their ``setup`` raises
-``NotImplementedError`` naming the ROADMAP item that ports each.
+The port runs MegaScan (``scan``), the metrics registry (``metrics``),
+MegaScope (``scope``) and MegaFBD (``fbd``).  ``ft`` and ``dpp`` are
+registered, so ``--modules`` validates as in the JAX package, and their
+``setup`` raises ``NotImplementedError`` naming the ROADMAP item that ports
+each.
 """
 
 from __future__ import annotations
@@ -215,6 +216,137 @@ class MetricsPlugin(ModulePlugin):
 
 
 # ---------------------------------------------------------------------------
+# MegaScope — probes + perturbations through the model hooks
+# ---------------------------------------------------------------------------
+
+
+def _parse_probe(spec: str):
+    from repro_torch.core.scope import ProbeSpec
+
+    pattern, _, compress = spec.partition(":")
+    return ProbeSpec(pattern, compress or "stats")
+
+
+def _parse_perturb(spec: str):
+    from repro_torch.core.scope import PerturbSpec
+
+    parts = spec.split(":")
+    if len(parts) < 3:
+        raise ValueError(
+            f"perturb spec {spec!r}; want pattern:kind:amount[:layer]"
+        )
+    layer = int(parts[3]) if len(parts) > 3 else None
+    return PerturbSpec(parts[0], parts[1], float(parts[2]), layer)
+
+
+@register_plugin
+class ScopePlugin(ModulePlugin):
+    """Owns the session ScopeCollector, built from compact config strings.
+
+    The train loop threads it through every step's loss; ``on_step``
+    counts the captured leaves of each step's ``captures`` tree (still on
+    the card: counting reads nothing back).
+    """
+
+    name = "scope"
+
+    def setup(self, session) -> None:
+        from repro_torch.core.scope import ScopeCollector
+
+        sec = self.run_cfg.scope
+        self._probes = [_parse_probe(s) for s in sec.probes]
+        self._perturbs = [_parse_perturb(s) for s in sec.perturbs]
+        session.collector = ScopeCollector(
+            probes=self._probes, perturbs=self._perturbs
+        )
+        self._captured: dict[str, int] = {}
+
+    def on_step(self, session, events, metrics) -> None:
+        # captures ride the workload's metrics under a nested "captures"
+        # tree ({segment: {"<tag>.<compressor>": leaf}}); count leaf hits
+        def walk(prefix: str, node) -> None:
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(f"{prefix}{k}/" if isinstance(v, dict) else f"{prefix}{k}", v)
+            else:
+                self._captured[prefix] = self._captured.get(prefix, 0) + 1
+
+        caps = (metrics or {}).get("captures") if isinstance(metrics, dict) else None
+        if caps:
+            walk("", caps)
+
+    def finalize(self, session) -> dict:
+        return {
+            "probes": [f"{p.pattern}:{p.compress}" for p in self._probes],
+            "perturbs": len(self._perturbs),
+            "captured": dict(sorted(self._captured.items())),
+        }
+
+
+# ---------------------------------------------------------------------------
+# MegaFBD — heterogeneous placement + coordination check
+# ---------------------------------------------------------------------------
+
+
+@register_plugin
+class FbdPlugin(ModulePlugin):
+    """Forward/backward-decoupling coordination for the configured cluster.
+
+    ``setup`` plans virtual-rank placement over the section's heterogeneous
+    speed model and verifies launch-order deadlock freedom with the
+    bit-vector coordinator; ``finalize`` reports the decoupled-vs-colocated
+    speedup.  Host-side planning only — step numerics are untouched, so the
+    plugin composes with every workload.
+    """
+
+    name = "fbd"
+
+    def setup(self, session) -> None:
+        from repro_torch.core.fbd.coordinator import ThreadProgram, run_with_coordinator
+        from repro_torch.core.fbd.ranks import (
+            colocated_placement,
+            evaluate_placement,
+            plan_placement,
+        )
+
+        sec = self.run_cfg.fbd
+        n_slow = int(sec.n_devices * sec.slow_frac)
+        speed = {d: 1.0 for d in range(sec.n_devices - n_slow)}
+        speed |= {d: sec.slow_speed for d in range(sec.n_devices - n_slow, sec.n_devices)}
+        self.placement = plan_placement(sec.n_virtual, speed)
+        self._t_decoupled = evaluate_placement(self.placement)
+        self._t_colocated = evaluate_placement(
+            colocated_placement(sec.n_virtual, speed)
+        )
+        # coordination check: each virtual rank posts one all-ranks group and
+        # one pairwise group; the bit-vector protocol must order all of them
+        # without deadlock on this placement's control threads
+        vmap = self.placement.mapping
+        n_v = sec.n_virtual
+        groups = {0: tuple(range(n_v))}
+        groups |= {1 + i: (i, i + 1) for i in range(n_v - 1)}
+        programs = [
+            ThreadProgram(
+                vrank=v,
+                control=vmap.control_thread(vmap.fwd_device[v]),
+                group_ids=[0] + sorted(g for g, ms in groups.items() if g and v in ms),
+            )
+            for v in range(n_v)
+        ]
+        self._launch_order = run_with_coordinator(
+            programs, groups, n_controls=sec.n_devices
+        )
+
+    def finalize(self, session) -> dict:
+        return {
+            "decoupled_ms": round(self._t_decoupled * 1e3, 3),
+            "colocated_ms": round(self._t_colocated * 1e3, 3),
+            "speedup": round(self._t_colocated / self._t_decoupled, 3),
+            "coordinated_groups": len(self._launch_order),
+        }
+
+
+# ---------------------------------------------------------------------------
 # Modules of later slices: registered so --modules validates, refused at setup
 # ---------------------------------------------------------------------------
 
@@ -232,16 +364,6 @@ class _LaterPlugin(ModulePlugin):
 @register_plugin
 class FtPlugin(_LaterPlugin):
     name, module, item = "ft", "MegaFT", "item 9"
-
-
-@register_plugin
-class ScopePlugin(_LaterPlugin):
-    name, module, item = "scope", "MegaScope", "item 6"
-
-
-@register_plugin
-class FbdPlugin(_LaterPlugin):
-    name, module, item = "fbd", "MegaFBD", "item 7"
 
 
 @register_plugin

@@ -5,8 +5,9 @@ A Session owns the pieces every entry point shares:
 
 * the **model config** (``get_config(arch, smoke=...)``, or one given),
 * the **device** (``runtime.device``: the card unless ``cpu`` is asked),
-* the **module plugins** (MegaScan and the metrics registry), each attached
-  through the uniform :class:`repro_torch.app.plugins.ModulePlugin` surface,
+* the **module plugins** (MegaScan, the metrics registry, MegaScope and
+  MegaFBD), each attached through the uniform
+  :class:`repro_torch.app.plugins.ModulePlugin` surface,
 * the shared **trace export** (``run_cfg.trace_out``: a chrome trace, or
   the JSONL stream for a ``.jsonl`` path) for every workload.
 
@@ -14,9 +15,10 @@ Workloads: ``train`` (the train loop on one device), ``serve`` (MegaServe
 continuous batching), ``trace`` (offline MegaScan: simulate/load -> align ->
 detect, host only).  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item: meshes and pipeline
-parallelism (item 8), static serving (item 5), the router (item 11), the
-compile cache (item 12b), online detection and rank events (item 9) and
-``dryrun`` (item 14b).
+parallelism (item 8, MegaFBD's decoupled backward with it), static serving
+and MegaScope probes in serving (item 5), the router (item 11), the compile
+cache (item 12b), online detection and rank events (item 9) and ``dryrun``
+(item 14b).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.app.config import RunConfig
 from repro_torch.app.plugins import ModulePlugin, build_plugins
+from repro_torch.models.hooks import NULL_COLLECTOR
 
 log = logging.getLogger("repro_torch.app")
 
@@ -68,9 +71,10 @@ class Session:
         # trace workload runs on the host only
         self.device = torch.device(run_cfg.runtime.device)
         # plugin-claimable resources, with inert defaults: no scan plugin ->
-        # disabled tracer, no metrics plugin -> no registry (the loops then
-        # publish nothing)
+        # disabled tracer, no scope plugin -> null collector, no metrics
+        # plugin -> no registry (the loops then publish nothing)
         self.tracer = Tracer(rank=0, enabled=False)
+        self.collector = NULL_COLLECTOR
         self.metrics_registry = None
         self.results: dict[str, Any] = {}
         self.plugins = (
@@ -164,7 +168,11 @@ class Session:
                 f"parallel training (pp={par.pp}, dp={par.dp}, tp={par.tp}; "
                 "MegaDPP)", "item 8")
         if par.fbd_backward:
-            raise _later("MegaFBD's decoupled backward", "item 7")
+            # as in JAX, where the plan is None at pp = 1 and the decoupled
+            # backward attaches only to the pipeline step (ROADMAP R5)
+            log.info("parallel.fbd_backward: the decoupled backward attaches "
+                     "to the pipeline step (pp > 1, ROADMAP item 8); at pp=1 "
+                     "it changes nothing")
         if rc.obs.rank_events or rc.obs.slow_rank >= 0:
             raise _later("per-rank event synthesis (obs.rank_events, "
                          "obs.slow_rank)", "item 9")
@@ -202,7 +210,7 @@ class Session:
         log.info("arch=%s device=%s tokens/step=%d", cfg.name, self.device,
                  batch * seq)
         state, history = train(
-            cfg, ocfg, data, loop, tracer=self.tracer,
+            cfg, ocfg, data, loop, collector=self.collector, tracer=self.tracer,
             hooks=self.step_hooks(), registry=self.metrics_registry,
             device=self.device,
         )
@@ -225,6 +233,12 @@ class Session:
             raise NotImplementedError(
                 "static lockstep serving is ported in a later slice (ROADMAP "
                 "queue 1, item 5); pass --continuous")
+        if self.collector is not NULL_COLLECTOR:
+            # JAX's decode_path "auto" turns to the gathered path under a
+            # live collector (its per-slot captures); the port has no
+            # gathered path yet
+            raise _later("MegaScope probes in serving (the gathered decode "
+                         "path)", "item 5")
         if cfg.input_kind != "tokens":
             raise ValueError(f"{cfg.name}: continuous serving needs token archs")
         if s.temperature != 0.0:

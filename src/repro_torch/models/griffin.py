@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 from repro_torch.models.layers import (
     ParamBuilder,
     gqa_apply,
@@ -61,17 +62,20 @@ def rglru_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                h0: torch.Tensor | None = None, *, plain: bool = False
+                h0: torch.Tensor | None = None, *, plain: bool = False,
+                collector: Collector = NULL_COLLECTOR
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, W]`` -> ``(h [B, S, W]`` in x's dtype, ``h_last [B, W]``
-    float32); ``plain`` runs K6's plain version on any device."""
+    float32); ``plain`` runs K6's plain version on any device.  Tags the
+    decay ``rglru_decay`` (the scan's a; beta keeps the untagged log a, as
+    in JAX)."""
     _refuse_state(h0)
     dt = x.dtype
     r = torch.sigmoid(x @ p["w_a"].to(dt) + p["b_a"].to(dt)).float()
     i = torch.sigmoid(x @ p["w_i"].to(dt) + p["b_i"].to(dt))
     lam = p["lam"].float()
     log_a = -cfg.griffin.c * torch.logaddexp(lam, torch.zeros_like(lam)) * r
-    a = torch.exp(log_a)
+    a = collector.tag("rglru_decay", torch.exp(log_a))
     # input normalisation sqrt(1 - a^2), computed stably
     beta = torch.sqrt(-torch.expm1(2.0 * log_a))
     b_in = beta * (i * x).float()
@@ -90,13 +94,15 @@ def recurrent_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def recurrent_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                          state: dict | None = None, plain: bool = False
+                          state: dict | None = None, plain: bool = False,
+                          collector: Collector = NULL_COLLECTOR
                           ) -> tuple[torch.Tensor, None]:
     _refuse_state(state)
     dt = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
     y = causal_conv1d(x @ p["w_x"].to(dt), p["conv_w"], p["conv_b"])
-    y, _ = rglru_apply(p["rglru"], cfg, y, plain=plain)
+    y, _ = rglru_apply(p["rglru"], cfg, y, plain=plain, collector=collector)
+    y = collector.tag("rglru_out", y)
     return (gate * y) @ p["w_out"].to(dt), None
 
 
@@ -112,16 +118,20 @@ def griffin_block_init(b: ParamBuilder, cfg: ModelConfig, kind: str) -> None:
 
 def griffin_block_apply(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                         *, positions: torch.Tensor, state: dict | None = None,
-                        plain: bool = False) -> tuple[torch.Tensor, None]:
+                        plain: bool = False,
+                        collector: Collector = NULL_COLLECTOR
+                        ) -> tuple[torch.Tensor, None]:
     """One Griffin layer: ln1/ln2 through K1, the recurrence through K6, the
     windowed attention through K2."""
     _refuse_state(state)
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     if kind == "rec":
-        a, _ = recurrent_block_apply(p["mix"], cfg, h, plain=plain)
+        a, _ = recurrent_block_apply(p["mix"], cfg, h, plain=plain,
+                                     collector=collector)
     else:
         a = gqa_apply(p["mix"], cfg, h, positions=positions,
-                      window=cfg.griffin.window, plain=plain)
-    x = x + a
+                      window=cfg.griffin.window, plain=plain, collector=collector)
+    x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    return x + mlp_apply(p["mlp"], cfg, h), None
+    f = mlp_apply(p["mlp"], cfg, h, collector)
+    return x + collector.tag("ffn_resid", f), None

@@ -16,9 +16,13 @@ paged branches of :func:`gqa_apply` go through ``kernels.paged_attention``
 (K3, K4).  ``plain=True`` (``PagedInfo.plain`` when serving) selects the
 plain PyTorch versions on any device: the card's reference runs.
 
-Ported: the paged serving branches and the non-cached training branch of
-the attention block (windowed for Griffin); the dense cached, gathered and
-local-block paths arrive with later slices.  ``norm_init`` also builds
+Ported: the paged serving branches, the non-cached training branch of the
+attention block (windowed for Griffin) and the dense cached branch (a KV
+cache written at ``cache_pos``; ``attention`` with a ``kv_len``, plain
+PyTorch as JAX leaves it outside Pallas); the gathered and local-block
+paths arrive with later slices.  A ``Collector`` (MegaScope) sees the tags
+of the JAX functions at the same places: ``q``, ``v``, ``k``,
+``attn_probs`` (naive branch only), ``attn_out`` and ``mlp_hidden``.  ``norm_init`` also builds
 layernorm parameters (scale and bias, for RWKV-6's ``ln_x`` group norm,
 which ``models/rwkv.py`` applies inline); ``norm_apply`` takes rmsnorm only.
 """
@@ -43,6 +47,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_prefill_plain_from_raw,
 )
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 
 BIG_NEG = -1e30
 
@@ -195,19 +200,23 @@ def attention(
     positions_q: torch.Tensor,   # [S] absolute positions of the queries
     causal: bool = True,
     window: int | None = None,
-    kv_len: torch.Tensor | None = None,
+    kv_len: torch.Tensor | int | None = None,
     impl: str = "chunked",
     kv_chunk: int = 1024,
     plain: bool = False,
+    collector: Collector = NULL_COLLECTOR,
 ) -> torch.Tensor:
     """Non-paged attention with ``repro.models.layers.attention``'s dispatch.
 
     The naive branch (``S == 1``, ``impl == "naive"`` or ``T <= kv_chunk``)
-    is plain PyTorch, as the JAX package leaves it to XLA.  The flash branch
-    (``impl="chunked"``) and the Pallas branch (``impl="pallas"``) both go
-    to the flash-attention kernel (K2) and its backward; that branch places
-    query row ``i`` at position ``i`` (``positions_q == arange(S)``, as on
-    the training path), as the Pallas kernel does.
+    is plain PyTorch, as the JAX package leaves it to XLA; only it has
+    probabilities to tag (``attn_probs``).  Without ``kv_len``, the flash
+    branch (``impl="chunked"``) and the Pallas branch (``impl="pallas"``)
+    both go to the flash-attention kernel (K2) and its backward; that
+    branch places query row ``i`` at position ``i`` (``positions_q ==
+    arange(S)``, as on the training path), as the Pallas kernel does.  With
+    ``kv_len`` (the dense cache), the flash branch is JAX ``_flash_forward``:
+    the online softmax over ``kv_chunk`` chunks, in plain PyTorch.
     """
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -219,6 +228,7 @@ def attention(
                   window, kv_len)
         m = m.reshape(B if m.dim() == 3 else 1, S, 1, 1, T)
         p = torch.softmax(torch.where(m, s, BIG_NEG), dim=-1)
+        p = collector.tag("attn_probs", p)
         o = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype).float(), v.float())
         return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
     if impl == "local_block" and window is not None and S == T and S % window == 0:
@@ -226,11 +236,44 @@ def attention(
             "local_block attention (no config selects it) is ported with the "
             "Griffin serving slice (ROADMAP queue 1, item 13)")
     if kv_len is not None:
-        raise NotImplementedError(
-            "flash attention over a dense cache (kv_len) is ported with the "
-            "dense cached serving path (ROADMAP queue 1, item 5)")
+        return _chunked_attention(q, k, v, scale=scale, positions_q=positions_q,
+                                  causal=causal, window=window, kv_len=kv_len,
+                                  kv_chunk=kv_chunk)
     return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
                            plain=plain)
+
+
+def _chunked_attention(q, k, v, *, scale, positions_q, causal, window, kv_len,
+                       kv_chunk):
+    """JAX ``_flash_forward``: a running max, sum and output over key chunks
+    of ``kv_chunk`` (float32 scores, probabilities rounded to v's dtype
+    before the PV product).  JAX pads the last chunk with zero keys, which
+    the ``kv_len`` mask drops; a short last chunk here is the same sum."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // K
+    qg = q.reshape(B, S, K, G, D).float()
+    m_r = torch.full((B, S, K, G), BIG_NEG, dtype=torch.float32, device=q.device)
+    l_r = torch.zeros((B, S, K, G), dtype=torch.float32, device=q.device)
+    o_r = torch.zeros((B, S, K, G, Dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, T, kv_chunk):
+        kb, vb = k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk]
+        C = kb.shape[1]
+        s = torch.einsum("bskgd,bckd->bskgc", qg, kb.float()) * scale
+        msk = _mask(positions_q, torch.arange(c0, c0 + C, device=q.device),
+                    causal, window, kv_len)
+        s = torch.where(msk.reshape(B if msk.dim() == 3 else 1, S, 1, 1, C),
+                        s, BIG_NEG)
+        m_new = torch.maximum(m_r, s.amax(-1))
+        corr = torch.exp(m_r - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_r = l_r * corr + p.sum(-1)
+        o_r = o_r * corr[..., None] + torch.einsum(
+            "bskgc,bckd->bskgd", p.to(vb.dtype).float(), vb.float())
+        m_r = m_new
+    o = o_r / torch.where(l_r[..., None] == 0, 1.0, l_r[..., None])
+    return o.reshape(B, S, H, Dv).to(q.dtype)
 
 
 def gqa_apply(
@@ -238,18 +281,25 @@ def gqa_apply(
     cfg: ModelConfig,
     x: torch.Tensor,             # [B, S, D]
     *,
-    positions: torch.Tensor,     # [S] (training) or [B, S] (paged) positions
+    positions: torch.Tensor,     # [S] (training, cached) or [B, S] (paged)
     window: int | None = None,   # sliding window (Griffin's local attention)
     pool: dict | None = None,    # {"k", "v"}: [n_layers, NB, bs, K, dh], in place
     paged: PagedInfo | None = None,
     plain: bool = False,
+    collector: Collector = NULL_COLLECTOR,
+    cache: dict | None = None,   # {"k", "v"}: [B, T, K, dh] bf16, in place
+    cache_pos: int | None = None,
 ) -> torch.Tensor:
     """The attention block.
 
-    Without a pool this is the training branch (``cache is None`` in JAX):
-    qk_norm on q and k, rope on both, then :func:`attention` over the
-    ``window``; ``plain`` selects the plain norm and attention.  With a
-    pool (no window yet: the dense family has none), ``paged.prefill``
+    Without a pool or a cache this is the training branch (``cache is
+    None`` in JAX): qk_norm on q and k, rope on both, then
+    :func:`attention` over the ``window``; ``plain`` selects the plain norm
+    and attention.  With a dense ``cache`` (JAX's ``elif cache is not None``
+    branch) the roped new K and V are written into it at ``cache_pos`` and
+    attention reads all of it with ``kv_len = cache_pos + S``.  Both tag
+    ``q``, ``v``, ``k`` and ``attn_out`` into ``collector``.  With a pool
+    (serving; no window yet: the dense family has none), ``paged.prefill``
     with more than one query is the fused flash-prefill branch: the raw q
     goes to the kernel, whose prologue applies qk_norm and rope.  Otherwise
     this is paged decode: rope q, write the new K/V into the pool at
@@ -270,11 +320,20 @@ def gqa_apply(
         if cfg.qk_norm:
             q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=plain)
             kk = rms_head_norm(k_norm, kk, cfg.norm_eps, plain=plain)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        kk = apply_rope(kk, positions, cfg.rope_theta)
+        q = collector.tag("q", apply_rope(q, positions, cfg.rope_theta))
+        vv = collector.tag("v", vv)
+        kk = collector.tag("k", apply_rope(kk, positions, cfg.rope_theta))
+        kv_len = None
+        if cache is not None:
+            cache["k"][:, cache_pos:cache_pos + S] = kk.to(cache["k"].dtype)
+            cache["v"][:, cache_pos:cache_pos + S] = vv.to(cache["v"].dtype)
+            kk, vv = cache["k"].to(dt), cache["v"].to(dt)
+            kv_len = cache_pos + S
         o = attention(q, kk, vv, scale=scale, positions_q=positions,
-                      window=window, impl=cfg.attn_impl,
-                      kv_chunk=cfg.attn_kv_chunk, plain=plain)
+                      window=window, kv_len=kv_len, impl=cfg.attn_impl,
+                      kv_chunk=cfg.attn_kv_chunk, plain=plain,
+                      collector=collector)
+        o = collector.tag("attn_out", o)
     else:
         if window is not None:
             raise NotImplementedError(
@@ -329,9 +388,11 @@ def mlp_init(b: ParamBuilder, cfg: ModelConfig) -> None:
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
 
 
-def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
     """SwiGLU or GeGLU; the GeGLU gate is the tanh form of gelu, which
-    ``jax.nn.gelu`` computes by default."""
+    ``jax.nn.gelu`` computes by default.  Tags the gated hidden
+    ``mlp_hidden``."""
     if cfg.mlp_kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_kind={cfg.mlp_kind}: ported with the families that use it "
@@ -340,7 +401,7 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_up"].to(dt)
     g = x @ p["w_gate"].to(dt)
     act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
-    return (act * h) @ p["w_down"].to(dt)
+    return collector.tag("mlp_hidden", act * h) @ p["w_down"].to(dt)
 
 
 def embed_init(b: ParamBuilder, cfg: ModelConfig) -> None:

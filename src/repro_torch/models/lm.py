@@ -5,12 +5,16 @@ Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_layers, ...]`` under
 ``params["seg{i}"]["b0"]``.  ``forward`` is a Python loop over layers that
 indexes each layer's parameters and its layer of the stacked KV pool in place
-(``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Two forwards
-are ported: the paged serving forward (``pool`` given; dense family only)
-and the training forward (``pool=None``, the ``cache is None`` path of JAX
+(``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Three forwards
+are ported: the paged serving forward (``pool`` given; dense family only),
+the dense cached forward (``cache`` from :func:`init_cache`, updated in
+place; dense family only), which MegaScope's ``generate_with_scope`` runs,
+and the training forward (neither: the ``cache is None`` path of JAX
 ``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
-``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).  The dense cached path and
-recurrent serving arrive with later slices.
+``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).
+A ``Collector`` (MegaScope) rides the training and dense cached forwards;
+each layer's captures are stacked over the layer axis into
+``aux["captures"]``.  Recurrent serving arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from repro_torch.kernels.paged_attention.ops import PagedInfo
 from repro_torch.models import griffin as gf
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as rk
+from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
 
 # leaves that enter float32 norm math uncast; every other leaf is cast to the
 # compute dtype at use, so a copy cast once at load gives the same values
@@ -127,32 +132,42 @@ def _resid(cfg: ModelConfig, x: torch.Tensor, delta: torch.Tensor) -> torch.Tens
 
 def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
            positions: torch.Tensor, pool: dict | None, paged: PagedInfo | None,
-           plain: bool) -> torch.Tensor:
+           plain: bool, collector: Collector = NULL_COLLECTOR,
+           cache: dict | None = None, cache_pos: int | None = None
+           ) -> torch.Tensor:
     """One decoder layer (``_block_apply``'s rwkv, griffin and dense
     branches)."""
     if kind == "rwkv":
-        return rk.rwkv_block_apply(p, cfg, x, plain=plain)[0]
+        return rk.rwkv_block_apply(p, cfg, x, plain=plain, collector=collector)[0]
     if kind in ("rec", "attn"):
         return gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
-                                      plain=plain)[0]
+                                      plain=plain, collector=collector)[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     a = L.gqa_apply(p["attn"], cfg, h, positions=positions, pool=pool,
-                    paged=paged, plain=plain)
-    x = _resid(cfg, x, a)
+                    paged=paged, plain=plain, collector=collector, cache=cache,
+                    cache_pos=cache_pos)
+    x = _resid(cfg, x, collector.tag("att_resid", a))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    return _resid(cfg, x, L.mlp_apply(p["mlp"], cfg, h))
+    f = L.mlp_apply(p["mlp"], cfg, h, collector)
+    return _resid(cfg, x, collector.tag("ffn_resid", f))
 
 
 def _layers(cfg: ModelConfig, params: dict):
-    """``(layer index, block kind, that layer's parameter views)`` over every
-    segment."""
+    """``(layer index, segment, group, block position, block kind, that
+    layer's parameter views)`` over every segment."""
     layer = 0
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
         seg = params[f"seg{i}"]
         for g in range(n):
             for j, kind in enumerate(kinds):
-                yield layer, kind, _layer(seg[f"b{j}"], g)
+                yield layer, i, g, j, kind, _layer(seg[f"b{j}"], g)
                 layer += 1
+
+
+def _stack(rows: list[dict]) -> dict:
+    """Per-group capture dicts -> one dict of leaves stacked on axis 0."""
+    return {k: _stack([r[k] for r in rows]) if isinstance(v, dict)
+            else torch.stack([r[k] for r in rows]) for k, v in rows[0].items()}
 
 
 # the products remat "dots" keeps: matrix products without batch
@@ -174,29 +189,57 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(dots_policy)
 
 
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    """The dense KV cache of JAX ``lm.init_cache``: per segment and block,
+    bfloat16 ``k`` and ``v`` of ``[n_groups, batch, cache_len, K, dh]``.
+    Only the dense family: the recurrent families' carried state arrives
+    with their serving slice."""
+    require_paged(cfg)
+    dev = resolve_device(device)
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {f"seg{i}": {f"b{j}": {
+        name: torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev)
+        for name in ("k", "v")} for j in range(len(kinds))}
+        for i, (kinds, n) in enumerate(segment_layout(cfg))}
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,        # [B, S] token ids
     *,
     pool: dict | None = None,    # layer-stacked KV pool, updated in place
-    cache_pos: torch.Tensor | None = None,  # [B] per-slot write position
+    cache: dict | None = None,   # dense KV cache (init_cache), updated in place
+    cache_pos: torch.Tensor | int | None = None,  # [B] paged; int dense
     paged: PagedInfo | None = None,
     plain: bool = False,
-) -> torch.Tensor:
-    """Returns the final hidden states ``[B, S, D]``.
+    collector: Collector = NULL_COLLECTOR,
+) -> tuple[torch.Tensor, dict]:
+    """Returns ``(hidden [B, S, D], aux)``.
 
     With ``pool`` (serving), attention blocks write their new K/V into
     ``pool`` at per-slot positions ``cache_pos + arange(S)`` and read it
     through ``paged.tables``; the pool is updated in place (the JAX package
     donates it to the same effect), and ``paged.plain`` selects the plain
-    versions.  Without (training), positions are ``arange(S)``, attention
+    versions.  With ``cache`` (the dense cached path), positions are the
+    int ``cache_pos + arange(S)``, each attention block writes its K/V into
+    its layer of ``cache`` in place and attends with ``kv_len = cache_pos +
+    S``.  With neither (training), positions are ``arange(S)``, attention
     is non-cached, ``plain`` selects the plain versions, and ``cfg.remat``
     decides what each layer keeps for the backward: ``"full"`` recomputes
     the layer in the backward (``jax.checkpoint`` with
     ``nothing_saveable``), ``"dots"`` keeps the outputs of its products
     without batch dimensions and recomputes the rest (:func:`dots_policy`),
     ``"none"`` keeps everything.
+
+    ``collector`` sees every tag of the cached and training forwards; a
+    layer's recompute in the backward perturbs alike and records nothing.
+    ``aux["captures"]`` is ``{"seg{i}": {...}, "top": {...}}`` as JAX's:
+    each segment's captures stacked over its groups (keys prefixed
+    ``b{j}/`` where a group holds several blocks; the embeddings' ride
+    ``seg0``, repeated over its groups), ``top`` the final hidden's; absent
+    when nothing was captured.
     """
     if cfg.input_kind != "tokens":
         raise NotImplementedError(f"{cfg.name}: embeds inputs are a later slice")
@@ -204,40 +247,81 @@ def forward(
     x = L.embed_apply(params, cfg, tokens, dtype)
     B, S, _ = x.shape
     if pool is not None:
+        if collector is not NULL_COLLECTOR:
+            raise NotImplementedError(
+                "MegaScope probes over the paged pool (serving) are ported "
+                "with the gathered decode path (ROADMAP queue 1, item 5)")
         require_paged(cfg)
         plain = paged.plain
         positions = (cache_pos.long()[:, None]
                      + torch.arange(S, device=x.device)[None, :])
-        for layer, kind, p in _layers(cfg, params):
+        for layer, _, _, _, kind, p in _layers(cfg, params):
             x = _block(p, cfg, kind, x, positions, pool,
                        replace(paged, layer=layer), plain)
-    else:
-        if cfg.remat not in ("full", "dots", "none"):
-            raise ValueError(f"unknown remat {cfg.remat!r}")
-        positions = torch.arange(S, device=x.device)
-        for _, kind, p in _layers(cfg, params):
-            if cfg.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(_block, p, cfg, kind, x, positions, None, None,
-                               plain, use_reentrant=False)
-            elif cfg.remat == "dots" and torch.is_grad_enabled():
-                x = checkpoint(_block, p, cfg, kind, x, positions, None, None,
-                               plain, use_reentrant=False,
-                               context_fn=_dots_contexts)
-            else:
-                x = _block(p, cfg, kind, x, positions, None, None, plain)
-    return L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
-                        plain=plain)
+        return L.norm_apply(params["final_norm"], x, cfg.norm_kind,
+                            cfg.norm_eps, plain=plain), {}
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cache is not None:
+        require_paged(cfg)
+        cache_pos = int(cache_pos)
+    start = cache_pos or 0
+    positions = torch.arange(start, start + S, device=x.device)
+    x = collector.tag("embeddings", x)
+    layout = segment_layout(cfg)
+    live = collector is not NULL_COLLECTOR
+    remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
+    # captures taken before the layers (embeddings) ride the first segment,
+    # repeated over its groups, where JAX's scan body drains them
+    before = collector.drain()
+    groups: dict[int, list[dict]] = {}
+    for layer, i, g, j, kind, p in _layers(cfg, params):
+        col = LayerScoped(collector, layer, f"seg{i}/b{j}") if live else collector
+        blk_cache = (None if cache is None else
+                     {k: v[g] for k, v in cache[f"seg{i}"][f"b{j}"].items()})
+        args = (p, cfg, kind, x, positions, None, None, plain, col, blk_cache,
+                cache_pos)
+        if remat == "full":
+            x = checkpoint(_block, *args, use_reentrant=False)
+        elif remat == "dots":
+            x = checkpoint(_block, *args, use_reentrant=False,
+                           context_fn=_dots_contexts)
+        else:
+            x = _block(*args)
+        if live:
+            probes = col.drain()
+            col.close()  # a recompute in the backward records nothing
+            rows = groups.setdefault(i, [])
+            if j == 0:
+                rows.append(dict(before) if i == 0 else {})
+            pre = f"b{j}/" if len(layout[i][0]) > 1 else ""
+            rows[-1].update({pre + k: v for k, v in probes.items()})
+    x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps,
+                     plain=plain)
+    x = collector.tag("final_hidden", x)
+    aux: dict = {}
+    captures = {f"seg{i}": _stack(rows) for i, rows in groups.items() if rows[0]}
+    top = collector.drain()
+    if top or captures:
+        aux["captures"] = captures
+        if top:
+            captures["top"] = top
+    return x, aux
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            collector: Collector = NULL_COLLECTOR, *,
             plain: bool = False) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
     cross entropy of ``batch`` (``tokens``, ``targets``, optional
-    ``loss_mask``); the ported families have no auxiliary loss."""
-    hidden = forward(cfg, params, batch["tokens"], plain=plain)
+    ``loss_mask``); the ported families have no auxiliary loss.  With a
+    live ``collector`` the metrics hold its ``captures`` (see
+    :func:`forward`), on the device."""
+    hidden, extra = forward(cfg, params, batch["tokens"], plain=plain,
+                            collector=collector)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
                                   batch.get("loss_mask"))
     ce = total / torch.clamp(count, min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
-    return loss, {"loss": loss, "ce": ce, "aux_loss": aux}
+    return loss, {"loss": loss, "ce": ce, "aux_loss": aux, **extra}

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 from repro_torch.models.layers import ParamBuilder, norm_apply, norm_init
 from repro_torch.models.scan_utils import shift_tokens
 
@@ -61,10 +62,12 @@ def time_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                   state: dict | None = None, plain: bool = False
+                   state: dict | None = None, plain: bool = False,
+                   collector: Collector = NULL_COLLECTOR
                    ) -> tuple[torch.Tensor, None]:
     """``x [B, S, D]`` -> ``(out [B, S, D], None)``; ``plain`` runs K5's
-    plain version on any device."""
+    plain version on any device.  Tags the decay ``wkv_decay`` just before
+    K5 and its output ``wkv_out`` just after."""
     _refuse_state(state)
     B, S, D = x.shape
     H, hs = cfg.num_heads, cfg.rwkv.head_size
@@ -81,10 +84,11 @@ def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     g = F.silu(mixed["g"] @ p["w_g"].to(dt))
     ww = p["w0"].float() + (mixed["w"] @ p["w_decay1"].to(dt)).float() @ (
         p["w_decay2"].float())
-    w = torch.exp(-torch.exp(ww))  # [B,S,D] decay in (0,1)
+    w = collector.tag("wkv_decay", torch.exp(-torch.exp(ww)))  # [B,S,D] in (0,1)
 
     y, _ = wkv6(r.view(B, S, H, hs), k.view(B, S, H, hs), v.view(B, S, H, hs),
                 w.view(B, S, H, hs), p["u"].float(), plain=plain)
+    y = collector.tag("wkv_out", y)
 
     # per-head group norm, then gate and project
     yf = y.float()
@@ -124,13 +128,14 @@ def rwkv_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def rwkv_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                     state: dict | None = None, plain: bool = False
+                     state: dict | None = None, plain: bool = False,
+                     collector: Collector = NULL_COLLECTOR
                      ) -> tuple[torch.Tensor, None]:
     """One RWKV-6 layer; ln1/ln2 go through K1, the recurrence through K5."""
     _refuse_state(state)
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    a, _ = time_mix_apply(p["att"], cfg, h, plain=plain)
-    x = x + a
+    a, _ = time_mix_apply(p["att"], cfg, h, plain=plain, collector=collector)
+    x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     f, _ = channel_mix_apply(p["ffn"], cfg, h)
-    return x + f, None
+    return x + collector.tag("ffn_resid", f), None

@@ -45,8 +45,8 @@ def make_paged_decode_step(
     @torch.inference_mode()
     def step(params, pool, tables, tokens, pos):
         paged = PagedInfo(tables=tables, block_size=block_size, plain=plain)
-        hidden = lm.forward(cfg, params, tokens[:, None], pool=pool,
-                            cache_pos=pos, paged=paged)
+        hidden, _ = lm.forward(cfg, params, tokens[:, None], pool=pool,
+                               cache_pos=pos, paged=paged)
         return L.logits_fn(params, cfg, hidden)[:, 0]
 
     return step
@@ -71,8 +71,8 @@ def make_flash_prefill_step(
         paged = PagedInfo(tables=tables, block_size=block_size, prefill=True,
                           q_start=0, plain=plain)
         pos = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
-        hidden = lm.forward(cfg, params, tokens, pool=pool, cache_pos=pos,
-                            paged=paged)
+        hidden, _ = lm.forward(cfg, params, tokens, pool=pool, cache_pos=pos,
+                               paged=paged)
         last = hidden[:, n_real - 1:n_real]
         return L.logits_fn(params, cfg, last)[0, 0]
 

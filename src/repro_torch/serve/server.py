@@ -16,9 +16,10 @@ reads back anyway.
 
 This slice serves through the paged decode kernel and the flash-prefill
 kernel on the card (their plain versions on the CPU).  The gathered and dense
-paths and chunked prefill (ROADMAP queue 1, item 5), speculative decoding
-(item 10), the router and slot migration (item 11), precompilation (item
-12b) and MegaScope collectors (item 6) arrive with later slices.
+paths, chunked prefill and MegaScope collectors in the engine steps
+(ROADMAP queue 1, item 5), speculative decoding (item 10), the router and
+slot migration (item 11) and precompilation (item 12b) arrive with later
+slices.
 """
 
 from __future__ import annotations

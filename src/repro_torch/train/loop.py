@@ -32,6 +32,7 @@ from repro_torch.core.flops import count_flops
 from repro_torch.core.tracing.tracer import Tracer
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.models.hooks import NULL_COLLECTOR
 from repro_torch.models.model import get_model
 from repro_torch.train.optim import OptimizerConfig, leaves
 from repro_torch.train.train_step import (
@@ -60,7 +61,8 @@ class StepHooks:
     ``wrap_step`` decorates the step callable once, before the loop;
     ``on_step(events, metrics)`` observes each completed step — the MegaScan
     ``TraceEvent``s it appended and its metrics (0-dim tensors, the loss
-    already read back).
+    already read back; a MegaScope collector's ``captures``, still on the
+    device).
     """
 
     wrap_step: Callable[[Callable], Callable] | None = None
@@ -114,6 +116,7 @@ def train(
     data_cfg: DataConfig,
     loop: LoopConfig,
     *,
+    collector=NULL_COLLECTOR,
     tracer: Tracer | None = None,
     state=None,
     device: str | torch.device = "cuda",
@@ -129,7 +132,8 @@ def train(
     ``tokens_per_s``.  ``registry`` (a ``repro_torch.obs.MetricsRegistry``)
     receives the standard train series each step; its
     ``train.model_flops_per_s`` comes from :func:`step_flops`, counted once
-    before the first step."""
+    before the first step.  ``collector`` (MegaScope) rides every step's
+    loss; its captures reach ``hooks.on_step`` in the step's metrics."""
     _refuse(compile_cache=(compile_cache, "item 12b"),
             obs=(obs, "item 9"), controller=(controller, "item 9"))
     dev = resolve_device(device)
@@ -138,7 +142,8 @@ def train(
     if state is None:
         with tracer.scope("init", op="init"):
             state = init_train_state(cfg, seed=loop.seed, device=dev)
-    step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum, plan=plan)
+    step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum,
+                              collector=collector, plan=plan)
     if hooks is not None and hooks.wrap_step is not None:
         step_fn = hooks.wrap_step(step_fn)
 

@@ -9,8 +9,10 @@ the microbatch gradients are summed in float32 and averaged.  The step
 consumes the state it is given, as the JAX loop donates it: master and
 moments are updated in place and each compute-dtype leaf is replaced as its
 update lands, so a caller that takes two steps from one state copies it
-first (:func:`copy_state`).  The pipeline path (``plan.pp > 1``) and int8
-gradient compression are later slices.
+first (:func:`copy_state`).  A MegaScope ``collector`` rides the loss, as
+in the reference; its captures leave in the step's metrics, on the device.
+The pipeline path (``plan.pp > 1``) and int8 gradient compression are
+later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 from repro_torch.models.model import get_model
 from repro_torch.train.optim import (
     OptimizerConfig,
@@ -78,6 +81,7 @@ def make_train_step(
     *,
     grad_accum: int = 1,
     grad_transform: Callable[[Any], Any] | None = None,
+    collector: Collector = NULL_COLLECTOR,
     plan=None,
     compressor=None,
     plain: bool = False,
@@ -88,8 +92,9 @@ def make_train_step(
     (numpy or tensors).  The step updates ``state`` in place and returns
     it.  ``metrics`` holds the last microbatch's loss metrics (as the
     reference's scan keeps them) plus ``grad_norm`` and ``lr``, as 0-dim
-    tensors.  ``plain=True`` runs the plain PyTorch versions of the kernels
-    on any device.
+    tensors, and the ``collector``'s ``captures`` when it captured any.
+    ``plain=True`` runs the plain PyTorch versions of the kernels on any
+    device.
     """
     if plan is not None and plan.pp > 1:
         raise NotImplementedError(
@@ -105,7 +110,7 @@ def make_train_step(
     dtype = getattr(torch, cfg.compute_dtype)
 
     def grads_of(params: dict, batch: dict):
-        loss, metrics = model.loss_fn(cfg, params, batch, plain=plain)
+        loss, metrics = model.loss_fn(cfg, params, batch, collector, plain=plain)
         paths, flat = zip(*leaves(params))
         gflat = torch.autograd.grad(loss, flat)
         grads: dict = {}
@@ -114,7 +119,7 @@ def make_train_step(
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = g
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        return loss.detach(), tree_map(torch.Tensor.detach, metrics), grads
 
     def compute_grads(params: dict, batch: dict):
         if grad_accum <= 1:

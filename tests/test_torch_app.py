@@ -3,8 +3,9 @@ the same configuration for the same arguments, ``TestRunConfig`` of
 ``tests/test_app.py`` runs again on the port, the ``trace`` workload writes
 the same diagnosis as JAX's, continuous serving with the ``scan`` and
 ``metrics`` modules streams the same tokens as without them and publishes
-JAX ``MegaServe``'s series names, and what later slices port is refused
-with its ROADMAP item."""
+JAX ``MegaServe``'s series names, training with the ``scope`` and ``fbd``
+modules reports what JAX's plugins report, and what later slices port is
+refused with its ROADMAP item."""
 
 import json
 import re
@@ -151,10 +152,48 @@ def test_peak_tflops_gives_an_mfu_estimate(tmp_path):
     assert report["mfu_est"] == pytest.approx(flops_s["p50"] / 1e9, abs=1e-6)
 
 
+def test_scope_and_fbd_modules_report_what_jax_plugins_report():
+    """``train --modules scan,scope,fbd`` on the CPU: the ``scope`` report
+    (probes, perturbations, one captured hit a step for every leaf) equals
+    JAX ``ScopePlugin``'s over the JAX loop run directly with the same
+    collector settings and steps (``Session.train`` itself fails on this
+    tree: ROADMAP R3), and the ``fbd`` report equals JAX ``FbdPlugin``'s for
+    the same section."""
+    from repro.app import plugins as jplugins
+    from repro.data.pipeline import DataConfig as JDataConfig
+    from repro.train.loop import LoopConfig as JLoopConfig
+    from repro.train.loop import StepHooks as JStepHooks
+    from repro.train.loop import train as jtrain
+    from repro.train.optim import OptimizerConfig as JOptimizerConfig
+
+    probes = "mlp_hidden:stats,att_resid:stats,q:channels,final_hidden:stats"
+    argv = ["train", "--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2",
+            "--set", "train.seq_len=32", "--set", "train.global_batch=2",
+            "--modules", "scan,scope,fbd", "--set", f"scope.probes={probes}",
+            "--set", "scope.perturbs=ffn_resid:offset:0.0:99",
+            "--set", "fbd.n_virtual=6"]
+    out = cli.run(argv)
+    ours = out["session"].results
+    _, jcfg = jcli._parse(argv[:4] + argv[6:])  # JAX has no --device
+    session = types.SimpleNamespace()
+    scope_plugin = jplugins.ScopePlugin(jcfg)
+    scope_plugin.setup(session)
+    fbd_plugin = jplugins.FbdPlugin(jcfg)
+    fbd_plugin.setup(session)
+    mcfg = jax_get_config(ARCH, smoke=True)
+    jtrain(mcfg, JOptimizerConfig(total_steps=2),
+           JDataConfig(vocab_size=mcfg.vocab_size, seq_len=32, global_batch=2),
+           JLoopConfig(n_steps=2, log_every=1), collector=session.collector,
+           hooks=JStepHooks(on_step=lambda ev, m: scope_plugin.on_step(session, ev, m)))
+    assert ours["scope"] == scope_plugin.finalize(session)
+    assert set(ours["scope"]["captured"].values()) == {2}
+    assert ours["fbd"] == fbd_plugin.finalize(session)
+    assert len(out["history"]) == 2
+
+
 @pytest.mark.parametrize("argv,item", [
     (["train", "--modules", "scan,ft"], "item 9"),
-    (["train", "--modules", "scope"], "item 6"),
-    (["train", "--modules", "fbd"], "item 7"),
+    (["serve", "--continuous", "--modules", "scope"], "item 5"),
     (["train", "--modules", "dpp"], "item 8"),
     (["train", "--detect-online"], "item 9"),
     (["train", "--compile-cache", "cc"], "item 12b"),

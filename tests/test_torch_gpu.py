@@ -764,3 +764,118 @@ def test_save_async_snapshot_survives_an_in_place_step(cuda, tmp_path):
     for (path, a), (_, b) in zip(leaves(back.master), leaves(saved.master)):
         assert torch.equal(a, b), path
     assert back.opt["step"] == 0 and state.opt["step"] == 1
+
+
+# --------------------------------- card: MegaScope and MegaFBD on the kernels ---
+
+
+@pytest.mark.gpu
+def test_probes_leave_qwen2_losses_and_kernel_launches_unchanged(cuda):
+    """Two qwen2 smoke train steps on the card with probes on the widest
+    tags and without: the losses are bit-identical and K1 and K2 launch
+    as often (a tag keeps its tensor on the kernel path); the captures are
+    finite, stacked over the layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scope import ProbeSpec, ScopeCollector
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.train.optim import OptimizerConfig
+    from repro_torch.train.train_step import copy_state, init_train_state, make_train_step
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    state = init_train_state(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    ocfg = OptimizerConfig(warmup_steps=1, total_steps=2)
+    col = ScopeCollector(probes=[ProbeSpec(p, c) for p, c in (
+        ("mlp_hidden", "stats"), ("att_resid", "stats"), ("q", "channels"),
+        ("attn_out", "hist"))])
+    out = {}
+    for name, kw in (("probed", dict(collector=col)), ("plain", {})):
+        s = copy_state(state)
+        step = make_train_step(cfg, ocfg, **kw)
+        flash_attention.reset_launches()
+        rmsnorm.reset_launches()
+        losses = []
+        for _ in range(2):
+            s, metrics = step(s, batch)
+            losses.append(metrics["loss"].item())
+        out[name] = (losses, {**flash_attention.launches, **rmsnorm.launches}, metrics)
+    assert out["probed"][0] == out["plain"][0]
+    assert out["probed"][1] == out["plain"][1] and out["plain"][1]["flash_fwd"] > 0
+    caps = out["probed"][2]["captures"]["seg0"]
+    assert caps["mlp_hidden.stats"]["mean"].shape == (cfg.num_layers,)
+    assert all(torch.isfinite(v).all() for v in caps["att_resid.stats"].values())
+    assert int(caps["attn_out.hist"]["hist"].sum()) == \
+        cfg.num_layers * 2 * 64 * cfg.num_heads * cfg.head_dim
+    assert "captures" not in out["plain"][2]
+
+
+@pytest.mark.gpu
+def test_stats_of_reads_bfloat16_on_the_card_without_a_float32_copy(cuda):
+    """``stats_of`` on a bf16 tensor on the card against float64 (each
+    statistic within 1e-5 of max(|reference|, 1); the sparsity count exact,
+    also for bf16's nearest value to 1e-6, which lies below it), taking
+    less memory above its input than a float32 copy would."""
+    from repro_torch.core.scope.compress import stats_of
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((64, 4096)).astype(np.float32))
+    x.view(-1)[:4] = torch.tensor([1.046875 * 2.0 ** -20, -1e-7, 2e-6, 0.0])
+    x = x.to(torch.bfloat16).to(cuda)
+    xd = x.double()
+    ref = {"mean": xd.mean(), "std": xd.std(correction=0), "min": xd.min(),
+           "max": xd.max(), "l2": torch.linalg.vector_norm(xd),
+           "sparsity": (xd.abs() < 1e-6).double().mean()}
+    stats_of(x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ours = stats_of(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 4 * x.numel()
+    for k, v in ref.items():
+        assert abs(ours[k].item() - v.item()) <= 1e-5 * max(abs(v.item()), 1.0), k
+    n = x.numel()
+    assert round(ours["sparsity"].item() * n) == round(ref["sparsity"].item() * n) >= 3
+
+
+@pytest.mark.gpu
+def test_decoupled_grads_are_bit_identical_to_fused_on_the_card(cuda):
+    """qwen2-0.5b at full width cut to 2 layers, remat full, on the card:
+    ``make_decoupled_step``'s loss and gradients equal
+    ``torch.autograd.grad``'s bit for bit, also with the residuals moved to
+    host memory and back between fwd and bwd, and its residual bytes the
+    hand count (``chip_smoke.fbd_hand_count``: each layer's bf16 input,
+    the int64 positions, the final norm's input and float32 rstd, the
+    cross entropy's input and float32 mask, three float32 scalars)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fbd import make_decoupled_step
+    from repro_torch.models import lm
+    from repro_torch.train.optim import leaves
+    from repro_torch.train.train_step import compute_params
+
+    cfg = get_config("qwen2-0.5b").replace(num_layers=2, remat="full")
+    params = compute_params(lm.init(cfg, seed=0, device=cuda), torch.bfloat16)
+    rng = np.random.default_rng(0)
+    B, S = 2, 256
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(cuda)
+             for k in ("tokens", "targets")}
+    flat = [p for _, p in leaves(params)]
+    loss_fn = lambda p, b: lm.loss_fn(cfg, p, b)[0]  # noqa: E731
+    ref_loss = loss_fn(params, batch)
+    ref = torch.autograd.grad(ref_loss, flat)
+    D, L = cfg.d_model, cfg.num_layers
+    hand = L * B * S * D * 2 + S * 8 + 2 * B * S * D * 2 + 2 * B * S * 4 + 3 * 4
+    step = make_decoupled_step(loss_fn)
+    for round_trip in (False, True):
+        loss, res = step.fwd(params, batch)
+        assert res.nbytes == hand
+        if round_trip:
+            res.to("cpu")
+            assert all(t.device.type == "cpu" for t in res.tensors)
+            res.to(cuda)
+        grads = step.bwd(params, batch, res, torch.ones_like(loss))
+        assert torch.equal(loss, ref_loss.detach())
+        for (path, g), r in zip(leaves(grads), ref):
+            assert torch.equal(g, r), path

@@ -123,7 +123,7 @@ def _run_both(arch, compute_dtype, seed=1):
         info = PagedInfo(tables=torch.from_numpy(tbl), block_size=bs,
                          prefill=True, q_start=0)
         with torch.inference_mode():
-            h = lm.forward(cfg, tp, torch.from_numpy(toks).long(), pool=pool,
+            h, _ = lm.forward(cfg, tp, torch.from_numpy(toks).long(), pool=pool,
                            cache_pos=torch.zeros(1, dtype=torch.int32),
                            paged=info)
             outs_t.append(L.logits_fn(tp, cfg, h).float().numpy())
@@ -142,7 +142,7 @@ def _run_both(arch, compute_dtype, seed=1):
         lj = np.asarray(JL.logits_fn(jp, jcfg, hid), np.float32)
         info = PagedInfo(tables=torch.from_numpy(tables), block_size=bs)
         with torch.inference_mode():
-            h = lm.forward(cfg, tp, torch.from_numpy(last).long()[:, None],
+            h, _ = lm.forward(cfg, tp, torch.from_numpy(last).long()[:, None],
                            pool=pool, cache_pos=torch.from_numpy(pos),
                            paged=info)
             lt = L.logits_fn(tp, cfg, h).float().numpy()
