@@ -94,6 +94,25 @@ Phases, each of which fails the run (non-zero exit) on error:
              residuals moved to host memory and back between fwd and bwd;
              fwd and bwd timed with CUDA events; the residual bytes against
              their hand count; the ``fbd`` plugin's report;
+   pipeline — MegaDPP: full-width, full-depth qwen2-0.5b trained 4 steps
+             through ``Session`` at pp 2 (2 chunks a stage, 4 microbatches,
+             the planner's wave; ``--modules scan,metrics,dpp``): K1 and K2
+             launched exactly as counted for 4 microbatches (the flop
+             count's pass too), losses finite and falling, 16 ``pp_F`` and
+             16 ``pp_B`` events a step on stage pids 0 and 1, the ``dpp``
+             report and ``results["parallel"]``; the pipelined loss and
+             gradients of one batch against the fused ones at the step
+             check's limits; MegaFBD attached (``parallel.fbd_backward``):
+             2 steps bit-identical to the fused pipelined steps, and the
+             decoupled pipelined loss's gradients bit-identical to
+             ``torch.autograd.grad``'s, also after the residuals' round
+             trip through host memory, ``fwd``/``bwd`` timed with CUDA
+             events; rwkv6-3b at full width cut to 4 layers through the
+             pipeline (K5 launches exact, losses falling, the pipelined
+             loss of one batch within ``RWKV_STEP_LOSS_TOL`` of the fused
+             one); then the fused step and the four schedules (1f1b, dfc,
+             bfc, wave) at the qwen2 shape and full depth: each table's T
+             and bubble fraction, the median step, the peak memory;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -1381,37 +1400,41 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5) -> None:
 # ---------------------------------------------------------------- phase 6-7
 
 
-def per_step_launches(cfg) -> dict:
+def per_step_launches(cfg, n_micro: int = 1) -> dict:
     """Kernel launches one train step makes with full remat: every layer's
     forward runs twice (once in the forward, once recomputed in the
     backward) and its backward once; two RMSNorms a layer (no qk_norm in
-    the trained configs) and the final norm, which is not recomputed."""
+    the trained configs) and the final norm, which is not recomputed.  A
+    pipelined step runs every layer once for each of its ``n_micro``
+    microbatches and the final norm once, over the whole batch."""
     from repro_torch.models.lm import segment_layout
 
     kinds = [k for pat, n in segment_layout(cfg) for _ in range(n) for k in pat]
     mixer = {"dense": "flash", "attn": "flash", "rwkv": "wkv6", "rec": "rglru"}
-    out = {"rmsnorm_fwd": 4 * len(kinds) + 1, "rmsnorm_bwd": 2 * len(kinds) + 1}
+    out = {"rmsnorm_fwd": 4 * len(kinds) * n_micro + 1,
+           "rmsnorm_bwd": 2 * len(kinds) * n_micro + 1}
     for kind in kinds:
         for way, n in (("fwd", 2), ("bwd", 1)):
             name = f"{mixer[kind]}_{way}"
-            out[name] = out.get(name, 0) + n
+            out[name] = out.get(name, 0) + n * n_micro
     return out
 
 
-def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float) -> None:
+def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float,
+                       plan=None) -> None:
     """One more train step (after the run, outside its launch counts) under
     ``torch.profiler``: the device time of its kernels, summed, and split
     by kernel family (K2 ``flash``, K1 ``rmsnorm``, K5 ``wkv6``, K6
     ``rglru``, cuBLAS's matrix products ``gemm``, the rest); against the
     median unprofiled step ``step_s`` that gives the device's idle share of
-    a step."""
+    a step.  ``plan`` profiles the pipelined step of that plan."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.train.train_step import make_train_step
 
-    step = make_train_step(cfg, ocfg)
+    step = make_train_step(cfg, ocfg, plan=plan)
     batch = SyntheticTokens(data).batch_at(0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, metrics = step(state, batch)
@@ -1457,17 +1480,18 @@ def _train_setup(cfg, shape: dict):
 
 
 def _check_train(tag: str, cfg, data, history: list, counts: dict,
-                 passes: int, peak: int) -> dict:
+                 passes: int, peak: int, n_micro: int = 1) -> dict:
     """Logs a train run's steps and launches and checks them: each kernel
-    of ``counts`` launched exactly :func:`per_step_launches` times for each
-    of ``passes`` forward-and-backward passes, every loss finite and the
-    last below the first.  Returns the run's numbers."""
+    of ``counts`` launched exactly :func:`per_step_launches` times (for
+    ``n_micro`` pipeline microbatches) for each of ``passes``
+    forward-and-backward passes, every loss finite and the last below the
+    first.  Returns the run's numbers."""
     steps = len(history)
     for h in history:
         log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
             f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f} "
             f"tokens_per_s={h['tokens_per_s']:.1f}")
-    want = per_step_launches(cfg)
+    want = per_step_launches(cfg, n_micro)
     per_step = {k: want.get(k, 0) for k in counts}
     steady = sorted(h["step_s"] for h in history[1:])
     step_s = steady[len(steady) // 2]
@@ -2341,7 +2365,8 @@ def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: 
 
 
 def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
-               tols: tuple[float, float, float], probe: tuple | None = None) -> None:
+               tols: tuple[float, float, float], probe: tuple | None = None,
+               pipeline: dict | None = None) -> None:
     """The loss and gradients of one batch, from the bfloat16 parameters of
     seed 0, through the kernels and through the plain versions: loss,
     global gradient norm and :func:`_leaf_norms`, held to ``tols``
@@ -2350,9 +2375,12 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     (module, name) also runs the plain path with only that module's
     ``name`` call evaluated in float64 and logs how far that moves the same
     numbers, the bf16 noise floor of the comparison, and splits the loss gap
-    (:func:`_loss_split`)."""
+    (:func:`_loss_split`).  ``pipeline`` (``pipeline_loss``'s layout, table,
+    stages and n_micro) compares the pipelined loss with the fused one
+    instead, both through the kernels."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models import lm
+    from repro_torch.models import pipeline as pl
     from repro_torch.train.optim import global_norm, leaves
     from repro_torch.train.train_step import compute_params, to_device_batch
 
@@ -2360,12 +2388,18 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     batch = to_device_batch(SyntheticTokens(data).batch_at(batch_step), dev)
     paths, flat = zip(*leaves(params))
     res = {}
-    for run in ("kernels", "plain") + (("probe",) if probe else ()):
+    names = (("pipelined", "fused") if pipeline else
+             ("kernels", "plain") + (("probe",) if probe else ()))
+    for run in names:
         if run == "probe":
             real = getattr(*probe)
             setattr(*probe, _in_float64(real))
         try:
-            loss, _ = lm.loss_fn(cfg, params, batch, plain=run != "kernels")
+            if run == "pipelined":
+                loss, _ = pl.pipeline_loss(cfg, params, batch, **pipeline)
+            else:
+                loss, _ = lm.loss_fn(cfg, params, batch,
+                                     plain=run not in ("kernels", "fused"))
             grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
         finally:
             if run == "probe":
@@ -2386,8 +2420,8 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
             name: ((na[name] - nb[name]).abs() / nb[name]).max().item() for name in nb}
 
     loss_tol, gnorm_rtol, leaf_rtol = tols
-    (lk, gk, _), (lp, gp, _) = res["kernels"], res["plain"]
-    d_loss, d_gn, d_leaf = gaps("kernels", "plain")
+    (lk, gk, _), (lp, gp, _) = res[names[0]], res[names[1]]
+    d_loss, d_gn, d_leaf = gaps(*names[:2])
     if probe:
         p_loss, p_gn, p_leaf = gaps("probe", "plain")
         worst = max(p_leaf, key=p_leaf.get)
@@ -2396,8 +2430,8 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
             f"{worst}={p_leaf[worst]:.2e}")
     ok = (d_loss <= loss_tol and d_gn <= gnorm_rtol
           and max(d_leaf.values()) <= leaf_rtol and math.isfinite(lk))
-    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers) kernels loss={lk:.5f} "
-        f"grad_norm={gk:.5f}; plain loss={lp:.5f} grad_norm={gp:.5f}; "
+    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers) {names[0]} loss={lk:.5f} "
+        f"grad_norm={gk:.5f}; {names[1]} loss={lp:.5f} grad_norm={gp:.5f}; "
         f"|dloss|={d_loss:.2e} (tol {loss_tol}) "
         f"rel dgrad_norm={d_gn:.2e} (tol {gnorm_rtol})")
     log(f"[{tag}] per-layer leaf gradient norms, largest relative difference: "
@@ -2407,8 +2441,255 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
         _loss_split(torch, dev, cfg, params, batch, lp, probe, tag)
     del params
     if not ok:
-        raise AssertionError(f"{tag}: the loss and gradients through the kernels "
-                             "disagree with the plain versions")
+        raise AssertionError(f"{tag}: the {names[0]} loss and gradients disagree "
+                             f"with the {names[1]} ones")
+
+
+# ------------------------------------------------ the pipeline (MegaDPP)
+
+# qwen2-0.5b at full width and depth through 2 stages of 2 chunks (4 cells
+# of 6 layers) and 4 microbatches of 2 rows, at the train phase's seq 2048
+# x batch 8; the schedule sweep at the same shape and depth, 6 steps each
+PIPE = dict(pp=2, n_chunks=2, n_micro=4)
+PIPE_STEPS = 4
+PIPE_FBD_STEPS = 2
+PIPE_SWEEP_STEPS = 6
+PIPE_SCHEDULES = ("1f1b", "dfc", "bfc", "wave")
+# rwkv6-3b at full width cut to 4 layers (one a cell) at seq 2048 x batch
+# 4: 4 microbatches of one row
+PIPE_RWKV = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
+PIPE_RWKV_LAYERS = 4
+
+
+def _pipe_argv(shape: dict, schedule: str, modules: str, arch: str = "qwen2-0.5b"):
+    return ["train", "--arch", arch, "--seq-len", str(shape["seq_len"]),
+            "--global-batch", str(shape["global_batch"]),
+            "--steps", str(shape["steps"]), "--seed", str(shape["seed"]),
+            "--pp", str(PIPE["pp"]), "--n-micro", str(PIPE["n_micro"]),
+            "--set", f"parallel.n_chunks={PIPE['n_chunks']}",
+            "--pp-schedule", schedule, "--modules", modules]
+
+
+def _counted_session(torch, argv: list[str], modules: tuple, model_cfg=None):
+    """``_session`` with every kernel of ``modules`` counted from 0 and the
+    peak memory reset: ``(session, state, history, counts, peak)``."""
+    for m in modules:
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    session, (state, history) = _session(argv, model_cfg)
+    torch.cuda.synchronize()
+    return (session, state, history,
+            {k: v for m in modules for k, v in m.launches.items()},
+            torch.cuda.max_memory_allocated())
+
+
+def _pipe_table(session):
+    from repro_torch.core.dpp.executor import build_time_table
+    from repro_torch.parallel.plan import forward_order
+
+    plan = session.parallel_plan()
+    return plan, build_time_table(forward_order(plan), plan.pp, plan.n_chunks,
+                                  plan.n_micro_local)
+
+
+def _pipe_kwargs(cfg, plan, table, dev) -> dict:
+    """``pipeline_loss``'s keyword arguments for ``plan`` on ``dev``."""
+    from repro_torch.core.dpp.executor import make_pipeline_stages
+    from repro_torch.models import pipeline as pl
+
+    return dict(layout=pl.pipeline_layout(cfg, plan.pp, plan.n_chunks), table=table,
+                stages=make_pipeline_stages(plan.pp, dev), n_micro=plan.n_micro)
+
+
+def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
+    """MegaDPP on the card.  (1) Full-width, full-depth qwen2-0.5b trained
+    :data:`PIPE_STEPS` steps through ``Session`` at pp 2, 2 chunks, 4
+    microbatches, the planner's wave (``--modules scan,metrics,dpp
+    --trace-out``): K1 and K2 launched exactly as :func:`per_step_launches`
+    counts for 4 microbatches, for the steps and the flop count's pass;
+    losses finite and falling; ``pp_F`` and ``pp_B`` events, 16 a step
+    each, on stage pids 0 and 1; the ``dpp`` report's keys;
+    ``results["parallel"]`` the plan's summary.  (2) The pipelined loss
+    and gradients of one batch against the fused ones (:func:`step_check`
+    at the step check's limits).  (3) MegaFBD attached: 2 steps with
+    ``parallel.fbd_backward`` and without, losses and updated master
+    weights bit-identical; then ``make_decoupled_step`` over the pipelined
+    loss, its gradients bit-identical to ``torch.autograd.grad``'s, also
+    with the residuals moved to host memory and back, ``fwd`` and ``bwd``
+    timed with CUDA events.  (4) rwkv6-3b at full width cut to
+    :data:`PIPE_RWKV_LAYERS` layers through the pipeline: K5 launched
+    exactly, losses falling, the pipelined loss of one batch within
+    ``RWKV_STEP_LOSS_TOL`` of the fused one.  (5) The four schedules and
+    the fused step at the qwen2 shape, full depth: each table's T and
+    bubble fraction, the median step and the peak memory."""
+    import collections
+
+    from repro_torch.core.dpp.executor import bubble_fraction
+    from repro_torch.core.fbd import make_decoupled_step
+    from repro_torch.core.tracing import from_chrome
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import flash_attention, rmsnorm, wkv6
+    from repro_torch.models import lm
+    from repro_torch.models import pipeline as pl
+    from repro_torch.parallel.plan import plan_summary
+    from repro_torch.train.optim import leaves
+    from repro_torch.train.train_step import compute_params, to_device_batch
+
+    kernels = (flash_attention, rmsnorm)
+    out_dir = RUNTIME_DIR / "trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    # (1) qwen2-0.5b through the Session
+    shape = dict(TRAIN, steps=PIPE_STEPS)
+    argv = [*_pipe_argv(shape, "wave", "scan,metrics,dpp"),
+            "--trace-out", str(out_dir / "pipeline.json")]
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
+    session, state, history, counts, peak = _counted_session(torch, argv, kernels)
+    cfg = session.model_cfg
+    plan, table = _pipe_table(session)
+    data, ocfg = _train_setup(cfg, shape)
+    steady = sorted(h["step_s"] for h in history[1:])
+    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2],
+                       plan=plan)
+    del state
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers in {plan.pp} stages x "
+        f"{plan.n_chunks} chunks ({cfg.num_layers // (plan.pp * plan.n_chunks)} a cell), "
+        f"{plan.n_micro} microbatches of {data.global_batch // plan.n_micro} rows, "
+        f"schedule {plan.schedule} wave {plan.wave}: T={table.steps}, bubble fraction "
+        f"{bubble_fraction(table)!r}")
+    _check_train(tag, cfg, data, history, counts, PIPE_STEPS + 1, peak,
+                 n_micro=plan.n_micro)
+    events = from_chrome(json.loads((out_dir / "pipeline.json").read_text()))
+    per_step = plan.n_micro * plan.n_chunks * plan.pp
+    for name in ("pp_F", "pp_B"):
+        evs = [e for e in events if e.name == name]
+        by_step = collections.Counter(e.args["step"] for e in evs)
+        ranks = sorted({e.rank for e in evs})
+        log(f"[{tag}] {name} events a step {dict(by_step)}, stage pids {ranks}")
+        if by_step != {s: per_step for s in range(PIPE_STEPS)} or ranks != [0, 1]:
+            raise AssertionError(f"{tag}: {name} events {dict(by_step)} on pids {ranks}")
+    res = session.results
+    want = {**plan_summary(plan), "stages": [str(resolve_device(dev))] * plan.pp}
+    log(f"[{tag}] dpp report {res['dpp']}; parallel {res['parallel']}")
+    if res["parallel"] != want:
+        raise AssertionError(f"{tag}: results['parallel'] {res['parallel']} != {want}")
+    if set(res["dpp"]) != {"schedule", "wave", "makespan_ms", "peak_memory_mib",
+                           "step_ms_p50", "step_ms_max"}:
+        raise AssertionError(f"{tag}: the dpp report's keys {sorted(res['dpp'])}")
+    pipe_kw = _pipe_kwargs(cfg, plan, table, dev)
+
+    # (2) the pipelined loss and gradients against the fused ones
+    step_check(torch, dev, cfg, data, mixer="attn", tag=f"{tag}-step",
+               batch_step=PIPE_STEPS,
+               tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL), pipeline=pipe_kw)
+
+    # (3) MegaFBD's decoupled backward attached to the pipelined step
+    fbd_shape = dict(TRAIN, steps=PIPE_FBD_STEPS)
+    base = _pipe_argv(fbd_shape, "wave", "none")
+    _, st_f, hist_f, c_f, _ = _counted_session(torch, base, kernels)
+    _, st_d, hist_d, c_d, _ = _counted_session(
+        torch, [*base, "--set", "parallel.fbd_backward=true"], kernels)
+    losses_f, losses_d = [h["loss"] for h in hist_f], [h["loss"] for h in hist_d]
+    bad = [".".join(p) for (p, a), (_, b) in zip(leaves(st_f.master), leaves(st_d.master))
+           if not torch.equal(a, b)]
+    n_leaves = len(list(leaves(st_f.master)))
+    del st_f, st_d
+    torch.cuda.empty_cache()
+    log(f"[{tag}-fbd] {PIPE_FBD_STEPS} steps fused {losses_f!r}, decoupled {losses_d!r}; "
+        f"master leaves differing {bad or 'none'} of {n_leaves}; launches fused {c_f}, "
+        f"decoupled {c_d}")
+    if losses_f != losses_d or bad or c_f != c_d:
+        raise AssertionError(f"{tag}-fbd: the decoupled pipelined steps differ from the fused")
+    params = compute_params(lm.init(cfg, seed=0, device=dev), torch.bfloat16)
+    batch = to_device_batch(SyntheticTokens(data).batch_at(0), dev)
+    flat = [p for _, p in leaves(params)]
+    loss_fn = lambda p, b: pl.pipeline_loss(cfg, p, b, **pipe_kw)[0]  # noqa: E731
+    ref_loss = loss_fn(params, batch)
+    ref = torch.autograd.grad(ref_loss, flat)
+    ref_loss = ref_loss.detach()
+    decoupled = make_decoupled_step(loss_fn)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for host in (False, True):
+        ev[0].record()
+        loss, res_ = decoupled.fwd(params, batch)
+        ev[1].record()
+        moved = 0.0
+        if host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res_.to("cpu")
+            res_.to(dev)
+            torch.cuda.synchronize()
+            moved = time.perf_counter() - t0
+        ev[2].record()
+        nbytes = res_.nbytes
+        grads = decoupled.bwd(params, batch, res_, torch.ones_like(loss))
+        ev[3].record()
+        torch.cuda.synchronize()
+        bad = [".".join(p) for (p, g), r in zip(leaves(grads), ref) if not torch.equal(g, r)]
+        bad += [] if torch.equal(loss, ref_loss) else ["loss"]
+        del grads, res_
+        log(f"[{tag}-fbd] decoupled pipelined loss{' after the host round trip' if host else ''}: "
+            f"fwd {ev[0].elapsed_time(ev[1]):.2f} ms, bwd {ev[2].elapsed_time(ev[3]):.2f} ms "
+            f"(CUDA events; {smi}); residual_bytes {nbytes}; round trip "
+            f"{1e3 * moved:.1f} ms; leaves differing from autograd.grad {bad or 'none'} "
+            f"of {len(ref)}")
+        if bad:
+            raise AssertionError(f"{tag}-fbd: decoupled gradients differ: {bad}")
+    del params, flat, ref
+    torch.cuda.empty_cache()
+
+    # (4) rwkv6-3b through the pipeline
+    rcfg = get_config("rwkv6-3b").replace(num_layers=PIPE_RWKV_LAYERS, remat="full")
+    rdata, _ = _train_setup(rcfg, PIPE_RWKV)
+    argv = _pipe_argv(PIPE_RWKV, "1f1b", "none", arch="rwkv6-3b")
+    log(f"[{tag}-rwkv] python -m repro_torch {' '.join(argv)} (depth cut to "
+        f"{PIPE_RWKV_LAYERS} layers)")
+    session, state, history, counts, peak = _counted_session(
+        torch, argv, (wkv6, rmsnorm), model_cfg=rcfg)
+    del state
+    torch.cuda.empty_cache()
+    rplan, rtable = _pipe_table(session)
+    _check_train(f"{tag}-rwkv", rcfg, rdata, history, counts, PIPE_RWKV["steps"], peak,
+                 n_micro=rplan.n_micro)
+    params = compute_params(lm.init(rcfg, seed=0, device=dev), torch.bfloat16)
+    batch = to_device_batch(SyntheticTokens(rdata).batch_at(PIPE_RWKV["steps"]), dev)
+    with torch.no_grad():
+        fused = lm.loss_fn(rcfg, params, batch)[0].item()
+        piped = pl.pipeline_loss(rcfg, params, batch,
+                                 **_pipe_kwargs(rcfg, rplan, rtable, dev))[0].item()
+    del params
+    torch.cuda.empty_cache()
+    log(f"[{tag}-rwkv] one batch: pipelined loss {piped!r}, fused {fused!r}, "
+        f"|dloss|={abs(piped - fused):.2e} (tol {RWKV_STEP_LOSS_TOL})")
+    if not abs(piped - fused) <= RWKV_STEP_LOSS_TOL:
+        raise AssertionError(f"{tag}-rwkv: pipelined loss {piped} vs fused {fused}")
+
+    # (5) the four schedules and the fused step at the qwen2 shape
+    sweep = dict(TRAIN, steps=PIPE_SWEEP_STEPS)
+    runs = [("fused", [*_train_argv(sweep), "--modules", "none"])] + [
+        (s, _pipe_argv(sweep, s, "none")) for s in PIPE_SCHEDULES]
+    for name, argv in runs:
+        session, state, history, counts, peak = _counted_session(torch, argv, kernels)
+        del state
+        torch.cuda.empty_cache()
+        ms = [1e3 * h["step_s"] for h in history[1:]]
+        n_micro, what = 1, "fused step (no pipeline)"
+        if name != "fused":
+            plan, table = _pipe_table(session)
+            n_micro = plan.n_micro
+            what = (f"schedule {name} (wave {plan.wave}): T={table.steps}, bubble fraction "
+                    f"{bubble_fraction(table)!r}")
+        want = {k: PIPE_SWEEP_STEPS * v
+                for k, v in per_step_launches(cfg, n_micro).items() if k in counts}
+        log(f"[{tag}-schedules] {what}; median step (steps 2-{PIPE_SWEEP_STEPS}) "
+            f"{statistics.median(ms):.1f} ms ({min(ms):.1f}-{max(ms):.1f}); "
+            f"max_memory_allocated={peak}; launches {counts} ({smi})")
+        if counts != want:
+            raise AssertionError(f"{tag}-schedules {name}: launches {counts} != {want}")
 
 
 # -------------------------------------------------------------------- main
@@ -2515,6 +2796,8 @@ def main() -> int:
     phase("scope: probes and perturbations through the qwen2 train step")
     fbd_phase(torch, dev, smi)
     phase("fbd: the decoupled forward and backward")
+    pipeline_phase(torch, dev, smi)
+    phase("pipeline: MegaDPP's pp = 2 step, MegaFBD attached, the schedules")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
     # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65

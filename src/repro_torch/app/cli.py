@@ -2,6 +2,8 @@
 
     python -m repro_torch train --arch qwen2-0.5b --seq-len 2048 --global-batch 8 --steps 8
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
+    python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3 \\
+        --pp 2 --n-micro 4 --pp-schedule wave --set parallel.n_chunks=2 --modules dpp
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 8 \\
         --set train.seq_len=64 --modules scan,metrics --trace-out t.json \\
         --metrics-out m.jsonl --ckpt-dir ckpt --ckpt-every 4
@@ -42,8 +44,8 @@ _SHARED = [
         help="cuda (default; raises without a card) or cpu")),
     ("--modules", "modules", dict(
         type=str, metavar="M1,M2",
-        help="module plugins to attach (scan,metrics,scope,fbd; ft,dpp are "
-             "later slices; 'none' = off)")),
+        help="module plugins to attach (scan,metrics,scope,fbd,dpp; ft is "
+             "a later slice; 'none' = off)")),
     ("--mesh", "mesh", dict(
         choices=("auto", "auto-mp", "host", "pod1", "pod2"))),
     ("--trace-out", "trace_out", dict(
@@ -62,10 +64,13 @@ _SHARED = [
 
 _TRAIN = [
     ("--pp", "parallel.pp", dict(
-        type=int, help="pipeline stages (ROADMAP item 8; > 1 refused)")),
+        type=int, help="pipeline stages (>1 routes blocks through MegaDPP; "
+                       "every stage on the one device, dp/tp > 1 are ROADMAP "
+                       "item 8b)")),
     ("--pp-schedule", "parallel.schedule", dict(
         choices=("1f1b", "dfc", "bfc", "wave"))),
-    ("--n-micro", "parallel.n_micro", dict(type=int)),
+    ("--n-micro", "parallel.n_micro", dict(
+        type=int, help="pipeline microbatches per step (0 = 2*pp)")),
     ("--steps", "train.steps", dict(type=int)),
     ("--global-batch", "train.global_batch", dict(
         type=int, help="0 = 8 smoke / 256 full")),
@@ -150,7 +155,7 @@ _DRYRUN = [
 _WORKLOAD_FLAGS = {"train": _TRAIN, "serve": _SERVE, "trace": _TRACE,
                    "dryrun": _DRYRUN}
 
-_REPORTS = ("scan", "metrics", "scope", "fbd", "trace_out")
+_REPORTS = ("scan", "metrics", "scope", "fbd", "dpp", "parallel", "trace_out")
 
 
 def _add_flags(ap: argparse.ArgumentParser, flags) -> None:

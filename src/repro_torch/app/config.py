@@ -53,18 +53,17 @@ class TrainSection:
 class ParallelSection:
     """Parallelization plan for the train workload (``parallel.*``).
 
-    ``pp > 1`` routes the block stack through the MegaDPP pipeline executor
-    on a (stage, data, model) mesh; ``schedule`` picks the traversal
-    (``1f1b``/``dfc``/``bfc``/``wave``) and ``wave=0`` with ``schedule=wave``
-    lets the MegaDPP planner choose the wave width under ``dpp.memory_cap_gib``.
-    ``fbd_backward`` attaches MegaFBD's decoupled backward as the gradient
-    path.  ``dp``/``tp`` compose with ``pp`` on the one mesh: ``dp > 1``
-    shards the ``n_micro`` microbatches across dp groups (``n_micro % dp``
-    must be 0) with the gradient sync riding the pipelined backward's
-    data-axis all-reduce, and ``tp > 1`` slices heads/kv-heads/ffn inside
-    every stage's body (dense GQA families; each must divide by ``tp``).
-    ``train.grad_accum > 1`` stacks macrobatch accumulation on top — each
-    accumulation is one full pipeline pass.
+    ``pp > 1`` routes the block stack through the MegaDPP pipeline executor,
+    every stage on the run's one device (the card, or the CPU with
+    ``--device cpu``); ``schedule`` picks the traversal
+    (``1f1b``/``dfc``/``bfc``/``wave``), ``n_micro`` the microbatches a step
+    (0 = 2*pp), ``n_chunks`` the virtual chunks a stage, and ``wave=0``
+    with ``schedule=wave`` lets the MegaDPP planner choose the wave width
+    under ``dpp.memory_cap_gib``.  ``fbd_backward`` attaches MegaFBD's
+    decoupled backward to the pipelined step (at pp = 1 it changes nothing,
+    as in the JAX package).  ``train.grad_accum > 1`` stacks macrobatch
+    accumulation on top: each accumulation is one full pipeline pass.
+    ``dp``/``tp`` > 1 are refused, naming ROADMAP item 8b.
     """
 
     dp: int = 1
@@ -173,7 +172,9 @@ class FbdSection:
 
 @dataclass
 class DppSection:
-    """MegaDPP plugin: pipeline-planning topology + budget."""
+    """MegaDPP plugin (``--modules dpp``): the topology its planner plans
+    for and the activation budget; ``memory_cap_gib`` also caps the
+    planner's wave choice for ``parallel.schedule=wave`` with ``wave=0``."""
 
     dp: int = 1
     pp: int = 4

@@ -12,10 +12,10 @@ Every module attaches through the same four hooks:
   ``session.results``) and release anything held.
 
 The port runs MegaScan (``scan``), the metrics registry (``metrics``),
-MegaScope (``scope``) and MegaFBD (``fbd``).  ``ft`` and ``dpp`` are
-registered, so ``--modules`` validates as in the JAX package, and their
+MegaScope (``scope``), MegaFBD (``fbd``) and MegaDPP (``dpp``).  ``ft`` is
+registered, so ``--modules`` validates as in the JAX package, and its
 ``setup`` raises ``NotImplementedError`` naming the ROADMAP item that ports
-each.
+it.
 """
 
 from __future__ import annotations
@@ -347,6 +347,56 @@ class FbdPlugin(ModulePlugin):
 
 
 # ---------------------------------------------------------------------------
+# MegaDPP — pipeline planning + step-time telemetry
+# ---------------------------------------------------------------------------
+
+
+@register_plugin
+class DppPlugin(ModulePlugin):
+    """Plans the pipeline schedule for the configured topology at ``setup``
+    and folds observed step times in at ``finalize`` (the planner's
+    telemetry-driven ``replan`` path takes the trace workload's
+    ``Diagnosis``; here the live loop contributes measured step dispersion).
+    """
+
+    name = "dpp"
+
+    def setup(self, session) -> None:
+        from repro_torch.core.dpp.planner import Planner
+        from repro_torch.core.simkit.workload import ModelProfile, Topology
+
+        sec = self.run_cfg.dpp
+        self.planner = Planner(
+            Topology(dp=sec.dp, pp=sec.pp, tp=sec.tp),
+            ModelProfile(n_chunks=sec.n_chunks),
+            n_micro=sec.n_micro,
+            memory_cap=int(sec.memory_cap_gib * (1 << 30)),
+        )
+        self.plan = self.planner.plan()
+        self._step_durs: list[float] = []
+
+    def on_step(self, session, events, metrics) -> None:
+        for e in events:
+            if e.name in ("train_step", "decode", "prefill", "verify"):
+                self._step_durs.append(e.dur)
+
+    def finalize(self, session) -> dict:
+        import numpy as np
+
+        durs = np.asarray(self._step_durs)
+        out = {
+            "schedule": self.plan.schedule_name,
+            "wave": self.plan.wave,
+            "makespan_ms": round(self.plan.makespan * 1e3, 3),
+            "peak_memory_mib": self.plan.peak_memory >> 20,
+        }
+        if durs.size:
+            out["step_ms_p50"] = round(float(np.median(durs)) * 1e3, 3)
+            out["step_ms_max"] = round(float(durs.max()) * 1e3, 3)
+        return out
+
+
+# ---------------------------------------------------------------------------
 # Modules of later slices: registered so --modules validates, refused at setup
 # ---------------------------------------------------------------------------
 
@@ -364,8 +414,3 @@ class _LaterPlugin(ModulePlugin):
 @register_plugin
 class FtPlugin(_LaterPlugin):
     name, module, item = "ft", "MegaFT", "item 9"
-
-
-@register_plugin
-class DppPlugin(_LaterPlugin):
-    name, module, item = "dpp", "MegaDPP", "item 8"

@@ -5,20 +5,21 @@ A Session owns the pieces every entry point shares:
 
 * the **model config** (``get_config(arch, smoke=...)``, or one given),
 * the **device** (``runtime.device``: the card unless ``cpu`` is asked),
-* the **module plugins** (MegaScan, the metrics registry, MegaScope and
-  MegaFBD), each attached through the uniform
+* the **module plugins** (MegaScan, the metrics registry, MegaScope,
+  MegaFBD and MegaDPP), each attached through the uniform
   :class:`repro_torch.app.plugins.ModulePlugin` surface,
 * the shared **trace export** (``run_cfg.trace_out``: a chrome trace, or
   the JSONL stream for a ``.jsonl`` path) for every workload.
 
-Workloads: ``train`` (the train loop on one device), ``serve`` (MegaServe
-continuous batching), ``trace`` (offline MegaScan: simulate/load -> align ->
-detect, host only).  What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: meshes and pipeline
-parallelism (item 8, MegaFBD's decoupled backward with it), static serving
-and MegaScope probes in serving (item 5), the router (item 11), the compile
-cache (item 12b), online detection and rank events (item 9) and ``dryrun``
-(item 14b).
+Workloads: ``train`` (the train loop on one device; with ``parallel.pp >
+1`` through MegaDPP's pipeline, every stage on that device, MegaFBD's
+decoupled backward attached by ``parallel.fbd_backward``), ``serve``
+(MegaServe continuous batching), ``trace`` (offline MegaScan: simulate/load
+-> align -> detect, host only).  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: meshes, data and tensor
+parallelism (item 8b), static serving and MegaScope probes in serving (item
+5), the router (item 11), the compile cache (item 12b), online detection
+and rank events (item 9) and ``dryrun`` (item 14b).
 """
 
 from __future__ import annotations
@@ -162,20 +163,40 @@ class Session:
         rc = self.run_cfg
         par = rc.parallel
         if rc.mesh not in ("auto", "host"):
-            raise _later(f"mesh {rc.mesh!r}", "item 8")
-        if par.pp > 1 or par.dp > 1 or par.tp > 1:
+            raise _later(f"mesh {rc.mesh!r}", "item 8b")
+        if par.dp > 1 or par.tp > 1:
             raise _later(
-                f"parallel training (pp={par.pp}, dp={par.dp}, tp={par.tp}; "
-                "MegaDPP)", "item 8")
-        if par.fbd_backward:
+                f"data and tensor parallelism (dp={par.dp}, tp={par.tp})",
+                "item 8b")
+        if par.fbd_backward and par.pp <= 1:
             # as in JAX, where the plan is None at pp = 1 and the decoupled
             # backward attaches only to the pipeline step (ROADMAP R5)
             log.info("parallel.fbd_backward: the decoupled backward attaches "
-                     "to the pipeline step (pp > 1, ROADMAP item 8); at pp=1 "
-                     "it changes nothing")
+                     "to the pipeline step (pp > 1); at pp=1 it changes "
+                     "nothing")
         if rc.obs.rank_events or rc.obs.slow_rank >= 0:
             raise _later("per-rank event synthesis (obs.rank_events, "
                          "obs.slow_rank)", "item 9")
+
+    def parallel_plan(self):
+        """Resolve the ``parallel`` section into a ``ParallelPlan`` (pp > 1)
+        or ``None`` (the plain step).  Wave resolution — ``schedule=wave``
+        with ``wave=0`` — runs MegaDPP's planner under the ``dpp`` section's
+        memory cap."""
+        par = self.run_cfg.parallel
+        if par.pp <= 1:
+            return None
+        from repro_torch.parallel.plan import ParallelPlan, resolve_plan
+
+        return resolve_plan(
+            ParallelPlan(
+                dp=par.dp, tp=par.tp, pp=par.pp,
+                n_micro=par.n_micro, n_chunks=par.n_chunks,
+                schedule=par.schedule, wave=par.wave,
+                fbd_backward=par.fbd_backward,
+            ),
+            memory_cap_gib=self.run_cfg.dpp.memory_cap_gib,
+        )
 
     def train(self):
         """The training workload: returns ``(state, history)``."""
@@ -207,12 +228,30 @@ class Session:
             grad_accum=t.grad_accum,
             seed=rc.seed,
         )
+        plan = self.parallel_plan()
+        if plan is not None:
+            from repro_torch.core.dpp.executor import make_pipeline_stages
+            from repro_torch.parallel.plan import plan_summary
+
+            # per-axis divisibility: the batch first splits into grad_accum
+            # macrobatches, each macrobatch into n_micro microbatches
+            ga = max(1, loop.grad_accum)
+            if (batch // ga) % plan.n_micro != 0:
+                raise ValueError(
+                    f"per-accumulation batch {batch // ga} (global {batch} "
+                    f"/ grad_accum {ga}) not divisible by "
+                    f"parallel.n_micro={plan.n_micro}"
+                )
+            stages = make_pipeline_stages(plan.pp, self.device)
+            self.results["parallel"] = {
+                **plan_summary(plan), "stages": [str(d) for d in stages],
+            }
         log.info("arch=%s device=%s tokens/step=%d", cfg.name, self.device,
                  batch * seq)
         state, history = train(
             cfg, ocfg, data, loop, collector=self.collector, tracer=self.tracer,
             hooks=self.step_hooks(), registry=self.metrics_registry,
-            device=self.device,
+            device=self.device, plan=plan,
         )
         self.results["train_config"] = {
             "seq_len": seq, "global_batch": batch, "grad_accum": t.grad_accum,

@@ -102,10 +102,12 @@ def make_decoupled_step(
         """``params`` are the leaves ``fwd`` ran on: on one device the
         backward instance's weights are the forward's.  ``params`` only
         orders the gradient leaves and ``batch`` is not read: the backward
-        is the forward's own autograd graph, carried in ``residuals``, so
-        it runs only in the process that ran ``fwd``.  Only the saved
-        tensors move; a backward instance elsewhere needs the graph
-        rebuilt there (ROADMAP item 8)."""
+        is the forward's own autograd graph, carried in ``residuals``.  Its
+        place is the pipelined train step (``parallel.fbd_backward`` at pp
+        > 1, ``train.train_step``), where it runs in the process that ran
+        ``fwd``.  Only the saved tensors move; a backward instance on
+        another stage's process needs the graph rebuilt there from the
+        residuals (ROADMAP item 8b)."""
         flat = [p for _, p in leaves(params)]
         loss, residuals._loss = residuals._loss, None
         grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, ct)))

@@ -10,9 +10,7 @@ backward.  Rank layout follows Megatron order:
 rank = dp * (PP*TP) + pp * TP + tp.
 
 The serving and router half (``serving_workload`` and the MegaRoute
-policies) is ported with MegaRoute (ROADMAP queue 1, item 11); the "zb"
-traversal, whose builder lives in MegaDPP's ``core/dpp/schedule.py``, with
-MegaDPP (item 8).
+policies) is ported with MegaRoute (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -127,9 +125,10 @@ def make_order(
     if schedule == "1f1b":
         return sched_1f1b(n_micro, n_chunks, pp, stage)
     if schedule == "zb":
-        raise NotImplementedError(
-            'the "zb" traversal is ported with MegaDPP (ROADMAP queue 1, '
-            "item 8)")
+        # local import: dpp.schedule imports this module's primitives
+        from repro_torch.core.dpp.schedule import sched_zb_split
+
+        return sched_zb_split(n_micro, n_chunks, pp, stage)
     if schedule not in SCHEDULES:
         raise ValueError(
             f"unknown schedule {schedule!r}; one of {SCHEDULE_NAMES}"

@@ -10,10 +10,11 @@ scope and ``step_s`` cover the card's work, and every value published to
 the registry is a host value already read.  A run given a ``ckpt_dir`` that
 holds a checkpoint resumes from its latest step and replays
 ``SyntheticTokens.batch_at(step)`` from there, so it continues the
-trajectory of an uninterrupted run.  The fault-tolerance controller and
-rank-event injection (MegaFT, ROADMAP queue 1, item 9), the compile cache
-(item 12b) and pipeline parallelism (item 8) are later slices; asking for
-them raises.
+trajectory of an uninterrupted run.  A pipelined step (a ``plan`` with pp >
+1, MegaDPP) adds MegaScan's per-(microbatch, stage, F/B) events to each
+step's trace, scaled into its ``train_step`` span.  The fault-tolerance
+controller and rank-event injection (MegaFT, ROADMAP queue 1, item 9) and
+the compile cache (item 12b) are later slices; asking for them raises.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dpp.executor import emit_pipeline_events
 from repro_torch.core.flops import count_flops
 from repro_torch.core.tracing.tracer import Tracer
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -76,16 +78,21 @@ def _refuse(**later: tuple[Any, str]) -> None:
                 f"{name} is ported in a later slice (ROADMAP queue 1, {item})")
 
 
-def step_flops(cfg: ModelConfig, state, batch: dict) -> float:
+def step_flops(cfg: ModelConfig, state, batch: dict,
+               loss_fn: Callable | None = None) -> float:
     """Model flops of one step on ``batch``: the products of one forward and
     backward of the loss (:func:`repro_torch.core.flops.count_flops`),
-    taken outside the timed steps; the state is not updated."""
-    model = get_model(cfg)
+    taken outside the timed steps; the state is not updated.  ``loss_fn
+    (params, batch) -> (loss, metrics)`` defaults to the model's fused loss;
+    a pipelined step passes its own."""
+    if loss_fn is None:
+        model = get_model(cfg)
+        loss_fn = lambda p, b: model.loss_fn(cfg, p, b)  # noqa: E731
     params = [leaf for _, leaf in leaves(state.params)]
     dev = params[0].device
 
     def fwd_bwd():
-        loss, _ = model.loss_fn(cfg, state.params, to_device_batch(batch, dev))
+        loss, _ = loss_fn(state.params, to_device_batch(batch, dev))
         torch.autograd.grad(loss, params)
 
     return float(count_flops(fwd_bwd))
@@ -133,7 +140,9 @@ def train(
     receives the standard train series each step; its
     ``train.model_flops_per_s`` comes from :func:`step_flops`, counted once
     before the first step.  ``collector`` (MegaScope) rides every step's
-    loss; its captures reach ``hooks.on_step`` in the step's metrics."""
+    loss; its captures reach ``hooks.on_step`` in the step's metrics.
+    ``plan`` (a ``ParallelPlan``) with pp > 1 trains through the pipeline
+    step; each step's trace then holds its ``pp_F``/``pp_B`` events."""
     _refuse(compile_cache=(compile_cache, "item 12b"),
             obs=(obs, "item 9"), controller=(controller, "item 9"))
     dev = resolve_device(device)
@@ -144,6 +153,7 @@ def train(
             state = init_train_state(cfg, seed=loop.seed, device=dev)
     step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum,
                               collector=collector, plan=plan)
+    pp_info = getattr(step_fn, "pipeline", None)
     if hooks is not None and hooks.wrap_step is not None:
         step_fn = hooks.wrap_step(step_fn)
 
@@ -160,7 +170,8 @@ def train(
     # the MFU numerator, once, only when someone will read the series
     flops = 0.0
     if registry is not None:
-        flops = step_flops(cfg, state, ds.batch_at(start))
+        flops = step_flops(cfg, state, ds.batch_at(start),
+                           pp_info.loss_fn if pp_info is not None else None)
         # the count imports and allocates a great many Python objects: a
         # full collection now keeps Python's next one out of the timed steps
         gc.collect()
@@ -175,6 +186,12 @@ def train(
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the card
         step_s = time.perf_counter() - t_step
+        if pp_info is not None and tracer.enabled:
+            # the train_step scope just closed; fold its wall into
+            # per-(microbatch, stage, F/B) pipeline events
+            anchor = tracer.events[-1]
+            emit_pipeline_events(tracer.events, pp_info.table, ts=anchor.ts,
+                                 wall=anchor.dur, step_idx=step)
         row = {"step": step + 1, "loss": loss, "lr": float(metrics["lr"]),
                "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
                "tokens_per_s": tokens_per_step / max(step_s, 1e-9)}

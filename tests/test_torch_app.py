@@ -194,11 +194,11 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
 @pytest.mark.parametrize("argv,item", [
     (["train", "--modules", "scan,ft"], "item 9"),
     (["serve", "--continuous", "--modules", "scope"], "item 5"),
-    (["train", "--modules", "dpp"], "item 8"),
+    (["train", "--pp", "2", "--set", "parallel.dp=2"], "item 8b"),
     (["train", "--detect-online"], "item 9"),
     (["train", "--compile-cache", "cc"], "item 12b"),
-    (["train", "--pp", "2"], "item 8"),
-    (["train", "--multi-pod"], "item 8"),
+    (["train", "--pp", "2", "--set", "parallel.tp=2"], "item 8b"),
+    (["train", "--multi-pod"], "item 8b"),
     (["train", "--set", "obs.rank_events=true"], "item 9"),
     (["serve"], "item 5"),
     (["serve", "--continuous", "--replicas", "2"], "item 11"),

@@ -879,3 +879,73 @@ def test_decoupled_grads_are_bit_identical_to_fused_on_the_card(cuda):
         assert torch.equal(loss, ref_loss.detach())
         for (path, g), r in zip(leaves(grads), ref):
             assert torch.equal(g, r), path
+
+
+# ---------------------------------------- card: MegaDPP, the pipeline step ---
+
+
+@pytest.mark.gpu
+def test_pipelined_qwen2_step_matches_the_fused_step_on_the_card(cuda):
+    """The qwen2 smoke loss and gradients on the card through the pipeline
+    (pp 2, 2 microbatches, remat full) and fused: loss, grad_norm and
+    every leaf's norm within the step check's limits (1e-3 absolute,
+    1e-3 and 1e-2 relative: a microbatch runs the products at half the
+    fused M, so the bf16 sums may round otherwise), K1 and K2 launched
+    as counted for n_micro microbatches (the final norm once); one train
+    step each, with and without MegaFBD's decoupled backward, bit for bit
+    the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.dpp.executor import build_time_table, make_pipeline_stages
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models import lm
+    from repro_torch.models import pipeline as pl
+    from repro_torch.parallel.plan import ParallelPlan, forward_order, resolve_plan
+    from repro_torch.train.optim import OptimizerConfig, global_norm, leaves
+    from repro_torch.train.train_step import (
+        compute_params, copy_state, init_train_state, make_train_step)
+
+    cfg = get_config("qwen2-0.5b", smoke=True).replace(remat="full")
+    plan = resolve_plan(ParallelPlan(pp=2, n_micro=2, schedule="1f1b"))
+    L, n_micro = cfg.num_layers, plan.n_micro
+    params = compute_params(lm.init(cfg, seed=0, device=cuda), torch.bfloat16)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)).to(cuda)
+             for k in ("tokens", "targets")}
+    layout = pl.pipeline_layout(cfg, plan.pp, plan.n_chunks)
+    table = build_time_table(forward_order(plan), plan.pp, plan.n_chunks, n_micro)
+    paths, flat = zip(*leaves(params))
+    out = {}
+    for name in ("fused", "pipelined"):
+        flash_attention.reset_launches()
+        rmsnorm.reset_launches()
+        if name == "fused":
+            loss = lm.loss_fn(cfg, params, batch)[0]
+        else:
+            loss = pl.pipeline_loss(cfg, params, batch, layout=layout, table=table,
+                                    stages=make_pipeline_stages(plan.pp, cuda),
+                                    n_micro=n_micro)[0]
+        grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), grads, {**flash_attention.launches, **rmsnorm.launches})
+    assert out["pipelined"][2] == {"flash_fwd": 2 * L * n_micro, "flash_bwd": L * n_micro,
+                                   "rmsnorm_fwd": 4 * L * n_micro + 1,
+                                   "rmsnorm_bwd": 2 * L * n_micro + 1}
+    (lf, gf, _), (lp, gp, _) = out["fused"], out["pipelined"]
+    assert np.isfinite(lp) and abs(lp - lf) <= 1e-3
+    norm = lambda g: global_norm(  # noqa: E731
+        {"/".join(p): v for p, v in g.items()}).item()
+    assert abs(norm(gp) - norm(gf)) <= 1e-3 * norm(gf)
+    for p in paths:
+        a, b = gp[p].float().norm().item(), gf[p].float().norm().item()
+        assert abs(a - b) <= 1e-2 * b + 1e-6, p
+
+    ocfg = OptimizerConfig(warmup_steps=1, total_steps=2)
+    state = init_train_state(cfg, seed=0, device=cuda)
+    res = {}
+    for fbd in (False, True):
+        p = resolve_plan(ParallelPlan(pp=2, n_micro=2, fbd_backward=fbd))
+        s, m = make_train_step(cfg, ocfg, plan=p)(copy_state(state), batch)
+        res[fbd] = (m["loss"], s.master)
+    assert torch.equal(res[True][0], res[False][0])
+    for (_, a), (_, b) in zip(leaves(res[True][1]), leaves(res[False][1])):
+        assert torch.equal(a, b)

@@ -61,3 +61,17 @@ def test_the_scan_would_catch_an_import():
     for line in ("import repro_torch", "from repro_torch.models import lm",
                  "import jaxtyping"):
         assert not _IMPORT.search(line)
+
+
+def test_the_pipeline_modules_are_guarded():
+    """MegaDPP's modules (schedules, planner, executor, plan, the
+    stage-stacked model) are among those imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.core.dpp", "repro_torch.core.dpp.schedule",
+              "repro_torch.core.dpp.planner", "repro_torch.core.dpp.executor",
+              "repro_torch.parallel", "repro_torch.parallel.plan",
+              "repro_torch.models.pipeline"):
+        assert m in mods, m
+        path = PORT.parent.joinpath(*m.split("."))
+        assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+                else path / "__init__.py") in SOURCES
