@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              paged decode and prefill (K3, K4) at qwen2-0.5b widths (H=14,
              K=2, dh=64, block 16), at qwen3-14b's (dh 128, qk_norm) and the
              smoke width (dh 16), at K3's split edges and K4's tile edges,
-             held row by row; RMSNorm forward and backward (K1, Triton;
+             K3 also at recurrentgemma-9b's (H=16, K=1, dh=256, window 2048,
+             its first live position across split edges, and on float32
+             queries), held row by row; RMSNorm forward and backward (K1, Triton;
              also at rwkv6-3b's width 2560 and recurrentgemma-9b's 4096) and
              flash attention forward and backward (K2) at the training
              path's shapes, at small ragged ones and across its tiles'
@@ -23,8 +25,8 @@ Phases, each of which fails the run (non-zero exit) on error:
              (``scaled_dot_product_attention``, its backward alone for K2's
              backward; ``F.rms_norm``, its backward alone for K1's backward,
              K1 and its yardstick through CUDA graphs) at the main paths'
-             shapes, and splits K2's backward into its kernels under
-             ``torch.profiler``;
+             shapes (K3 also at one Griffin decode tick, dh 256), and
+             splits K2's backward into its kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
              every prompt must launch each paged kernel once per layer and
@@ -52,6 +54,23 @@ Phases, each of which fails the run (non-zero exit) on error:
              paged kernels' exact launches, one TTFT sample a request in
              the metrics registry, the tick medians beside the direct
              run's;
+   serve-rwkv6, serve-griffin — rwkv6-3b (32 layers) and
+             recurrentgemma-9b (all 38 layers; the float32 init and its
+             bf16 copy peak near 70 GB, then the float32 tree is freed)
+             served by MegaServe, seed-0 weights, bf16, 8 slots: 16 and 12
+             Poisson requests (prompts 127/1000/2047 and 100/2048/3000, the
+             latter decoding past Griffin's window of 2048) prefilled in
+             pow2 segments; every request finished with a valid stream, K1
+             launched exactly (2L + 1) x (decode ticks + the prompts' pow2
+             segments) times, K3 exactly ticks x 12 (Griffin), no K4, K5,
+             K6 or K1 backward; teacher-forced logits through the kernels
+             and the plain versions within ``LOGIT_TOL`` in float32, the
+             bf16 replays and a noise probe logged (see ``LOGIT_TOL``);
+             tokens/s, TTFT, prefill ms by prompt length, the median tick,
+             peak memory and one tick's host and device time;
+   generate-recurrent — ``generate_with_scope`` on rwkv6-3b (2 layers)
+             and recurrentgemma-9b (3), full width, over the carried state,
+             held as the generate phase holds qwen2's;
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
              through ``Session`` (``python -m repro_torch train --modules
              scan,metrics --trace-out ... --metrics-out ... --set
@@ -144,6 +163,7 @@ Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -176,11 +196,35 @@ F32_FLOPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cor
 # differences of a few bfloat16 ulps per layer compound through the residual
 # stream; logits of this random model are O(1) to 5 (ulp 2^-6 at 4)
 LOGIT_TOL = 0.25
+# The served recurrent models (random seed-0 weights, bfloat16) turn any
+# change of rounding into as much or more: rwkv6-3b's teacher-forced logits
+# (32 layers) move by 0.16-1.37 when only the plain RMSNorm rounds from
+# float64 instead of float32 (the noise probe of teacher_forced), about as
+# far as the kernels' own roundings move them (0.43-1.31), the difference
+# growing with the prompt along the carried state; recurrentgemma-9b's (38
+# layers) by 0.20-0.32, its kernels' by 0.21-0.30 (H100 80GB HBM3 at 700 W,
+# the serve phases' streams).  So their kernel paths
+# are held to LOGIT_TOL in float32 (both replays in float32 over the served
+# weights: K1 on float32 rows, K3 on float32 queries over the bfloat16
+# pool), the bfloat16 replays logged beside with the probe
 SERVE = dict(n=32, rate=40.0, prompt_lens=(128, 512, 2048),
              max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
 # one decode tick of the serve phase's shape: 8 slots at kv_len of prompts
 # 128/512/2048 plus generated tokens, table width 132
 TICK_KV_LENS = [2112, 544, 160, 2080, 530, 140, 2100, 600]
+# the recurrent families served: rwkv6-3b and recurrentgemma-9b at full width
+# and depth, seed-0 weights, bf16, 8 slots of block 16.  rwkv6's prompts run
+# pow2 segments of both WKV forms (127 = 64 + 32 + 16 + ... + 1, 2047 all
+# eleven widths); Griffin's decode passes position 2048, where its window
+# masks, and its table width is 192 (3000 + 64 tokens)
+RWKV_SERVE = dict(n=16, rate=40.0, prompt_lens=(127, 1000, 2047),
+                  max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
+GRIFFIN_SERVE = dict(n=12, rate=40.0, prompt_lens=(100, 2048, 3000),
+                     max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
+# one Griffin decode tick: 8 slots at kv_len 2100-3064, table width 192
+GRIFFIN_TICK_KV_LENS = [2100, 2238, 2376, 2514, 2652, 2790, 2928, 3064]
+GRIFFIN_TICK_M = 192
+GRIFFIN_TABLE = 192                    # Griffin's table width, at least 3000 + 64 tokens
 
 # the training path's shapes: qwen2-0.5b, seq 2048 x batch 8, the data of
 # SyntheticTokens' seed 0
@@ -285,6 +329,7 @@ GRIFFIN_TRAIN = dict(seq_len=4096, global_batch=2, steps=6, seed=2)
 GRIFFIN_LAYERS = 5
 GRIFFIN_PARAMS = 3_223_498_752     # jax.eval_shape(lm.init) at 5 layers
 GRIFFIN_W, GRIFFIN_H, GRIFFIN_DH, GRIFFIN_WINDOW = 4096, 16, 256, 2048
+GRIFFIN_HEADS = (GRIFFIN_H, 1, GRIFFIN_DH)  # its attention: H, K (MQA), dh
 # K6 against its plain version evaluated in float64 on the same inputs, held
 # row by row (one token's W channels; y, h_last, da, db are float32): each
 # step of the kernel's walk is one float32 FMA whose rounding error decays
@@ -384,9 +429,12 @@ def check_kernels(torch, dev) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = dict.fromkeys(("paged_decode", "paged_prefill"), (0.0, 0.0))
+    worst = dict.fromkeys(("paged_decode", "paged_prefill", "paged_decode_dh256"),
+                          (0.0, 0.0))
 
     def decode(c, layer, window=None):
+        if c.get("q_f32"):
+            c = dict(c, q=c["q"].float())
         kw = dict(scale=c["q"].shape[-1] ** -0.5, window=window, layer=layer)
         o = paged_decode_kernel(c["q"], c["k"], c["v"], c["tables"], c["kv_len"], **kw)
         torch.cuda.synchronize()
@@ -439,6 +487,23 @@ def check_kernels(torch, dev) -> dict:
         ("paged_decode", "Q=1 dh=16 smoke heads H=4 K=2",
          lambda: decode(case(S=3, Q=1, kv_lens=[1, 200, 300], layers=0,
                              heads=SMOKE_HEADS), None)),
+        # recurrentgemma-9b's heads: the window's first live position
+        # kv_len - 2048 falls before, on and after K3's split edges (127,
+        # 128, 129, 256, ...), and every kv_len past 2048 leaves whole splits
+        # before the window, which exit at once
+        ("paged_decode_dh256", "Q=1 H=16 K=1 window 2048 ragged, 5-D pool",
+         lambda: decode(case(S=8, Q=1, kv_lens=[1, 2047, 2048, 2049, 3000, 4096, 129, 2176],
+                             layers=3, heads=GRIFFIN_HEADS), 2, window=GRIFFIN_WINDOW)),
+        ("paged_decode_dh256", "Q=1 window 2048 edge across split edges, M=200",
+         lambda: decode(case(S=5, Q=1, kv_lens=[2175, 2176, 2177, 2304, 2047], layers=0,
+                             M=200, heads=GRIFFIN_HEADS), None, window=GRIFFIN_WINDOW)),
+        ("paged_decode_dh256", "Q=1 no window, 5-D pool",
+         lambda: decode(case(S=4, Q=1, kv_lens=[1, 300, 2100, 3064], layers=2,
+                             heads=GRIFFIN_HEADS), 1)),
+        ("paged_decode_dh256", "Q=1 float32 queries (a float32 model), window 2048",
+         lambda: decode(dict(case(S=4, Q=1, kv_lens=[100, 2049, 2176, 3064], layers=2,
+                                  heads=GRIFFIN_HEADS), q_f32=True), 1,
+                        window=GRIFFIN_WINDOW)),
         ("paged_prefill", "P=128 q_start=0, 5-D pool",
          lambda: prefill(case(S=1, Q=128, kv_lens=[128], layers=2), 1, 0)),
         ("paged_prefill", "P=2048 q_start=0, 5-D pool",
@@ -466,7 +531,7 @@ def check_kernels(torch, dev) -> dict:
     for name, what, run in cases:
         abs_err, row_err = run()
         ok = row_err <= FLASH_ROW_RTOL
-        log(f"[kernels] {name:13s} {what:52s} row_err={row_err:.3e} "
+        log(f"[kernels] {name:18s} {what:52s} row_err={row_err:.3e} "
             f"abs_err={abs_err:.3e} tol={FLASH_ROW_RTOL:.2e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: {what}")
@@ -562,7 +627,60 @@ def time_kernels(torch, dev, worst: dict) -> dict:
                                 tolerance=FLASH_ROW_RTOL)
     log(f"[timing] paged_prefill P={P} q_start=0 24-layer pool: kernel_ms={ms:.4f} "
         f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.6f} ({b_by})")
+    out["paged_decode_dh256"] = _time_decode_dh256(torch, gen, dev, worst)
     return out
+
+
+def _time_decode_dh256(torch, gen, dev, worst: dict) -> dict:
+    """K3 at one Griffin decode tick: 8 slots at ``GRIFFIN_TICK_KV_LENS``,
+    window 2048, the 12-layer pool of the full model (successive launches
+    walk successive layers: 12 x 25 MB exceeds the L2), table width 192;
+    kernel and SDPA through CUDA graphs.  ``bound_ms`` moves the live K/V
+    (the window's 2048 positions a slot) once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_plain, paged_decode_kernel
+
+    H_, K_, D = GRIFFIN_HEADS
+    kv_lens, W, n_layers = GRIFFIN_TICK_KV_LENS, GRIFFIN_WINDOW, 12
+    c = make_case(torch, gen, dev, S=8, Q=1, kv_lens=kv_lens, layers=n_layers,
+                  M=GRIFFIN_TICK_M, heads=GRIFFIN_HEADS)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
+    scale = D ** -0.5
+    layer = iter(range(10 ** 9))
+    kw = lambda: dict(scale=scale, window=W, layer=next(layer) % n_layers)  # noqa: E731
+    ms = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), 48, graph=True)
+    paced = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), 48)
+    plain = cuda_ms(lambda: paged_attention_plain(*args, **kw()), 12)
+    # SDPA over a dense view gathered beforehand (not timed): the kv head
+    # repeated to the 16 query heads, the window and kv_len as a mask
+    T = max(kv_lens)
+    kd = torch.zeros((8, H_, T, D), dtype=torch.bfloat16, device=dev)
+    vd = torch.zeros_like(kd)
+    for s, n in enumerate(kv_lens):
+        blocks = c["tables"][s, : -(-n // BS)].long()
+        for src, dst in ((c["k"][0], kd), (c["v"][0], vd)):
+            dense = src[blocks].reshape(-1, K_, D)[:n]
+            dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H_ // K_, 0)
+    pos = torch.arange(T, device=dev)[None, :]
+    kvl = c["kv_len"][:, None]
+    mask = ((pos < kvl) & (pos >= kvl - W)).reshape(8, 1, 1, T)
+    qd = c["q"].permute(0, 2, 1, 3)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=scale)
+
+    lib = cuda_ms(sdpa, 48, graph=True)
+    live = sum(min(n, W) for n in kv_lens)
+    nbytes = 2 * (2 * 8 * H_ * D) + 2 * 2 * live * K_ * D + 4 * (8 * GRIFFIN_TICK_M + 8)
+    b_ms, b_by = bound(4 * live * H_ * D, nbytes)
+    log(f"[timing] paged_decode  dh=256 H=16 K=1 S=8 Q=1 kv_len={kv_lens} window {W} "
+        f"M={GRIFFIN_TICK_M} 12-layer pool: kernel_ms={ms:.4f} (graph; host-paced "
+        f"{paced:.4f}) plain_ms={plain:.4f} library_ms={lib:.4f} (graph) "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=worst["paged_decode_dh256"][0],
+                max_row_err=worst["paged_decode_dh256"][1], tolerance=FLASH_ROW_RTOL)
 
 
 def _err(a, b) -> float:
@@ -1306,58 +1424,133 @@ def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
 
 def replay(torch, cfg, params, prompt, forced, *, plain):
     """Teacher-forced logits ``[len(forced), V]``: prefill ``prompt``, then
-    decode ``forced[:-1]`` one token at a time, in a pool of its own."""
+    decode ``forced[:-1]`` one token at a time, in a pool of its own.  An
+    attention-only family prefills through the flash-prefill step; a
+    recurrent one as MegaServe does, the prompt's pow2 segments over a
+    dense cache of the bucketed length (capped at the table width) then
+    scattered into the pool's blocks and state row."""
     from repro_torch.models import lm
-    from repro_torch.serve.engine import make_flash_prefill_step, make_paged_decode_step
-    from repro_torch.serve.paged_cache import blocks_for
+    from repro_torch.serve.engine import (
+        make_flash_prefill_step, make_paged_decode_step, make_seg_prefill)
+    from repro_torch.serve.paged_cache import (
+        PagedKVCache, PoolSpec, blocks_for, pow2_bucket, pow2_segments)
 
     dev = torch.device("cuda")
     n_blk = blocks_for(len(prompt) + len(forced), BS)
-    pool = lm.init_pool(cfg, n_blk + 1, BS, dev)
-    table = torch.arange(1, n_blk + 1, dtype=torch.int32, device=dev)[None]
-    prefill = make_flash_prefill_step(cfg, block_size=BS, plain=plain)
-    decode = make_paged_decode_step(cfg, block_size=BS, plain=plain)
     p_blk = blocks_for(len(prompt), BS)
-    toks = torch.tensor([prompt + [0] * (p_blk * BS - len(prompt))], device=dev)
-    out = [prefill(params, pool, table[:, :p_blk].contiguous(), toks, len(prompt))]
+    table = torch.arange(1, n_blk + 1, dtype=torch.int32, device=dev)[None]
+    decode = make_paged_decode_step(cfg, block_size=BS, plain=plain)
+    if all(lm.tree_leaves(lm.paged_flags(cfg))):
+        pool = lm.init_pool(cfg, n_blk + 1, BS, dev)
+        prefill = make_flash_prefill_step(cfg, block_size=BS, plain=plain)
+        toks = torch.tensor([prompt + [0] * (p_blk * BS - len(prompt))], device=dev)
+        out = [prefill(params, pool, table[:, :p_blk].contiguous(), toks, len(prompt))]
+    else:
+        kv = PagedKVCache(cfg, PoolSpec(num_slots=1, num_blocks=n_blk + 1, block_size=BS,
+                                        max_blocks=n_blk), dev)
+        pool = kv.pool
+        bucket = min(pow2_bucket(p_blk), n_blk)
+        cache = lm.init_cache(cfg, 1, bucket * BS, device=dev)
+        seg = make_seg_prefill(cfg, plain=plain)
+        toks, off = torch.tensor([prompt], device=dev), 0
+        for w in pow2_segments(len(prompt)):
+            logits = seg(params, cache, toks[:, off:off + w], off)
+            off += w
+        kv.scatter_prefill(pool, cache, 0, table[0, :bucket])
+        del cache
+        out = [logits]
     for i, tok in enumerate(forced[:-1]):
         pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
         out.append(decode(params, pool, table, torch.tensor([tok], device=dev), pos)[0])
     return torch.stack(out).float()
 
 
-def teacher_forced(torch, cfg, srv, specs, prompts, streams) -> None:
+class _Float64Norms:
+    """Within it, the model's plain RMSNorm takes its float32 internals in
+    float64 before its one rounding to the compute dtype: the same function
+    rounded another valid way, no kernel involved (the noise probe of
+    :func:`teacher_forced`)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.inner = layers, layers.rmsnorm
+
+        def norm(x, scale, eps, plain=False):
+            if not plain:
+                return self.inner(x, scale, eps, plain=False)
+            xd = x.double()
+            y = xd * (xd * xd).mean(-1, keepdim=True).add(eps).rsqrt() * scale.double()
+            return y.to(x.dtype)
+
+        layers.rmsnorm = norm
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.rmsnorm = self.inner
+
+
+def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
+                   float32: bool = False) -> None:
+    """Replays one finished stream per prompt length teacher-forced through
+    the kernels and through the plain versions: their logits must agree
+    within ``LOGIT_TOL``, and each served token must lie within it of the
+    plain path's largest logit.  With ``float32`` (the recurrent families,
+    see ``LOGIT_TOL``) both replays compute in float32 over the served
+    weights (K1 on float32 rows, K3 on float32 queries) and are held to
+    ``LOGIT_TOL``; the bfloat16 replays are logged beside, with the noise
+    probe (the plain path under :class:`_Float64Norms`) and the served
+    tokens' gap, held to nothing."""
+    from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models import lm
 
     picked = {}
     for s in specs:  # one finished stream per prompt length
         picked.setdefault(s.prompt_len, s)
-    before = dict(launches)
+    before = {**launches, **rmsnorm.launches}
+    V = cfg.vocab_size
+    cfg32 = cfg.replace(compute_dtype="float32")
+    params32 = lm.tree_map(lambda t: t.float(), srv.params) if float32 else None
     for plen, s in sorted(picked.items()):
-        forced = streams[s.rid]
-        lk = replay(torch, cfg, srv.params, prompts[s.rid], forced, plain=False)
-        lp = replay(torch, cfg, srv.params, prompts[s.rid], forced, plain=True)
-        V = cfg.vocab_size
+        forced, prompt = streams[s.rid], prompts[s.rid]
+        lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
+        lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
         err = (lk[:, :V] - lp[:, :V]).abs().max().item()
         idx = torch.tensor(forced, device=lp.device)[:, None]
         gap = (lp[:, :V].max(-1).values - lp.gather(1, idx)[:, 0]).max().item()
         agree = (lk[:, :V].argmax(-1) == lp[:, :V].argmax(-1)).float().mean().item()
+        if float32:
+            with _Float64Norms():
+                lq = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+            probe = (lq[:, :V] - lp[:, :V]).abs().max().item()
+            log(f"[{tag}] rid={s.rid} prompt={plen} bfloat16, held to nothing: "
+                f"max_logit_err={err:.4f} noise_probe={probe:.4f} "
+                f"max_gap_to_plain_max={gap:.4f} argmax_agree={agree:.3f}")
+            lk = replay(torch, cfg32, params32, prompt, forced, plain=False)
+            lp = replay(torch, cfg32, params32, prompt, forced, plain=True)
+            err = (lk[:, :V] - lp[:, :V]).abs().max().item()
+            agree = (lk[:, :V].argmax(-1) == lp[:, :V].argmax(-1)).float().mean().item()
+            gap = 0.0
         ok = err <= LOGIT_TOL and gap <= LOGIT_TOL and torch.isfinite(lk).all()
-        log(f"[check] rid={s.rid} prompt={plen} steps={len(forced)} "
-            f"max_logit_err={err:.4f} max_gap_to_plain_max={gap:.4f} "
-            f"argmax_agree={agree:.3f} tol={LOGIT_TOL} {'ok' if ok else 'FAIL'}")
+        log(f"[{tag}] rid={s.rid} prompt={plen} steps={len(forced)} "
+            f"{'float32 ' if float32 else ''}max_logit_err={err:.4f} "
+            f"max_gap_to_plain_max={gap:.4f} argmax_agree={agree:.3f} tol={LOGIT_TOL} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"teacher-forced check failed for rid {s.rid}")
-    if launches == before:
-        raise AssertionError("the kernel-path replay launched no kernel")
+            raise AssertionError(f"{tag}: teacher-forced check failed for rid {s.rid}")
+    if {**launches, **rmsnorm.launches} == before:
+        raise AssertionError(f"{tag}: the kernel-path replay launched no kernel")
 
 
-def profile_decode_tick(torch, cfg, params, ticks: int = 5) -> None:
+def profile_decode_tick(torch, cfg, params, ticks: int = 5, kv_lens=TICK_KV_LENS,
+                        M: int = 132, tag: str = "tick") -> None:
     """One decode tick (``make_paged_decode_step`` and the read-back of the
-    next tokens) at the timing shape, 8 slots at ``TICK_KV_LENS``: host ms
-    per tick by the host clock, then under ``torch.profiler`` the kernels a
-    tick runs and their summed device time; the rest of the tick the device
-    waits for the host."""
+    next tokens) at a timing shape, 8 slots at ``kv_lens`` (table width
+    ``M``; the recurrent families' state rows ride along): host ms per tick
+    by the host clock, then under ``torch.profiler`` the kernels a tick runs
+    and their summed device time; the rest of the tick the device waits for
+    the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1365,12 +1558,11 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5) -> None:
     from repro_torch.serve.engine import make_paged_decode_step
 
     dev = torch.device("cuda")
-    M = 132
-    pool = lm.init_pool(cfg, 1 + 8 * M, BS, dev)
+    pool = lm.init_pool(cfg, 1 + 8 * M, BS, dev, num_slots=8)
     tables = (1 + torch.arange(8 * M, dtype=torch.int32, device=dev)).reshape(8, M)
     step = make_paged_decode_step(cfg, block_size=BS)
     toks = torch.zeros(8, dtype=torch.long, device=dev)
-    pos = torch.tensor([n - 1 for n in TICK_KV_LENS], dtype=torch.int32, device=dev)
+    pos = torch.tensor([n - 1 for n in kv_lens], dtype=torch.int32, device=dev)
 
     def tick():
         return step(params, pool, tables, toks, pos).argmax(-1).tolist()
@@ -1388,13 +1580,116 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5) -> None:
             tick()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log("[tick] the profiler recorded no device time: device busy share not measured")
+        log(f"[{tag}] the profiler recorded no device time: device busy share not measured")
         return
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / ticks
-    log(f"[tick] decode tick at kv_len={TICK_KV_LENS}: host {host_ms:.3f} ms (median of "
-        f"{2 * ticks}); device busy {busy_ms:.3f} ms in {len(kernels) / ticks:.0f} kernels "
-        f"(torch.profiler, {ticks} ticks); device idle share "
-        f"{1 - busy_ms / host_ms:.3f}")
+    log(f"[{tag}] {cfg.name} decode tick at kv_len={kv_lens}: host {host_ms:.3f} ms "
+        f"(median of {2 * ticks}); device busy {busy_ms:.3f} ms in "
+        f"{len(kernels) / ticks:.0f} kernels (torch.profiler, {ticks} ticks); device idle "
+        f"share {1 - busy_ms / host_ms:.3f}")
+
+
+def serve_recurrent(torch, dev, arch: str, shape: dict, smi: str,
+                    min_table: int = 0) -> dict:
+    """MegaServe on a recurrent family at full width and depth (seed-0
+    weights, bf16): ``shape``'s Poisson workload, every request finished
+    with a valid stream; K1 launched exactly once a norm a forward, each
+    decode tick one forward and each prefill one a pow2 segment of its
+    tokens (``(2L + 1) x (ticks + sum of popcount(tokens))``); K3 once an
+    attention layer a tick; no K1 backward, K4, K5 or K6 (a carried state
+    goes to the plain recurrences); teacher-forced logits of one stream per
+    prompt length through the kernels and through the plain versions
+    within ``LOGIT_TOL``; tokens/s, TTFT, the median tick, peak memory and
+    one tick's host and device time.  ``min_table`` widens the block
+    table (and the pool) to at least that many blocks a slot.  Returns the
+    launch counts."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rglru, rmsnorm, wkv6
+    from repro_torch.kernels.paged_attention import launches, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.model import count_params
+    from repro_torch.serve.server import MegaServe, make_poisson_workload
+
+    cfg = get_config(arch)
+    tag = f"serve-{cfg.family}"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, seed=0, device="cuda")
+    n_params = count_params(params)
+    specs, prompts, scfg = make_poisson_workload(cfg, **shape)
+    if scfg.max_blocks_per_slot < min_table:
+        scfg = replace(scfg, max_blocks_per_slot=min_table,
+                       num_blocks=scfg.num_slots * min_table + 1)
+    srv = MegaServe(cfg, params, scfg, device="cuda")
+    del params  # the server keeps its bf16 copy; the float32 tree goes
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    kinds = [k for pat, n in lm.segment_layout(cfg) for _ in range(n) for k in pat]
+    n_attn = kinds.count("attn")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({n_attn} attention) d_model="
+        f"{cfg.d_model} vocab={cfg.padded_vocab}, {n_params} parameters; "
+        f"{scfg.num_slots} slots, {scfg.num_blocks} blocks x {scfg.block_size}, table "
+        f"width {scfg.max_blocks_per_slot}; prefill_path={srv.prefill_path}; set-up "
+        f"{time.perf_counter() - t0:.2f} s, peak {init_peak} B (float32 init + bf16 cast)")
+    srv.submit(prompts[0][:33], 2, arrival=0.0)  # warm-up: segments 32 + 1
+    srv.drain()
+    srv.reset()
+    torch.cuda.reset_peak_memory_stats()
+
+    mods = (rmsnorm, wkv6, rglru)
+    reset_launches()
+    for m in mods:
+        m.reset_launches()
+    for s in specs:
+        srv.submit(prompts[s.rid], s.max_new, arrival=s.arrival, rid=s.rid)
+    streams = srv.drain()
+    torch.cuda.synchronize()
+    counts = {**launches, **{k: v for m in mods for k, v in m.launches.items()}}
+    met = srv.metrics()
+    events = srv.trace_events()
+    ticks = [e.dur for e in events if e.name == "decode"]
+    prefills = [e.args["tokens"] for e in events if e.name == "prefill"]
+    segs = sum(bin(n).count("1") for n in prefills)
+    by_len: dict[int, list[float]] = {}
+    for e in events:
+        if e.name == "prefill":
+            by_len.setdefault(e.args["tokens"], []).append(e.dur)
+    prefill_ms = ", ".join(f"{n} tokens {1e3 * statistics.median(d):.1f} ms"
+                           for n, d in sorted(by_len.items()))
+    L = cfg.num_layers
+    want = {"paged_decode": len(ticks) * n_attn, "rmsnorm_fwd": (2 * L + 1) * (len(ticks) + segs)}
+    log(f"[{tag}] finished={met['finished']}/{len(specs)} tokens={met['generated_tokens']} "
+        f"tokens_per_s={met['tokens_per_s']:.2f} ttft_p50_s={met['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={met['ttft_p99_s']:.4f} decode_tick_median_ms="
+        f"{1e3 * statistics.median(ticks):.3f} ticks={len(ticks)} prefills={len(prefills)} "
+        f"({segs} segments) preemptions={met['preemptions']} wall_s={met['wall_s']:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} ({smi})")
+    log(f"[{tag}] prefill, median on the host clock: {prefill_ms}")
+    log(f"[{tag}] launches {counts}; expected paged_decode {len(ticks)}x{n_attn}="
+        f"{want['paged_decode']}, rmsnorm_fwd (2x{L}+1)x({len(ticks)}+{segs})="
+        f"{want['rmsnorm_fwd']}, every other 0")
+    if any(counts[k] != want.get(k, 0) for k in counts) or not counts["rmsnorm_fwd"] or (
+            n_attn and not counts["paged_decode"]):
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if met["finished"] != len(specs):
+        raise AssertionError(f"{tag}: not every request finished")
+    for s in specs:
+        toks = streams[s.rid]
+        if len(toks) != s.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag}: request {s.rid}: bad stream {toks[:8]}...")
+    teacher_forced(torch, cfg, srv, specs, prompts, streams, tag, float32=True)
+    if n_attn:
+        profile_decode_tick(torch, cfg, srv.params, kv_lens=GRIFFIN_TICK_KV_LENS,
+                            M=GRIFFIN_TICK_M, tag=tag)
+    else:
+        profile_decode_tick(torch, cfg, srv.params, tag=tag)
+    del srv
+    gc.collect()  # the server's clock closure holds it in a cycle
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------- phase 6-7
@@ -1811,6 +2106,9 @@ GEN = dict(prompt_len=128, steps=32, seed=1,
 # a prompt past qwen2-0.5b's attn_kv_chunk (1024): the prefill takes the
 # dense cache's chunked online softmax (layers._chunked_attention)
 GEN_LONG = dict(prompt_len=1100, steps=4, seed=2, probes=("final_hidden:stats",))
+# the recurrent families' generation: 128 tokens prefill as one chunked WKV
+# segment (and one segment of MegaServe's driver), then one-token steps
+GEN_RECURRENT = dict(prompt_len=128, steps=16, seed=1, probes=("final_hidden:stats",))
 # stats_of on one layer's mlp_hidden, bf16, against float64: each statistic
 # within STATS_RTOL of max(|reference|, 1) (float32 sums over 80 M
 # elements); memory above the input under 4 B an element (a float32 copy
@@ -2082,6 +2380,7 @@ def _generate_case(torch, cfg, srv, case: dict, smi: str, tag: str):
     from repro_torch.core.scope import ProbeSpec, ScopeCollector, generate_with_scope
     from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.models import layers
+    from repro_torch.models.lm import segment_layout
 
     rng = np.random.default_rng(case["seed"])
     prompt = rng.integers(0, cfg.vocab_size, case["prompt_len"]).tolist()
@@ -2113,7 +2412,9 @@ def _generate_case(torch, cfg, srv, case: dict, smi: str, tag: str):
     ours = out[0].tolist()
     L_ = cfg.num_layers
     T = case["prompt_len"] + case["steps"]
-    want_chunked = L_ if T > cfg.attn_kv_chunk else 0
+    n_attn = sum(k in ("dense", "attn") for pat, n in segment_layout(cfg)
+                 for _ in range(n) for k in pat)
+    want_chunked = n_attn if T > cfg.attn_kv_chunk else 0
     want_norm = (2 * L_ + 1) * (case["steps"] + 1)
     log(f"[{tag}] {cfg.name} {L_} layers, prompt {case['prompt_len']} (seed {case['seed']}), "
         f"{case['steps']} steps: {1e3 * dt / case['steps']:.2f} ms per generated token on the "
@@ -2183,6 +2484,35 @@ def generate_phase(torch, cfg, srv, smi: str, tag: str = "generate") -> None:
         f"states (explained {fit['explained']}); markers {'found' if ok else 'MISSING'}")
     if not ok or not np.isfinite(heat).all() or abs(heat.sum(-1) - 1).max() > 1e-3:
         raise AssertionError(f"{tag}: dashboard or attention probabilities off")
+
+
+def recurrent_generate_phase(torch, smi: str, tag: str = "generate-recurrent") -> None:
+    """``generate_with_scope`` on rwkv6-3b and recurrentgemma-9b at full
+    width, cut in depth as the scope phases are (2 layers; 3: rec, rec,
+    attn), seed-0 weights, bf16, over the dense cache's carried state: a
+    :data:`GEN_RECURRENT` prompt, greedy steps, held as
+    :func:`generate_phase` holds qwen2's against a MegaServe of the same
+    weights (its greedy stream, the teacher-forced logits through the
+    serving path and through the dense cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.paged_cache import blocks_for
+    from repro_torch.serve.scheduler import ServeConfig
+    from repro_torch.serve.server import MegaServe
+
+    for arch, layers in (("rwkv6-3b", RWKV_SCOPE["layers"]),
+                         ("recurrentgemma-9b", GRIFFIN_SCOPE["layers"])):
+        cfg = get_config(arch).replace(num_layers=layers)
+        params = lm.init(cfg, seed=0, device="cuda")
+        blocks = blocks_for(GEN_RECURRENT["prompt_len"] + GEN_RECURRENT["steps"], BS)
+        srv = MegaServe(cfg, params, ServeConfig(
+            num_slots=2, block_size=BS, num_blocks=2 * blocks + 1,
+            max_blocks_per_slot=blocks), device="cuda")
+        del params
+        _generate_case(torch, cfg, srv, GEN_RECURRENT, smi, f"{tag} {arch}")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def fbd_hand_count(cfg, B: int, S: int, *, batch_mask: bool) -> int:
@@ -2727,7 +3057,11 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name):
             log(f"[build] {name}: {line}")
-        if name.startswith("paged"):
+        if name == "paged_decode":
+            smem, at = (f"{shared_memory_bytes(name, H=H, K=K, dh=DH)} / "
+                        f"{shared_memory_bytes(name, H=GRIFFIN_H, K=1, dh=GRIFFIN_DH)}",
+                        f"H={H} K={K} dh={DH} / H={GRIFFIN_H} K=1 dh={GRIFFIN_DH}, Q=1")
+        elif name.startswith("paged"):
             smem, at = (shared_memory_bytes(name, H=H, K=K, dh=DH),
                         f"H={H} K={K} dh={DH} Q=1")
         elif name.startswith("flash"):
@@ -2772,6 +3106,13 @@ def main() -> int:
     counts = serve_session(torch, cfg, specs, streams, ticks_off, smi)
     torch.cuda.empty_cache()
     phase("serve through the Session")
+    serve_recurrent(torch, dev, "rwkv6-3b", RWKV_SERVE, smi)
+    phase("rwkv6 serve and teacher-forced check")
+    griffin_serve_counts = serve_recurrent(torch, dev, "recurrentgemma-9b", GRIFFIN_SERVE,
+                                           smi, min_table=GRIFFIN_TABLE)
+    phase("griffin serve and teacher-forced check")
+    recurrent_generate_phase(torch, smi)
+    phase("generate_with_scope on rwkv6 and griffin")
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
@@ -2845,6 +3186,7 @@ def main() -> int:
     counts.update({k: v for k, v in rwkv_counts.items() if k.startswith("wkv6")})
     counts.update({k: v for k, v in griffin_counts.items() if k.startswith("rglru")})
     counts.update({f"{k}_dh256": griffin_counts[k] for k in ("flash_fwd", "flash_bwd")})
+    counts["paged_decode_dh256"] = griffin_serve_counts["paged_decode"]
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
     wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
     rglru_src = "src/repro/kernels/rglru/kernel.py:49"
@@ -2855,6 +3197,8 @@ def main() -> int:
          "src/repro/kernels/paged_attention/kernel.py:139", None),
         ("paged_prefill", "cuda", _build.SOURCES["paged_prefill"],
          "src/repro/kernels/paged_attention/prefill_kernel.py:176", None),
+        ("paged_decode_dh256", "cuda", _build.SOURCES["paged_decode"],
+         "src/repro/kernels/paged_attention/kernel.py:139", None),
         ("rmsnorm_fwd", "triton", norm_path, norm_src, None),
         ("rmsnorm_bwd", "triton", norm_path, norm_src, None),
         ("flash_fwd", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),

@@ -298,7 +298,6 @@ class Session:
         from repro_torch.serve.server import MegaServe, make_poisson_workload
 
         cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
-        lm.require_paged(cfg)
         params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device))
         specs, prompts, serve_cfg = make_poisson_workload(
             cfg, n=s.requests, rate=s.rate, prompt_lens=tuple(s.prompt_lens),

@@ -3,11 +3,11 @@ Fig. 4), counterpart of ``repro.core.scope.generation``: each decode step
 records the chosen token, its probability, the top-k decision distribution,
 and all registered probe captures.
 
-One prefill of the prompt over a dense KV cache (``lm.init_cache``), then
-one-token steps; greedy.  Each step feeds the token it chose.  (The JAX
-function takes its token once, before its loop, and feeds that first token
-at every step: ROADMAP R6.)  Dense family only: the recurrent families'
-carried state arrives with their serving slice.
+One prefill of the prompt over a dense cache (``lm.init_cache``: the KV
+cache, and the recurrent families' carried state), then one-token steps;
+greedy.  Each step feeds the token it chose.  (The JAX function takes its
+token once, before its loop, and feeds that first token at every step:
+ROADMAP R6.)
 """
 
 from __future__ import annotations
@@ -68,11 +68,6 @@ def generate_with_scope(
     dtype on the tokens' device (``lm.cast_params``)."""
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: generate_with_scope serves token archs")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: generate_with_scope over the {cfg.family} family's "
-            "carried state is ported with its serving slice (ROADMAP queue 1, "
-            "item 13)")
     B, S = prompt_tokens.shape
     cache = lm.init_cache(cfg, B, S + n_steps, device=prompt_tokens.device)
     scope = scope or ScopeCollector()

@@ -33,7 +33,25 @@
 // no atomics, applies the l == 0 guard and writes bfloat16.  Pools are
 // addressed as layer * NB * bs * K * dh plus offsets (the caller passes the
 // layer offset), so a layer-stacked pool is never sliced.  Head dims 16, 32,
-// 64 and 128.
+// 64, 128 and 256.
+//
+// Head dim 256 (recurrentgemma-9b: 16 query heads over one kv head, window
+// 2048, Q = 1 at decode).  SPLIT stays 128 at every head dim: a split block
+// then holds 2 * 128 * 264 * 2 = 135,168 B of K/V beside R * (256 + 129) * 4
+// B of queries and scores, 159,808 B at R = 16, under the 227 KB a block may
+// opt into, so one block fits an SM.  A Griffin decode tick (8 slots, one kv
+// head, at most 17 live splits a slot under the window) is then about one
+// wave of the 132 SMs; a SPLIT of 64 would halve the bytes a block and fit
+// two a SM, but doubles the partials the combine reads and the splits that
+// meet the window's edge, for a first kernel that is right before it is
+// fast.  A shape whose shared memory passes the device's opt-in limit (Q = 5
+// at dh 256 needs 258 KB) is refused by the wrapper before any launch
+// (paged_decode_smem_limit).  The combine's block of 128 threads walks the
+// output columns in steps of 128, so any D is written whole.
+//
+// Queries may also be float32 (a float32 model's decode: the pool stays
+// bfloat16, the output is then float32), as the plain version takes them;
+// the math is the same, only the query load and the output store change.
 #include "paged_common.cuh"
 
 namespace {
@@ -43,7 +61,7 @@ using paged::NEG;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int COMBINE_THREADS = 128;  // one thread per output column, D <= 128
+constexpr int COMBINE_THREADS = 128;  // output columns d, d + 128, ... a thread
 constexpr int SPLIT = 128;  // positions one block walks
 constexpr int CHUNK = 64;   // positions per cp.async group
 constexpr int PLD = SPLIT + 1;  // score row stride (no bank conflicts across rows)
@@ -89,9 +107,14 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ qr,
   return a + b;
 }
 
-template <int D>
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
-    const bf16* __restrict__ q,       // [S, Q, H, D]
+    const T* __restrict__ q,          // [S, Q, H, D], T bf16 or float
     const bf16* __restrict__ k_pool,  // this layer's [NB, bs, K, D]
     const bf16* __restrict__ v_pool,
     const int* __restrict__ tables,   // [S, M]
@@ -126,7 +149,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
   for (int idx = tid; idx < R * D; idx += THREADS) {
     const int r = idx / D, d = idx - r * D;
     const int i = r / G, g = r - i * G;
-    q_s[idx] = __bfloat162float(q[(((size_t)s * Q + i) * H + kh * G + g) * D + d]);
+    q_s[idx] = to_float(q[(((size_t)s * Q + i) * H + kh * G + g) * D + d]);
   }
 
   // each half is scored as soon as it has landed
@@ -185,10 +208,10 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(
 
 // One block per (query row, kv head, slot): the row's partials of the live
 // splits, rescaled to their largest m and summed in split order.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS) paged_decode_combine_kernel(
     const float* __restrict__ part_acc, const float2* __restrict__ part_ml,
-    const int* __restrict__ kv_len, bf16* __restrict__ out, int Q, int H, int bs,
+    const int* __restrict__ kv_len, T* __restrict__ out, int Q, int H, int bs,
     int M, int window, int nsplit) {
   const int r = blockIdx.x, kh = blockIdx.y, s = blockIdx.z, K = gridDim.y;
   const int G = H / K, R = Q * G, lane = threadIdx.x & 31;
@@ -216,40 +239,40 @@ __global__ void __launch_bounds__(COMBINE_THREADS) paged_decode_combine_kernel(
     }
   }
   __syncthreads();
-  const int d = threadIdx.x;
-  if (d >= D) return;
   const float m = stat[0];
-  float o = 0.f;
-#pragma unroll 4
-  for (int sp = sp0; sp < sp1; ++sp) {
-    const float2 x = part_ml[(part0 + sp) * R + r];
-    const float a = part_acc[((part0 + sp) * R + r) * D + d];
-    if (x.y > 0.f) o += a * expf(x.x - m);
-  }
   const int i = r / G, g = r - i * G;
-  out[(((size_t)s * Q + i) * H + kh * G + g) * D + d] = __float2bfloat16(o / stat[1]);
+  for (int d = threadIdx.x; d < D; d += COMBINE_THREADS) {
+    float o = 0.f;
+#pragma unroll 4
+    for (int sp = sp0; sp < sp1; ++sp) {
+      const float2 x = part_ml[(part0 + sp) * R + r];
+      const float a = part_acc[((part0 + sp) * R + r) * D + d];
+      if (x.y > 0.f) o += a * expf(x.x - m);
+    }
+    store(out + (((size_t)s * Q + i) * H + kh * G + g) * D + d, o / stat[1]);
+  }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const bf16* k_pool, const bf16* v_pool, const void* tables,
            const void* kv_len, float* scratch, void* out, int S, int Q, int H, int K,
            int bs, int M, int NB, float scale, int window, cudaStream_t stream) {
   const int R = Q * (H / K), nsplit = num_splits(M, bs);
   const size_t smem = smem_bytes<D>(R);
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_split_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_split_kernel<D, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   float* part_acc = scratch;
   float2* part_ml =
       reinterpret_cast<float2*>(scratch + (size_t)S * K * nsplit * R * D);
-  paged_decode_split_kernel<D><<<dim3(nsplit, K, S), THREADS, smem, stream>>>(
-      (const bf16*)q, k_pool, v_pool, (const int*)tables, (const int*)kv_len, part_acc,
+  paged_decode_split_kernel<D, T><<<dim3(nsplit, K, S), THREADS, smem, stream>>>(
+      (const T*)q, k_pool, v_pool, (const int*)tables, (const int*)kv_len, part_acc,
       part_ml, Q, H, K, bs, M, NB, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_combine_kernel<D><<<dim3(R, K, S), COMBINE_THREADS, 0, stream>>>(
-      part_acc, part_ml, (const int*)kv_len, (bf16*)out, Q, H, bs, M, window, nsplit);
+  paged_decode_combine_kernel<D, T><<<dim3(R, K, S), COMBINE_THREADS, 0, stream>>>(
+      part_acc, part_ml, (const int*)kv_len, (T*)out, Q, H, bs, M, window, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -263,8 +286,19 @@ extern "C" size_t paged_decode_smem_bytes(int Q, int H, int K, int dh) {
     case 32: return smem_bytes<32>(R);
     case 64: return smem_bytes<64>(R);
     case 128: return smem_bytes<128>(R);
+    case 256: return smem_bytes<256>(R);
     default: return 0;
   }
+}
+
+// The dynamic shared memory a block may opt into on the current device, in
+// bytes (a negative CUDA error code if it cannot be read).
+extern "C" long long paged_decode_smem_limit() {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? (long long)bytes : -(long long)err;
 }
 
 // Bytes of the float32 scratch the partials take: the wrapper allocates it.
@@ -274,13 +308,13 @@ extern "C" size_t paged_decode_scratch_bytes(int S, int Q, int H, int K, int dh,
 }
 
 // Launches the split and combine kernels on `stream`, allocates nothing,
-// returns cudaGetLastError().  window < 0: no window.  Head dims 16, 32, 64
-// and 128.
+// returns cudaGetLastError().  window < 0: no window.  Head dims 16, 32, 64,
+// 128 and 256.  q_f32: q and out are float32, else bfloat16.
 extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                             const void* tables, const void* kv_len, void* scratch,
                             void* out, int S, int Q, int H, int K, int dh, int bs,
                             int M, int NB, long long layer_offset, float scale,
-                            int window, void* stream) {
+                            int window, int q_f32, void* stream) {
   if (S <= 0 || Q <= 0 || K <= 0 || H % K || M <= 0 || bs <= 0)
     return (int)cudaErrorInvalidValue;
   const bf16* kp = (const bf16*)k_pool + layer_offset;
@@ -288,12 +322,18 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
   const cudaStream_t st = (cudaStream_t)stream;
 #define PAGED_DECODE_ARGS \
   q, kp, vp, tables, kv_len, (float*)scratch, out, S, Q, H, K, bs, M, NB, scale, window, st
+#define PAGED_DECODE_CASE(D)                                       \
+  case D:                                                          \
+    return q_f32 ? launch<D, float>(PAGED_DECODE_ARGS)             \
+                 : launch<D, bf16>(PAGED_DECODE_ARGS);
   switch (dh) {
-    case 16: return launch<16>(PAGED_DECODE_ARGS);
-    case 32: return launch<32>(PAGED_DECODE_ARGS);
-    case 64: return launch<64>(PAGED_DECODE_ARGS);
-    case 128: return launch<128>(PAGED_DECODE_ARGS);
+    PAGED_DECODE_CASE(16)
+    PAGED_DECODE_CASE(32)
+    PAGED_DECODE_CASE(64)
+    PAGED_DECODE_CASE(128)
+    PAGED_DECODE_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PAGED_DECODE_CASE
 #undef PAGED_DECODE_ARGS
 }

@@ -28,21 +28,25 @@ from repro_torch.kernels.paged_attention.ref import (
 
 launches = {"paged_decode": 0, "paged_prefill": 0}
 
-# head dims both kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims each kernel is instantiated for: K3 also at recurrentgemma-9b's
+# 256; K4 at 256 lies on no path of the JAX package (a Griffin prompt goes
+# through the dense cache's segment prefill) and stays to be ported
+HEAD_DIMS = {"paged_decode": (16, 32, 64, 128, 256),
+             "paged_prefill": (16, 32, 64, 128)}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q, k_pool, v_pool, tables, kv_len, scratch, out, S, Q, H, K, dh, bs, M,
-    # NB, layer offset, scale, window, stream
+    # NB, layer offset, scale, window, q_f32, stream
     "paged_decode": [_P] * 7 + [_I] * 8
-    + [ctypes.c_longlong, ctypes.c_float, _I, _P],
+    + [ctypes.c_longlong, ctypes.c_float, _I, _I, _P],
     # q, q_norm, k_pool, v_pool, tables, kv_len, out, S, Q, H, K, dh, bs, M,
     # NB, layer offset, scale, window, eps, rope_theta, stream
     "paged_prefill": [_P] * 7 + [_I] * 8
     + [ctypes.c_longlong, ctypes.c_float, _I, ctypes.c_float, ctypes.c_float, _P],
 }
 _functions: dict[str, ctypes._CFuncPtr] = {}
+_smem_limits: dict[int | None, int] = {}
 
 
 def reset_launches() -> None:
@@ -102,6 +106,21 @@ def shared_memory_bytes(name: str, *, H: int, K: int, dh: int, Q: int = 1) -> in
     return _c_size(name, "paged_decode_smem_bytes", 4)(Q, H, K, dh)
 
 
+def shared_memory_limit(device: torch.device) -> int:
+    """The dynamic shared memory a block may opt into on ``device``
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), read once a device."""
+    if device.index not in _smem_limits:
+        fn = _build.load("paged_decode").paged_decode_smem_limit
+        fn.argtypes, fn.restype = [], ctypes.c_longlong
+        with torch.cuda.device(device):
+            limit = fn()
+        if limit < 0:
+            raise RuntimeError(
+                f"reading the shared memory limit failed: CUDA error {-limit}")
+        _smem_limits[device.index] = limit
+    return _smem_limits[device.index]
+
+
 def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
              shape: tuple[int, ...], device: torch.device) -> None:
     if t.device != device:
@@ -114,9 +133,9 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
         raise ValueError(f"{what} must be contiguous")
 
 
-def _pool_geometry(q, k_pool, v_pool, tables, kv_len, layer):
-    """Checks the common operands; returns (S, Q, H, K, dh, bs, M, NB,
-    layer element offset)."""
+def _pool_geometry(name, q, k_pool, v_pool, tables, kv_len, layer):
+    """Checks kernel ``name``'s common operands; returns (S, Q, H, K, dh,
+    bs, M, NB, layer element offset)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [S, Q, H, dh], got {tuple(q.shape)}")
     S, Q, H, dh = q.shape
@@ -131,11 +150,15 @@ def _pool_geometry(q, k_pool, v_pool, tables, kv_len, layer):
         raise ValueError(f"pools must be 4-D or 5-D, got {tuple(k_pool.shape)}")
     if H % K:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh}: the paged kernels take {HEAD_DIMS}")
+    if dh not in HEAD_DIMS[name]:
+        gap = (" (K4 at head dim 256: ROADMAP queue 2, on no JAX path)"
+               if name == "paged_prefill" and dh == 256 else "")
+        raise ValueError(f"head dim {dh}: {name} takes {HEAD_DIMS[name]}{gap}")
     M = tables.shape[1] if tables.dim() == 2 else -1
     dev, bf16 = q.device, torch.bfloat16
-    _require(q, "q", bf16, (S, Q, H, dh), dev)
+    # K3 also takes a float32 model's queries (its pool stays bfloat16)
+    f32_q = name == "paged_decode" and q.dtype == torch.float32
+    _require(q, "q", torch.float32 if f32_q else bf16, (S, Q, H, dh), dev)
     _require(k_pool, "k_pool", bf16, tuple(k_pool.shape[:-1]) + (dh,), dev)
     _require(v_pool, "v_pool", bf16, tuple(k_pool.shape), dev)
     _require(tables, "tables", torch.int32, (S, M), dev)
@@ -143,11 +166,13 @@ def _pool_geometry(q, k_pool, v_pool, tables, kv_len, layer):
     for t, what in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool")):
         if t.data_ptr() % 16:
             raise ValueError(f"{what} must start 16-byte aligned (16-byte copies)")
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on the card; the operands are on {dev}")
     return S, Q, H, K, dh, bs, M, NB, layer * NB * bs * K * dh
 
 
 def paged_decode_kernel(
-    q: torch.Tensor,        # [S, Q, H, dh] bf16 on the card
+    q: torch.Tensor,        # [S, Q, H, dh] bf16 (or float32) on the card
     k_pool: torch.Tensor,   # [(n,) NB, bs, K, dh] bf16
     v_pool: torch.Tensor,
     tables: torch.Tensor,   # [S, M] int32
@@ -159,9 +184,16 @@ def paged_decode_kernel(
 ) -> torch.Tensor:
     """Launch the paged decode kernel (``csrc/paged_decode.cu``): a split
     kernel over the table walk and the combine of its float32 partials,
-    which live in a scratch buffer allocated here on the same stream."""
+    which live in a scratch buffer allocated here on the same stream.  The
+    output takes q's dtype."""
     S, Q, H, K, dh, bs, M, NB, off = _pool_geometry(
-        q, k_pool, v_pool, tables, kv_len, layer)
+        "paged_decode", q, k_pool, v_pool, tables, kv_len, layer)
+    smem = shared_memory_bytes("paged_decode", H=H, K=K, dh=dh, Q=Q)
+    limit = shared_memory_limit(q.device)
+    if smem > limit:
+        raise ValueError(
+            f"paged_decode at Q={Q}, H={H}, K={K}, dh={dh} needs {smem} bytes "
+            f"of shared memory a block; the device allows {limit}")
     out = torch.empty_like(q)
     nbytes = _c_size("paged_decode", "paged_decode_scratch_bytes", 7)(
         S, Q, H, K, dh, bs, M)
@@ -171,7 +203,7 @@ def paged_decode_kernel(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         kv_len.data_ptr(), scratch.data_ptr(), out.data_ptr(), S, Q, H, K, dh,
         bs, M, NB, off, float(scale), -1 if window is None else int(window),
-        stream,
+        int(q.dtype == torch.float32), stream,
     )
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
@@ -195,7 +227,7 @@ def paged_prefill_kernel(
 ) -> torch.Tensor:
     """Launch the flash-prefill kernel (``csrc/paged_prefill.cu``)."""
     S, Q, H, K, dh, bs, M, NB, off = _pool_geometry(
-        q, k_pool, v_pool, tables, kv_len, layer)
+        "paged_prefill", q, k_pool, v_pool, tables, kv_len, layer)
     qn_ptr = None
     if q_norm is not None:
         _require(q_norm, "q_norm", torch.float32, (dh,), q.device)

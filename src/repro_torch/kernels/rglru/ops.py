@@ -149,8 +149,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
     ``repro.kernels.rglru.ops.rglru_scan`` without its clamp (P7)."""
     if h0 is not None:
         raise NotImplementedError(
-            "an RG-LRU carried state (prefill and decode) is ported with the "
-            "Griffin serving slice (ROADMAP queue 1, item 13)")
+            "K6 scans from a zero state, as the Pallas kernel's caller only "
+            "ever asks it to; a carried h0 (prefill and decode) goes to "
+            "models.scan_utils.lru_scan")
     if not _use_plain(a, plain):
         a, b = a.contiguous(), b.contiguous()
     return RGLRUScan.apply(a, b, bool(plain))

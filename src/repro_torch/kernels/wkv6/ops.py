@@ -206,8 +206,9 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, dy, dstate):
         if dstate is not None:
             raise NotImplementedError(
-                "a gradient through the WKV final state (a carried state) is "
-                "ported with the RWKV serving slice (ROADMAP queue 1, item 13)")
+                "K5 takes no gradient through the WKV final state: training "
+                "discards it, and a carried state (serving) runs "
+                "models.scan_utils.wkv6_chunked without gradients")
         r, k, v, w, u = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)

@@ -15,11 +15,14 @@ in x's dtype, r then float32; log a, a and the input scale beta are float32
 float32; h is cast back to x's dtype; the output gate is tanh-gelu and
 ``gate * y`` is taken in x's dtype.
 
-Only the state-free branch is ported: training's full-sequence forward,
-where every recurrence runs through K6 (``kernels/rglru``), the counterpart
-of both state-free branches of the JAX ``rglru_apply`` (``lru_scan`` and the
-Pallas kernel, which clamps: P7).  A carried state (the conv context and h,
-for prefill and decode) belongs to the Griffin serving slice.
+The recurrence dispatches as the JAX ``rglru_apply`` does: training's
+state-free full sequence runs K6 (``kernels/rglru``), the counterpart of
+the Pallas kernel (which clamps: P7); a carried ``h0`` or a single token
+runs ``lru_scan`` (prefill segments and decode).  A recurrent block's state
+is ``{"conv" [B, width - 1, W], "h" [B, W]}``, an attention block's its K/V
+(a dense cache, or the paged pool when serving); see
+:func:`griffin_init_state`.  The block functions return the new recurrent
+state beside their output, as JAX's do; attention writes its K/V in place.
 """
 
 from __future__ import annotations
@@ -41,14 +44,8 @@ from repro_torch.models.layers import (
     norm_apply,
     norm_init,
 )
-from repro_torch.models.scan_utils import causal_conv1d
-
-
-def _refuse_state(state) -> None:
-    if state is not None:
-        raise NotImplementedError(
-            "a Griffin carried state (prefill and decode) is ported with the "
-            "Griffin serving slice (ROADMAP queue 1, item 13)")
+from repro_torch.kernels.paged_attention.ops import PagedInfo
+from repro_torch.models.scan_utils import causal_conv1d, lru_scan
 
 
 def rglru_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -68,8 +65,8 @@ def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """``x [B, S, W]`` -> ``(h [B, S, W]`` in x's dtype, ``h_last [B, W]``
     float32); ``plain`` runs K6's plain version on any device.  Tags the
     decay ``rglru_decay`` (the scan's a; beta keeps the untagged log a, as
-    in JAX)."""
-    _refuse_state(h0)
+    in JAX).  K6 takes the state-free scans of more than one token; ``h0``
+    or one token goes to ``lru_scan``."""
     dt = x.dtype
     r = torch.sigmoid(x @ p["w_a"].to(dt) + p["b_a"].to(dt)).float()
     i = torch.sigmoid(x @ p["w_i"].to(dt) + p["b_i"].to(dt))
@@ -79,7 +76,10 @@ def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     # input normalisation sqrt(1 - a^2), computed stably
     beta = torch.sqrt(-torch.expm1(2.0 * log_a))
     b_in = beta * (i * x).float()
-    h, h_last = rglru_scan(a, b_in, plain=plain)
+    if h0 is None and x.shape[1] > 1:
+        h, h_last = rglru_scan(a, b_in, plain=plain)
+    else:
+        h, h_last = lru_scan(a, b_in, h0)
     return h.to(dt), h_last
 
 
@@ -96,14 +96,17 @@ def recurrent_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 def recurrent_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                           state: dict | None = None, plain: bool = False,
                           collector: Collector = NULL_COLLECTOR
-                          ) -> tuple[torch.Tensor, None]:
-    _refuse_state(state)
+                          ) -> tuple[torch.Tensor, dict | None]:
     dt = x.dtype
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
-    y = causal_conv1d(x @ p["w_x"].to(dt), p["conv_w"], p["conv_b"])
-    y, _ = rglru_apply(p["rglru"], cfg, y, plain=plain, collector=collector)
+    y, conv_new = causal_conv1d(x @ p["w_x"].to(dt), p["conv_w"], p["conv_b"],
+                                None if state is None else state["conv"])
+    y, h_last = rglru_apply(p["rglru"], cfg, y,
+                            None if state is None else state["h"],
+                            plain=plain, collector=collector)
     y = collector.tag("rglru_out", y)
-    return (gate * y) @ p["w_out"].to(dt), None
+    out = (gate * y) @ p["w_out"].to(dt)
+    return out, None if state is None else {"conv": conv_new, "h": h_last}
 
 
 def griffin_block_init(b: ParamBuilder, cfg: ModelConfig, kind: str) -> None:
@@ -118,20 +121,44 @@ def griffin_block_init(b: ParamBuilder, cfg: ModelConfig, kind: str) -> None:
 
 def griffin_block_apply(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                         *, positions: torch.Tensor, state: dict | None = None,
-                        plain: bool = False,
+                        cache_pos: int | None = None,
+                        paged: PagedInfo | None = None, plain: bool = False,
                         collector: Collector = NULL_COLLECTOR
-                        ) -> tuple[torch.Tensor, None]:
-    """One Griffin layer: ln1/ln2 through K1, the recurrence through K6, the
-    windowed attention through K2."""
-    _refuse_state(state)
+                        ) -> tuple[torch.Tensor, dict | None]:
+    """One Griffin layer: ln1/ln2 through K1; a recurrent block's scan
+    through K6 (training) or ``lru_scan`` (a carried state); the windowed
+    attention through K2 (training), the dense cache's attention
+    (``state`` a dense cache written at ``cache_pos``) or K3 (``paged``:
+    ``state`` is the pool's ``{"k", "v"}``).  Returns ``(x, the recurrent
+    block's new state or None)``."""
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
+    new_state = None
     if kind == "rec":
-        a, _ = recurrent_block_apply(p["mix"], cfg, h, plain=plain,
-                                     collector=collector)
+        a, new_state = recurrent_block_apply(p["mix"], cfg, h, state=state,
+                                             plain=plain, collector=collector)
     else:
+        paged_pool = state if paged is not None else None
         a = gqa_apply(p["mix"], cfg, h, positions=positions,
-                      window=cfg.griffin.window, plain=plain, collector=collector)
+                      window=cfg.griffin.window, pool=paged_pool, paged=paged,
+                      plain=plain, collector=collector,
+                      cache=None if paged is not None else state,
+                      cache_pos=cache_pos)
     x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     f = mlp_apply(p["mlp"], cfg, h, collector)
-    return x + collector.tag("ffn_resid", f), None
+    return x + collector.tag("ffn_resid", f), new_state
+
+
+def griffin_init_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                       device: torch.device | str = "cpu") -> dict:
+    """One layer's carry: float32 ``conv``/``h`` for a recurrent block,
+    a bfloat16 full-length linear K/V cache for an attention block (the
+    window mask limits its reach)."""
+    if kind == "rec":
+        W = cfg.lru_width
+        return {"conv": torch.zeros((batch, cfg.griffin.conv_width - 1, W),
+                                    dtype=torch.float32, device=device),
+                "h": torch.zeros((batch, W), dtype=torch.float32, device=device)}
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+            for n in ("k", "v")}

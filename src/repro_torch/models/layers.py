@@ -17,9 +17,9 @@ paged branches of :func:`gqa_apply` go through ``kernels.paged_attention``
 plain PyTorch versions on any device: the card's reference runs.
 
 Ported: the paged serving branches, the non-cached training branch of the
-attention block (windowed for Griffin) and the dense cached branch (a KV
-cache written at ``cache_pos``; ``attention`` with a ``kv_len``, plain
-PyTorch as JAX leaves it outside Pallas); the gathered and local-block
+attention block and the dense cached branch (a KV cache written at
+``cache_pos``; ``attention`` with a ``kv_len``, plain PyTorch as JAX leaves
+it outside Pallas), each windowed for Griffin; the gathered and local-block
 paths arrive with later slices.  A ``Collector`` (MegaScope) sees the tags
 of the JAX functions at the same places: ``q``, ``v``, ``k``,
 ``attn_probs`` (naive branch only), ``attn_out`` and ``mlp_hidden``.  ``norm_init`` also builds
@@ -233,8 +233,8 @@ def attention(
         return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
     if impl == "local_block" and window is not None and S == T and S % window == 0:
         raise NotImplementedError(
-            "local_block attention (no config selects it) is ported with the "
-            "Griffin serving slice (ROADMAP queue 1, item 13)")
+            "local_block attention (no config selects it) is not ported "
+            "(ROADMAP queue 1, item 13b)")
     if kv_len is not None:
         return _chunked_attention(q, k, v, scale=scale, positions_q=positions_q,
                                   causal=causal, window=window, kv_len=kv_len,
@@ -299,11 +299,12 @@ def gqa_apply(
     branch) the roped new K and V are written into it at ``cache_pos`` and
     attention reads all of it with ``kv_len = cache_pos + S``.  Both tag
     ``q``, ``v``, ``k`` and ``attn_out`` into ``collector``.  With a pool
-    (serving; no window yet: the dense family has none), ``paged.prefill``
-    with more than one query is the fused flash-prefill branch: the raw q
-    goes to the kernel, whose prologue applies qk_norm and rope.  Otherwise
-    this is paged decode: rope q, write the new K/V into the pool at
-    ``positions``, and attend with ``kv_len = positions[:, -1] + 1``.
+    (serving), ``paged.prefill`` with more than one query is the fused
+    flash-prefill branch: the raw q goes to the kernel, whose prologue
+    applies qk_norm and rope.  Otherwise this is paged decode: rope q,
+    write the new K/V into the pool at ``positions``, and attend with
+    ``kv_len = positions[:, -1] + 1`` under the ``window`` (Griffin's
+    local attention) through K3.
     """
     B, S, D = x.shape
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -335,18 +336,14 @@ def gqa_apply(
                       collector=collector)
         o = collector.tag("attn_out", o)
     else:
-        if window is not None:
-            raise NotImplementedError(
-                "windowed paged attention is ported with the Griffin serving "
-                "slice (ROADMAP queue 1, item 13)")
         o = _paged_attention_block(q, kk, vv, cfg, positions, pool, paged,
-                                   scale, q_norm, k_norm)
+                                   scale, q_norm, k_norm, window)
     wo = p["wo"].to(dt)
     return o.to(dt).reshape(B, S, H * dh) @ wo.reshape(H * dh, D)
 
 
 def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
-                           q_norm, k_norm):
+                           q_norm, k_norm, window):
     S = q.shape[1]
     dt = q.dtype
     kv = dict(tables=paged.tables, positions=positions,
@@ -359,12 +356,12 @@ def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
                 q, pool["k"], pool["v"], paged.tables, kv_len,
                 positions=positions, scale=scale, layer=paged.layer,
                 q_norm=q_norm, eps=cfg.norm_eps, rope_theta=cfg.rope_theta,
-                q_start=paged.q_start,
+                q_start=paged.q_start, window=window,
             )
         kv.pop("plain")
         return paged_prefill(
             q, kk, vv, pool["k"], pool["v"], scale=scale, q_norm=q_norm,
-            q_start=paged.q_start, **kv,
+            q_start=paged.q_start, window=window, **kv,
         )
     if cfg.qk_norm:
         q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=paged.plain)
@@ -372,7 +369,7 @@ def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
     kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
     attend = paged_attention_plain if paged.plain else paged_attention
     return attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
-                  kv_len=kv_len, scale=scale, layer=paged.layer)
+                  kv_len=kv_len, scale=scale, window=window, layer=paged.layer)
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,28 @@
 in PyTorch.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
-leaves of segment ``i`` are stacked ``[n_layers, ...]`` under
-``params["seg{i}"]["b0"]``.  ``forward`` is a Python loop over layers that
-indexes each layer's parameters and its layer of the stacked KV pool in place
-(``[n_layers, num_blocks, bs, K, dh]``), never a sliced copy.  Three forwards
-are ported: the paged serving forward (``pool`` given; dense family only),
-the dense cached forward (``cache`` from :func:`init_cache`, updated in
-place; dense family only), which MegaScope's ``generate_with_scope`` runs,
-and the training forward (neither: the ``cache is None`` path of JAX
-``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
-``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).
+leaves of segment ``i`` are stacked ``[n_groups, ...]`` under
+``params["seg{i}"]["b{j}"]``, and so are the serving caches: a dense cache
+(:func:`init_cache`) and the paged pool (:func:`init_pool`) mirror JAX's
+``lm.init_cache`` tree, attention blocks holding ``k``/``v`` and recurrent
+blocks their carried state.  ``forward`` is a Python loop over layers that
+indexes each layer's parameters and its layer of every stacked cache leaf
+in place, never a sliced copy.  Three forwards are ported:
+
+* the paged serving forward (``pool`` given): attention blocks write their
+  new K/V into the pool's blocks and read them through ``paged.tables``;
+  recurrent blocks read and overwrite their slot rows of the pool's state
+  leaves (``[n, num_slots, ...]``), every slot a batch row;
+* the dense cached forward (``cache`` given, batch rows of its own, written
+  at ``cache_pos``): serving's segment prefill and MegaScope's
+  ``generate_with_scope``;
+* the training forward (neither: the ``cache is None`` path of JAX
+  ``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
+  ``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).
+
 A ``Collector`` (MegaScope) rides the training and dense cached forwards;
 each layer's captures are stacked over the layer axis into
-``aux["captures"]``.  Recurrent serving arrives with a later slice.
+``aux["captures"]``.
 """
 
 from __future__ import annotations
@@ -37,9 +46,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv as rk
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
 
-# leaves that enter float32 norm math uncast; every other leaf is cast to the
-# compute dtype at use, so a copy cast once at load gives the same values
-_NORM_LEAVES = ("scale", "q_norm", "k_norm")
+# leaves that enter float32 math uncast in the JAX package: norm scales and
+# layernorm biases, qk_norm, RWKV-6's decay base, decay LoRA output and
+# bonus, Griffin's Lambda.  Every other leaf is cast to the compute dtype at
+# use, so a copy cast once at load gives the same values
+_NORM_LEAVES = ("scale", "bias", "q_norm", "k_norm", "w0", "w_decay2", "u", "lam")
+# block kinds whose cache is attention K/V (paged in the pool); the others
+# carry a recurrent state (a row per slot)
+_ATTENTION_KINDS = ("dense", "attn")
 
 
 def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -56,20 +70,6 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
             f"{cfg.name}: the {cfg.family} family is ported in a later slice "
             "(ROADMAP queue 1); dense GQA, RWKV-6 and Griffin models are ported")
     return [(("dense",), cfg.num_layers)]
-
-
-_SERVING_SLICE = {"rwkv6": "RWKV serving slice", "griffin": "Griffin serving slice"}
-
-
-def require_paged(cfg: ModelConfig) -> None:
-    """Serving runs over the paged KV pool, which only the dense family has
-    in the port so far."""
-    segment_layout(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family} family (a carried "
-            "recurrent state, pow2 segment prefill) is ported with the "
-            f"{_SERVING_SLICE[cfg.family]} (ROADMAP queue 1, item 13)")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
@@ -97,8 +97,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
 
 
 def cast_params(params: dict, dtype: torch.dtype, device: torch.device) -> dict:
-    """A copy on ``device`` with every matrix and bias in ``dtype`` (norm
-    scales stay float32): what ``forward`` would cast to at each use."""
+    """A copy on ``device`` with every matrix and bias in ``dtype`` (the
+    leaves JAX takes in float32, ``_NORM_LEAVES``, stay float32): what
+    ``forward`` would cast to at each use."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
@@ -109,14 +110,80 @@ def cast_params(params: dict, dtype: torch.dtype, device: torch.device) -> dict:
     return out
 
 
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 device: torch.device) -> dict:
+    """One layer's cache, JAX ``lm.init_cache``'s ``one_group`` entry."""
+    if kind == "rwkv":
+        return rk.rwkv_init_state(cfg, batch, device)
+    if kind in ("rec", "attn"):
+        return gf.griffin_init_state(cfg, kind, batch, cache_len, device)
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+            for n in ("k", "v")}
+
+
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves of nested dicts, in insertion order."""
+    return [x for v in tree.values()
+            for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _cache_tree(cfg: ModelConfig, leaf_fn) -> dict:
+    """``{"seg{i}": {"b{j}": ...}}`` with each leaf of a one-row, one-position
+    block cache (on the meta device) replaced by ``leaf_fn(template leaf,
+    n_groups, paged)``."""
+    out = {}
+    for i, (kinds, n) in enumerate(segment_layout(cfg)):
+        out[f"seg{i}"] = {
+            f"b{j}": tree_map(lambda t, n=n, kind=kind: leaf_fn(
+                t, n, kind in _ATTENTION_KINDS),
+                _block_cache(cfg, kind, 1, 1, torch.device("meta")))
+            for j, kind in enumerate(kinds)}
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    """The dense cache of JAX ``lm.init_cache``: per segment and block, the
+    block's cache stacked over the segment's groups ``[n, batch, ...]``:
+    bfloat16 ``k``/``v`` of ``cache_len`` positions for attention blocks,
+    the float32 recurrent state for RWKV-6 and Griffin's recurrent
+    blocks."""
+    dev = resolve_device(device)
+
+    def leaf(t, n, paged):
+        shape = (n, batch, cache_len, *t.shape[2:]) if paged else (n, batch, *t.shape[1:])
+        return torch.zeros(shape, dtype=t.dtype, device=dev)
+
+    return _cache_tree(cfg, leaf)
+
+
+def paged_flags(cfg: ModelConfig) -> dict:
+    """The leaf-kind tree of the pool, JAX ``PagedKVCache.paged``: True for
+    a paged leaf (attention ``k``/``v``, ``[n, num_blocks, bs, K, dh]``),
+    False for a slot-state leaf (``[n, num_slots, ...]``)."""
+    return _cache_tree(cfg, lambda t, n, paged: paged)
+
+
 def init_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-              device: torch.device) -> dict:
-    """The layer-stacked bfloat16 KV pool ``{"k", "v"}``, each
-    ``[n_layers, num_blocks, block_size, K, dh]``; block 0 is the null block."""
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=torch.bfloat16, device=device)
-            for name in ("k", "v")}
+              device: torch.device, num_slots: int = 1) -> dict:
+    """The serving pool, :func:`init_cache`'s tree with every attention leaf
+    paged (bfloat16 ``[n, num_blocks, block_size, K, dh]``; block 0 is the
+    null block) and every state leaf a float32 row per slot
+    (``[n, num_slots, ...]``)."""
+
+    def leaf(t, n, paged):
+        shape = ((n, num_blocks, block_size, *t.shape[2:]) if paged
+                 else (n, num_slots, *t.shape[1:]))
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    return _cache_tree(cfg, leaf)
 
 
 def _layer(tree: dict, g: int) -> dict:
@@ -130,21 +197,46 @@ def _resid(cfg: ModelConfig, x: torch.Tensor, delta: torch.Tensor) -> torch.Tens
     return x + delta
 
 
+def _store(state: dict, new: dict) -> None:
+    """Overwrite a layer's state views with its new state, in place."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _store(state[k], v)
+        else:
+            state[k].copy_(v)
+
+
 def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-           positions: torch.Tensor, pool: dict | None, paged: PagedInfo | None,
-           plain: bool, collector: Collector = NULL_COLLECTOR,
-           cache: dict | None = None, cache_pos: int | None = None
-           ) -> torch.Tensor:
+           positions: torch.Tensor, paged: PagedInfo | None, plain: bool,
+           collector: Collector = NULL_COLLECTOR, state: dict | None = None,
+           cache_pos: int | None = None) -> torch.Tensor:
     """One decoder layer (``_block_apply``'s rwkv, griffin and dense
-    branches)."""
-    if kind == "rwkv":
-        return rk.rwkv_block_apply(p, cfg, x, plain=plain, collector=collector)[0]
-    if kind in ("rec", "attn"):
+    branches).  ``state`` is the layer's cache: with ``paged``, an attention
+    block's is the pool's stacked ``{"k", "v"}`` (its layer is
+    ``paged.layer``); otherwise views of this layer's dense cache rows, or a
+    recurrent block's slot rows of the pool.  Attention writes its K/V in
+    place; a recurrent block's new state is copied over its views."""
+    if kind in ("rwkv", "rec"):
+        if kind == "rwkv":
+            x, new = rk.rwkv_block_apply(p, cfg, x, state=state, plain=plain,
+                                         collector=collector)
+        else:
+            x, new = gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
+                                            state=state, plain=plain,
+                                            collector=collector)
+        if state is not None:
+            _store(state, new)
+        return x
+    if kind == "attn":
         return gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
-                                      plain=plain, collector=collector)[0]
+                                      state=state, cache_pos=cache_pos,
+                                      paged=paged, plain=plain,
+                                      collector=collector)[0]
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    a = L.gqa_apply(p["attn"], cfg, h, positions=positions, pool=pool,
-                    paged=paged, plain=plain, collector=collector, cache=cache,
+    a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
+                    pool=state if paged is not None else None, paged=paged,
+                    plain=plain, collector=collector,
+                    cache=None if paged is not None else state,
                     cache_pos=cache_pos)
     x = _resid(cfg, x, collector.tag("att_resid", a))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
@@ -189,28 +281,13 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(dots_policy)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: str | torch.device = "cuda") -> dict:
-    """The dense KV cache of JAX ``lm.init_cache``: per segment and block,
-    bfloat16 ``k`` and ``v`` of ``[n_groups, batch, cache_len, K, dh]``.
-    Only the dense family: the recurrent families' carried state arrives
-    with their serving slice."""
-    require_paged(cfg)
-    dev = resolve_device(device)
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {f"seg{i}": {f"b{j}": {
-        name: torch.zeros((n, *shape), dtype=torch.bfloat16, device=dev)
-        for name in ("k", "v")} for j in range(len(kinds))}
-        for i, (kinds, n) in enumerate(segment_layout(cfg))}
-
-
 def forward(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,        # [B, S] token ids
     *,
-    pool: dict | None = None,    # layer-stacked KV pool, updated in place
-    cache: dict | None = None,   # dense KV cache (init_cache), updated in place
+    pool: dict | None = None,    # the serving pool (init_pool), updated in place
+    cache: dict | None = None,   # dense cache (init_cache), updated in place
     cache_pos: torch.Tensor | int | None = None,  # [B] paged; int dense
     paged: PagedInfo | None = None,
     plain: bool = False,
@@ -218,14 +295,17 @@ def forward(
 ) -> tuple[torch.Tensor, dict]:
     """Returns ``(hidden [B, S, D], aux)``.
 
-    With ``pool`` (serving), attention blocks write their new K/V into
-    ``pool`` at per-slot positions ``cache_pos + arange(S)`` and read it
-    through ``paged.tables``; the pool is updated in place (the JAX package
-    donates it to the same effect), and ``paged.plain`` selects the plain
-    versions.  With ``cache`` (the dense cached path), positions are the
-    int ``cache_pos + arange(S)``, each attention block writes its K/V into
-    its layer of ``cache`` in place and attends with ``kv_len = cache_pos +
-    S``.  With neither (training), positions are ``arange(S)``, attention
+    With ``pool`` (serving; batch row ``b`` is slot ``b`` of its state
+    leaves), attention blocks write their new K/V into ``pool`` at per-slot
+    positions ``cache_pos + arange(S)`` and read it through
+    ``paged.tables``, recurrent blocks carry their slot rows; the pool is
+    updated in place (the JAX package donates it to the same effect), and
+    ``paged.plain`` selects the plain versions.  With ``cache`` (the dense
+    cached path), positions are the int ``cache_pos + arange(S)``, each
+    attention block writes its K/V into its layer of ``cache`` in place and
+    attends with ``kv_len = cache_pos + S``, and each recurrent block
+    carries its state in ``cache``.  With neither (training), positions are
+    ``arange(S)``, attention
     is non-cached, ``plain`` selects the plain versions, and ``cfg.remat``
     decides what each layer keeps for the backward: ``"full"`` recomputes
     the layer in the backward (``jax.checkpoint`` with
@@ -251,19 +331,22 @@ def forward(
             raise NotImplementedError(
                 "MegaScope probes over the paged pool (serving) are ported "
                 "with the gathered decode path (ROADMAP queue 1, item 5)")
-        require_paged(cfg)
         plain = paged.plain
         positions = (cache_pos.long()[:, None]
                      + torch.arange(S, device=x.device)[None, :])
-        for layer, _, _, _, kind, p in _layers(cfg, params):
-            x = _block(p, cfg, kind, x, positions, pool,
-                       replace(paged, layer=layer), plain)
+        for _, i, g, j, kind, p in _layers(cfg, params):
+            blk = pool[f"seg{i}"][f"b{j}"]
+            if kind in _ATTENTION_KINDS:
+                x = _block(p, cfg, kind, x, positions,
+                           replace(paged, layer=g), plain, state=blk)
+            else:
+                x = _block(p, cfg, kind, x, positions, None, plain,
+                           state=_layer(blk, g))
         return L.norm_apply(params["final_norm"], x, cfg.norm_kind,
                             cfg.norm_eps, plain=plain), {}
     if cfg.remat not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     if cache is not None:
-        require_paged(cfg)
         cache_pos = int(cache_pos)
     start = cache_pos or 0
     positions = torch.arange(start, start + S, device=x.device)
@@ -277,9 +360,8 @@ def forward(
     groups: dict[int, list[dict]] = {}
     for layer, i, g, j, kind, p in _layers(cfg, params):
         col = LayerScoped(collector, layer, f"seg{i}/b{j}") if live else collector
-        blk_cache = (None if cache is None else
-                     {k: v[g] for k, v in cache[f"seg{i}"][f"b{j}"].items()})
-        args = (p, cfg, kind, x, positions, None, None, plain, col, blk_cache,
+        blk_cache = None if cache is None else _layer(cache[f"seg{i}"][f"b{j}"], g)
+        args = (p, cfg, kind, x, positions, None, plain, col, blk_cache,
                 cache_pos)
         if remat == "full":
             x = checkpoint(_block, *args, use_reentrant=False)

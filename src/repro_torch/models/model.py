@@ -3,7 +3,7 @@
 The decoder LM is ported for the dense, RWKV-6 and Griffin families:
 :func:`get_model` returns its entry points (``lm.segment_layout`` refuses
 the families still to come) and refuses the encoder-decoder family, which
-arrives with a later slice (ROADMAP queue 1, item 13).
+arrives with a later slice (ROADMAP queue 1, item 13b).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def get_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is ported in a later "
-            "slice (ROADMAP queue 1, item 13)")
+            "slice (ROADMAP queue 1, item 13b)")
     return LM
 
 

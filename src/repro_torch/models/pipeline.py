@@ -123,8 +123,8 @@ def make_block_fn(
     def apply_group(gp: dict, x: torch.Tensor) -> torch.Tensor:
         positions = torch.arange(x.shape[1], device=x.device)
         for j, kind in enumerate(layout.kinds):
-            x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, None,
-                          plain, NULL_COLLECTOR)
+            x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, plain,
+                          NULL_COLLECTOR)
         return x
 
     if cfg.remat not in ("full", "dots", "none"):

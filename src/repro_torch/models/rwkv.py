@@ -9,11 +9,14 @@ LoRA come out in the compute dtype; the decay and the group norm are float32
 (``w0``, ``w_decay2``, ``u`` and ``ln_x`` enter float32 math uncast); the
 normed output is cast back before the gate.
 
-Only the state-free branch is ported: training's full-sequence forward,
-where the recurrence runs through K5 (``kernels/wkv6``), the counterpart of
-both state-free branches of the JAX ``time_mix_apply`` (``wkv6_chunked`` and
-the Pallas kernel).  A carried state (prefill and decode) belongs to the RWKV
-serving slice.
+The recurrence dispatches as the JAX ``time_mix_apply`` does: one token
+runs the exact ``wkv6_sequential`` (decode), a carried state over more
+tokens runs ``wkv6_chunked`` (prefill segments; the sequential form where
+the width is not a multiple of 32), and training's state-free full
+sequence runs K5 (``kernels/wkv6``), the counterpart of the Pallas kernel.
+A state is ``{"att": {"x_prev" [B, D], "wkv" [B, H, K, V]}, "ffn":
+{"x_prev" [B, D]}}`` (:func:`rwkv_init_state`); the functions return the
+new one beside their output, as JAX's do, and leave the old one as it is.
 """
 
 from __future__ import annotations
@@ -27,16 +30,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 from repro_torch.models.layers import ParamBuilder, norm_apply, norm_init
-from repro_torch.models.scan_utils import shift_tokens
+from repro_torch.models.scan_utils import shift_tokens, wkv6_chunked, wkv6_sequential
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
-
-
-def _refuse_state(state) -> None:
-    if state is not None:
-        raise NotImplementedError(
-            "an RWKV-6 carried state (prefill and decode) is ported with the "
-            "RWKV serving slice (ROADMAP queue 1, item 13)")
 
 
 def time_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -64,15 +60,14 @@ def time_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                    state: dict | None = None, plain: bool = False,
                    collector: Collector = NULL_COLLECTOR
-                   ) -> tuple[torch.Tensor, None]:
-    """``x [B, S, D]`` -> ``(out [B, S, D], None)``; ``plain`` runs K5's
-    plain version on any device.  Tags the decay ``wkv_decay`` just before
-    K5 and its output ``wkv_out`` just after."""
-    _refuse_state(state)
+                   ) -> tuple[torch.Tensor, dict | None]:
+    """``x [B, S, D]`` -> ``(out [B, S, D], new state or None)``; ``plain``
+    runs K5's plain version on any device.  Tags the decay ``wkv_decay``
+    just before the recurrence and its output ``wkv_out`` just after."""
     B, S, D = x.shape
     H, hs = cfg.num_heads, cfg.rwkv.head_size
     dt = x.dtype
-    xx = shift_tokens(x) - x
+    xx = shift_tokens(x, None if state is None else state["x_prev"]) - x
     xxx = x + xx * p["mu_x"].to(dt)
     lora = torch.tanh(torch.einsum("bsd,dnr->bsnr", xxx, p["w_mix1"].to(dt)))
     mm = torch.einsum("bsnr,nrd->nbsd", lora, p["w_mix2"].to(dt))
@@ -86,8 +81,14 @@ def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         p["w_decay2"].float())
     w = collector.tag("wkv_decay", torch.exp(-torch.exp(ww)))  # [B,S,D] in (0,1)
 
-    y, _ = wkv6(r.view(B, S, H, hs), k.view(B, S, H, hs), v.view(B, S, H, hs),
-                w.view(B, S, H, hs), p["u"].float(), plain=plain)
+    rh, kh, vh, wh = (t.view(B, S, H, hs) for t in (r, k, v, w))
+    s0 = None if state is None else state["wkv"]
+    if S == 1:
+        y, s_new = wkv6_sequential(rh, kh, vh, wh, p["u"].float(), s0)
+    elif s0 is None:
+        y, s_new = wkv6(rh, kh, vh, wh, p["u"].float(), plain=plain)
+    else:
+        y, s_new = wkv6_chunked(rh, kh, vh, wh, p["u"].float(), s0)
     y = collector.tag("wkv_out", y)
 
     # per-head group norm, then gate and project
@@ -96,7 +97,8 @@ def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
     yf = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, D)
     yf = yf * p["ln_x"]["scale"].float() + p["ln_x"]["bias"].float()
-    return (yf.to(dt) * g) @ p["w_o"].to(dt), None
+    out = (yf.to(dt) * g) @ p["w_o"].to(dt)
+    return out, None if state is None else {"x_prev": x[:, -1], "wkv": s_new}
 
 
 def channel_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -109,15 +111,16 @@ def channel_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def channel_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      state: dict | None = None) -> tuple[torch.Tensor, None]:
-    _refuse_state(state)
+                      state: dict | None = None
+                      ) -> tuple[torch.Tensor, dict | None]:
     dt = x.dtype
-    xx = shift_tokens(x) - x
+    xx = shift_tokens(x, None if state is None else state["x_prev"]) - x
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
     k = torch.square(F.relu(xk @ p["w_k"].to(dt)))
     kv = k @ p["w_v"].to(dt)
-    return torch.sigmoid(xr @ p["w_r"].to(dt)) * kv, None
+    out = torch.sigmoid(xr @ p["w_r"].to(dt)) * kv
+    return out, None if state is None else {"x_prev": x[:, -1]}
 
 
 def rwkv_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -130,12 +133,26 @@ def rwkv_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 def rwkv_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                      state: dict | None = None, plain: bool = False,
                      collector: Collector = NULL_COLLECTOR
-                     ) -> tuple[torch.Tensor, None]:
-    """One RWKV-6 layer; ln1/ln2 go through K1, the recurrence through K5."""
-    _refuse_state(state)
+                     ) -> tuple[torch.Tensor, dict | None]:
+    """One RWKV-6 layer; ln1/ln2 go through K1, a state-free recurrence
+    through K5.  Returns ``(x, new state or None)``."""
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    a, _ = time_mix_apply(p["att"], cfg, h, plain=plain, collector=collector)
+    a, att_new = time_mix_apply(
+        p["att"], cfg, h, state=None if state is None else state["att"],
+        plain=plain, collector=collector)
     x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    f, _ = channel_mix_apply(p["ffn"], cfg, h)
-    return x + collector.tag("ffn_resid", f), None
+    f, ffn_new = channel_mix_apply(
+        p["ffn"], cfg, h, state=None if state is None else state["ffn"])
+    x = x + collector.tag("ffn_resid", f)
+    return x, None if state is None else {"att": att_new, "ffn": ffn_new}
+
+
+def rwkv_init_state(cfg: ModelConfig, batch: int,
+                    device: torch.device | str = "cpu") -> dict:
+    """One layer's decode/prefill carry state, float32 (stacked over layers
+    by ``lm.init_cache``)."""
+    H, hs = cfg.num_heads, cfg.rwkv.head_size
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"att": {"x_prev": z(batch, cfg.d_model), "wkv": z(batch, H, hs, hs)},
+            "ffn": {"x_prev": z(batch, cfg.d_model)}}

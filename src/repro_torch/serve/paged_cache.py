@@ -7,12 +7,16 @@ different lengths share the pool densely.  Block 0 is the *null block*:
 padding entries of every block table point at it, so writes of inactive slots
 and padded positions land there harmlessly and every read masks them.
 
-The pool is a bfloat16 container, ``[n_layers, num_blocks, bs, K, dh]`` for K
-and for V, updated in place by the engine's steps.  (The JAX package widens
-it to float32 on its CPU backend to keep scatters in place; PyTorch updates a
-bfloat16 tensor in place on any device.)  Only the paged decode path of the
-dense family is ported in this slice; the gathered path, slot export/import
-and the recurrent families' slot-state leaves arrive with later slices.
+The pool mirrors the model's cache tree (``lm.init_cache``), each leaf
+stacked over its segment's groups.  Attention ``k``/``v`` are *paged*
+leaves, bfloat16 ``[n, num_blocks, bs, K, dh]``; the recurrent families'
+state (RWKV-6's ``x_prev``/``wkv``, Griffin's ``conv``/``h``) are
+*slot-state* leaves, float32 ``[n, num_slots, ...]``, a row per slot used in
+place.  ``PagedKVCache.paged`` tells them apart as JAX's does.  (The JAX
+package widens bfloat16 paged leaves to float32 on its CPU backend to keep
+scatters in place; PyTorch updates a bfloat16 tensor in place on any
+device.)  The gathered path and slot export/import arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -80,6 +84,14 @@ def pow2_bucket(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+def pow2_segments(n: int) -> list[int]:
+    """Descending binary decomposition of ``n`` (13 -> [8, 4, 1]): the exact
+    segment widths the recurrent families' prefill driver runs."""
+    if n <= 0:
+        raise ValueError(f"need n >= 1, got {n}")
+    return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n >> b & 1]
+
+
 @dataclass(frozen=True)
 class PoolSpec:
     num_slots: int
@@ -89,11 +101,33 @@ class PoolSpec:
 
 
 class PagedKVCache:
-    """The physical KV pool of a dense model: ``self.pool`` is
-    ``{"k", "v"}``, each ``[n_layers, num_blocks, bs, K, dh]`` bfloat16 on
-    ``device``, written in place by the engine steps."""
+    """The physical pool of a model: ``self.pool`` is ``lm.init_pool``'s
+    tree on ``device`` (paged attention leaves and slot-state leaves),
+    written in place by the engine steps; ``self.paged`` is its leaf-kind
+    tree (True for a paged leaf), equal to JAX's ``PagedKVCache.paged``."""
 
     def __init__(self, cfg: ModelConfig, spec: PoolSpec, device: torch.device):
         self.cfg = cfg
         self.spec = spec
-        self.pool = lm.init_pool(cfg, spec.num_blocks, spec.block_size, device)
+        self.paged = lm.paged_flags(cfg)
+        self.pool = lm.init_pool(cfg, spec.num_blocks, spec.block_size, device,
+                                 num_slots=spec.num_slots)
+
+    def scatter_prefill(self, pool: dict, filled: dict, slot: int,
+                        phys: torch.Tensor) -> None:
+        """Deposit a freshly prefilled one-row dense cache (``cache_len`` a
+        block multiple) into ``pool`` in place: paged leaves into the
+        ``phys`` [n_blk] blocks (padding entries at the null block), state
+        leaves into row ``slot``."""
+        bs = self.spec.block_size
+        n_blk = phys.shape[0]
+        idx = phys.long()
+
+        def leaf(p, f, paged):
+            if paged:
+                p[:, idx] = f[:, 0].reshape(p.shape[0], n_blk, bs, *p.shape[3:])
+            else:
+                p[:, slot] = f[:, 0]
+            return p
+
+        lm.tree_map(leaf, pool, filled, self.paged)

@@ -39,10 +39,14 @@ class ServeConfig:
     ``max_blocks_per_slot`` is the block-table width, so one sequence spans
     at most ``max_len = max_blocks_per_slot * block_size`` positions.
 
-    The engine-path knobs keep the JAX package's names.  This slice runs the
-    paged decode path with flash prefill (what ``"auto"`` picks on the card);
-    selecting the gathered or dense paths, speculative decoding or chunked
-    prefill raises ``NotImplementedError`` naming the later slice.
+    The engine-path knobs keep the JAX package's names.  The port runs the
+    paged decode path, with flash prefill for an attention-only family and
+    the dense segment prefill for a recurrent one (what ``"auto"`` picks on
+    the card); selecting the gathered path, the dense prefill of an
+    attention-only family, speculative decoding or chunked prefill raises
+    ``NotImplementedError`` naming the later slice (for a recurrent family
+    the last two raise ``ValueError`` as in JAX: its state cannot roll back
+    or be split).
     """
 
     num_slots: int = 4
@@ -51,7 +55,7 @@ class ServeConfig:
     max_blocks_per_slot: int = 16  # block-table width; max_len = this * bs
     max_prefills_per_step: int = 1 # prefill/decode interleaving bound
     decode_path: str = "auto"      # auto | paged (gathered: later slice)
-    prefill_path: str = "auto"     # auto | flash (dense: later slice)
+    prefill_path: str = "auto"     # auto | flash | dense (recurrent families)
     spec_decode: bool = False      # later slice
     chunked_prefill: bool = False  # later slice
 

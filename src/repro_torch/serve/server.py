@@ -14,12 +14,16 @@ histograms, token and preemption counters, queue-depth, active-slot and
 KV-occupancy gauges.  All of it is host bookkeeping around values a tick
 reads back anyway.
 
-This slice serves through the paged decode kernel and the flash-prefill
-kernel on the card (their plain versions on the CPU).  The gathered and dense
-paths, chunked prefill and MegaScope collectors in the engine steps
-(ROADMAP queue 1, item 5), speculative decoding (item 10), the router and
-slot migration (item 11) and precompilation (item 12b) arrive with later
-slices.
+Decode runs through the paged decode kernel (K3) on the card, its plain
+version on the CPU, for every family.  An attention-only family prefills a
+prompt through the flash-prefill kernel (K4) straight into its blocks; the
+recurrent-state families (RWKV-6, Griffin) prefill through the pow2 segment
+driver, exact segments over a dense one-row cache then scattered into the
+slot's blocks and state row, as the JAX package does.  The gathered path,
+the dense family's dense prefill, chunked prefill and MegaScope collectors
+in the engine steps (ROADMAP queue 1, item 5), speculative decoding (item
+10), the router and slot migration (item 11) and precompilation (item 12b)
+arrive with later slices.
 """
 
 from __future__ import annotations
@@ -35,8 +39,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tracing.tracer import Tracer
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve.engine import make_flash_prefill_step, make_paged_decode_step
-from repro_torch.serve.paged_cache import PagedKVCache, PoolSpec, blocks_for, pow2_bucket
+from repro_torch.serve.engine import (
+    make_flash_prefill_step,
+    make_paged_decode_step,
+    make_seg_prefill,
+)
+from repro_torch.serve.paged_cache import (
+    PagedKVCache,
+    PoolSpec,
+    blocks_for,
+    pow2_bucket,
+    pow2_segments,
+)
 from repro_torch.serve.request import Request, aggregate_metrics
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
 
@@ -80,25 +94,51 @@ class MegaServe:
         wrap_step: Callable[[Callable], Callable] | None = None,
         registry=None,
     ):
-        lm.require_paged(cfg)
         if serve_cfg.decode_path not in ("auto", "paged"):
             _refuse(f"decode_path={serve_cfg.decode_path!r}", "gathered-path",
                     "item 5")
-        if serve_cfg.prefill_path not in ("auto", "flash"):
-            _refuse(f"prefill_path={serve_cfg.prefill_path!r}", "dense-prefill",
-                    "item 5")
+        # right-padded prompts and the flash prefill need every cache leaf
+        # paged; a recurrent state integrates every position, so the state
+        # families prefill through the exact pow2 segment driver instead
+        flags = lm.tree_leaves(lm.paged_flags(cfg))
+        self._pad_prefill = bool(flags) and all(flags)
+        self._seg_ok = not self._pad_prefill
         if serve_cfg.spec_decode:
+            if self._seg_ok:
+                raise ValueError(
+                    f"{cfg.name}: spec_decode needs an attention-only KV "
+                    "cache (recurrent slot-state cannot roll back rejected "
+                    "drafts)")
             _refuse("spec_decode", "speculative-decoding", "item 10")
+        ppath = serve_cfg.prefill_path
+        if ppath == "auto":
+            ppath = "flash" if self._pad_prefill else "dense"
+        elif ppath not in ("flash", "dense"):
+            raise ValueError(f"unknown prefill_path {serve_cfg.prefill_path!r}")
+        if ppath == "flash" and not self._pad_prefill:
+            raise ValueError(
+                f"{cfg.name}: prefill_path='flash' needs the paged decode "
+                "path and an attention-only KV cache (got "
+                "decode_path='paged')")
+        if ppath == "dense" and self._pad_prefill:
+            _refuse("prefill_path='dense'", "dense-prefill", "item 5")
         if serve_cfg.chunked_prefill:
+            if self._seg_ok:
+                raise ValueError(
+                    f"{cfg.name}: chunked_prefill needs the paged decode path "
+                    "and an attention-only KV cache (recurrent slot-state "
+                    "must integrate every position in one pass); got "
+                    "decode_path='paged'")
             _refuse("chunked_prefill", "chunked-prefill", "item 5")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.device = resolve_device(device)
         self.params = lm.cast_params(
             params, getattr(torch, cfg.compute_dtype), self.device)
-        # the paged kernel and flash prefill are what "auto" picks wherever
-        # the kernels are real, which on the card they are
-        self.decode_path, self.prefill_path = "paged", "flash"
+        # the paged kernel is what "auto" picks without a collector; flash
+        # prefill is what it picks for an attention-only family wherever the
+        # kernels are real, which on the card they are
+        self.decode_path, self.prefill_path = "paged", ppath
         self.sched = Scheduler(serve_cfg)
         self.tracer = tracer or Tracer(rank=0, enabled=True)
         self.registry = registry
@@ -124,7 +164,10 @@ class MegaServe:
         bs = serve_cfg.block_size
         wrap = wrap_step or (lambda f: f)
         self._decode = wrap(make_paged_decode_step(cfg, block_size=bs))
-        self._prefill = wrap(make_flash_prefill_step(cfg, block_size=bs))
+        if self._seg_ok:
+            self._seg = wrap(make_seg_prefill(cfg))
+        else:
+            self._prefill = wrap(make_flash_prefill_step(cfg, block_size=bs))
 
     @classmethod
     def from_session(cls, session, params: Any, serve_cfg: ServeConfig, **kw):
@@ -165,9 +208,31 @@ class MegaServe:
     def _prefill_blocks(self, n_tokens: int) -> int:
         """Block count a prefill of ``n_tokens`` covers: the power-of-two
         bucket, capped at the table width (the JAX package's compile-cache
-        bucketing, kept so both sides run the same padded shapes)."""
+        bucketing, kept so both sides run the same padded shapes: the
+        flash prefill's padded prompt, the segment driver's cache length)."""
         n_blk = blocks_for(n_tokens, self.serve_cfg.block_size)
         return min(pow2_bucket(n_blk), self.serve_cfg.max_blocks_per_slot)
+
+    def _seg_prefill(self, tokens: list[int], slot: int,
+                     phys: list[int]) -> torch.Tensor:
+        """The recurrent families' prefill (JAX ``_make_seg_driver``): the
+        prompt's descending pow2 segments, exact (no token invented), each
+        through the segment step over one dense one-row cache of the
+        bucketed length, then that cache scattered into the slot's pool
+        blocks (``phys`` padded to the bucket width with the null block) and
+        state row.  Returns the last position's logits."""
+        n_blk = self._prefill_blocks(len(tokens))
+        cache = lm.init_cache(self.cfg, 1, n_blk * self.serve_cfg.block_size,
+                              device=self.device)
+        toks = self._tensor([tokens], torch.int64)
+        off = 0
+        for w in pow2_segments(len(tokens)):
+            logits = self._seg(self.params, cache, toks[:, off:off + w], off)
+            off += w
+        self.kv.scatter_prefill(
+            self.pool, cache, slot,
+            self._tensor(phys + [0] * (n_blk - len(phys)), torch.int32))
+        return logits
 
     def _tensor(self, values, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype).to(self.device)
@@ -197,23 +262,28 @@ class MegaServe:
                     self.registry.histogram(
                         self._m("queue_wait_s")).observe(wait)
             n_real = len(adm.tokens)
-            n_blk = self._prefill_blocks(n_real)
-            # right-pad tokens to the bucketed length and the block list to
-            # the bucket width with null-block entries (their K/V land in
-            # block 0, which every read masks out)
-            toks = list(adm.tokens) + [0] * (n_blk * self.serve_cfg.block_size - n_real)
-            phys = list(adm.phys) + [0] * (n_blk - len(adm.phys))
             t_pre = self._clock()
             with self.tracer.scope(
                 "prefill", kind="compute", rid=adm.rid, slot=adm.slot,
                 tokens=n_real, recompute=adm.is_recompute,
                 step=self.step_idx,
             ):
-                logits = self._prefill(
-                    self.params, self.pool,
-                    self._tensor([phys], torch.int32),
-                    self._tensor([toks], torch.int64), n_real,
-                )
+                if self._seg_ok:
+                    logits = self._seg_prefill(list(adm.tokens), adm.slot,
+                                               list(adm.phys))
+                else:
+                    # right-pad tokens to the bucketed length and the block
+                    # list to the bucket width with null-block entries
+                    # (their K/V land in block 0, which every read masks out)
+                    n_blk = self._prefill_blocks(n_real)
+                    toks = list(adm.tokens) + [0] * (
+                        n_blk * self.serve_cfg.block_size - n_real)
+                    phys = list(adm.phys) + [0] * (n_blk - len(adm.phys))
+                    logits = self._prefill(
+                        self.params, self.pool,
+                        self._tensor([phys], torch.int32),
+                        self._tensor([toks], torch.int64), n_real,
+                    )
                 tok = int(torch.argmax(logits))  # reads back: ends device work
             now = self._clock()
             self._emit(adm.slot, tok)

@@ -191,7 +191,7 @@ def test_prefill_kernel_across_tile_edges(cuda, S, Q, H, K, dh, bs, kv_lens, win
 
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_wrong_operands(cuda):
-    q = torch.zeros((1, 1, 4, 64), device=cuda)          # float32, not bf16
+    q = torch.zeros((1, 1, 4, 64), device=cuda, dtype=torch.float16)  # not bf16 or f32
     kp = torch.zeros((4, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
     tbl = torch.zeros((1, 2), device=cuda, dtype=torch.int32)
     kvl = torch.ones((1,), device=cuda, dtype=torch.int32)
@@ -626,6 +626,124 @@ def test_rglru_wrappers_refuse_wrong_operands(cuda):
         rglru_fwd_kernel(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="shape"):
         rglru_fwd_kernel(a, a[:, :4].contiguous())
+
+
+# ------------------------------- card: K3 at Griffin's head dim 256 ---
+
+
+# recurrentgemma-9b's attention (16 query heads over one kv head of 256,
+# window 2048): ragged kv_len around the window, the window's first live
+# position kv_len - 2048 across K3's split edges (127, 128, 129, 256), and no
+# window; bfloat16 queries and a float32 model's; each run twice for the
+# same bits
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,kv_lens,window,layered", [
+    (256, [1, 2047, 2048, 2049, 3000, 4096, 129, 2176], 2048, True),
+    (200, [2175, 2176, 2177, 2304, 2047], 2048, False),
+    (192, [1, 300, 2100, 3064], None, True),
+])
+def test_decode_kernel_at_head_dim_256_matches_plain(cuda, M, kv_lens, window, layered,
+                                                     q_dtype):
+    rng = np.random.default_rng(17)
+    S, H, K, dh, bs = len(kv_lens), 16, 1, 256, 16
+    lead = (2,) if layered else ()
+    kp, vp = _card_pools(rng, lead, 1 + M * S, bs, K, dh, cuda)
+    q = _card_queries(rng, (S, 1, H, dh), cuda).to(q_dtype)
+    tbl = torch.from_numpy(_tables(S, M, kv_lens, bs)).to(cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(scale=dh ** -0.5, window=window, layer=1 if layered else None)
+    o = paged_decode_kernel(q, kp, vp, tbl, kvl, **kw)
+    again = paged_decode_kernel(q, kp, vp, tbl, kvl, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_plain(q, kp, vp, tbl, kvl, **kw)
+    assert o.dtype == q_dtype
+    assert _row_err(o, ref) <= PAGED_ROW_RTOL
+    assert torch.equal(o, again)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_shared_memory_past_the_device_limit(cuda):
+    """Q = 5 at head dim 256 (a verify step of 16 query heads over one kv
+    head) needs 258,368 bytes of shared memory a split block, past the 227
+    KB a block may opt into: refused before any launch."""
+    from repro_torch.kernels.paged_attention.ops import (
+        shared_memory_bytes, shared_memory_limit)
+
+    assert shared_memory_bytes("paged_decode", H=16, K=1, dh=256, Q=5) > \
+        shared_memory_limit(cuda) >= shared_memory_bytes("paged_decode", H=16, K=1, dh=256)
+    rng = np.random.default_rng(0)
+    kp, vp = _card_pools(rng, (), 9, 16, 1, 256, cuda)
+    q = _card_queries(rng, (1, 5, 16, 256), cuda)
+    tbl = torch.arange(1, 9, dtype=torch.int32, device=cuda)[None]
+    kvl = torch.tensor([100], dtype=torch.int32, device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        paged_decode_kernel(q, kp, vp, tbl, kvl, scale=0.0625)
+    assert launches["paged_decode"] == 0
+
+
+# ------------------------- card: the recurrent families' served streams ---
+
+
+def _plain_replay(cfg, params, prompt, forced, dev, bs=16):
+    """Teacher-forced logits of ``forced`` after ``prompt`` through the
+    plain versions, as MegaServe runs a recurrent family: the prompt's pow2
+    segments over a dense cache, scattered into a pool, then paged decode."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import make_paged_decode_step, make_seg_prefill
+    from repro_torch.serve.paged_cache import (
+        PagedKVCache, PoolSpec, blocks_for, pow2_bucket, pow2_segments)
+
+    n_blk = blocks_for(len(prompt) + len(forced), bs)
+    bucket = min(pow2_bucket(blocks_for(len(prompt), bs)), n_blk)
+    kv = PagedKVCache(cfg, PoolSpec(num_slots=1, num_blocks=n_blk + 1, block_size=bs,
+                                    max_blocks=n_blk), dev)
+    cache = lm.init_cache(cfg, 1, bucket * bs, device=dev)
+    seg = make_seg_prefill(cfg, plain=True)
+    toks, off = torch.tensor([prompt], device=dev), 0
+    for w in pow2_segments(len(prompt)):
+        logits = seg(params, cache, toks[:, off:off + w], off)
+        off += w
+    table = torch.arange(1, n_blk + 1, dtype=torch.int32, device=dev)[None]
+    kv.scatter_prefill(kv.pool, cache, 0, table[0, :bucket])
+    decode = make_paged_decode_step(cfg, block_size=bs, plain=True)
+    out = [logits]
+    for i, tok in enumerate(forced[:-1]):
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+        out.append(decode(params, kv.pool, table, torch.tensor([tok], device=dev), pos)[0])
+    return torch.stack(out).float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_served_recurrent_smoke_stream_follows_the_plain_replay(cuda, arch):
+    """MegaServe on the card (bf16 smoke config, kernels) serves prompts of
+    45 and 13 tokens (a clamped 32-wide segment, then exact ones) for 40
+    steps, Griffin's decode past its window of 32; wherever the plain
+    replay's top two logits lie more than ``LOGIT_TOL`` (chip_smoke.py's
+    0.25) apart, the served token is the plain replay's choice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import MegaServe, ServeConfig
+
+    logit_tol = 0.25
+    cfg = get_config(arch, smoke=True)
+    srv = MegaServe(cfg, lm.init(cfg, seed=0, device=cuda), ServeConfig(
+        num_slots=2, block_size=16, num_blocks=17, max_blocks_per_slot=8), device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (45, 13)]
+    rids = [srv.submit(p, 40) for p in prompts]
+    streams = srv.drain()
+    checked = 0
+    for rid, prompt in zip(rids, prompts):
+        lp = _plain_replay(cfg, srv.params, prompt, streams[rid], cuda)[:, :cfg.vocab_size]
+        top2 = lp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > logit_tol
+        served = torch.tensor(streams[rid], device=cuda)
+        assert torch.equal(served[clear], lp.argmax(-1)[clear])
+        checked += int(clear.sum())
+    assert checked > 0
 
 
 # --------------------------------- card: K2 at Griffin's head dim 256 ---

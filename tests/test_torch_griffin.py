@@ -148,11 +148,16 @@ def test_causal_conv1d_matches_jax():
     x = _x(cfg, seed=2)
     w = rng.standard_normal((4, cfg.d_model)).astype(np.float32)
     bias = rng.standard_normal(cfg.d_model).astype(np.float32)
-    ref, _ = jscan.causal_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
-    _close(scan_utils.causal_conv1d(*map(torch.from_numpy, (x, w, bias))), ref)
-    with pytest.raises(NotImplementedError, match="Griffin serving slice"):
-        scan_utils.causal_conv1d(*map(torch.from_numpy, (x, w, bias)),
-                                 prev=torch.from_numpy(x[:, :3]))
+    ref, ref_prev = jscan.causal_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
+    y, new_prev = scan_utils.causal_conv1d(*map(torch.from_numpy, (x, w, bias)))
+    _close(y, ref)
+    _close(new_prev, ref_prev)
+    # a carried context (prefill and decode): y and the context carried on
+    ref, ref_prev = jscan.causal_conv1d(*map(jnp.asarray, (x, w, bias, x[:, :3])))
+    y, new_prev = scan_utils.causal_conv1d(*map(torch.from_numpy, (x, w, bias)),
+                                           prev=torch.from_numpy(x[:, :3]))
+    _close(y, ref)
+    _close(new_prev, ref_prev)
 
 
 @pytest.mark.parametrize("fn", ["rglru", "recurrent", "rec_block", "attn_block"])
@@ -275,21 +280,60 @@ def test_five_step_trajectory_matches_jax(grad_accum):
 
 
 def test_carried_state_and_serving_are_refused():
-    """A carried state, the paged forward and MegaServe belong to the Griffin
-    serving slice; the train path is the only Griffin path ported."""
-    _, cfg = _cfgs()
-    params = lm.init(cfg, seed=0, device="cpu")
-    p = lm._layer(params["seg0"]["b0"], 0)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="Griffin serving slice"):
-        griffin.recurrent_block_apply(p["mix"], cfg, x, state={"h": x[:, 0]})
-    with pytest.raises(NotImplementedError, match="Griffin serving slice"):
-        lm.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long), pool={})
-    with pytest.raises(NotImplementedError, match="Griffin serving slice"):
-        MegaServe(cfg, params, ServeConfig(), device="cpu")
-    with pytest.raises(SystemExit, match="Griffin serving slice"):
-        cli.main(["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
-                  "--continuous"])
+    """Refused until the Griffin serving slice, now ported: a carried state
+    through the recurrent block equals JAX's (output and new state), one
+    decode tick over the pool (an attention leaf paged, the recurrent
+    leaves a row per slot) equals JAX's paged forward, MegaServe serves and
+    the CLI completes (tests/test_torch_serve_recurrent.py holds the
+    streams to JAX's)."""
+    from repro.kernels.paged_attention.ops import PagedInfo as JPagedInfo
+    from repro.serve.paged_cache import PagedKVCache as JPagedKVCache
+    from repro.serve.paged_cache import PoolSpec as JPoolSpec
+    from repro_torch.kernels.paged_attention import PagedInfo
+
+    jcfg, cfg = _cfgs()
+    jparams = _jax_params()
+    p = _layer0(jparams["seg0"]["b0"])["mix"]
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 4, cfg.d_model)).astype(np.float32)
+    st = {"conv": rng.standard_normal((2, 3, cfg.lru_width)).astype(np.float32),
+          "h": rng.standard_normal((2, cfg.lru_width)).astype(np.float32)}
+    ref, jnew = jgriffin.recurrent_block_apply(
+        jax.tree.map(jnp.asarray, p), jcfg, jnp.asarray(x),
+        state=jax.tree.map(jnp.asarray, st))
+    ours, new = griffin.recurrent_block_apply(
+        from_jax_params(p, device="cpu"), cfg, torch.from_numpy(x),
+        state=from_jax_params(st, device="cpu"))
+    _close(ours, ref)
+    for k in ("conv", "h"):
+        _close(new[k], jnew[k], what=k)
+
+    params = from_jax_params(jparams, device="cpu")
+    tables = np.asarray([[1, 2], [3, 4]], np.int32)
+    toks, pos = np.asarray([[3], [7]], np.int32), np.asarray([0, 5], np.int32)
+    jkv = JPagedKVCache(jcfg, JPoolSpec(num_slots=2, num_blocks=5, block_size=8,
+                                        max_blocks=2))
+    hid, _, _ = jlm.forward(
+        jcfg, jax.tree.map(jnp.asarray, jparams), {"tokens": jnp.asarray(toks)},
+        cache=jkv.pool, cache_pos=jnp.asarray(pos),
+        paged=JPagedInfo(tables=jnp.asarray(tables), block_size=8, impl="xla"),
+        paged_flags=jkv.paged)
+    pool = lm.init_pool(cfg, 5, 8, torch.device("cpu"), num_slots=2)
+    with torch.inference_mode():
+        h, _ = lm.forward(cfg, params, torch.from_numpy(toks).long(), pool=pool,
+                          cache_pos=torch.from_numpy(pos),
+                          paged=PagedInfo(tables=torch.from_numpy(tables), block_size=8))
+    _close(h, hid)
+    assert pool["seg0"]["b0"]["h"].abs().sum() > 0  # the slots' rows were written
+
+    srv = MegaServe(cfg, params, ServeConfig(num_slots=2, block_size=8, num_blocks=17,
+                                             max_blocks_per_slot=4), device="cpu")
+    srv.submit([5, 6, 7], 3)
+    assert [len(s) for s in srv.drain().values()] == [3]
+    out = cli.run(["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--continuous", "--requests", "2", "--rate", "300", "--slots",
+                   "2", "--max-new", "3", "--prompt-lens", "5"])
+    assert out["metrics"]["finished"] == 2
 
 
 def test_cli_trains_griffin_on_the_cpu():

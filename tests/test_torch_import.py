@@ -75,3 +75,21 @@ def test_the_pipeline_modules_are_guarded():
         path = PORT.parent.joinpath(*m.split("."))
         assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
                 else path / "__init__.py") in SOURCES
+
+
+def test_the_recurrent_serving_modules_are_guarded():
+    """The modules the recurrent serving slice touched (the carried-state
+    recurrences, the families' blocks, the cache and pool, the engine, the
+    server, the session and CLI, generation, the paged kernels' wrapper)
+    are among those imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.models.scan_utils", "repro_torch.models.rwkv",
+              "repro_torch.models.griffin", "repro_torch.models.layers",
+              "repro_torch.models.lm", "repro_torch.models.model",
+              "repro_torch.serve.paged_cache", "repro_torch.serve.engine",
+              "repro_torch.serve.server", "repro_torch.app.session",
+              "repro_torch.app.cli", "repro_torch.core.scope.generation",
+              "repro_torch.kernels.paged_attention.ops",
+              "repro_torch.kernels.rglru.ops", "repro_torch.kernels.wkv6.ops"):
+        assert m in mods, m
+        assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES

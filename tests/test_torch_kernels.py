@@ -216,16 +216,19 @@ def test_plain_prefill_redirects_out_of_reach_writes_to_null_block():
 
 @pytest.mark.parametrize("dh", [8, 48, 256])
 def test_kernel_wrappers_refuse_head_dims_they_are_not_built_for(dh):
-    """K3 and K4 are instantiated for head dims 16, 32, 64 and 128; any other
-    is refused before anything is built or launched (the check runs first,
-    so it shows on CPU tensors too)."""
+    """K3 is instantiated for head dims 16, 32, 64, 128 and 256, K4 for the
+    first four; any other is refused before anything is built or launched
+    (the check runs first, so it shows on CPU tensors too), K4's refusal at
+    256 naming its ROADMAP entry.  A head dim K3 takes gets past the check
+    to the device check: the CPU tensors are refused there."""
     q = torch.zeros((1, 2, 4, dh), dtype=torch.bfloat16)
     pool = torch.zeros((3, 16, 2, dh), dtype=torch.bfloat16)
     tbl = torch.ones((1, 1), dtype=torch.int32)
     kvl = torch.full((1,), 2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="card" if dh == 256 else "head dim"):
         paged_decode_kernel(q, pool, pool, tbl, kvl, scale=0.1)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP" if dh == 256
+                       else "head dim"):
         paged_prefill_kernel(q, pool, pool, tbl, kvl, scale=0.1)
 
 

@@ -152,7 +152,7 @@ def _run_both(arch, compute_dtype, seed=1):
         pos = pos + 1
     flips = sum(
         int((np.asarray(jpool["seg0"]["b0"][n], np.float32)
-             != pool[n].float().numpy()).sum()) for n in ("k", "v"))
+             != pool["seg0"]["b0"][n].float().numpy()).sum()) for n in ("k", "v"))
     return outs_j, outs_t, flips
 
 

@@ -153,7 +153,7 @@ def test_scan_differentiates_through_autograd_and_refuses_a_state():
     for g, gr in zip(grads, _lru_vjp(*map(jnp.asarray, (a, b, dy, dh)))[1]):
         _close(g, gr)
     assert launches == before
-    with pytest.raises(NotImplementedError, match="Griffin serving slice"):
+    with pytest.raises(NotImplementedError, match="zero state.*lru_scan"):
         rglru_scan(ta, tb, h0=torch.zeros((B, W)))
 
 

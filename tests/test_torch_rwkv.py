@@ -137,22 +137,75 @@ def test_rwkv_functions_match_jax(fn):
     _close(ours, ref, what=fn)
 
 
+def _state_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _state_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
 def test_carried_state_and_serving_are_refused():
-    """A carried state, the paged forward and MegaServe belong to the RWKV
-    serving slice; the train path is the only RWKV-6 path ported."""
-    _, cfg = _cfgs()
-    params = lm.init(cfg, seed=0, device="cpu")
-    p = lm._layer(params["seg0"]["b0"], 0)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="RWKV serving slice"):
-        rwkv.time_mix_apply(p["att"], cfg, x, state={"x_prev": x[:, 0]})
-    with pytest.raises(NotImplementedError, match="RWKV serving slice"):
-        lm.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long), pool={})
-    with pytest.raises(NotImplementedError, match="RWKV serving slice"):
-        MegaServe(cfg, params, ServeConfig(), device="cpu")
-    with pytest.raises(SystemExit, match="RWKV serving slice"):
-        cli.main(["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
-                  "--continuous"])
+    """Refused until the RWKV serving slice, now ported: a carried state
+    through the time mix, the channel mix and the block equals JAX's
+    (output and new state), one decode tick over the pool (every leaf a
+    row per slot) equals JAX's paged forward, MegaServe serves and the CLI
+    completes (tests/test_torch_serve_recurrent.py holds the streams to
+    JAX's)."""
+    from repro.kernels.paged_attention.ops import PagedInfo as JPagedInfo
+    from repro.serve.paged_cache import PagedKVCache as JPagedKVCache
+    from repro.serve.paged_cache import PoolSpec as JPoolSpec
+    from repro_torch.kernels.paged_attention import PagedInfo
+
+    jcfg, cfg = _cfgs()
+    jparams = _jax_params(jcfg)
+    p = _layer0(jparams["seg0"]["b0"])
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 4, cfg.d_model)).astype(np.float32)
+    H, N, D = cfg.num_heads, cfg.rwkv.head_size, cfg.d_model
+    st = {"att": {"x_prev": rng.standard_normal((2, D)).astype(np.float32),
+                  "wkv": rng.standard_normal((2, H, N, N)).astype(np.float32)},
+          "ffn": {"x_prev": rng.standard_normal((2, D)).astype(np.float32)}}
+    for jfn, tfn, key in ((jrwkv.time_mix_apply, rwkv.time_mix_apply, "att"),
+                          (jrwkv.channel_mix_apply, rwkv.channel_mix_apply, "ffn"),
+                          (jrwkv.rwkv_block_apply, rwkv.rwkv_block_apply, None)):
+        jp = p if key is None else p[key]
+        js = st if key is None else st[key]
+        ref, jnew = jfn(jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(x),
+                        state=jax.tree.map(jnp.asarray, js))
+        ours, new = tfn(from_jax_params(jp, device="cpu"), cfg, torch.from_numpy(x),
+                        state=from_jax_params(js, device="cpu"))
+        _close(ours, ref, what=tfn.__name__)
+        for path, a in _state_leaves(new):
+            _close(a, dict(_state_leaves(jnew))[path], what=f"{tfn.__name__} {path}")
+
+    params = from_jax_params(jparams, device="cpu")
+    tables = np.zeros((2, 1), np.int32)
+    toks, pos = np.asarray([[3], [7]], np.int32), np.asarray([4, 9], np.int32)
+    jkv = JPagedKVCache(jcfg, JPoolSpec(num_slots=2, num_blocks=2, block_size=8,
+                                        max_blocks=1))
+    assert not any(jax.tree.leaves(jkv.paged))
+    hid, _, _ = jlm.forward(
+        jcfg, jax.tree.map(jnp.asarray, jparams), {"tokens": jnp.asarray(toks)},
+        cache=jkv.pool, cache_pos=jnp.asarray(pos),
+        paged=JPagedInfo(tables=jnp.asarray(tables), block_size=8, impl="xla"),
+        paged_flags=jkv.paged)
+    pool = lm.init_pool(cfg, 2, 8, torch.device("cpu"), num_slots=2)
+    with torch.inference_mode():
+        h, _ = lm.forward(cfg, params, torch.from_numpy(toks).long(), pool=pool,
+                          cache_pos=torch.from_numpy(pos),
+                          paged=PagedInfo(tables=torch.from_numpy(tables), block_size=8))
+    _close(h, hid)
+    assert pool["seg0"]["b0"]["att"]["wkv"].abs().sum() > 0
+
+    srv = MegaServe(cfg, params, ServeConfig(num_slots=2, block_size=8, num_blocks=17,
+                                             max_blocks_per_slot=4), device="cpu")
+    srv.submit([5, 6, 7], 3)
+    assert [len(s) for s in srv.drain().values()] == [3]
+    out = cli.run(["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--continuous", "--requests", "2", "--rate", "300", "--slots",
+                   "2", "--max-new", "3", "--prompt-lens", "5"])
+    assert out["metrics"]["finished"] == 2
 
 
 @pytest.mark.parametrize("half_scale", [False, True], ids=["init", "half"])

@@ -470,9 +470,31 @@ def test_generation_first_step_equals_jax_generate_with_scope():
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
 def test_generation_over_a_carried_state_is_refused(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        scope.generate_with_scope(cfg, {}, torch.zeros((1, 4), dtype=torch.long), 2)
+    """Refused until the recurrent serving slice, now ported: over the
+    recurrent families' carried state (and Griffin's windowed KV cache) a
+    36-token prompt and 6 steps (past Griffin's smoke window of 32) give
+    JAX's tokens and top-k and its probabilities within 1e-5, held to a JAX
+    loop with each step's token fed back and, on the first step, to JAX's
+    own ``generate_with_scope`` (R6)."""
+    jcfg, cfg = _cfgs(arch)
+    params = _jax_params(jcfg)
+    jp = jax.tree.map(jnp.asarray, params)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 36)).astype(np.int32)
+    probes = ["final_hidden:stats"]
+    ref = _jax_greedy(jcfg, jp, jnp.asarray(prompt), 6,
+                      jscope.ScopeCollector(probes=_specs(probes, jscope)))
+    records, toks = scope.generate_with_scope(
+        cfg, from_jax_params(params, device="cpu"), torch.from_numpy(prompt).long(), 6,
+        scope.ScopeCollector(probes=_specs(probes, scope)))
+    assert toks[0].tolist() == [r.token for r in records] == [t for t, *_ in ref]
+    for r, (tok, prob, tk_i, tk_p, caps) in zip(records, ref):
+        assert r.topk_tokens == tk_i.tolist()
+        np.testing.assert_allclose(r.topk_probs, tk_p, atol=1e-5)
+        assert abs(r.prob - prob) <= 1e-5
+        _assert_tree_close(r.captures, caps, CAP_TOL)
+    jrec, _ = jscope.generate_with_scope(jcfg, jp, jnp.asarray(prompt), 1)
+    assert records[0].token == jrec[0].token
+    assert records[0].topk_tokens == jrec[0].topk_tokens
 
 
 # ------------------------------------------------------- pca, dashboard ---
