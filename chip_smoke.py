@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              smoke width (dh 16), at K3's split edges and K4's tile edges,
              K3 also at recurrentgemma-9b's (H=16, K=1, dh=256, window 2048,
              its first live position across split edges, and on float32
-             queries), held row by row; RMSNorm forward and backward (K1, Triton;
+             queries), K4 also at the served verify shape (8 slots, Q=5,
+             ragged kv_len, pad rows past a table's reach) and chunk shapes
+             (Q=32 and 256 over a cached prefix), held row by row; RMSNorm forward and backward (K1, Triton;
              also at rwkv6-3b's width 2560 and recurrentgemma-9b's 4096) and
              flash attention forward and backward (K2) at the training
              path's shapes, at small ragged ones and across its tiles'
@@ -25,7 +27,8 @@ Phases, each of which fails the run (non-zero exit) on error:
              (``scaled_dot_product_attention``, its backward alone for K2's
              backward; ``F.rms_norm``, its backward alone for K1's backward,
              K1 and its yardstick through CUDA graphs) at the main paths'
-             shapes (K3 also at one Griffin decode tick, dh 256), and
+             shapes (K3 also at one Griffin decode tick, dh 256; K4 also
+             at one verify step and one 32-token chunk), and
              splits K2's backward into its kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
@@ -54,6 +57,23 @@ Phases, each of which fails the run (non-zero exit) on error:
              paged kernels' exact launches, one TTFT sample a request in
              the metrics registry, the tick medians beside the direct
              run's;
+   serve-paths — MegaServe's single-engine paths on the serve phase's
+             model and pool, 8 Poisson requests (prompts 128/512/2048, 8-32
+             new tokens): the paged flash path; chunked prefill (chunks of
+             32); speculation (spec_k 4) with the n-gram drafter, then with
+             a drafter replaying that run's streams (all drafts accepted,
+             or a rejection at a near-tie, logged); a ``final_hidden``
+             stats probe on the gathered path (2 requests); each also
+             through ``Session``, and static serving (batch 4 x 128, 16
+             new) through it against ``StaticRunner``.  Every request
+             finished, K4, K3 and K1 launched exactly as the prefills,
+             chunks, verify steps and ticks say, the chunked and
+             speculative streams teacher-forced through their own paths
+             (chunks of 32; verify rows of 5), kernels against plain,
+             within ``LOGIT_TOL``, a capture on every gathered-path token,
+             the Session's chunked streams the direct run's, the static
+             outputs ``StaticRunner``'s; tokens/s, TTFT, tick medians,
+             acceptance and tokens per verify step logged;
    serve-rwkv6, serve-griffin — rwkv6-3b (32 layers) and
              recurrentgemma-9b (all 38 layers; the float32 init and its
              bf16 copy peak near 70 GB, then the float32 tree is freed)
@@ -212,6 +232,21 @@ SERVE = dict(n=32, rate=40.0, prompt_lens=(128, 512, 2048),
 # one decode tick of the serve phase's shape: 8 slots at kv_len of prompts
 # 128/512/2048 plus generated tokens, table width 132
 TICK_KV_LENS = [2112, 544, 160, 2080, 530, 140, 2100, 600]
+# the serve_paths phase: MegaServe's single-engine paths on qwen2-0.5b at full
+# width and depth, the serve phase's weights and pool, 8 Poisson requests a
+# mode (the CLI derives max_new's lower end as max_new // 4, so the direct
+# runs take the Session's 8-32); chunked prefill at the default chunk of 2
+# blocks, speculation at spec_k 4; the MegaScope probe on the gathered path
+# serves the first 2 requests; static serving a batch of 4 prompts of 128
+PATHS = dict(n=8, rate=40.0, prompt_lens=(128, 512, 2048), max_new_range=(8, 32),
+             num_slots=8, block_size=BS, seed=0)
+CHUNK = 2 * BS
+SPEC_K = 4
+SCOPE_REQUESTS = 2
+STATIC = dict(batch=4, prompt_len=128, max_new=16)
+# a verify step's kv_len for the kernel rows: TICK_KV_LENS with the first
+# slot 3 positions past its 132-entry table (its pad rows)
+VERIFY_PAD_KV_LENS = [2115, 544, 160, 2080, 530, 140, 2100, 600]
 # the recurrent families served: rwkv6-3b and recurrentgemma-9b at full width
 # and depth, seed-0 weights, bf16, 8 slots of block 16.  rwkv6's prompts run
 # pow2 segments of both WKV forms (127 = 64 + 32 + 16 + ... + 1, 2047 all
@@ -402,7 +437,9 @@ SMOKE_HEADS = (4, 2, 16)               # the smoke configs' H, K, dh
 
 def make_case(torch, gen, dev, *, S, Q, kv_lens, layers, M=None, qk_norm=False,
               heads=(H, K, DH)):
-    """Random bf16 pools with distinct blocks per slot, tables, kv_len, q."""
+    """Random bf16 pools with distinct blocks per slot, tables, kv_len, q;
+    a slot whose kv_len lies past ``M * BS`` holds ``M`` blocks (its last
+    rows are the verify step's pad rows, whose writes go to the null block)."""
     H_, K_, D = heads
     M = M or max(-(-k // BS) for k in kv_lens)
     nb = 1 + sum(-(-k // BS) for k in kv_lens)
@@ -412,7 +449,7 @@ def make_case(torch, gen, dev, *, S, Q, kv_lens, layers, M=None, qk_norm=False,
     tables = torch.zeros((S, M), dtype=torch.int32)
     nxt = 1
     for s, kvl in enumerate(kv_lens):
-        n = -(-kvl // BS)
+        n = min(-(-kvl // BS), M)  # a slot past its table's reach keeps M blocks
         tables[s, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
         nxt += n
     q = torch.randn((S, Q, H_, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -429,8 +466,8 @@ def check_kernels(torch, dev) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = dict.fromkeys(("paged_decode", "paged_prefill", "paged_decode_dh256"),
-                          (0.0, 0.0))
+    worst = dict.fromkeys(("paged_decode", "paged_prefill", "paged_decode_dh256",
+                           "paged_prefill_verify", "paged_prefill_chunk"), (0.0, 0.0))
 
     def decode(c, layer, window=None):
         if c.get("q_f32"):
@@ -527,6 +564,22 @@ def check_kernels(torch, dev) -> dict:
         ("paged_prefill", "Q=77 dh=16 smoke heads H=4 K=2, 2 slots (kv 77, 200)",
          lambda: prefill(case(S=2, Q=77, kv_lens=[77, 200], layers=0,
                               heads=SMOKE_HEADS), None, None)),
+        # the served regimes over a cached prefix (no q_start): the
+        # speculative verify step, Q = SPEC_K + 1 over 8 ragged slots, one
+        # slot's last 3 rows past its 132-entry table (pad rows), and the
+        # chunked prefill's chunks of 32 and 256 at block-aligned starts
+        ("paged_prefill_verify", "S=8 Q=5 kv_len 140-2115 (3 rows past M=132), 5-D",
+         lambda: prefill(case(S=8, Q=SPEC_K + 1, kv_lens=VERIFY_PAD_KV_LENS,
+                              layers=3, M=132), 2, None)),
+        ("paged_prefill_verify", "S=8 Q=5 kv_len TICK_KV_LENS, 4-D pool",
+         lambda: prefill(case(S=8, Q=SPEC_K + 1, kv_lens=TICK_KV_LENS, layers=0,
+                              M=132), None, None)),
+        ("paged_prefill_chunk", "S=1 Q=32 chunks at kv_len 32, 544, 2048, 5-D",
+         lambda: tuple(map(max, *(prefill(case(S=1, Q=CHUNK, kv_lens=[n], layers=2),
+                                          1, None) for n in (32, 544, 2048))))),
+        ("paged_prefill_chunk", "S=1 Q=256 chunks at kv_len 256, 1024, 2048, 4-D",
+         lambda: tuple(map(max, *(prefill(case(S=1, Q=256, kv_lens=[n], layers=0),
+                                          None, None) for n in (256, 1024, 2048))))),
     ]
     for name, what, run in cases:
         abs_err, row_err = run()
@@ -628,6 +681,70 @@ def time_kernels(torch, dev, worst: dict) -> dict:
     log(f"[timing] paged_prefill P={P} q_start=0 24-layer pool: kernel_ms={ms:.4f} "
         f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.6f} ({b_by})")
     out["paged_decode_dh256"] = _time_decode_dh256(torch, gen, dev, worst)
+    out.update(_time_prefill_served(torch, gen, dev, worst))
+    return out
+
+
+def _time_prefill_served(torch, gen, dev, worst: dict) -> dict:
+    """K4 at the serve_paths phase's shapes: one verify step (8 slots, Q =
+    SPEC_K + 1, kv_len ``TICK_KV_LENS``, table width 132) over the 24-layer
+    pool, and the last 32-token chunk of a 2048-token prompt (kv_len 2048)
+    over a 96-layer pool (24 layers' K/V of one slot fit the 50 MB L2, where
+    a served chunk finds them cold); successive launches walk successive
+    layers.  Kernel and SDPA (over the dense view, gathered beforehand,
+    each query row masked at its limit ``kv_len - (Q - 1 - i)``) through
+    CUDA graphs; the plain version host-paced.  ``bound_ms`` reads q and the
+    live K/V once, writes the output, and counts each row's visible keys."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import (
+        paged_prefill_kernel, paged_prefill_plain_from_raw)
+
+    scale = DH ** -0.5
+    out = {}
+    layer = iter(range(10 ** 9))
+    for key, S, Q, kv_lens, M, n_layers in (
+            ("paged_prefill_verify", 8, SPEC_K + 1, TICK_KV_LENS, 132, 24),
+            ("paged_prefill_chunk", 1, CHUNK, [2048], 128, 96)):
+        c = make_case(torch, gen, dev, S=S, Q=Q, kv_lens=kv_lens, layers=n_layers, M=M)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
+        positions = (c["kv_len"].long()[:, None] - Q
+                     + torch.arange(Q, device=dev)[None, :])
+        kw = dict(scale=scale, rope_theta=1e6)
+        ms = cuda_ms(lambda: paged_prefill_kernel(*args, layer=next(layer) % n_layers,
+                                                  **kw), 96, graph=True)
+        paced = cuda_ms(lambda: paged_prefill_kernel(*args, layer=next(layer) % n_layers,
+                                                     **kw), 96)
+        plain = cuda_ms(lambda: paged_prefill_plain_from_raw(
+            *args, positions=positions, layer=next(layer) % n_layers, **kw), 12)
+        T = max(kv_lens)
+        kd = torch.zeros((S, H, T, DH), dtype=torch.bfloat16, device=dev)
+        vd = torch.zeros_like(kd)
+        for s, n in enumerate(kv_lens):
+            blocks = c["tables"][s, : -(-n // BS)].long()
+            for src, dst in ((c["k"][0], kd), (c["v"][0], vd)):
+                dense = src[blocks].reshape(-1, K, DH)[:n]
+                dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H // K, 0)
+        limit = c["kv_len"][:, None] - (Q - 1) + torch.arange(Q, device=dev)[None, :]
+        mask = (torch.arange(T, device=dev)[None, None, :] < limit[:, :, None])[:, None]
+        qd = c["q"].permute(0, 2, 1, 3).contiguous()             # [S, H, Q, dh]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  scale=scale)
+
+        lib = cuda_ms(sdpa, 96, graph=True)
+        keys = int(limit.clamp(min=0).sum())
+        nbytes = (2 * (2 * S * Q * H * DH) + 2 * 2 * sum(kv_lens) * K * DH
+                  + 4 * (S * M + S))
+        b_ms, b_by = bound(4 * keys * H * DH, nbytes)
+        out[key] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=worst[key][0],
+                        max_row_err=worst[key][1], tolerance=FLASH_ROW_RTOL)
+        log(f"[timing] {key} S={S} Q={Q} kv_len={kv_lens} M={M} {n_layers}-layer "
+            f"pool: kernel_ms={ms:.4f} (graph; host-paced {paced:.4f}) "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (graph) "
+            f"bound_ms={b_ms:.6f} ({b_by})")
     return out
 
 
@@ -1422,6 +1539,406 @@ def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
     return counts
 
 
+# ------------------------------------------------------- serve_paths
+
+
+class _ReplayDrafter:
+    """A test-only drafter: for the request whose prompt starts the history,
+    the continuation a reference run emitted, while the history follows
+    that run's stream; nothing once it has left it."""
+
+    def __init__(self, refs: dict[tuple, list[int]]):
+        self.refs = refs
+        self.lens = sorted({len(p) for p in refs})
+
+    def propose(self, history: list[int], k: int) -> list[int]:
+        for n in self.lens:
+            stream = self.refs.get(tuple(history[:n]))
+            if stream is not None:
+                gen = history[n:]
+                if gen != stream[:len(gen)]:
+                    return []
+                return stream[len(gen):len(gen) + k]
+        return []
+
+
+def _paths_server(torch, cfg, scfg, **kw):
+    from repro_torch.models import lm
+    from repro_torch.serve.server import MegaServe
+
+    return MegaServe(cfg, lm.init(cfg, seed=0, device="cuda"), scfg, device="cuda", **kw)
+
+
+def _free(torch) -> None:
+    gc.collect()  # a server holds itself in a reference cycle
+    torch.cuda.empty_cache()
+
+
+def _counted(torch, fn):
+    """``fn()``'s result and the paged kernels' and K1's launches in it."""
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.paged_attention import launches, reset_launches
+
+    reset_launches()
+    rmsnorm.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**launches, **rmsnorm.launches}
+
+
+def _expect_launches(tag: str, cfg, counts: dict, events, *, static_steps: int = 0) -> dict:
+    """Each forward launches K1 once a norm (2L + 1, no qk_norm in qwen2);
+    K4 once a layer for every flash prefill, chunk and verify step; K3 once
+    a layer for every paged decode tick; the gathered path's decode and the
+    dense prefill (its prefill events when ``gathered``) run no paged
+    kernel, one B=1 forward per active slot.  Fails unless ``counts``
+    equal what the events say."""
+    L = cfg.num_layers
+    n = {k: 0 for k in ("prefill", "prefill_chunk", "decode", "verify")}
+    slot_forwards = 0
+    for e in events:
+        if e.name in n:
+            n[e.name] += 1
+            if e.name == "decode":
+                slot_forwards += e.args.get("active", 0)
+    gathered = tag.endswith("gathered")
+    if static_steps:
+        want = {"paged_prefill": 0, "paged_decode": 0,
+                "rmsnorm_fwd": (2 * L + 1) * static_steps}
+    elif gathered:
+        want = {"paged_prefill": 0, "paged_decode": 0,
+                "rmsnorm_fwd": (2 * L + 1) * (n["prefill"] + slot_forwards)}
+    else:
+        want = {"paged_prefill": L * (n["prefill"] + n["prefill_chunk"] + n["verify"]),
+                "paged_decode": L * n["decode"],
+                "rmsnorm_fwd": (2 * L + 1) * sum(n.values())}
+    want["rmsnorm_bwd"] = 0
+    got = {k: counts[k] for k in want}
+    log(f"[serve-paths] {tag}: events {n}; launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"serve-paths {tag}: launches {got} != {want}")
+    return n
+
+
+def _paths_metrics(tag: str, met: dict, events) -> None:
+    def med(name):
+        d = [e.dur for e in events if e.name == name]
+        return f"{1e3 * statistics.median(d):.3f} ms x{len(d)}" if d else "none"
+
+    spec = ""
+    if "spec_proposed" in met:
+        ver = [e for e in events if e.name == "verify"]
+        emitted = sum(e.args["tokens"] for e in ver)
+        spec = (f" spec_proposed={met['spec_proposed']} spec_accepted="
+                f"{met['spec_accepted']} accept_rate={met['spec_accept_rate']:.3f}"
+                f" tokens_per_verify_step={emitted / max(len(ver), 1):.3f}"
+                f" tokens_per_slot_verify="
+                f"{emitted / max(sum(e.args['active'] for e in ver), 1):.3f}")
+    log(f"[serve-paths] {tag}: finished={met['finished']} tokens={met['generated_tokens']} "
+        f"tokens_per_s={met['tokens_per_s']:.2f} ttft_p50_s={met['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={met['ttft_p99_s']:.4f} wall_s={met['wall_s']:.3f} "
+        f"steps={met['steps']}; decode tick {med('decode')}, chunk {med('prefill_chunk')}, "
+        f"verify {med('verify')}, prefill {med('prefill')}{spec}")
+
+
+def _check_streams(tag: str, cfg, specs, streams: dict) -> None:
+    for s in specs:
+        toks = streams[s.rid]
+        if len(toks) != s.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"serve-paths {tag}: request {s.rid}: bad stream "
+                                 f"{toks[:8]}...")
+
+
+def _replay_chunked(torch, cfg, params, prompt, forced, *, plain, max_blocks):
+    """Teacher-forced logits of ``forced`` after ``prompt`` through the
+    chunked prefill path: the prompt in ``CHUNK``-token chunks at block
+    starts (table widths bucketed as MegaServe buckets them), then paged
+    decode, one token at a time, in a pool of its own."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import make_chunk_prefill_step, make_paged_decode_step
+    from repro_torch.serve.paged_cache import blocks_for, pow2_bucket
+
+    dev = torch.device("cuda")
+    step = make_chunk_prefill_step(cfg, block_size=BS, plain=plain)
+    decode = make_paged_decode_step(cfg, block_size=BS, plain=plain)
+    pool = lm.init_pool(cfg, max_blocks + 1, BS, dev)
+    table = torch.arange(1, max_blocks + 1, dtype=torch.int32, device=dev)[None]
+    P = len(prompt)
+    for w in range(0, P, CHUNK):
+        chunk = prompt[w:w + CHUNK]
+        n_last = (P - 1 - w) if w + CHUNK >= P else len(chunk) - 1
+        width = min(pow2_bucket(blocks_for(w + CHUNK, BS)), max_blocks)
+        logits, _ = step(params, pool, table[:, :width].contiguous(),
+                         torch.tensor([chunk + [0] * (CHUNK - len(chunk))], device=dev),
+                         torch.tensor([w], dtype=torch.int32, device=dev), n_last)
+    out = [logits]
+    for i, tok in enumerate(forced[:-1]):
+        pos = P + i
+        hb = min(pow2_bucket(blocks_for(pos + 1, BS)), max_blocks)
+        out.append(decode(params, pool, table[:, :hb].contiguous(),
+                          torch.tensor([tok], device=dev),
+                          torch.tensor([pos], dtype=torch.int32, device=dev))[0][0])
+    return torch.stack(out).float()
+
+
+def _replay_verify(torch, cfg, params, prompt, forced, *, plain, max_blocks):
+    """Teacher-forced logits of ``forced`` after ``prompt`` through the
+    speculative path: the flash prefill of the padded prompt, then verify
+    steps of Q = SPEC_K + 1 rows (the last committed token and the next
+    SPEC_K tokens of ``forced`` as the draft, all accepted; the last step's
+    missing rows padded), in a pool of its own."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import make_flash_prefill_step, make_spec_verify_step
+    from repro_torch.serve.paged_cache import blocks_for, pow2_bucket
+
+    dev = torch.device("cuda")
+    prefill = make_flash_prefill_step(cfg, block_size=BS, plain=plain)
+    verify = make_spec_verify_step(cfg, block_size=BS, plain=plain)
+    pool = lm.init_pool(cfg, max_blocks + 1, BS, dev)
+    table = torch.arange(1, max_blocks + 1, dtype=torch.int32, device=dev)[None]
+    P = len(prompt)
+    n_blk = min(pow2_bucket(blocks_for(P, BS)), max_blocks)
+    toks = torch.tensor([prompt + [0] * (n_blk * BS - P)], device=dev)
+    rows = [prefill(params, pool, table[:, :n_blk].contiguous(), toks, P)[0]]
+    j, pos = 0, P
+    while j < len(forced) - 1:
+        d = forced[j + 1:j + 1 + SPEC_K]
+        hb = min(pow2_bucket(blocks_for(pos + 1 + len(d), BS)), max_blocks)
+        logits, _ = verify(params, pool, table[:, :hb].contiguous(),
+                           torch.tensor([[forced[j]] + d + [0] * (SPEC_K - len(d))],
+                                        device=dev),
+                           torch.tensor([pos], dtype=torch.int32, device=dev))
+        rows.extend(logits[0, :len(d) + 1])
+        j += len(d) + 1
+        pos += len(d) + 1
+    return torch.stack(rows[:len(forced)]).float()
+
+
+def _teacher_forced_paths(torch, cfg, params, specs, prompts, streams, replay_fn,
+                          tag: str, max_blocks: int) -> None:
+    """Every stream replayed teacher-forced through ``replay_fn``'s path,
+    the kernels against the plain versions: logits within ``LOGIT_TOL``,
+    each served token within it of the plain path's largest logit."""
+    V = cfg.vocab_size
+    worst = 0.0
+    for s in specs:
+        forced, prompt = streams[s.rid], prompts[s.rid]
+        lk = replay_fn(torch, cfg, params, prompt, forced, plain=False,
+                       max_blocks=max_blocks)
+        lp = replay_fn(torch, cfg, params, prompt, forced, plain=True,
+                       max_blocks=max_blocks)
+        err = (lk[:, :V] - lp[:, :V]).abs().max().item()
+        idx = torch.tensor(forced, device=lp.device)[:, None]
+        gap = (lp[:, :V].max(-1).values - lp.gather(1, idx)[:, 0]).max().item()
+        agree = (lk[:, :V].argmax(-1) == lp[:, :V].argmax(-1)).float().mean().item()
+        ok = err <= LOGIT_TOL and gap <= LOGIT_TOL and bool(torch.isfinite(lk).all())
+        worst = max(worst, err)
+        log(f"[serve-paths] {tag} rid={s.rid} prompt={len(prompt)} steps={len(forced)} "
+            f"max_logit_err={err:.4f} max_gap_to_plain_max={gap:.4f} "
+            f"argmax_agree={agree:.3f} tol={LOGIT_TOL} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve-paths {tag}: teacher-forced check failed "
+                                 f"for rid {s.rid}")
+    log(f"[serve-paths] {tag}: {len(specs)} streams, worst max_logit_err {worst:.4f}")
+
+
+def serve_paths(torch, smi: str, tag: str = "serve-paths") -> dict:
+    """MegaServe's single-engine paths on full-width, full-depth qwen2-0.5b
+    (seed-0 weights, bf16, 8 slots of block 16, the serve phase's pool of
+    blocks) on :data:`PATHS`' 8 Poisson requests: the paged flash path as
+    the base; chunked prefill; speculation with the n-gram drafter and with
+    a drafter replaying that run's own streams; the MegaScope probe on the
+    gathered path (2 requests); static serving.  Each through MegaServe (or
+    ``StaticRunner``) and once through ``Session``.  Gates: every request
+    finishes with a valid stream; K4, K3 and K1 launch exactly as the
+    prefills, chunks, verify steps and ticks say; the chunked and the
+    speculative streams replayed teacher-forced through their own paths,
+    kernels against plain versions, within ``LOGIT_TOL``; the replaying
+    drafter's drafts all accepted (a rejection passes only at a near-tie of
+    its verify row, logged); a capture on every gathered-path token; the
+    Session's chunked streams equal the direct run's; static serving's
+    outputs equal ``StaticRunner``'s.  Returns the verify and chunk K4
+    launch counts of the direct runs."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.scope import ProbeSpec, ScopeCollector
+    from repro_torch.models import lm
+    from repro_torch.serve.server import StaticRunner, make_poisson_workload
+
+    cfg = get_config("qwen2-0.5b")
+    L = cfg.num_layers
+    pool_blocks = make_poisson_workload(cfg, **SERVE)[2].num_blocks
+    specs, prompts, scfg = make_poisson_workload(cfg, **PATHS, num_blocks=pool_blocks)
+    M = scfg.max_blocks_per_slot
+    log(f"[{tag}] {cfg.name} {L} layers, {len(specs)} requests, prompts "
+        f"{sorted({s.prompt_len for s in specs})}, max_new "
+        f"{[s.max_new for s in specs]}; {scfg.num_slots} slots, {scfg.num_blocks} "
+        f"blocks x {BS}, table width {M}; chunk {CHUNK}, spec_k {SPEC_K} ({smi})")
+
+    def run(name, extra=None, *, subset=specs, arrivals=True, **kw):
+        srv = _paths_server(torch, cfg, replace(scfg, **(extra or {})), **kw)
+
+        def drain():
+            for sp in subset:
+                srv.submit(prompts[sp.rid], sp.max_new,
+                           arrival=sp.arrival if arrivals else 0.0, rid=sp.rid)
+            return srv.drain()
+
+        streams, counts = _counted(torch, drain)
+        met, events = srv.metrics(), list(srv.trace_events())
+        if met["finished"] != len(subset):
+            raise AssertionError(f"{tag} {name}: {met['finished']} of {len(subset)} "
+                                 "requests finished")
+        _check_streams(name, cfg, subset, streams)
+        n = _expect_launches(name, cfg, counts, events)
+        _paths_metrics(name, met, events)
+        return srv, streams, n
+
+    # warm-up (cuBLAS handles, the allocator) on the base path, then the base
+    srv, _, _ = run("warm-up", subset=specs[:2])
+    del srv
+    srv, base, _ = run("base paged flash")
+    params = srv.params
+    del srv
+    _free(torch)
+
+    # (a) chunked prefill
+    srv, chunked, n_chunk = run("chunked", dict(chunked_prefill=True))
+    del srv
+    same = sum(chunked[s.rid] == base[s.rid] for s in specs)
+    log(f"[{tag}] chunked streams equal to the base path's: {same} of {len(specs)}")
+    _teacher_forced_paths(torch, cfg, params, specs, prompts, chunked,
+                          _replay_chunked, "chunked teacher-forced", M)
+    _free(torch)
+
+    # (b) speculation: the n-gram drafter, then a drafter replaying its streams
+    srv, spec, n_ver = run("spec ngram", dict(spec_decode=True, spec_k=SPEC_K))
+    del srv
+    same = sum(spec[s.rid] == base[s.rid] for s in specs)
+    log(f"[{tag}] speculative streams equal to the base path's: {same} of {len(specs)}")
+    _teacher_forced_paths(torch, cfg, params, specs, prompts, spec,
+                          _replay_verify, "spec teacher-forced", M)
+    refs = {tuple(prompts[s.rid]): spec[s.rid] for s in specs}
+    srv, replayed, _ = run("spec replay", dict(spec_decode=True, spec_k=SPEC_K),
+                           drafter=_ReplayDrafter(refs))
+    met = srv.metrics()
+    del srv
+    parted = [s for s in specs if replayed[s.rid] != spec[s.rid]]
+    log(f"[{tag}] replaying drafter: proposed {met['spec_proposed']} accepted "
+        f"{met['spec_accepted']}; streams parting from the replayed ones: "
+        f"{[s.rid for s in parted]}")
+    if met["spec_accepted"] != met["spec_proposed"] or parted:
+        # a draft is rejected only where the verify row's argmax differs from
+        # the replayed run's token: allowed at a near-tie of that row alone
+        for s in parted or specs:
+            lk = _replay_verify(torch, cfg, params, prompts[s.rid], spec[s.rid],
+                                plain=False, max_blocks=M)[:, :cfg.vocab_size]
+            i = next((i for i, (a, b) in enumerate(zip(replayed[s.rid], spec[s.rid]))
+                      if a != b), None)
+            if i is None:
+                continue
+            top2 = lk[i].topk(2).values
+            near = (top2[0] - top2[1]).item()
+            log(f"[{tag}] rid={s.rid} parts at token {i}: top-2 gap {near:.4f} "
+                f"(tol {LOGIT_TOL})")
+            if near > LOGIT_TOL:
+                raise AssertionError(f"{tag}: a replayed draft was rejected away "
+                                     f"from a near-tie (rid {s.rid}, token {i})")
+    _free(torch)
+
+    # (c) the MegaScope probe on the gathered path
+    scope = ScopeCollector(probes=[ProbeSpec("final_hidden", "stats")])
+    srv, _, _ = run("scope gathered", subset=specs[:SCOPE_REQUESTS], collector=scope)
+    if srv.decode_path != "gathered":
+        raise AssertionError(f"{tag}: a collector did not pick the gathered path")
+    items = [it for s in specs[:SCOPE_REQUESTS] for it in srv.streams[s.rid]]
+    _check_stream_captures(torch, tag, items)
+    del srv
+    _free(torch)
+
+    # the same modes through the Session, as python -m repro_torch runs them
+    argv = ["serve", "--arch", cfg.name, "--continuous",
+            "--requests", str(PATHS["n"]), "--rate", str(PATHS["rate"]),
+            "--prompt-lens", ",".join(map(str, PATHS["prompt_lens"])),
+            "--max-new", str(PATHS["max_new_range"][1]),
+            "--slots", str(PATHS["num_slots"]), "--block-size", str(BS),
+            "--num-blocks", str(pool_blocks), "--seed", str(PATHS["seed"]),
+            "--modules", "scan,metrics"]
+    if PATHS["max_new_range"][0] != max(1, PATHS["max_new_range"][1] // 4):
+        raise AssertionError("the CLI derives max_new's lower end as max_new // 4")
+    for name, extra, direct in (
+            ("session chunked", ["--chunked-prefill"], chunked),
+            ("session spec ngram", ["--spec-decode", "--spec-k", str(SPEC_K)], spec),
+            ("session scope gathered",
+             ["--requests", str(SCOPE_REQUESTS), "--modules", "scan,metrics,scope",
+              "--set", "scope.probes=final_hidden:stats"], None)):
+        log(f"[{tag}] python -m repro_torch {' '.join(argv + extra)}")
+        (session, (streams, met)), counts = _counted(
+            torch, lambda: _session([*argv, *extra]))
+        subset = specs[:SCOPE_REQUESTS] if direct is None else specs
+        if met["finished"] != len(subset):
+            raise AssertionError(f"{tag} {name}: not every request finished")
+        _check_streams(name, cfg, subset, streams)
+        _expect_launches(name, cfg, counts, session.tracer.events)
+        _paths_metrics(name, met, session.tracer.events)
+        res = session.results
+        log(f"[{tag}] {name}: decode_path={res['decode_path']} "
+            f"prefill_path={res['prefill_path']}")
+        if direct is None:
+            items = [it for s in res["stream_items"].values() for it in s]
+            _check_stream_captures(torch, tag, items)
+            log(f"[{tag}] {name}: scope report {res['scope']['captured']}")
+        else:
+            same = sum(streams[s.rid] == direct[s.rid] for s in specs)
+            log(f"[{tag}] {name}: streams equal to the direct run's: {same} of "
+                f"{len(specs)}")
+            if name == "session chunked" and same != len(specs):
+                raise AssertionError(f"{tag}: the Session's chunked streams differ "
+                                     "from the direct run's")
+        del session
+        _free(torch)
+
+    # (d) static serving through the Session against StaticRunner
+    sargv = ["serve", "--arch", cfg.name, "--batch", str(STATIC["batch"]),
+             "--prompt-len", str(STATIC["prompt_len"]), "--max-new",
+             str(STATIC["max_new"]), "--seed", "0", "--modules", "scan,metrics"]
+    log(f"[{tag}] python -m repro_torch {' '.join(sargv)}")
+    (session, (gen, smet)), counts = _counted(torch, lambda: _session(sargv))
+    _expect_launches("session static", cfg, counts, [], static_steps=STATIC["max_new"])
+    static_prompts = session.results["static_prompts"]
+    del session
+    runner = StaticRunner(cfg, lm.init(cfg, seed=0, device="cuda"), device="cuda")
+    (ref, rmet), rcounts = _counted(torch, lambda: runner.run(
+        [(p, STATIC["max_new"], 0.0) for p in static_prompts],
+        batch_size=STATIC["batch"]))
+    _expect_launches("static runner", cfg, rcounts, [], static_steps=STATIC["max_new"])
+    log(f"[{tag}] static: batch {STATIC['batch']} x prompt {STATIC['prompt_len']}, "
+        f"{STATIC['max_new']} new: prefill_ms={1e3 * smet['prefill_s']:.2f} "
+        f"decode_tok_s={smet['decode_tok_s']:.1f}; StaticRunner tokens_per_s="
+        f"{rmet['tokens_per_s']:.2f}")
+    if gen != [ref[i] for i in range(STATIC["batch"])]:
+        raise AssertionError(f"{tag}: static serving's outputs differ from StaticRunner's")
+    del runner, params
+    _free(torch)
+    return {"paged_prefill_verify": L * n_ver["verify"],
+            "paged_prefill_chunk": L * n_chunk["prefill_chunk"]}
+
+
+def _check_stream_captures(torch, tag: str, items) -> None:
+    """Every stream token carries a finite ``final_hidden`` stats capture."""
+    import numpy as np
+
+    bad = [it.step for it in items
+           if not all(np.isfinite(v).all()
+                      for v in it.captures.get("top", {}).get("final_hidden.stats",
+                                                               {None: [np.nan]}).values())]
+    log(f"[{tag}] {len(items)} stream tokens, {len(items) - len(bad)} with a finite "
+        f"final_hidden capture")
+    if not items or bad:
+        raise AssertionError(f"{tag}: tokens without a final_hidden capture: {bad[:8]}")
+
+
 def replay(torch, cfg, params, prompt, forced, *, plain):
     """Teacher-forced logits ``[len(forced), V]``: prefill ``prompt``, then
     decode ``forced[:-1]`` one token at a time, in a pool of its own.  An
@@ -1444,7 +1961,7 @@ def replay(torch, cfg, params, prompt, forced, *, plain):
         pool = lm.init_pool(cfg, n_blk + 1, BS, dev)
         prefill = make_flash_prefill_step(cfg, block_size=BS, plain=plain)
         toks = torch.tensor([prompt + [0] * (p_blk * BS - len(prompt))], device=dev)
-        out = [prefill(params, pool, table[:, :p_blk].contiguous(), toks, len(prompt))]
+        out = [prefill(params, pool, table[:, :p_blk].contiguous(), toks, len(prompt))[0]]
     else:
         kv = PagedKVCache(cfg, PoolSpec(num_slots=1, num_blocks=n_blk + 1, block_size=BS,
                                         max_blocks=n_blk), dev)
@@ -1454,14 +1971,14 @@ def replay(torch, cfg, params, prompt, forced, *, plain):
         seg = make_seg_prefill(cfg, plain=plain)
         toks, off = torch.tensor([prompt], device=dev), 0
         for w in pow2_segments(len(prompt)):
-            logits = seg(params, cache, toks[:, off:off + w], off)
+            logits, _ = seg(params, cache, toks[:, off:off + w], off)
             off += w
         kv.scatter_prefill(pool, cache, 0, table[0, :bucket])
         del cache
         out = [logits]
     for i, tok in enumerate(forced[:-1]):
         pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
-        out.append(decode(params, pool, table, torch.tensor([tok], device=dev), pos)[0])
+        out.append(decode(params, pool, table, torch.tensor([tok], device=dev), pos)[0][0])
     return torch.stack(out).float()
 
 
@@ -1565,7 +2082,7 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5, kv_lens=TICK_KV_LENS
     pos = torch.tensor([n - 1 for n in kv_lens], dtype=torch.int32, device=dev)
 
     def tick():
-        return step(params, pool, tables, toks, pos).argmax(-1).tolist()
+        return step(params, pool, tables, toks, pos)[0].argmax(-1).tolist()
 
     for _ in range(3):
         tick()
@@ -3106,6 +3623,8 @@ def main() -> int:
     counts = serve_session(torch, cfg, specs, streams, ticks_off, smi)
     torch.cuda.empty_cache()
     phase("serve through the Session")
+    counts.update(serve_paths(torch, smi))
+    phase("serve paths: chunked, speculative, gathered with scope, static")
     serve_recurrent(torch, dev, "rwkv6-3b", RWKV_SERVE, smi)
     phase("rwkv6 serve and teacher-forced check")
     griffin_serve_counts = serve_recurrent(torch, dev, "recurrentgemma-9b", GRIFFIN_SERVE,
@@ -3176,7 +3695,9 @@ def main() -> int:
     recurrent_scope_phase(torch, smi)
     phase("scope on rwkv6 and griffin")
 
-    # launches: the paged kernels' from the serve phase, K1's and K2's from
+    # launches: the paged kernels' from the serve phase (K4 at the verify
+    # and chunk shapes: the serve-paths phase's verify steps and chunks x
+    # layers), K1's and K2's from
     # the qwen2 train phase (K2 at dh 256: the griffin train phase), K5's
     # from the rwkv6 train phase, K6's from the griffin train phase (K1's
     # serve, rwkv6 and griffin counts are checked in those phases); K1's
@@ -3199,6 +3720,10 @@ def main() -> int:
          "src/repro/kernels/paged_attention/prefill_kernel.py:176", None),
         ("paged_decode_dh256", "cuda", _build.SOURCES["paged_decode"],
          "src/repro/kernels/paged_attention/kernel.py:139", None),
+        ("paged_prefill_verify", "cuda", _build.SOURCES["paged_prefill"],
+         "src/repro/kernels/paged_attention/prefill_kernel.py:176", None),
+        ("paged_prefill_chunk", "cuda", _build.SOURCES["paged_prefill"],
+         "src/repro/kernels/paged_attention/prefill_kernel.py:176", None),
         ("rmsnorm_fwd", "triton", norm_path, norm_src, None),
         ("rmsnorm_bwd", "triton", norm_path, norm_src, None),
         ("flash_fwd", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),

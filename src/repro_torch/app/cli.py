@@ -9,6 +9,10 @@
         --metrics-out m.jsonl --ckpt-dir ckpt --ckpt-every 4
     python -m repro_torch serve --arch qwen2-0.5b --continuous
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu
+    python -m repro_torch serve --arch qwen2-0.5b --smoke --device cpu   # static
+    python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu \
+        --chunked-prefill        # or --spec-decode [--drafter random],
+                                 # --decode-path gathered, --modules scope
     python -m repro_torch trace --slow-rank 5 --iters 2 --out artifacts/megascan
 
 The flag table is the JAX CLI's, with the same layering (most specific
@@ -93,8 +97,8 @@ _TRAIN = [
 _SERVE = [
     ("--continuous", "serve.continuous", dict(
         action="store_true",
-        help="MegaServe continuous batching (the only serving path ported "
-             "so far)")),
+        help="MegaServe continuous batching (without it: the static "
+             "lockstep baseline)")),
     ("--batch", "serve.batch", dict(type=int)),
     ("--prompt-len", "serve.prompt_len", dict(type=int)),
     ("--max-new", "serve.max_new", dict(type=int)),
@@ -200,8 +204,9 @@ def parse(argv: list[str]):
 def run(argv: list[str], *, model_cfg=None) -> dict:
     """Parse and run a workload.  Returns ``{"session": Session}`` (its
     ``results`` hold the plugin reports under the JAX package's names) and
-    the workload's own keys: train's ``history``; serve's ``metrics``,
-    ``streams`` and ``serve_config``; trace's ``diagnosis`` (and ``truth``
+    the workload's own keys: train's ``history``; serve's ``metrics`` and,
+    continuous, ``streams`` and ``serve_config`` or, static, ``outputs``
+    and ``prompts``; trace's ``diagnosis`` (and ``truth``
     when simulated).  ``model_cfg`` overrides the ``--arch`` lookup."""
     from repro_torch.app.session import Session
 
@@ -223,17 +228,38 @@ def run(argv: list[str], *, model_cfg=None) -> dict:
                   f"step_ms {1e3 * h['step_s']:.1f}")
         print(json.dumps(reports, default=str))
         return {"session": session, "history": history}
+    if workload == "serve" and not cfg.serve.continuous:
+        gen, met = out
+        s = cfg.serve
+        print(f"arch={session.model_cfg.name} static device={session.device} "
+              f"batch={s.batch} prompt={s.prompt_len} new={s.max_new}")
+        print(f"prefill: {met['prefill_s'] * 1e3:.1f} ms "
+              f"({met['prefill_tok_s']:.0f} tok/s)")
+        print(f"decode : {met['decode_s'] * 1e3:.1f} ms "
+              f"({met['decode_tok_s']:.0f} tok/s)")
+        for b in range(min(s.batch, 2)):
+            print(f"  seq {b}: {gen[b][:12]}...")
+        print(json.dumps(reports, default=str))
+        return {"session": session, "metrics": met, "outputs": gen,
+                "prompts": res["static_prompts"]}
     if workload == "serve":
         outs, met = out
         sc = res["serve_config"]
+        s = cfg.serve
         print(f"arch={session.model_cfg.name} continuous "
               f"device={session.device} slots={sc['num_slots']} "
               f"blocks={sc['num_blocks']}x{sc['block_size']} "
               f"requests={len(outs)} decode_path={res['decode_path']} "
-              f"prefill_path={res['prefill_path']}")
-        for k in ("generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
-                  "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
-                  "latency_p50_s", "latency_p99_s", "preemptions", "steps"):
+              f"prefill_path={res['prefill_path']}"
+              + (f" spec_k={s.spec_k} drafter={s.drafter}" if s.spec_decode
+                 else "")
+              + (" chunked_prefill" if s.chunked_prefill else ""))
+        keys = ["generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
+                "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
+                "latency_p50_s", "latency_p99_s", "preemptions", "steps"]
+        if s.spec_decode:
+            keys += ["spec_proposed", "spec_accepted", "spec_accept_rate"]
+        for k in keys:
             v = met[k]
             print(f"  {k:16s} {v:.4f}" if isinstance(v, float) else f"  {k:16s} {v}")
         for rid in list(outs)[:2]:

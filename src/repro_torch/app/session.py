@@ -14,21 +14,24 @@ A Session owns the pieces every entry point shares:
 Workloads: ``train`` (the train loop on one device; with ``parallel.pp >
 1`` through MegaDPP's pipeline, every stage on that device, MegaFBD's
 decoupled backward attached by ``parallel.fbd_backward``), ``serve``
-(MegaServe continuous batching), ``trace`` (offline MegaScan: simulate/load
--> align -> detect, host only).  What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: meshes, data and tensor
-parallelism (item 8b), static serving and MegaScope probes in serving (item
-5), the router (item 11), the compile cache (item 12b), online detection
-and rank events (item 9) and ``dryrun`` (item 14b).
+(MegaServe continuous batching, every single-engine path and MegaScope
+probes included, or the static lockstep baseline), ``trace`` (offline
+MegaScan: simulate/load -> align -> detect, host only).  What the port does
+not run yet raises ``NotImplementedError`` naming its ROADMAP item: meshes,
+data and tensor parallelism (item 8b), the router and bursty or diurnal
+traffic (item 11), the compile cache (item 12b), online detection and rank
+events (item 9) and ``dryrun`` (item 14b).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import time
 from pathlib import Path
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.app.config import RunConfig
@@ -262,24 +265,19 @@ class Session:
 
     # -------------------------------------------------------------- serve
     def serve(self):
-        """The serving workload, MegaServe continuous batching: returns
-        ``(outputs, metrics)``."""
+        """The serving workload: returns ``(outputs, metrics)``.
+
+        ``serve.continuous`` drives MegaServe (paged KV cache, scheduler,
+        optional chunked prefill and speculation, MegaScope captures);
+        otherwise the static lockstep baseline runs."""
         cfg = self.model_cfg
         if cfg is None:
             raise ValueError("serve workload needs an --arch")
         s, r = self.run_cfg.serve, self.run_cfg.router
-        if not s.continuous:
-            raise NotImplementedError(
-                "static lockstep serving is ported in a later slice (ROADMAP "
-                "queue 1, item 5); pass --continuous")
-        if self.collector is not NULL_COLLECTOR:
-            # JAX's decode_path "auto" turns to the gathered path under a
-            # live collector (its per-slot captures); the port has no
-            # gathered path yet
-            raise _later("MegaScope probes in serving (the gathered decode "
-                         "path)", "item 5")
         if cfg.input_kind != "tokens":
-            raise ValueError(f"{cfg.name}: continuous serving needs token archs")
+            raise ValueError(f"{cfg.name}: serving needs token archs")
+        if not s.continuous:
+            return self._serve_static()
         if s.temperature != 0.0:
             raise ValueError(
                 "continuous serving decodes greedily "
@@ -296,6 +294,7 @@ class Session:
         from repro_torch.device import resolve_device
         from repro_torch.models import lm
         from repro_torch.serve.server import MegaServe, make_poisson_workload
+        from repro_torch.serve.spec import get_drafter
 
         cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
         params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device))
@@ -307,10 +306,15 @@ class Session:
         )
         serve_cfg = replace(
             serve_cfg, decode_path=s.decode_path,
-            prefill_path=s.prefill_path, spec_decode=s.spec_decode,
-            chunked_prefill=s.chunked_prefill,
+            prefill_path=s.prefill_path,
+            spec_decode=s.spec_decode, spec_k=s.spec_k,
+            chunked_prefill=s.chunked_prefill, chunk_len=s.chunk_len,
         )
-        srv = MegaServe.from_session(self, params, serve_cfg)
+        drafter = None
+        if s.spec_decode and s.drafter != "ngram":
+            drafter = get_drafter(s.drafter, vocab_size=cfg.vocab_size,
+                                  seed=rc.seed)
+        srv = MegaServe.from_session(self, params, serve_cfg, drafter=drafter)
         del params  # the server holds its own compute-dtype copy
         for spec in specs:
             srv.submit(prompts[spec.rid], spec.max_new, arrival=spec.arrival)
@@ -321,10 +325,79 @@ class Session:
             "block_size": serve_cfg.block_size,
             "num_blocks": serve_cfg.num_blocks,
         }
+        # MegaServe attaches probe captures per generated token (StreamItem),
+        # not per tick: replay them through on_step so capture-observing
+        # plugins (MegaScope) see serving captures as they see training ones
+        if self.collector is not NULL_COLLECTOR:
+            for items in srv.streams.values():
+                for it in items:
+                    if it.captures:
+                        self.notify_step([], {"captures": it.captures})
         self.results["serve_metrics"] = metrics
         self.results["decode_path"] = srv.decode_path
         self.results["prefill_path"] = srv.prefill_path
+        self.results["stream_items"] = srv.streams
         return outs, metrics
+
+    def _serve_static(self):
+        """Static lockstep serving (JAX ``_serve_static``): ``serve.batch``
+        random prompts of ``serve.prompt_len`` tokens (numpy, from the run's
+        seed) prefilled together over a dense cache, then ``max_new - 1``
+        lockstep decode steps.  Greedy whatever ``--temperature`` says, as
+        the JAX package's keyless ``sample`` is (ROADMAP R7).  Returns
+        ``(tokens [B, max_new] as lists, metrics)``; the prompts land in
+        ``results["static_prompts"]``."""
+        from repro_torch.device import resolve_device
+        from repro_torch.models import lm
+        from repro_torch.serve.engine import make_decode_step, make_prefill_step
+        from repro_torch.serve.sampler import sample
+
+        cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
+        dev = resolve_device(self.device)
+        params = lm.cast_params(lm.init(cfg, seed=rc.seed, device=dev),
+                                getattr(torch, cfg.compute_dtype), dev)
+        B, P = s.batch, s.prompt_len
+        cache = lm.init_cache(cfg, B, P + s.max_new, device=dev)
+        prompts = np.random.default_rng(rc.seed).integers(
+            2, cfg.vocab_size, size=(B, P))
+        prefill = self.wrap_step(make_prefill_step(cfg, self.collector))
+        decode = self.wrap_step(make_decode_step(
+            cfg, self.collector, temperature=s.temperature))
+
+        t0 = time.perf_counter()
+        n_ev = len(self.tracer.events)
+        with self.tracer.scope("prefill", kind="compute", tokens=B * P, batch=B):
+            logits, _ = prefill(params, torch.as_tensor(prompts, device=dev), cache)
+            tok = sample(logits, temperature=s.temperature)
+            outs = [tok.tolist()]  # reads back: ends device work
+        t_prefill = time.perf_counter() - t0
+        self.notify_step(self.tracer.events[n_ev:], {})
+
+        t0 = time.perf_counter()
+        for i in range(s.max_new - 1):
+            n_ev = len(self.tracer.events)
+            with self.tracer.scope("decode", kind="compute", step=i, active=B,
+                                   tokens=B):
+                _, tok, _ = decode(params, cache, tok, P + i)
+                outs.append(tok.tolist())
+            self.notify_step(self.tracer.events[n_ev:], {})
+        t_decode = time.perf_counter() - t0
+
+        gen = [list(row) for row in zip(*outs)]
+        metrics = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "prefill_tok_s": B * P / max(t_prefill, 1e-9),
+            "decode_tok_s": B * (s.max_new - 1) / max(t_decode, 1e-9),
+        }
+        if self.metrics_registry is not None:
+            reg = self.metrics_registry
+            reg.histogram("serve.prefill_s").observe(t_prefill)
+            reg.counter("serve.tokens").inc(B * s.max_new)
+            reg.gauge("serve.decode_tok_s").set(metrics["decode_tok_s"])
+        self.results["serve_metrics"] = metrics
+        self.results["static_prompts"] = prompts.tolist()
+        return gen, metrics
 
     # -------------------------------------------------------------- trace
     def trace(self):

@@ -278,6 +278,41 @@ def paged_attention(
     return o[:, 0] if squeeze else o
 
 
+def scatter_kv(
+    k_new: torch.Tensor,    # [S, Q, K, dh] keys, normed and roped
+    vv: torch.Tensor,       # [S, Q, K, dv] values
+    k_pool: torch.Tensor,   # [(n_layers,) num_blocks, bs, K, dh], updated in place
+    v_pool: torch.Tensor,
+    *,
+    tables: torch.Tensor,   # [S, M] int32
+    positions: torch.Tensor,  # [S, Q] int write positions per slot
+    block_size: int,
+    layer: int | None = None,
+) -> torch.Tensor:
+    """The bfloat16 quantization of the new K/V and their scatter into the
+    blocks owning each slot's write positions, in place (the JAX package
+    donates the pools).  Write positions beyond the table's reach go to the
+    null block 0, like inactive slots' writes at position 0; duplicate
+    writes there are harmless because every read masks them.  Returns
+    ``kv_len`` ``[S]`` int32 (the last write position + 1)."""
+    pos = positions.long()
+    bs = block_size
+    in_reach = pos < tables.shape[1] * bs
+    blk = torch.where(in_reach, pos // bs, 0)
+    phys = torch.gather(tables.long(), 1, blk)
+    phys = torch.where(in_reach, phys, 0)
+    off = pos % bs
+    k_new = k_new.to(torch.bfloat16).to(k_pool.dtype)
+    v_new = vv.to(torch.bfloat16).to(v_pool.dtype)
+    if layer is None:
+        k_pool[phys, off] = k_new
+        v_pool[phys, off] = v_new
+    else:
+        k_pool[layer, phys, off] = k_new
+        v_pool[layer, phys, off] = v_new
+    return (pos[:, -1] + 1).to(torch.int32)
+
+
 def write_kv(
     kk: torch.Tensor,       # [S, Q, K, dh] raw post-projection keys
     vv: torch.Tensor,       # [S, Q, K, dv] values
@@ -293,35 +328,17 @@ def write_kv(
     rope_theta: float = 10000.0,
     plain: bool = False,
 ) -> torch.Tensor:
-    """The K-side entry into the pool: optional qk_norm on K, rope, the
-    bfloat16 quantization, and the scatter into the blocks owning each
-    slot's write positions (``plain`` selects the plain qk_norm).  The pools are updated in place (the JAX package
-    donates them).  Write positions beyond the table's reach go to the null
-    block 0, like inactive slots' writes at position 0; duplicate writes
-    there are harmless because every read masks them.  Returns ``kv_len``
-    ``[S]`` int32 (the last write position + 1)."""
+    """The K-side entry into the pool: optional qk_norm on K (``plain``
+    selects the plain norm), rope, then :func:`scatter_kv`.  Returns
+    ``kv_len`` ``[S]`` int32."""
     # layers imports this module, so its helpers load on first call
     from repro_torch.models.layers import apply_rope, rms_head_norm
 
     if k_norm is not None:
         kk = rms_head_norm(k_norm, kk, eps, plain=plain)
     kk = apply_rope(kk, positions, rope_theta)
-    pos = positions.long()
-    bs = block_size
-    in_reach = pos < tables.shape[1] * bs
-    blk = torch.where(in_reach, pos // bs, 0)
-    phys = torch.gather(tables.long(), 1, blk)
-    phys = torch.where(in_reach, phys, 0)
-    off = pos % bs
-    k_new = kk.to(torch.bfloat16).to(k_pool.dtype)
-    v_new = vv.to(torch.bfloat16).to(v_pool.dtype)
-    if layer is None:
-        k_pool[phys, off] = k_new
-        v_pool[phys, off] = v_new
-    else:
-        k_pool[layer, phys, off] = k_new
-        v_pool[layer, phys, off] = v_new
-    return (pos[:, -1] + 1).to(torch.int32)
+    return scatter_kv(kk, vv, k_pool, v_pool, tables=tables,
+                      positions=positions, block_size=block_size, layer=layer)
 
 
 def paged_prefill(

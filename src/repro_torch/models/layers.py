@@ -19,12 +19,15 @@ plain PyTorch versions on any device: the card's reference runs.
 Ported: the paged serving branches, the non-cached training branch of the
 attention block and the dense cached branch (a KV cache written at
 ``cache_pos``; ``attention`` with a ``kv_len``, plain PyTorch as JAX leaves
-it outside Pallas), each windowed for Griffin; the gathered and local-block
-paths arrive with later slices.  A ``Collector`` (MegaScope) sees the tags
-of the JAX functions at the same places: ``q``, ``v``, ``k``,
-``attn_probs`` (naive branch only), ``attn_out`` and ``mlp_hidden``.  ``norm_init`` also builds
-layernorm parameters (scale and bias, for RWKV-6's ``ln_x`` group norm,
-which ``models/rwkv.py`` applies inline); ``norm_apply`` takes rmsnorm only.
+it outside Pallas, which the gathered serving path and static serving run),
+each windowed for Griffin; the local-block path arrives with a later slice.
+A ``Collector`` (MegaScope) sees the tags of the JAX functions at the same
+places: ``q``, ``v``, ``k``, ``attn_probs`` (naive branch only),
+``attn_out`` and ``mlp_hidden``; over the pool, every branch but the fused
+flash prefill, which JAX also leaves untagged and skips under a collector.
+``norm_init`` also builds layernorm parameters (scale and bias, for
+RWKV-6's ``ln_x`` group norm, which ``models/rwkv.py`` applies inline);
+``norm_apply`` takes rmsnorm only.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.kernels.paged_attention.ops import (
     PagedInfo,
     paged_attention,
     paged_prefill,
+    scatter_kv,
     write_kv,
 )
 from repro_torch.kernels.paged_attention.ref import (
@@ -337,39 +341,51 @@ def gqa_apply(
         o = collector.tag("attn_out", o)
     else:
         o = _paged_attention_block(q, kk, vv, cfg, positions, pool, paged,
-                                   scale, q_norm, k_norm, window)
+                                   scale, q_norm, k_norm, window, collector)
     wo = p["wo"].to(dt)
     return o.to(dt).reshape(B, S, H * dh) @ wo.reshape(H * dh, D)
 
 
 def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
-                           q_norm, k_norm, window):
+                           q_norm, k_norm, window, collector):
+    """The pool branches of :func:`gqa_apply`.  ``paged.prefill`` with more
+    than one query and no live collector is the fused flash-prefill branch
+    (K4, its q prologue in the kernel): a full prompt, a chunk over a cached
+    prefix or a verify step.  Otherwise (decode, or any Q under a
+    collector, whose tags need the roped q and k) this is JAX's generic
+    paged branch: norm and rope q and k, tag ``q``, ``v``, ``k``, scatter
+    K/V into the pool and attend through the block table (K3), tag
+    ``attn_out``."""
     S = q.shape[1]
     dt = q.dtype
     kv = dict(tables=paged.tables, positions=positions,
-              block_size=paged.block_size, layer=paged.layer, k_norm=k_norm,
-              eps=cfg.norm_eps, rope_theta=cfg.rope_theta, plain=paged.plain)
-    if paged.prefill and S > 1:
+              block_size=paged.block_size, layer=paged.layer)
+    if paged.prefill and S > 1 and collector is NULL_COLLECTOR:
+        rope = dict(k_norm=k_norm, eps=cfg.norm_eps, rope_theta=cfg.rope_theta)
         if paged.plain:
-            kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
+            kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv, **rope,
+                              plain=True)
             return paged_prefill_plain_from_raw(
                 q, pool["k"], pool["v"], paged.tables, kv_len,
                 positions=positions, scale=scale, layer=paged.layer,
                 q_norm=q_norm, eps=cfg.norm_eps, rope_theta=cfg.rope_theta,
                 q_start=paged.q_start, window=window,
             )
-        kv.pop("plain")
         return paged_prefill(
             q, kk, vv, pool["k"], pool["v"], scale=scale, q_norm=q_norm,
-            q_start=paged.q_start, window=window, **kv,
+            q_start=paged.q_start, window=window, **kv, **rope,
         )
     if cfg.qk_norm:
         q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=paged.plain)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    kv_len = write_kv(kk, vv, pool["k"], pool["v"], **kv)
+        kk = rms_head_norm(k_norm, kk, cfg.norm_eps, plain=paged.plain)
+    q = collector.tag("q", apply_rope(q, positions, cfg.rope_theta))
+    vv = collector.tag("v", vv)
+    kk = collector.tag("k", apply_rope(kk, positions, cfg.rope_theta))
+    kv_len = scatter_kv(kk, vv, pool["k"], pool["v"], **kv)
     attend = paged_attention_plain if paged.plain else paged_attention
-    return attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
-                  kv_len=kv_len, scale=scale, window=window, layer=paged.layer)
+    o = attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
+               kv_len=kv_len, scale=scale, window=window, layer=paged.layer)
+    return collector.tag("attn_out", o)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,10 @@ in place, never a sliced copy.  Three forwards are ported:
   ``lm.forward``) that :func:`loss_fn` differentiates, with ``cfg.remat`` as
   ``torch.utils.checkpoint`` around each layer (selective for ``"dots"``).
 
-A ``Collector`` (MegaScope) rides the training and dense cached forwards;
-each layer's captures are stacked over the layer axis into
-``aux["captures"]``.
+A ``Collector`` (MegaScope) rides all three forwards; each layer's captures
+are stacked over the layer axis into ``aux["captures"]``, and on the paged
+forward every tag keeps the slot axis as its batch axis, as the JAX
+package's batched paged step does.
 """
 
 from __future__ import annotations
@@ -313,8 +314,10 @@ def forward(
     without batch dimensions and recomputes the rest (:func:`dots_policy`),
     ``"none"`` keeps everything.
 
-    ``collector`` sees every tag of the cached and training forwards; a
-    layer's recompute in the backward perturbs alike and records nothing.
+    ``collector`` sees every tag of every forward (on the pool, an attention
+    block with a live collector leaves the fused flash-prefill branch for
+    the generic one, as in JAX); a layer's recompute in the backward
+    perturbs alike and records nothing.
     ``aux["captures"]`` is ``{"seg{i}": {...}, "top": {...}}`` as JAX's:
     each segment's captures stacked over its groups (keys prefixed
     ``b{j}/`` where a group holds several blocks; the embeddings' ride
@@ -327,41 +330,37 @@ def forward(
     x = L.embed_apply(params, cfg, tokens, dtype)
     B, S, _ = x.shape
     if pool is not None:
-        if collector is not NULL_COLLECTOR:
-            raise NotImplementedError(
-                "MegaScope probes over the paged pool (serving) are ported "
-                "with the gathered decode path (ROADMAP queue 1, item 5)")
         plain = paged.plain
+        remat = "none"
         positions = (cache_pos.long()[:, None]
                      + torch.arange(S, device=x.device)[None, :])
-        for _, i, g, j, kind, p in _layers(cfg, params):
-            blk = pool[f"seg{i}"][f"b{j}"]
-            if kind in _ATTENTION_KINDS:
-                x = _block(p, cfg, kind, x, positions,
-                           replace(paged, layer=g), plain, state=blk)
-            else:
-                x = _block(p, cfg, kind, x, positions, None, plain,
-                           state=_layer(blk, g))
-        return L.norm_apply(params["final_norm"], x, cfg.norm_kind,
-                            cfg.norm_eps, plain=plain), {}
-    if cfg.remat not in ("full", "dots", "none"):
-        raise ValueError(f"unknown remat {cfg.remat!r}")
-    if cache is not None:
-        cache_pos = int(cache_pos)
-    start = cache_pos or 0
-    positions = torch.arange(start, start + S, device=x.device)
+    else:
+        if cfg.remat not in ("full", "dots", "none"):
+            raise ValueError(f"unknown remat {cfg.remat!r}")
+        if cache is not None:
+            cache_pos = int(cache_pos)
+        start = cache_pos or 0
+        positions = torch.arange(start, start + S, device=x.device)
+        remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
     x = collector.tag("embeddings", x)
     layout = segment_layout(cfg)
     live = collector is not NULL_COLLECTOR
-    remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
     # captures taken before the layers (embeddings) ride the first segment,
     # repeated over its groups, where JAX's scan body drains them
     before = collector.drain()
     groups: dict[int, list[dict]] = {}
     for layer, i, g, j, kind, p in _layers(cfg, params):
         col = LayerScoped(collector, layer, f"seg{i}/b{j}") if live else collector
-        blk_cache = None if cache is None else _layer(cache[f"seg{i}"][f"b{j}"], g)
-        args = (p, cfg, kind, x, positions, None, plain, col, blk_cache,
+        blk_paged = None
+        if pool is not None:
+            blk_cache = pool[f"seg{i}"][f"b{j}"]
+            if kind in _ATTENTION_KINDS:  # the layer-stacked pool, at layer g
+                blk_paged = replace(paged, layer=g)
+            else:                         # this layer's slot rows
+                blk_cache = _layer(blk_cache, g)
+        else:
+            blk_cache = None if cache is None else _layer(cache[f"seg{i}"][f"b{j}"], g)
+        args = (p, cfg, kind, x, positions, blk_paged, plain, col, blk_cache,
                 cache_pos)
         if remat == "full":
             x = checkpoint(_block, *args, use_reentrant=False)

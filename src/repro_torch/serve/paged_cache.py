@@ -15,8 +15,9 @@ state (RWKV-6's ``x_prev``/``wkv``, Griffin's ``conv``/``h``) are
 place.  ``PagedKVCache.paged`` tells them apart as JAX's does.  (The JAX
 package widens bfloat16 paged leaves to float32 on its CPU backend to keep
 scatters in place; PyTorch updates a bfloat16 tensor in place on any
-device.)  The gathered path and slot export/import arrive with later
-slices.
+device.)  ``gather`` and ``scatter_decode`` serve the gathered decode
+path; slot export/import arrives with the router (ROADMAP queue 1, item
+11).
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ class BlockAllocator:
     @property
     def num_free(self) -> int:
         return len(self._free)
+
+    @property
+    def num_held(self) -> int:
+        return len(self._held)
 
     def alloc(self, n: int = 1) -> list[int]:
         if n > len(self._free):
@@ -112,6 +117,42 @@ class PagedKVCache:
         self.paged = lm.paged_flags(cfg)
         self.pool = lm.init_pool(cfg, spec.num_blocks, spec.block_size, device,
                                  num_slots=spec.num_slots)
+
+    def gather(self, pool: dict, tables: torch.Tensor) -> dict:
+        """The dense decode cache of every slot, a copy: paged leaves become
+        ``[n, S, M * bs, *feat]`` through ``tables [S, M]`` (padding entries
+        at the null block), slot-state leaves pass through as they are (the
+        pool's own tensors, already a row per slot)."""
+        S, M = tables.shape
+        idx = tables.reshape(-1).long()
+
+        def leaf(p, paged):
+            if not paged:
+                return p
+            return p[:, idx].reshape(p.shape[0], S, M * p.shape[2], *p.shape[3:])
+
+        return lm.tree_map(leaf, pool, self.paged)
+
+    def scatter_decode(self, pool: dict, dense: dict, tables: torch.Tensor,
+                       pos: torch.Tensor) -> None:
+        """Write back, in place, the one block each slot touched at ``pos``
+        (its write position this step): ``dense``'s block ``pos // bs`` of
+        slot ``s`` goes to pool block ``tables[s, pos // bs]``.  Slot-state
+        leaves are ``pool``'s own tensors in ``dense`` (see :meth:`gather`),
+        already written."""
+        S = tables.shape[0]
+        bs = self.spec.block_size
+        tb = pos.long() // bs                                        # [S]
+        phys = tables.long()[torch.arange(S, device=tables.device), tb]
+        cols = (tb * bs)[:, None] + torch.arange(bs, device=tb.device)[None]
+        rows = torch.arange(S, device=tb.device)[:, None]
+
+        def leaf(p, d, paged):
+            if paged:
+                p[:, phys] = d[:, rows, cols]                     # [n, S, bs, f]
+            return p
+
+        lm.tree_map(leaf, pool, dense, self.paged)
 
     def scatter_prefill(self, pool: dict, filled: dict, slot: int,
                         phys: torch.Tensor) -> None:

@@ -1,7 +1,6 @@
 """MegaServe request model: lifecycle state + per-request latency metrics.
 
-Copied from ``repro.serve.request`` (numpy-free, framework-free), without the
-speculative-decoding fields, which arrive with that slice.
+Copied from ``repro.serve.request`` (numpy-free, framework-free).
 
 A request moves WAITING -> RUNNING -> FINISHED.  Preemption-by-recompute
 (block pool exhausted) sends a RUNNING request back to WAITING with its
@@ -38,6 +37,13 @@ class Request:
     t_admitted: float | None = None
     t_first_token: float | None = None
     t_finished: float | None = None
+    # -- speculative decoding (owned by the server's spec loop) -----------
+    draft_len: int = 0                 # current per-request draft budget
+    spec_idle: int = 0                 # steps since speculation shut off
+    spec_miss: int = 0                 # consecutive zero-acceptance verifies
+    spec_backoff: int = 1              # re-probe interval multiplier
+    spec_proposed: int = 0             # draft tokens sent to verification
+    spec_accepted: int = 0             # draft tokens the target accepted
 
     @property
     def prompt_len(self) -> int:

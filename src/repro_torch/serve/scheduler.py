@@ -2,9 +2,10 @@
 
 Copied from ``repro.serve.scheduler``: pure host-side bookkeeping (numpy
 block tables, a python free list) split from the engine, so the policy is the
-JAX package's to the letter.  The migration (``adopt``/``release_request``)
-and speculative rewind (``trim_blocks``) entry points arrive with the router
-and speculative-decoding slices.
+JAX package's to the letter, speculative capacity (``ensure_capacity``'s
+per-slot write counts) and rewind (``trim_blocks``) included.  The migration
+entry points (``adopt``/``release_request``) arrive with the router (ROADMAP
+queue 1, item 11).
 
 Invariants:
   * every active slot holds exactly ``ceil(pos / block_size)`` physical
@@ -39,14 +40,24 @@ class ServeConfig:
     ``max_blocks_per_slot`` is the block-table width, so one sequence spans
     at most ``max_len = max_blocks_per_slot * block_size`` positions.
 
-    The engine-path knobs keep the JAX package's names.  The port runs the
-    paged decode path, with flash prefill for an attention-only family and
-    the dense segment prefill for a recurrent one (what ``"auto"`` picks on
-    the card); selecting the gathered path, the dense prefill of an
-    attention-only family, speculative decoding or chunked prefill raises
-    ``NotImplementedError`` naming the later slice (for a recurrent family
-    the last two raise ``ValueError`` as in JAX: its state cannot roll back
-    or be split).
+    The engine-path knobs keep the JAX package's names and meanings.
+    ``decode_path``: ``"paged"`` decodes every slot in one batched forward
+    straight against the pool (K3 on the card); ``"gathered"`` is the
+    oracle, the pool gathered into a dense view, one B=1 forward a slot,
+    then the written block scattered back; ``"auto"`` is paged unless a
+    MegaScope collector is live.  ``prefill_path``: ``"flash"`` streams the
+    right-padded prompt through the flash-prefill kernel (K4) into the
+    slot's blocks, ``"dense"`` prefills a dense one-row cache and scatters
+    it; ``"auto"`` is flash wherever it is legal (the paged path and an
+    attention-only family).  Speculative decoding (``spec_decode``): a
+    host-side drafter proposes up to ``spec_k`` tokens a request and one
+    batched ``spec_k + 1``-token forward (K4) verifies every slot's; the
+    per-request draft length adapts to the acceptance, down to 0 (re-probed
+    every ``spec_retry`` steps).  Chunked prefill (``chunked_prefill``):
+    prompts longer than ``chunk_len`` (0 = ``2 * block_size``; else a
+    multiple of it) stream into the pool one chunk a tick through K4, decode
+    ticks of other slots between them.  Both need the paged path and an
+    attention-only family.
     """
 
     num_slots: int = 4
@@ -54,10 +65,28 @@ class ServeConfig:
     num_blocks: int = 65           # physical blocks incl. the reserved null
     max_blocks_per_slot: int = 16  # block-table width; max_len = this * bs
     max_prefills_per_step: int = 1 # prefill/decode interleaving bound
-    decode_path: str = "auto"      # auto | paged (gathered: later slice)
-    prefill_path: str = "auto"     # auto | flash | dense (recurrent families)
-    spec_decode: bool = False      # later slice
-    chunked_prefill: bool = False  # later slice
+    decode_path: str = "auto"      # auto | paged | gathered
+    prefill_path: str = "auto"     # auto | flash | dense
+    spec_decode: bool = False      # verify spec_k drafts a slot a step
+    spec_k: int = 4                # max draft tokens a request a step
+    spec_ngram_max: int = 4        # prompt-lookup drafter: longest suffix
+    spec_ngram_min: int = 1        #   n-gram tried, shortest accepted
+    spec_retry: int = 16           # steps between draft re-probes at len 0
+    chunked_prefill: bool = False  # stream long prompts chunk by chunk
+    chunk_len: int = 0             # 0 = 2 * block_size; else a multiple of it
+
+    def __post_init__(self) -> None:
+        if self.chunk_len < 0:
+            raise ValueError(f"chunk_len must be >= 0, got {self.chunk_len}")
+        if self.chunk_len and self.chunk_len % self.block_size != 0:
+            raise ValueError(
+                f"chunk_len={self.chunk_len} must be a multiple of the "
+                f"prefill bucket size (block_size={self.block_size})"
+            )
+
+    @property
+    def resolved_chunk_len(self) -> int:
+        return self.chunk_len or 2 * self.block_size
 
     @property
     def max_len(self) -> int:
@@ -146,15 +175,18 @@ class Scheduler:
         return out
 
     # ----------------------------------------------------------- capacity
-    def ensure_capacity(self) -> list[int]:
-        """Grow each active slot's block table to cover its next write
-        position, preempting youngest-admitted slots when the pool runs dry.
-        Returns the rids preempted this call."""
+    def ensure_capacity(self, extra: dict[int, int] | None = None) -> list[int]:
+        """Grow each active slot's block table to cover its next ``e`` write
+        positions (``e = extra.get(slot, 1)``; speculative verification
+        writes ``1 + draft_len`` positions at once), preempting
+        youngest-admitted slots when the pool runs dry.  Returns the rids
+        preempted this call."""
         preempted: list[int] = []
         for slot in sorted(self.active_slots(), key=lambda s: self._admit_seq[s]):
             if self.slots[slot] is None:       # victim of an earlier preempt
                 continue
-            want = self.pos[slot] // self.cfg.block_size + 1
+            e = max(extra.get(slot, 1) if extra else 1, 1)
+            want = (self.pos[slot] + e - 1) // self.cfg.block_size + 1
             while len(self.blocks[slot]) < want:
                 got = self.allocator.try_alloc(1)
                 if got is not None:
@@ -202,9 +234,23 @@ class Scheduler:
         self.last_tok[slot] = tok
 
     def advance(self, slot: int, n: int = 1) -> None:
-        """A decode step wrote K/V at ``pos .. pos + n - 1``; move the write
-        cursor past it."""
+        """A decode/verify step wrote K/V at ``pos .. pos + n - 1``; move the
+        write cursor past the committed prefix."""
         self.pos[slot] += n
+
+    def trim_blocks(self) -> None:
+        """Rewind speculative over-allocation: free each active slot's
+        blocks past the committed high-water mark ``ceil(pos / block_size)``
+        and re-point their table entries at the null block.  Rejected verify
+        writes live only in the freed region or beyond ``kv_len``'s mask, so
+        the freed blocks carry no live data."""
+        for slot in self.active_slots():
+            keep = max(blocks_for(self.pos[slot], self.cfg.block_size), 1)
+            drop = self.blocks[slot][keep:]
+            if drop:
+                self.allocator.free(drop)
+                del self.blocks[slot][keep:]
+                self.tables[slot, keep:] = 0
 
     def evict_finished(self, now: float) -> list[int]:
         out = []

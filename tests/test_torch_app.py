@@ -4,7 +4,9 @@ the same configuration for the same arguments, ``TestRunConfig`` of
 the same diagnosis as JAX's, continuous serving with the ``scan`` and
 ``metrics`` modules streams the same tokens as without them and publishes
 JAX ``MegaServe``'s series names, training with the ``scope`` and ``fbd``
-modules reports what JAX's plugins report, and what later slices port is
+modules reports what JAX's plugins report, every single-engine serving path
+(static, gathered, MegaScope probes, chunked prefill, speculation with either
+drafter) runs to the end through the CLI, and what later slices port is
 refused with its ROADMAP item."""
 
 import json
@@ -193,22 +195,54 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
 
 @pytest.mark.parametrize("argv,item", [
     (["train", "--modules", "scan,ft"], "item 9"),
-    (["serve", "--continuous", "--modules", "scope"], "item 5"),
     (["train", "--pp", "2", "--set", "parallel.dp=2"], "item 8b"),
     (["train", "--detect-online"], "item 9"),
     (["train", "--compile-cache", "cc"], "item 12b"),
     (["train", "--pp", "2", "--set", "parallel.tp=2"], "item 8b"),
     (["train", "--multi-pod"], "item 8b"),
     (["train", "--set", "obs.rank_events=true"], "item 9"),
-    (["serve"], "item 5"),
     (["serve", "--continuous", "--replicas", "2"], "item 11"),
     (["serve", "--continuous", "--traffic", "bursty"], "item 11"),
-    (["serve", "--continuous", "--spec-decode"], "item 10"),
-    (["serve", "--continuous", "--chunked-prefill"], "item 5"),
-    (["serve", "--continuous", "--decode-path", "gathered"], "item 5"),
     (["dryrun"], "item 14b"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
 def test_later_slices_are_refused_with_their_item(argv, item):
     with pytest.raises(SystemExit, match=re.escape(item)):
         cli.main([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
                   *argv[1:]])
+
+
+@pytest.mark.parametrize("argv,paths", [
+    (["serve", "--continuous", "--modules", "scope",
+      "--set", "scope.probes=final_hidden:stats"], ("gathered", "dense")),
+    (["serve"], None),
+    (["serve", "--continuous", "--spec-decode"], ("paged", "flash")),
+    (["serve", "--continuous", "--spec-decode", "--drafter", "random"],
+     ("paged", "flash")),
+    (["serve", "--continuous", "--chunked-prefill"], ("paged", "flash")),
+    (["serve", "--continuous", "--decode-path", "gathered"], ("gathered", "dense")),
+], ids=lambda v: "-".join(v) if isinstance(v, list) else str(v))
+def test_single_engine_serve_paths_run(argv, paths, capsys):
+    """The serving paths earlier slices refused run to the end: every
+    request finishes, the chosen decode and prefill paths are reported, and
+    static serving emits ``max_new`` tokens a prompt."""
+    out = cli.run([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--requests", "5", "--rate", "400", "--slots", "3",
+                   "--max-new", "6", "--prompt-lens", "16,40", "--batch", "2",
+                   "--prompt-len", "24", *argv[1:]])
+    printed = capsys.readouterr().out
+    if paths is None:
+        assert "static" in printed
+        assert [len(g) for g in out["outputs"]] == [6, 6]
+        assert [len(p) for p in out["prompts"]] == [24, 24]
+        return
+    assert out["metrics"]["finished"] == 5
+    assert f"decode_path={paths[0]} prefill_path={paths[1]}" in printed
+    res = out["session"].results
+    assert (res["decode_path"], res["prefill_path"]) == paths
+    if "--spec-decode" in argv:
+        assert out["metrics"]["spec_proposed"] > 0
+    if "scope" in argv:
+        items = [it for s in res["stream_items"].values() for it in s]
+        assert items and all("final_hidden.stats" in it.captures["top"]
+                             for it in items)
+        assert res["scope"]["captured"]["top/final_hidden.stats/mean"] == len(items)

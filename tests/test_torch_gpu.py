@@ -189,6 +189,28 @@ def test_prefill_kernel_across_tile_edges(cuda, S, Q, H, K, dh, bs, kv_lens, win
     assert err <= PAGED_ROW_RTOL
 
 
+# K4 at the shapes the served chunked prefill and speculative verify give
+# it: Q = spec_k + 1 = 5 over 8 ragged slots (one slot's last rows past its
+# table's reach: kv_len 2115 over 132 blocks of 16), and chunks of 32 and
+# 256 queries over a cached prefix at block-aligned starts
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,Q,kv_lens,M,layered", [
+    (8, 5, [2115, 544, 160, 2080, 530, 140, 2100, 600], 132, True),
+    (8, 5, [5, 21, 144, 1029, 16, 6, 77, 2112], 132, False),
+    (1, 32, [32], 2, True),
+    (1, 32, [2048], 128, False),
+    (1, 256, [1024], 64, True),
+    (1, 256, [2048], 128, False),
+], ids=["verify-pad-rows", "verify-ragged", "chunk32-first", "chunk32-last",
+        "chunk256-mid", "chunk256-last"])
+def test_prefill_kernel_at_served_shapes(cuda, S, Q, kv_lens, M, layered):
+    rng = np.random.default_rng(15)
+    err = _prefill_case(cuda, rng, S=S, Q=Q, H=14, K=2, dh=64, bs=16, M=M,
+                        kv_lens=kv_lens, window=None, qk_norm=False,
+                        layered=layered)
+    assert err <= PAGED_ROW_RTOL
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_wrong_operands(cuda):
     q = torch.zeros((1, 1, 4, 64), device=cuda, dtype=torch.float16)  # not bf16 or f32
@@ -703,7 +725,7 @@ def _plain_replay(cfg, params, prompt, forced, dev, bs=16):
     seg = make_seg_prefill(cfg, plain=True)
     toks, off = torch.tensor([prompt], device=dev), 0
     for w in pow2_segments(len(prompt)):
-        logits = seg(params, cache, toks[:, off:off + w], off)
+        logits, _ = seg(params, cache, toks[:, off:off + w], off)
         off += w
     table = torch.arange(1, n_blk + 1, dtype=torch.int32, device=dev)[None]
     kv.scatter_prefill(kv.pool, cache, 0, table[0, :bucket])
@@ -711,7 +733,8 @@ def _plain_replay(cfg, params, prompt, forced, dev, bs=16):
     out = [logits]
     for i, tok in enumerate(forced[:-1]):
         pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
-        out.append(decode(params, kv.pool, table, torch.tensor([tok], device=dev), pos)[0])
+        out.append(decode(params, kv.pool, table, torch.tensor([tok], device=dev),
+                          pos)[0][0])
     return torch.stack(out).float()
 
 
@@ -744,6 +767,44 @@ def test_served_recurrent_smoke_stream_follows_the_plain_replay(cuda, arch):
         assert torch.equal(served[clear], lp.argmax(-1)[clear])
         checked += int(clear.sum())
     assert checked > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["chunked", "spec"])
+def test_served_chunked_and_spec_launch_k4_per_chunk_and_verify(cuda, mode):
+    """MegaServe on the card (bf16 qwen2 smoke config): chunked prefill
+    launches K4 once a layer a chunk or short prompt, speculation once a
+    layer a prompt and a verify step; K3 once a layer a decode tick; every
+    request finishes with valid tokens and speculation accepts drafts of a
+    repetitive prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import MegaServe, ServeConfig
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    extra = (dict(chunked_prefill=True) if mode == "chunked"
+             else dict(spec_decode=True, spec_k=4))
+    srv = MegaServe(cfg, lm.init(cfg, seed=0, device=cuda), ServeConfig(
+        num_slots=3, block_size=16, num_blocks=40, max_blocks_per_slot=12,
+        **extra), device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (100, 20, 64)]
+    prompts.append([5, 6, 7, 8] * 20)
+    for p in prompts:
+        srv.submit(p, 24)
+    reset_launches()
+    streams = srv.drain()
+    names = [e.name for e in srv.trace_events()]
+    L = cfg.num_layers
+    n_k4 = names.count("prefill") + names.count("prefill_chunk") + names.count("verify")
+    assert launches["paged_prefill"] == L * n_k4 > 0
+    assert launches["paged_decode"] == L * names.count("decode")
+    assert all(len(s) == 24 and all(0 <= t < cfg.vocab_size for t in s)
+               for s in streams.values())
+    if mode == "chunked":
+        assert names.count("prefill_chunk") == 4 + 2 + 3  # 100, 64, 80 by 32
+    else:
+        assert srv.metrics()["spec_accepted"] > 0
 
 
 # --------------------------------- card: K2 at Griffin's head dim 256 ---

@@ -1,4 +1,4 @@
-"""The port's MegaServe against the JAX package's, its refusals, and its CLI.
+"""The port's MegaServe against the JAX package's, and its CLI.
 
 Greedy streams must be token-identical at float32 compute: the port serves
 through flash prefill and paged decode (their plain versions on the CPU) and
@@ -99,11 +99,23 @@ def test_workload_matches_jax_workload(qwen):
     ("decode_path", "gathered"), ("prefill_path", "dense"),
     ("spec_decode", True), ("chunked_prefill", True),
 ])
-def test_later_slice_paths_are_refused(qwen, knob, value):
+def test_single_engine_paths_match_jax(qwen, knob, value):
+    """The gathered path, dense prefill, speculation and chunked prefill:
+    each server reports its paths and serves JAX's streams for the same
+    prompts (JAX on its paged flash path)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (5, 17, 33, 64)]
+    geom = dict(num_slots=4, block_size=16, num_blocks=40, max_blocks_per_slot=8)
+    ref, _, _, _ = _both(qwen, prompts, 8, **geom)
     _, cfg, params = qwen
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        MegaServe(cfg, from_jax_params(params, device="cpu"),
-                  ServeConfig(**{knob: value}), device="cpu")
+    srv = MegaServe(cfg, from_jax_params(params, device="cpu"),
+                    ServeConfig(**geom, **{knob: value}), device="cpu")
+    for p in prompts:
+        srv.submit(p, 8)
+    assert srv.drain() == ref
+    assert srv.metrics()["finished"] == 4
+    want = {"decode_path": ("gathered", "dense"), "prefill_path": ("paged", "dense")}
+    assert (srv.decode_path, srv.prefill_path) == want.get(knob, ("paged", "flash"))
 
 
 def test_default_device_is_the_card(qwen):
@@ -138,7 +150,19 @@ def test_cli_module_runs_to_the_end():
     assert '"serve_config"' in proc.stdout.splitlines()[-1]
 
 
-def test_cli_refuses_static_serving():
-    with pytest.raises(SystemExit, match="--continuous"):
-        cli.main(["serve", "--arch", "qwen2-0.5b", "--smoke", "--device",
-                  "cpu"])
+def test_cli_serves_static(capsys):
+    """``serve`` without ``--continuous`` runs the static lockstep baseline:
+    ``--batch`` prompts of ``--prompt-len``, ``--max-new`` greedy tokens
+    each, equal to ``StaticRunner``'s on the same weights and prompts."""
+    from repro_torch.models import lm
+    from repro_torch.serve import StaticRunner
+
+    out = cli.run(["serve", "--arch", "qwen2-0.5b", "--smoke", "--device",
+                   "cpu", "--batch", "3", "--prompt-len", "20", "--max-new", "5",
+                   "--temperature", "0.8"])
+    assert "static" in capsys.readouterr().out
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    ref, _ = StaticRunner(cfg, lm.init(cfg, seed=0, device="cpu"), device="cpu").run(
+        [(p, 5, 0.0) for p in out["prompts"]], batch_size=3)
+    # --temperature changes nothing: serving is greedy (ROADMAP R7)
+    assert out["outputs"] == [ref[i] for i in range(3)]
