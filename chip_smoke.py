@@ -74,6 +74,29 @@ Phases, each of which fails the run (non-zero exit) on error:
              the Session's chunked streams the direct run's, the static
              outputs ``StaticRunner``'s; tokens/s, TTFT, tick medians,
              acceptance and tokens per verify step logged;
+   route   — MegaRoute: the serve phase's model and workload through a
+             ``Router`` over two MegaServe replicas (8 slots each) that
+             share one cast of the weights (resident and peak memory of
+             one replica and of two, against one pool): colocated under
+             jsq and under round_robin, then disaggregated (replica 0
+             prefill-only, every request migrating its slot to replica
+             1); every request finished, K4, K3 and K1 launched exactly
+             as the fleet's events say and, counted a replica through
+             ``replica_wrap_steps``, only where they belong (K4 24 x 32 on
+             the prefill replica, K3 on the decode replica alone), 32
+             migrations, streams against the serve phase's single engine
+             and the colocated run's (a stream that parts is replayed
+             plain and its top-2 margin there must lie within
+             ``LOGIT_TOL``), the jsq streams teacher-forced, kernels
+             against plain; ``export_slot``/``import_slot`` round trip at
+             the serve pool's width on the card (``torch.equal``, timed
+             with CUDA events); then ``python -m repro_torch serve
+             --continuous --replicas 2 --router-policy jsq --traffic
+             bursty --modules scan,metrics``: the ``router.*`` counters,
+             the ``serve.r0.``/``serve.r1.`` series, route events and
+             lanes 0, 1 and 2 in its trace; tokens/s, TTFT, queue wait,
+             placement, load skew, the router tick median and the
+             kv_export/kv_import ms and GB/s logged for each run;
    serve-rwkv6, serve-griffin — rwkv6-3b (32 layers) and
              recurrentgemma-9b (all 38 layers; the float32 init and its
              bf16 copy peak near 70 GB, then the float32 tree is freed)
@@ -1586,7 +1609,8 @@ def _counted(torch, fn):
     return out, {**launches, **rmsnorm.launches}
 
 
-def _expect_launches(tag: str, cfg, counts: dict, events, *, static_steps: int = 0) -> dict:
+def _expect_launches(tag: str, cfg, counts: dict, events, *, static_steps: int = 0,
+                     phase: str = "serve-paths") -> dict:
     """Each forward launches K1 once a norm (2L + 1, no qk_norm in qwen2);
     K4 once a layer for every flash prefill, chunk and verify step; K3 once
     a layer for every paged decode tick; the gathered path's decode and the
@@ -1614,9 +1638,9 @@ def _expect_launches(tag: str, cfg, counts: dict, events, *, static_steps: int =
                 "rmsnorm_fwd": (2 * L + 1) * sum(n.values())}
     want["rmsnorm_bwd"] = 0
     got = {k: counts[k] for k in want}
-    log(f"[serve-paths] {tag}: events {n}; launches {got}, expected {want}")
+    log(f"[{phase}] {tag}: events {n}; launches {got}, expected {want}")
     if got != want:
-        raise AssertionError(f"serve-paths {tag}: launches {got} != {want}")
+        raise AssertionError(f"{phase} {tag}: launches {got} != {want}")
     return n
 
 
@@ -1923,6 +1947,346 @@ def serve_paths(torch, smi: str, tag: str = "serve-paths") -> dict:
     _free(torch)
     return {"paged_prefill_verify": L * n_ver["verify"],
             "paged_prefill_chunk": L * n_chunk["prefill_chunk"]}
+
+
+# ------------------------------------------------------------ route
+
+# the route phase: MegaRoute over two replicas of the serve phase's model
+# (qwen2-0.5b at full width and depth, seed-0 weights, bf16) on the serve
+# phase's workload (SERVE: 32 Poisson requests at 40/s, prompts
+# 128/512/2048, 16-64 new tokens, 8 slots of block 16 a replica)
+ROUTE_REPLICAS = 2
+ROUTE_POLICIES = ("jsq", "round_robin")
+
+
+def _replica_counter(counts: dict):
+    """A ``replica_wrap_steps`` entry: adds the paged kernels' and K1's
+    launches inside this replica's engine steps to ``counts`` (the
+    counters are process-wide, so a replica's share is what changes while
+    its own steps run)."""
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.paged_attention import launches
+
+    def wrap(fn):
+        def counted(*a, **kw):
+            before = {**launches, **rmsnorm.launches}
+            out = fn(*a, **kw)
+            for k, v in {**launches, **rmsnorm.launches}.items():
+                counts[k] = counts.get(k, 0) + v - before.get(k, 0)
+            return out
+
+        return counted
+
+    return wrap
+
+
+def _timed_steps(router) -> list:
+    """Host-clock seconds of each router tick that admitted or decoded
+    (every replica's forwards of that tick, in series), as it runs."""
+    ticks = []
+    step = router.step
+
+    def timed():
+        t0 = time.perf_counter()
+        out = step()
+        if out["admitted"] or out["active"]:
+            ticks.append(time.perf_counter() - t0)
+        return out
+
+    router.step = timed
+    return ticks
+
+
+def _lane_medians(events, rank: int) -> str:
+    """Host-clock medians of lane ``rank``'s prefill scopes and decode
+    ticks, the ticks split by whether the replica prefilled in the same
+    step."""
+    def med(d):
+        return f"{1e3 * statistics.median(d):.3f} ms x{len(d)}" if d else "none"
+
+    lane = [e for e in events if e.rank == rank]
+    pre_steps = {e.args["step"] for e in lane if e.name == "prefill"}
+    dec = [e for e in lane if e.name == "decode"]
+    return (f"prefill {med([e.dur for e in lane if e.name == 'prefill'])}; decode "
+            f"{med([e.dur for e in dec])} (in a step with a prefill "
+            f"{med([e.dur for e in dec if e.args['step'] in pre_steps])}, without "
+            f"{med([e.dur for e in dec if e.args['step'] not in pre_steps])})")
+
+
+def _partings(torch, cfg, params, prompts, ref: dict, got: dict, what: str,
+              tag: str) -> int:
+    """How many streams of ``got`` equal ``ref``'s; a stream that parts is
+    replayed plain along ``ref``'s tokens, and its top-2 logit margin at
+    the first differing token must lie within ``LOGIT_TOL`` (a near-tie
+    under other bf16 roundings).  Returns the equal count."""
+    same = 0
+    for rid, a in ref.items():
+        b = got[rid]
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None and len(a) == len(b):
+            same += 1
+            continue
+        if i is None:
+            raise AssertionError(f"{tag}: rid {rid} streams of {len(a)} and {len(b)} tokens")
+        lp = replay(torch, cfg, params, prompts[rid], a[:i + 1], plain=True)
+        top2 = lp[i, :cfg.vocab_size].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        log(f"[{tag}] {what}: rid={rid} parts at token {i} ({a[i]} against {b[i]}); "
+            f"plain top-2 margin there {margin:.4f} (tol {LOGIT_TOL})")
+        if margin > LOGIT_TOL:
+            raise AssertionError(f"{tag}: {what}: rid {rid} parts away from a near-tie")
+    log(f"[{tag}] {what}: {same} of {len(ref)} streams equal")
+    return same
+
+
+def _route_round_trip(torch, cfg, scfg, tag: str) -> None:
+    """``export_slot`` then ``import_slot`` into other blocks and another
+    slot of a second pool, then exported back, on the card: the slot of a
+    2048-token prompt after its first token (129 blocks at the serve
+    pool's table width, padded with the null block), ``torch.equal`` on
+    its blocks; each copy timed with CUDA events against its bytes (read
+    once, written once) at the memory rate."""
+    from repro_torch.models import lm
+    from repro_torch.serve.paged_cache import PagedKVCache, PoolSpec, blocks_for
+
+    dev = torch.device("cuda")
+    M = scfg.max_blocks_per_slot
+    spec = PoolSpec(num_slots=scfg.num_slots, num_blocks=2 * M + 1, block_size=BS,
+                    max_blocks=M)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b = PagedKVCache(cfg, spec, dev), PagedKVCache(cfg, spec, dev)
+    for kv in (a, b):
+        lm.tree_map(lambda t: t.copy_(torch.randn(t.shape, generator=gen, device=dev)),
+                    kv.pool)
+    n = min(blocks_for(max(SERVE["prompt_lens"]) + 1, BS), M)
+
+    def table():
+        perm = torch.randperm(2 * M, generator=gen, device=dev)[:n] + 1
+        return torch.cat([perm, perm.new_zeros(M - n)]).to(torch.int32)
+
+    phys, phys2 = table(), table()
+    bundle = a.export_slot(a.pool, phys, 3)
+    b.import_slot(b.pool, bundle, phys2, 5)
+    back = b.export_slot(b.pool, phys2, 5)
+    torch.cuda.synchronize()
+    for x, y in zip(lm.tree_leaves(bundle), lm.tree_leaves(back)):
+        if not torch.equal(x[:, :n], y[:, :n]):
+            raise AssertionError(f"{tag}: the export/import round trip is not exact")
+    nbytes = sum(t.numel() * t.element_size() for t in lm.tree_leaves(bundle))
+    ex_ms = cuda_ms(lambda: a.export_slot(a.pool, phys, 3), 20)
+    im_ms = cuda_ms(lambda: b.import_slot(b.pool, bundle, phys2, 5), 20)
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] export/import round trip on the card: {n} blocks of a "
+        f"{max(SERVE['prompt_lens'])}-token prompt in a {M}-block bundle of {nbytes} B, torch.equal; export "
+        f"{ex_ms:.4f} ms ({2 * nbytes / ex_ms / 1e6:.1f} GB/s read + write), import "
+        f"{im_ms:.4f} ms ({2 * nbytes / im_ms / 1e6:.1f} GB/s), bound {bound:.4f} ms "
+        f"each (CUDA events, 20 calls)")
+
+
+def route_phase(torch, smi: str, cfg, specs, prompts, single: dict, single_events,
+                tag: str = "route") -> None:
+    """MegaRoute on the card: ``Router`` over two MegaServe replicas of the
+    serve phase's model (seed 0, bf16) and workload, 8 slots a replica.
+    The weights are cast once and shared: one replica's resident and peak
+    memory against two replicas', whose difference must be about one pool
+    (another weight copy would add 0.99 GB).  Colocated under each of
+    :data:`ROUTE_POLICIES`, then disaggregated (replica 0 prefill-only).
+    Gates: every request finishes with a valid stream; the fleet's K4, K3
+    and K1 launches equal what its merged events say, and each replica's
+    (counted inside its own engine steps) what its lane says, so the
+    disaggregated run launches K4 on replica 0 alone (24 x 32) and K3 on
+    replica 1 alone; 32 migrations; streams against ``single`` (the serve
+    phase's single engine) and the disaggregated ones against the jsq
+    run's, a stream that parts only at a near-tie (``_partings``); the jsq
+    streams teacher-forced, kernels against plain, within ``LOGIT_TOL``;
+    the on-card export/import round trip; then ``serve --continuous
+    --replicas 2 --router-policy jsq --traffic bursty`` through
+    ``Session``: its router and replica series, route events and three
+    lanes.  ``single_events`` (the serve phase's trace) give the single
+    engine's prefill and decode medians beside the replicas'."""
+    from repro_torch.models import lm
+    from repro_torch.serve.paged_cache import pow2_bucket
+    from repro_torch.serve.router import Router, RouterConfig
+    from repro_torch.serve.server import MegaServe, make_poisson_workload
+
+    L = cfg.num_layers
+    scfg = make_poisson_workload(cfg, **SERVE)[2]
+    M = scfg.max_blocks_per_slot
+    log(f"[{tag}] the single engine (serve phase): {_lane_medians(single_events, 0)}")
+    params = lm.init(cfg, seed=0, device="cuda")
+    per = {name: [{} for _ in range(ROUTE_REPLICAS)]
+           for name in (*ROUTE_POLICIES, "disaggregated")}
+
+    def make(name, **rkw):
+        return Router(cfg, params, scfg, RouterConfig(replicas=ROUTE_REPLICAS, **rkw),
+                      device="cuda",
+                      replica_wrap_steps=[_replica_counter(c) for c in per[name]])
+
+    def built(fn):
+        """``fn()``'s server, the bytes it holds once built and its peak over
+        a warm-up of one request a prompt length (2 tokens each), above what
+        was allocated before; the warm-up is then forgotten."""
+        _free(torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        srv = fn()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        for n in sorted({s.prompt_len for s in specs}):
+            srv.submit(prompts[0][:1] * n, 2, arrival=0.0)
+        srv.drain()
+        srv.reset()
+        torch.cuda.synchronize()
+        return srv, held, torch.cuda.max_memory_allocated() - base
+
+    one, held1, peak1 = built(lambda: MegaServe(cfg, params, scfg, device="cuda"))
+    pool_bytes = sum(t.numel() * t.element_size() for t in lm.tree_leaves(one.pool))
+    # the caching allocator rounds each large tensor up to 2 MiB
+    slack = 2 * 2**20 * len(lm.tree_leaves(one.pool))
+    weight_bytes = sum(t.numel() * t.element_size() for t in lm.tree_leaves(one.params))
+    del one
+    router, held2, peak2 = built(lambda: make("jsq", policy="jsq"))
+    shared = all(x is y for x, y in zip(*(lm.tree_leaves(r.params)
+                                          for r in router.replicas)))
+    log(f"[{tag}] {cfg.name} {L} layers, {ROUTE_REPLICAS} replicas x {scfg.num_slots} "
+        f"slots, {scfg.num_blocks} blocks x {BS} each, table width {M}; weights "
+        f"{weight_bytes} B, one pool {pool_bytes} B ({pool_bytes // scfg.num_blocks} B "
+        f"a block); held once built: one replica {held1} B, two {held2} B; peak over "
+        f"the warm-up: one {peak1} B, two {peak2} B; two minus one: held "
+        f"{held2 - held1} B, peak {peak2 - peak1} B; replicas share the weight "
+        f"tensors: {shared} ({smi})")
+    if (not shared or not 0 <= held2 - held1 - pool_bytes <= slack
+            or peak2 - peak1 > pool_bytes + weight_bytes // 2):
+        raise AssertionError(f"{tag}: two replicas hold more than one pool beyond one "
+                             "replica: the weights are not shared")
+
+    def run(name, router):
+        ticks = _timed_steps(router)
+        for c in per[name]:
+            c.clear()  # the warm-up's launches
+        for s in specs:
+            if router.submit(prompts[s.rid], s.max_new, arrival=s.arrival) != s.rid:
+                raise AssertionError(f"{tag}: the router numbered requests otherwise")
+        torch.cuda.reset_peak_memory_stats()
+        streams, counts = _counted(torch, router.drain)
+        met, events = router.metrics(), router.trace_events()
+        if met["finished"] != len(specs) or met["shed"]:
+            raise AssertionError(f"{tag} {name}: {met['finished']} of {len(specs)} "
+                                 f"requests finished, {met['shed']} shed")
+        _check_streams(name, cfg, specs, streams)
+        _expect_launches(name, cfg, counts, events, phase=tag)
+        for i, got in enumerate(per[name]):
+            n_pre = sum(e.name == "prefill" and e.rank == i for e in events)
+            n_dec = sum(e.name == "decode" and e.rank == i for e in events)
+            want = {"paged_prefill": L * n_pre, "paged_decode": L * n_dec,
+                    "rmsnorm_fwd": (2 * L + 1) * (n_pre + n_dec)}
+            got = {k: got.get(k, 0) for k in want}
+            log(f"[{tag}] {name}: replica {i}: {n_pre} prefills, {n_dec} decode ticks; "
+                f"launches {got}, expected {want}")
+            if got != want:
+                raise AssertionError(f"{tag} {name}: replica {i} launches {got} != {want}")
+            log(f"[{tag}] {name}: replica {i}: {_lane_medians(events, i)}")
+        log(f"[{tag}] {name}: tokens_per_s={met['tokens_per_s']:.2f} "
+            f"ttft_p50_s={met['ttft_p50_s']:.4f} ttft_p99_s={met['ttft_p99_s']:.4f} "
+            f"queue_wait_p99_s={met['queue_wait_p99_s']:.4f} "
+            f"latency_p50_s={met['latency_p50_s']:.4f} "
+            f"latency_p99_s={met['latency_p99_s']:.4f} wall_s={met['wall_s']:.3f} "
+            f"placed_per_replica={met['placed_per_replica']} "
+            f"replica_tokens={met['replica_tokens']} load_skew={met['load_skew']:.4f} "
+            f"migrations={met['migrations']} preemptions={met['preemptions']}; router "
+            f"tick median {1e3 * statistics.median(ticks):.3f} ms over {len(ticks)} "
+            f"ticks; peak memory over the run {torch.cuda.max_memory_allocated()} B "
+            f"({smi})")
+        return streams, met, events
+
+    out = {}
+    for policy in ROUTE_POLICIES:
+        if router is None:
+            router = make(policy, policy=policy)
+        streams, met, _ = run(policy, router)
+        if min(met["placed_per_replica"]) == 0:
+            raise AssertionError(f"{tag} {policy}: a replica served nothing")
+        _partings(torch, cfg, router.replicas[0].params, prompts, single, streams,
+                  f"{policy} against the single engine", tag)
+        if policy == "jsq":
+            teacher_forced(torch, cfg, router.replicas[0], specs, prompts, streams,
+                           tag=f"{tag}-check")
+        out[policy] = streams
+        router = None
+        _free(torch)
+
+    router = make("disaggregated", policy="jsq", prefill_replicas=1)
+    streams, met, events = run("disaggregated", router)
+    n_pre = [sum(e.name == "prefill" and e.rank == i for e in events) for i in (0, 1)]
+    n_dec = [sum(e.name == "decode" and e.rank == i for e in events) for i in (0, 1)]
+    if (met["migrations"] != len(specs) or n_pre != [len(specs), 0] or n_dec[0]
+            or not n_dec[1]):
+        raise AssertionError(f"{tag} disaggregated: {met['migrations']} migrations, "
+                             f"prefills {n_pre}, decode ticks {n_dec}")
+    k = per["disaggregated"]
+    log(f"[{tag}] disaggregated: K4 on replica 0 {k[0]['paged_prefill']} "
+        f"(= {L} x {len(specs)}), on replica 1 {k[1].get('paged_prefill', 0)}; K3 on "
+        f"replica 0 {k[0].get('paged_decode', 0)}, on replica 1 {k[1]['paged_decode']}")
+    if (k[0]["paged_prefill"] != L * len(specs) or k[1].get("paged_prefill", 0)
+            or k[0].get("paged_decode", 0)):
+        raise AssertionError(f"{tag} disaggregated: K4 or K3 launched on the wrong replica")
+    block_bytes = pool_bytes // scfg.num_blocks
+    for name in ("kv_export", "kv_import"):
+        evs = [e for e in events if e.name == name]
+        nbytes = [min(pow2_bucket(e.args["blocks"]), M) * block_bytes for e in evs]
+        rates = [b / e.dur / 1e9 for b, e in zip(nbytes, evs)]
+        log(f"[{tag}] disaggregated: {name} x{len(evs)}: median "
+            f"{1e3 * statistics.median(e.dur for e in evs):.4f} ms, max "
+            f"{1e3 * max(e.dur for e in evs):.4f} ms (host clock, the scope waits for "
+            f"the card); bundles {min(nbytes)}-{max(nbytes)} B; median "
+            f"{statistics.median(rates):.1f} GB/s, at the largest bundle "
+            f"{max(zip(nbytes, rates))[1]:.1f} GB/s")
+    _partings(torch, cfg, router.replicas[0].params, prompts, out["jsq"], streams,
+              "disaggregated against colocated jsq", tag)
+    router = None
+    del params
+    _free(torch)
+    _route_round_trip(torch, cfg, scfg, tag)
+    _free(torch)
+
+    # the Session: python -m repro_torch serve ... --replicas 2 --traffic bursty
+    argv = ["serve", "--arch", cfg.name, "--continuous",
+            "--requests", str(SERVE["n"]), "--rate", str(SERVE["rate"]),
+            "--prompt-lens", ",".join(map(str, SERVE["prompt_lens"])),
+            "--max-new", str(SERVE["max_new_range"][1]),
+            "--slots", str(SERVE["num_slots"]), "--block-size", str(BS),
+            "--seed", str(SERVE["seed"]), "--replicas", str(ROUTE_REPLICAS),
+            "--router-policy", "jsq", "--traffic", "bursty", "--modules", "scan,metrics"]
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
+    (session, (streams, met)), counts = _counted(torch, lambda: _session(argv))
+    bspecs = make_poisson_workload(cfg, **SERVE, traffic="bursty")[0]
+    events = session.tracer.events
+    snap = session.metrics_registry.snapshot()
+    lanes = sorted({e.rank for e in events if e.kind != "counter"})
+    n_route = sum(e.name == "route" for e in events)
+    series = sorted({k.split(".")[1] for k in snap if k.startswith("serve.r")})
+    log(f"[{tag}] session bursty jsq: serve_config {session.results['serve_config']}; "
+        f"router series {sorted(k for k in snap if k.startswith('router.'))}; replica "
+        f"series prefixes {series}; lanes {lanes}; {n_route} route events")
+    if met["finished"] != len(bspecs):
+        raise AssertionError(f"{tag}: the Session's routed run did not finish every request")
+    _check_streams("session bursty jsq", cfg, bspecs, streams)
+    _expect_launches("session bursty jsq", cfg, counts, events, phase=tag)
+    if (snap.get("router.placed") != len(bspecs) or series != ["r0", "r1"]
+            or lanes != [0, 1, 2] or n_route != len(bspecs)):
+        raise AssertionError(f"{tag}: the Session's routed run lacks its router series, "
+                             "replica series, lanes or route events")
+    ticks = [e.dur for e in events if e.name == "decode"]
+    log(f"[{tag}] session bursty jsq: tokens_per_s={met['tokens_per_s']:.2f} "
+        f"ttft_p50_s={met['ttft_p50_s']:.4f} ttft_p99_s={met['ttft_p99_s']:.4f} "
+        f"queue_wait_p99_s={met['queue_wait_p99_s']:.4f} "
+        f"latency_p99_s={met['latency_p99_s']:.4f} "
+        f"placed_per_replica={met['placed_per_replica']} "
+        f"load_skew={met['load_skew']:.4f} wall_s={met['wall_s']:.3f}; replica decode "
+        f"tick median {1e3 * statistics.median(ticks):.3f} ms over {len(ticks)}")
+    del session
+    _free(torch)
 
 
 def _check_stream_captures(torch, tag: str, items) -> None:
@@ -3611,7 +3975,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("kernel timings")
     cfg, srv, specs, prompts, streams, _ = serve(torch, dev)
-    ticks_off = [e.dur for e in srv.trace_events() if e.name == "decode"]
+    serve_events = list(srv.trace_events())
+    ticks_off = [e.dur for e in serve_events if e.name == "decode"]
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
     profile_decode_tick(torch, cfg, srv.params)
     phase("serve and teacher-forced check")
@@ -3625,6 +3990,8 @@ def main() -> int:
     phase("serve through the Session")
     counts.update(serve_paths(torch, smi))
     phase("serve paths: chunked, speculative, gathered with scope, static")
+    route_phase(torch, smi, cfg, specs, prompts, streams, serve_events)
+    phase("route: MegaRoute colocated, disaggregated and through the Session")
     serve_recurrent(torch, dev, "rwkv6-3b", RWKV_SERVE, smi)
     phase("rwkv6 serve and teacher-forced check")
     griffin_serve_counts = serve_recurrent(torch, dev, "recurrentgemma-9b", GRIFFIN_SERVE,

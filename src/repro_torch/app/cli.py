@@ -13,6 +13,8 @@
     python -m repro_torch serve --arch qwen2-0.5b --smoke --continuous --device cpu \
         --chunked-prefill        # or --spec-decode [--drafter random],
                                  # --decode-path gathered, --modules scope
+    python -m repro_torch serve --arch qwen2-0.5b --continuous --replicas 2 \
+        --router-policy jsq [--prefill-replicas 1] [--slo-ttft S] [--traffic bursty]
     python -m repro_torch trace --slow-rank 5 --iters 2 --out artifacts/megascan
 
 The flag table is the JAX CLI's, with the same layering (most specific
@@ -246,6 +248,7 @@ def run(argv: list[str], *, model_cfg=None) -> dict:
         outs, met = out
         sc = res["serve_config"]
         s = cfg.serve
+        routed = sc["replicas"] > 1 or sc["policy"]
         print(f"arch={session.model_cfg.name} continuous "
               f"device={session.device} slots={sc['num_slots']} "
               f"blocks={sc['num_blocks']}x{sc['block_size']} "
@@ -253,10 +256,17 @@ def run(argv: list[str], *, model_cfg=None) -> dict:
               f"prefill_path={res['prefill_path']}"
               + (f" spec_k={s.spec_k} drafter={s.drafter}" if s.spec_decode
                  else "")
-              + (" chunked_prefill" if s.chunked_prefill else ""))
+              + (" chunked_prefill" if s.chunked_prefill else "")
+              + (f" replicas={sc['replicas']} policy={sc['policy']}" if routed
+                 else "")
+              + (f" traffic={sc['traffic']}" if sc["traffic"] != "poisson"
+                 else ""))
         keys = ["generated_tokens", "wall_s", "tokens_per_s", "ttft_p50_s",
                 "ttft_p99_s", "queue_wait_p50_s", "queue_wait_p99_s",
                 "latency_p50_s", "latency_p99_s", "preemptions", "steps"]
+        if routed:
+            keys += ["shed", "shed_rate", "redirects", "migrations",
+                     "placed_per_replica", "replica_tokens", "load_skew"]
         if s.spec_decode:
             keys += ["spec_proposed", "spec_accepted", "spec_accept_rate"]
         for k in keys:

@@ -15,12 +15,14 @@ Workloads: ``train`` (the train loop on one device; with ``parallel.pp >
 1`` through MegaDPP's pipeline, every stage on that device, MegaFBD's
 decoupled backward attached by ``parallel.fbd_backward``), ``serve``
 (MegaServe continuous batching, every single-engine path and MegaScope
-probes included, or the static lockstep baseline), ``trace`` (offline
-MegaScan: simulate/load -> align -> detect, host only).  What the port does
-not run yet raises ``NotImplementedError`` naming its ROADMAP item: meshes,
-data and tensor parallelism (item 8b), the router and bursty or diurnal
-traffic (item 11), the compile cache (item 12b), online detection and rank
-events (item 9) and ``dryrun`` (item 14b).
+probes included, behind MegaRoute's router for several replicas, a
+disaggregated fleet, SLO admission or a placement policy, under Poisson,
+bursty or diurnal traffic; or the static lockstep baseline), ``trace``
+(offline MegaScan: simulate/load -> align -> detect, host only).  What the
+port does not run yet raises ``NotImplementedError`` naming its ROADMAP
+item: meshes, data and tensor parallelism (item 8b), the compile cache
+(item 12b), online detection and rank events (item 9) and ``dryrun`` (item
+14b).
 """
 
 from __future__ import annotations
@@ -273,7 +275,7 @@ class Session:
         cfg = self.model_cfg
         if cfg is None:
             raise ValueError("serve workload needs an --arch")
-        s, r = self.run_cfg.serve, self.run_cfg.router
+        s = self.run_cfg.serve
         if cfg.input_kind != "tokens":
             raise ValueError(f"{cfg.name}: serving needs token archs")
         if not s.continuous:
@@ -282,10 +284,6 @@ class Session:
             raise ValueError(
                 "continuous serving decodes greedily "
                 "(preemption-by-recompute needs deterministic decode)")
-        if (r.replicas > 1 or r.prefill_replicas > 0 or r.slo_ttft_s > 0
-                or r.policy != "round_robin" or s.traffic != "poisson"):
-            raise _later("MegaRoute (replicas, router policies, SLO admission, "
-                         "bursty and diurnal traffic)", "item 11")
         return self._serve_continuous()
 
     def _serve_continuous(self):
@@ -293,16 +291,31 @@ class Session:
 
         from repro_torch.device import resolve_device
         from repro_torch.models import lm
+        from repro_torch.serve.router import Router, RouterConfig
         from repro_torch.serve.server import MegaServe, make_poisson_workload
         from repro_torch.serve.spec import get_drafter
 
         cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
+        r = rc.router
+        # always build the RouterConfig, so bad router.* values fail loudly
+        # even on single-engine runs
+        router_cfg = RouterConfig(
+            replicas=r.replicas, policy=r.policy,
+            prefill_replicas=r.prefill_replicas,
+            slo_ttft_s=r.slo_ttft_s, shed=r.shed,
+        )
+        use_router = (
+            router_cfg.replicas > 1
+            or router_cfg.disaggregated
+            or router_cfg.slo_ttft_s > 0
+            or router_cfg.policy != "round_robin"
+        )
         params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device))
         specs, prompts, serve_cfg = make_poisson_workload(
             cfg, n=s.requests, rate=s.rate, prompt_lens=tuple(s.prompt_lens),
             max_new_range=(max(1, s.max_new // 4), s.max_new),
             num_slots=s.slots, block_size=s.block_size,
-            num_blocks=s.num_blocks, seed=rc.seed,
+            num_blocks=s.num_blocks, seed=rc.seed, traffic=s.traffic,
         )
         serve_cfg = replace(
             serve_cfg, decode_path=s.decode_path,
@@ -314,29 +327,49 @@ class Session:
         if s.spec_decode and s.drafter != "ngram":
             drafter = get_drafter(s.drafter, vocab_size=cfg.vocab_size,
                                   seed=rc.seed)
-        srv = MegaServe.from_session(self, params, serve_cfg, drafter=drafter)
-        del params  # the server holds its own compute-dtype copy
+        if use_router:
+            # the router casts the weights once; its replicas share them
+            srv = Router.from_session(
+                self, params, serve_cfg, router_cfg, drafter=drafter)
+            replica_streams = [rep.streams for rep in srv.replicas]
+            engine = srv.replicas[0]
+        else:
+            srv = MegaServe.from_session(self, params, serve_cfg, drafter=drafter)
+            replica_streams = [srv.streams]
+            engine = srv
+        del params  # the servers hold the compute-dtype copy
         for spec in specs:
             srv.submit(prompts[spec.rid], spec.max_new, arrival=spec.arrival)
         outs = srv.drain(on_step=self.notify_step)
         metrics = srv.metrics()
+        if use_router:
+            # replica lanes trace on their own rank=i tracers and the router
+            # on rank=N: fold them into the session tracer, so the shared
+            # trace_out export shows every lane
+            self.tracer.events.extend(srv.trace_events())
         self.results["serve_config"] = {
             "num_slots": serve_cfg.num_slots,
             "block_size": serve_cfg.block_size,
             "num_blocks": serve_cfg.num_blocks,
+            "replicas": router_cfg.replicas if use_router else 1,
+            "policy": router_cfg.policy if use_router else "",
+            "traffic": s.traffic,
         }
         # MegaServe attaches probe captures per generated token (StreamItem),
         # not per tick: replay them through on_step so capture-observing
         # plugins (MegaScope) see serving captures as they see training ones
         if self.collector is not NULL_COLLECTOR:
-            for items in srv.streams.values():
-                for it in items:
-                    if it.captures:
-                        self.notify_step([], {"captures": it.captures})
+            for streams in replica_streams:
+                for items in streams.values():
+                    for it in items:
+                        if it.captures:
+                            self.notify_step([], {"captures": it.captures})
         self.results["serve_metrics"] = metrics
-        self.results["decode_path"] = srv.decode_path
-        self.results["prefill_path"] = srv.prefill_path
-        self.results["stream_items"] = srv.streams
+        self.results["decode_path"] = engine.decode_path
+        self.results["prefill_path"] = engine.prefill_path
+        self.results["stream_items"] = {
+            rid: items for streams in replica_streams
+            for rid, items in streams.items()}
         return outs, metrics
 
     def _serve_static(self):

@@ -6,6 +6,7 @@ from repro_torch.serve.paged_cache import (
     blocks_for,
 )
 from repro_torch.serve.request import Request, RequestStatus
+from repro_torch.serve.router import Router, RouterConfig
 from repro_torch.serve.sampler import greedy_verify, rejection_verify, sample
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
 from repro_torch.serve.server import (
@@ -28,6 +29,8 @@ __all__ = [
     "RandomDrafter",
     "Request",
     "RequestStatus",
+    "Router",
+    "RouterConfig",
     "Scheduler",
     "ServeConfig",
     "StaticRunner",

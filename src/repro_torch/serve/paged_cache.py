@@ -16,8 +16,8 @@ place.  ``PagedKVCache.paged`` tells them apart as JAX's does.  (The JAX
 package widens bfloat16 paged leaves to float32 on its CPU backend to keep
 scatters in place; PyTorch updates a bfloat16 tensor in place on any
 device.)  ``gather`` and ``scatter_decode`` serve the gathered decode
-path; slot export/import arrives with the router (ROADMAP queue 1, item
-11).
+path; ``export_slot`` and ``import_slot`` move one slot's cache state
+between pools, the router's disaggregated prefill -> decode hand-off.
 """
 
 from __future__ import annotations
@@ -153,6 +153,38 @@ class PagedKVCache:
             return p
 
         lm.tree_map(leaf, pool, dense, self.paged)
+
+    def export_slot(self, pool: dict, phys: torch.Tensor, slot: int) -> dict:
+        """One slot's cache state out of ``pool`` as a self-contained bundle,
+        a copy (the disaggregation hand-off unit): paged leaves become
+        ``[n, n_blk, bs, *feat]``, the ``phys`` [n_blk] blocks in table
+        order; slot-state leaves become ``[n, *feat]``, the slot's row.
+        ``phys`` may be padded with null-block entries: those rows carry
+        whatever the null block holds and are ignored on import."""
+        idx = phys.long()
+
+        def leaf(p, paged):
+            return p.index_select(1, idx) if paged else p[:, slot].clone()
+
+        return lm.tree_map(leaf, pool, self.paged)
+
+    def import_slot(self, pool: dict, bundle: dict, phys: torch.Tensor,
+                    slot: int) -> None:
+        """Deposit an :meth:`export_slot` bundle into ``pool`` in place, cast
+        to the pool's dtype: paged leaves at the ``phys`` blocks, slot-state
+        leaves at row ``slot``.  Padding entries of ``phys`` must point at
+        the null block, where the extra writes land harmlessly (as the
+        decode writes of inactive slots do)."""
+        idx = phys.long()
+
+        def leaf(p, b, paged):
+            if paged:
+                p[:, idx] = b.to(p.dtype)
+            else:
+                p[:, slot] = b.to(p.dtype)
+            return p
+
+        lm.tree_map(leaf, pool, bundle, self.paged)
 
     def scatter_prefill(self, pool: dict, filled: dict, slot: int,
                         phys: torch.Tensor) -> None:

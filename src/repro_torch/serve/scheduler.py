@@ -3,9 +3,8 @@
 Copied from ``repro.serve.scheduler``: pure host-side bookkeeping (numpy
 block tables, a python free list) split from the engine, so the policy is the
 JAX package's to the letter, speculative capacity (``ensure_capacity``'s
-per-slot write counts) and rewind (``trim_blocks``) included.  The migration
-entry points (``adopt``/``release_request``) arrive with the router (ROADMAP
-queue 1, item 11).
+per-slot write counts), rewind (``trim_blocks``) and the router's migration
+entry points (``adopt``/``release_request``) included.
 
 Invariants:
   * every active slot holds exactly ``ceil(pos / block_size)`` physical
@@ -173,6 +172,45 @@ class Scheduler:
             out.append(Admission(slot, rid, tokens, list(phys),
                                  is_recompute=req.n_preemptions > 0))
         return out
+
+    # -------------------------------------------------- migration intake
+    def adopt(self, req: Request, pos: int, last_tok: int) -> tuple[int, list[int]] | None:
+        """Take over a request mid-flight (disaggregated prefill hand-off):
+        claim a free slot plus enough blocks to cover ``pos`` already-written
+        cache positions and register the request as RUNNING — the imported
+        KV blocks land where the returned ``phys`` list says.  Returns
+        ``(slot, phys)``, or ``None`` when no slot/blocks are free (the
+        router retries next tick)."""
+        if req.rid in self.requests:
+            raise ValueError(f"duplicate rid {req.rid}")
+        slot = next((s for s, r in enumerate(self.slots) if r is None), None)
+        if slot is None:
+            return None
+        phys = self.allocator.try_alloc(blocks_for(pos, self.cfg.block_size))
+        if phys is None:
+            return None
+        self.requests[req.rid] = req
+        self.slots[slot] = req.rid
+        self.blocks[slot] = list(phys)
+        self.pos[slot] = pos
+        self.last_tok[slot] = last_tok
+        self.tables[slot, :] = 0
+        self.tables[slot, : len(phys)] = phys
+        self._seq += 1
+        self._admit_seq[slot] = self._seq
+        req.status = RequestStatus.RUNNING
+        return slot, list(phys)
+
+    def release_request(self, rid: int) -> None:
+        """Drop a request entirely (migrated away): free its slot/blocks and
+        forget it — unlike preemption it is NOT requeued here, and unlike
+        eviction it is not marked finished (the adopting replica owns its
+        lifecycle from now on)."""
+        slot = next((s for s, r in enumerate(self.slots) if r == rid), None)
+        if slot is None:
+            raise ValueError(f"rid {rid} not active (cannot release)")
+        self._release(slot)
+        del self.requests[rid]
 
     # ----------------------------------------------------------- capacity
     def ensure_capacity(self, extra: dict[int, int] | None = None) -> list[int]:

@@ -33,8 +33,10 @@ Engine paths, chosen as JAX chooses them (``ServeConfig``'s docstring):
 
 Serving is greedy: every token is the argmax, as the JAX package's keyless
 ``sample`` makes it (ROADMAP R7).  ``StaticRunner`` is the lockstep
-baseline.  The router and slot migration (ROADMAP queue 1, item 11) and
-precompilation (item 12b) arrive with later slices.
+baseline.  For MegaRoute (``repro_torch.serve.router``) a server can run
+prefill-only and hand a prefilled slot to another server
+(``export_request`` / ``adopt_request``); precompilation (ROADMAP queue 1,
+item 12b) arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.simkit.workload import (
+    bursty_requests,
+    diurnal_requests,
+    poisson_requests,
+)
 from repro_torch.core.tracing.tracer import Tracer
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -107,10 +114,16 @@ class MegaServe:
     ``spec_decode``); ``clock`` injects a time source for deterministic
     tests.  ``wrap_step`` decorates every engine step (the
     ``ModulePlugin.wrap_step`` attach point); ``registry`` receives the serve
-    series, named ``serve.<name>``.  The KV pool is updated in place every
-    step.  Greedy streams are token-identical across the engine paths:
-    paged and gathered, flash, dense and chunked prefill, speculative and
-    plain, and through preemption round trips.
+    series, named ``<metrics_prefix><name>`` (``serve.`` by default; the
+    router runs replica ``i`` under ``serve.r{i}.``).  A ``prefill_only``
+    server admits and prefills, emitting each request's first token, and
+    never drafts or decodes: the router moves its prefilled slots to a
+    decode server (``export_request`` / ``adopt_request``).  ``params``
+    already on ``device`` in the compute dtype are used as they are, not
+    copied, so servers given one cast tree share its weights.  The KV pool
+    is updated in place every step.  Greedy streams are token-identical
+    across the engine paths: paged and gathered, flash, dense and chunked
+    prefill, speculative and plain, and through preemption round trips.
     """
 
     def __init__(
@@ -126,6 +139,8 @@ class MegaServe:
         drafter: Drafter | None = None,
         wrap_step: Callable[[Callable], Callable] | None = None,
         registry=None,
+        metrics_prefix: str = "serve.",
+        prefill_only: bool = False,
     ):
         self.collector = collector
         self._capture = collector is not NULL_COLLECTOR
@@ -185,6 +200,8 @@ class MegaServe:
         self.sched = Scheduler(serve_cfg)
         self.tracer = tracer or Tracer(rank=0, enabled=True)
         self.registry = registry
+        self._mpfx = metrics_prefix
+        self.prefill_only = prefill_only
         self.streams: dict[int, list[StreamItem]] = {}
         self.step_idx = 0
         self._next_rid = 0
@@ -346,7 +363,7 @@ class MegaServe:
                             torch.int32)
 
     def _m(self, name: str) -> str:
-        return "serve." + name
+        return self._mpfx + name
 
     # --------------------------------------------------------------- step
     def step(self) -> dict:
@@ -422,25 +439,28 @@ class MegaServe:
 
         # mid-chunking slots hold blocks but cannot decode yet: they are
         # left out of drafting and decoding (their ride along the batched
-        # step writes at pos, which the first real decode write overwrites)
+        # step writes at pos, which the first real decode write overwrites);
+        # a prefill-only server never decodes (its slots wait for export)
+        preempted: list[int] = []
         active = self.sched.active_slots()
-        runnable = [s for s in active if s not in self._chunking]
-        # speculative drafts come before capacity planning: a slot about to
-        # verify k drafts needs 1 + k write positions
-        drafts: dict[int, list[int]] = {}
-        if self._spec_step is not None and runnable:
-            drafts = self._collect_drafts()
-        preempted = self.sched.ensure_capacity(
-            {s: 1 + len(d) for s, d in drafts.items()} if drafts else None)
-        active = self.sched.active_slots()
-        runnable = [s for s in active if s not in self._chunking]
-        drafts = {s: d for s, d in drafts.items() if s in set(runnable)}
-        if runnable:
-            if drafts:
-                tokens_out += self._spec_tick(runnable, drafts)
-            else:
-                tokens_out += self._decode_tick(runnable)
-            now = self._clock()
+        if not self.prefill_only:
+            runnable = [s for s in active if s not in self._chunking]
+            # speculative drafts come before capacity planning: a slot about
+            # to verify k drafts needs 1 + k write positions
+            drafts: dict[int, list[int]] = {}
+            if self._spec_step is not None and runnable:
+                drafts = self._collect_drafts()
+            preempted = self.sched.ensure_capacity(
+                {s: 1 + len(d) for s, d in drafts.items()} if drafts else None)
+            active = self.sched.active_slots()
+            runnable = [s for s in active if s not in self._chunking]
+            drafts = {s: d for s, d in drafts.items() if s in set(runnable)}
+            if runnable:
+                if drafts:
+                    tokens_out += self._spec_tick(runnable, drafts)
+                else:
+                    tokens_out += self._decode_tick(runnable)
+                now = self._clock()
 
         finished += self.sched.evict_finished(now)
         if admitted or active:
@@ -690,6 +710,86 @@ class MegaServe:
             captures = lm.tree_map(take, caps)
         self.streams[rid].append(StreamItem(self.step_idx, tok, captures))
 
+    # ---------------------------------------------------------- migration
+    def exportable(self) -> list[int]:
+        """Rids whose prefill has completed here and whose decode has not
+        begun: on a prefill-only server these are ready for hand-off (a
+        colocated server never exports; it decodes its own prefills).
+        Chunking slots are not exportable."""
+        if not self.prefill_only:
+            return []
+        out = []
+        for s in self.sched.active_slots():
+            if s in self._chunking:
+                continue
+            req = self.sched.requests[self.sched.slots[s]]
+            if req.t_first_token is not None and not req.done:
+                out.append(req.rid)
+        return out
+
+    def _sync(self) -> None:
+        """Waits for the card, so a ``kv_export``/``kv_import`` scope times
+        the copy itself (nothing else reads it back)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def export_request(self, rid: int) -> dict:
+        """Pull a prefilled request out of this server: its KV blocks leave
+        the pool as an ``export_slot`` bundle (padded to the pow2 block
+        bucket with null-block entries), its slot and blocks are freed, and
+        the ``Request`` object and its token stream ride the package, so
+        timing fields and emitted tokens survive the move."""
+        slot = next(
+            (s for s, r in enumerate(self.sched.slots) if r == rid), None)
+        if slot is None:
+            raise ValueError(f"rid {rid} not active (cannot export)")
+        req = self.sched.requests[rid]
+        phys = list(self.sched.blocks[slot])
+        pos = self.sched.pos[slot]
+        last_tok = self.sched.last_tok[slot]
+        width = min(
+            pow2_bucket(max(len(phys), 1)), self.serve_cfg.max_blocks_per_slot)
+        padded = phys + [0] * (width - len(phys))
+        with self.tracer.scope(
+            "kv_export", kind="comm", rid=rid, slot=slot, blocks=len(phys),
+            step=self.step_idx,
+        ):
+            bundle = self.kv.export_slot(
+                self.pool, self._tensor(padded, torch.int32), slot)
+            self._sync()
+        stream = self.streams.pop(rid)
+        self.sched.release_request(rid)
+        return {
+            "req": req, "stream": stream, "bundle": bundle,
+            "n_blocks": len(phys), "width": width,
+            "pos": pos, "last_tok": last_tok,
+        }
+
+    def adopt_request(self, package: dict) -> bool:
+        """Install an ``export_request`` package into this server: claim a
+        slot and blocks, write the bundle's KV into them, and resume decode
+        from the migrated cursor.  Returns False (package untouched) when no
+        slot or blocks are free; the router retries next tick.  The import
+        copies the blocks bit for bit, so the greedy continuation is the
+        colocated engine's."""
+        req = package["req"]
+        got = self.sched.adopt(req, package["pos"], package["last_tok"])
+        if got is None:
+            return False
+        slot, phys = got
+        padded = phys + [0] * (package["width"] - len(phys))
+        with self.tracer.scope(
+            "kv_import", kind="comm", rid=req.rid, slot=slot,
+            blocks=package["n_blocks"], step=self.step_idx,
+        ):
+            self.kv.import_slot(
+                self.pool, package["bundle"], self._tensor(padded, torch.int32),
+                slot)
+            self._sync()
+        self.streams[req.rid] = package["stream"]
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        return True
+
     # -------------------------------------------------------------- drain
     def drain(
         self,
@@ -868,44 +968,6 @@ def run_static(
         requests, batch_size=batch_size, tracer=tracer, clock=clock)
 
 
-# ---------------------------------------------------------------------------
-# Workload (a copy of repro.core.simkit.workload's RequestSpec and
-# poisson_requests, which the JAX package's CLI builds on)
-# ---------------------------------------------------------------------------
-
-
-@dataclass(frozen=True)
-class RequestSpec:
-    rid: int
-    arrival: float          # seconds
-    prompt_len: int
-    max_new: int
-
-
-def poisson_requests(
-    n: int,
-    rate: float,
-    *,
-    prompt_lens: tuple[int, ...] = (16, 32, 64, 128, 256),
-    max_new_range: tuple[int, int] = (4, 48),
-    seed: int = 0,
-) -> list[RequestSpec]:
-    """Poisson arrivals at ``rate``/s with mixed prompt/generation lengths;
-    ``max_new_range`` is inclusive on both ends."""
-    rng = np.random.default_rng(seed)
-    t = 0.0
-    out = []
-    for i in range(n):
-        t += float(rng.exponential(1.0 / rate))
-        out.append(RequestSpec(
-            rid=i,
-            arrival=t,
-            prompt_len=int(rng.choice(prompt_lens)),
-            max_new=int(rng.integers(*max_new_range, endpoint=True)),
-        ))
-    return out
-
-
 def make_poisson_workload(
     cfg: ModelConfig,
     *,
@@ -917,14 +979,23 @@ def make_poisson_workload(
     block_size: int = 16,
     num_blocks: int = 0,
     seed: int = 0,
+    traffic: str = "poisson",
 ):
-    """The CLI's workload: Poisson arrival specs, random token prompts
-    and a ``ServeConfig`` sized so the worst request fits one slot —
+    """The CLI's workload: arrival specs (``traffic`` picks the process:
+    ``poisson``, ``bursty`` MMPP or ``diurnal`` sinusoidal), random token
+    prompts and a ``ServeConfig`` sized so the worst request fits one slot —
     ``num_blocks=0`` sizes the pool for zero preemption (every slot can hold
     its worst case at once, plus the null block).  The same seed gives the
     same specs and prompts as ``repro.serve.server.make_poisson_workload``.
     Returns (specs, prompts by rid, serve_cfg)."""
-    specs = poisson_requests(
+    gens = {
+        "poisson": poisson_requests,
+        "bursty": bursty_requests,
+        "diurnal": diurnal_requests,
+    }
+    if traffic not in gens:
+        raise ValueError(f"unknown traffic {traffic!r}; one of {sorted(gens)}")
+    specs = gens[traffic](
         n, rate, prompt_lens=prompt_lens, max_new_range=max_new_range,
         seed=seed,
     )

@@ -201,14 +201,46 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
     (["train", "--pp", "2", "--set", "parallel.tp=2"], "item 8b"),
     (["train", "--multi-pod"], "item 8b"),
     (["train", "--set", "obs.rank_events=true"], "item 9"),
-    (["serve", "--continuous", "--replicas", "2"], "item 11"),
-    (["serve", "--continuous", "--traffic", "bursty"], "item 11"),
     (["dryrun"], "item 14b"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
 def test_later_slices_are_refused_with_their_item(argv, item):
     with pytest.raises(SystemExit, match=re.escape(item)):
         cli.main([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
                   *argv[1:]])
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--replicas", "2", "--router-policy", "jsq", "--prefill-replicas", "1"],
+     dict(replicas=2, policy="jsq", traffic="poisson")),
+    (["--traffic", "bursty"], dict(replicas=1, policy="", traffic="bursty")),
+], ids=lambda v: "-".join(v) if isinstance(v, list) else "")
+def test_routed_and_bursty_serving_run(argv, want, capsys):
+    """MegaRoute (two replicas, one of them prefill-only, behind jsq) and
+    bursty traffic on one engine, which earlier slices refused, run to the
+    end through the CLI: every request finishes and ``serve_config``
+    reports the fleet and the traffic, as JAX's CLI prints them."""
+    out = cli.run(["serve", "--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--continuous", "--requests", "6", "--rate", "300",
+                   "--slots", "3", "--max-new", "6", "--prompt-lens", "16,40",
+                   *argv])
+    printed = capsys.readouterr().out
+    met, sc = out["metrics"], out["serve_config"]
+    assert met["finished"] == 6 and len(out["streams"]) == 6
+    assert {k: sc[k] for k in want} == want
+    if want["replicas"] > 1:
+        assert "replicas=2 policy=jsq" in printed
+        # every request that did not end at its first token migrated to
+        # the decode replica
+        n_mig = sum(len(v) > 1 for v in out["streams"].values())
+        assert met["migrations"] == n_mig > 0
+        assert met["placed_per_replica"] == [6 - n_mig, n_mig]
+        for key in ("shed_rate", "redirects", "load_skew"):
+            assert re.search(rf"^  {key} ", printed, re.M), key
+        events = out["session"].tracer.events
+        assert {e.rank for e in events if e.kind != "counter"} == {0, 1, 2}
+        assert sum(e.name == "route" for e in events) == 6
+    else:
+        assert "traffic=bursty" in printed and "load_skew" not in printed
 
 
 @pytest.mark.parametrize("argv,paths", [

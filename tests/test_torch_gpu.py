@@ -1128,3 +1128,43 @@ def test_pipelined_qwen2_step_matches_the_fused_step_on_the_card(cuda):
     assert torch.equal(res[True][0], res[False][0])
     for (_, a), (_, b) in zip(leaves(res[True][1]), leaves(res[False][1])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,smoke", [("qwen2-0.5b", False), ("recurrentgemma-9b", True)])
+def test_slot_export_import_round_trip_on_the_card(cuda, arch, smoke):
+    """MegaRoute's migration unit on the card: a slot's blocks exported from
+    one pool, imported at other blocks and another slot of a second pool,
+    then exported back, are ``torch.equal`` to the first bundle (the null
+    block's padding rows aside), and equal the CPU's export of the same
+    values; qwen2-0.5b at full width (paged leaves), Griffin's smoke config
+    for its slot-state leaves too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.paged_cache import PagedKVCache, PoolSpec
+
+    cfg = get_config(arch, smoke=smoke)
+    spec = PoolSpec(num_slots=3, num_blocks=40, block_size=16, max_blocks=8)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def fill(kv):
+        lm.tree_map(lambda t: t.copy_(torch.randn(t.shape, generator=gen, device=cuda)),
+                    kv.pool)
+        return kv
+
+    a, b = (fill(PagedKVCache(cfg, spec, cuda)) for _ in range(2))
+    phys = torch.tensor([3, 17, 5, 0], dtype=torch.int32, device=cuda)
+    phys2 = torch.tensor([30, 2, 11, 0], dtype=torch.int32, device=cuda)
+    bundle = a.export_slot(a.pool, phys, 2)
+    b.import_slot(b.pool, bundle, phys2, 0)
+    back = b.export_slot(b.pool, phys2, 0)
+    cpu = PagedKVCache(cfg, spec, torch.device("cpu"))
+    cpu_pool = lm.tree_map(lambda t: t.cpu(), a.pool)
+    ref = cpu.export_slot(cpu_pool, phys.cpu(), 2)
+    flags = lm.tree_leaves(a.paged)
+    for paged, x, y, z in zip(flags, lm.tree_leaves(bundle), lm.tree_leaves(back),
+                              lm.tree_leaves(ref)):
+        assert x.is_cuda and torch.equal(x.cpu(), z)
+        if paged:
+            x, y = x[:, :3], y[:, :3]
+        assert torch.equal(x, y)

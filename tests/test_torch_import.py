@@ -93,3 +93,16 @@ def test_the_recurrent_serving_modules_are_guarded():
               "repro_torch.kernels.rglru.ops", "repro_torch.kernels.wkv6.ops"):
         assert m in mods, m
         assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES
+
+
+def test_the_router_modules_are_guarded():
+    """MegaRoute's modules (the router package, the serving half of the
+    simkit workload it shares with the offline evaluator) are among those
+    imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.serve.router", "repro_torch.serve.router.router",
+              "repro_torch.core.simkit.workload", "repro_torch.serve.scheduler"):
+        assert m in mods, m
+        path = PORT.parent.joinpath(*m.split("."))
+        assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+                else path / "__init__.py") in SOURCES
