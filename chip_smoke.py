@@ -17,10 +17,15 @@ Phases, each of which fails the run (non-zero exit) on error:
              its first live position across split edges, and on float32
              queries), K4 also at the served verify shape (8 slots, Q=5,
              ragged kv_len, pad rows past a table's reach) and chunk shapes
-             (Q=32 and 256 over a cached prefix), held row by row; RMSNorm forward and backward (K1, Triton;
-             also at rwkv6-3b's width 2560 and recurrentgemma-9b's 4096) and
+             (Q=32 and 256 over a cached prefix), K3 and K4 also at
+             minitron-4b's heads (24 / 8 / 128, G = 3), minicpm-2b's (36 /
+             36 / 64, MHA) and phi3.5-moe's (32 / 8 / 128, G = 4), held row by
+             row; RMSNorm forward and backward (K1, Triton;
+             also at rwkv6-3b's width 2560, recurrentgemma-9b's 4096 and
+             the widths 2304, 3072 and 3584, none a power of two) and
              flash attention forward and backward (K2) at the training
-             path's shapes, at small ragged ones and across its tiles'
+             path's shapes (qwen2-vl-7b's 28 / 4 / 128, minicpm-2b's and
+             phi3.5-moe's too), at small ragged ones and across its tiles'
              edges (head dims 16 to 256), its backward bit-identical on a
              second run, all bfloat16; then times kernel, plain version and
              a library yardstick the port never calls
@@ -28,7 +33,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              backward; ``F.rms_norm``, its backward alone for K1's backward,
              K1 and its yardstick through CUDA graphs) at the main paths'
              shapes (K3 also at one Griffin decode tick, dh 256; K4 also
-             at one verify step and one 32-token chunk), and
+             at one verify step and one 32-token chunk; K3 and K4 at
+             minitron's and minicpm's heads, K2 at qwen2-vl's and minicpm's
+             training shapes, K1 at 2304, 3072 and 3584, logged), and
              splits K2's backward into its kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
@@ -114,6 +121,20 @@ Phases, each of which fails the run (non-zero exit) on error:
    generate-recurrent — ``generate_with_scope`` on rwkv6-3b (2 layers)
              and recurrentgemma-9b (3), full width, over the carried state,
              held as the generate phase holds qwen2's;
+   serve-dense, serve-moe — minitron-4b (32 layers) and minicpm-2b (40)
+             at full width and depth, and phi3.5-moe at full width cut to
+             8 of its 32 layers (its float32 init freed once the server
+             holds the bf16 copy), seed-0 weights, bf16, 8 slots, 12
+             Poisson requests at 40/s (prompts 128/512/2048, 16-32 new
+             tokens): every request finished, K4 L times a prompt, K3 L
+             times a tick, K1 2L + 1 times a forward, no K1 backward; the
+             teacher-forced logits of one stream per prompt length,
+             kernels against plain, within ``LOGIT_TOL`` (phi3.5-moe's
+             plain replay routed as the kernel replay routed, the routing
+             flips held to ``MOE_FLIP_SHARE``, the replay on its own
+             routing and a noise probe logged); tokens/s, TTFT, the tick median, one tick's
+             host and device time, peak memory, phi3.5-moe's
+             ``moe_drop_frac`` by path;
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
              through ``Session`` (``python -m repro_torch train --modules
              scan,metrics --trace-out ... --metrics-out ... --set
@@ -198,6 +219,19 @@ Phases, each of which fails the run (non-zero exit) on error:
              (rec, rec, attn; probe ``rglru_out:stats``), full width, with
              and without the probe: losses bit-identical, K5, K6, K2 and K1
              launched as often, captures finite;
+   train-configs — qwen2-vl-7b at full width cut to 4 of 28 layers
+             through ``make_train_step`` on a ``make_batch`` batch (input
+             embeddings, M-RoPE ids), seq 2048 x batch 4; minicpm-2b at
+             full depth through ``Session`` (``train --arch minicpm-2b``,
+             the wsd schedule), 2048 x 4; phi3.5-moe cut to 2 of 32
+             layers through the loop, 2048 x 2, its aux loss and
+             ``seg0_moe_drop_frac`` in every step's metrics; 4 steps each:
+             K2 and K1 launched exactly as counted for full remat, losses
+             finite and falling, one more step under ``torch.profiler``;
+             then each one's step check at the qwen2 check's limits
+             (qwen2-vl's on a patch grid's M-RoPE ids, phi3.5-moe's plain
+             run routed as the kernel run routed, the routing flips held
+             to ``MOE_FLIP_SHARE``);
 10. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -206,6 +240,7 @@ Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -409,6 +444,39 @@ GRIFFIN_STEP_LOSS_TOL = 1e-3
 GRIFFIN_STEP_GNORM_RTOL = 1e-3
 GRIFFIN_STEP_LEAF_RTOL = 1e-2
 
+# the dense configs and the MoE family (minitron-4b, minicpm-2b, qwen2-vl-7b,
+# phi3.5-moe): their attention heads (H, K, dh) and model widths.  minitron
+# groups 3 query heads a kv head, minicpm none (MHA, G = 1), phi3.5-moe 4,
+# qwen2-vl 7
+MINITRON_HEADS, MINITRON_D = (24, 8, 128), 3072
+MINICPM_HEADS, MINICPM_D = (36, 36, 64), 2304
+PHI_HEADS, PHI_D = (32, 8, 128), 4096
+QWEN2VL_HEADS, QWEN2VL_D = (28, 4, 128), 3584
+# serve-dense and serve-moe: 12 Poisson requests at 40/s, 8 slots;
+# minitron-4b and minicpm-2b at full depth, phi3.5-moe cut to 8 of its 32
+# layers (10.7 B parameters: 21.3 GB in bf16 beside the 42.6 GB float32
+# init at the peak; all 32 would be 84 GB in bf16)
+CONFIG_SERVE = dict(n=12, rate=40.0, prompt_lens=(128, 512, 2048),
+                    max_new_range=(16, 32), num_slots=8, block_size=BS, seed=0)
+PHI_SERVE_LAYERS = 8
+# train-configs: qwen2-vl-7b cut to 4 of 28 layers (2.02 B parameters, ~32
+# GB of train state at 16 B a parameter; all 28 would be ~122 GB) through
+# make_train_step on one make_batch batch (random targets: only a repeated
+# batch has a loss to bring down); minicpm-2b at full depth through the
+# Session (~44 GB); phi3.5-moe cut to 2 of 32 layers (2.86 B, ~46 GB)
+QWEN2VL_TRAIN = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
+QWEN2VL_LAYERS = 4
+MINICPM_TRAIN = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
+PHI_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=0)
+PHI_TRAIN_LAYERS = 2
+# MoE routing flips: the token routings whose top-k set differs between the
+# kernel path and the plain path computed on the same pinned history
+# (_PinnedRouting).  A bfloat16 near-tie that one ulp tips flips a few:
+# 1.3-1.7 % of serve-moe's replays and 0.5 % of step-moe's on an H100; a
+# kernel whose error leans one way moves many more.  The noise probe's
+# flips (the plain path against itself with float64 norms) are logged beside
+MOE_FLIP_SHARE = 0.05
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -603,6 +671,42 @@ def check_kernels(torch, dev) -> dict:
         ("paged_prefill_chunk", "S=1 Q=256 chunks at kv_len 256, 1024, 2048, 4-D",
          lambda: tuple(map(max, *(prefill(case(S=1, Q=256, kv_lens=[n], layers=0),
                                           None, None) for n in (256, 1024, 2048))))),
+        # the served heads of minitron-4b (G = 3), minicpm-2b (MHA, G = 1)
+        # and phi3.5-moe (G = 4): a tick, split edges, prompts, a verify
+        # step and a chunk
+        ("paged_decode", "Q=1 minitron H=24 K=8 dh=128 tick shape, M=132",
+         lambda: decode(case(S=8, Q=1, kv_lens=TICK_KV_LENS, layers=2, M=132,
+                             heads=MINITRON_HEADS), 1)),
+        ("paged_decode", "Q=1 minicpm H=36 K=36 dh=64 ragged kv_len<=4096",
+         lambda: decode(case(S=8, Q=1, kv_lens=ragged, layers=2, heads=MINICPM_HEADS), 0)),
+        ("paged_decode", "Q=5 minicpm H=36 K=36 across split edges, M=17",
+         lambda: decode(case(S=3, Q=5, kv_lens=[130, 260, 5], layers=0, M=17,
+                             heads=MINICPM_HEADS), None)),
+        ("paged_decode", "Q=1 phi3.5-moe H=32 K=8 dh=128 split edges, M=17",
+         lambda: decode(case(S=5, Q=1, kv_lens=[128, 129, 256, 257, 1], layers=0,
+                             M=17, heads=PHI_HEADS), None)),
+        ("paged_decode", "Q=5 phi3.5-moe H=32 K=8 ragged, 5-D pool",
+         lambda: decode(case(S=8, Q=5, kv_lens=[5, 40, 4096, 777, 16, 33, 2000, 9],
+                             layers=2, heads=PHI_HEADS), 1)),
+        ("paged_prefill", "P=2048 minitron H=24 K=8 dh=128, 5-D pool",
+         lambda: prefill(case(S=1, Q=2048, kv_lens=[2048], layers=2,
+                              heads=MINITRON_HEADS), 1, 0)),
+        ("paged_prefill", "P=512 minicpm H=36 K=36 dh=64, 4-D pool",
+         lambda: prefill(case(S=1, Q=512, kv_lens=[512], layers=0,
+                              heads=MINICPM_HEADS), None, 0)),
+        ("paged_prefill", "Q=100 minicpm, 2 slots (kv 100, 1000), not x64",
+         lambda: prefill(case(S=2, Q=100, kv_lens=[100, 1000], layers=0,
+                              heads=MINICPM_HEADS), None, None)),
+        ("paged_prefill", "P=2048 phi3.5-moe H=32 K=8 dh=128, 5-D pool",
+         lambda: prefill(case(S=1, Q=2048, kv_lens=[2048], layers=2,
+                              heads=PHI_HEADS), 0, 0)),
+        ("paged_prefill_verify", "S=8 Q=5 minitron G=3 kv_len TICK_KV_LENS",
+         lambda: prefill(case(S=8, Q=SPEC_K + 1, kv_lens=VERIFY_PAD_KV_LENS, layers=2,
+                              M=132, heads=MINITRON_HEADS), 1, None)),
+        ("paged_prefill_chunk", "S=1 Q=32 minicpm G=1 at kv_len 544, 2048",
+         lambda: tuple(map(max, *(prefill(case(S=1, Q=CHUNK, kv_lens=[n], layers=0,
+                                               heads=MINICPM_HEADS), None, None)
+                                  for n in (544, 2048))))),
     ]
     for name, what, run in cases:
         abs_err, row_err = run()
@@ -616,96 +720,126 @@ def check_kernels(torch, dev) -> dict:
 
 
 def time_kernels(torch, dev, worst: dict) -> dict:
-    """Kernel, plain and library times at the main path's shapes."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attention import (
-        paged_attention_plain, paged_decode_kernel, paged_prefill_kernel,
-        paged_prefill_plain_from_raw,
-    )
-
+    """Kernel, plain and library times at the main path's shapes: K3 at one
+    tick of the serve phase's shape (``TICK_KV_LENS``, table width 132, the
+    workload's worst request) and K4 at its longest prompt, over the
+    24-layer pool; K3 at a Griffin tick; K4 at a verify step and a chunk."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    scale = DH ** -0.5
     out = {}
+    for key, row in (
+            ("paged_decode", _time_decode_tick(torch, gen, dev, heads=(H, K, DH),
+                                               kv_lens=TICK_KV_LENS, M=132, n_layers=24)),
+            ("paged_prefill", _time_prompt(torch, gen, dev, heads=(H, K, DH), n_layers=24,
+                                           rope_theta=1e6, iters=24, graph=False)),
+            ("paged_decode_dh256", _time_decode_tick(
+                torch, gen, dev, heads=GRIFFIN_HEADS, kv_lens=GRIFFIN_TICK_KV_LENS,
+                M=GRIFFIN_TICK_M, n_layers=12, window=GRIFFIN_WINDOW))):
+        out[key] = dict(row, max_abs_err=worst[key][0], max_row_err=worst[key][1],
+                        tolerance=FLASH_ROW_RTOL)
+    out.update(_time_prefill_served(torch, gen, dev, worst))
+    return out
 
-    # decode: one tick of the serve phase's shape (TICK_KV_LENS), the
-    # 24-layer pool, table width 132 (the workload's worst request);
-    # successive launches walk successive layers so the 24-layer working set
-    # exceeds the 50 MB L2
-    kv_lens = TICK_KV_LENS
-    c = make_case(torch, gen, dev, S=8, Q=1, kv_lens=kv_lens, layers=24, M=132)
-    layer = iter(range(10 ** 9))
-    args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
-    # the device takes less time for K3 (and SDPA) than the host for a
-    # call's wrapper, so back-to-back calls are timed at the host's pace:
-    # their device time comes from a CUDA graph of the calls (the host-paced
-    # time is logged beside it)
-    ms = cuda_ms(lambda: paged_decode_kernel(*args, scale=scale, layer=next(layer) % 24),
-                 96, graph=True)
-    paced = cuda_ms(lambda: paged_decode_kernel(*args, scale=scale,
-                                                layer=next(layer) % 24), 96)
-    plain = cuda_ms(lambda: paged_attention_plain(*args, scale=scale, layer=next(layer) % 24), 24)
-    # library yardstick: SDPA over a dense view gathered beforehand (gather
-    # not timed), kv heads repeated to the query heads, padding masked
-    T = max(kv_lens)
-    kd = torch.zeros((8, H, T, DH), dtype=torch.bfloat16, device=dev)
+
+def _dense_kv(torch, c, kv_lens, heads, dev):
+    """Layer 0's K and V of ``c``'s pool gathered into dense ``[S, H, T,
+    dh]`` views (kv heads repeated to the query heads, zeros past each
+    kv_len): SDPA's inputs, gathered outside its timing."""
+    H_, K_, D = heads
+    kd = torch.zeros((len(kv_lens), H_, max(kv_lens), D), dtype=torch.bfloat16, device=dev)
     vd = torch.zeros_like(kd)
     for s, n in enumerate(kv_lens):
         blocks = c["tables"][s, : -(-n // BS)].long()
         for src, dst in ((c["k"][0], kd), (c["v"][0], vd)):
-            dense = src[blocks].reshape(-1, K, DH)[:n]           # [n, K, dh]
-            dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H // K, 0)
-    mask = (torch.arange(T, device=dev)[None, :]
-            < c["kv_len"][:, None]).reshape(8, 1, 1, T)
+            dense = src[blocks].reshape(-1, K_, D)[:n]           # [n, K, dh]
+            dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H_ // K_, 0)
+    return kd, vd
+
+
+def _time_decode_tick(torch, gen, dev, *, heads, kv_lens, M: int, n_layers: int,
+                      window: int | None = None, label: str = "") -> dict:
+    """K3 at one decode tick: a slot a ``kv_lens`` entry, table width ``M``,
+    over an ``n_layers``-layer pool (successive launches walk successive
+    layers, so the working set exceeds the 50 MB L2).  The device takes less
+    time for K3 (and SDPA) than the host for a call's wrapper, so the
+    kernel and SDPA (over :func:`_dense_kv`, kv_len and ``window`` as a
+    mask) are timed through CUDA graphs of back-to-back calls, with the
+    host-paced times logged beside; the plain version host-paced.
+    ``bound_ms`` moves the live K/V (the window's positions a slot) once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_plain, paged_decode_kernel
+
+    H_, K_, D = heads
+    S = len(kv_lens)
+    c = make_case(torch, gen, dev, S=S, Q=1, kv_lens=kv_lens, layers=n_layers, M=M,
+                  heads=heads)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
+    scale = D ** -0.5
+    layer = iter(range(10 ** 9))
+    kw = lambda: dict(scale=scale, window=window, layer=next(layer) % n_layers)  # noqa: E731
+    iters = 4 * n_layers
+    ms = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), iters, graph=True)
+    paced = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), iters)
+    plain = cuda_ms(lambda: paged_attention_plain(*args, **kw()), n_layers)
+    kd, vd = _dense_kv(torch, c, kv_lens, heads, dev)
+    pos = torch.arange(max(kv_lens), device=dev)[None, :]
+    kvl = c["kv_len"][:, None]
+    mask = (pos < kvl) & (pos >= kvl - window) if window else pos < kvl
+    mask = mask.reshape(S, 1, 1, -1)
     qd = c["q"].permute(0, 2, 1, 3)                               # [S, H, 1, dh]
+
     def sdpa():
         return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=scale)
 
-    lib, lib_paced = cuda_ms(sdpa, 96, graph=True), cuda_ms(sdpa, 96)
-    live = sum(kv_lens)
-    nbytes = 2 * (2 * 8 * H * DH) + 2 * 2 * live * K * DH + 4 * (8 * 132 + 8)
-    flops = 4 * live * H * DH
-    b_ms, b_by = bound(flops, nbytes)
-    out["paged_decode"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by,
-                               max_abs_err=worst["paged_decode"][0],
-                               max_row_err=worst["paged_decode"][1],
-                               tolerance=FLASH_ROW_RTOL)
-    log(f"[timing] paged_decode  S=8 Q=1 kv_len={kv_lens} M=132 24-layer pool: "
-        f"kernel_ms={ms:.4f} (graph; host-paced {paced:.4f}) plain_ms={plain:.4f} "
-        f"library_ms={lib:.4f} (graph; host-paced {lib_paced:.4f}) "
+    lib, lib_paced = cuda_ms(sdpa, iters, graph=True), cuda_ms(sdpa, iters)
+    live = sum(min(n, window) if window else n for n in kv_lens)
+    nbytes = 2 * (2 * S * H_ * D) + 2 * 2 * live * K_ * D + 4 * (S * M + S)
+    b_ms, b_by = bound(4 * live * H_ * D, nbytes)
+    log(f"[timing] paged_decode  {label}H={H_} K={K_} dh={D} (G={H_ // K_}) S={S} Q=1 "
+        f"kv_len={kv_lens}{f' window {window}' if window else ''} M={M} {n_layers}-layer "
+        f"pool: kernel_ms={ms:.4f} (graph; host-paced {paced:.4f}) plain_ms={plain:.4f} "
+        f"library_ms={lib:.4f} (SDPA, graph; host-paced {lib_paced:.4f}) "
         f"bound_ms={b_ms:.6f} ({b_by})")
+    del c, args, kd, vd
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
-    # prefill: the workload's longest prompt, P = 2048 from position 0
+
+def _time_prompt(torch, gen, dev, *, heads, n_layers: int, rope_theta: float, iters: int,
+                 graph: bool, label: str = "") -> dict:
+    """K4 at the workloads' longest prompt, P = 2048 from position 0, over
+    an ``n_layers``-layer pool (successive launches walk successive layers);
+    kernel and causal SDPA (over the dense view, gathered beforehand)
+    ``iters`` calls, through CUDA graphs with ``graph``; the plain version
+    host-paced.  ``bound_ms`` counts the causal pairs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import (
+        paged_prefill_kernel, paged_prefill_plain_from_raw)
+
+    H_, K_, D = heads
     P = 2048
-    c = make_case(torch, gen, dev, S=1, Q=P, kv_lens=[P], layers=24)
+    c = make_case(torch, gen, dev, S=1, Q=P, kv_lens=[P], layers=n_layers, heads=heads)
     args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
     positions = torch.arange(P, device=dev)[None, :]
-    ms = cuda_ms(lambda: paged_prefill_kernel(*args, scale=scale, layer=next(layer) % 24,
-                                              rope_theta=1e6), 24)
+    scale = D ** -0.5
+    layer = iter(range(10 ** 9))
+    kw = lambda: dict(scale=scale, rope_theta=rope_theta,  # noqa: E731
+                      layer=next(layer) % n_layers)
+    ms = cuda_ms(lambda: paged_prefill_kernel(*args, **kw()), iters, graph=graph)
     plain = cuda_ms(lambda: paged_prefill_plain_from_raw(
-        *args, positions=positions, scale=scale, layer=next(layer) % 24,
-        rope_theta=1e6, q_start=0), 6)
-    kd = c["k"][0, 1:1 + P // BS].reshape(P, K, DH).permute(1, 0, 2)
-    kd = kd.repeat_interleave(H // K, 0)[None].contiguous()
-    vd = c["v"][0, 1:1 + P // BS].reshape(P, K, DH).permute(1, 0, 2)
-    vd = vd.repeat_interleave(H // K, 0)[None].contiguous()
+        *args, positions=positions, q_start=0, **kw()), max(3, n_layers // 4), warmup=1)
+    kd, vd = _dense_kv(torch, c, [P], heads, dev)
     qd = c["q"].permute(0, 2, 1, 3).contiguous()
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, is_causal=True, scale=scale), 24)
-    nbytes = 2 * (2 * P * H * DH) + 2 * 2 * P * K * DH + 4 * (P // BS + 1)
-    flops = 4 * (P * (P + 1) // 2) * H * DH
-    b_ms, b_by = bound(flops, nbytes)
-    out["paged_prefill"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=worst["paged_prefill"][0],
-                                max_row_err=worst["paged_prefill"][1],
-                                tolerance=FLASH_ROW_RTOL)
-    log(f"[timing] paged_prefill P={P} q_start=0 24-layer pool: kernel_ms={ms:.4f} "
-        f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.6f} ({b_by})")
-    out["paged_decode_dh256"] = _time_decode_dh256(torch, gen, dev, worst)
-    out.update(_time_prefill_served(torch, gen, dev, worst))
-    return out
+        qd, kd, vd, is_causal=True, scale=scale), iters, graph=graph)
+    b_ms, b_by = bound(4 * (P * (P + 1) // 2) * H_ * D,
+                       2 * (2 * P * H_ * D) + 2 * 2 * P * K_ * D + 4 * (P // BS + 1))
+    log(f"[timing] paged_prefill {label}H={H_} K={K_} dh={D} (G={H_ // K_}) P={P} "
+        f"q_start=0 {n_layers}-layer pool: kernel_ms={ms:.4f}{' (graph)' if graph else ''} "
+        f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA causal"
+        f"{', graph' if graph else ''}) bound_ms={b_ms:.6f} ({b_by})")
+    del c, args, kd, vd
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def _time_prefill_served(torch, gen, dev, worst: dict) -> dict:
@@ -714,10 +848,10 @@ def _time_prefill_served(torch, gen, dev, worst: dict) -> dict:
     pool, and the last 32-token chunk of a 2048-token prompt (kv_len 2048)
     over a 96-layer pool (24 layers' K/V of one slot fit the 50 MB L2, where
     a served chunk finds them cold); successive launches walk successive
-    layers.  Kernel and SDPA (over the dense view, gathered beforehand,
-    each query row masked at its limit ``kv_len - (Q - 1 - i)``) through
-    CUDA graphs; the plain version host-paced.  ``bound_ms`` reads q and the
-    live K/V once, writes the output, and counts each row's visible keys."""
+    layers.  Kernel and SDPA (over :func:`_dense_kv`, each query row masked
+    at its limit ``kv_len - (Q - 1 - i)``) through CUDA graphs; the plain
+    version host-paced.  ``bound_ms`` reads q and the live K/V once, writes
+    the output, and counts each row's visible keys."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (
@@ -741,13 +875,7 @@ def _time_prefill_served(torch, gen, dev, worst: dict) -> dict:
         plain = cuda_ms(lambda: paged_prefill_plain_from_raw(
             *args, positions=positions, layer=next(layer) % n_layers, **kw), 12)
         T = max(kv_lens)
-        kd = torch.zeros((S, H, T, DH), dtype=torch.bfloat16, device=dev)
-        vd = torch.zeros_like(kd)
-        for s, n in enumerate(kv_lens):
-            blocks = c["tables"][s, : -(-n // BS)].long()
-            for src, dst in ((c["k"][0], kd), (c["v"][0], vd)):
-                dense = src[blocks].reshape(-1, K, DH)[:n]
-                dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H // K, 0)
+        kd, vd = _dense_kv(torch, c, kv_lens, (H, K, DH), dev)
         limit = c["kv_len"][:, None] - (Q - 1) + torch.arange(Q, device=dev)[None, :]
         mask = (torch.arange(T, device=dev)[None, None, :] < limit[:, :, None])[:, None]
         qd = c["q"].permute(0, 2, 1, 3).contiguous()             # [S, H, Q, dh]
@@ -771,56 +899,25 @@ def _time_prefill_served(torch, gen, dev, worst: dict) -> dict:
     return out
 
 
-def _time_decode_dh256(torch, gen, dev, worst: dict) -> dict:
-    """K3 at one Griffin decode tick: 8 slots at ``GRIFFIN_TICK_KV_LENS``,
-    window 2048, the 12-layer pool of the full model (successive launches
-    walk successive layers: 12 x 25 MB exceeds the L2), table width 192;
-    kernel and SDPA through CUDA graphs.  ``bound_ms`` moves the live K/V
-    (the window's 2048 positions a slot) once."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attention import paged_attention_plain, paged_decode_kernel
-
-    H_, K_, D = GRIFFIN_HEADS
-    kv_lens, W, n_layers = GRIFFIN_TICK_KV_LENS, GRIFFIN_WINDOW, 12
-    c = make_case(torch, gen, dev, S=8, Q=1, kv_lens=kv_lens, layers=n_layers,
-                  M=GRIFFIN_TICK_M, heads=GRIFFIN_HEADS)
-    args = (c["q"], c["k"], c["v"], c["tables"], c["kv_len"])
-    scale = D ** -0.5
-    layer = iter(range(10 ** 9))
-    kw = lambda: dict(scale=scale, window=W, layer=next(layer) % n_layers)  # noqa: E731
-    ms = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), 48, graph=True)
-    paced = cuda_ms(lambda: paged_decode_kernel(*args, **kw()), 48)
-    plain = cuda_ms(lambda: paged_attention_plain(*args, **kw()), 12)
-    # SDPA over a dense view gathered beforehand (not timed): the kv head
-    # repeated to the 16 query heads, the window and kv_len as a mask
-    T = max(kv_lens)
-    kd = torch.zeros((8, H_, T, D), dtype=torch.bfloat16, device=dev)
-    vd = torch.zeros_like(kd)
-    for s, n in enumerate(kv_lens):
-        blocks = c["tables"][s, : -(-n // BS)].long()
-        for src, dst in ((c["k"][0], kd), (c["v"][0], vd)):
-            dense = src[blocks].reshape(-1, K_, D)[:n]
-            dst[s, :, :n] = dense.permute(1, 0, 2).repeat_interleave(H_ // K_, 0)
-    pos = torch.arange(T, device=dev)[None, :]
-    kvl = c["kv_len"][:, None]
-    mask = ((pos < kvl) & (pos >= kvl - W)).reshape(8, 1, 1, T)
-    qd = c["q"].permute(0, 2, 1, 3)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=scale)
-
-    lib = cuda_ms(sdpa, 48, graph=True)
-    live = sum(min(n, W) for n in kv_lens)
-    nbytes = 2 * (2 * 8 * H_ * D) + 2 * 2 * live * K_ * D + 4 * (8 * GRIFFIN_TICK_M + 8)
-    b_ms, b_by = bound(4 * live * H_ * D, nbytes)
-    log(f"[timing] paged_decode  dh=256 H=16 K=1 S=8 Q=1 kv_len={kv_lens} window {W} "
-        f"M={GRIFFIN_TICK_M} 12-layer pool: kernel_ms={ms:.4f} (graph; host-paced "
-        f"{paced:.4f}) plain_ms={plain:.4f} library_ms={lib:.4f} (graph) "
-        f"bound_ms={b_ms:.6f} ({b_by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=worst["paged_decode_dh256"][0],
-                max_row_err=worst["paged_decode_dh256"][1], tolerance=FLASH_ROW_RTOL)
+def time_config_kernels(torch, dev, worst: dict) -> None:
+    """The kernels at the shapes the dense configs give them: K3 and K4 at
+    minitron-4b's and minicpm-2b's heads over 8-layer pools, K2 forward and
+    backward at qwen2-vl-7b's and minicpm-2b's training shapes, K1 forward
+    and backward at widths 2304, 3072 and 3584; each beside its plain
+    version, its library yardstick and its bound.  Logged only (the summary
+    line keeps one row a kernel, at qwen2-0.5b's shapes)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, heads in (("minitron", MINITRON_HEADS), ("minicpm", MINICPM_HEADS)):
+        _time_decode_tick(torch, gen, dev, heads=heads, kv_lens=TICK_KV_LENS, M=132,
+                          n_layers=8, label=f"{name} ")
+        _time_prompt(torch, gen, dev, heads=heads, n_layers=8, rope_theta=1e4, iters=16,
+                     graph=True, label=f"{name} ")
+        torch.cuda.empty_cache()
+    for D in (MINICPM_D, MINITRON_D, QWEN2VL_D):
+        _time_norm(torch, gen, dev, 8192, D)
+    _time_flash(torch, gen, dev, worst, 4, 2048, *QWEN2VL_HEADS, None, "_qwen2vl")
+    _time_flash(torch, gen, dev, worst, 4, 2048, *MINICPM_HEADS, None, "_minicpm")
+    torch.cuda.empty_cache()
 
 
 def _err(a, b) -> float:
@@ -857,7 +954,9 @@ def check_training_kernels(torch, dev) -> dict:
     # largest row error over the cases, held to FLASH_ROW_RTOL
     worst = dict.fromkeys(("rmsnorm_fwd", "rmsnorm_bwd"), (0.0, 1.0))
     worst.update(dict.fromkeys(("flash_fwd", "flash_bwd", "flash_fwd_dh256",
-                                "flash_bwd_dh256"), (0.0, 0.0)))
+                                "flash_bwd_dh256", "flash_fwd_qwen2vl",
+                                "flash_bwd_qwen2vl", "flash_fwd_minicpm",
+                                "flash_bwd_minicpm"), (0.0, 0.0)))
 
     def record(name, err, tol):
         if err / tol >= worst[name][0] / worst[name][1]:
@@ -943,6 +1042,18 @@ def check_training_kernels(torch, dev) -> dict:
           f"B=1 S=T=1000 H=16 K=1 dh=256 window {W} > S", "_dh256")
     flash(1, 193, 193, GRIFFIN_H, 1, GRIFFIN_DH, True, 40,
           "B=1 S=T=193 H=16 K=1 dh=256 window 40 (tile edges)", "_dh256", twice=True)
+    # the dense configs' and phi3.5-moe's training shapes (qwen2-vl G = 7 at
+    # dh 128, minicpm MHA at dh 64, phi3.5-moe G = 4) and K1 at their widths
+    for D in (MINICPM_D, MINITRON_D, QWEN2VL_D):
+        norm(8192, D, torch.bfloat16, f"[8192, {D}] bf16 scale (BLOCK_D 4096 masked)")
+    flash(4, 2048, 2048, *QWEN2VL_HEADS, True, None,
+          "B=4 S=T=2048 H=28 K=4 dh=128 causal (qwen2-vl)", "_qwen2vl")
+    flash(4, 2048, 2048, *MINICPM_HEADS, True, None,
+          "B=4 S=T=2048 H=36 K=36 dh=64 causal (minicpm)", "_minicpm", twice=True)
+    flash(2, 2048, 2048, *PHI_HEADS, True, None,
+          "B=2 S=T=2048 H=32 K=8 dh=128 causal (phi3.5-moe)")
+    flash(1, 300, 300, *MINICPM_HEADS, True, None, "B=1 S=T=300 minicpm (tile edges)",
+          "_minicpm")
     return worst
 
 
@@ -2371,8 +2482,67 @@ class _Float64Norms:
         self.layers.rmsnorm = self.inner
 
 
+class _PinnedRouting:
+    """Within it, the MoE router's top-k (``models.layers._top_k``) records
+    the experts each call picks; after :meth:`replay` each call takes the
+    experts of the recorded call of the same rank instead (the same
+    forwards in the same order: layer by layer, a remat recompute included)
+    at its own probabilities, and counts the token routings whose own top-k
+    set differs from the pinned one (``flips``, of ``routings``).  It holds
+    a kernel path and the plain path to one routing, so a bfloat16 near-tie
+    that one ulp tips (a discontinuity of the model, not of a kernel) does
+    not part their outputs (ROADMAP P15)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.inner = layers, layers._top_k
+        self.picks, self.at, self.flips, self.routings = [], None, 0, 0
+
+        def top_k(probs, k):
+            vals, idx = self.inner(probs, k)
+            if self.at is None:
+                self.picks.append(idx)
+                return vals, idx
+            pin = self.picks[self.at]
+            self.at += 1
+            own = idx.sort(-1).values != pin.sort(-1).values
+            self.flips = self.flips + own.any(-1).sum()
+            self.routings += idx[..., 0].numel()
+            return probs.gather(-1, pin), pin
+
+        layers._top_k = top_k
+        return self
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def __exit__(self, *exc):
+        self.layers._top_k = self.inner
+        if exc[0] is None and self.at is not None and self.at != len(self.picks):
+            raise AssertionError(f"pinned routing: {self.at} calls replayed "
+                                 f"{len(self.picks)} recorded")
+        self.flips = int(self.flips)
+
+
+def _check_flips(tag: str, pin: _PinnedRouting, noise: _PinnedRouting,
+                 what: str = "") -> None:
+    """Holds the kernel path's routing flips (``pin``: the plain path pinned
+    to the kernel path's routing) to ``MOE_FLIP_SHARE`` of the routings, the
+    noise probe's (``noise``: the plain path under :class:`_Float64Norms`
+    pinned to the plain path's) logged beside."""
+    share = pin.flips / max(pin.routings, 1)
+    ok = share <= MOE_FLIP_SHARE
+    log(f"[{tag}] {what}routing flips, plain vs kernels: {pin.flips} of {pin.routings} token "
+        f"routings ({share:.4f}, limit {MOE_FLIP_SHARE}); noise probe, plain with "
+        f"float64 norms vs plain: {noise.flips} of {noise.routings} "
+        f"({noise.flips / max(noise.routings, 1):.4f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the kernels move {share:.4f} of the MoE routings")
+
+
 def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
-                   float32: bool = False) -> None:
+                   float32: bool = False, pin_routing: bool = False) -> None:
     """Replays one finished stream per prompt length teacher-forced through
     the kernels and through the plain versions: their logits must agree
     within ``LOGIT_TOL``, and each served token must lie within it of the
@@ -2381,7 +2551,12 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
     weights (K1 on float32 rows, K3 on float32 queries) and are held to
     ``LOGIT_TOL``; the bfloat16 replays are logged beside, with the noise
     probe (the plain path under :class:`_Float64Norms`) and the served
-    tokens' gap, held to nothing."""
+    tokens' gap, held to nothing.  With ``pin_routing`` (MoE) the plain
+    replay routes every token to the experts the kernel replay picked
+    (:class:`_PinnedRouting`), and the routings it would have picked
+    otherwise are held to ``MOE_FLIP_SHARE`` (:func:`_check_flips`); the
+    plain replay on its own routing is logged beside, with the noise probe
+    pinned to it, held to nothing."""
     from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.paged_attention import launches
     from repro_torch.models import lm
@@ -2395,8 +2570,24 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
     params32 = lm.tree_map(lambda t: t.float(), srv.params) if float32 else None
     for plen, s in sorted(picked.items()):
         forced, prompt = streams[s.rid], prompts[s.rid]
-        lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
-        lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+        if pin_routing:
+            with _PinnedRouting() as pin:
+                lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
+                pin.replay()
+                lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+            with _PinnedRouting() as noise:
+                free = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+                noise.replay()
+                with _Float64Norms():
+                    lq = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+            log(f"[{tag}] rid={s.rid} prompt={plen} plain path on its own routing, "
+                f"held to nothing: max_logit_err={(lk - free)[:, :V].abs().max().item():.4f} "
+                f"noise_probe={(lq - free)[:, :V].abs().max().item():.4f} (pinned to it)")
+            _check_flips(tag, pin, noise, f"rid={s.rid} prompt={plen} ")
+            del free, lq
+        else:
+            lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
+            lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
         err = (lk[:, :V] - lp[:, :V]).abs().max().item()
         idx = torch.tensor(forced, device=lp.device)[:, None]
         gap = (lp[:, :V].max(-1).values - lp.gather(1, idx)[:, 0]).max().item()
@@ -2573,6 +2764,121 @@ def serve_recurrent(torch, dev, arch: str, shape: dict, smi: str,
     return counts
 
 
+class _DropFracs:
+    """Within it, every MoE layer's ``moe_drop_frac`` (``models.layers.
+    moe_apply``'s), kept on the device by the kind of forward: ``prefill``
+    (more than one token a row) or ``decode``."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.inner = layers, layers.moe_apply
+        self.fracs: dict[str, list] = {"prefill": [], "decode": []}
+
+        def moe_apply(p, cfg, x, **kw):
+            y, aux = self.inner(p, cfg, x, **kw)
+            self.fracs["prefill" if x.shape[1] > 1 else "decode"].append(
+                aux["moe_drop_frac"])
+            return y, aux
+
+        layers.moe_apply = moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_apply = self.inner
+
+    def __str__(self):
+        return "; ".join(
+            f"{k}: mean {sum(float(f) for f in v) / len(v):.4f}, max "
+            f"{max(float(f) for f in v):.4f} over {len(v)} layer calls"
+            for k, v in self.fracs.items() if v)
+
+
+def serve_config(torch, arch: str, smi: str, layers: int | None = None) -> dict:
+    """MegaServe on a dense or MoE config at full width (seed-0 weights,
+    bf16; ``layers`` cuts the depth): ``CONFIG_SERVE``'s 12 Poisson
+    requests, every request finished with a valid stream; each prompt
+    launches K4 once a layer, each decode tick K3 once a layer, each forward
+    K1 once a norm (2L + 1), nothing a K1 backward; the teacher-forced logits
+    of one stream per prompt length, kernels against plain, within
+    ``LOGIT_TOL`` (an MoE's plain replay pinned to the kernel replay's
+    routing, :class:`_PinnedRouting`); tokens/s, TTFT p50/p99, the median
+    tick, one tick's host and device time, peak memory and, for MoE, each
+    path's ``moe_drop_frac``.  The float32 init is freed once the server
+    holds its bf16 copy.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.model import count_params
+    from repro_torch.serve.server import MegaServe, make_poisson_workload
+
+    cfg = get_config(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    moe = cfg.family == "moe"
+    tag = "serve-moe" if moe else f"serve-{arch.split('-')[0]}"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, seed=0, device="cuda")
+    n_params = count_params(params)
+    specs, prompts, scfg = make_poisson_workload(cfg, **CONFIG_SERVE)
+    srv = MegaServe(cfg, params, scfg, device="cuda")
+    del params  # the server keeps its bf16 copy; the float32 tree goes
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    _free(torch)
+    H_, K_ = cfg.num_heads, cfg.num_kv_heads
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} of {full} layers d_model={cfg.d_model} "
+        f"heads={H_}/{K_} (G={H_ // K_}) dh={cfg.head_dim} vocab={cfg.padded_vocab} "
+        f"mlp={cfg.mlp_kind}{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k}' if moe else ''}, "
+        f"{n_params} parameters; {scfg.num_slots} slots, {scfg.num_blocks} blocks x "
+        f"{scfg.block_size}, table width {scfg.max_blocks_per_slot}; "
+        f"prefill_path={srv.prefill_path}; set-up {time.perf_counter() - t0:.2f} s, peak "
+        f"{init_peak} B (float32 init + bf16 cast), held after {torch.cuda.memory_allocated()} B")
+    for n in sorted({s.prompt_len for s in specs}):  # warm-up
+        srv.submit(prompts[0][:1] * n, 2, arrival=0.0)
+    srv.drain()
+    srv.reset()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        for s in specs:
+            srv.submit(prompts[s.rid], s.max_new, arrival=s.arrival, rid=s.rid)
+        return srv.drain()
+
+    with _DropFracs() as drops:
+        streams, counts = _counted(torch, run)
+    met = srv.metrics()
+    events = srv.trace_events()
+    ticks = [e.dur for e in events if e.name == "decode"]
+    n_prefill = sum(e.name == "prefill" for e in events)
+    L = cfg.num_layers
+    want = {"paged_prefill": L * n_prefill, "paged_decode": L * len(ticks),
+            "rmsnorm_fwd": (2 * L + 1) * (len(ticks) + n_prefill), "rmsnorm_bwd": 0}
+    log(f"[{tag}] finished={met['finished']}/{len(specs)} tokens={met['generated_tokens']} "
+        f"tokens_per_s={met['tokens_per_s']:.2f} ttft_p50_s={met['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={met['ttft_p99_s']:.4f} decode_tick_median_ms="
+        f"{1e3 * statistics.median(ticks):.3f} ticks={len(ticks)} prefills={n_prefill} "
+        f"preemptions={met['preemptions']} wall_s={met['wall_s']:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} ({smi})")
+    log(f"[{tag}] launches {counts}, expected {want}")
+    if moe:
+        log(f"[{tag}] moe_drop_frac by path: {drops}")
+    if counts != want or not (want["paged_prefill"] and want["paged_decode"]):
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if met["finished"] != len(specs):
+        raise AssertionError(f"{tag}: not every request finished")
+    for s in specs:
+        toks = streams[s.rid]
+        if len(toks) != s.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag}: request {s.rid}: bad stream {toks[:8]}...")
+    teacher_forced(torch, cfg, srv, specs, prompts, streams, tag, pin_routing=moe)
+    profile_decode_tick(torch, cfg, srv.params, tag=tag)
+    del srv
+    _free(torch)
+    return counts
+
+
 # ---------------------------------------------------------------- phase 6-7
 
 
@@ -2586,7 +2892,8 @@ def per_step_launches(cfg, n_micro: int = 1) -> dict:
     from repro_torch.models.lm import segment_layout
 
     kinds = [k for pat, n in segment_layout(cfg) for _ in range(n) for k in pat]
-    mixer = {"dense": "flash", "attn": "flash", "rwkv": "wkv6", "rec": "rglru"}
+    mixer = {"dense": "flash", "moe": "flash", "attn": "flash", "rwkv": "wkv6",
+             "rec": "rglru"}
     out = {"rmsnorm_fwd": 4 * len(kinds) * n_micro + 1,
            "rmsnorm_bwd": 2 * len(kinds) * n_micro + 1}
     for kind in kinds:
@@ -2597,13 +2904,14 @@ def per_step_launches(cfg, n_micro: int = 1) -> dict:
 
 
 def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float,
-                       plan=None) -> None:
+                       plan=None, batch: dict | None = None) -> None:
     """One more train step (after the run, outside its launch counts) under
     ``torch.profiler``: the device time of its kernels, summed, and split
     by kernel family (K2 ``flash``, K1 ``rmsnorm``, K5 ``wkv6``, K6
     ``rglru``, cuBLAS's matrix products ``gemm``, the rest); against the
     median unprofiled step ``step_s`` that gives the device's idle share of
-    a step.  ``plan`` profiles the pipelined step of that plan."""
+    a step.  ``plan`` profiles the pipelined step of that plan; ``batch``
+    replaces the ``SyntheticTokens`` batch of ``data``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2611,7 +2919,8 @@ def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float,
     from repro_torch.train.train_step import make_train_step
 
     step = make_train_step(cfg, ocfg, plan=plan)
-    batch = SyntheticTokens(data).batch_at(0)
+    if batch is None:
+        batch = SyntheticTokens(data).batch_at(0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, metrics = step(state, batch)
         float(metrics["loss"])
@@ -2686,14 +2995,15 @@ def _check_train(tag: str, cfg, data, history: list, counts: dict,
                 losses=losses)
 
 
-def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
+def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=None):
     """``cfg`` (full width) trained ``shape["steps"]`` steps at its sequence
     and batch, on ``SyntheticTokens`` of ``shape["seed"]``, through the
     loop, from the parameters of seed 0, at the CLI's optimizer defaults;
     each kernel of ``modules`` must launch exactly :func:`per_step_launches`
     times a step, and every loss must be finite and the last below the
-    first.  Returns the config (remat full), the data config, the launch
-    counts and the step's numbers."""
+    first.  ``hooks`` (the loop's ``StepHooks``) observe each step.  Returns
+    the config (remat full), the data config, the launch counts and the
+    step's numbers."""
     from repro_torch.models.model import count_params
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.train_step import init_train_state
@@ -2712,7 +3022,7 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     for m in modules:
         m.reset_launches()
     state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
-                           state=state, device=dev)
+                           state=state, device=dev, hooks=hooks)
     torch.cuda.synchronize()
     counts = {k: v for m in modules for k, v in m.launches.items()}
     steady = sorted(h["step_s"] for h in history[1:])
@@ -2722,6 +3032,143 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str):
     stats = _check_train(tag, cfg, data, history, counts, steps,
                          torch.cuda.max_memory_allocated())
     return cfg, data, counts, dict(stats, params=n_params)
+
+
+def _patch_grid_batch(torch, cfg, B: int, S: int, seed: int, dev) -> dict:
+    """``make_batch``'s embeddings and targets (numpy seed ``seed``) with
+    the M-RoPE ids of a patch grid in place of its three equal streams: 16
+    text tokens, an image of S/64 x 3S/128 patches (32 x 48 at S = 2048; t
+    fixed at the image's start, h and w its rows and columns from there),
+    then text from one past the grid's largest id."""
+    import numpy as np
+
+    from repro_torch.models.model import make_batch
+
+    batch = make_batch(cfg, B, S, np.random.default_rng(seed), device=dev)
+    before, rows, cols = 16, S // 64, 3 * S // 128
+    ids = [(p, p, p) for p in range(before)]
+    ids += [(before, before + r, before + c) for r in range(rows) for c in range(cols)]
+    nxt = before + max(rows, cols)
+    ids += [(nxt + p,) * 3 for p in range(S - len(ids))]
+    batch["mrope_position_ids"] = (torch.tensor(ids, dtype=torch.int32, device=dev)
+                                   .T[:, None].expand(3, B, S).contiguous())
+    return batch
+
+
+def train_configs_phase(torch, dev, smi: str) -> None:
+    """Training at the dense configs' and phi3.5-moe's full width (depth cut
+    where the train state does not fit), remat full, the CLI's optimizer
+    defaults: qwen2-vl-7b at 4 layers through ``make_train_step`` on one
+    ``make_batch`` batch (input embeddings, three equal M-RoPE streams; the
+    loop refuses an embeds arch, ROADMAP R8), minicpm-2b at full depth
+    through ``Session`` (``train --arch minicpm-2b``, which picks the wsd
+    schedule), phi3.5-moe at 2 layers through the loop with its aux loss
+    and ``seg0_moe_drop_frac`` in every step's metrics.  Each: K2 and K1
+    launched exactly :func:`per_step_launches` times a pass, losses finite
+    and falling, the profiler's split of one more step, then the step
+    check at the qwen2 check's limits (qwen2-vl's on a patch grid's M-RoPE
+    ids, phi3.5-moe's plain run pinned to the kernel run's routing)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models.model import count_params, make_batch
+    from repro_torch.train.loop import StepHooks
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    mods = (flash_attention, rmsnorm)
+    tols = (STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL)
+
+    # qwen2-vl-7b: the train state of all 28 layers (~122 GB) does not fit
+    tag = "train-qwen2-vl"
+    full = get_config("qwen2-vl-7b")
+    cfg = full.replace(num_layers=QWEN2VL_LAYERS, remat="full")
+    data, ocfg = _train_setup(cfg, QWEN2VL_TRAIN)
+    state = init_train_state(cfg, seed=0, device=dev)
+    batch = make_batch(cfg, data.global_batch, data.seq_len,
+                       np.random.default_rng(QWEN2VL_TRAIN["seed"]), device=dev)
+    step = make_train_step(cfg, ocfg)
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} of {full.num_layers} layers d_model="
+        f"{cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} mrope "
+        f"{cfg.mrope_sections} params={count_params(state.master)} remat={cfg.remat} "
+        f"seq={data.seq_len} batch={data.global_batch}: make_train_step on one "
+        f"make_batch batch ({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())})")
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launches()
+    history = []
+    for i in range(QWEN2VL_TRAIN["steps"]):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        dt = time.perf_counter() - t0
+        history.append(dict(step=i + 1, loss=loss, lr=float(met["lr"]),
+                            grad_norm=float(met["grad_norm"]), step_s=dt,
+                            tokens_per_s=data.seq_len * data.global_batch / dt))
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods for k, v in m.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(h["step_s"] for h in history[1:])
+    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2],
+                       batch=batch)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    _check_train(tag, cfg, data, history, counts, QWEN2VL_TRAIN["steps"], peak)
+    step_check(torch, dev, cfg, data, mixer="attn", tag="step-qwen2-vl", batch_step=0,
+               tols=tols, batch=_patch_grid_batch(torch, cfg, data.global_batch,
+                                                 data.seq_len, 1, dev))
+
+    # minicpm-2b at full depth through the Session, as the CLI runs it
+    tag = "train-minicpm"
+    argv = ["train", "--arch", "minicpm-2b", "--seq-len", str(MINICPM_TRAIN["seq_len"]),
+            "--global-batch", str(MINICPM_TRAIN["global_batch"]),
+            "--steps", str(MINICPM_TRAIN["steps"])]
+    session, state, history, counts, peak = _counted_session(torch, argv, mods)
+    cfg = session.model_cfg
+    schedule = session._train_derived()[2]
+    data, ocfg = _train_setup(cfg, MINICPM_TRAIN)
+    ocfg = replace(ocfg, schedule=schedule)
+    passes = MINICPM_TRAIN["steps"] + ("metrics" in session.run_cfg.modules)
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}: {cfg.num_layers} layers "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} vocab="
+        f"{cfg.padded_vocab} params={count_params(state.master)} schedule={schedule} "
+        f"modules={','.join(session.run_cfg.modules)}")
+    if schedule != "wsd":
+        raise AssertionError(f"{tag}: the Session picked {schedule}, not wsd")
+    steady = sorted(h["step_s"] for h in history[1:])
+    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
+    del state, session
+    torch.cuda.empty_cache()
+    _check_train(tag, cfg, data, history, counts, passes, peak)
+    step_check(torch, dev, cfg.replace(remat="full"), data, mixer="attn",
+               tag="step-minicpm", batch_step=MINICPM_TRAIN["steps"], tols=tols)
+
+    # phi3.5-moe: 2 of 32 layers (the train state of all 32 is ~670 GB)
+    tag = "train-moe"
+    rows = []
+
+    def on_step(events, metrics):
+        rows.append({k: float(metrics[k]) for k in ("aux_loss", "seg0_moe_drop_frac")})
+
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.replace(num_layers=PHI_TRAIN_LAYERS)
+    log(f"[{tag}] depth cut: {PHI_TRAIN_LAYERS} of {full.num_layers} layers, full width "
+        f"({cfg.moe.num_experts} experts of {cfg.moe.expert_d_ff}, top-{cfg.moe.top_k})")
+    cfg, data, counts, stats = train_phase(torch, dev, cfg, PHI_TRAIN, mods, tag,
+                                           hooks=StepHooks(on_step=on_step))
+    log(f"[{tag}] params {stats['params']}; per step " + "; ".join(
+        f"aux_loss={r['aux_loss']:.6f} seg0_moe_drop_frac={r['seg0_moe_drop_frac']:.4f}"
+        for r in rows))
+    if len(rows) != PHI_TRAIN["steps"] or not all(
+            r["aux_loss"] > 0 and math.isfinite(r["aux_loss"])
+            and 0 <= r["seg0_moe_drop_frac"] < 1 for r in rows):
+        raise AssertionError(f"{tag}: aux_loss and seg0_moe_drop_frac not in the metrics "
+                             f"of every step: {rows}")
+    step_check(torch, dev, cfg, data, mixer="attn", tag="step-moe",
+               batch_step=PHI_TRAIN["steps"], tols=tols, pin_routing=True)
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- phase 6: the runtime path
@@ -3577,7 +4024,8 @@ def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: 
 
 def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
                tols: tuple[float, float, float], probe: tuple | None = None,
-               pipeline: dict | None = None) -> None:
+               pipeline: dict | None = None, batch: dict | None = None,
+               pin_routing: bool = False) -> None:
     """The loss and gradients of one batch, from the bfloat16 parameters of
     seed 0, through the kernels and through the plain versions: loss,
     global gradient norm and :func:`_leaf_norms`, held to ``tols``
@@ -3588,42 +4036,51 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     numbers, the bf16 noise floor of the comparison, and splits the loss gap
     (:func:`_loss_split`).  ``pipeline`` (``pipeline_loss``'s layout, table,
     stages and n_micro) compares the pipelined loss with the fused one
-    instead, both through the kernels."""
+    instead, both through the kernels.  ``batch`` (on the device) replaces
+    ``data``'s batch; ``pin_routing`` (MoE) routes the plain run's tokens
+    to the experts the kernel run picked (:class:`_PinnedRouting`) and holds
+    how many it would have routed otherwise (:func:`_check_flips`)."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models import lm
     from repro_torch.models import pipeline as pl
-    from repro_torch.train.optim import global_norm, leaves
-    from repro_torch.train.train_step import compute_params, to_device_batch
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.train_step import (
+        compute_params, grad_tree, to_device_batch, unused_leaves)
 
     params = compute_params(lm.init(cfg, seed=0, device=dev), torch.bfloat16)
-    batch = to_device_batch(SyntheticTokens(data).batch_at(batch_step), dev)
-    paths, flat = zip(*leaves(params))
+    if batch is None:
+        batch = to_device_batch(SyntheticTokens(data).batch_at(batch_step), dev)
+    pin = _PinnedRouting() if pin_routing else contextlib.nullcontext()
     res = {}
     names = (("pipelined", "fused") if pipeline else
              ("kernels", "plain") + (("probe",) if probe else ()))
-    for run in names:
-        if run == "probe":
-            real = getattr(*probe)
-            setattr(*probe, _in_float64(real))
-        try:
-            if run == "pipelined":
-                loss, _ = pl.pipeline_loss(cfg, params, batch, **pipeline)
-            else:
-                loss, _ = lm.loss_fn(cfg, params, batch,
-                                     plain=run not in ("kernels", "fused"))
-            grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
-        finally:
+    with pin:
+        for run in names:
             if run == "probe":
-                setattr(*probe, real)
-        tree: dict = {}
-        for path, g in grads.items():
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = g
-        res[run] = (loss.item(), global_norm(tree).item(), _leaf_norms(tree, mixer))
-        del loss, grads, tree
-        torch.cuda.empty_cache()
+                real = getattr(*probe)
+                setattr(*probe, _in_float64(real))
+            if run == "plain" and pin_routing:
+                pin.replay()
+            try:
+                if run == "pipelined":
+                    loss, _ = pl.pipeline_loss(cfg, params, batch, **pipeline)
+                else:
+                    loss, _ = lm.loss_fn(cfg, params, batch,
+                                         plain=run not in ("kernels", "fused"))
+                tree = grad_tree(params, loss, unused_leaves(cfg))
+            finally:
+                if run == "probe":
+                    setattr(*probe, real)
+            res[run] = (loss.item(), global_norm(tree).item(), _leaf_norms(tree, mixer))
+            del loss, tree
+            torch.cuda.empty_cache()
+    if pin_routing:
+        with torch.no_grad(), _PinnedRouting() as noise:
+            lm.loss_fn(cfg, params, batch, plain=True)
+            noise.replay()
+            with _Float64Norms():
+                lm.loss_fn(cfg, params, batch, plain=True)
+        _check_flips(tag, pin, noise)
 
     def gaps(a, b):
         (la, ga, na), (lb, gb, nb) = res[a], res[b]
@@ -3972,6 +4429,7 @@ def main() -> int:
     timings.update(time_training_kernels(torch, dev, worst))
     timings.update(time_wkv6_kernels(torch, dev, worst))
     timings.update(time_rglru_kernels(torch, dev, worst))
+    time_config_kernels(torch, dev, worst)
     torch.cuda.empty_cache()
     phase("kernel timings")
     cfg, srv, specs, prompts, streams, _ = serve(torch, dev)
@@ -3999,6 +4457,11 @@ def main() -> int:
     phase("griffin serve and teacher-forced check")
     recurrent_generate_phase(torch, smi)
     phase("generate_with_scope on rwkv6 and griffin")
+    for arch in ("minitron-4b", "minicpm-2b"):
+        serve_config(torch, arch, smi)
+    phase("serve-dense: minitron-4b and minicpm-2b at full depth")
+    serve_config(torch, "phi3.5-moe-42b-a6.6b", smi, layers=PHI_SERVE_LAYERS)
+    phase("serve-moe: phi3.5-moe at 8 of 32 layers")
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
@@ -4059,6 +4522,8 @@ def main() -> int:
                      GRIFFIN_STEP_LEAF_RTOL),
                probe=(griffin_model, "rglru_scan"))
     phase("griffin step check")
+    train_configs_phase(torch, dev, smi)
+    phase("train-configs: qwen2-vl-7b, minicpm-2b and phi3.5-moe, and their step checks")
     recurrent_scope_phase(torch, smi)
     phase("scope on rwkv6 and griffin")
 

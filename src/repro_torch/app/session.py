@@ -206,13 +206,14 @@ class Session:
     def train(self):
         """The training workload: returns ``(state, history)``."""
         from repro_torch.data.pipeline import DataConfig
-        from repro_torch.train.loop import LoopConfig, train
+        from repro_torch.train.loop import LoopConfig, refuse_embeds, train
         from repro_torch.train.optim import OptimizerConfig
 
         rc, t = self.run_cfg, self.run_cfg.train
         cfg = self.model_cfg
         if cfg is None:
             raise ValueError("train workload needs an --arch")
+        refuse_embeds(cfg)
         self._refuse_train_plumbing()
         seq, batch, schedule = self._train_derived()
         if batch % max(t.grad_accum, 1):

@@ -1,8 +1,11 @@
-"""Transformer building blocks of the dense GQA decoder, in PyTorch.
+"""Transformer building blocks of the dense GQA decoder and the MoE layer, in
+PyTorch.
 
 Counterparts of ``repro.models.layers`` with the same names and the same
 layouts: ``wq [D, H, dh]``, ``wk``/``wv [D, K, dh]``, ``wo [H, dh, D]``, MLP
-``w_gate``/``w_up [D, F]``, ``w_down [F, D]``, the embedding ``[padded_V, D]``.
+``w_gate``/``w_up [D, F]`` (no ``w_gate`` under relu2), ``w_down [F, D]``,
+MoE ``router [D, E]``, experts ``w_gate``/``w_up [E, D, F]``, ``w_down [E,
+F, D]``, the embedding ``[padded_V, D]``.
 Each matrix and bias is cast to the compute dtype at use, as
 ``p[...].astype(x.dtype)`` does there, while norm scales enter the float32
 norm math in their own dtype (float32 when serving, the compute dtype in a
@@ -20,10 +23,11 @@ Ported: the paged serving branches, the non-cached training branch of the
 attention block and the dense cached branch (a KV cache written at
 ``cache_pos``; ``attention`` with a ``kv_len``, plain PyTorch as JAX leaves
 it outside Pallas, which the gathered serving path and static serving run),
-each windowed for Griffin; the local-block path arrives with a later slice.
-A ``Collector`` (MegaScope) sees the tags of the JAX functions at the same
-places: ``q``, ``v``, ``k``, ``attn_probs`` (naive branch only),
-``attn_out`` and ``mlp_hidden``; over the pool, every branch but the fused
+each windowed for Griffin, the non-paged ones also under M-RoPE (qwen2-vl);
+the local-block path arrives with a later slice.  A ``Collector``
+(MegaScope) sees the tags of the JAX functions at the same places: ``q``,
+``v``, ``k``, ``attn_probs`` (naive branch only), ``attn_out``,
+``mlp_hidden`` and ``router_gate``; over the pool, every branch but the fused
 flash prefill, which JAX also leaves untagged and skips under a collector.
 ``norm_init`` also builds layernorm parameters (scale and bias, for
 RWKV-6's ``ln_x`` group norm, which ``models/rwkv.py`` applies inline);
@@ -123,7 +127,8 @@ def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float, *,
                plain: bool = False) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(
-            f"{kind}: ported with the families that use it (ROADMAP queue 1)")
+            f"{kind}: ported with the encoder-decoder family, the one config "
+            "that uses it (ROADMAP queue 1, item 13b)")
     return rmsnorm(x, p["scale"], eps, plain=plain)
 
 
@@ -145,6 +150,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     ang = positions[..., None].float() * freqs
     if x.dim() == 4:
         ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, position_ids: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """M-RoPE: x [B, S, H, D]; position_ids [3, B, S]; ``sections`` (t, h,
+    w) sum to D/2 and split the frequencies, each section rotating with its
+    own position stream."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                        for i, n in enumerate(sections)])
+    pos = position_ids.float()[sec_id].movedim(0, -1)  # [B, S, d/2]
+    ang = (pos * freqs)[:, :, None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -293,6 +315,7 @@ def gqa_apply(
     collector: Collector = NULL_COLLECTOR,
     cache: dict | None = None,   # {"k", "v"}: [B, T, K, dh] bf16, in place
     cache_pos: int | None = None,
+    mrope_position_ids: torch.Tensor | None = None,  # [3, B, S]
 ) -> torch.Tensor:
     """The attention block.
 
@@ -302,8 +325,11 @@ def gqa_apply(
     and attention.  With a dense ``cache`` (JAX's ``elif cache is not None``
     branch) the roped new K and V are written into it at ``cache_pos`` and
     attention reads all of it with ``kv_len = cache_pos + S``.  Both tag
-    ``q``, ``v``, ``k`` and ``attn_out`` into ``collector``.  With a pool
-    (serving), ``paged.prefill`` with more than one query is the fused
+    ``q``, ``v``, ``k`` and ``attn_out`` into ``collector``, and rotate q
+    and k by M-RoPE where the config has sections and
+    ``mrope_position_ids`` are given (qwen2-vl), 1-D rope otherwise.  With
+    a pool (no served arch has M-RoPE, so the pool branches take no ids)
+    ``paged.prefill`` with more than one query is the fused
     flash-prefill branch: the raw q goes to the kernel, whose prologue
     applies qk_norm and rope.  Otherwise this is paged decode: rope q,
     write the new K/V into the pool at ``positions``, and attend with
@@ -325,9 +351,14 @@ def gqa_apply(
         if cfg.qk_norm:
             q = rms_head_norm(q_norm, q, cfg.norm_eps, plain=plain)
             kk = rms_head_norm(k_norm, kk, cfg.norm_eps, plain=plain)
-        q = collector.tag("q", apply_rope(q, positions, cfg.rope_theta))
+        if cfg.mrope_sections and mrope_position_ids is not None:
+            rot = lambda t: apply_mrope(t, mrope_position_ids,  # noqa: E731
+                                        cfg.mrope_sections, cfg.rope_theta)
+        else:
+            rot = lambda t: apply_rope(t, positions, cfg.rope_theta)  # noqa: E731
+        q = collector.tag("q", rot(q))
         vv = collector.tag("v", vv)
-        kk = collector.tag("k", apply_rope(kk, positions, cfg.rope_theta))
+        kk = collector.tag("k", rot(kk))
         kv_len = None
         if cache is not None:
             cache["k"][:, cache_pos:cache_pos + S] = kk.to(cache["k"].dtype)
@@ -389,13 +420,14 @@ def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding, logits
+# MLPs
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(b: ParamBuilder, cfg: ModelConfig) -> None:
-    D, Fd = cfg.d_model, cfg.d_ff
-    b.param("w_gate", (D, Fd), fan_in=D)
+def mlp_init(b: ParamBuilder, cfg: ModelConfig, d_ff: int | None = None) -> None:
+    D, Fd = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        b.param("w_gate", (D, Fd), fan_in=D)
     b.param("w_up", (D, Fd), fan_in=D)
     b.param("w_down", (Fd, D), fan_in=Fd,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
@@ -403,18 +435,148 @@ def mlp_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
-    """SwiGLU or GeGLU; the GeGLU gate is the tanh form of gelu, which
-    ``jax.nn.gelu`` computes by default.  Tags the gated hidden
+    """SwiGLU, GeGLU (the tanh form of gelu, which ``jax.nn.gelu``
+    computes by default) or the non-gated squared ReLU.  Tags the hidden
     ``mlp_hidden``."""
-    if cfg.mlp_kind not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp_kind={cfg.mlp_kind}: ported with the families that use it "
-            "(ROADMAP queue 1)")
     dt = x.dtype
     h = x @ p["w_up"].to(dt)
-    g = x @ p["w_gate"].to(dt)
-    act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
-    return collector.tag("mlp_hidden", act * h) @ p["w_down"].to(dt)
+    if cfg.mlp_kind == "relu2":
+        h = torch.square(F.relu(h))
+    elif cfg.mlp_kind in ("swiglu", "geglu"):
+        g = x @ p["w_gate"].to(dt)
+        act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * h
+    else:
+        raise ValueError(cfg.mlp_kind)
+    return collector.tag("mlp_hidden", h) @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(b: ParamBuilder, cfg: ModelConfig) -> None:
+    D, mo = cfg.d_model, cfg.moe
+    E, Fd = mo.num_experts, mo.expert_d_ff
+    b.param("router", (D, E), fan_in=D)
+    b.param("w_gate", (E, D, Fd), fan_in=D)
+    b.param("w_up", (E, D, Fd), fan_in=D)
+    b.param("w_down", (E, Fd, D), fan_in=Fd,
+            scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    if mo.num_shared_experts:
+        mlp_init(b.sub("shared"), cfg.replace(mlp_kind="swiglu"),
+                 d_ff=mo.num_shared_experts * Fd)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, equal
+    values in index order (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(t [G, N, D], idx[..., None], axis=1)``: rows of
+    each group, ``idx`` [G, M] -> [G, M, D]."""
+    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              n_seq_groups: int = 1,
+              collector: Collector = NULL_COLLECTOR
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Top-k routed SwiGLU experts with a capacity, JAX ``moe_apply``.
+
+    Tokens are viewed as ``[G, Cg, D]`` groups (``G = B x n_seq_groups``
+    when ``n_seq_groups`` divides S, else one group a row); each group
+    routes on its own: softmax over the router's logits, the top ``k``
+    renormalised (tagged ``router_gate``), at most ``cap = ceil(Cg k / E
+    capacity_factor)`` entries an expert.  The dispatch sorts the group's
+    (token, choice) entries by expert (a stable sort, so an expert keeps
+    its earliest tokens), builds the slot -> token table (a zero pad row
+    for empty slots), runs each expert's SwiGLU on its slots and gathers
+    every entry's output back through the inverse permutation, an entry
+    past its expert's capacity reading a zero row (dropped).  Shared
+    experts add a plain SwiGLU.  Returns ``(y [B, S, D], aux)``: ``aux``
+    holds ``moe_aux_loss`` (the Switch load-balance loss and the z-loss,
+    scaled by their coefficients) and ``moe_drop_frac`` (the share of
+    entries dropped, no gradient).  The expert products are plain batched
+    products, as in JAX, where no Pallas kernel computes them."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.num_experts, mo.top_k
+    dt, dev = x.dtype, x.device
+    nsg = n_seq_groups if S % max(n_seq_groups, 1) == 0 else 1
+    Cg = S // nsg
+    G = B * nsg
+    N = Cg * K
+    xt = x.reshape(G, Cg, D)
+
+    logits = (xt @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = _top_k(probs, K)                      # [G, Cg, K]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    gate = collector.tag("router_gate", gate)
+
+    # aux losses (Switch-style load balance + z-loss)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (G * N)
+    aux_lb = (me * ce).sum() * E * mo.router_aux_coef
+    aux_z = torch.square(torch.logsumexp(logits, dim=-1)).mean() * mo.router_z_coef
+
+    cap = max(int(math.ceil(Cg * K / E * mo.capacity_factor)), 1)
+
+    # sort-based dispatch: the slot -> token table, then one gather
+    flat_e = eidx.reshape(G, N)
+    order = torch.argsort(flat_e, dim=-1, stable=True)  # [G, N] sorted entries
+    sorted_e = torch.gather(flat_e, 1, order)
+    first = torch.searchsorted(
+        sorted_e, torch.arange(E + 1, device=dev).expand(G, E + 1).contiguous())
+    # slot (e, c) holds sorted entry j = first[e] + c while j < first[e + 1]
+    j = first[:, :E, None] + torch.arange(cap, device=dev)
+    valid = j < first[:, 1:, None]
+    tok_sorted = order // K                             # token of each entry
+    tok_for_slot = torch.where(
+        valid,
+        torch.gather(tok_sorted, 1, torch.clamp(j, max=N - 1).reshape(G, E * cap)
+                     ).reshape(G, E, cap),
+        Cg)                                             # -> the zero pad row
+    xt_pad = F.pad(xt, (0, 0, 0, 1))
+    expert_in = _rows(xt_pad, tok_for_slot.reshape(G, E * cap)).reshape(G, E, cap, D)
+
+    h_up = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
+    h_g = torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"].to(dt))
+    expert_out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_up,
+                              p["w_down"].to(dt))
+    flat_out = F.pad(expert_out.reshape(G, E * cap, D), (0, 0, 0, 1))
+
+    # combine: per top-k choice, gather the slot output and weight it
+    inv = torch.argsort(order, dim=-1, stable=True)     # entry -> sorted position
+    slot_sorted = (torch.arange(N, device=dev)[None, :]
+                   - torch.gather(first[:, :E], 1, sorted_e))
+    dest_sorted = torch.where(slot_sorted < cap, sorted_e * cap + slot_sorted, E * cap)
+    slot_entry = torch.gather(dest_sorted, 1, inv)      # [G, N]
+    y = torch.zeros((G, Cg, D), dtype=dt, device=dev)
+    for k in range(K):
+        out_k = _rows(flat_out, slot_entry[:, k::K])    # entries (t, k) at t*K + k
+        y = y + out_k * gate[:, :, k, None].to(dt)
+
+    if mo.num_shared_experts:
+        sp = p["shared"]
+        hs = xt @ sp["w_up"].to(dt)
+        gs = xt @ sp["w_gate"].to(dt)
+        y = y + (F.silu(gs) * hs) @ sp["w_down"].to(dt)
+
+    aux = {"moe_aux_loss": aux_lb + aux_z,
+           "moe_drop_frac": (slot_entry == E * cap).float().mean()}
+    return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Embedding, logits
+# ---------------------------------------------------------------------------
 
 
 def embed_init(b: ParamBuilder, cfg: ModelConfig) -> None:

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense GQA, RWKV-6 and Griffin families,
-in PyTorch.
+"""Decoder-only LM assembly for the dense GQA, MoE, RWKV-6 and Griffin
+families, in PyTorch.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_groups, ...]`` under
@@ -54,7 +54,7 @@ from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
 _NORM_LEAVES = ("scale", "bias", "q_norm", "k_norm", "w0", "w_decay2", "u", "lam")
 # block kinds whose cache is attention K/V (paged in the pool); the others
 # carry a recurrent state (a row per slot)
-_ATTENTION_KINDS = ("dense", "attn")
+_ATTENTION_KINDS = ("dense", "moe", "attn")
 
 
 def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -66,10 +66,15 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
         n_full, rem = divmod(cfg.num_layers, len(pat))
         return ([(pat, n_full)] if n_full else []) + (
             [(pat[:rem], 1)] if rem else [])
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        what = "MLA attention" if cfg.use_mla else f"the {cfg.family} family"
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is ported in a later slice "
-            "(ROADMAP queue 1); dense GQA, RWKV-6 and Griffin models are ported")
+            f"{cfg.name}: {what} is ported in a later slice (ROADMAP queue 1, "
+            "item 13b); dense GQA, MoE, RWKV-6 and Griffin models are ported")
+    if cfg.family == "moe":  # first_k_dense dense layers, then the MoE ones
+        fk = cfg.moe.first_k_dense
+        return ([(("dense",), fk)] if fk else []) + [
+            (("moe",), cfg.num_layers - fk)]
     return [(("dense",), cfg.num_layers)]
 
 
@@ -93,7 +98,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
             L.norm_init(blk, "ln1", cfg.d_model, cfg.norm_kind)
             L.norm_init(blk, "ln2", cfg.d_model, cfg.norm_kind)
             L.gqa_init(blk.sub("attn"), cfg)
-            L.mlp_init(blk.sub("mlp"), cfg)
+            (L.moe_init if kind == "moe" else L.mlp_init)(blk.sub("mlp"), cfg)
     return b.params
 
 
@@ -210,9 +215,14 @@ def _store(state: dict, new: dict) -> None:
 def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
            positions: torch.Tensor, paged: PagedInfo | None, plain: bool,
            collector: Collector = NULL_COLLECTOR, state: dict | None = None,
-           cache_pos: int | None = None) -> torch.Tensor:
-    """One decoder layer (``_block_apply``'s rwkv, griffin and dense
-    branches).  ``state`` is the layer's cache: with ``paged``, an attention
+           cache_pos: int | None = None,
+           mrope_position_ids: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, dict]:
+    """One decoder layer (``_block_apply``'s rwkv, griffin, dense and moe
+    branches): ``(x, aux)``, ``aux`` the MoE layer's ``moe_aux_loss`` and
+    ``moe_drop_frac`` (``{}`` for the other kinds), returned rather than
+    accumulated so a remat recompute in the backward adds nothing.
+    ``state`` is the layer's cache: with ``paged``, an attention
     block's is the pool's stacked ``{"k", "v"}`` (its layer is
     ``paged.layer``); otherwise views of this layer's dense cache rows, or a
     recurrent block's slot rows of the pool.  Attention writes its K/V in
@@ -227,22 +237,27 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                             collector=collector)
         if state is not None:
             _store(state, new)
-        return x
+        return x, {}
     if kind == "attn":
         return gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
                                       state=state, cache_pos=cache_pos,
                                       paged=paged, plain=plain,
-                                      collector=collector)[0]
+                                      collector=collector)[0], {}
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
                     pool=state if paged is not None else None, paged=paged,
                     plain=plain, collector=collector,
                     cache=None if paged is not None else state,
-                    cache_pos=cache_pos)
+                    cache_pos=cache_pos, mrope_position_ids=mrope_position_ids)
     x = _resid(cfg, x, collector.tag("att_resid", a))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    f = L.mlp_apply(p["mlp"], cfg, h, collector)
-    return _resid(cfg, x, collector.tag("ffn_resid", f))
+    aux: dict = {}
+    if kind == "moe":
+        f, aux = L.moe_apply(p["mlp"], cfg, h, n_seq_groups=cfg.moe.seq_groups,
+                             collector=collector)
+    else:
+        f = L.mlp_apply(p["mlp"], cfg, h, collector)
+    return _resid(cfg, x, collector.tag("ffn_resid", f)), aux
 
 
 def _layers(cfg: ModelConfig, params: dict):
@@ -282,11 +297,27 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(dots_policy)
 
 
+def _embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor | None,
+                  embeds: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """The token embeddings, or for an embeds arch the given ``embeds`` in
+    the compute dtype, scaled by ``scale_emb`` (JAX ``_embed_inputs``)."""
+    if cfg.input_kind == "tokens":
+        if tokens is None:
+            raise ValueError(f"{cfg.name} takes token ids")
+        return L.embed_apply(params, cfg, tokens, dtype)
+    if embeds is None:
+        raise ValueError(f"{cfg.name} takes input embeddings ({cfg.input_kind})")
+    x = embeds.to(dtype)
+    return x * cfg.scale_emb if cfg.scale_emb != 1.0 else x
+
+
 def forward(
     cfg: ModelConfig,
     params: dict,
-    tokens: torch.Tensor,        # [B, S] token ids
+    tokens: torch.Tensor | None = None,  # [B, S] token ids
     *,
+    embeds: torch.Tensor | None = None,  # [B, S, D] (an embeds arch)
+    mrope_position_ids: torch.Tensor | None = None,  # [3, B, S] (M-RoPE)
     pool: dict | None = None,    # the serving pool (init_pool), updated in place
     cache: dict | None = None,   # dense cache (init_cache), updated in place
     cache_pos: torch.Tensor | int | None = None,  # [B] paged; int dense
@@ -296,7 +327,11 @@ def forward(
 ) -> tuple[torch.Tensor, dict]:
     """Returns ``(hidden [B, S, D], aux)``.
 
-    With ``pool`` (serving; batch row ``b`` is slot ``b`` of its state
+    A token arch takes ``tokens``; an embeds arch (qwen2-vl) takes
+    ``embeds`` in their place, and its attention rotates by M-RoPE over
+    ``mrope_position_ids`` where given (1-D rope at the positions
+    otherwise, which equals M-RoPE over three equal streams).  With
+    ``pool`` (serving; batch row ``b`` is slot ``b`` of its state
     leaves), attention blocks write their new K/V into ``pool`` at per-slot
     positions ``cache_pos + arange(S)`` and read it through
     ``paged.tables``, recurrent blocks carry their slot rows; the pool is
@@ -318,16 +353,17 @@ def forward(
     block with a live collector leaves the fused flash-prefill branch for
     the generic one, as in JAX); a layer's recompute in the backward
     perturbs alike and records nothing.
+    A model with MoE layers reports in ``aux`` their ``aux_loss`` (summed
+    over layers) and ``seg{i}_moe_drop_frac`` (the mean over a segment's
+    layers), as JAX's does.
     ``aux["captures"]`` is ``{"seg{i}": {...}, "top": {...}}`` as JAX's:
     each segment's captures stacked over its groups (keys prefixed
     ``b{j}/`` where a group holds several blocks; the embeddings' ride
     ``seg0``, repeated over its groups), ``top`` the final hidden's; absent
     when nothing was captured.
     """
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: embeds inputs are a later slice")
     dtype = getattr(torch, cfg.compute_dtype)
-    x = L.embed_apply(params, cfg, tokens, dtype)
+    x = _embed_inputs(cfg, params, tokens, embeds, dtype)
     B, S, _ = x.shape
     if pool is not None:
         plain = paged.plain
@@ -349,6 +385,7 @@ def forward(
     # repeated over its groups, where JAX's scan body drains them
     before = collector.drain()
     groups: dict[int, list[dict]] = {}
+    aux_loss, drop_fracs = None, {}
     for layer, i, g, j, kind, p in _layers(cfg, params):
         col = LayerScoped(collector, layer, f"seg{i}/b{j}") if live else collector
         blk_paged = None
@@ -361,14 +398,18 @@ def forward(
         else:
             blk_cache = None if cache is None else _layer(cache[f"seg{i}"][f"b{j}"], g)
         args = (p, cfg, kind, x, positions, blk_paged, plain, col, blk_cache,
-                cache_pos)
+                cache_pos, mrope_position_ids)
         if remat == "full":
-            x = checkpoint(_block, *args, use_reentrant=False)
+            x, blk_aux = checkpoint(_block, *args, use_reentrant=False)
         elif remat == "dots":
-            x = checkpoint(_block, *args, use_reentrant=False,
-                           context_fn=_dots_contexts)
+            x, blk_aux = checkpoint(_block, *args, use_reentrant=False,
+                                    context_fn=_dots_contexts)
         else:
-            x = _block(*args)
+            x, blk_aux = _block(*args)
+        if blk_aux:
+            a = blk_aux["moe_aux_loss"]
+            aux_loss = a if aux_loss is None else aux_loss + a
+            drop_fracs.setdefault(i, []).append(blk_aux["moe_drop_frac"])
         if live:
             probes = col.drain()
             col.close()  # a recompute in the backward records nothing
@@ -381,6 +422,10 @@ def forward(
                      plain=plain)
     x = collector.tag("final_hidden", x)
     aux: dict = {}
+    if aux_loss is not None:
+        aux["aux_loss"] = aux_loss
+        for i, fracs in drop_fracs.items():
+            aux[f"seg{i}_moe_drop_frac"] = torch.stack(fracs).mean()
     captures = {f"seg{i}": _stack(rows) for i, rows in groups.items() if rows[0]}
     top = collector.drain()
     if top or captures:
@@ -394,15 +439,21 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             collector: Collector = NULL_COLLECTOR, *,
             plain: bool = False) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
-    cross entropy of ``batch`` (``tokens``, ``targets``, optional
-    ``loss_mask``); the ported families have no auxiliary loss.  With a
-    live ``collector`` the metrics hold its ``captures`` (see
-    :func:`forward`), on the device."""
-    hidden, extra = forward(cfg, params, batch["tokens"], plain=plain,
-                            collector=collector)
+    cross entropy of ``batch`` (``tokens``, or ``embeds`` and
+    ``mrope_position_ids`` for an embeds arch; ``targets``, optional
+    ``loss_mask``) plus the MoE layers' auxiliary loss (zero for the other
+    families); the metrics hold both, each MoE segment's
+    ``seg{i}_moe_drop_frac`` and, with a live ``collector``, its
+    ``captures`` (see :func:`forward`), on the device."""
+    hidden, extra = forward(cfg, params, batch.get("tokens"),
+                            embeds=batch.get("embeds"),
+                            mrope_position_ids=batch.get("mrope_position_ids"),
+                            plain=plain, collector=collector)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
                                   batch.get("loss_mask"))
     ce = total / torch.clamp(count, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    aux = extra.pop("aux_loss", None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux_loss": aux, **extra}

@@ -1,9 +1,10 @@
 """Family dispatch and helpers, counterpart of ``repro.models.model``.
 
-The decoder LM is ported for the dense, RWKV-6 and Griffin families:
-:func:`get_model` returns its entry points (``lm.segment_layout`` refuses
-the families still to come) and refuses the encoder-decoder family, which
-arrives with a later slice (ROADMAP queue 1, item 13b).
+The decoder LM is ported for the dense (with qwen2-vl's embeds inputs and
+M-RoPE), MoE, RWKV-6 and Griffin families: :func:`get_model` returns its
+entry points (``lm.segment_layout`` refuses MLA, still to come) and refuses
+the encoder-decoder family, which arrives with a later slice (ROADMAP queue
+1, item 13b).
 """
 
 from __future__ import annotations
@@ -37,13 +38,25 @@ def get_model(cfg: ModelConfig) -> Model:
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator,
                device: str | torch.device = "cpu") -> dict:
-    """A synthetic training batch of token ids drawn from ``rng`` (JAX draws
-    its own from a key; tests hand both sides one numpy batch)."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"{cfg.name}: embeds inputs are a later slice")
+    """A synthetic training batch matching the arch's input kind, drawn from
+    ``rng`` (JAX draws its own from a key; tests hand both sides one numpy
+    batch): token ids, or for an embeds arch float32 N(0, 1) ``embeds``
+    ``[batch, seq, d_model]`` and, under M-RoPE, ``mrope_position_ids``
+    ``[3, batch, seq]``, three equal streams of ``arange(seq)``; int32
+    ``targets``."""
+    get_model(cfg)  # refuses the encoder-decoder family (its tokens too)
     draw = lambda: torch.from_numpy(  # noqa: E731
         rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
-    return {"tokens": draw().to(device), "targets": draw().to(device)}
+    if cfg.input_kind == "tokens":
+        out = {"tokens": draw()}
+    else:
+        out = {"embeds": torch.from_numpy(
+            rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32))}
+        if cfg.input_kind == "embeds_mrope":
+            pos = torch.arange(seq, dtype=torch.int32).expand(batch, seq)
+            out["mrope_position_ids"] = torch.stack([pos, pos, pos])
+    out["targets"] = draw()
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def count_params(params: dict) -> int:

@@ -124,7 +124,7 @@ def make_block_fn(
         positions = torch.arange(x.shape[1], device=x.device)
         for j, kind in enumerate(layout.kinds):
             x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, plain,
-                          NULL_COLLECTOR)
+                          NULL_COLLECTOR)[0]
         return x
 
     if cfg.remat not in ("full", "dots", "none"):

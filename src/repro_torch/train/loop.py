@@ -71,6 +71,18 @@ class StepHooks:
     on_step: Callable[[list, dict], None] | None = None
 
 
+def refuse_embeds(cfg: ModelConfig) -> None:
+    """The loop feeds ``SyntheticTokens`` batches, which carry no
+    embeddings: an embeds arch (qwen2-vl) is refused before its first step,
+    where the JAX loop stops with ``KeyError: 'embeds'`` (ROADMAP R8)."""
+    if cfg.input_kind != "tokens":
+        raise ValueError(
+            f"{cfg.name}: the train loop feeds token batches (SyntheticTokens) "
+            f"and an {cfg.input_kind} arch takes input embeddings, which no data "
+            "pipeline makes (ROADMAP R8); train it through make_train_step on "
+            "models.model.make_batch batches")
+
+
 def _refuse(**later: tuple[Any, str]) -> None:
     for name, (value, item) in later.items():
         if value is not None:
@@ -145,6 +157,7 @@ def train(
     step; each step's trace then holds its ``pp_F``/``pp_B`` events."""
     _refuse(compile_cache=(compile_cache, "item 12b"),
             obs=(obs, "item 9"), controller=(controller, "item 9"))
+    refuse_embeds(cfg)
     dev = resolve_device(device)
     tracer = tracer or Tracer(rank=0, enabled=True)
     ds = SyntheticTokens(data_cfg)

@@ -84,12 +84,29 @@ def to_device_batch(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
-def _grad_tree(params: dict, loss: torch.Tensor) -> dict:
+def unused_leaves(cfg: ModelConfig) -> tuple[tuple[str, ...], ...]:
+    """The leaves the loss of ``cfg`` does not reach: an embeds arch
+    (qwen2-vl) takes its inputs as embeddings, so its untied ``embedding``
+    table is unused."""
+    if cfg.input_kind != "tokens" and not cfg.tie_embeddings:
+        return (("embedding",),)
+    return ()
+
+
+def grad_tree(params: dict, loss: torch.Tensor,
+              unused: tuple[tuple[str, ...], ...] = ()) -> dict:
     """``torch.autograd.grad`` of ``loss`` for every leaf, in ``params``'
-    tree."""
+    tree.  A leaf in ``unused`` (:func:`unused_leaves`) the loss does not
+    reach gets zeros, as ``jax.grad`` gives it; any other such leaf
+    raises."""
     paths, flat = zip(*leaves(params))
     grads: dict = {}
-    for path, g in zip(paths, torch.autograd.grad(loss, flat)):
+    for path, leaf, g in zip(paths, flat, torch.autograd.grad(
+            loss, flat, allow_unused=bool(unused))):
+        if g is None:
+            if path not in unused:
+                raise RuntimeError(f"leaf {'/'.join(path)} does not reach the loss")
+            g = torch.zeros_like(leaf)
         node = grads
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -99,7 +116,8 @@ def _grad_tree(params: dict, loss: torch.Tensor) -> dict:
 
 def _accumulate(grads_once: Callable, grad_accum: int) -> Callable:
     """``compute_grads(params, batch)``: ``grads_once`` over ``grad_accum``
-    equal slices of the batch, the float32 gradients summed and averaged,
+    equal slices of the batch (on axis 1 of the ``[3, B, S]`` M-RoPE ids,
+    axis 0 of every other leaf), the float32 gradients summed and averaged,
     the loss averaged and the last slice's metrics kept (as the reference's
     scan keeps them)."""
     if grad_accum <= 1:
@@ -115,7 +133,9 @@ def _accumulate(grads_once: Callable, grad_accum: int) -> Callable:
         loss_sum = torch.zeros((), dtype=torch.float32, device=batch["targets"].device)
         metrics = {}
         for i in range(grad_accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            sl = slice(i * mb, (i + 1) * mb)
+            micro = {k: v[:, sl] if k == "mrope_position_ids" else v[sl]
+                     for k, v in batch.items()}
             loss, metrics, grads = grads_once(params, micro)
             acc = tree_map(torch.add, acc, grads)
             loss_sum = loss_sum + loss
@@ -176,7 +196,8 @@ def make_train_step(
 ) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds ``tokens``, ``targets`` and optionally ``loss_mask``
+    ``batch`` holds ``tokens`` (or an embeds arch's ``embeds`` and
+    ``mrope_position_ids``), ``targets`` and optionally ``loss_mask``
     (numpy or tensors).  The step updates ``state`` in place and returns
     it.  ``metrics`` holds the last microbatch's loss metrics (as the
     reference's scan keeps them) plus ``grad_norm`` and ``lr``, as 0-dim
@@ -195,11 +216,12 @@ def make_train_step(
     if plan is not None:
         grad_accum = max(grad_accum, plan.n_micro)
     model = get_model(cfg)
+    unused = unused_leaves(cfg)
 
     def grads_of(params: dict, batch: dict):
         loss, metrics = model.loss_fn(cfg, params, batch, collector, plain=plain)
         return (loss.detach(), tree_map(torch.Tensor.detach, metrics),
-                _grad_tree(params, loss))
+                grad_tree(params, loss, unused))
 
     return _updater(cfg, ocfg, _accumulate(grads_of, grad_accum), grad_transform)
 
@@ -268,7 +290,7 @@ def _make_pipeline_train_step(
         def grads_once(params: dict, batch: dict):
             loss, metrics = loss_of(params, batch)
             return (loss.detach(), tree_map(torch.Tensor.detach, metrics),
-                    _grad_tree(params, loss))
+                    grad_tree(params, loss))
 
     step = _updater(cfg, ocfg, _accumulate(grads_once, grad_accum), grad_transform)
     step.pipeline = PipelineStepInfo(plan=plan, table=table, layout=layout,

@@ -119,6 +119,11 @@ def test_decode_kernel_matches_plain(cuda, case):
     (40, 8, 128, 16, 44, 5, [129, 700], None),
     (4, 2, 16, 16, 20, 1, [1, 200, 300], None),
     (8, 2, 32, 8, 40, 2, [127, 129, 300], 64),
+    # the served heads of minitron-4b (G = 3), minicpm-2b (MHA) and
+    # phi3.5-moe (G = 4)
+    (24, 8, 128, 16, 132, 1, [2112, 544, 160, 140], None),
+    (36, 36, 64, 16, 17, 5, [130, 260, 5], None),
+    (32, 8, 128, 16, 17, 1, [128, 129, 256, 257, 1], None),
 ])
 def test_decode_kernel_across_split_edges(cuda, H, K, dh, bs, M, Q, kv_lens, window):
     rng = np.random.default_rng(13)
@@ -178,6 +183,10 @@ def test_prefill_kernel_matches_plain(cuda, qk_norm, Q, kv_len, window):
     (1, 300, 40, 8, 128, 16, [300], None, True),
     (2, 77, 4, 2, 16, 16, [77, 200], None, False),
     (2, 130, 8, 2, 32, 8, [130, 131], 70, True),
+    # minitron-4b's, minicpm-2b's and phi3.5-moe's heads
+    (1, 300, 24, 8, 128, 16, [300], None, False),
+    (2, 100, 36, 36, 64, 16, [100, 1000], None, False),
+    (1, 130, 32, 8, 128, 16, [130], None, False),
 ])
 def test_prefill_kernel_across_tile_edges(cuda, S, Q, H, K, dh, bs, kv_lens, window,
                                           qk_norm):
@@ -238,7 +247,11 @@ K1_DSCALE_RTOL = 1e-2
 @pytest.mark.parametrize("rows,D,sdtype", [(512, 896, torch.bfloat16),
                                           (1001, 128, torch.float32),
                                           (37, 64, torch.bfloat16),
-                                          (8192, 2560, torch.bfloat16)])
+                                          (8192, 2560, torch.bfloat16),
+                                          # widths below BLOCK_D 4096
+                                          (8192, 2304, torch.bfloat16),
+                                          (1000, 3072, torch.bfloat16),
+                                          (513, 3584, torch.bfloat16)])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
     from repro_torch.kernels.rmsnorm import (
         launches as k1, reset_launches as reset_k1, rmsnorm_bwd_kernel,
@@ -300,6 +313,11 @@ K2_LSE_TOL = 1e-5
     # bidirectional window: rows past T + window see no key (l = 0); a
     # minority, so the median row that _row_err scales by is not zero
     (1, 100, 60, 2, 1, 64, False, 10),
+    # qwen2-vl-7b's heads (G = 7 at dh 128), minicpm-2b's (MHA at dh 64),
+    # phi3.5-moe's (G = 4 at dh 128)
+    (1, 300, 300, 28, 4, 128, True, None),
+    (2, 257, 257, 36, 36, 64, True, None),
+    (1, 200, 200, 32, 8, 128, True, None),
 ])
 def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     from repro_torch.kernels.flash_attention import (

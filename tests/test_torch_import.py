@@ -106,3 +106,18 @@ def test_the_router_modules_are_guarded():
         path = PORT.parent.joinpath(*m.split("."))
         assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
                 else path / "__init__.py") in SOURCES
+
+
+def test_the_dense_config_and_moe_modules_are_guarded():
+    """The configs this slice registered (minitron-4b, minicpm-2b,
+    qwen2-vl-7b, phi3.5-moe) and the modules it touched (the blocks with
+    relu2, M-RoPE and MoE, the LM and its batches, the train step, loop and
+    session) are among those imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.configs.minitron_4b", "repro_torch.configs.minicpm_2b",
+              "repro_torch.configs.qwen2_vl_7b", "repro_torch.configs.phi35_moe_42b",
+              "repro_torch.models.layers", "repro_torch.models.lm",
+              "repro_torch.models.model", "repro_torch.train.train_step",
+              "repro_torch.train.loop", "repro_torch.app.session"):
+        assert m in mods, m
+        assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES
