@@ -26,8 +26,11 @@ Phases, each of which fails the run (non-zero exit) on error:
              flash attention forward and backward (K2) at the training
              path's shapes (qwen2-vl-7b's 28 / 4 / 128, minicpm-2b's and
              phi3.5-moe's too), at small ragged ones and across its tiles'
-             edges (head dims 16 to 256), its backward bit-identical on a
-             second run, all bfloat16; then times kernel, plain version and
+             edges (head dims 16 to 256; v's head dim apart from q's at
+             deepseek-v2-lite's 192 / 128, H = K = 16, and its smoke
+             config's 24 / 16, a window and tile edges included), its
+             backward bit-identical on a second run, K1 also at MLA's
+             latent width 512, all bfloat16; then times kernel, plain version and
              a library yardstick the port never calls
              (``scaled_dot_product_attention``, its backward alone for K2's
              backward; ``F.rms_norm``, its backward alone for K1's backward,
@@ -35,7 +38,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              shapes (K3 also at one Griffin decode tick, dh 256; K4 also
              at one verify step and one 32-token chunk; K3 and K4 at
              minitron's and minicpm's heads, K2 at qwen2-vl's and minicpm's
-             training shapes, K1 at 2304, 3072 and 3584, logged), and
+             training shapes, K1 at 2304, 3072 and 3584, logged; K2 at
+             deepseek-v2-lite's training shape, with the SDPA backends
+             that take v's width apart, and K1 at [4096, 512]), and
              splits K2's backward into its kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
@@ -135,6 +140,18 @@ Phases, each of which fails the run (non-zero exit) on error:
              routing and a noise probe logged); tokens/s, TTFT, the tick median, one tick's
              host and device time, peak memory, phi3.5-moe's
              ``moe_drop_frac`` by path;
+   serve-mla — deepseek-v2-lite-16b (MLA over 64 routed experts) at all
+             27 layers, its seed-0 weights drawn in bf16 leaf by leaf,
+             the same 12 requests on the gathered path (the latent cache
+             has no kv-head axis for K3 or K4; the dense prefill): every
+             request finished, K1 3L + 1 times a forward (a prefill or a
+             slot's B=1 decode forward), K2 L times a prefill longer than
+             ``attn_kv_chunk``, nothing else; the teacher-forced logits
+             through the dense-cache forward at the served cache length,
+             kernels against plain, pinned, within ``LOGIT_TOL`` (the
+             routing flips held to ``MOE_FLIP_SHARE`` above the noise
+             probe's); tokens/s, TTFT, the tick, one gathered tick's host
+             and device time, the init peak, ``moe_drop_frac``;
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
              through ``Session`` (``python -m repro_torch train --modules
              scan,metrics --trace-out ... --metrics-out ... --set
@@ -232,6 +249,12 @@ Phases, each of which fails the run (non-zero exit) on error:
              (qwen2-vl's on a patch grid's M-RoPE ids, phi3.5-moe's plain
              run routed as the kernel run routed, the routing flips held
              to ``MOE_FLIP_SHARE``);
+   train-mla — deepseek-v2-lite at full width cut to 4 of 27 layers
+             through the loop with a metrics registry, 2048 x 2, 4 steps,
+             data seed 2: parameter count, K2 (q/k 192, v 128) 2L / L and
+             K1 (6L + 1) / (3L + 1) a pass (the flop count's pass too),
+             losses falling, the profiler's split, ``mfu_est``; its step
+             check, pinned;
 10. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -474,8 +497,36 @@ PHI_TRAIN_LAYERS = 2
 # (_PinnedRouting).  A bfloat16 near-tie that one ulp tips flips a few:
 # 1.3-1.7 % of serve-moe's replays and 0.5 % of step-moe's on an H100; a
 # kernel whose error leans one way moves many more.  The noise probe's
-# flips (the plain path against itself with float64 norms) are logged beside
+# flips (the plain path against itself with float64 norms) are logged beside.
+# deepseek-v2-lite's router picks 6 of 64 experts: at random init its bf16
+# router logits put the 6th and 7th within one bf16 ulp for a few percent of
+# the tokens, so any change of rounding flips some: on an H100 the noise
+# probe flips 2.2-9.8 % of serve-mla's and step-mla's routings, the kernels
+# 0.01-2.2 points more (110 and 115 of 3718, 973 and 974 of 13806, 5262 and
+# 5658 of 53950 in the replays).  There the kernels' flips are held to
+# MOE_FLIP_SHARE above the noise probe's in the same replay or step (a
+# kernel whose error leans one way still moves many more)
 MOE_FLIP_SHARE = 0.05
+
+# deepseek-v2-lite-16b (MLA over MoE: 64 routed experts top-6, 2 shared,
+# layer 0 dense).  Its attention on the flash branch takes q and k at head
+# dim 192 (128 nope + 64 rope) and v at 128, H = K = 16 (every head over
+# the up-projected latent), and its latent norm is K1 at width 512.
+# serve-mla: all 27 layers (15,706,484,224 parameters: 31.4 GB in bf16,
+# drawn leaf by leaf in bf16, as lm.init(dtype=...) does, since the float32
+# tree of 62.8 GB beside its cast would not fit), CONFIG_SERVE's workload on
+# the gathered path (the latent cache has no kv-head axis for K3 or K4).
+# train-mla: full width cut to 4 of 27 layers (1 dense, 3 MoE:
+# 2,254,983,168 parameters, ~40.6 GB of train state at 18 B a parameter;
+# all 27 would be ~283 GB), seq 2048 x batch 2, 4 steps, data seed 2 (seed
+# 0's rule x -> 60 x + b mod V shares the factors 2 and 5 of V = 102400 =
+# 2^12 5^2, so it runs into a fixed point, as at Griffin's V below)
+MLA_HEADS = (16, 16, 192, 128)         # H, K, q/k head dim, v head dim
+MLA_RANK = 512
+MLA_PARAMS = 15_706_484_224
+MLA_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=2)
+MLA_TRAIN_LAYERS = 4
+MLA_TRAIN_PARAMS = 2_254_983_168
 
 
 def log(msg: str) -> None:
@@ -920,6 +971,20 @@ def time_config_kernels(torch, dev, worst: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def time_mla_kernels(torch, dev, worst: dict) -> dict:
+    """K2 at deepseek-v2-lite's training shape (B 2, S 2048, H = K = 16, q/k
+    at 192, v at 128; rows ``flash_fwd_mla`` and ``flash_bwd_mla``) and K1
+    at the latent's width 512 (logged): kernel, plain version, library
+    yardstick and bound."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S = MLA_TRAIN["global_batch"], MLA_TRAIN["seq_len"]
+    _time_norm(torch, gen, dev, B * S, MLA_RANK)
+    Hm, Km, Dm, Dvm = MLA_HEADS
+    out = _time_flash(torch, gen, dev, worst, B, S, Hm, Km, Dm, None, "_mla", Dv=Dvm)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -935,10 +1000,13 @@ def _row_err(a, ref) -> float:
     return (d / m.clamp_min(1e-2 * m.median()).clamp_min(1e-30)).max().item()
 
 
-def _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D):
+def _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D, Dv=None):
+    """q, k, v and dO in bf16; v and dO at ``Dv`` columns (default ``D``)."""
+    Dv = D if Dv is None else Dv
+
     def r(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    return r(B, S, H_, D), r(B, T, K_, D), r(B, T, K_, D), r(B, S, H_, D)
+    return r(B, S, H_, D), r(B, T, K_, D), r(B, T, K_, Dv), r(B, S, H_, Dv)
 
 
 def check_training_kernels(torch, dev) -> dict:
@@ -956,7 +1024,8 @@ def check_training_kernels(torch, dev) -> dict:
     worst.update(dict.fromkeys(("flash_fwd", "flash_bwd", "flash_fwd_dh256",
                                 "flash_bwd_dh256", "flash_fwd_qwen2vl",
                                 "flash_bwd_qwen2vl", "flash_fwd_minicpm",
-                                "flash_bwd_minicpm"), (0.0, 0.0)))
+                                "flash_bwd_minicpm", "flash_fwd_mla",
+                                "flash_bwd_mla"), (0.0, 0.0)))
 
     def record(name, err, tol):
         if err / tol >= worst[name][0] / worst[name][1]:
@@ -987,8 +1056,8 @@ def check_training_kernels(torch, dev) -> dict:
         record("rmsnorm_fwd", a_y, NORM_TOL * m_y)
         record("rmsnorm_bwd", a_dx, NORM_TOL * m_dx)
 
-    def flash(B, S, T, H_, K_, D, causal, window, what, key="", twice=False):
-        q, k, v, do = _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D)
+    def flash(B, S, T, H_, K_, D, causal, window, what, key="", twice=False, Dv=None):
+        q, k, v, do = _flash_inputs(torch, gen, dev, B, S, T, H_, K_, D, Dv)
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         o, lse = flash_fwd_kernel(q, k, v, **kw)
         grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
@@ -1054,6 +1123,30 @@ def check_training_kernels(torch, dev) -> dict:
           "B=2 S=T=2048 H=32 K=8 dh=128 causal (phi3.5-moe)")
     flash(1, 300, 300, *MINICPM_HEADS, True, None, "B=1 S=T=300 minicpm (tile edges)",
           "_minicpm")
+    # MLA: v's head dim apart from q's, deepseek-v2-lite's (192, 128) at its
+    # training shape and across the tiles' edges (128-query blocks, 128-key
+    # forward tiles in a two-stage ring, 64-key dk/dv blocks whose two
+    # warpgroups own dK and dV), the smoke config's (24, 16) in one
+    # zero-filled chunk each; K1 at the latent's width 512 (bf16 scale when
+    # training, float32 when serving)
+    Hm, Km, Dm, Dvm = MLA_HEADS
+    B, S = MLA_TRAIN["global_batch"], MLA_TRAIN["seq_len"]
+    flash(B, S, S, Hm, Km, Dm, True, None,
+          f"B={B} S=T={S} H=K=16 dh=192/128 causal (deepseek)", "_mla", twice=True, Dv=Dvm)
+    flash(1, 129, 127, Hm, Km, Dm, True, None, "B=1 S=129 T=127 dh=192/128 (tile edges)",
+          "_mla", Dv=Dvm)
+    flash(1, 300, 300, Hm, Km, Dm, True, None, "B=1 S=T=300 dh=192/128 (tile edges)",
+          "_mla", Dv=Dvm)
+    flash(2, 300, 300, 4, 2, Dm, True, 100, "B=2 S=T=300 G=2 dh=192/128 window 100",
+          "_mla", twice=True, Dv=Dvm)
+    flash(1, 200, 333, 4, 4, Dm, False, None, "B=1 S=200 T=333 dh=192/128 bidirectional",
+          "_mla", Dv=Dvm)
+    flash(2, 300, 300, 4, 4, 24, True, None, "B=2 S=T=300 dh=24/16 causal (smoke)",
+          twice=True, Dv=16)
+    flash(1, 129, 127, 4, 2, 24, True, None, "B=1 S=129 T=127 dh=24/16 (tile edges)", Dv=16)
+    flash(1, 300, 300, 4, 1, 24, True, 40, "B=1 S=T=300 dh=24/16 window 40", Dv=16)
+    norm(S * B, MLA_RANK, torch.bfloat16, f"[{S * B}, {MLA_RANK}] MLA latent, bf16 scale")
+    norm(2048, MLA_RANK, torch.float32, f"[2048, {MLA_RANK}] MLA latent, f32 scale")
     return worst
 
 
@@ -1135,20 +1228,25 @@ def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
     return out
 
 
-def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
-    """K2 (causal) at one training shape: kernel, plain and library times,
-    rows ``flash_fwd{key}`` and ``flash_bwd{key}``.  The library yardstick is
-    SDPA; a window enters it as a boolean mask, with the kv heads expanded
-    to the query heads beforehand (not timed).  The backward row's yardstick
-    is SDPA's backward alone (``autograd.grad`` from one kept forward); its
-    forward plus backward is logged beside it."""
+def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None) -> dict:
+    """K2 (causal) at one training shape (v's head dim ``Dv``, default
+    ``D``): kernel, plain and library times, rows ``flash_fwd{key}`` and
+    ``flash_bwd{key}``.  The library yardstick is SDPA; a window enters it as
+    a boolean mask, with the kv heads expanded to the query heads beforehand
+    (not timed).  The backward row's yardstick is SDPA's backward alone
+    (``autograd.grad`` from one kept forward); its forward plus backward is
+    logged beside it.  Where ``Dv`` differs from ``D``, the SDPA backends
+    that take the call and the kernels the default one runs are logged.
+    The bound's operations count each product at its own width: 2 (D + Dv)
+    flops a query-key pair forward, 2 (3 D + 2 Dv) backward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
     from repro_torch.kernels.flash_attention.ref import visible
 
-    q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H_, K_, D)
+    Dv = D if Dv is None else Dv
+    q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H_, K_, D, Dv)
     kw = dict(scale=D ** -0.5, causal=True, window=window)
     o, lse = flash_fwd_kernel(q, k, v, **kw)
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1172,18 +1270,36 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key) -> dict:
     def sdpa_bwd():  # SDPA's backward alone, from one forward kept alive
         torch.autograd.grad(out_lib, (qt, kt, vt), dot, retain_graph=True)
 
+    if Dv != D:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        takes = []
+        for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                   SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(be):
+                    torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+                torch.cuda.synchronize()
+                takes.append(be.name)
+            except RuntimeError:
+                pass
+        log(f"[timing] SDPA at q/k dh {D}, v dh {Dv}: backends that take it {takes}; "
+            "the default's kernels: "
+            + ", ".join(f"{n} {ms:.4f} ms" for n, ms in _kernel_split(torch, sdpa_fb)))
+
     pairs = B * H_ * _window_pairs(S, window or S)
-    io_bytes = 2 * (2 * B * S * H_ * D + 2 * B * S * K_ * D)
+    io_bytes = 2 * (B * S * H_ * (D + Dv) + B * S * K_ * (D + Dv))
     rows = {
         f"flash_fwd{key}": (lambda: flash_fwd_kernel(q, k, v, **kw),
                             lambda: flash_fwd_plain(q, k, v, **kw), sdpa,
-                            bound(4 * pairs * D, io_bytes + 4 * B * H_ * S)),
+                            bound(2 * (D + Dv) * pairs, io_bytes + 4 * B * H_ * S)),
         f"flash_bwd{key}": (lambda: flash_bwd_kernel(q, k, v, o, lse, do, **kw),
                             lambda: flash_bwd_plain(q, k, v, o, lse, do, **kw), sdpa_bwd,
-                            bound(10 * pairs * D, 2 * io_bytes + 4 * B * H_ * S)),
+                            bound(2 * (3 * D + 2 * Dv) * pairs,
+                                  2 * io_bytes + 4 * B * H_ * S)),
     }
     out = {}
-    what = f"B={B} S=T={S} H={H_} K={K_} dh={D} " + (
+    what = f"B={B} S=T={S} H={H_} K={K_} dh={D}{f'/{Dv}' if Dv != D else ''} " + (
         "causal" if window is None else f"window {window}")
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
         out[name] = t = dict(
@@ -2526,15 +2642,21 @@ class _PinnedRouting:
 
 
 def _check_flips(tag: str, pin: _PinnedRouting, noise: _PinnedRouting,
-                 what: str = "") -> None:
+                 what: str = "", above_noise: bool = False) -> None:
     """Holds the kernel path's routing flips (``pin``: the plain path pinned
     to the kernel path's routing) to ``MOE_FLIP_SHARE`` of the routings, the
     noise probe's (``noise``: the plain path under :class:`_Float64Norms`
-    pinned to the plain path's) logged beside."""
+    pinned to the plain path's) logged beside.  With ``above_noise``
+    (deepseek-v2-lite, whose 64-expert router flips more than that at any
+    change of rounding: see ``MOE_FLIP_SHARE``) the kernels' share less the
+    noise probe's is held to it."""
     share = pin.flips / max(pin.routings, 1)
-    ok = share <= MOE_FLIP_SHARE
+    floor = noise.flips / max(noise.routings, 1) if above_noise else 0.0
+    ok = share - floor <= MOE_FLIP_SHARE
+    held = (f"{share - floor:.4f} above the noise probe's" if above_noise
+            else f"{share:.4f}")
     log(f"[{tag}] {what}routing flips, plain vs kernels: {pin.flips} of {pin.routings} token "
-        f"routings ({share:.4f}, limit {MOE_FLIP_SHARE}); noise probe, plain with "
+        f"routings ({held}, limit {MOE_FLIP_SHARE}); noise probe, plain with "
         f"float64 norms vs plain: {noise.flips} of {noise.routings} "
         f"({noise.flips / max(noise.routings, 1):.4f}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2542,7 +2664,8 @@ def _check_flips(tag: str, pin: _PinnedRouting, noise: _PinnedRouting,
 
 
 def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
-                   float32: bool = False, pin_routing: bool = False) -> None:
+                   float32: bool = False, pin_routing: bool = False,
+                   replay_fn=None, flips_above_noise: bool = False) -> None:
     """Replays one finished stream per prompt length teacher-forced through
     the kernels and through the plain versions: their logits must agree
     within ``LOGIT_TOL``, and each served token must lie within it of the
@@ -2556,15 +2679,19 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
     (:class:`_PinnedRouting`), and the routings it would have picked
     otherwise are held to ``MOE_FLIP_SHARE`` (:func:`_check_flips`); the
     plain replay on its own routing is logged beside, with the noise probe
-    pinned to it, held to nothing."""
-    from repro_torch.kernels import rmsnorm
+    pinned to it, held to nothing.  ``replay_fn`` replaces :func:`replay`
+    (MLA: :func:`_dense_replay`, the gathered path's dense forward);
+    ``flips_above_noise`` is :func:`_check_flips`' ``above_noise``."""
+    from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.kernels.paged_attention import launches
     from repro_torch.models import lm
+
+    rerun = replay_fn or replay
 
     picked = {}
     for s in specs:  # one finished stream per prompt length
         picked.setdefault(s.prompt_len, s)
-    before = {**launches, **rmsnorm.launches}
+    before = {**launches, **rmsnorm.launches, **flash_attention.launches}
     V = cfg.vocab_size
     cfg32 = cfg.replace(compute_dtype="float32")
     params32 = lm.tree_map(lambda t: t.float(), srv.params) if float32 else None
@@ -2572,35 +2699,36 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
         forced, prompt = streams[s.rid], prompts[s.rid]
         if pin_routing:
             with _PinnedRouting() as pin:
-                lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
+                lk = rerun(torch, cfg, srv.params, prompt, forced, plain=False)
                 pin.replay()
-                lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+                lp = rerun(torch, cfg, srv.params, prompt, forced, plain=True)
             with _PinnedRouting() as noise:
-                free = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+                free = rerun(torch, cfg, srv.params, prompt, forced, plain=True)
                 noise.replay()
                 with _Float64Norms():
-                    lq = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+                    lq = rerun(torch, cfg, srv.params, prompt, forced, plain=True)
             log(f"[{tag}] rid={s.rid} prompt={plen} plain path on its own routing, "
                 f"held to nothing: max_logit_err={(lk - free)[:, :V].abs().max().item():.4f} "
                 f"noise_probe={(lq - free)[:, :V].abs().max().item():.4f} (pinned to it)")
-            _check_flips(tag, pin, noise, f"rid={s.rid} prompt={plen} ")
+            _check_flips(tag, pin, noise, f"rid={s.rid} prompt={plen} ",
+                         above_noise=flips_above_noise)
             del free, lq
         else:
-            lk = replay(torch, cfg, srv.params, prompt, forced, plain=False)
-            lp = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+            lk = rerun(torch, cfg, srv.params, prompt, forced, plain=False)
+            lp = rerun(torch, cfg, srv.params, prompt, forced, plain=True)
         err = (lk[:, :V] - lp[:, :V]).abs().max().item()
         idx = torch.tensor(forced, device=lp.device)[:, None]
         gap = (lp[:, :V].max(-1).values - lp.gather(1, idx)[:, 0]).max().item()
         agree = (lk[:, :V].argmax(-1) == lp[:, :V].argmax(-1)).float().mean().item()
         if float32:
             with _Float64Norms():
-                lq = replay(torch, cfg, srv.params, prompt, forced, plain=True)
+                lq = rerun(torch, cfg, srv.params, prompt, forced, plain=True)
             probe = (lq[:, :V] - lp[:, :V]).abs().max().item()
             log(f"[{tag}] rid={s.rid} prompt={plen} bfloat16, held to nothing: "
                 f"max_logit_err={err:.4f} noise_probe={probe:.4f} "
                 f"max_gap_to_plain_max={gap:.4f} argmax_agree={agree:.3f}")
-            lk = replay(torch, cfg32, params32, prompt, forced, plain=False)
-            lp = replay(torch, cfg32, params32, prompt, forced, plain=True)
+            lk = rerun(torch, cfg32, params32, prompt, forced, plain=False)
+            lp = rerun(torch, cfg32, params32, prompt, forced, plain=True)
             err = (lk[:, :V] - lp[:, :V]).abs().max().item()
             agree = (lk[:, :V].argmax(-1) == lp[:, :V].argmax(-1)).float().mean().item()
             gap = 0.0
@@ -2611,33 +2739,47 @@ def teacher_forced(torch, cfg, srv, specs, prompts, streams, tag: str = "check",
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{tag}: teacher-forced check failed for rid {s.rid}")
-    if {**launches, **rmsnorm.launches} == before:
+    if {**launches, **rmsnorm.launches, **flash_attention.launches} == before:
         raise AssertionError(f"{tag}: the kernel-path replay launched no kernel")
 
 
 def profile_decode_tick(torch, cfg, params, ticks: int = 5, kv_lens=TICK_KV_LENS,
-                        M: int = 132, tag: str = "tick") -> None:
+                        M: int = 132, tag: str = "tick", gathered: bool = False) -> None:
     """One decode tick (``make_paged_decode_step`` and the read-back of the
-    next tokens) at a timing shape, 8 slots at ``kv_lens`` (table width
-    ``M``; the recurrent families' state rows ride along): host ms per tick
-    by the host clock, then under ``torch.profiler`` the kernels a tick runs
-    and their summed device time; the rest of the tick the device waits for
-    the host."""
+    next tokens; with ``gathered``, the gathered path's ``PagedKVCache.gather``,
+    one B=1 forward a slot and ``scatter_decode``) at a timing shape, 8 slots
+    at ``kv_lens`` (table width ``M``; the recurrent families' state rows
+    ride along): host ms per tick by the host clock, then under
+    ``torch.profiler`` the kernels a tick runs and their summed device time;
+    the rest of the tick the device waits for the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import make_paged_decode_step
+    from repro_torch.serve.engine import make_paged_decode_step, make_slot_decode_step
+    from repro_torch.serve.paged_cache import PagedKVCache, PoolSpec
 
     dev = torch.device("cuda")
-    pool = lm.init_pool(cfg, 1 + 8 * M, BS, dev, num_slots=8)
+    kv = PagedKVCache(cfg, PoolSpec(num_slots=8, num_blocks=1 + 8 * M, block_size=BS,
+                                    max_blocks=M), dev)
     tables = (1 + torch.arange(8 * M, dtype=torch.int32, device=dev)).reshape(8, M)
-    step = make_paged_decode_step(cfg, block_size=BS)
     toks = torch.zeros(8, dtype=torch.long, device=dev)
     pos = torch.tensor([n - 1 for n in kv_lens], dtype=torch.int32, device=dev)
+    if gathered:
+        step = make_slot_decode_step(cfg)
+
+        def decode():
+            dense = kv.gather(kv.pool, tables)
+            logits, _ = step(params, dense, toks, pos)
+            kv.scatter_decode(kv.pool, dense, tables, pos)
+            return logits
+    else:
+        step = make_paged_decode_step(cfg, block_size=BS)
+
+        def decode():
+            return step(params, kv.pool, tables, toks, pos)[0]
 
     def tick():
-        return step(params, pool, tables, toks, pos)[0].argmax(-1).tolist()
+        return decode().argmax(-1).tolist()
 
     for _ in range(3):
         tick()
@@ -2655,7 +2797,8 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5, kv_lens=TICK_KV_LENS
         log(f"[{tag}] the profiler recorded no device time: device busy share not measured")
         return
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / ticks
-    log(f"[{tag}] {cfg.name} decode tick at kv_len={kv_lens}: host {host_ms:.3f} ms "
+    what = "gathered decode tick (8 B=1 slot forwards)" if gathered else "decode tick"
+    log(f"[{tag}] {cfg.name} {what} at kv_len={kv_lens}: host {host_ms:.3f} ms "
         f"(median of {2 * ticks}); device busy {busy_ms:.3f} ms in "
         f"{len(kernels) / ticks:.0f} kernels (torch.profiler, {ticks} ticks); device idle "
         f"share {1 - busy_ms / host_ms:.3f}")
@@ -2879,6 +3022,113 @@ def serve_config(torch, arch: str, smi: str, layers: int | None = None) -> dict:
     return counts
 
 
+def serve_mla(torch, smi: str) -> dict:
+    """MegaServe on deepseek-v2-lite-16b at full width and depth (27 layers,
+    seed-0 weights drawn leaf by leaf in bf16): ``CONFIG_SERVE``'s 12
+    Poisson requests on the gathered path (the only one MLA's latent cache
+    takes; the dense prefill), every request finished with a valid stream;
+    launches exact: K1 3L + 1 a forward (ln1, ln2, the latent norm; every
+    prefill and every slot's B=1 decode forward), K2's forward L a prefill
+    whose padded length exceeds ``attn_kv_chunk``, nothing else (no K3, no
+    K4, no backward); the teacher-forced logits of one stream per prompt
+    length through the dense-cache forward at the served cache length,
+    kernels against plain, within ``LOGIT_TOL`` with the plain replay
+    routed as the kernel replay routed (:class:`_PinnedRouting`; the flips
+    held to ``MOE_FLIP_SHARE`` above the noise probe's); tokens/s,
+    TTFT p50/p99, the median tick, one tick's host and device time, peak
+    memory and ``moe_drop_frac``.  Returns the launch counts."""
+    from functools import partial
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.models import lm
+    from repro_torch.models.model import count_params
+    from repro_torch.serve.server import MegaServe, make_poisson_workload
+
+    tag = "serve-mla"
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = count_params(params)
+    if n_params != MLA_PARAMS:
+        raise AssertionError(f"{tag}: {n_params} parameters, not {MLA_PARAMS}")
+    specs, prompts, scfg = make_poisson_workload(cfg, **CONFIG_SERVE)
+    srv = MegaServe(cfg, params, scfg, device="cuda")
+    del params  # the server's cast is the same tree
+    m = cfg.mla
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model} heads="
+        f"{cfg.num_heads} MLA rank {m.kv_lora_rank} q/k dh {m.qk_nope_head_dim}+"
+        f"{m.qk_rope_head_dim} v dh {m.v_head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared, first "
+        f"{cfg.moe.first_k_dense} dense; {n_params} parameters drawn in bf16 (peak "
+        f"{init_peak} B); {scfg.num_slots} slots, {scfg.num_blocks} blocks x "
+        f"{scfg.block_size}, table width {scfg.max_blocks_per_slot}; decode_path="
+        f"{srv.decode_path} prefill_path={srv.prefill_path}; set-up "
+        f"{time.perf_counter() - t0:.2f} s, held {torch.cuda.memory_allocated()} B")
+    if (srv.decode_path, srv.prefill_path) != ("gathered", "dense"):
+        raise AssertionError(f"{tag}: MLA served on {srv.decode_path}/{srv.prefill_path}")
+    for n in sorted({s.prompt_len for s in specs}):  # warm-up
+        srv.submit(prompts[0][:1] * n, 2, arrival=0.0)
+    srv.drain()
+    srv.reset()
+    torch.cuda.reset_peak_memory_stats()
+    mods = (flash_attention, rmsnorm, paged)
+    for mod in mods:
+        mod.reset_launches()
+    with _DropFracs() as drops:
+        for sp in specs:
+            srv.submit(prompts[sp.rid], sp.max_new, arrival=sp.arrival, rid=sp.rid)
+        streams = srv.drain()
+    torch.cuda.synchronize()
+    counts = {k: v for mod in mods for k, v in mod.launches.items()}
+    met = srv.metrics()
+    events = srv.trace_events()
+    ticks = [e.dur for e in events if e.name == "decode"]
+    slot_forwards = sum(e.args.get("active", 0) for e in events if e.name == "decode")
+    pre = [e for e in events if e.name == "prefill"]
+    long_pre = sum(srv._prefill_blocks(e.args["tokens"]) * BS > cfg.attn_kv_chunk
+                   for e in pre)
+    L = cfg.num_layers
+    want = {"flash_fwd": L * long_pre, "flash_bwd": 0,
+            "rmsnorm_fwd": (3 * L + 1) * (len(pre) + slot_forwards), "rmsnorm_bwd": 0,
+            "paged_decode": 0, "paged_prefill": 0}
+    log(f"[{tag}] finished={met['finished']}/{len(specs)} tokens={met['generated_tokens']} "
+        f"tokens_per_s={met['tokens_per_s']:.2f} ttft_p50_s={met['ttft_p50_s']:.4f} "
+        f"ttft_p99_s={met['ttft_p99_s']:.4f} decode_tick_median_ms="
+        f"{1e3 * statistics.median(ticks):.3f} ticks={len(ticks)} slot_forwards="
+        f"{slot_forwards} prefills={len(pre)} (past attn_kv_chunk {long_pre}) "
+        f"prefill_median_ms={1e3 * statistics.median(e.dur for e in pre):.3f} "
+        f"preemptions={met['preemptions']} wall_s={met['wall_s']:.3f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} ({smi})")
+    log(f"[{tag}] launches {counts}, expected {want}")
+    log(f"[{tag}] moe_drop_frac by path: {drops}")
+    if counts != want or not (want["flash_fwd"] and want["rmsnorm_fwd"]):
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if met["finished"] != len(specs):
+        raise AssertionError(f"{tag}: not every request finished")
+    for sp in specs:
+        toks = streams[sp.rid]
+        if len(toks) != sp.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag}: request {sp.rid}: bad stream {toks[:8]}...")
+    # the served slots decode over the gathered view of the whole table
+    # width: the replays keep that cache length, so the kernel replay runs
+    # the served computation
+    cache_len = scfg.max_blocks_per_slot * scfg.block_size
+    t0 = time.perf_counter()
+    teacher_forced(torch, cfg, srv, specs, prompts, streams, tag, pin_routing=True,
+                   replay_fn=partial(_dense_replay, cache_len=cache_len),
+                   flips_above_noise=True)
+    log(f"[{tag}] teacher-forced replays {time.perf_counter() - t0:.1f} s")
+    profile_decode_tick(torch, cfg, srv.params, ticks=1, tag=tag, gathered=True)
+    del srv
+    _free(torch)
+    return counts
+
+
 # ---------------------------------------------------------------- phase 6-7
 
 
@@ -2886,16 +3136,18 @@ def per_step_launches(cfg, n_micro: int = 1) -> dict:
     """Kernel launches one train step makes with full remat: every layer's
     forward runs twice (once in the forward, once recomputed in the
     backward) and its backward once; two RMSNorms a layer (no qk_norm in
-    the trained configs) and the final norm, which is not recomputed.  A
-    pipelined step runs every layer once for each of its ``n_micro``
-    microbatches and the final norm once, over the whole batch."""
+    the trained configs), three under MLA (its latent norm), and the final
+    norm, which is not recomputed.  A pipelined step runs every layer once
+    for each of its ``n_micro`` microbatches and the final norm once, over
+    the whole batch."""
     from repro_torch.models.lm import segment_layout
 
     kinds = [k for pat, n in segment_layout(cfg) for _ in range(n) for k in pat]
     mixer = {"dense": "flash", "moe": "flash", "attn": "flash", "rwkv": "wkv6",
              "rec": "rglru"}
-    out = {"rmsnorm_fwd": 4 * len(kinds) * n_micro + 1,
-           "rmsnorm_bwd": 2 * len(kinds) * n_micro + 1}
+    norms = sum(3 if cfg.use_mla and k in ("dense", "moe") else 2 for k in kinds)
+    out = {"rmsnorm_fwd": 2 * norms * n_micro + 1,
+           "rmsnorm_bwd": norms * n_micro + 1}
     for kind in kinds:
         for way, n in (("fwd", 2), ("bwd", 1)):
             name = f"{mixer[kind]}_{way}"
@@ -2995,15 +3247,18 @@ def _check_train(tag: str, cfg, data, history: list, counts: dict,
                 losses=losses)
 
 
-def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=None):
+def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=None,
+                registry=None):
     """``cfg`` (full width) trained ``shape["steps"]`` steps at its sequence
     and batch, on ``SyntheticTokens`` of ``shape["seed"]``, through the
     loop, from the parameters of seed 0, at the CLI's optimizer defaults;
     each kernel of ``modules`` must launch exactly :func:`per_step_launches`
     times a step, and every loss must be finite and the last below the
-    first.  ``hooks`` (the loop's ``StepHooks``) observe each step.  Returns
-    the config (remat full), the data config, the launch counts and the
-    step's numbers."""
+    first.  ``hooks`` (the loop's ``StepHooks``) observe each step; with a
+    ``registry`` the loop publishes its train series there, counting the
+    step's flops in one more forward and backward (counted as a pass).
+    Returns the config (remat full), the data config, the launch counts and
+    the step's numbers."""
     from repro_torch.models.model import count_params
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.train_step import init_train_state
@@ -3022,14 +3277,14 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=No
     for m in modules:
         m.reset_launches()
     state, history = train(cfg, ocfg, data, LoopConfig(n_steps=steps, seed=0),
-                           state=state, device=dev, hooks=hooks)
+                           state=state, device=dev, hooks=hooks, registry=registry)
     torch.cuda.synchronize()
     counts = {k: v for m in modules for k, v in m.launches.items()}
     steady = sorted(h["step_s"] for h in history[1:])
     profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
     del state
     torch.cuda.empty_cache()
-    stats = _check_train(tag, cfg, data, history, counts, steps,
+    stats = _check_train(tag, cfg, data, history, counts, steps + (registry is not None),
                          torch.cuda.max_memory_allocated())
     return cfg, data, counts, dict(stats, params=n_params)
 
@@ -3169,6 +3424,54 @@ def train_configs_phase(torch, dev, smi: str) -> None:
     step_check(torch, dev, cfg, data, mixer="attn", tag="step-moe",
                batch_step=PHI_TRAIN["steps"], tols=tols, pin_routing=True)
     torch.cuda.empty_cache()
+
+
+def train_mla_phase(torch, dev, smi: str) -> dict:
+    """deepseek-v2-lite-16b at full width cut to ``MLA_TRAIN_LAYERS`` of 27
+    layers (1 dense, 3 MoE) trained through the loop, remat full, seq 2048
+    x batch 2, 4 steps, on ``SyntheticTokens`` of seed 2 (seed 0's rule
+    shares the factors 2 and 5 of vocab 102400, as at Griffin's 256000: its
+    targets run into a fixed point, and its losses swing): the train state
+    estimated before the run, the parameter count, K2 (q/k at 192, v at
+    128) and K1 (three norms a layer) launched exactly
+    :func:`per_step_launches` times a pass (the flop count's pass too),
+    losses finite and falling, the profiler's split
+    of one more step, peak memory and ``mfu_est`` (the p50 of the loop's
+    ``train.model_flops_per_s`` over the H100's 989 TFLOP/s, as the
+    ``metrics`` module reports it; K2's products counted at each side's
+    width); then the step check at the qwen2 check's limits, the plain run
+    routed as the kernel run routed (the flips held to ``MOE_FLIP_SHARE``
+    above the noise probe's).  Returns the launch counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.obs import MetricsRegistry
+
+    tag = "train-mla"
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = full.replace(num_layers=MLA_TRAIN_LAYERS)
+    log(f"[{tag}] depth cut: {MLA_TRAIN_LAYERS} of {full.num_layers} layers, full width; "
+        f"train state estimated {MLA_TRAIN_PARAMS} x 18 B = "
+        f"{MLA_TRAIN_PARAMS * 18 / 1e9:.1f} GB (float32 master, AdamW m and v, bf16 "
+        f"params and grads)")
+    registry = MetricsRegistry()
+    cfg, data, counts, stats = train_phase(torch, dev, cfg, MLA_TRAIN,
+                                           (flash_attention, rmsnorm), tag,
+                                           registry=registry)
+    if stats["params"] != MLA_TRAIN_PARAMS:
+        raise AssertionError(f"{tag}: {stats['params']} parameters, not {MLA_TRAIN_PARAMS}")
+    flops_s = registry.snapshot()["train.model_flops_per_s"]
+    mfu = flops_s["p50"] / BF16_FLOPS_PER_S
+    log(f"[{tag}] params {stats['params']}; model flops a step "
+        f"{flops_s['p50'] * stats['step_s']:.6e}; mfu_est {mfu:.6f} at a peak of "
+        f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s ({smi})")
+    if not 0 < mfu < 1:
+        raise AssertionError(f"{tag}: mfu_est {mfu} not in (0, 1)")
+    step_check(torch, dev, cfg, data, mixer="attn", tag="step-mla",
+               batch_step=MLA_TRAIN["steps"],
+               tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL), pin_routing=True,
+               flips_above_noise=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ------------------------------------------------- phase 6: the runtime path
@@ -3677,22 +3980,25 @@ def recurrent_scope_phase(torch, smi: str, tag: str = "scope-recurrent") -> None
             raise AssertionError(f"{tag} {arch}: launches {out[True][1]} != {out[False][1]}")
 
 
-def _dense_replay(torch, cfg, params, prompt: list[int], forced: list[int]):
+def _dense_replay(torch, cfg, params, prompt: list[int], forced: list[int], *,
+                  plain: bool = False, cache_len: int | None = None):
     """Teacher-forced logits ``[len(forced), V]`` over the dense cache
-    (the path ``generate_with_scope`` takes): prefill ``prompt``, then feed
-    ``forced[:-1]`` one token at a time."""
+    (the path ``generate_with_scope`` and MegaServe's gathered path take):
+    prefill ``prompt``, then feed ``forced[:-1]`` one token at a time, over
+    a cache of ``cache_len`` positions (default: just long enough), through
+    the kernels or (``plain``) the plain versions."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
     dev = params["embedding"].device
-    cache = lm.init_cache(cfg, 1, len(prompt) + len(forced), device=dev)
+    cache = lm.init_cache(cfg, 1, cache_len or len(prompt) + len(forced), device=dev)
     with torch.no_grad():
         hidden, _ = lm.forward(cfg, params, torch.tensor([prompt], device=dev),
-                               cache=cache, cache_pos=0)
+                               cache=cache, cache_pos=0, plain=plain)
         out = [L.logits_fn(params, cfg, hidden[:, -1:])[0, 0]]
         for i, tok in enumerate(forced[:-1]):
             hidden, _ = lm.forward(cfg, params, torch.tensor([[tok]], device=dev),
-                                   cache=cache, cache_pos=len(prompt) + i)
+                                   cache=cache, cache_pos=len(prompt) + i, plain=plain)
             out.append(L.logits_fn(params, cfg, hidden)[0, 0])
     return torch.stack(out).float()
 
@@ -4025,7 +4331,7 @@ def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: 
 def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
                tols: tuple[float, float, float], probe: tuple | None = None,
                pipeline: dict | None = None, batch: dict | None = None,
-               pin_routing: bool = False) -> None:
+               pin_routing: bool = False, flips_above_noise: bool = False) -> None:
     """The loss and gradients of one batch, from the bfloat16 parameters of
     seed 0, through the kernels and through the plain versions: loss,
     global gradient norm and :func:`_leaf_norms`, held to ``tols``
@@ -4039,7 +4345,8 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     instead, both through the kernels.  ``batch`` (on the device) replaces
     ``data``'s batch; ``pin_routing`` (MoE) routes the plain run's tokens
     to the experts the kernel run picked (:class:`_PinnedRouting`) and holds
-    how many it would have routed otherwise (:func:`_check_flips`)."""
+    how many it would have routed otherwise (:func:`_check_flips`, with
+    ``flips_above_noise`` its ``above_noise``)."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models import lm
     from repro_torch.models import pipeline as pl
@@ -4080,7 +4387,7 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
             noise.replay()
             with _Float64Norms():
                 lm.loss_fn(cfg, params, batch, plain=True)
-        _check_flips(tag, pin, noise)
+        _check_flips(tag, pin, noise, above_noise=flips_above_noise)
 
     def gaps(a, b):
         (la, ga, na), (lb, gb, nb) = res[a], res[b]
@@ -4403,8 +4710,9 @@ def main() -> int:
             smem, at = (shared_memory_bytes(name, H=H, K=K, dh=DH),
                         f"H={H} K={K} dh={DH} Q=1")
         elif name.startswith("flash"):
-            smem, at = (f"{flash_smem(name, DH)} / {flash_smem(name, GRIFFIN_DH)}",
-                        f"dh={DH} / {GRIFFIN_DH}")
+            smem, at = (f"{flash_smem(name, DH)} / {flash_smem(name, GRIFFIN_DH)} / "
+                        f"{flash_smem(name, MLA_HEADS[2], MLA_HEADS[3])}",
+                        f"dh={DH} / {GRIFFIN_DH} / {MLA_HEADS[2]} (v {MLA_HEADS[3]})")
         elif name.startswith("wkv6"):
             smem, at = (", ".join(f"{kn} {b}" for kn, b in wkv6_smem(name, RWKV_N).items()),
                         f"N={RWKV_N}")
@@ -4430,6 +4738,7 @@ def main() -> int:
     timings.update(time_wkv6_kernels(torch, dev, worst))
     timings.update(time_rglru_kernels(torch, dev, worst))
     time_config_kernels(torch, dev, worst)
+    timings.update(time_mla_kernels(torch, dev, worst))
     torch.cuda.empty_cache()
     phase("kernel timings")
     cfg, srv, specs, prompts, streams, _ = serve(torch, dev)
@@ -4462,6 +4771,8 @@ def main() -> int:
     phase("serve-dense: minitron-4b and minicpm-2b at full depth")
     serve_config(torch, "phi3.5-moe-42b-a6.6b", smi, layers=PHI_SERVE_LAYERS)
     phase("serve-moe: phi3.5-moe at 8 of 32 layers")
+    serve_mla(torch, smi)
+    phase("serve-mla: deepseek-v2-lite at all 27 layers on the gathered path")
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
@@ -4524,13 +4835,18 @@ def main() -> int:
     phase("griffin step check")
     train_configs_phase(torch, dev, smi)
     phase("train-configs: qwen2-vl-7b, minicpm-2b and phi3.5-moe, and their step checks")
+    # deepseek-v2-lite at 4 layers: flash_fwd 2L = 8, flash_bwd L = 4,
+    # rmsnorm_fwd 2*3L + 1 = 25, rmsnorm_bwd 3L + 1 = 13 a pass
+    mla_counts = train_mla_phase(torch, dev, smi)
+    phase("train-mla: deepseek-v2-lite at 4 layers and its step check")
     recurrent_scope_phase(torch, smi)
     phase("scope on rwkv6 and griffin")
 
     # launches: the paged kernels' from the serve phase (K4 at the verify
     # and chunk shapes: the serve-paths phase's verify steps and chunks x
     # layers), K1's and K2's from
-    # the qwen2 train phase (K2 at dh 256: the griffin train phase), K5's
+    # the qwen2 train phase (K2 at dh 256: the griffin train phase; at
+    # 192 / 128: the train-mla phase), K5's
     # from the rwkv6 train phase, K6's from the griffin train phase (K1's
     # serve, rwkv6 and griffin counts are checked in those phases); K1's
     # tolerance: the absolute bound of its case nearest it; K2's, K5's and
@@ -4539,6 +4855,7 @@ def main() -> int:
     counts.update({k: v for k, v in rwkv_counts.items() if k.startswith("wkv6")})
     counts.update({k: v for k, v in griffin_counts.items() if k.startswith("rglru")})
     counts.update({f"{k}_dh256": griffin_counts[k] for k in ("flash_fwd", "flash_bwd")})
+    counts.update({f"{k}_mla": mla_counts[k] for k in ("flash_fwd", "flash_bwd")})
     counts["paged_decode_dh256"] = griffin_serve_counts["paged_decode"]
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
     wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
@@ -4566,6 +4883,8 @@ def main() -> int:
         ("flash_bwd_dh256", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
         ("rglru_fwd", "cuda", _build.SOURCES["rglru_fwd"], rglru_src, None),
         ("rglru_bwd", "cuda", _build.SOURCES["rglru_bwd"], rglru_src, None),
+        ("flash_fwd_mla", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
+        ("flash_bwd_mla", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
     ]
     kernels = []
     for name, route, path, replaces, tol in rows:

@@ -311,7 +311,11 @@ class Session:
             or router_cfg.slo_ttft_s > 0
             or router_cfg.policy != "round_robin"
         )
-        params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device))
+        # drawn in the compute dtype leaf by leaf (the values the server's
+        # cast would give), so no float32 tree sits beside the cast: at
+        # deepseek-v2-lite's 15.7 B parameters the two would not fit a card
+        params = lm.init(cfg, seed=rc.seed, device=resolve_device(self.device),
+                         dtype=getattr(torch, cfg.compute_dtype))
         specs, prompts, serve_cfg = make_poisson_workload(
             cfg, n=s.requests, rate=s.rate, prompt_lens=tuple(s.prompt_lens),
             max_new_range=(max(1, s.max_new // 4), s.max_new),
@@ -388,8 +392,8 @@ class Session:
 
         cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
         dev = resolve_device(self.device)
-        params = lm.cast_params(lm.init(cfg, seed=rc.seed, device=dev),
-                                getattr(torch, cfg.compute_dtype), dev)
+        params = lm.init(cfg, seed=rc.seed, device=dev,
+                         dtype=getattr(torch, cfg.compute_dtype))
         B, P = s.batch, s.prompt_len
         cache = lm.init_cache(cfg, B, P + s.max_new, device=dev)
         prompts = np.random.default_rng(rc.seed).integers(

@@ -4,8 +4,8 @@ Every architecture module in this package defines a ``CONFIG`` (full size,
 exact published values) and a ``SMOKE_CONFIG`` (same family, tiny dims) used
 by CPU tests.  The fields and defaults match the JAX package's
 ``ModelConfig`` one for one, so a config built here describes the same model
-as its namesake there.  The MLA and enc-dec configs are not registered yet;
-their sub-configs are kept so the dataclass stays a faithful copy.
+as its namesake there.  The enc-dec config is not registered yet; its
+fields are kept so the dataclass stays a faithful copy.
 """
 
 from __future__ import annotations
@@ -147,8 +147,9 @@ def _ensure_loaded() -> None:
     import importlib
 
     # the dense GQA archs (with qwen2-vl's M-RoPE and embeds inputs), MoE,
-    # RWKV-6 and Griffin; MLA and enc-dec arrive with their own slices
+    # MLA over MoE, RWKV-6 and Griffin; enc-dec arrives with its own slice
     # (ROADMAP queue 1, item 13b)
     for mod in ("qwen2_0_5b", "qwen3_14b", "qwen2_vl_7b", "minitron_4b",
-                "minicpm_2b", "phi35_moe_42b", "rwkv6_3b", "recurrentgemma_9b"):
+                "minicpm_2b", "phi35_moe_42b", "deepseek_v2_lite_16b", "rwkv6_3b",
+                "recurrentgemma_9b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -7,10 +7,12 @@ matrix products that one forward and backward of the step's loss runs with
 (``mm``, ``addmm``, ``bmm``, the einsums' products), the recompute of full
 remat included, as it runs in the backward.  It cannot see K2, a CUDA
 kernel behind an ``autograd.Function``: each K2 call reports its products
-here instead (:func:`flash_call`), by the causal formula of its bound, 4·d
-flops per query-key pair forward and 10·d backward (the backward recomputes
-the scores), and on the CPU the products of its plain version are taken
-back out, so the count is the same wherever the step runs.
+here instead (:func:`flash_call`), by the causal formula of its bound:
+each product counts 2 flops a query-key pair per column of its depth or
+width, q's head dim d for Q K^T (recomputed in the backward), dQ and dK,
+v's dv for P V, dP and dV, so 2·(d + dv) forward and 2·(3d + 2dv) backward
+(4·d and 10·d where dv = d).  On the CPU the products of its plain version
+are taken back out, so the count is the same wherever the step runs.
 
 Products only: no elementwise work and no optimizer, so the count is not
 expected to equal XLA's, which counts every operation.
@@ -45,21 +47,24 @@ def causal_pairs(S: int, T: int, causal: bool, window: int | None) -> int:
 
 
 def flash_flops(q_shape, k_shape, *, causal: bool, window: int | None,
-                backward: bool) -> int:
+                backward: bool, dv: int | None = None) -> int:
+    """K2's products: q ``[B, S, H, D]``, k ``[B, T, K, D]``, v's head dim
+    ``dv`` (default ``D``)."""
     B, S, H, D = q_shape
-    return (10 if backward else 4) * B * H * causal_pairs(
-        S, k_shape[1], causal, window) * D
+    dv = D if dv is None else dv
+    per_pair = 2 * (3 * D + 2 * dv) if backward else 2 * (D + dv)
+    return per_pair * B * H * causal_pairs(S, k_shape[1], causal, window)
 
 
 def flash_call(q_shape, k_shape, *, causal: bool, window: int | None,
-               backward: bool):
+               backward: bool, dv: int | None = None):
     """Context around one K2 call (forward or backward): while a step is
     being counted, adds the call's products by formula and keeps what its
     plain version computes out of the count; otherwise does nothing."""
     if not _active:
         return nullcontext()
     _active[-1].flash += flash_flops(q_shape, k_shape, causal=causal,
-                                     window=window, backward=backward)
+                                     window=window, backward=backward, dv=dv)
     return _excluded(_active[-1])
 
 

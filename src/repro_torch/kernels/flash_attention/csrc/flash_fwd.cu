@@ -57,6 +57,16 @@
 // 64 x 64 score tile within 240 registers, the kv tile shrinking to 64 keys
 // so that Q and a two-stage K/V ring fit in 192 KB of shared memory.
 //
+// v's head dim DV may differ from q's and k's D, as in the Pallas kernel
+// (MLA: q and k at 192 = 128 nope + 64 rope columns, v at 128): S = Q K^T
+// walks D / 16 steps over three 64-column chunks, while V, O and the P V
+// product have DV / 64 chunks of their own, so O takes the registers it
+// takes at dh 128 (64 a thread) and the score tile keeps 128 keys.  K and V
+// tiles are sized apart in the ring; at (192, 128) three 128-key stages
+// (3 x 80 KB beside Q's 48) exceed a block's 227 KB, so the ring keeps
+// two.  The smoke config's (24, 16) loads one zero-filled 64-column chunk
+// each, as dh 16 and 32 do.
+//
 // Where trouble was expected, and what is done: the tensor maps come from
 // libcuda's cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint
 // (no -lcuda), built on the host at every call (microseconds) and passed as
@@ -73,39 +83,44 @@ using namespace sm90;
 constexpr int NWG = 2;           // consumer warpgroups
 constexpr int BM = 64 * NWG;     // query rows per block
 constexpr int THREADS = WG * (NWG + 1);
+constexpr size_t SMEM_MAX = 227 * 1024;  // dynamic shared memory a block may take
 
-template <int D>
+// keys per kv tile: 64 where O is 256 columns wide (its 128 registers a
+// thread leave room for a 64-key score tile only), 128 otherwise
+template <int D, int DV>
 __host__ __device__ constexpr int kv_tile() {
-  return D > 128 ? 64 : 128;
+  return DV > 128 ? 64 : 128;
 }
 
-// K/V ring depth: three stages where they fit in shared memory
-template <int D>
+template <int D, int DV>
+__host__ __device__ constexpr size_t tiles_bytes(int stages) {
+  return tile_bytes<D, BM>() + (size_t)stages * (tile_bytes<D, kv_tile<D, DV>()>() +
+                                                 tile_bytes<DV, kv_tile<D, DV>()>());
+}
+
+// K/V ring depth: three stages where they fit in shared memory, else two
+// (dh 256; and (192, 128), whose three stages would take 288 KB)
+template <int D, int DV>
 __host__ __device__ constexpr int stages() {
-  return D > 128 ? 2 : 3;
+  return tiles_bytes<D, DV>(3) + 1024 <= SMEM_MAX ? 3 : 2;
 }
 
-template <int D>
-__host__ __device__ constexpr size_t tiles_bytes() {
-  return tile_bytes<D, BM>() + 2 * stages<D>() * (size_t)tile_bytes<D, kv_tile<D>()>();
-}
-
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,  // q [B, S, H, D]
     const __grid_constant__ CUtensorMap kmap,  // k [B, T, K, D]
-    const __grid_constant__ CUtensorMap vmap,  // v [B, T, K, D]
-    bf16* __restrict__ o,                      // [B, S, H, D]
+    const __grid_constant__ CUtensorMap vmap,  // v [B, T, K, DV]
+    bf16* __restrict__ o,                      // [B, S, H, DV]
     float* __restrict__ lse,                   // [B*H, S]
     int S, int T, int H, int K, float scale, int causal, int window) {
-  constexpr int KT = kv_tile<D>(), DP = padded(D), NC = DP / CHUNK, NJ = KT / 64;
-  constexpr int STAGES = stages<D>();
-  constexpr uint32_t KV = tile_bytes<D, KT>();
+  constexpr int KT = kv_tile<D, DV>(), DP = padded(D), NC = padded(DV) / CHUNK, NJ = KT / 64;
+  constexpr int STAGES = stages<D, DV>();
+  constexpr uint32_t KB = tile_bytes<D, KT>(), VB = tile_bytes<DV, KT>();
   __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* k_s = q_s + tile_bytes<D, BM>();  // stage st at k_s + st * KV
-  uint8_t* v_s = k_s + STAGES * KV;
+  uint8_t* k_s = q_s + tile_bytes<D, BM>();  // stage st at k_s + st * KB
+  uint8_t* v_s = k_s + STAGES * KB;          // stage st at v_s + st * VB
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = bars + 1 + STAGES;
@@ -138,10 +153,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       for (int it = 0; it < n_it; ++it) {
         const int st = it % STAGES, ph = (it / STAGES) & 1, t0 = (j_lo + it) * KT;
         bar_wait(&empty[st], ph ^ 1);
-        bar_expect(&k_full[st], KV);
-        tma_tile<D, KT>(k_s + st * KV, &kmap, &k_full[st], kh, t0, b);
-        bar_expect(&v_full[st], KV);
-        tma_tile<D, KT>(v_s + st * KV, &vmap, &v_full[st], kh, t0, b);
+        bar_expect(&k_full[st], KB);
+        tma_tile<D, KT>(k_s + st * KB, &kmap, &k_full[st], kh, t0, b);
+        bar_expect(&v_full[st], VB);
+        tma_tile<DV, KT>(v_s + st * VB, &vmap, &v_full[st], kh, t0, b);
       }
     }
   } else {  // ------------------------------------------------- consumers
@@ -152,7 +167,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const int row[2] = {rmin + 16 * warp + g, rmin + 16 * warp + g + 8};
     const float c = scale * LOG2E;
 
-    float acc[NC][32];   // O, float32
+    float acc[NC][32];   // O, float32 (DV columns)
     float s[NJ][32];     // scores, then p
     uint32_t pa[NJ][4][4];  // p rounded to bf16: the A operand of P V
 #pragma unroll
@@ -173,7 +188,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
       for (int n = 0; n < NJ; ++n)
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss(s[n], desc_k<BM>(q_s, m0, kk), desc_k<KT>(k_s + st * KV, 64 * n, kk),
+          mma_ss(s[n], desc_k<BM>(q_s, m0, kk), desc_k<KT>(k_s + st * KB, 64 * n, kk),
                  kk > 0);
       wg_commit();
     };
@@ -194,7 +209,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
         for (int jn = 0; jn < NJ; ++jn)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            mma_rs(acc[n], pa[jn][kk], desc_mn<KT>(v_s + st * KV, n, 4 * jn + kk));
+            mma_rs(acc[n], pa[jn][kk], desc_mn<KT>(v_s + st * VB, n, 4 * jn + kk));
       wg_commit();
     };
     // P V of kv tile `it` has landed: its operands and its stage are free
@@ -287,13 +302,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= S) continue;
       const float denom = l[r] == 0.f ? 1.f : l[r];
-      bf16* orow = o + (((size_t)b * S + row[r]) * H + h) * D;
+      bf16* orow = o + (((size_t)b * S + row[r]) * H + h) * DV;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int col = 64 * n + 8 * jj + 2 * t;
-          if (D >= CHUNK || col < D)
+          if (DV >= CHUNK || col < DV)
             *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
                 acc[n][4 * jj + 2 * r] / denom, acc[n][4 * jj + 2 * r + 1] / denom);
         }
@@ -304,53 +319,49 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
            int S, int T, int H, int K, float scale, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, B, S, H, D, BM);
-  if (!err) err = make_map(&km, k, B, T, K, D, kv_tile<D>());
-  if (!err) err = make_map(&vm, v, B, T, K, D, kv_tile<D>());
+  if (!err) err = make_map(&km, k, B, T, K, D, kv_tile<D, DV>());
+  if (!err) err = make_map(&vm, v, B, T, K, DV, kv_tile<D, DV>());
   if (err) return err;
-  const size_t smem = block_smem(tiles_bytes<D>());
+  const size_t smem = block_smem(tiles_bytes<D, DV>(stages<D, DV>()));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (S + BM - 1) / BM);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, (bf16*)o, (float*)lse, S, T, H, K, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes (0: head dim not taken).
-extern "C" size_t flash_fwd_smem_bytes(int D) {
-  switch (D) {
-    case 16: return block_smem(tiles_bytes<16>());
-    case 32: return block_smem(tiles_bytes<32>());
-    case 64: return block_smem(tiles_bytes<64>());
-    case 128: return block_smem(tiles_bytes<128>());
-    case 256: return block_smem(tiles_bytes<256>());
-    default: return 0;
-  }
+// Dynamic shared memory of one block, in bytes (0: pair not taken).
+extern "C" size_t flash_fwd_smem_bytes(int D, int DV) {
+#define FLASH_FWD_SMEM(d, dv) \
+  if (D == d && DV == dv) return block_smem(tiles_bytes<d, dv>(stages<d, dv>()));
+  FLASH_PAIRS(FLASH_FWD_SMEM)
+#undef FLASH_FWD_SMEM
+  return 0;
 }
 
 // Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
-// the error of building a tensor map).  window < 0: no window.  Head dims
-// 16, 32, 64, 128 and 256; q, k, v 16-byte aligned.
+// the error of building a tensor map).  window < 0: no window.  q and k of
+// head dim D, v and o of head dim DV, (D, DV) one of FLASH_PAIRS; q, k, v
+// 16-byte aligned.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int B, int S, int T, int H, int K, int D,
+                         void* lse, int B, int S, int T, int H, int K, int D, int DV,
                          float scale, int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
-    case 32: return launch<32>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
-    case 64: return launch<64>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
-    case 128: return launch<128>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
-    case 256: return launch<256>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_FWD_CASE(d, dv)                                                       \
+  if (D == d && DV == dv)                                                           \
+    return launch<d, dv>(q, k, v, o, lse, B, S, T, H, K, scale, causal, window, st);
+  FLASH_PAIRS(FLASH_FWD_CASE)
+#undef FLASH_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -328,4 +328,11 @@ inline size_t block_smem(size_t tiles) {
   return need < 116 * 1024 ? 116 * 1024 : need;
 }
 
+// The (q/k head dim D, v head dim DV) pairs K2 takes, each its own
+// instantiation in flash_fwd.cu and flash_bwd.cu: D = DV at 16, 32, 64, 128
+// and 256, MLA's (192, 128) and, at the smoke config's widths, (24, 16).
+// ops.py names the same pairs.
+#define FLASH_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(192, 128) X(24, 16)
+
 }  // namespace sm90

@@ -11,8 +11,12 @@ reference walks kv chunks; the two differ only in float32 rounding.
 
 ``flash_bwd_plain`` is the bwd of ``repro.models.layers._make_flash`` with
 its roundings of ``p``, ``dO`` and ``ds`` to the key dtype, dk and dv summed
-over the G query heads of each kv head.  It takes ``delta`` from the output
-it is given (the kernel's, in the model dtype).
+over the G query heads of each kv head.  It takes ``delta`` (the row sums of
+dO * O over v's head dim) from the output it is given (the kernel's, in the
+model dtype).
+
+v's head dim ``Dv`` may differ from q's and k's ``D`` (MLA), as in the
+Pallas kernel and ``_make_flash``: o, dO and dv have ``Dv`` columns.
 
 These run on whatever device their inputs live on: the CPU tests hold them
 against the JAX package; ``chip_smoke.py`` holds the CUDA kernels to them.
@@ -38,20 +42,23 @@ def visible(S: int, T: int, causal: bool, window: int | None,
     return m
 
 
-def _grouped(q, k):
+def _grouped(q, k, v):
     B, S, H, D = q.shape
-    K = k.shape[2]
+    T, K = k.shape[1], k.shape[2]
     if H % K:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
-    return B, S, H, D, k.shape[1], K, H // K
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v {tuple(v.shape)} does not match k {tuple(k.shape)} "
+                         "but in its head dim")
+    return B, S, H, D, T, K, H // K, v.shape[3]
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q ``[B, S, H, D]``, k/v ``[B, T, K, D]`` -> (o ``[B, S, H, D]`` in q's
-    dtype, lse ``[B*H, S]`` float32)."""
-    B, S, H, D, T, K, G = _grouped(q, k)
+    """q ``[B, S, H, D]``, k ``[B, T, K, D]``, v ``[B, T, K, Dv]`` -> (o
+    ``[B, S, H, Dv]`` in q's dtype, lse ``[B*H, S]`` float32)."""
+    B, S, H, D, T, K, G, Dv = _grouped(q, k, v)
     qg = q.reshape(B, S, K, G, D).float()
     s = torch.einsum("bskgd,btkd->bskgt", qg, k.float()) * scale
     m = visible(S, T, causal, window, q.device)[None, :, None, None, :]
@@ -63,20 +70,25 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = o / torch.where(l == 0, 1.0, l)[..., None]
     lse = torch.where(l == 0, 0.0, mx + torch.log(torch.clamp(l, min=1e-30)))
     lse = lse.reshape(B, S, H).permute(0, 2, 1).reshape(B * H, S)
-    return o.reshape(B, S, H, D).to(q.dtype), lse.contiguous()
+    return o.reshape(B, S, H, Dv).to(q.dtype), lse.contiguous()
 
 
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in the dtypes of q, k, v."""
-    B, S, H, D, T, K, G = _grouped(q, k)
+    """(dq, dk, dv) in the dtypes of q, k, v; o and dO are ``[B, S, H,
+    Dv]``."""
+    B, S, H, D, T, K, G, Dv = _grouped(q, k, v)
+    for what, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, S, H, Dv):
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                             f"{(B, S, H, Dv)}")
     kd = k.dtype
     qg = q.reshape(B, S, K, G, D).float()
     kf, vf = k.float(), v.float()
-    do_f = do.reshape(B, S, K, G, D).float()
-    delta = (do_f * o.reshape(B, S, K, G, D).float()).sum(-1)
+    do_f = do.reshape(B, S, K, G, Dv).float()
+    delta = (do_f * o.reshape(B, S, K, G, Dv).float()).sum(-1)
     lse_g = lse.reshape(B, H, S).permute(0, 2, 1).reshape(B, S, K, G)
     s = torch.einsum("bskgd,btkd->bskgt", qg, kf) * scale
     m = visible(S, T, causal, window, q.device)[None, :, None, None, :]

@@ -5,7 +5,9 @@ Counterparts of ``repro.models.layers`` with the same names and the same
 layouts: ``wq [D, H, dh]``, ``wk``/``wv [D, K, dh]``, ``wo [H, dh, D]``, MLP
 ``w_gate``/``w_up [D, F]`` (no ``w_gate`` under relu2), ``w_down [F, D]``,
 MoE ``router [D, E]``, experts ``w_gate``/``w_up [E, D, F]``, ``w_down [E,
-F, D]``, the embedding ``[padded_V, D]``.
+F, D]``, MLA ``wq [D, H, nope + rope]``, ``wdkv [D, r]``, ``wkr [D, rope]``,
+``kv_norm [r]``, ``wuk [r, H, nope]``, ``wuv [r, H, dv]``, ``wo [H, dv, D]``,
+the embedding ``[padded_V, D]``.
 Each matrix and bias is cast to the compute dtype at use, as
 ``p[...].astype(x.dtype)`` does there, while norm scales enter the float32
 norm math in their own dtype (float32 when serving, the compute dtype in a
@@ -24,6 +26,8 @@ attention block and the dense cached branch (a KV cache written at
 ``cache_pos``; ``attention`` with a ``kv_len``, plain PyTorch as JAX leaves
 it outside Pallas, which the gathered serving path and static serving run),
 each windowed for Griffin, the non-paged ones also under M-RoPE (qwen2-vl);
+MLA's full path (training and prefill, K2 with v's head dim apart from
+q's) and its absorbed decode over the latent cache (:func:`mla_apply`);
 the local-block path arrives with a later slice.  A ``Collector``
 (MegaScope) sees the tags of the JAX functions at the same places: ``q``,
 ``v``, ``k``, ``attn_probs`` (naive branch only), ``attn_out``,
@@ -70,16 +74,19 @@ class ParamBuilder:
     ``ParamBuilder``'s scale rules (normal: ``scale / sqrt(fan_in)``).
 
     ``lead`` prepends stacking axes (the layer axis of a segment), so a
-    stacked leaf ``[n, *shape]`` holds ``n`` independent draws of ``shape``.
+    stacked leaf ``[n, *shape]`` holds ``n`` independent draws of ``shape``;
+    ``cast(name, leaf)`` (if given) replaces each float32 leaf as it is
+    drawn, so a cast tree is built without the float32 one beside it.
     The values differ from JAX's for the same seed; tests hand both sides the
     same weights through :mod:`repro_torch.models.weights`.
     """
 
     def __init__(self, gen: torch.Generator, device: torch.device,
-                 lead: tuple[int, ...] = ()):
+                 lead: tuple[int, ...] = (), cast=None):
         self.gen = gen
         self.device = device
         self.lead = lead
+        self.cast = cast  # (name, float32 leaf) -> the leaf kept, or None
         self.params: dict = {}
 
     def param(self, name: str, shape: tuple[int, ...], init: str = "normal",
@@ -90,7 +97,7 @@ class ParamBuilder:
         if init == "normal":
             fi = fan_in if fan_in is not None else shape[0]
             std = scale / math.sqrt(max(fi, 1))
-            val = torch.randn(full, generator=self.gen, **kw) * std
+            val = torch.randn(full, generator=self.gen, **kw).mul_(std)
         elif init == "zeros":
             val = torch.zeros(full, **kw)
         elif init == "ones":
@@ -101,10 +108,10 @@ class ParamBuilder:
             val = (2 * torch.rand(full, generator=self.gen, **kw) - 1) * scale
         else:
             raise ValueError(init)
-        self.params[name] = val
+        self.params[name] = val if self.cast is None else self.cast(name, val)
 
     def sub(self, name: str, lead: tuple[int, ...] = ()) -> "ParamBuilder":
-        child = ParamBuilder(self.gen, self.device, self.lead + lead)
+        child = ParamBuilder(self.gen, self.device, self.lead + lead, self.cast)
         self.params[name] = child.params
         return child
 
@@ -417,6 +424,111 @@ def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
     o = attend(q.to(dt), pool["k"], pool["v"], tables=paged.tables,
                kv_len=kv_len, scale=scale, window=window, layer=paged.layer)
     return collector.tag("attn_out", o)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(b: ParamBuilder, cfg: ModelConfig) -> None:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    b.param("wq", (D, H, dq), fan_in=D)
+    b.param("wdkv", (D, m.kv_lora_rank), fan_in=D)
+    b.param("wkr", (D, m.qk_rope_head_dim), fan_in=D)
+    b.param("kv_norm", (m.kv_lora_rank,), init="ones")
+    b.param("wuk", (m.kv_lora_rank, H, m.qk_nope_head_dim), fan_in=m.kv_lora_rank)
+    b.param("wuv", (m.kv_lora_rank, H, m.v_head_dim), fan_in=m.kv_lora_rank)
+    b.param("wo", (H, m.v_head_dim, D), fan_in=H * m.v_head_dim,
+            scale=1.0 / math.sqrt(2 * cfg.num_layers))
+
+
+def _mla_qkr(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The no-rope and the roped parts of the queries, ``[B, S, H, nope]``
+    and ``[B, S, H, rope]``."""
+    m = cfg.mla
+    q = _proj(x, p["wq"])
+    qn = q[..., :m.qk_nope_head_dim]
+    qr = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return qn, qr
+
+
+def mla_apply(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,             # [B, S, D]
+    *,
+    positions: torch.Tensor,     # [S]
+    cache: dict | None = None,   # {"ckv": [B, T, r], "kpe": [B, T, dr]} bf16, in place
+    cache_pos: int | None = None,
+    paged: PagedInfo | None = None,
+    plain: bool = False,
+    collector: Collector = NULL_COLLECTOR,
+) -> torch.Tensor:
+    """JAX ``mla_apply``: queries ``wq`` (no query compression) split into a
+    no-rope and a roped part; the latent ``ckv = kv_norm(x wdkv)`` (K1) and
+    the roped shared key part ``kpe = rope(x wkr)``.
+
+    With a dense ``cache`` and one query (absorbed decode) the new latent
+    and ``kpe`` are written at ``cache_pos`` and attention runs in the
+    latent space over the whole cache: the queries absorb ``wuk``, scores
+    in float32 over ``ckv`` and ``kpe``, masked past ``kv_len = cache_pos +
+    1``, the softmax tagged ``attn_probs``, the context over ``ckv`` in
+    float32 rounded to the compute dtype, then ``wuv`` and ``wo``; plain
+    PyTorch, as JAX leaves it to XLA.  Otherwise (training and prefill) the
+    full path up-projects ``kn = ckv wuk`` and ``v = ckv wuv``, broadcasts
+    ``kpe`` over the heads into the keys and runs :func:`attention` with q
+    and k at head dim ``nope + rope`` and v at ``v_head_dim`` (K2 on its
+    flash branch, at (192, 128) for deepseek-v2-lite); a prefill with a
+    cache writes the padded latent and ``kpe`` into it.  The paged pool is
+    refused: the latent cache has no kv-head axis for the paged kernels to
+    walk (MLA serves on the gathered path)."""
+    if paged is not None:
+        raise NotImplementedError("paged decode does not support MLA")
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.num_heads
+    dt = x.dtype
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    qn, qr = _mla_qkr(p, cfg, x, positions)
+    ckv = rmsnorm(x @ p["wdkv"].to(dt), p["kv_norm"], cfg.norm_eps, plain=plain)
+    kpe = apply_rope(x @ p["wkr"].to(dt), positions, cfg.rope_theta)
+
+    if cache is not None and S == 1:
+        # absorbed decode: attend in the latent space (compressed KV cache)
+        cache["ckv"][:, cache_pos:cache_pos + 1] = ckv.to(cache["ckv"].dtype)
+        cache["kpe"][:, cache_pos:cache_pos + 1] = kpe.to(cache["kpe"].dtype)
+        ckv_c, kpe_c = cache["ckv"].to(dt), cache["kpe"].to(dt)
+        T = ckv_c.shape[1]
+        q_lat = torch.einsum("bshk,rhk->bshr", qn, p["wuk"].to(dt))
+        s = (torch.einsum("bshr,btr->bsht", q_lat.float(), ckv_c.float())
+             + torch.einsum("bshk,btk->bsht", qr.float(), kpe_c.float())) * scale
+        msk = torch.arange(T, device=x.device) < cache_pos + 1
+        prob = torch.softmax(torch.where(msk, s, BIG_NEG), dim=-1)
+        prob = collector.tag("attn_probs", prob)
+        ctx = torch.einsum("bsht,btr->bshr", prob.to(dt).float(), ckv_c.float()).to(dt)
+        o = torch.einsum("bshr,rhv->bshv", ctx, p["wuv"].to(dt))
+        return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(dt))
+
+    # full (training / prefill) path
+    r = m.kv_lora_rank
+    kn = (ckv @ p["wuk"].to(dt).reshape(r, -1)).view(B, S, H, m.qk_nope_head_dim)
+    vv = (ckv @ p["wuv"].to(dt).reshape(r, -1)).view(B, S, H, m.v_head_dim)
+    k_full = torch.cat(
+        [kn, kpe[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([qn, qr], dim=-1)
+    o = attention(q_full, k_full, vv, scale=scale, positions_q=positions,
+                  causal=True, impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
+                  plain=plain, collector=collector)
+    out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(dt).reshape(H * m.v_head_dim, D)
+    if cache is not None:  # prefill fills the compressed cache, zeros past S
+        for name, new in (("ckv", ckv), ("kpe", kpe)):
+            cache[name][:, :S] = new.to(cache[name].dtype)
+            cache[name][:, S:] = 0
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
-"""Decoder-only LM assembly for the dense GQA, MoE, RWKV-6 and Griffin
-families, in PyTorch.
+"""Decoder-only LM assembly for the dense GQA, MoE (with MLA attention),
+RWKV-6 and Griffin families, in PyTorch.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the JAX tree: per-layer
 leaves of segment ``i`` are stacked ``[n_groups, ...]`` under
 ``params["seg{i}"]["b{j}"]``, and so are the serving caches: a dense cache
 (:func:`init_cache`) and the paged pool (:func:`init_pool`) mirror JAX's
-``lm.init_cache`` tree, attention blocks holding ``k``/``v`` and recurrent
-blocks their carried state.  ``forward`` is a Python loop over layers that
-indexes each layer's parameters and its layer of every stacked cache leaf
-in place, never a sliced copy.  Three forwards are ported:
+``lm.init_cache`` tree, attention blocks holding ``k``/``v`` (MLA blocks the
+latent ``ckv`` and ``kpe``) and recurrent blocks their carried state.
+``forward`` is a Python loop over layers that indexes each layer's
+parameters and its layer of every stacked cache leaf in place, never a
+sliced copy.  Three forwards are ported:
 
 * the paged serving forward (``pool`` given): attention blocks write their
   new K/V into the pool's blocks and read them through ``paged.tables``;
@@ -48,10 +49,11 @@ from repro_torch.models import rwkv as rk
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
 
 # leaves that enter float32 math uncast in the JAX package: norm scales and
-# layernorm biases, qk_norm, RWKV-6's decay base, decay LoRA output and
-# bonus, Griffin's Lambda.  Every other leaf is cast to the compute dtype at
-# use, so a copy cast once at load gives the same values
-_NORM_LEAVES = ("scale", "bias", "q_norm", "k_norm", "w0", "w_decay2", "u", "lam")
+# layernorm biases, qk_norm, MLA's latent norm, RWKV-6's decay base, decay
+# LoRA output and bonus, Griffin's Lambda.  Every other leaf is cast to the
+# compute dtype at use, so a copy cast once at load gives the same values
+_NORM_LEAVES = ("scale", "bias", "q_norm", "k_norm", "kv_norm", "w0", "w_decay2",
+                "u", "lam")
 # block kinds whose cache is attention K/V (paged in the pool); the others
 # carry a recurrent state (a row per slot)
 _ATTENTION_KINDS = ("dense", "moe", "attn")
@@ -66,11 +68,11 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
         n_full, rem = divmod(cfg.num_layers, len(pat))
         return ([(pat, n_full)] if n_full else []) + (
             [(pat[:rem], 1)] if rem else [])
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
-        what = "MLA attention" if cfg.use_mla else f"the {cfg.family} family"
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} is ported in a later slice (ROADMAP queue 1, "
-            "item 13b); dense GQA, MoE, RWKV-6 and Griffin models are ported")
+            f"{cfg.name}: the {cfg.family} family is ported in a later slice "
+            "(ROADMAP queue 1, item 13b); dense GQA, MoE (with MLA), RWKV-6 and "
+            "Griffin models are ported")
     if cfg.family == "moe":  # first_k_dense dense layers, then the MoE ones
         fk = cfg.moe.first_k_dense
         return ([(("dense",), fk)] if fk else []) + [
@@ -78,11 +80,19 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     return [(("dense",), cfg.num_layers)]
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
-    """Random float32 parameters from ``seed``, built on ``device``."""
+def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
+         dtype: torch.dtype | None = None) -> dict:
+    """Random float32 parameters from ``seed``, built on ``device``.  With
+    ``dtype``, each leaf is cast as it is drawn, as :func:`cast_params`
+    casts (``_NORM_LEAVES`` stay float32): the same values as a float32
+    init cast afterwards, without the float32 tree beside the cast (a
+    model whose float32 tree and cast would not fit on the card together,
+    deepseek-v2-lite's 62.8 GB beside 31.4 GB)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b = L.ParamBuilder(gen, dev)
+    cast = None if dtype is None else (
+        lambda name, v: v if name in _NORM_LEAVES else v.to(dtype))
+    b = L.ParamBuilder(gen, dev, cast=cast)
     L.embed_init(b, cfg)
     L.norm_init(b, "final_norm", cfg.d_model, cfg.norm_kind)
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
@@ -97,7 +107,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda") -> dict:
                 continue
             L.norm_init(blk, "ln1", cfg.d_model, cfg.norm_kind)
             L.norm_init(blk, "ln2", cfg.d_model, cfg.norm_kind)
-            L.gqa_init(blk.sub("attn"), cfg)
+            (L.mla_init if cfg.use_mla else L.gqa_init)(blk.sub("attn"), cfg)
             (L.moe_init if kind == "moe" else L.mlp_init)(blk.sub("mlp"), cfg)
     return b.params
 
@@ -123,6 +133,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
         return rk.rwkv_init_state(cfg, batch, device)
     if kind in ("rec", "attn"):
         return gf.griffin_init_state(cfg, kind, batch, cache_len, device)
+    if cfg.use_mla:  # the compressed latent and the shared roped key part
+        m = cfg.mla
+        return {n: torch.zeros((batch, cache_len, w), dtype=torch.bfloat16, device=device)
+                for n, w in (("ckv", m.kv_lora_rank), ("kpe", m.qk_rope_head_dim))}
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     return {n: torch.zeros(shape, dtype=torch.bfloat16, device=device)
             for n in ("k", "v")}
@@ -158,9 +172,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: str | torch.device = "cuda") -> dict:
     """The dense cache of JAX ``lm.init_cache``: per segment and block, the
     block's cache stacked over the segment's groups ``[n, batch, ...]``:
-    bfloat16 ``k``/``v`` of ``cache_len`` positions for attention blocks,
-    the float32 recurrent state for RWKV-6 and Griffin's recurrent
-    blocks."""
+    bfloat16 ``k``/``v`` of ``cache_len`` positions for attention blocks
+    (MLA's ``ckv [n, batch, cache_len, r]`` and ``kpe [.., rope]``), the
+    float32 recurrent state for RWKV-6 and Griffin's recurrent blocks."""
     dev = resolve_device(device)
 
     def leaf(t, n, paged):
@@ -172,7 +186,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def paged_flags(cfg: ModelConfig) -> dict:
     """The leaf-kind tree of the pool, JAX ``PagedKVCache.paged``: True for
-    a paged leaf (attention ``k``/``v``, ``[n, num_blocks, bs, K, dh]``),
+    a paged leaf (attention ``k``/``v``, ``[n, num_blocks, bs, K, dh]``;
+    MLA's ``ckv``/``kpe``, ``[n, num_blocks, bs, width]``, no head axis),
     False for a slot-state leaf (``[n, num_slots, ...]``)."""
     return _cache_tree(cfg, lambda t, n, paged: paged)
 
@@ -219,9 +234,10 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
            mrope_position_ids: torch.Tensor | None = None
            ) -> tuple[torch.Tensor, dict]:
     """One decoder layer (``_block_apply``'s rwkv, griffin, dense and moe
-    branches): ``(x, aux)``, ``aux`` the MoE layer's ``moe_aux_loss`` and
-    ``moe_drop_frac`` (``{}`` for the other kinds), returned rather than
-    accumulated so a remat recompute in the backward adds nothing.
+    branches, attention by MLA where the config says so): ``(x, aux)``,
+    ``aux`` the MoE layer's ``moe_aux_loss`` and ``moe_drop_frac`` (``{}``
+    for the other kinds), returned rather than accumulated so a remat
+    recompute in the backward adds nothing.
     ``state`` is the layer's cache: with ``paged``, an attention
     block's is the pool's stacked ``{"k", "v"}`` (its layer is
     ``paged.layer``); otherwise views of this layer's dense cache rows, or a
@@ -244,11 +260,17 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                       paged=paged, plain=plain,
                                       collector=collector)[0], {}
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
-                    pool=state if paged is not None else None, paged=paged,
-                    plain=plain, collector=collector,
-                    cache=None if paged is not None else state,
-                    cache_pos=cache_pos, mrope_position_ids=mrope_position_ids)
+    if cfg.use_mla:
+        a = L.mla_apply(p["attn"], cfg, h, positions=positions,
+                        cache=None if paged is not None else state,
+                        cache_pos=cache_pos, paged=paged, plain=plain,
+                        collector=collector)
+    else:
+        a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
+                        pool=state if paged is not None else None, paged=paged,
+                        plain=plain, collector=collector,
+                        cache=None if paged is not None else state,
+                        cache_pos=cache_pos, mrope_position_ids=mrope_position_ids)
     x = _resid(cfg, x, collector.tag("att_resid", a))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     aux: dict = {}

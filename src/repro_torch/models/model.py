@@ -1,10 +1,10 @@
 """Family dispatch and helpers, counterpart of ``repro.models.model``.
 
 The decoder LM is ported for the dense (with qwen2-vl's embeds inputs and
-M-RoPE), MoE, RWKV-6 and Griffin families: :func:`get_model` returns its
-entry points (``lm.segment_layout`` refuses MLA, still to come) and refuses
-the encoder-decoder family, which arrives with a later slice (ROADMAP queue
-1, item 13b).
+M-RoPE), MoE (with deepseek-v2-lite's MLA attention), RWKV-6 and Griffin
+families: :func:`get_model` returns its entry points and refuses the
+encoder-decoder family, which arrives with a later slice (ROADMAP queue 1,
+item 13b).
 """
 
 from __future__ import annotations

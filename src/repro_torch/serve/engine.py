@@ -19,7 +19,9 @@ without a ``collector``).
   (the recurrent families' prefill);
 * ``make_slot_decode_step`` / ``make_slot_prefill``: the gathered path's
   oracle steps over the dense view, one B=1 forward a slot (JAX's
-  ``jax.vmap`` of a B=1 forward), captures stacked on a leading slot axis.
+  ``jax.vmap`` of a B=1 forward), captures stacked on a leading slot axis;
+  the one path that serves MLA, whose latent cache the pool-side steps
+  refuse.
 
 ``plain=True`` (on the paged and segment steps) builds a step over the
 plain PyTorch attention and norm versions on any device: the teacher-forced
@@ -47,6 +49,14 @@ def _check_servable(cfg: ModelConfig) -> None:
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: continuous batching serves token archs")
     lm.segment_layout(cfg)  # raises for the families of later slices
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """The steps straight against the pool need paged K/V with a head axis;
+    MLA's latent cache has none (JAX's engine refuses it alike)."""
+    _check_servable(cfg)
+    if cfg.use_mla:
+        raise ValueError(f"{cfg.name}: MLA decodes via the gathered path")
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +129,7 @@ def make_paged_decode_step(
     Recurrent blocks carry every slot's state row in place: all ``S`` rows
     decode, and an idle slot's row drifts until an admission overwrites it.
     """
-    _check_servable(cfg)
+    _check_paged(cfg)
 
     @torch.inference_mode()
     def step(params, pool, tables, tokens, pos):
@@ -147,7 +157,7 @@ def make_spec_verify_step(
     ``pos + i``; rows past a slot's grown table reach go to the null block,
     and rejected rows' writes lie past the committed ``kv_len``, where every
     read masks them and later writes overwrite them."""
-    _check_servable(cfg)
+    _check_paged(cfg)
 
     @torch.inference_mode()
     def step(params, pool, tables, tokens, pos):
@@ -170,7 +180,7 @@ def make_chunk_prefill_step(
     ``n_last`` is the in-chunk index of the prompt's last real token: only
     the final chunk's logits matter.  Pad tokens of the final chunk write
     past the slot's ``kv_len``, where every read masks them."""
-    _check_servable(cfg)
+    _check_paged(cfg)
 
     @torch.inference_mode()
     def step(params, pool, tables, tokens, pos, n_last):
@@ -197,7 +207,7 @@ def make_flash_prefill_step(
     slot's ``kv_len`` (or into the null block), where every later read masks
     them and the first decode write overwrites them.
     """
-    _check_servable(cfg)
+    _check_paged(cfg)
 
     @torch.inference_mode()
     def step(params, pool, tables, tokens, n_real):

@@ -9,7 +9,9 @@ and padded positions land there harmlessly and every read masks them.
 
 The pool mirrors the model's cache tree (``lm.init_cache``), each leaf
 stacked over its segment's groups.  Attention ``k``/``v`` are *paged*
-leaves, bfloat16 ``[n, num_blocks, bs, K, dh]``; the recurrent families'
+leaves, bfloat16 ``[n, num_blocks, bs, K, dh]`` (MLA's latent ``ckv`` and
+``kpe``, ``[n, num_blocks, bs, width]``, have no head axis; every method
+below takes a leaf's trailing axes as they come); the recurrent families'
 state (RWKV-6's ``x_prev``/``wkv``, Griffin's ``conv``/``h``) are
 *slot-state* leaves, float32 ``[n, num_slots, ...]``, a row per slot used in
 place.  ``PagedKVCache.paged`` tells them apart as JAX's does.  (The JAX

@@ -21,8 +21,9 @@ Engine paths, chosen as JAX chooses them (``ServeConfig``'s docstring):
 * decode: ``"paged"`` runs K3 on the card (its plain version on the CPU)
   for every family; ``"gathered"``, the oracle, gathers the pool into a
   dense view, runs one B=1 forward a slot and scatters each written block
-  back; ``"auto"`` takes the gathered path only under a MegaScope
-  collector, whose captures it stacks over the slot axis;
+  back; ``"auto"`` takes the gathered path under a MegaScope collector,
+  whose captures it stacks over the slot axis, and for MLA, whose latent
+  cache the paged kernels cannot walk;
 * prefill: an attention-only family's right-padded prompt goes through the
   flash-prefill kernel (K4) straight into its blocks, or (``"dense"``, and
   always on the gathered path) through one forward over a dense one-row
@@ -144,14 +145,21 @@ class MegaServe:
     ):
         self.collector = collector
         self._capture = collector is not NULL_COLLECTOR
-        # decode path: speculative verification exists on the paged path
-        # only, so spec_decode overrides a collector's gathered bias
+        # decode path: the paged kernels need K/V leaves with a head axis
+        # (MLA's latent cache has none); speculative verification exists on
+        # the paged path only, so spec_decode overrides a collector's
+        # gathered bias
+        paged_ok = not cfg.use_mla
         path = serve_cfg.decode_path
         if path == "auto":
-            path = ("paged" if serve_cfg.spec_decode or not self._capture
-                    else "gathered")
+            if serve_cfg.spec_decode:
+                path = "paged"
+            else:
+                path = "paged" if paged_ok and not self._capture else "gathered"
         elif path not in ("paged", "gathered"):
             raise ValueError(f"unknown decode_path {serve_cfg.decode_path!r}")
+        if path == "paged" and not paged_ok:
+            raise ValueError(f"{cfg.name}: decode_path='paged' unsupported (MLA)")
         if serve_cfg.spec_decode and path != "paged":
             raise ValueError(
                 "spec_decode requires the paged decode path "

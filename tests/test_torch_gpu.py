@@ -340,6 +340,44 @@ def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(192, 128), (24, 16)], ids=["mla", "mla-smoke"])
+@pytest.mark.parametrize("B,S,T,H,K,causal,window", [
+    (2, 300, 300, 16, 16, True, None),
+    # one past and one short of the tiles (128-query blocks, 128-key forward
+    # tiles, 64-key dk/dv blocks at (192, 128), 64-row steps)
+    (1, 129, 127, 16, 16, True, None),
+    (1, 257, 257, 4, 2, True, 40),
+    (1, 100, 60, 2, 1, False, 10),
+])
+def test_flash_kernels_match_plain_with_v_head_dim_apart(cuda, D, Dv, B, S, T, H, K,
+                                                         causal, window):
+    """K2 with v's head dim apart from q's (MLA's 192 / 128, its smoke
+    config's 24 / 16): o and lse, dq, dk and dv against the plain versions,
+    row by row at K2's limits; the backward bit-identical on a second run."""
+    from repro_torch.kernels.flash_attention import (
+        flash_bwd_kernel, flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, T, K, D), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, T, K, Dv), generator=g, device=cuda).bfloat16()
+    do = torch.randn((B, S, H, Dv), generator=g, device=cuda).bfloat16()
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    o, lse = flash_fwd_kernel(q, k, v, **kw)
+    assert o.shape == (B, S, H, Dv)
+    grads = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    again = flash_bwd_kernel(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ro, rlse = flash_fwd_plain(q, k, v, **kw)
+    assert _row_err(o, ro) <= K2_ROW_RTOL
+    assert (lse - rlse).abs().max() <= K2_LSE_TOL
+    for ours, ref in zip(grads, flash_bwd_plain(q, k, v, o, lse, do, **kw)):
+        assert ours.shape == ref.shape
+        assert _row_err(ours, ref) <= K2_ROW_RTOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D,window", [(64, None), (256, 100)])
 def test_flash_backward_is_the_same_from_run_to_run(cuda, D, window):
     """No float atomics: dq, dk and dv are bit-identical on a second run."""

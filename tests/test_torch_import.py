@@ -121,3 +121,16 @@ def test_the_dense_config_and_moe_modules_are_guarded():
               "repro_torch.train.loop", "repro_torch.app.session"):
         assert m in mods, m
         assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES
+
+
+def test_the_mla_modules_are_guarded():
+    """The config this slice registered (deepseek-v2-lite-16b) and the
+    modules it touched (MLA's blocks and cache, K2's wrapper and flop count,
+    the engine and the server) are among those imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.configs.deepseek_v2_lite_16b", "repro_torch.models.layers",
+              "repro_torch.models.lm", "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref", "repro_torch.core.flops",
+              "repro_torch.serve.engine", "repro_torch.serve.server"):
+        assert m in mods, m
+        assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES

@@ -336,7 +336,9 @@ def test_cli_serves_like_the_jax_session(family, monkeypatch):
     jsession = JSession(jrun)
     jouts, jmet = jsession.run()
     jparams = jax.tree.map(np.asarray, jlm.init(jsession.model_cfg, jax.random.PRNGKey(0)))
-    monkeypatch.setattr(lm, "init", lambda cfg, seed=0, device="cuda":
+    # the Session draws serving weights in the compute dtype (``dtype``);
+    # MegaServe casts the float32 JAX tree alike
+    monkeypatch.setattr(lm, "init", lambda cfg, seed=0, device="cuda", dtype=None:
                         from_jax_params(jparams, device=device))
     out = cli.run([*argv, "--device", "cpu"])
     assert out["serve_config"] == {k: jsession.results["serve_config"][k]
