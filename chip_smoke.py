@@ -28,7 +28,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              phi3.5-moe's too), at small ragged ones and across its tiles'
              edges (head dims 16 to 256; v's head dim apart from q's at
              deepseek-v2-lite's 192 / 128, H = K = 16, and its smoke
-             config's 24 / 16, a window and tile edges included), its
+             config's 24 / 16, a window and tile edges included; and
+             bidirectional at seamless-m4t's MHA 16 x 64: its training
+             shape, a cross shape with S apart from T, tile edges), its
              backward bit-identical on a second run, K1 also at MLA's
              latent width 512, all bfloat16; then times kernel, plain version and
              a library yardstick the port never calls
@@ -40,8 +42,10 @@ Phases, each of which fails the run (non-zero exit) on error:
              minitron's and minicpm's heads, K2 at qwen2-vl's and minicpm's
              training shapes, K1 at 2304, 3072 and 3584, logged; K2 at
              deepseek-v2-lite's training shape, with the SDPA backends
-             that take v's width apart, and K1 at [4096, 512]), and
-             splits K2's backward into its kernels under ``torch.profiler``;
+             that take v's width apart, and K1 at [4096, 512]; K2
+             bidirectional at seamless-m4t's training shape, SDPA with
+             ``is_causal=False``), and splits K2's backward into its
+             kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
              served by MegaServe on 32 Poisson requests; every decode tick and
              every prompt must launch each paged kernel once per layer and
@@ -152,6 +156,16 @@ Phases, each of which fails the run (non-zero exit) on error:
              routing flips held to ``MOE_FLIP_SHARE`` above the noise
              probe's); tokens/s, TTFT, the tick, one gathered tick's host
              and device time, the init peak, ``moe_drop_frac``;
+   serve-encdec — seamless-m4t-large-v2 (the encoder-decoder, 24 + 24
+             layers, layernorm) at full width and depth served statically
+             through ``Session`` (``serve --arch seamless-m4t-large-v2``,
+             batch 4, 2048-token prompts over 2048 source frames, 32 new):
+             K2 launched exactly once an encoder layer (bidirectional) and
+             once a decoder layer (the cross-attention) in the prefill,
+             nothing else; the served tokens teacher-forced through the
+             kernels and the plain versions, logits within ``LOGIT_TOL``,
+             argmax agreements logged; prefill ms, decode ms a step,
+             tokens/s, peak memory;
 6. train   — full-width qwen2-0.5b trained 8 steps at seq 2048 x batch 8
              through ``Session`` (``python -m repro_torch train --modules
              scan,metrics --trace-out ... --metrics-out ... --set
@@ -255,6 +269,13 @@ Phases, each of which fails the run (non-zero exit) on error:
              K1 (6L + 1) / (3L + 1) a pass (the flop count's pass too),
              losses falling, the profiler's split, ``mfu_est``; its step
              check, pinned;
+   train-encdec — seamless-m4t-large-v2 at full width and depth (2.04 B
+             parameters, ~36.6 GB of train state) through
+             ``make_train_step`` on one ``make_batch`` batch (frames and
+             target tokens), 2048 x 4, 4 steps: K2 144 forwards and 72
+             backwards a step (the encoder's, the cross-attention's, the
+             decoder's), losses falling, the profiler's split,
+             ``mfu_est``, peak memory; its step check;
 10. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
@@ -527,6 +548,22 @@ MLA_PARAMS = 15_706_484_224
 MLA_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=2)
 MLA_TRAIN_LAYERS = 4
 MLA_TRAIN_PARAMS = 2_254_983_168
+
+# seamless-m4t-large-v2, the encoder-decoder: 24 encoder and 24 decoder
+# layers at d 1024, MHA 16 x 64, GeGLU 8192, layernorm, untied vocab
+# 256,206 (2,035,011,584 parameters, as jax.eval_shape of the JAX init
+# counts them: 4.07 GB in bf16, ~36.6 GB of train state at 18 B a
+# parameter), so it serves and trains at full depth.  Its encoder's
+# self-attention and its cross-attention are bidirectional: K2 with causal
+# off, the cross-attention's queries over a memory of another length.
+# serve-encdec: static serving through the Session, 4 prompts of 2048
+# tokens over 2048 source frames each, 32 new tokens.  train-encdec: 2048 x
+# 4 on one repeated make_batch batch (frames, target tokens), 4 steps
+ENCDEC_HEADS = (16, 16, 64)            # H, K, dh
+ENCDEC_PARAMS = 2_035_011_584
+ENCDEC_CROSS_T = 1500                  # a memory length apart from the target's
+ENCDEC_SERVE = dict(batch=4, prompt_len=2048, max_new=32)
+ENCDEC_TRAIN = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
 
 
 def log(msg: str) -> None:
@@ -985,6 +1022,18 @@ def time_mla_kernels(torch, dev, worst: dict) -> dict:
     return out
 
 
+def time_encdec_kernels(torch, dev, worst: dict) -> dict:
+    """K2 at seamless-m4t's training shape, bidirectional (B 4, S = T 2048,
+    H = K = 16, dh 64; rows ``flash_fwd_encdec`` and ``flash_bwd_encdec``):
+    kernel, plain version, SDPA (``is_causal=False``) and bound."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = _time_flash(torch, gen, dev, worst, ENCDEC_TRAIN["global_batch"],
+                      ENCDEC_TRAIN["seq_len"], *ENCDEC_HEADS, None, "_encdec",
+                      causal=False)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -1025,7 +1074,8 @@ def check_training_kernels(torch, dev) -> dict:
                                 "flash_bwd_dh256", "flash_fwd_qwen2vl",
                                 "flash_bwd_qwen2vl", "flash_fwd_minicpm",
                                 "flash_bwd_minicpm", "flash_fwd_mla",
-                                "flash_bwd_mla"), (0.0, 0.0)))
+                                "flash_bwd_mla", "flash_fwd_encdec",
+                                "flash_bwd_encdec"), (0.0, 0.0)))
 
     def record(name, err, tol):
         if err / tol >= worst[name][0] / worst[name][1]:
@@ -1147,6 +1197,17 @@ def check_training_kernels(torch, dev) -> dict:
     flash(1, 300, 300, 4, 1, 24, True, 40, "B=1 S=T=300 dh=24/16 window 40", Dv=16)
     norm(S * B, MLA_RANK, torch.bfloat16, f"[{S * B}, {MLA_RANK}] MLA latent, bf16 scale")
     norm(2048, MLA_RANK, torch.float32, f"[2048, {MLA_RANK}] MLA latent, f32 scale")
+    # seamless-m4t: bidirectional at MHA 16 x 64, the encoder's
+    # self-attention at its training shape (every kv tile whole, taken
+    # unmasked), the cross-attention over a memory of another length, and
+    # the tiles' edges (one query past a block, one key short of a tile)
+    B, S = ENCDEC_TRAIN["global_batch"], ENCDEC_TRAIN["seq_len"]
+    flash(B, S, S, *ENCDEC_HEADS, False, None,
+          f"B={B} S=T={S} H=K=16 dh=64 bidirectional (seamless)", "_encdec", twice=True)
+    flash(B, S, ENCDEC_CROSS_T, *ENCDEC_HEADS, False, None,
+          f"B={B} S={S} T={ENCDEC_CROSS_T} H=K=16 bidirectional (cross)", "_encdec")
+    flash(1, 129, 2047, *ENCDEC_HEADS, False, None,
+          "B=1 S=129 T=2047 H=K=16 bidirectional (tile edges)", "_encdec")
     return worst
 
 
@@ -1228,17 +1289,19 @@ def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
     return out
 
 
-def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None) -> dict:
-    """K2 (causal) at one training shape (v's head dim ``Dv``, default
-    ``D``): kernel, plain and library times, rows ``flash_fwd{key}`` and
-    ``flash_bwd{key}``.  The library yardstick is SDPA; a window enters it as
+def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None,
+                causal: bool = True) -> dict:
+    """K2 at one training shape, causal or (``causal=False``, no window)
+    bidirectional, v's head dim ``Dv`` (default ``D``): kernel, plain and
+    library times, rows ``flash_fwd{key}`` and ``flash_bwd{key}``.  The library yardstick is SDPA; a window enters it as
     a boolean mask, with the kv heads expanded to the query heads beforehand
     (not timed).  The backward row's yardstick is SDPA's backward alone
     (``autograd.grad`` from one kept forward); its forward plus backward is
     logged beside it.  Where ``Dv`` differs from ``D``, the SDPA backends
     that take the call and the kernels the default one runs are logged.
     The bound's operations count each product at its own width: 2 (D + Dv)
-    flops a query-key pair forward, 2 (3 D + 2 Dv) backward."""
+    flops a query-key pair forward, 2 (3 D + 2 Dv) backward; a
+    bidirectional call sees all S x S pairs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1247,12 +1310,12 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None) -
 
     Dv = D if Dv is None else Dv
     q, k, v, do = _flash_inputs(torch, gen, dev, B, S, S, H_, K_, D, Dv)
-    kw = dict(scale=D ** -0.5, causal=True, window=window)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
     o, lse = flash_fwd_kernel(q, k, v, **kw)
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
     if window is None:
         kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (k, v))
-        lib_kw = dict(is_causal=True, enable_gqa=True)
+        lib_kw = dict(is_causal=causal, enable_gqa=True)
     else:
         kt, vt = (t.transpose(1, 2).repeat_interleave(H_ // K_, 1).contiguous()
                   .requires_grad_(True) for t in (k, v))
@@ -1287,7 +1350,7 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None) -
             "the default's kernels: "
             + ", ".join(f"{n} {ms:.4f} ms" for n, ms in _kernel_split(torch, sdpa_fb)))
 
-    pairs = B * H_ * _window_pairs(S, window or S)
+    pairs = B * H_ * (_window_pairs(S, window or S) if causal else S * S)
     io_bytes = 2 * (B * S * H_ * (D + Dv) + B * S * K_ * (D + Dv))
     rows = {
         f"flash_fwd{key}": (lambda: flash_fwd_kernel(q, k, v, **kw),
@@ -1300,7 +1363,7 @@ def _time_flash(torch, gen, dev, worst, B, S, H_, K_, D, window, key, Dv=None) -
     }
     out = {}
     what = f"B={B} S=T={S} H={H_} K={K_} dh={D}{f'/{Dv}' if Dv != D else ''} " + (
-        "causal" if window is None else f"window {window}")
+        f"window {window}" if window else "causal" if causal else "bidirectional")
     for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
         out[name] = t = dict(
             ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3, warmup=1),
@@ -3129,6 +3192,140 @@ def serve_mla(torch, smi: str) -> dict:
     return counts
 
 
+def _encdec_replay(torch, cfg, params, batch: dict, forced, *, plain: bool):
+    """Teacher-forced logits ``[B, n, V]`` of the encoder-decoder over its
+    static cache: prefill ``batch`` (frames and prompts), then feed the
+    columns ``forced[:, :-1]`` one step at a time at the served cache
+    length, through the kernels or (``plain``) the plain versions."""
+    from repro_torch.models import encdec
+
+    B, P = batch["tokens"].shape
+    n = forced.shape[1]
+    cache = encdec.init_cache(cfg, B, P + n, P, device=forced.device)
+    with torch.no_grad():
+        logits, _ = encdec.prefill(cfg, params, batch, cache, plain=plain)
+        out = [logits]
+        for i in range(n - 1):
+            logits, _ = encdec.decode_step(cfg, params, cache, forced[:, i], P + i,
+                                           plain=plain)
+            out.append(logits)
+    return torch.stack(out, 1).float()
+
+
+def serve_encdec(torch, smi: str) -> dict:
+    """Static serving of seamless-m4t-large-v2 at full width and depth (24
+    encoder and 24 decoder layers, seed-0 weights drawn in bf16) through
+    the Session, as ``python -m repro_torch serve --arch
+    seamless-m4t-large-v2`` runs it (not continuous: JAX serves enc-dec
+    statically only): 4 prompts of 2048 tokens over 2048 source frames, 32
+    new tokens.  K2 launched exactly once a layer of the prefill's
+    encoder (bidirectional, S = T = 2048) and once a decoder layer (the
+    cross-attention over the memory); the prefill's cached decoder
+    self-attention and every decode step run plain PyTorch, and there is
+    no K1, K3 or K4.  Then the served tokens teacher-forced through the
+    kernels and through the plain versions on the same weights, prompts
+    and frames: logits within ``LOGIT_TOL``, argmax agreements logged (the
+    full-depth bf16 random model is noise-dominated, P14, so the streams
+    are not compared token for token).  Prefill ms, decode ms a step,
+    tokens/s and peak memory logged, and one prefill's and one decode
+    step's host and device time.  Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels import paged_attention as paged
+    from repro_torch.models import encdec
+
+    tag = "serve-encdec"
+    dev = torch.device("cuda")
+    cfg = get_config("seamless-m4t-large-v2")
+    B, P, new = (ENCDEC_SERVE[k] for k in ("batch", "prompt_len", "max_new"))
+    argv = ["serve", "--arch", cfg.name, "--batch", str(B), "--prompt-len", str(P),
+            "--max-new", str(new), "--seed", "0", "--modules", "scan,metrics"]
+    mods = (flash_attention, rmsnorm, paged)
+    for m in mods:
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session, (gen, met) = _session(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for m in mods for k, v in m.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prompts = session.results["static_prompts"]
+    del session
+    _free(torch)
+    want = {"flash_fwd": cfg.num_encoder_layers + cfg.num_layers, "flash_bwd": 0,
+            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "paged_decode": 0, "paged_prefill": 0}
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}: {cfg.num_encoder_layers} + "
+        f"{cfg.num_layers} layers d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} dh={cfg.head_dim} vocab={cfg.padded_vocab}; prefill_ms="
+        f"{1e3 * met['prefill_s']:.3f} ({B} x {P} tokens over {B} x {P} frames) "
+        f"decode_ms_per_step={1e3 * met['decode_s'] / (new - 1):.3f} decode_tok_s="
+        f"{met['decode_tok_s']:.2f} tokens_per_s="
+        f"{B * new / (met['prefill_s'] + met['decode_s']):.2f} wall_s={wall:.2f} "
+        f"(init included) max_memory_allocated={peak} ({smi})")
+    log(f"[{tag}] launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    if len(gen) != B or any(len(row) != new or not all(0 <= t < cfg.vocab_size for t in row)
+                            for row in gen):
+        raise AssertionError(f"{tag}: bad outputs {[row[:8] for row in gen]}")
+    # the Session's inputs again: its weights (seed 0, bf16 as drawn), its
+    # prompts and the frames it drew after them from the same generator
+    rng = np.random.default_rng(0)
+    if rng.integers(2, cfg.vocab_size, size=(B, P)).tolist() != prompts:
+        raise AssertionError(f"{tag}: the prompts are not the run's generator's")
+    batch = {"tokens": torch.tensor(prompts, device=dev),
+             "embeds": torch.from_numpy(rng.standard_normal((B, P, cfg.d_model)).astype(
+                 np.float32)).to(dev, torch.bfloat16)}
+    params = encdec.init(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    forced = torch.tensor(gen, device=dev)
+    t0 = time.perf_counter()
+    rep = {}
+    for plain in (False, True):
+        flash_attention.reset_launches()
+        rep[plain] = _encdec_replay(torch, cfg, params, batch, forced, plain=plain)
+        log(f"[{tag}] replay {'plain' if plain else 'kernels'}: K2 launches "
+            f"{flash_attention.launches['flash_fwd']}")
+    diff = (rep[False] - rep[True]).abs().amax(-1)      # [B, n]
+    agree = {k: int((r.argmax(-1) == forced).sum()) for k, r in
+             (("kernels", rep[False]), ("plain", rep[True]))}
+    both = int((rep[False].argmax(-1) == rep[True].argmax(-1)).sum())
+    log(f"[{tag}] teacher-forced, kernels vs plain: max |dlogit| {diff.max().item():.4f} "
+        f"(tol {LOGIT_TOL}), per prompt {[round(v, 4) for v in diff.amax(1).tolist()]}; "
+        f"argmax equal to the served tokens: kernels {agree['kernels']}, plain "
+        f"{agree['plain']}, kernels = plain {both} of {B * new}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    # where a prefill's and a decode step's time goes: the host clock around
+    # one call, its kernels' device time under torch.profiler (each call
+    # rewrites the same cache entries)
+    cache = encdec.init_cache(cfg, B, P + new, P, device=dev)
+    with torch.no_grad():
+        calls = {"prefill": lambda: encdec.prefill(cfg, params, batch, cache),
+                 "decode step": lambda: encdec.decode_step(cfg, params, cache,
+                                                           forced[:, 0], P)}
+        for what, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host = 1e3 * (time.perf_counter() - t1)
+            split = _kernel_split(torch, fn)
+            busy = sum(ms for _, ms in split)
+            top = sorted(split, key=lambda kv: -kv[1])[:4]
+            log(f"[{tag}] one {what}: host {host:.3f} ms, device busy {busy:.3f} ms in "
+                f"{len(split)} kernel names, idle share {1 - busy / host:.3f}; largest: "
+                + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
+    del params, rep, batch, cache
+    _free(torch)
+    if not diff.max().item() <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: teacher-forced logits, kernels against plain, "
+                             f"differ by {diff.max().item()} > {LOGIT_TOL}")
+    return counts
+
+
 # ---------------------------------------------------------------- phase 6-7
 
 
@@ -3139,9 +3336,14 @@ def per_step_launches(cfg, n_micro: int = 1) -> dict:
     the trained configs), three under MLA (its latent norm), and the final
     norm, which is not recomputed.  A pipelined step runs every layer once
     for each of its ``n_micro`` microbatches and the final norm once, over
-    the whole batch."""
+    the whole batch.  The encoder-decoder's layernorms are plain PyTorch;
+    its encoder layers run one attention, its decoder layers two (self and
+    cross), each on K2 past ``attn_kv_chunk``."""
     from repro_torch.models.lm import segment_layout
 
+    if cfg.family == "encdec":  # K2 in the encoder, the cross and the decoder
+        n = (cfg.num_encoder_layers + 2 * cfg.num_layers) * n_micro
+        return {"flash_fwd": 2 * n, "flash_bwd": n, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
     kinds = [k for pat, n in segment_layout(cfg) for _ in range(n) for k in pat]
     mixer = {"dense": "flash", "moe": "flash", "attn": "flash", "rwkv": "wkv6",
              "rec": "rglru"}
@@ -3199,6 +3401,28 @@ def profile_train_step(torch, cfg, ocfg, data, state, tag: str, step_s: float,
         f"{1 - busy / (1e3 * step_s):.3f}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     log(f"[{tag}] largest of the rest: " + "; ".join(f"{n} {ms:.1f} ms" for n, ms in top))
+
+
+def _steps_on_batch(torch, step, state, batch: dict, data, steps: int,
+                    modules: tuple) -> tuple:
+    """``steps`` steps of ``step`` on one repeated ``batch``, the launches of
+    ``modules`` counted from zero: ``(state, history, counts, peak memory)``,
+    history rows as the loop's."""
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules:
+        m.reset_launches()
+    history = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        dt = time.perf_counter() - t0
+        history.append(dict(step=i + 1, loss=loss, lr=float(met["lr"]),
+                            grad_norm=float(met["grad_norm"]), step_s=dt,
+                            tokens_per_s=data.seq_len * data.global_batch / dt))
+    torch.cuda.synchronize()
+    counts = {k: v for m in modules for k, v in m.launches.items()}
+    return state, history, counts, torch.cuda.max_memory_allocated()
 
 
 def _train_setup(cfg, shape: dict):
@@ -3350,21 +3574,8 @@ def train_configs_phase(torch, dev, smi: str) -> None:
         f"{cfg.mrope_sections} params={count_params(state.master)} remat={cfg.remat} "
         f"seq={data.seq_len} batch={data.global_batch}: make_train_step on one "
         f"make_batch batch ({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())})")
-    torch.cuda.reset_peak_memory_stats()
-    for m in mods:
-        m.reset_launches()
-    history = []
-    for i in range(QWEN2VL_TRAIN["steps"]):
-        t0 = time.perf_counter()
-        state, met = step(state, batch)
-        loss = float(met["loss"])
-        dt = time.perf_counter() - t0
-        history.append(dict(step=i + 1, loss=loss, lr=float(met["lr"]),
-                            grad_norm=float(met["grad_norm"]), step_s=dt,
-                            tokens_per_s=data.seq_len * data.global_batch / dt))
-    torch.cuda.synchronize()
-    counts = {k: v for m in mods for k, v in m.launches.items()}
-    peak = torch.cuda.max_memory_allocated()
+    state, history, counts, peak = _steps_on_batch(
+        torch, step, state, batch, data, QWEN2VL_TRAIN["steps"], mods)
     steady = sorted(h["step_s"] for h in history[1:])
     profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2],
                        batch=batch)
@@ -3470,6 +3681,70 @@ def train_mla_phase(torch, dev, smi: str) -> dict:
                batch_step=MLA_TRAIN["steps"],
                tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL), pin_routing=True,
                flips_above_noise=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_encdec_phase(torch, dev, smi: str) -> dict:
+    """seamless-m4t-large-v2 trained at full width and depth (24 + 24
+    layers), remat full, through ``make_train_step`` on one repeated
+    ``make_batch`` batch of numpy seed 0 (2048 source frames and 2048
+    target tokens a row, 4 rows; the loop refuses an embeds arch, ROADMAP
+    R8), the CLI's optimizer defaults, 4 steps: the train state estimated
+    before the init, the parameter count, K2 launched exactly
+    :func:`per_step_launches` times a step (144 forwards and 72 backwards:
+    48 / 24 each in the encoder, the cross-attention and the decoder),
+    losses finite and falling, the profiler's split of one more step, peak
+    memory and ``mfu_est`` (the step's products, ``step_flops``, over the
+    median step and the H100's 989 TFLOP/s); then the step check at the
+    qwen2 check's limits, the decoder's cross-attention leaves beside the
+    attention's.  Returns the launch counts of the run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models.model import count_params, make_batch
+    from repro_torch.train.loop import step_flops
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    tag = "train-encdec"
+    mods = (flash_attention, rmsnorm)
+    cfg = get_config("seamless-m4t-large-v2").replace(remat="full")
+    steps = ENCDEC_TRAIN["steps"]
+    log(f"[{tag}] {cfg.name} at full depth ({cfg.num_encoder_layers} + {cfg.num_layers} "
+        f"layers): train state estimated {ENCDEC_PARAMS} x 18 B = "
+        f"{ENCDEC_PARAMS * 18 / 1e9:.1f} GB (float32 master, AdamW m and v, bf16 "
+        f"params and grads)")
+    data, ocfg = _train_setup(cfg, ENCDEC_TRAIN)
+    state = init_train_state(cfg, seed=0, device=dev)
+    n_params = count_params(state.master)
+    if n_params != ENCDEC_PARAMS:
+        raise AssertionError(f"{tag}: {n_params} parameters, not {ENCDEC_PARAMS}")
+    batch = make_batch(cfg, data.global_batch, data.seq_len,
+                       np.random.default_rng(ENCDEC_TRAIN["seed"]), device=dev)
+    log(f"[{tag}] params={n_params} remat={cfg.remat} d_model={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} vocab="
+        f"{cfg.padded_vocab}: make_train_step on one make_batch batch ("
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()) + ")")
+    step = make_train_step(cfg, ocfg)
+    state, history, counts, peak = _steps_on_batch(torch, step, state, batch, data,
+                                                   steps, mods)
+    steady = sorted(h["step_s"] for h in history[1:])
+    step_s = steady[len(steady) // 2]
+    profile_train_step(torch, cfg, ocfg, data, state, tag, step_s, batch=batch)
+    flops = step_flops(cfg, state, batch)
+    mfu = flops / step_s / BF16_FLOPS_PER_S
+    del state, step
+    torch.cuda.empty_cache()
+    _check_train(tag, cfg, data, history, counts, steps, peak)
+    log(f"[{tag}] model flops a step {flops:.6e}; mfu_est {mfu:.6f} at a peak of "
+        f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s ({smi})")
+    if not 0 < mfu < 1:
+        raise AssertionError(f"{tag}: mfu_est {mfu} not in (0, 1)")
+    step_check(torch, dev, cfg, data, mixer=("attn", "cross"), tag="step-encdec",
+               batch_step=0, tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL),
+               batch=batch)
+    del batch
     torch.cuda.empty_cache()
     return counts
 
@@ -4280,15 +4555,20 @@ def _in_float64(fn):
     return call
 
 
-def _leaf_norms(grads: dict, mixer: str) -> dict:
+def _leaf_norms(grads: dict, mixer: str | tuple[str, ...]) -> dict:
     """Per layer, the gradient norm of every leaf of the token mixer
-    (``mixer``: attention, time mix or Griffin's mix) and of every norm
-    scale; layer-stacked leaves carry the layer on axis 0."""
+    (``mixer``: attention, time mix or Griffin's mix; several names, as the
+    encoder-decoder's ``attn`` and ``cross``) and of every norm scale;
+    layer-stacked leaves (segments, the encoder's and decoder's) carry the
+    layer on axis 0."""
     from repro_torch.train.optim import leaves
 
+    mixers = (mixer,) if isinstance(mixer, str) else mixer
+    stacked = lambda root: root.startswith("seg") or root in ("encoder", "decoder")  # noqa: E731
     return {".".join(path): (g.float().flatten(1).norm(dim=1)
-                             if path[0].startswith("seg") else g.float().norm())
-            for path, g in leaves(grads) if mixer in path or path[-1] == "scale"}
+                             if stacked(path[0]) else g.float().norm())
+            for path, g in leaves(grads)
+            if any(m in path for m in mixers) or path[-1] == "scale"}
 
 
 def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: str,
@@ -4348,13 +4628,14 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
     how many it would have routed otherwise (:func:`_check_flips`, with
     ``flips_above_noise`` its ``above_noise``)."""
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.models import lm
     from repro_torch.models import pipeline as pl
+    from repro_torch.models.model import get_model
     from repro_torch.train.optim import global_norm
     from repro_torch.train.train_step import (
         compute_params, grad_tree, to_device_batch, unused_leaves)
 
-    params = compute_params(lm.init(cfg, seed=0, device=dev), torch.bfloat16)
+    model = get_model(cfg)
+    params = compute_params(model.init(cfg, seed=0, device=dev), torch.bfloat16)
     if batch is None:
         batch = to_device_batch(SyntheticTokens(data).batch_at(batch_step), dev)
     pin = _PinnedRouting() if pin_routing else contextlib.nullcontext()
@@ -4372,8 +4653,8 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
                 if run == "pipelined":
                     loss, _ = pl.pipeline_loss(cfg, params, batch, **pipeline)
                 else:
-                    loss, _ = lm.loss_fn(cfg, params, batch,
-                                         plain=run not in ("kernels", "fused"))
+                    loss, _ = model.loss_fn(cfg, params, batch,
+                                            plain=run not in ("kernels", "fused"))
                 tree = grad_tree(params, loss, unused_leaves(cfg))
             finally:
                 if run == "probe":
@@ -4383,10 +4664,10 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
             torch.cuda.empty_cache()
     if pin_routing:
         with torch.no_grad(), _PinnedRouting() as noise:
-            lm.loss_fn(cfg, params, batch, plain=True)
+            model.loss_fn(cfg, params, batch, plain=True)
             noise.replay()
             with _Float64Norms():
-                lm.loss_fn(cfg, params, batch, plain=True)
+                model.loss_fn(cfg, params, batch, plain=True)
         _check_flips(tag, pin, noise, above_noise=flips_above_noise)
 
     def gaps(a, b):
@@ -4739,6 +5020,7 @@ def main() -> int:
     timings.update(time_rglru_kernels(torch, dev, worst))
     time_config_kernels(torch, dev, worst)
     timings.update(time_mla_kernels(torch, dev, worst))
+    timings.update(time_encdec_kernels(torch, dev, worst))
     torch.cuda.empty_cache()
     phase("kernel timings")
     cfg, srv, specs, prompts, streams, _ = serve(torch, dev)
@@ -4773,6 +5055,8 @@ def main() -> int:
     phase("serve-moe: phi3.5-moe at 8 of 32 layers")
     serve_mla(torch, smi)
     phase("serve-mla: deepseek-v2-lite at all 27 layers on the gathered path")
+    serve_encdec(torch, smi)
+    phase("serve-encdec: seamless-m4t at all 48 layers, static, and its replays")
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
@@ -4839,6 +5123,10 @@ def main() -> int:
     # rmsnorm_fwd 2*3L + 1 = 25, rmsnorm_bwd 3L + 1 = 13 a pass
     mla_counts = train_mla_phase(torch, dev, smi)
     phase("train-mla: deepseek-v2-lite at 4 layers and its step check")
+    # seamless-m4t at full depth: flash_fwd 2 x (24 + 2 x 24) = 144, flash_bwd
+    # 72 a step (the encoder, the cross-attention, the decoder), no K1
+    encdec_counts = train_encdec_phase(torch, dev, smi)
+    phase("train-encdec: seamless-m4t at all 48 layers and its step check")
     recurrent_scope_phase(torch, smi)
     phase("scope on rwkv6 and griffin")
 
@@ -4846,7 +5134,8 @@ def main() -> int:
     # and chunk shapes: the serve-paths phase's verify steps and chunks x
     # layers), K1's and K2's from
     # the qwen2 train phase (K2 at dh 256: the griffin train phase; at
-    # 192 / 128: the train-mla phase), K5's
+    # 192 / 128: the train-mla phase; bidirectional: the train-encdec
+    # phase), K5's
     # from the rwkv6 train phase, K6's from the griffin train phase (K1's
     # serve, rwkv6 and griffin counts are checked in those phases); K1's
     # tolerance: the absolute bound of its case nearest it; K2's, K5's and
@@ -4856,6 +5145,7 @@ def main() -> int:
     counts.update({k: v for k, v in griffin_counts.items() if k.startswith("rglru")})
     counts.update({f"{k}_dh256": griffin_counts[k] for k in ("flash_fwd", "flash_bwd")})
     counts.update({f"{k}_mla": mla_counts[k] for k in ("flash_fwd", "flash_bwd")})
+    counts.update({f"{k}_encdec": encdec_counts[k] for k in ("flash_fwd", "flash_bwd")})
     counts["paged_decode_dh256"] = griffin_serve_counts["paged_decode"]
     flash_src = "src/repro/kernels/flash_attention/kernel.py:86"
     wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
@@ -4885,6 +5175,8 @@ def main() -> int:
         ("rglru_bwd", "cuda", _build.SOURCES["rglru_bwd"], rglru_src, None),
         ("flash_fwd_mla", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
         ("flash_bwd_mla", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
+        ("flash_fwd_encdec", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
+        ("flash_bwd_encdec", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
     ]
     kernels = []
     for name, route, path, replaces, tol in rows:

@@ -277,15 +277,17 @@ class Session:
         if cfg is None:
             raise ValueError("serve workload needs an --arch")
         s = self.run_cfg.serve
-        if cfg.input_kind != "tokens":
-            raise ValueError(f"{cfg.name}: serving needs token archs")
-        if not s.continuous:
-            return self._serve_static()
-        if s.temperature != 0.0:
-            raise ValueError(
-                "continuous serving decodes greedily "
-                "(preemption-by-recompute needs deterministic decode)")
-        return self._serve_continuous()
+        if s.continuous:
+            if cfg.input_kind != "tokens":
+                raise ValueError(f"{cfg.name}: continuous serving needs token archs")
+            if s.temperature != 0.0:
+                raise ValueError(
+                    "continuous serving decodes greedily "
+                    "(preemption-by-recompute needs deterministic decode)")
+            return self._serve_continuous()
+        if cfg.input_kind != "tokens" and cfg.family != "encdec":
+            raise ValueError(f"{cfg.name} needs a modality frontend; serve token archs")
+        return self._serve_static()
 
     def _serve_continuous(self):
         from dataclasses import replace
@@ -381,23 +383,34 @@ class Session:
         """Static lockstep serving (JAX ``_serve_static``): ``serve.batch``
         random prompts of ``serve.prompt_len`` tokens (numpy, from the run's
         seed) prefilled together over a dense cache, then ``max_new - 1``
-        lockstep decode steps.  Greedy whatever ``--temperature`` says, as
-        the JAX package's keyless ``sample`` is (ROADMAP R7).  Returns
-        ``(tokens [B, max_new] as lists, metrics)``; the prompts land in
-        ``results["static_prompts"]``."""
+        lockstep decode steps.  The encoder-decoder also takes ``[B, P,
+        d_model]`` source frames, N(0, 1) drawn from the same generator
+        after the prompts and rounded to the compute dtype, so its cache's
+        ``src_len`` is ``prompt_len``.  Greedy whatever ``--temperature``
+        says, as the JAX package's keyless ``sample`` is (ROADMAP R7).
+        Returns ``(tokens [B, max_new] as lists, metrics)``; the prompts land
+        in ``results["static_prompts"]``."""
         from repro_torch.device import resolve_device
-        from repro_torch.models import lm
+        from repro_torch.models.model import get_model
         from repro_torch.serve.engine import make_decode_step, make_prefill_step
         from repro_torch.serve.sampler import sample
 
         cfg, rc, s = self.model_cfg, self.run_cfg, self.run_cfg.serve
         dev = resolve_device(self.device)
-        params = lm.init(cfg, seed=rc.seed, device=dev,
-                         dtype=getattr(torch, cfg.compute_dtype))
+        dtype = getattr(torch, cfg.compute_dtype)
+        m = get_model(cfg)
+        params = m.init(cfg, seed=rc.seed, device=dev, dtype=dtype)
         B, P = s.batch, s.prompt_len
-        cache = lm.init_cache(cfg, B, P + s.max_new, device=dev)
-        prompts = np.random.default_rng(rc.seed).integers(
-            2, cfg.vocab_size, size=(B, P))
+        encdec = cfg.family == "encdec"
+        cache = (m.init_cache(cfg, B, P + s.max_new, P, device=dev) if encdec
+                 else m.init_cache(cfg, B, P + s.max_new, device=dev))
+        rng = np.random.default_rng(rc.seed)
+        prompts = rng.integers(2, cfg.vocab_size, size=(B, P))
+        batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+        if encdec:
+            batch["embeds"] = torch.from_numpy(
+                rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
+            ).to(dev, dtype)
         prefill = self.wrap_step(make_prefill_step(cfg, self.collector))
         decode = self.wrap_step(make_decode_step(
             cfg, self.collector, temperature=s.temperature))
@@ -405,7 +418,7 @@ class Session:
         t0 = time.perf_counter()
         n_ev = len(self.tracer.events)
         with self.tracer.scope("prefill", kind="compute", tokens=B * P, batch=B):
-            logits, _ = prefill(params, torch.as_tensor(prompts, device=dev), cache)
+            logits, _ = prefill(params, batch, cache)
             tok = sample(logits, temperature=s.temperature)
             outs = [tok.tolist()]  # reads back: ends device work
         t_prefill = time.perf_counter() - t0

@@ -4,8 +4,7 @@ Every architecture module in this package defines a ``CONFIG`` (full size,
 exact published values) and a ``SMOKE_CONFIG`` (same family, tiny dims) used
 by CPU tests.  The fields and defaults match the JAX package's
 ``ModelConfig`` one for one, so a config built here describes the same model
-as its namesake there.  The enc-dec config is not registered yet; its
-fields are kept so the dataclass stays a faithful copy.
+as its namesake there.
 """
 
 from __future__ import annotations
@@ -147,9 +146,8 @@ def _ensure_loaded() -> None:
     import importlib
 
     # the dense GQA archs (with qwen2-vl's M-RoPE and embeds inputs), MoE,
-    # MLA over MoE, RWKV-6 and Griffin; enc-dec arrives with its own slice
-    # (ROADMAP queue 1, item 13b)
+    # MLA over MoE, RWKV-6, Griffin and the encoder-decoder
     for mod in ("qwen2_0_5b", "qwen3_14b", "qwen2_vl_7b", "minitron_4b",
                 "minicpm_2b", "phi35_moe_42b", "deepseek_v2_lite_16b", "rwkv6_3b",
-                "recurrentgemma_9b"):
+                "recurrentgemma_9b", "seamless_m4t_large_v2"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -28,14 +28,16 @@ it outside Pallas, which the gathered serving path and static serving run),
 each windowed for Griffin, the non-paged ones also under M-RoPE (qwen2-vl);
 MLA's full path (training and prefill, K2 with v's head dim apart from
 q's) and its absorbed decode over the latent cache (:func:`mla_apply`);
-the local-block path arrives with a later slice.  A ``Collector``
+the banded local-block path (plain PyTorch, as JAX computes it in jnp);
+the bidirectional call (``causal=False``: the encoder-decoder's encoder
+and cross-attention, K2 with S apart from T).  A ``Collector``
 (MegaScope) sees the tags of the JAX functions at the same places: ``q``,
 ``v``, ``k``, ``attn_probs`` (naive branch only), ``attn_out``,
 ``mlp_hidden`` and ``router_gate``; over the pool, every branch but the fused
 flash prefill, which JAX also leaves untagged and skips under a collector.
-``norm_init`` also builds layernorm parameters (scale and bias, for
-RWKV-6's ``ln_x`` group norm, which ``models/rwkv.py`` applies inline);
-``norm_apply`` takes rmsnorm only.
+``norm_init`` also builds layernorm parameters (scale and bias; RWKV-6's
+``ln_x`` group norm applies its own inline); ``norm_apply``'s layernorm is
+plain PyTorch, as JAX computes it in jnp (K1 is RMSNorm only).
 """
 
 from __future__ import annotations
@@ -132,11 +134,17 @@ def norm_init(b: ParamBuilder, name: str, dim: int, kind: str) -> None:
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float, *,
                plain: bool = False) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"{kind}: ported with the encoder-decoder family, the one config "
-            "that uses it (ROADMAP queue 1, item 13b)")
-    return rmsnorm(x, p["scale"], eps, plain=plain)
+    """RMSNorm through K1, or layernorm as JAX ``norm_apply`` computes it:
+    in float32, the mean taken out, ``rsqrt`` of the variance plus ``eps``,
+    then scale and bias, cast back to ``x``'s dtype."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"], eps, plain=plain)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm kind {kind!r}")
+    xf = x.float()
+    xf = xf - xf.mean(-1, keepdim=True)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float, *,
@@ -224,6 +232,29 @@ def _mask(pq: torch.Tensor, pk: torch.Tensor, causal: bool,
     return m
 
 
+def arange_positions(S: int, device: torch.device) -> torch.Tensor:
+    """``arange(S)``, marked as such: the flash branch of :func:`attention`
+    takes these query positions without reading them back from the card."""
+    pos = torch.arange(S, device=device)
+    pos.is_arange = True
+    return pos
+
+
+def _check_rows_at_positions(positions_q: torch.Tensor, S: int) -> None:
+    """The flash branch places query row ``i`` at position ``i``: a causal
+    or windowed call must come with ``positions_q == arange(S)``.  Positions
+    from :func:`arange_positions` pass unread; any others are read back and
+    compared."""
+    if tuple(positions_q.shape) == (S,) and (
+            getattr(positions_q, "is_arange", False)
+            or torch.equal(positions_q.cpu(), torch.arange(S))):
+        return
+    raise ValueError(
+        "a causal or windowed flash call takes query row i at position i "
+        f"(positions_q == arange({S})); use the cached path (kv_len) for "
+        "queries at other positions")
+
+
 def attention(
     q: torch.Tensor,             # [B, S, H, D]
     k: torch.Tensor,             # [B, T, K, D]
@@ -246,10 +277,15 @@ def attention(
     probabilities to tag (``attn_probs``).  Without ``kv_len``, the flash
     branch (``impl="chunked"``) and the Pallas branch (``impl="pallas"``)
     both go to the flash-attention kernel (K2) and its backward; that
-    branch places query row ``i`` at position ``i`` (``positions_q ==
-    arange(S)``, as on the training path), as the Pallas kernel does.  With
-    ``kv_len`` (the dense cache), the flash branch is JAX ``_flash_forward``:
-    the online softmax over ``kv_chunk`` chunks, in plain PyTorch.
+    branch places query row ``i`` at position ``i``, as the Pallas kernel
+    does, so a causal or windowed call there raises unless ``positions_q
+    == arange(S)`` (as on the training path); a bidirectional call
+    (``causal=False``, no window: the encoder's self-attention and the
+    cross-attention, whose queries JAX places at position 0) reads no
+    positions.  ``impl="local_block"`` with a window dividing ``S == T``
+    is JAX ``_local_block_attention`` (plain PyTorch).  With ``kv_len``
+    (the dense cache), the flash branch is JAX ``_flash_forward``: the
+    online softmax over ``kv_chunk`` chunks, in plain PyTorch.
     """
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -265,15 +301,43 @@ def attention(
         o = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype).float(), v.float())
         return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
     if impl == "local_block" and window is not None and S == T and S % window == 0:
-        raise NotImplementedError(
-            "local_block attention (no config selects it) is not ported "
-            "(ROADMAP queue 1, item 13b)")
+        return _local_block_attention(q.reshape(B, S, K, G, D), k, v, scale=scale,
+                                      window=window).reshape(B, S, H, -1).to(q.dtype)
     if kv_len is not None:
         return _chunked_attention(q, k, v, scale=scale, positions_q=positions_q,
                                   causal=causal, window=window, kv_len=kv_len,
                                   kv_chunk=kv_chunk)
+    if causal or window is not None:
+        _check_rows_at_positions(positions_q, S)
     return flash_attention(q, k, v, scale=scale, causal=causal, window=window,
                            plain=plain)
+
+
+def _local_block_attention(qg, k, v, *, scale, window):
+    """JAX ``_local_block_attention``: each ``window``-row block of queries
+    attends to its own key block and the one before it (keys ``j`` of the
+    ``2W`` strip with ``i < j <= W + i``, the previous block's only past
+    the first), float32 scores, probabilities rounded to v's dtype before
+    the PV product, float32 ``[B, S, K, G, Dv]`` out."""
+    B, S, K, G, D = qg.shape
+    Dv = v.shape[-1]
+    W = window
+    nb = S // W
+    qb = qg.reshape(B, nb, W, K, G, D)
+    kb = k.reshape(B, nb, W, K, D)
+    vb = v.reshape(B, nb, W, K, Dv)
+    k2 = torch.cat([F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], kb], dim=2)
+    v2 = torch.cat([F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1], vb], dim=2)
+    s = torch.einsum("bnwkgd,bnckd->bnwkgc", qb.float(), k2.float()) * scale
+    i = torch.arange(W, device=qg.device)[:, None]
+    j = torch.arange(2 * W, device=qg.device)[None, :]
+    base = (j <= W + i) & (j > i)
+    blk = torch.arange(nb, device=qg.device)[:, None, None]
+    msk = torch.where(blk > 0, base[None], (base & (j >= W))[None])  # [nb, W, 2W]
+    s = torch.where(msk[None, :, :, None, None, :], s, BIG_NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bnwkgc,bnckd->bnwkgd", p.to(v2.dtype).float(), v2.float())
+    return o.reshape(B, S, K, G, Dv)
 
 
 def _chunked_attention(q, k, v, *, scale, positions_q, causal, window, kv_len,
@@ -316,6 +380,7 @@ def gqa_apply(
     *,
     positions: torch.Tensor,     # [S] (training, cached) or [B, S] (paged)
     window: int | None = None,   # sliding window (Griffin's local attention)
+    causal: bool = True,         # False: the encoder's bidirectional attention
     pool: dict | None = None,    # {"k", "v"}: [n_layers, NB, bs, K, dh], in place
     paged: PagedInfo | None = None,
     plain: bool = False,
@@ -328,8 +393,9 @@ def gqa_apply(
 
     Without a pool or a cache this is the training branch (``cache is
     None`` in JAX): qk_norm on q and k, rope on both, then
-    :func:`attention` over the ``window``; ``plain`` selects the plain norm
-    and attention.  With a dense ``cache`` (JAX's ``elif cache is not None``
+    :func:`attention` over the ``window``, ``causal`` or not (the
+    encoder's self-attention is bidirectional); ``plain`` selects the plain
+    norm and attention.  With a dense ``cache`` (JAX's ``elif cache is not None``
     branch) the roped new K and V are written into it at ``cache_pos`` and
     attention reads all of it with ``kv_len = cache_pos + S``.  Both tag
     ``q``, ``v``, ``k`` and ``attn_out`` into ``collector``, and rotate q
@@ -373,7 +439,7 @@ def gqa_apply(
             kk, vv = cache["k"].to(dt), cache["v"].to(dt)
             kv_len = cache_pos + S
         o = attention(q, kk, vv, scale=scale, positions_q=positions,
-                      window=window, kv_len=kv_len, impl=cfg.attn_impl,
+                      causal=causal, window=window, kv_len=kv_len, impl=cfg.attn_impl,
                       kv_chunk=cfg.attn_kv_chunk, plain=plain,
                       collector=collector)
         o = collector.tag("attn_out", o)

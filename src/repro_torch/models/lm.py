@@ -68,11 +68,8 @@ def segment_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
         n_full, rem = divmod(cfg.num_layers, len(pat))
         return ([(pat, n_full)] if n_full else []) + (
             [(pat[:rem], 1)] if rem else [])
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is ported in a later slice "
-            "(ROADMAP queue 1, item 13b); dense GQA, MoE (with MLA), RWKV-6 and "
-            "Griffin models are ported")
+    if cfg.family not in ("dense", "moe"):  # the encoder-decoder: models/encdec.py
+        raise ValueError(cfg.family)
     if cfg.family == "moe":  # first_k_dense dense layers, then the MoE ones
         fk = cfg.moe.first_k_dense
         return ([(("dense",), fk)] if fk else []) + [
@@ -90,9 +87,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
     deepseek-v2-lite's 62.8 GB beside 31.4 GB)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    cast = None if dtype is None else (
-        lambda name, v: v if name in _NORM_LEAVES else v.to(dtype))
-    b = L.ParamBuilder(gen, dev, cast=cast)
+    b = L.ParamBuilder(gen, dev, cast=cast_as_drawn(dtype))
     L.embed_init(b, cfg)
     L.norm_init(b, "final_norm", cfg.d_model, cfg.norm_kind)
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
@@ -110,6 +105,14 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
             (L.mla_init if cfg.use_mla else L.gqa_init)(blk.sub("attn"), cfg)
             (L.moe_init if kind == "moe" else L.mlp_init)(blk.sub("mlp"), cfg)
     return b.params
+
+
+def cast_as_drawn(dtype: torch.dtype | None):
+    """The ``ParamBuilder`` cast of an init in ``dtype``: every leaf but
+    ``_NORM_LEAVES`` to ``dtype`` as it is drawn (None: float32 kept)."""
+    if dtype is None:
+        return None
+    return lambda name, v: v if name in _NORM_LEAVES else v.to(dtype)
 
 
 def cast_params(params: dict, dtype: torch.dtype, device: torch.device) -> dict:
@@ -398,7 +401,8 @@ def forward(
         if cache is not None:
             cache_pos = int(cache_pos)
         start = cache_pos or 0
-        positions = torch.arange(start, start + S, device=x.device)
+        positions = (L.arange_positions(S, x.device) if cache is None
+                     else torch.arange(start, start + S, device=x.device))
         remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
     x = collector.tag("embeddings", x)
     layout = segment_layout(cfg)
@@ -455,6 +459,29 @@ def forward(
         if top:
             captures["top"] = top
     return x, aux
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
+            collector: Collector = NULL_COLLECTOR, *,
+            plain: bool = False) -> tuple[torch.Tensor, dict]:
+    """JAX ``lm.prefill`` over the dense ``cache`` (:func:`init_cache`,
+    filled in place): ``batch``'s prompts (``tokens``, or an embeds arch's
+    ``embeds`` and ``mrope_position_ids``) from position 0.  Returns (the
+    last position's logits ``[B, V]``, captures)."""
+    hidden, aux = forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
+                          mrope_position_ids=batch.get("mrope_position_ids"),
+                          cache=cache, cache_pos=0, plain=plain, collector=collector)
+    return L.logits_fn(params, cfg, hidden[:, -1:])[:, 0], aux.get("captures", {})
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                pos: int, collector: Collector = NULL_COLLECTOR, *,
+                plain: bool = False) -> tuple[torch.Tensor, dict]:
+    """JAX ``lm.decode_step`` for token ids ``[B]`` at the shared ``pos``
+    over the dense cache (in place): (logits ``[B, V]``, captures)."""
+    hidden, aux = forward(cfg, params, tokens.reshape(-1, 1), cache=cache,
+                          cache_pos=int(pos), plain=plain, collector=collector)
+    return L.logits_fn(params, cfg, hidden)[:, 0], aux.get("captures", {})
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,

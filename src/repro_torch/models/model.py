@@ -1,10 +1,15 @@
-"""Family dispatch and helpers, counterpart of ``repro.models.model``.
+"""Family dispatch and helpers, counterpart of ``repro.models.model``: a
+uniform entry to ``lm.py`` (the dense, MoE with MLA, RWKV-6 and Griffin
+families) and ``encdec.py`` (the encoder-decoder family).
 
-The decoder LM is ported for the dense (with qwen2-vl's embeds inputs and
-M-RoPE), MoE (with deepseek-v2-lite's MLA attention), RWKV-6 and Griffin
-families: :func:`get_model` returns its entry points and refuses the
-encoder-decoder family, which arrives with a later slice (ROADMAP queue 1,
-item 13b).
+    m = get_model(cfg)
+    params = m.init(cfg, seed=0, device=..., dtype=...)
+    loss, metrics = m.loss_fn(cfg, params, batch)
+    cache = m.init_cache(cfg, batch_size, cache_len[, src_len], device=...)
+    logits, captures = m.prefill(cfg, params, batch, cache)
+    logits, captures = m.decode_step(cfg, params, cache, tokens, pos)
+
+Caches are updated in place, where JAX returns them.
 """
 
 from __future__ import annotations
@@ -16,24 +21,26 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 @dataclass(frozen=True)
 class Model:
     init: Callable
     loss_fn: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
 
 
-LM = Model(init=lm.init, loss_fn=lm.loss_fn)
+LM = Model(init=lm.init, loss_fn=lm.loss_fn, init_cache=lm.init_cache,
+           prefill=lm.prefill, decode_step=lm.decode_step)
+ENCDEC = Model(init=encdec.init, loss_fn=encdec.loss_fn, init_cache=encdec.init_cache,
+               prefill=encdec.prefill, decode_step=encdec.decode_step)
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is ported in a later "
-            "slice (ROADMAP queue 1, item 13b)")
-    return LM
+    return ENCDEC if cfg.family == "encdec" else LM
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator,
@@ -41,10 +48,9 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator,
     """A synthetic training batch matching the arch's input kind, drawn from
     ``rng`` (JAX draws its own from a key; tests hand both sides one numpy
     batch): token ids, or for an embeds arch float32 N(0, 1) ``embeds``
-    ``[batch, seq, d_model]`` and, under M-RoPE, ``mrope_position_ids``
-    ``[3, batch, seq]``, three equal streams of ``arange(seq)``; int32
-    ``targets``."""
-    get_model(cfg)  # refuses the encoder-decoder family (its tokens too)
+    ``[batch, seq, d_model]``, with the encoder-decoder's target ``tokens``
+    or, under M-RoPE, ``mrope_position_ids`` ``[3, batch, seq]``, three
+    equal streams of ``arange(seq)``; int32 ``targets``."""
     draw = lambda: torch.from_numpy(  # noqa: E731
         rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
     if cfg.input_kind == "tokens":
@@ -52,6 +58,8 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator,
     else:
         out = {"embeds": torch.from_numpy(
             rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32))}
+        if cfg.family == "encdec":
+            out["tokens"] = draw()
         if cfg.input_kind == "embeds_mrope":
             pos = torch.arange(seq, dtype=torch.int32).expand(batch, seq)
             out["mrope_position_ids"] = torch.stack([pos, pos, pos])

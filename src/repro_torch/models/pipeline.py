@@ -121,7 +121,7 @@ def make_block_fn(
     a group.  ``plain=True`` runs the kernels' plain versions.
     """
     def apply_group(gp: dict, x: torch.Tensor) -> torch.Tensor:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = L.arange_positions(x.shape[1], x.device)
         for j, kind in enumerate(layout.kinds):
             x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, plain,
                           NULL_COLLECTOR)[0]

@@ -2,8 +2,8 @@
 the port's.
 
 Both sides keep the same nested-dict tree with the same leaf names, shapes
-and layouts (``lm.init`` in either package), so conversion is a copy of each
-leaf.  The JAX side's leaves cross as numpy arrays: this module imports
+and layouts (``lm.init`` or ``encdec.init`` in either package), so
+conversion is a copy of each leaf.  The JAX side's leaves cross as numpy arrays: this module imports
 neither JAX nor anything of ``repro``.
 """
 
@@ -17,7 +17,7 @@ from repro_torch.device import resolve_device
 
 def from_jax_params(tree: dict, device: str = "cuda") -> dict:
     """Port parameters from a tree of arrays (numpy, or anything
-    ``np.asarray`` takes) shaped like ``repro.models.lm.init``'s output."""
+    ``np.asarray`` takes) shaped like the JAX package's ``init`` output."""
     dev = resolve_device(device)
     return {
         k: from_jax_params(v, dev) if isinstance(v, dict)

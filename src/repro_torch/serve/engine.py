@@ -8,7 +8,10 @@ forward's ``aux["captures"]`` (``{}`` when nothing was captured, always
 without a ``collector``).
 
 * ``make_prefill_step`` / ``make_decode_step``: static lockstep serving
-  over a dense cache with one shared position (``StaticRunner``);
+  over a dense cache with one shared position (``StaticRunner``, the
+  Session's static path), through ``get_model(cfg)``'s ``prefill`` and
+  ``decode_step``: the decoder LM's, or the encoder-decoder's (its batch
+  carries the source ``embeds`` beside the prompt ``tokens``);
 * ``make_paged_decode_step``, ``make_spec_verify_step``,
   ``make_chunk_prefill_step`` and ``make_flash_prefill_step``: one forward
   straight against the paged pool, at Q = 1 (K3 on the card), Q =
@@ -42,13 +45,20 @@ from repro_torch.kernels.paged_attention.ops import PagedInfo
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector
+from repro_torch.models.model import get_model
 from repro_torch.serve.sampler import sample
 
 
 def _check_servable(cfg: ModelConfig) -> None:
     if cfg.input_kind != "tokens":
         raise ValueError(f"{cfg.name}: continuous batching serves token archs")
-    lm.segment_layout(cfg)  # raises for the families of later slices
+
+
+def _check_static(cfg: ModelConfig) -> None:
+    """Static serving takes token archs and the encoder-decoder (its
+    frontend stubbed by frame embeddings), as the JAX Session does."""
+    if cfg.input_kind != "tokens" and cfg.family != "encdec":
+        raise ValueError(f"{cfg.name} needs a modality frontend; serve token archs")
 
 
 def _check_paged(cfg: ModelConfig) -> None:
@@ -66,17 +76,17 @@ def _check_paged(cfg: ModelConfig) -> None:
 
 def make_prefill_step(cfg: ModelConfig,
                       collector: Collector = NULL_COLLECTOR) -> Callable:
-    """Returns ``prefill(params, tokens [B, P], cache) -> (logits [B, V],
-    captures)``: the prompts through ``lm.forward`` from position 0, filling
-    the dense ``cache`` (``lm.init_cache``) in place; the logits are the last
-    position's (JAX ``lm.prefill``)."""
-    _check_servable(cfg)
+    """Returns ``prefill(params, batch, cache) -> (logits [B, V],
+    captures)``: ``batch`` (``tokens [B, P]``; the encoder-decoder's also
+    ``embeds [B, src_len, D]``) through the model's ``prefill`` from
+    position 0, filling the dense ``cache`` (the model's ``init_cache``) in
+    place; the logits are the last position's (JAX ``make_prefill_step``)."""
+    _check_static(cfg)
+    model = get_model(cfg)
 
     @torch.inference_mode()
-    def prefill(params, tokens, cache):
-        hidden, aux = lm.forward(cfg, params, tokens, cache=cache, cache_pos=0,
-                                 collector=collector)
-        return L.logits_fn(params, cfg, hidden[:, -1:])[:, 0], aux.get("captures", {})
+    def prefill(params, batch, cache):
+        return model.prefill(cfg, params, batch, cache, collector)
 
     return prefill
 
@@ -88,14 +98,13 @@ def make_decode_step(cfg: ModelConfig, collector: Collector = NULL_COLLECTOR, *,
     The next token is ``sample(logits, temperature=...)`` without a
     generator, which is argmax whatever the temperature, as JAX's
     ``make_decode_step`` samples without a key (ROADMAP R7)."""
-    _check_servable(cfg)
+    _check_static(cfg)
+    model = get_model(cfg)
 
     @torch.inference_mode()
     def decode(params, cache, tokens, pos):
-        hidden, aux = lm.forward(cfg, params, tokens.reshape(-1, 1), cache=cache,
-                                 cache_pos=int(pos), collector=collector)
-        logits = L.logits_fn(params, cfg, hidden)[:, 0]
-        return logits, sample(logits, temperature=temperature), aux.get("captures", {})
+        logits, captures = model.decode_step(cfg, params, cache, tokens, pos, collector)
+        return logits, sample(logits, temperature=temperature), captures
 
     return decode
 

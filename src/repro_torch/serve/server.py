@@ -930,7 +930,7 @@ class StaticRunner:
                 prompts = torch.tensor([r.prompt for r in members],
                                        dtype=torch.int64, device=self.device)
                 with tracer.scope("prefill", kind="compute", tokens=B * P, batch=B):
-                    logits, _ = self.prefill(params, prompts, cache)
+                    logits, _ = self.prefill(params, {"tokens": prompts}, cache)
                     tok = sample(logits, temperature=0.0)
                     toks = tok.tolist()  # reads back: ends device work
                 now = clock()

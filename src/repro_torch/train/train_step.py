@@ -87,8 +87,10 @@ def to_device_batch(batch: dict, device: torch.device) -> dict:
 def unused_leaves(cfg: ModelConfig) -> tuple[tuple[str, ...], ...]:
     """The leaves the loss of ``cfg`` does not reach: an embeds arch
     (qwen2-vl) takes its inputs as embeddings, so its untied ``embedding``
-    table is unused."""
-    if cfg.input_kind != "tokens" and not cfg.tie_embeddings:
+    table is unused.  The encoder-decoder's decoder takes tokens: every
+    leaf of it reaches the loss."""
+    if (cfg.input_kind != "tokens" and cfg.family != "encdec"
+            and not cfg.tie_embeddings):
         return (("embedding",),)
     return ()
 

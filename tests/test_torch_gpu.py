@@ -318,6 +318,12 @@ K2_LSE_TOL = 1e-5
     (1, 300, 300, 28, 4, 128, True, None),
     (2, 257, 257, 36, 36, 64, True, None),
     (1, 200, 200, 32, 8, 128, True, None),
+    # seamless-m4t's heads (MHA, 16 of 64), bidirectional: the encoder's
+    # self-attention (S = T), the cross-attention over a longer memory
+    # (S apart from T), and its tile edges
+    (1, 512, 512, 16, 16, 64, False, None),
+    (1, 300, 750, 16, 16, 64, False, None),
+    (1, 129, 2047, 16, 16, 64, False, None),
 ])
 def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     from repro_torch.kernels.flash_attention import (

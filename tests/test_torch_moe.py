@@ -219,15 +219,15 @@ def test_served_streams_equal_jax(phi, path):
 
 
 def test_mla_and_encdec_are_refused_naming_their_item():
-    """What the next slice ports (the encoder-decoder family and layernorm:
-    seamless-m4t) raises, naming ROADMAP item 13b.  MLA on top of MoE
-    (deepseek-v2-lite) is ported now and lays out as the MoE family does
-    (tests/test_torch_mla.py holds it to JAX)."""
-    from repro_torch.models.model import get_model
+    """Item 13b is ported whole: MLA on top of MoE (deepseek-v2-lite) lays
+    out as the MoE family does (tests/test_torch_mla.py holds it to JAX);
+    an encoder-decoder config dispatches to ``ENCDEC``, and the decoder
+    LM's layer layout refuses it with JAX's ``ValueError`` (the family
+    lives in ``models/encdec.py``; tests/test_torch_encdec.py)."""
+    from repro_torch.models.model import ENCDEC, get_model
 
     cfg = get_config(ARCH, smoke=True)
     assert lm.segment_layout(cfg.replace(use_mla=True)) == lm.segment_layout(cfg)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        get_model(cfg.replace(family="encdec"))
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        L.norm_apply({"scale": torch.ones(4)}, torch.ones(1, 4), "layernorm", 1e-6)
+    assert get_model(cfg.replace(family="encdec")) is ENCDEC
+    with pytest.raises(ValueError, match="encdec"):
+        lm.segment_layout(cfg.replace(family="encdec"))
