@@ -30,8 +30,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              deepseek-v2-lite's 192 / 128, H = K = 16, and its smoke
              config's 24 / 16, a window and tile edges included; and
              bidirectional at seamless-m4t's MHA 16 x 64: its training
-             shape, a cross shape with S apart from T, tile edges), its
-             backward bit-identical on a second run, K1 also at MLA's
+             shape, a cross shape with S apart from T, tile edges; a
+             tensor rank's share of qwen2-0.5b's heads at tp 2, H 7, K 1),
+             its backward bit-identical on a second run, K1 also at MLA's
              latent width 512, all bfloat16; then times kernel, plain version and
              a library yardstick the port never calls
              (``scaled_dot_product_attention``, its backward alone for K2's
@@ -144,8 +145,8 @@ Phases, each of which fails the run (non-zero exit) on error:
              routing and a noise probe logged); tokens/s, TTFT, the tick median, one tick's
              host and device time, peak memory, phi3.5-moe's
              ``moe_drop_frac`` by path;
-   serve-mla — deepseek-v2-lite-16b (MLA over 64 routed experts) at all
-             27 layers, its seed-0 weights drawn in bf16 leaf by leaf,
+   serve-mla — deepseek-v2-lite-16b (MLA over 64 routed experts) at 9
+             of its 27 layers, its seed-0 weights drawn in bf16 leaf by leaf,
              the same 12 requests on the gathered path (the latent cache
              has no kv-head axis for K3 or K4; the dense prefill): every
              request finished, K1 3L + 1 times a forward (a prefill or a
@@ -208,25 +209,41 @@ Phases, each of which fails the run (non-zero exit) on error:
              residuals moved to host memory and back between fwd and bwd;
              fwd and bwd timed with CUDA events; the residual bytes against
              their hand count; the ``fbd`` plugin's report;
-   pipeline — MegaDPP: full-width, full-depth qwen2-0.5b trained 4 steps
-             through ``Session`` at pp 2 (2 chunks a stage, 4 microbatches,
-             the planner's wave; ``--modules scan,metrics,dpp``): K1 and K2
-             launched exactly as counted for 4 microbatches (the flop
-             count's pass too), losses finite and falling, 16 ``pp_F`` and
-             16 ``pp_B`` events a step on stage pids 0 and 1, the ``dpp``
-             report and ``results["parallel"]``; the pipelined loss and
-             gradients of one batch against the fused ones at the step
-             check's limits; MegaFBD attached (``parallel.fbd_backward``):
-             2 steps bit-identical to the fused pipelined steps, and the
-             decoupled pipelined loss's gradients bit-identical to
+   pipeline — MegaDPP, each stage a process: full-width, full-depth
+             qwen2-0.5b trained 4 steps through ``Session`` at pp 2 (2
+             chunks a stage, 4 microbatches, the planner's wave;
+             ``--modules scan,metrics,dpp``) in a world of 2 ranks spawned
+             on the card: each rank's K1 and K2 launches exact, losses
+             finite and falling, 16 ``pp_F`` and 16 ``pp_B`` events a step
+             on stage pids 0 and 1, the ``dpp`` report and
+             ``results["parallel"]``; the pipelined loss and gradients of
+             one batch (one process) against the fused ones at the step
+             check's limits; MegaFBD attached (``parallel.fbd_backward``,
+             a stage's backward on the other stage's process): 2 steps
+             bit-identical to those without it, and the decoupled
+             pipelined loss's gradients (one process) bit-identical to
              ``torch.autograd.grad``'s, also after the residuals' round
              trip through host memory, ``fwd``/``bwd`` timed with CUDA
              events; rwkv6-3b at full width cut to 4 layers through the
-             pipeline (K5 launches exact, losses falling, the pipelined
-             loss of one batch within ``RWKV_STEP_LOSS_TOL`` of the fused
-             one); then the fused step and the four schedules (1f1b, dfc,
-             bfc, wave) at the qwen2 shape and full depth: each table's T
-             and bubble fraction, the median step, the peak memory;
+             pipeline (K5 and K1 launches exact on each rank, losses
+             falling, the pipelined loss of one batch within
+             ``RWKV_STEP_LOSS_TOL`` of the fused one); then the fused step
+             and the four schedules (1f1b, dfc, bfc, wave) at the qwen2
+             shape and full depth: each table's T and bubble fraction, the
+             median step, the peak memory per rank;
+   parallel — data, tensor and stage parallelism through ``python -m
+             repro_torch``'s entry point at qwen2-0.5b's full width and
+             depth, seq 2048, 3 steps, ranks spawned on the one card
+             (gloo; one world of 2 ranks for dp 2 and tp 2 at batch 2 and
+             pp 2 with each stage a process and MegaFBD's backward on the
+             other stage's at batch 4 in 4 microbatches, one of 4 for pp 2
+             x dp 2 at batch 4, two microbatches a dp group): every step
+             (loss, grad norm, per-layer leaf gradient norms) held to the
+             fused one-process step from the same parameters at the qwen2
+             step limits, data replicas ending on the same weights, each
+             rank's K1 and K2 launches exact, the backend gloo; the step
+             medians beside the fused step's and the share of a step in
+             all-reduces;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -285,9 +302,13 @@ Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import gc
+import io
 import json
 import math
+import os
+import pstats
 import re
 import statistics
 import subprocess
@@ -533,10 +554,10 @@ MOE_FLIP_SHARE = 0.05
 # layer 0 dense).  Its attention on the flash branch takes q and k at head
 # dim 192 (128 nope + 64 rope) and v at 128, H = K = 16 (every head over
 # the up-projected latent), and its latent norm is K1 at width 512.
-# serve-mla: all 27 layers (15,706,484,224 parameters: 31.4 GB in bf16,
-# drawn leaf by leaf in bf16, as lm.init(dtype=...) does, since the float32
-# tree of 62.8 GB beside its cast would not fit), CONFIG_SERVE's workload on
-# the gathered path (the latent cache has no kv-head axis for K3 or K4).
+# serve-mla: weights drawn leaf by leaf in bf16, as lm.init(dtype=...) does
+# (all 27 layers' float32 tree of 62.8 GB beside its cast would not fit),
+# CONFIG_SERVE's workload on the gathered path (the latent cache has no
+# kv-head axis for K3 or K4).
 # train-mla: full width cut to 4 of 27 layers (1 dense, 3 MoE:
 # 2,254,983,168 parameters, ~40.6 GB of train state at 18 B a parameter;
 # all 27 would be ~283 GB), seq 2048 x batch 2, 4 steps, data seed 2 (seed
@@ -544,7 +565,11 @@ MOE_FLIP_SHARE = 0.05
 # 2^12 5^2, so it runs into a fixed point, as at Griffin's V below)
 MLA_HEADS = (16, 16, 192, 128)         # H, K, q/k head dim, v head dim
 MLA_RANK = 512
-MLA_PARAMS = 15_706_484_224
+# serve-mla at 9 of 27 layers (the dense first layer and 8 MoE layers):
+# the parallel phase's time comes out of the gathered path's host-paced
+# ticks, which scale with depth (all 27 fit the card: 31.4 GB in bf16)
+MLA_SERVE_LAYERS = 9
+MLA_SERVE_PARAMS = 5_179_222_528
 MLA_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=2)
 MLA_TRAIN_LAYERS = 4
 MLA_TRAIN_PARAMS = 2_254_983_168
@@ -1143,6 +1168,10 @@ def check_training_kernels(torch, dev) -> dict:
          torch.bfloat16, f"[8192, {GRIFFIN_W}] recurrentgemma-9b width, bf16 scale")
     flash(8, 2048, 2048, H, K, DH, True, None, "B=8 S=T=2048 H=14 K=2 dh=64 causal",
           twice=True)
+    # a tensor rank's share of qwen2-0.5b's heads at tp 2 (G = 7)
+    B, S = PAR_SHAPE["global_batch"], PAR_SHAPE["seq_len"]
+    flash(B, S, S, H // 2, K // 2, DH, True, None,
+          f"B={B} S=T={S} H=7 K=1 dh=64 causal (tp 2)", twice=True)
     flash(2, 300, 300, H, K, DH, True, 100, "B=2 S=T=300 window 100")
     flash(2, 200, 333, 4, 2, 128, False, None, "B=2 S=200 T=333 bidirectional dh=128")
     flash(1, 77, 77, 8, 8, 64, True, None, "B=1 S=T=77 MHA causal")
@@ -3086,8 +3115,9 @@ def serve_config(torch, arch: str, smi: str, layers: int | None = None) -> dict:
 
 
 def serve_mla(torch, smi: str) -> dict:
-    """MegaServe on deepseek-v2-lite-16b at full width and depth (27 layers,
-    seed-0 weights drawn leaf by leaf in bf16): ``CONFIG_SERVE``'s 12
+    """MegaServe on deepseek-v2-lite-16b at full width, depth cut to
+    ``MLA_SERVE_LAYERS`` (seed-0 weights drawn leaf by leaf in bf16):
+    ``CONFIG_SERVE``'s 12
     Poisson requests on the gathered path (the only one MLA's latent cache
     takes; the dense prefill), every request finished with a valid stream;
     launches exact: K1 3L + 1 a forward (ln1, ln2, the latent norm; every
@@ -3110,15 +3140,15 @@ def serve_mla(torch, smi: str) -> dict:
     from repro_torch.serve.server import MegaServe, make_poisson_workload
 
     tag = "serve-mla"
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = get_config("deepseek-v2-lite-16b").replace(num_layers=MLA_SERVE_LAYERS)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = lm.init(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated()
     n_params = count_params(params)
-    if n_params != MLA_PARAMS:
-        raise AssertionError(f"{tag}: {n_params} parameters, not {MLA_PARAMS}")
+    if n_params != MLA_SERVE_PARAMS:
+        raise AssertionError(f"{tag}: {n_params} parameters, not {MLA_SERVE_PARAMS}")
     specs, prompts, scfg = make_poisson_workload(cfg, **CONFIG_SERVE)
     srv = MegaServe(cfg, params, scfg, device="cuda")
     del params  # the server's cast is the same tree
@@ -4709,7 +4739,7 @@ def step_check(torch, dev, cfg, data, *, mixer: str, tag: str, batch_step: int,
 PIPE = dict(pp=2, n_chunks=2, n_micro=4)
 PIPE_STEPS = 4
 PIPE_FBD_STEPS = 2
-PIPE_SWEEP_STEPS = 6
+PIPE_SWEEP_STEPS = 4
 PIPE_SCHEDULES = ("1f1b", "dfc", "bfc", "wave")
 # rwkv6-3b at full width cut to 4 layers (one a cell) at seq 2048 x batch
 # 4: 4 microbatches of one row
@@ -4727,8 +4757,9 @@ def _pipe_argv(shape: dict, schedule: str, modules: str, arch: str = "qwen2-0.5b
 
 
 def _counted_session(torch, argv: list[str], modules: tuple, model_cfg=None):
-    """``_session`` with every kernel of ``modules`` counted from 0 and the
-    peak memory reset: ``(session, state, history, counts, peak)``."""
+    """``_session`` (one process) with every kernel of ``modules`` counted
+    from 0 and the peak memory reset: ``(session, state, history, counts,
+    peak)``."""
     for m in modules:
         m.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -4737,6 +4768,149 @@ def _counted_session(torch, argv: list[str], modules: tuple, model_cfg=None):
     return (session, state, history,
             {k: v for m in modules for k, v in m.launches.items()},
             torch.cuda.max_memory_allocated())
+
+
+def _world(jobs: list[dict], nprocs: int, tag: str) -> list[list[dict]]:
+    """Spawn ``nprocs`` ranks on the card that run ``jobs`` in turn
+    (:func:`_world_rank`); for each job, every rank's row in rank order."""
+    from repro_torch.parallel import dist as pdist
+
+    t0 = time.perf_counter()
+    per_rank = pdist.spawn(_world_rank, (jobs,), nprocs, device="cuda")
+    log(f"[{tag}] a world of {nprocs} ranks: {len(jobs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s, spawning included")
+    for rank, r in enumerate(per_rank):
+        log(f"[{tag}] rank {rank}'s first calls: " + ", ".join(
+            f"{k} {1e3 * v:.1f} ms" for k, v in r[0]["first_calls"].items())
+            + f"; its first step {1e3 * r[0]['history'][0]['step_s']:.1f} ms")
+    for rank, r in enumerate(per_rank):
+        log(f"[{tag}] rank {rank}'s first step under the Python profiler:\n"
+            + r[0]["first_profile"])
+    return [[r[i] for r in per_rank] for i in range(len(jobs))]
+
+
+def _world_rank(jobs: list[dict]) -> list[dict]:
+    """One rank of a world spawned for ``jobs``: each job's command line
+    (``argv``, with ``model_cfg`` if given) through a ``Session`` in this
+    rank's world, as ``python -m repro_torch`` runs it under ``torchrun``,
+    with the kernels of ``kernels`` counted from 0 and
+    :class:`_StepRecorder` on (``check``: each step's reference).  The
+    master of a job with ``keep`` is kept for the next job with
+    ``compare``, which lists the leaves of its own master that differ."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.app.cli import parse
+    from repro_torch.app.session import Session
+    from repro_torch.train.optim import leaves
+
+    out, kept = [], None
+    warm = _first_calls(torch)
+    for job in jobs:
+        mods = [importlib.import_module(f"repro_torch.kernels.{k}") for k in job["kernels"]]
+        for m in mods:
+            m.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        _, rc = parse(job["argv"])
+        with _StepRecorder(check=job.get("check", False), first=not out) as rec:
+            session = Session(rc, model_cfg=job.get("model_cfg"))
+            state, history = session.run()
+        torch.cuda.synchronize()
+        res = session.results
+        row = {"history": history, "coords": res["parallel"]["coords"],
+               "backend": res["parallel"]["backend"],
+               "launches": {k: v for m in mods for k, v in m.launches.items()},
+               "peak": rec.peak if job.get("check") else torch.cuda.max_memory_allocated(),
+               "sync_s": rec.sync_s,
+               "check_s": rec.check_s, "norms": rec.norms, "refs": rec.refs,
+               "first_calls": warm, "first_profile": rec.first_profile,
+               "digest": {".".join(p): (t.double().sum().item(),
+                                        t.double().square().sum().item())
+                          for p, t in leaves(state.master)}}
+        if not any(row["coords"].values()):
+            row["results"] = {k: res[k] for k in ("parallel", "dpp") if k in res}
+        if job.get("compare"):
+            row["differing"] = [".".join(p) for p, t in leaves(state.master)
+                                if not torch.equal(t, kept[p])]
+        kept = ({p: t.clone() for p, t in leaves(state.master)}
+                if job.get("keep") else None)
+        out.append(row)
+        del state, session, res
+        _free(torch)
+    return out
+
+
+def _first_calls(torch) -> dict:
+    """Seconds of a new rank's first calls, each after the one before
+    (synchronised): its first tensor on the card, a cuBLAS product, K1
+    (Triton, from the cache its parent filled), K2's forward and backward
+    (the CUDA library), a gloo all-reduce over the world, and the same
+    calls once more.  A rank's first train step pays whatever of this its
+    run had not paid yet."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.parallel import dist as pdist
+
+    dev = pdist.world().device
+    out: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = out.get(name, 0.0) + time.perf_counter() - t0
+
+    def calls(tag: str) -> None:
+        timed(f"{tag}tensor", lambda: torch.ones(1, device=dev))
+        x = torch.randn(256, D_MODEL, device=dev, dtype=torch.bfloat16)
+        timed(f"{tag}cublas", lambda: x @ x.T)
+        timed(f"{tag}k1", lambda: rmsnorm(x, torch.ones(D_MODEL, device=dev)))
+        q = torch.randn(1, 256, H, DH, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        kv = torch.randn(1, 256, K, DH, device=dev, dtype=torch.bfloat16)
+        timed(f"{tag}k2", lambda: flash_attention(q, kv, kv, scale=DH ** -0.5).sum()
+              .backward())
+        timed(f"{tag}gloo", lambda: dist.all_reduce(torch.ones(1, device=dev)))
+
+    calls("")
+    calls("again ")
+    return out
+
+
+def _par_expected(cfg, cell: dict, stage: int, steps: int) -> dict:
+    """A rank's launches over ``steps`` steps (remat full: a layer's
+    forward, its recompute and its backward a microbatch).  dp and tp
+    ranks run every layer once a step, as the fused step does
+    (:func:`per_step_launches`).  A pipeline stage runs its ``L / pp``
+    layers once per microbatch of its dp group, stage 0 also the final
+    norm; under MegaFBD the stage's forward runs here and the previous
+    stage's backward too, whose graph it rebuilds with one more
+    forward."""
+    pp = cell.get("pp", 1)
+    if pp == 1:
+        return {k: steps * v for k, v in per_step_launches(cfg).items()}
+    per = per_step_launches(cfg.replace(num_layers=cfg.num_layers // pp),
+                            cell["n_micro"] // cell.get("dp", 1))
+    head = {k: 1 for k in per if k.startswith("rmsnorm")}  # the final norm
+    out = {}
+    for k, v in per.items():
+        v -= head.get(k, 0)
+        if cell.get("fbd") and k.endswith("_fwd"):
+            v = v * 3 // 2  # the rebuild of the previous stage's forward
+        out[k] = steps * (v + (head.get(k, 0) if stage == 0 else 0))
+    return out
+
+
+def _check_world_launches(tag: str, cfg, cell: dict, ranks: list[dict], steps: int) -> None:
+    for r in ranks:
+        want = _par_expected(cfg, cell, r["coords"]["stage"], steps)
+        if r["launches"] != want:
+            raise AssertionError(f"{tag} rank {r['coords']}: launches {r['launches']} "
+                                 f"!= {want}")
 
 
 def _pipe_table(session):
@@ -4757,78 +4931,133 @@ def _pipe_kwargs(cfg, plan, table, dev) -> dict:
                 stages=make_pipeline_stages(plan.pp, dev), n_micro=plan.n_micro)
 
 
-def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
-    """MegaDPP on the card.  (1) Full-width, full-depth qwen2-0.5b trained
-    :data:`PIPE_STEPS` steps through ``Session`` at pp 2, 2 chunks, 4
-    microbatches, the planner's wave (``--modules scan,metrics,dpp
-    --trace-out``): K1 and K2 launched exactly as :func:`per_step_launches`
-    counts for 4 microbatches, for the steps and the flop count's pass;
-    losses finite and falling; ``pp_F`` and ``pp_B`` events, 16 a step
-    each, on stage pids 0 and 1; the ``dpp`` report's keys;
-    ``results["parallel"]`` the plan's summary.  (2) The pipelined loss
-    and gradients of one batch against the fused ones (:func:`step_check`
-    at the step check's limits).  (3) MegaFBD attached: 2 steps with
-    ``parallel.fbd_backward`` and without, losses and updated master
-    weights bit-identical; then ``make_decoupled_step`` over the pipelined
-    loss, its gradients bit-identical to ``torch.autograd.grad``'s, also
-    with the residuals moved to host memory and back, ``fwd`` and ``bwd``
-    timed with CUDA events.  (4) rwkv6-3b at full width cut to
-    :data:`PIPE_RWKV_LAYERS` layers through the pipeline: K5 launched
-    exactly, losses falling, the pipelined loss of one batch within
-    ``RWKV_STEP_LOSS_TOL`` of the fused one.  (5) The four schedules and
-    the fused step at the qwen2 shape, full depth: each table's T and
-    bubble fraction, the median step and the peak memory."""
+def _plan_of(argv: list[str]):
+    """The ``ParallelPlan`` a command line resolves to (MegaDPP's planner for
+    ``wave``), without running it."""
+    from repro_torch.app.cli import parse
+    from repro_torch.app.session import Session
+
+    _, rc = parse(argv)
+    return Session(rc).parallel_plan()
+
+
+def _median_ms(history: list[dict], skip: int = 1) -> float:
+    return 1e3 * statistics.median(h["step_s"] for h in history[skip:])
+
+
+def _check_losses(tag: str, history: list[dict]) -> None:
+    for h in history:
+        log(f"[{tag}] step {h['step']} loss={h['loss']:.4f} lr={h['lr']:.3e} "
+            f"grad_norm={h['grad_norm']:.4f} step_ms={1e3 * h['step_s']:.1f}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} losses not finite and falling: {losses}")
+
+
+def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline", also: tuple = ()) -> list:
+    """MegaDPP on the card, each stage a process: the runs of (1), (3), (4)
+    and (5) share one world of two ranks spawned on the card (gloo), each
+    through ``python -m repro_torch``'s ``Session``, with every rank's
+    kernel launches counted.  (1) Full-width, full-depth qwen2-0.5b
+    trained :data:`PIPE_STEPS` steps at pp 2, 2 chunks, 4 microbatches,
+    the planner's wave (``--modules scan,metrics,dpp --trace-out``): each
+    rank's K1 and K2 launches exact (:func:`_par_expected`), losses finite
+    and falling, ``pp_F`` and ``pp_B`` events, 16 a step each, on stage
+    pids 0 and 1, the ``dpp`` report's keys, ``results["parallel"]`` the
+    plan's summary on its mesh; one pipelined step of one process under
+    the profiler.  The world runs the jobs ``also`` after its own (the
+    parallel phase's 2-rank cells, which share its start-up), and the
+    phase returns their rows.  (2) The pipelined loss and gradients of one batch, one
+    process, against the fused ones (:func:`step_check` at the step
+    check's limits).  (3) MegaFBD attached: 2 steps with
+    ``parallel.fbd_backward`` (each stage's backward on the other stage's
+    process) and without, losses and every rank's updated master weights
+    bit-identical; then ``make_decoupled_step`` over the pipelined loss in
+    one process, its gradients bit-identical to ``torch.autograd.grad``'s,
+    also with the residuals moved to host memory and back, ``fwd`` and
+    ``bwd`` timed with CUDA events.  (4) rwkv6-3b at full width cut to
+    :data:`PIPE_RWKV_LAYERS` layers through the pipeline: K5 and K1
+    launched exactly on each rank, losses falling, the pipelined loss of
+    one batch within ``RWKV_STEP_LOSS_TOL`` of the fused one.  (5) The
+    four schedules and the fused step (one process) at the qwen2 shape,
+    full depth: each table's T and bubble fraction, the median step and
+    the peak memory per rank."""
     import collections
 
-    from repro_torch.core.dpp.executor import bubble_fraction
+    from repro_torch.core.dpp.executor import bubble_fraction, build_time_table
     from repro_torch.core.fbd import make_decoupled_step
     from repro_torch.core.tracing import from_chrome
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import flash_attention, rmsnorm, wkv6
+    from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.models import lm
     from repro_torch.models import pipeline as pl
-    from repro_torch.parallel.plan import plan_summary
+    from repro_torch.parallel.plan import forward_order, plan_summary
     from repro_torch.train.optim import leaves
-    from repro_torch.train.train_step import compute_params, to_device_batch
+    from repro_torch.train.train_step import (
+        compute_params, init_train_state, to_device_batch)
 
-    kernels = (flash_attention, rmsnorm)
+    kernels = ("flash_attention", "rmsnorm")
     out_dir = RUNTIME_DIR / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
-
-    # (1) qwen2-0.5b through the Session
+    cfg = get_config("qwen2-0.5b")
+    cell = dict(pp=PIPE["pp"], n_micro=PIPE["n_micro"])
     shape = dict(TRAIN, steps=PIPE_STEPS)
-    argv = [*_pipe_argv(shape, "wave", "scan,metrics,dpp"),
-            "--trace-out", str(out_dir / "pipeline.json")]
-    log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
-    session, state, history, counts, peak = _counted_session(torch, argv, kernels)
-    cfg = session.model_cfg
-    plan, table = _pipe_table(session)
+    main_argv = [*_pipe_argv(shape, "wave", "scan,metrics,dpp"),
+                 "--trace-out", str(out_dir / "pipeline.json")]
+    fbd_argv = _pipe_argv(dict(TRAIN, steps=PIPE_FBD_STEPS), "wave", "none")
+    rcfg = get_config("rwkv6-3b").replace(num_layers=PIPE_RWKV_LAYERS, remat="full")
+    rwkv_argv = _pipe_argv(PIPE_RWKV, "1f1b", "none", arch="rwkv6-3b")
+    sweep = dict(TRAIN, steps=PIPE_SWEEP_STEPS)
+    sweep_argv = {s: _pipe_argv(sweep, s, "none") for s in PIPE_SCHEDULES}
+    for argv in (main_argv, rwkv_argv, *sweep_argv.values()):
+        log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
+    jobs = [dict(argv=main_argv, kernels=kernels),
+            dict(argv=fbd_argv, kernels=kernels, keep=True),
+            dict(argv=[*fbd_argv, "--set", "parallel.fbd_backward=true"],
+                 kernels=kernels, compare=True),
+            dict(argv=rwkv_argv, kernels=("wkv6", "rmsnorm"), model_cfg=rcfg),
+            *(dict(argv=a, kernels=kernels) for a in sweep_argv.values())]
+    runs = _world([*jobs, *also], PIPE["pp"], tag)
+    main_run, fbd_off, fbd_on, rwkv_run, *sweep_runs = runs[:len(jobs)]
+
+    # (1) qwen2-0.5b through the Session, a stage a process
+    history = main_run[0]["history"]
+    plan = _plan_of(main_argv)
+    table = build_time_table(forward_order(plan), plan.pp, plan.n_chunks,
+                             plan.n_micro_local)
     data, ocfg = _train_setup(cfg, shape)
-    steady = sorted(h["step_s"] for h in history[1:])
-    profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2],
-                       plan=plan)
-    del state
-    torch.cuda.empty_cache()
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers in {plan.pp} stages x "
         f"{plan.n_chunks} chunks ({cfg.num_layers // (plan.pp * plan.n_chunks)} a cell), "
         f"{plan.n_micro} microbatches of {data.global_batch // plan.n_micro} rows, "
         f"schedule {plan.schedule} wave {plan.wave}: T={table.steps}, bubble fraction "
-        f"{bubble_fraction(table)!r}")
-    _check_train(tag, cfg, data, history, counts, PIPE_STEPS + 1, peak,
-                 n_micro=plan.n_micro)
+        f"{bubble_fraction(table)!r}; launches per rank "
+        + "; ".join(f"{r['coords']}: {r['launches']}" for r in main_run)
+        + f"; peak per rank {[r['peak'] for r in main_run]} B")
+    _check_losses(tag, history)
+    _check_world_launches(tag, cfg, cell, main_run, PIPE_STEPS)
+    step_ms = _median_ms(history)
+    log(f"[{tag}] median step (steps 2-{PIPE_STEPS}) {step_ms:.1f} ms, "
+        f"{data.seq_len * data.global_batch / step_ms * 1e3:.1f} tokens/s; first step "
+        f"{1e3 * history[0]['step_s']:.1f} ms ({smi})")
+    state = init_train_state(cfg, seed=0, device=dev)
+    profile_train_step(torch, cfg, ocfg, data, state, f"{tag}-one-process",
+                       step_ms / 1e3, plan=plan)
+    del state
+    _free(torch)
     events = from_chrome(json.loads((out_dir / "pipeline.json").read_text()))
     per_step = plan.n_micro * plan.n_chunks * plan.pp
     for name in ("pp_F", "pp_B"):
         evs = [e for e in events if e.name == name]
         by_step = collections.Counter(e.args["step"] for e in evs)
-        ranks = sorted({e.rank for e in evs})
-        log(f"[{tag}] {name} events a step {dict(by_step)}, stage pids {ranks}")
-        if by_step != {s: per_step for s in range(PIPE_STEPS)} or ranks != [0, 1]:
-            raise AssertionError(f"{tag}: {name} events {dict(by_step)} on pids {ranks}")
-    res = session.results
-    want = {**plan_summary(plan), "stages": [str(resolve_device(dev))] * plan.pp}
+        pids = sorted({e.rank for e in evs})
+        log(f"[{tag}] {name} events a step {dict(by_step)}, stage pids {pids}")
+        if by_step != {s: per_step for s in range(PIPE_STEPS)} or pids != [0, 1]:
+            raise AssertionError(f"{tag}: {name} events {dict(by_step)} on pids {pids}")
+    res = main_run[0]["results"]
+    want = {**plan_summary(plan), "stages": [0, 1],
+            "mesh": {"stage": plan.pp, "data": 1, "model": 1},
+            "coords": {"stage": 0, "data": 0, "model": 0}, "backend": "gloo"}
     log(f"[{tag}] dpp report {res['dpp']}; parallel {res['parallel']}")
     if res["parallel"] != want:
         raise AssertionError(f"{tag}: results['parallel'] {res['parallel']} != {want}")
@@ -4843,22 +5072,19 @@ def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
                tols=(STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL), pipeline=pipe_kw)
 
     # (3) MegaFBD's decoupled backward attached to the pipelined step
-    fbd_shape = dict(TRAIN, steps=PIPE_FBD_STEPS)
-    base = _pipe_argv(fbd_shape, "wave", "none")
-    _, st_f, hist_f, c_f, _ = _counted_session(torch, base, kernels)
-    _, st_d, hist_d, c_d, _ = _counted_session(
-        torch, [*base, "--set", "parallel.fbd_backward=true"], kernels)
-    losses_f, losses_d = [h["loss"] for h in hist_f], [h["loss"] for h in hist_d]
-    bad = [".".join(p) for (p, a), (_, b) in zip(leaves(st_f.master), leaves(st_d.master))
-           if not torch.equal(a, b)]
-    n_leaves = len(list(leaves(st_f.master)))
-    del st_f, st_d
-    torch.cuda.empty_cache()
-    log(f"[{tag}-fbd] {PIPE_FBD_STEPS} steps fused {losses_f!r}, decoupled {losses_d!r}; "
-        f"master leaves differing {bad or 'none'} of {n_leaves}; launches fused {c_f}, "
-        f"decoupled {c_d}")
-    if losses_f != losses_d or bad or c_f != c_d:
+    losses_f = [h["loss"] for h in fbd_off[0]["history"]]
+    losses_d = [h["loss"] for h in fbd_on[0]["history"]]
+    bad = sorted({k for r in fbd_on for k in r["differing"]})
+    n_leaves = len(fbd_on[0]["digest"])
+    log(f"[{tag}-fbd] {PIPE_FBD_STEPS} steps, a stage a process: without MegaFBD "
+        f"{losses_f!r}, with it {losses_d!r}; master leaves differing on a rank "
+        f"{bad or 'none'} of {n_leaves}; launches per rank without "
+        + "; ".join(str(r["launches"]) for r in fbd_off) + ", with "
+        + "; ".join(str(r["launches"]) for r in fbd_on))
+    if losses_f != losses_d or bad:
         raise AssertionError(f"{tag}-fbd: the decoupled pipelined steps differ from the fused")
+    _check_world_launches(f"{tag}-fbd", cfg, cell, fbd_off, PIPE_FBD_STEPS)
+    _check_world_launches(f"{tag}-fbd", cfg, dict(cell, fbd=True), fbd_on, PIPE_FBD_STEPS)
     params = compute_params(lm.init(cfg, seed=0, device=dev), torch.bfloat16)
     batch = to_device_batch(SyntheticTokens(data).batch_at(0), dev)
     flat = [p for _, p in leaves(params)]
@@ -4888,7 +5114,8 @@ def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
         bad = [".".join(p) for (p, g), r in zip(leaves(grads), ref) if not torch.equal(g, r)]
         bad += [] if torch.equal(loss, ref_loss) else ["loss"]
         del grads, res_
-        log(f"[{tag}-fbd] decoupled pipelined loss{' after the host round trip' if host else ''}: "
+        log(f"[{tag}-fbd] decoupled pipelined loss, one process"
+            f"{', after the host round trip' if host else ''}: "
             f"fwd {ev[0].elapsed_time(ev[1]):.2f} ms, bwd {ev[2].elapsed_time(ev[3]):.2f} ms "
             f"(CUDA events; {smi}); residual_bytes {nbytes}; round trip "
             f"{1e3 * moved:.1f} ms; leaves differing from autograd.grad {bad or 'none'} "
@@ -4896,21 +5123,18 @@ def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
         if bad:
             raise AssertionError(f"{tag}-fbd: decoupled gradients differ: {bad}")
     del params, flat, ref
-    torch.cuda.empty_cache()
+    _free(torch)
 
     # (4) rwkv6-3b through the pipeline
-    rcfg = get_config("rwkv6-3b").replace(num_layers=PIPE_RWKV_LAYERS, remat="full")
     rdata, _ = _train_setup(rcfg, PIPE_RWKV)
-    argv = _pipe_argv(PIPE_RWKV, "1f1b", "none", arch="rwkv6-3b")
-    log(f"[{tag}-rwkv] python -m repro_torch {' '.join(argv)} (depth cut to "
-        f"{PIPE_RWKV_LAYERS} layers)")
-    session, state, history, counts, peak = _counted_session(
-        torch, argv, (wkv6, rmsnorm), model_cfg=rcfg)
-    del state
-    torch.cuda.empty_cache()
-    rplan, rtable = _pipe_table(session)
-    _check_train(f"{tag}-rwkv", rcfg, rdata, history, counts, PIPE_RWKV["steps"], peak,
-                 n_micro=rplan.n_micro)
+    rplan = _plan_of(rwkv_argv)
+    rtable = build_time_table(forward_order(rplan), rplan.pp, rplan.n_chunks,
+                              rplan.n_micro_local)
+    log(f"[{tag}-rwkv] depth cut to {PIPE_RWKV_LAYERS} layers; launches per rank "
+        + "; ".join(f"{r['coords']}: {r['launches']}" for r in rwkv_run))
+    _check_losses(f"{tag}-rwkv", rwkv_run[0]["history"])
+    _check_world_launches(f"{tag}-rwkv", rcfg, dict(pp=rplan.pp, n_micro=rplan.n_micro),
+                          rwkv_run, PIPE_RWKV["steps"])
     params = compute_params(lm.init(rcfg, seed=0, device=dev), torch.bfloat16)
     batch = to_device_batch(SyntheticTokens(rdata).batch_at(PIPE_RWKV["steps"]), dev)
     with torch.no_grad():
@@ -4918,40 +5142,407 @@ def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline") -> None:
         piped = pl.pipeline_loss(rcfg, params, batch,
                                  **_pipe_kwargs(rcfg, rplan, rtable, dev))[0].item()
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
     log(f"[{tag}-rwkv] one batch: pipelined loss {piped!r}, fused {fused!r}, "
         f"|dloss|={abs(piped - fused):.2e} (tol {RWKV_STEP_LOSS_TOL})")
     if not abs(piped - fused) <= RWKV_STEP_LOSS_TOL:
         raise AssertionError(f"{tag}-rwkv: pipelined loss {piped} vs fused {fused}")
 
-    # (5) the four schedules and the fused step at the qwen2 shape
-    sweep = dict(TRAIN, steps=PIPE_SWEEP_STEPS)
-    runs = [("fused", [*_train_argv(sweep), "--modules", "none"])] + [
-        (s, _pipe_argv(sweep, s, "none")) for s in PIPE_SCHEDULES]
-    for name, argv in runs:
-        session, state, history, counts, peak = _counted_session(torch, argv, kernels)
-        del state
-        torch.cuda.empty_cache()
-        ms = [1e3 * h["step_s"] for h in history[1:]]
-        n_micro, what = 1, "fused step (no pipeline)"
-        if name != "fused":
-            plan, table = _pipe_table(session)
-            n_micro = plan.n_micro
-            what = (f"schedule {name} (wave {plan.wave}): T={table.steps}, bubble fraction "
-                    f"{bubble_fraction(table)!r}")
-        want = {k: PIPE_SWEEP_STEPS * v
-                for k, v in per_step_launches(cfg, n_micro).items() if k in counts}
-        log(f"[{tag}-schedules] {what}; median step (steps 2-{PIPE_SWEEP_STEPS}) "
-            f"{statistics.median(ms):.1f} ms ({min(ms):.1f}-{max(ms):.1f}); "
-            f"max_memory_allocated={peak}; launches {counts} ({smi})")
-        if counts != want:
-            raise AssertionError(f"{tag}-schedules {name}: launches {counts} != {want}")
+    # (5) the four schedules, a stage a process, and the fused step
+    for m in (flash_attention, rmsnorm):
+        m.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, (state, history) = _session([*_train_argv(sweep), "--modules", "none"])
+    torch.cuda.synchronize()
+    counts = {**flash_attention.launches, **rmsnorm.launches}
+    del state
+    _free(torch)
+    ms = [1e3 * h["step_s"] for h in history[1:]]
+    log(f"[{tag}-schedules] fused step (one process, no pipeline); median step (steps "
+        f"2-{PIPE_SWEEP_STEPS}) {statistics.median(ms):.1f} ms ({min(ms):.1f}-"
+        f"{max(ms):.1f}); max_memory_allocated={torch.cuda.max_memory_allocated()}; "
+        f"launches {counts} ({smi})")
+    if counts != {k: PIPE_SWEEP_STEPS * v for k, v in per_step_launches(cfg).items()}:
+        raise AssertionError(f"{tag}-schedules fused: launches {counts}")
+    for (name, argv), ranks in zip(sweep_argv.items(), sweep_runs):
+        splan = _plan_of(argv)
+        stable = build_time_table(forward_order(splan), splan.pp, splan.n_chunks,
+                                  splan.n_micro_local)
+        ms = [1e3 * h["step_s"] for h in ranks[0]["history"][1:]]
+        log(f"[{tag}-schedules] schedule {name} (wave {splan.wave}), a stage a process: "
+            f"T={stable.steps}, bubble fraction {bubble_fraction(stable)!r}; median step "
+            f"(steps 2-{PIPE_SWEEP_STEPS}) {statistics.median(ms):.1f} ms ({min(ms):.1f}-"
+            f"{max(ms):.1f}); max_memory_allocated per rank {[r['peak'] for r in ranks]}; "
+            f"launches per rank {[r['launches'] for r in ranks]} ({smi})")
+        _check_world_launches(f"{tag}-schedules {name}", cfg, cell, ranks, PIPE_SWEEP_STEPS)
+    return runs[len(jobs):]
 
 
 # -------------------------------------------------------------------- main
 
 
+# ------------------------------- data, tensor and stage parallelism (item 8b)
+
+# qwen2-0.5b at full width and all 24 layers in worlds of ranks spawned on
+# the one card (gloo: the ranks share it), 3 steps at seq 2048 (past
+# attn_kv_chunk: K2 runs) from the parameters of seed 0: dp 2 and tp 2 at
+# batch 2, the pipelines at batch 4 in 4 microbatches of a row (two a dp
+# group in pp 2 x dp 2), so that 1f1b reaches its steady state
+PAR_SHAPE = dict(seq_len=2048, global_batch=2, steps=3, seed=0)
+PAR_PIPE_BATCH = 4
+PAR_CELLS = (
+    ("dp2", dict(dp=2), ["--set", "parallel.dp=2"]),
+    ("tp2", dict(tp=2), ["--set", "parallel.tp=2"]),
+    ("pp2-fbd", dict(pp=2, n_micro=4, fbd=True),
+     ["--pp", "2", "--pp-schedule", "1f1b", "--n-micro", "4",
+      "--set", "parallel.fbd_backward=true"]),
+    ("pp2-dp2", dict(pp=2, dp=2, n_micro=4),
+     ["--pp", "2", "--pp-schedule", "1f1b", "--n-micro", "4", "--set", "parallel.dp=2"]),
+)
+
+
+def _par_shape(cell: dict) -> dict:
+    return (dict(PAR_SHAPE, global_batch=PAR_PIPE_BATCH) if cell.get("pp", 1) > 1
+            else PAR_SHAPE)
+
+
+class _StepRecorder:
+    """On a rank of a world: the time of the world's all-reduces (between two
+    synchronisations of the card, which the tensor split's many small ones
+    slow a little), and each step's per-layer leaf gradient norms, squared
+    (:func:`_leaf_norms`' leaves, at AdamW's entry, after the sums over the
+    data ranks), of this rank's part.  With ``check``, each step's
+    reference: before the step every rank sends rank 0 its part of the
+    compute-dtype parameters (the step info's ``gather``), rank 0 takes the
+    fused one-process loss and gradients of the step's whole batch from
+    them through the kernels (their launches kept out of the counts), and
+    the ranks meet at a barrier; ``check_s`` is the time that took on this
+    rank, inside the step's time, and ``peak`` the rank's peak memory over
+    its steps, the reference's left out.  With ``first``, the rank's first step
+    runs under Python's profiler (``first_profile``: the 10 functions that
+    took the most time of their own, and the 10 that took the most in all)."""
+
+    def __init__(self, check: bool = False, first: bool = False):
+        self.check, self.first = check, first
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.kernels import flash_attention, rmsnorm
+        from repro_torch.models.model import get_model
+        from repro_torch.parallel import dist as pdist
+        from repro_torch.train import loop
+        from repro_torch.train import train_step as ts
+
+        self.norms, self.refs, self.check_s, self.sync_s, self.peak = [], [], [], 0.0, 0
+        self.first_profile = None if self.first else ""
+        self._undo = []
+
+        def adamw(ocfg, grads, *a, _real=ts.adamw_update, **kw):
+            self.norms.append({k: v.double().square().cpu()
+                               for k, v in _leaf_norms(grads, "attn").items()})
+            return _real(ocfg, grads, *a, **kw)
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.sync_s += time.perf_counter() - t0
+                return out
+            return call
+
+        def reference(cfg, params: dict, batch: dict, tp: int) -> tuple:
+            saved = [(m, dict(m.launches)) for m in (flash_attention, rmsnorm)]
+            params = ts.tree_map(lambda t: t.detach().requires_grad_(True), params)
+            dev = next(iter(ts.leaves(params)))[1].device
+            batch = ts.to_device_batch(batch, dev)
+            out = []
+            for run in ("kernels",) + (("plain", "split") if tp > 1 else ()):
+                if run == "split":
+                    loss = _split_loss(torch, cfg, params, batch, tp)
+                else:
+                    loss, _ = get_model(cfg).loss_fn(cfg, params, batch,
+                                                     plain=run == "plain")
+                grads = ts.grad_tree(params, loss, ts.unused_leaves(cfg))
+                out.append((loss.item(), ts.global_norm(grads).item(),
+                            {k: v.cpu() for k, v in _leaf_norms(grads, "attn").items()}))
+                del loss, grads
+            for m, counts in saved:
+                m.launches.update(counts)
+            return tuple(out)
+
+        def make(cfg, *a, _real=loop.make_train_step, **kw):
+            step = _real(cfg, *a, **kw)
+
+            def checked(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if self.check:
+                    whole = step.parallel.gather(state.params)
+                    if whole is not None:
+                        self.refs.append(reference(cfg, whole, batch,
+                                                   step.parallel.plan.tp))
+                    del whole
+                    dist.barrier()
+                    # the rank's own peak, without the reference's
+                    torch.cuda.reset_peak_memory_stats()
+                self.check_s.append(time.perf_counter() - t0)
+                if self.first_profile is not None:
+                    out = step(state, batch)
+                else:  # a new rank's first step, under the Python profiler
+                    prof = cProfile.Profile()
+                    out = prof.runcall(step, state, batch)
+                    torch.cuda.synchronize()
+                    text = io.StringIO()
+                    for key in ("tottime", "cumulative"):
+                        pstats.Stats(prof, stream=text).sort_stats(key).print_stats(10)
+                    self.first_profile = text.getvalue()
+                self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+                return out
+
+            checked.parallel = step.parallel
+            checked.pipeline = getattr(step, "pipeline", None)
+            return checked
+
+        patches = [(ts, "adamw_update", adamw),
+                   *((pdist, n, timed(getattr(pdist, n))) for n in
+                     ("all_reduce_tree", "all_reduce_scalar", "_all_reduce_f32"))]
+        patches.append((loop, "make_train_step", make))
+        for mod, name, new in patches:
+            self._undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, old in self._undo:
+            setattr(mod, name, old)
+
+
+def _split_loss(torch, cfg, params: dict, batch: dict, tp: int) -> "torch.Tensor":
+    """The loss of ``cfg`` (dense GQA blocks) with Megatron's tensor split
+    over ``tp`` ranks done in one process, as ``models.pipeline``'s tp block
+    sums it: each block's attention and MLP run once per tensor slice of
+    their weights (the slices ``weights.shard_params`` gives tensor rank
+    ``t``), their float32 output products summed over the slices and
+    rounded once; each slice reads the norm's output through a view of its
+    own, so its input gradient sums within the slice first, as on its
+    rank.  The fused step's arithmetic with the tensor split's order of
+    sums: what a tp run should reproduce."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.pipeline import _tp_local_cfg, head_loss, pipeline_layout, tp_slices
+    from repro_torch.train.optim import tree_map
+
+    layout = pipeline_layout(cfg, 1, 1, tp=tp)
+    dims = {path[2:]: d - 1 for path, d in tp_slices(lm.param_axes(cfg), layout).items()}
+    local = _tp_local_cfg(cfg, tp)
+    x = L.embed_apply(params, cfg, batch["tokens"], getattr(torch, cfg.compute_dtype))
+    positions = L.arange_positions(x.shape[1], x.device)
+
+    def part(p: dict, sub: str, t: int) -> dict:
+        return {k: v.chunk(tp, dims[(sub, k)])[t].contiguous() if (sub, k) in dims else v
+                for k, v in p[sub].items()}
+
+    for i in range(cfg.num_layers):
+        bp = tree_map(lambda a: a[i], params[layout.seg_key])["b0"]
+        h = L.norm_apply(bp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+        a = sum(L.gqa_apply(part(bp, "attn", t), local, h.view_as(h), positions=positions,
+                            out_float32=True) for t in range(tp))
+        x = lm._resid(cfg, x, a.to(x.dtype))
+        h = L.norm_apply(bp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+        f = sum(L.mlp_apply(part(bp, "mlp", t), local, h.view_as(h), out_float32=True)
+                for t in range(tp))
+        x = lm._resid(cfg, x, f.to(x.dtype))
+    return head_loss(cfg, params, x, batch)[0]
+
+
+def _whole_norms(torch, cfg, cell: dict, ranks: list[dict], k: int) -> dict:
+    """Step ``k``'s per-layer leaf gradient norms of the whole model from
+    the squared norms of the ranks' parts: the ranks of data 0; a stage's
+    rows of a layer-stacked leaf at its cells' layers; a tensor-sliced leaf
+    summed over the tensor ranks, any other from tensor rank 0."""
+    from repro_torch.models import lm
+    from repro_torch.models.pipeline import pipeline_layout, tp_slices
+
+    pp, tp = cell.get("pp", 1), cell.get("tp", 1)
+    layout = pipeline_layout(cfg, pp, 1, tp=tp)
+    sliced = {".".join(p) for p in tp_slices(lm.param_axes(cfg), layout)} if tp > 1 else set()
+    g = layout.groups_per_cell
+    sq: dict = {}
+    for r in ranks:
+        at = r["coords"]
+        if at["data"]:
+            continue
+        for key, v in r["norms"][k].items():
+            if at["model"] and key not in sliced:
+                continue
+            if pp > 1 and key.startswith("seg"):
+                whole = sq.setdefault(key, torch.zeros(layout.n_groups, dtype=torch.float64))
+                rows = [(c * pp + at["stage"]) * g + j
+                        for c in range(layout.n_chunks) for j in range(g)]
+                whole[rows] += v
+            else:
+                sq[key] = sq[key] + v if key in sq else v.clone()
+    return {key: v.sqrt() for key, v in sq.items()}
+
+
+def _size(cell: dict) -> int:
+    return cell.get("pp", 1) * cell.get("dp", 1) * cell.get("tp", 1)
+
+
+def _parallel_jobs() -> dict[int, list]:
+    """``{world size: [(name, cell, job)]}`` of :data:`PAR_CELLS`, the jobs
+    :func:`_world_rank` runs, each step checked."""
+    out: dict[int, list] = {}
+    for name, cell, extra in PAR_CELLS:
+        job = dict(argv=[*_train_argv(_par_shape(cell)), "--modules", "none", *extra],
+                   kernels=("flash_attention", "rmsnorm"), check=True)
+        out.setdefault(_size(cell), []).append((name, cell, job))
+    return dict(sorted(out.items()))
+
+
+def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = None) -> None:
+    """Data, tensor and stage parallelism through ``python -m repro_torch``'s
+    own entry point, each cell's ranks spawned on the one card: (a) dp 2,
+    (b) tp 2 (K2 at H 7, K 1 a rank), (c) pp 2 with each stage a process,
+    1f1b, MegaFBD's backward on the other stage's process, (d) pp 2 x dp
+    2.  Every step is held at the qwen2 step limits to the fused
+    one-process step from the same parameters (:class:`_StepRecorder`'s
+    reference): loss, gradient norm and per-layer leaf gradient norms.
+    Each rank's K1 and K2 launches must be exact, and ranks that hold the
+    same part of the model (data replicas) must end with the same master
+    weights.  Logs the backend, each cell's step median beside the fused
+    step's at its batch (a fused run of one process through the
+    ``Session``, whose trajectory the cell's is logged against) and the
+    share of its steps spent in all-reduces.  ``done``: ``{world size: the
+    rows of its cells}`` of worlds already run (:func:`pipeline_phase`'s
+    world runs the 2-rank cells)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[{tag}] {smi}; compute mode {mode}; ranks spawned on cuda:0 share it")
+    cfg = get_config("qwen2-0.5b")
+    steps = PAR_SHAPE["steps"]
+    done = done or {}
+    fused = {}
+    for batch in sorted({_par_shape(c)["global_batch"] for _, c, _ in PAR_CELLS}):
+        _free(torch)
+        for m in (flash_attention, rmsnorm):
+            m.reset_launches()
+        argv = [*_train_argv(dict(PAR_SHAPE, global_batch=batch)), "--modules", "none"]
+        _, (state, hist) = _session(argv)
+        torch.cuda.synchronize()
+        del state
+        _free(torch)
+        counts = {**flash_attention.launches, **rmsnorm.launches}
+        if counts != _par_expected(cfg, {}, 0, steps):
+            raise AssertionError(f"{tag} fused launches {counts}")
+        fused[batch] = hist
+        log(f"[{tag}] fused (one process) at batch {batch}: losses "
+            + " ".join(f"{h['loss']:.5f}" for h in hist)
+            + " grad_norms " + " ".join(f"{h['grad_norm']:.5f}" for h in hist)
+            + f"; step median {_median_ms(hist):.1f} ms")
+    runs = {}
+    for world, cells in _parallel_jobs().items():
+        for n, _, job in cells:
+            log(f"[{tag}] {n}: python -m repro_torch {' '.join(job['argv'])}")
+        rows = done[world] if world in done else _world([j for _, _, j in cells], world, tag)
+        for (n, _, _), ranks in zip(cells, rows):
+            runs[n] = ranks
+    loss_tol, gnorm_rtol, leaf_rtol = STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL
+    for name, cell, _ in PAR_CELLS:
+        ranks = runs[name]
+        hist, refs = ranks[0]["history"], ranks[0]["refs"]
+        backends = {r["backend"] for r in ranks}
+        if backends != {"gloo"}:
+            raise AssertionError(f"{tag} {name}: backends {backends}, the rule says gloo")
+        _check_world_launches(f"{tag} {name}", cfg, cell, ranks, steps)
+        if len(refs) != steps or any(len(r["norms"]) != steps for r in ranks):
+            raise AssertionError(f"{tag} {name}: {len(refs)} references for {steps} steps")
+        ok = all(math.isfinite(h["loss"]) for h in hist)
+        def gaps(a, b):
+            (la, ga, na), (lb, gb, nb) = a, b
+            d = {n: ((na[n] - v).abs() / v).max().item() for n, v in nb.items()}
+            worst = max(d, key=d.get)
+            return abs(la - lb), abs(ga - gb) / gb, worst, d[worst]
+
+        def held(what: str, got: tuple, ref: tuple) -> bool:
+            d_loss, d_gn, worst, d_worst = gaps(got, ref)
+            good = d_loss <= loss_tol and d_gn <= gnorm_rtol and d_worst <= leaf_rtol
+            log(f"[{tag}] {name} step {k + 1}, {what}: |dloss|={d_loss:.2e} (tol "
+                f"{loss_tol}) rel dgrad_norm={d_gn:.2e} (tol {gnorm_rtol}) largest leaf "
+                f"{worst}={d_worst:.2e} (tol {leaf_rtol}) {'ok' if good else 'FAIL'}")
+            return good
+
+        for k, (h, (ref_k, *tp_refs)) in enumerate(zip(hist, refs)):
+            norms = _whole_norms(torch, cfg, cell, ranks, k)
+            if set(norms) != set(ref_k[2]):
+                raise AssertionError(f"{tag} {name}: leaves {sorted(norms)} != "
+                                     f"{sorted(ref_k[2])}")
+            got = (h["loss"], h["grad_norm"], norms)
+            log(f"[{tag}] {name} step {k + 1}: loss {h['loss']:.5f}, the fused kernel "
+                f"step's from the same parameters {ref_k[0]:.5f}")
+            if tp_refs:
+                # tp: held to the fused step with the split's order of sums
+                # at every step, to the unsplit one at the first (the
+                # parameters every run starts from); later steps' gaps to
+                # the unsplit one logged beside the fused plain step's, a
+                # change of rounding of the same size
+                ref_p, split = tp_refs
+                c_loss, c_gn, c_worst, c_d = gaps(ref_p, ref_k)
+                log(f"[{tag}] {name} step {k + 1}, the fused plain step against the "
+                    f"fused kernel step (logged): |dloss|={c_loss:.2e} rel dgrad_norm="
+                    f"{c_gn:.2e} largest leaf {c_worst}={c_d:.2e}")
+                ok = held("against the fused kernel step with the tensor split's "
+                          "sums (one process)", got, split) and ok
+                if k == 0:
+                    ok = held("against the fused kernel step", got, ref_k) and ok
+                else:
+                    d_loss, d_gn, worst, d_worst = gaps(got, ref_k)
+                    log(f"[{tag}] {name} step {k + 1}, against the fused kernel step "
+                        f"(logged): |dloss|={d_loss:.2e} rel dgrad_norm={d_gn:.2e} largest "
+                        f"leaf {worst}={d_worst:.2e}")
+            else:
+                ok = held("against the fused kernel step", got, ref_k) and ok
+        replicas: dict = {}
+        for r in ranks:
+            replicas.setdefault((r["coords"]["stage"], r["coords"]["model"]), []).append(
+                r["digest"])
+        apart = [k for k, ds in replicas.items() if any(d != ds[0] for d in ds[1:])]
+        ok = ok and not apart
+        ref = fused[_par_shape(cell)["global_batch"]]
+        step_ms = [1e3 * (h["step_s"] - c) for h, c in zip(hist, ranks[0]["check_s"])]
+        busy = sum(step_ms) / 1e3
+        log(f"[{tag}] {name}: {_size(cell)} ranks, backend gloo; data replicas "
+            f"{'apart at ' + str(apart) if apart else 'agree'}; against the fused "
+            "run's trajectory (parameters that moved apart after step 1) |dloss| "
+            + " ".join(f"{abs(a['loss'] - b['loss']):.2e}" for a, b in zip(hist, ref)))
+        log(f"[{tag}] {name}: step median {statistics.median(step_ms[1:]):.1f} ms (fused "
+            f"{_median_ms(ref):.1f} ms at batch {_par_shape(cell)['global_batch']}), "
+            "steps " + " ".join(f"{t:.1f}" for t in step_ms)
+            + f" ms (the reference's {1e3 * sum(ranks[0]['check_s']):.1f} ms taken out); "
+            f"rank 0 all-reduce share {ranks[0]['sync_s'] / busy:.3f} "
+            f"({1e3 * ranks[0]['sync_s']:.1f} of {1e3 * busy:.1f} ms); launches per rank "
+            + "; ".join(f"{r['coords']}: {r['launches']}" for r in ranks)
+            + f"; peak per rank {[r['peak'] for r in ranks]} B")
+        if not ok:
+            raise AssertionError(f"{tag} {name}: the parallel step disagrees with the fused one")
+
+
 def main() -> int:
+    # where the environment turns bytecode caches off (PYTHONDONTWRITEBYTECODE),
+    # every spawned rank would compile its imports from source again: keep
+    # this run's compiled bytecode under build/pycache, where the ranks find
+    # what this process imported
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(REPO / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
     import torch
 
     if not torch.cuda.is_available():
@@ -5054,7 +5645,8 @@ def main() -> int:
     serve_config(torch, "phi3.5-moe-42b-a6.6b", smi, layers=PHI_SERVE_LAYERS)
     phase("serve-moe: phi3.5-moe at 8 of 32 layers")
     serve_mla(torch, smi)
-    phase("serve-mla: deepseek-v2-lite at all 27 layers on the gathered path")
+    phase(f"serve-mla: deepseek-v2-lite at {MLA_SERVE_LAYERS} of 27 layers on the "
+          "gathered path")
     serve_encdec(torch, smi)
     phase("serve-encdec: seamless-m4t at all 48 layers, static, and its replays")
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
@@ -5081,8 +5673,12 @@ def main() -> int:
     phase("scope: probes and perturbations through the qwen2 train step")
     fbd_phase(torch, dev, smi)
     phase("fbd: the decoupled forward and backward")
-    pipeline_phase(torch, dev, smi)
-    phase("pipeline: MegaDPP's pp = 2 step, MegaFBD attached, the schedules")
+    cells2 = _parallel_jobs()[2]
+    rows2 = pipeline_phase(torch, dev, smi, also=tuple(j for _, _, j in cells2))
+    phase("pipeline: MegaDPP's pp = 2 step, MegaFBD attached, the schedules; its "
+          "world also runs the parallel phase's 2-rank cells")
+    parallel_phase(torch, smi, done={2: rows2})
+    phase("parallel: dp 2, tp 2, pp 2 in two processes with MegaFBD, pp 2 x dp 2")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,
     # rmsnorm_fwd 2*2L + 1 = 129, rmsnorm_bwd 2L + 1 = 65

@@ -4,6 +4,8 @@
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3 \\
         --pp 2 --n-micro 4 --pp-schedule wave --set parallel.n_chunks=2 --modules dpp
+    python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 3 \\
+        --set parallel.dp=2 --set parallel.tp=2          # 4 spawned ranks
     python -m repro_torch train --arch qwen2-0.5b --smoke --device cpu --steps 8 \\
         --set train.seq_len=64 --modules scan,metrics --trace-out t.json \\
         --metrics-out m.jsonl --ckpt-dir ckpt --ckpt-every 4
@@ -70,9 +72,9 @@ _SHARED = [
 
 _TRAIN = [
     ("--pp", "parallel.pp", dict(
-        type=int, help="pipeline stages (>1 routes blocks through MegaDPP; "
-                       "every stage on the one device, dp/tp > 1 are ROADMAP "
-                       "item 8b)")),
+        type=int, help="pipeline stages (>1 routes blocks through MegaDPP, "
+                       "each stage a process: the CLI spawns pp*dp*tp ranks "
+                       "with parallel.dp/tp, or joins torchrun's)")),
     ("--pp-schedule", "parallel.schedule", dict(
         choices=("1f1b", "dfc", "bfc", "wave"))),
     ("--n-micro", "parallel.n_micro", dict(

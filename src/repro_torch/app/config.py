@@ -53,9 +53,11 @@ class TrainSection:
 class ParallelSection:
     """Parallelization plan for the train workload (``parallel.*``).
 
-    ``pp > 1`` routes the block stack through the MegaDPP pipeline executor,
-    every stage on the run's one device (the card, or the CPU with
-    ``--device cpu``); ``schedule`` picks the traversal
+    ``pp * dp * tp > 1`` trains in a world of that many ranks (spawned by
+    ``Session``, or ``torchrun``'s): ``dp`` splits the batch, ``tp`` runs
+    Megatron's split of dense GQA blocks, and ``pp > 1`` routes the block
+    stack through the MegaDPP pipeline executor, each stage a process
+    (on the card, or the CPU with ``--device cpu``); ``schedule`` picks the traversal
     (``1f1b``/``dfc``/``bfc``/``wave``), ``n_micro`` the microbatches a step
     (0 = 2*pp), ``n_chunks`` the virtual chunks a stage, and ``wave=0``
     with ``schedule=wave`` lets the MegaDPP planner choose the wave width
@@ -63,7 +65,6 @@ class ParallelSection:
     decoupled backward to the pipelined step (at pp = 1 it changes nothing,
     as in the JAX package).  ``train.grad_accum > 1`` stacks macrobatch
     accumulation on top: each accumulation is one full pipeline pass.
-    ``dp``/``tp`` > 1 are refused, naming ROADMAP item 8b.
     """
 
     dp: int = 1

@@ -11,24 +11,28 @@ A Session owns the pieces every entry point shares:
 * the shared **trace export** (``run_cfg.trace_out``: a chrome trace, or
   the JSONL stream for a ``.jsonl`` path) for every workload.
 
-Workloads: ``train`` (the train loop on one device; with ``parallel.pp >
-1`` through MegaDPP's pipeline, every stage on that device, MegaFBD's
-decoupled backward attached by ``parallel.fbd_backward``), ``serve``
+Workloads: ``train`` (the train loop; with ``parallel.pp``, ``dp`` or
+``tp`` > 1 in a world of ``pp * dp * tp`` ranks, spawned here unless this
+process already joined one (``torchrun``): the batch split over ``data``,
+Megatron's tensor split over ``model``, each MegaDPP pipeline stage a
+process, MegaFBD's decoupled backward on the next stage's process under
+``parallel.fbd_backward``), ``serve``
 (MegaServe continuous batching, every single-engine path and MegaScope
 probes included, behind MegaRoute's router for several replicas, a
 disaggregated fleet, SLO admission or a placement policy, under Poisson,
 bursty or diurnal traffic; or the static lockstep baseline), ``trace``
 (offline MegaScan: simulate/load -> align -> detect, host only).  What the
 port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: meshes, data and tensor parallelism (item 8b), the compile cache
-(item 12b), online detection and rank events (item 9) and ``dryrun`` (item
-14b).
+item: the compile cache (item 12b), online detection and rank events
+(item 9) and ``dryrun`` (item 14b).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any, Callable
@@ -48,6 +52,49 @@ def _later(what: str, item: str) -> NotImplementedError:
         f"{what} is ported in a later slice (ROADMAP queue 1, {item})")
 
 
+def pick_mesh(spec: str):
+    """Shared mesh selection over the ranks of this process's world, JAX's
+    ``pick_mesh``: ``auto`` picks the production mesh when the world holds
+    its 256 ranks, else a host mesh; ``host`` / ``pod1`` / ``pod2`` force a
+    shape; ``auto-mp`` asks for the two-pod shape (JAX's forces host
+    devices to fall back on; a world cannot grow to it, so a smaller one
+    raises).  A mesh larger than the world raises a ``ValueError`` naming
+    both counts; a world of one rank with no process group has no host
+    mesh (None)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.parallel.dist import world_size
+
+    if spec == "host":
+        return make_host_mesh()
+    if spec == "pod1":
+        return make_production_mesh(multi_pod=False)
+    if spec in ("pod2", "auto-mp"):
+        return make_production_mesh(multi_pod=True)
+    if spec == "auto":
+        if world_size() >= 256:
+            return make_production_mesh(multi_pod=False)
+        return make_host_mesh()
+    raise ValueError(f"unknown mesh spec {spec!r}")
+
+
+def _rank_main(run_cfg: RunConfig, model_cfg) -> dict:
+    """One rank of a spawned world: the Session run in place.  Rank 0 hands
+    back its workload's history, results and trace events; every rank its
+    device and mesh coordinates."""
+    from repro_torch.parallel.dist import world
+
+    session = Session(run_cfg, model_cfg=model_cfg)
+    _, history = session.run()
+    w = world()
+    info = {"rank": w.rank, "device": str(w.device),
+            "coords": session.results["parallel"]["coords"]}
+    if w.rank:
+        return {"rank": info}
+    results = {k: v for k, v in session.results.items() if k != "history"}
+    return {"rank": info, "history": history, "results": results,
+            "events": session.tracer.events}
+
+
 class Session:
     """One configured run: plugins + device + config, with a uniform
     lifecycle.  ``run()`` dispatches on ``run_cfg.workload``, then
@@ -62,7 +109,14 @@ class Session:
         model_cfg=None,
     ):
         from repro_torch.core.tracing.tracer import Tracer
+        from repro_torch.parallel import dist as pdist
 
+        if pdist.world() is not None and pdist.world().rank or (
+                pdist.world() is None and pdist.under_torchrun()
+                and int(os.environ["RANK"])):
+            # in a world, rank 0 alone writes the run's files
+            run_cfg = copy.deepcopy(run_cfg)
+            run_cfg.trace_out = run_cfg.obs.metrics_out = run_cfg.obs.prom_out = ""
         self.run_cfg = run_cfg
         # an explicit ModelConfig (e.g. a depth cut) wins over the registry
         self.model_cfg = model_cfg
@@ -76,6 +130,15 @@ class Session:
         # resolved (and checked for a card) when a workload runs on it; the
         # trace workload runs on the host only
         self.device = torch.device(run_cfg.runtime.device)
+        par = run_cfg.parallel
+        self.world_size = (par.pp * par.dp * par.tp
+                           if run_cfg.workload == "train" else 1)
+        # this Session spawns the world's ranks and runs in none of them
+        # (a rank's own Session does the work and sets up its plugins)
+        self.spawns = (self.world_size > 1 and pdist.world() is None
+                       and not pdist.under_torchrun())
+        if pdist.world() is not None:
+            self.device = pdist.world().device
         # plugin-claimable resources, with inert defaults: no scan plugin ->
         # disabled tracer, no scope plugin -> null collector, no metrics
         # plugin -> no registry (the loops then publish nothing)
@@ -84,7 +147,7 @@ class Session:
         self.metrics_registry = None
         self.results: dict[str, Any] = {}
         self.plugins = (
-            plugins if plugins is not None
+            [] if self.spawns else plugins if plugins is not None
             else build_plugins(run_cfg.modules, run_cfg)
         )
         for p in self.plugins:
@@ -140,7 +203,26 @@ class Session:
 
     # ----------------------------------------------------------- dispatch
     def run(self):
-        """Run the configured workload, then finalize plugins."""
+        """Run the configured workload, then finalize plugins.  A Session
+        that spawns its world runs the workload on its ranks and takes rank
+        0's results, trace events and history (``(None, history)``: the
+        state stays with the ranks), and every rank's device and
+        coordinates under ``results["parallel"]["ranks"]``."""
+        from repro_torch.parallel import dist as pdist
+
+        if pdist.world() is None and pdist.under_torchrun() and self.world_size > 1:
+            pdist.join_from_env(self.run_cfg.runtime.device)
+            self.device = pdist.world().device
+        if self.spawns:
+            self._train_checks()
+            ranks = pdist.spawn(_rank_main, (self.run_cfg, self.model_cfg),
+                                self.world_size, device=self.run_cfg.runtime.device)
+            self._finalized = True
+            self.results = ranks[0]["results"]
+            self.results["parallel"]["ranks"] = [r["rank"] for r in ranks]
+            self.results["history"] = ranks[0]["history"]
+            self.tracer.events = ranks[0]["events"]
+            return None, ranks[0]["history"]
         fn = {
             "train": self.train,
             "serve": self.serve,
@@ -168,11 +250,8 @@ class Session:
         rc = self.run_cfg
         par = rc.parallel
         if rc.mesh not in ("auto", "host"):
-            raise _later(f"mesh {rc.mesh!r}", "item 8b")
-        if par.dp > 1 or par.tp > 1:
-            raise _later(
-                f"data and tensor parallelism (dp={par.dp}, tp={par.tp})",
-                "item 8b")
+            # a production mesh needs its ranks: smaller worlds raise here
+            pick_mesh(rc.mesh)
         if par.fbd_backward and par.pp <= 1:
             # as in JAX, where the plan is None at pp = 1 and the decoupled
             # backward attaches only to the pipeline step (ROADMAP R5)
@@ -184,12 +263,12 @@ class Session:
                          "obs.slow_rank)", "item 9")
 
     def parallel_plan(self):
-        """Resolve the ``parallel`` section into a ``ParallelPlan`` (pp > 1)
-        or ``None`` (the plain step).  Wave resolution — ``schedule=wave``
-        with ``wave=0`` — runs MegaDPP's planner under the ``dpp`` section's
-        memory cap."""
+        """Resolve the ``parallel`` section into a ``ParallelPlan`` (pp, dp
+        or tp > 1) or ``None`` (the plain step).  Wave resolution —
+        ``schedule=wave`` with ``wave=0`` — runs MegaDPP's planner under the
+        ``dpp`` section's memory cap."""
         par = self.run_cfg.parallel
-        if par.pp <= 1:
+        if par.pp <= 1 and par.dp <= 1 and par.tp <= 1:
             return None
         from repro_torch.parallel.plan import ParallelPlan, resolve_plan
 
@@ -203,13 +282,12 @@ class Session:
             memory_cap_gib=self.run_cfg.dpp.memory_cap_gib,
         )
 
-    def train(self):
-        """The training workload: returns ``(state, history)``."""
-        from repro_torch.data.pipeline import DataConfig
-        from repro_torch.train.loop import LoopConfig, refuse_embeds, train
-        from repro_torch.train.optim import OptimizerConfig
+    def _train_checks(self):
+        """The train workload's configuration checks, made before any rank
+        starts: ``(seq, batch, schedule, plan)``."""
+        from repro_torch.train.loop import refuse_embeds
 
-        rc, t = self.run_cfg, self.run_cfg.train
+        t = self.run_cfg.train
         cfg = self.model_cfg
         if cfg is None:
             raise ValueError("train workload needs an --arch")
@@ -219,6 +297,44 @@ class Session:
         if batch % max(t.grad_accum, 1):
             raise ValueError(f"global batch {batch} not divisible by "
                              f"train.grad_accum={t.grad_accum}")
+        plan = self.parallel_plan()
+        if plan is not None:
+            ga = max(1, t.grad_accum)
+            # per-axis divisibility: the batch first splits into grad_accum
+            # macrobatches, each macrobatch into n_micro microbatches (pp >
+            # 1) or into dp shards
+            if plan.pp > 1 and (batch // ga) % plan.n_micro != 0:
+                raise ValueError(
+                    f"per-accumulation batch {batch // ga} (global {batch} "
+                    f"/ grad_accum {ga}) not divisible by "
+                    f"parallel.n_micro={plan.n_micro}"
+                )
+            if (batch // ga) % plan.dp != 0:
+                raise ValueError(
+                    f"per-accumulation batch {batch // ga} (global {batch} "
+                    f"/ grad_accum {ga}) not divisible by parallel.dp={plan.dp}")
+            if plan.pp > 1 or plan.tp > 1:
+                from repro_torch.models.pipeline import pipeline_layout
+
+                if plan.pp == 1 and plan.tp > 1:
+                    from repro_torch.train.train_step import _dense_gqa
+
+                    if not _dense_gqa(cfg):
+                        raise _later(f"{cfg.name}: tensor parallelism at pp=1 "
+                                     "over other than dense GQA blocks", "item 8c")
+                pipeline_layout(cfg, plan.pp, plan.n_chunks if plan.pp > 1 else 1,
+                                tp=plan.tp)
+        return seq, batch, schedule, plan
+
+    def train(self):
+        """The training workload: returns ``(state, history)``."""
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.train.loop import LoopConfig, train
+        from repro_torch.train.optim import OptimizerConfig
+
+        rc, t = self.run_cfg, self.run_cfg.train
+        cfg = self.model_cfg
+        seq, batch, schedule, plan = self._train_checks()
         data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                           global_batch=batch)
         ocfg = OptimizerConfig(
@@ -234,30 +350,34 @@ class Session:
             grad_accum=t.grad_accum,
             seed=rc.seed,
         )
-        plan = self.parallel_plan()
+        mesh = None
         if plan is not None:
             from repro_torch.core.dpp.executor import make_pipeline_stages
+            from repro_torch.launch.mesh import make_pipeline_mesh, mesh_axes
+            from repro_torch.parallel import dist as pdist
             from repro_torch.parallel.plan import plan_summary
 
-            # per-axis divisibility: the batch first splits into grad_accum
-            # macrobatches, each macrobatch into n_micro microbatches
-            ga = max(1, loop.grad_accum)
-            if (batch // ga) % plan.n_micro != 0:
-                raise ValueError(
-                    f"per-accumulation batch {batch // ga} (global {batch} "
-                    f"/ grad_accum {ga}) not divisible by "
-                    f"parallel.n_micro={plan.n_micro}"
-                )
-            stages = make_pipeline_stages(plan.pp, self.device)
+            # a plan runs in its world: run() spawned it or joined torchrun's
+            w = pdist.world()
+            if w is None or w.size != plan.world:
+                raise ValueError(f"a pp={plan.pp} x dp={plan.dp} x tp={plan.tp} "
+                                 f"plan needs {plan.world} ranks, the world "
+                                 f"has {pdist.world_size()}")
+            mesh = make_pipeline_mesh(plan.pp, plan.dp, plan.tp)
+            coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            stages = (make_pipeline_stages(plan.pp, mesh=mesh) if plan.pp > 1
+                      else [w.rank])
+            log.info("rank %d of %d: %s", w.rank, w.size, coords)
             self.results["parallel"] = {
-                **plan_summary(plan), "stages": [str(d) for d in stages],
+                **plan_summary(plan), "stages": stages,
+                "mesh": mesh_axes(mesh), "coords": coords, "backend": w.backend,
             }
         log.info("arch=%s device=%s tokens/step=%d", cfg.name, self.device,
                  batch * seq)
         state, history = train(
             cfg, ocfg, data, loop, collector=self.collector, tracer=self.tracer,
             hooks=self.step_hooks(), registry=self.metrics_registry,
-            device=self.device, plan=plan,
+            device=self.device, plan=plan, mesh=mesh,
         )
         self.results["train_config"] = {
             "seq_len": seq, "global_batch": batch, "grad_accum": t.grad_accum,

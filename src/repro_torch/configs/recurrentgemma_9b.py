@@ -3,9 +3,9 @@
 Griffin recipe [arXiv:2402.19427]: the block pattern (rec, rec, attn), two
 RG-LRU recurrent blocks per local-attention block, local window 2048, conv1d
 width 4, lru_width = d_model, GeGLU MLP; 38 layers = 12 full groups + 2
-trailing rec blocks.  The same values as ``repro.configs.recurrentgemma_9b``
-without its ``sharding_overrides``, which place the recurrence on a TPU mesh
-and mean nothing on one card.
+trailing rec blocks.  The same values as ``repro.configs.recurrentgemma_9b``,
+its ``sharding_overrides`` included (``parallel.profiles.rules_for`` reads
+them).
 """
 
 from repro_torch.configs.base import GriffinConfig, ModelConfig, register
@@ -25,6 +25,16 @@ CONFIG = ModelConfig(
                           pattern=("rec", "rec", "attn"), c=8.0),
     rope_theta=10000.0,
     supports_long_context=True,
+    # the batch takes the model axis where it divides (a device-local
+    # recurrence); otherwise the size-aware resolver leaves model free and
+    # seq_act claims it (the JAX package's state-passing context parallelism)
+    sharding_overrides={
+        "train": {
+            "batch": ("pod", "data", "model"),
+            "seq_act": ("model",),
+            "seq": ("model",),
+        },
+    },
     notes="RG-LRU + local attention 1:2; O(1) recurrent state + 2048-window KV.",
 )
 

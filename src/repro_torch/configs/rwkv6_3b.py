@@ -1,9 +1,9 @@
 """rwkv6-3b [ssm] — Finch: 32L d_model=2560 (attn-free) d_ff=8960 vocab=65536.
 
 RWKV-6 with data-dependent decay [arXiv:2404.05892].  head_size=64 -> 40 WKV
-heads.  The same values as ``repro.configs.rwkv6_3b`` without its
-``sharding_overrides``, which place the recurrence on a TPU mesh and mean
-nothing on one card.
+heads.  The same values as ``repro.configs.rwkv6_3b``, its
+``sharding_overrides`` included (``parallel.profiles.rules_for`` reads
+them).
 """
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig, register
@@ -20,6 +20,16 @@ CONFIG = ModelConfig(
     vocab_size=65536,
     rwkv=RWKVConfig(head_size=64, ddlerp_rank=32, decay_rank=64),
     supports_long_context=True,
+    # the batch takes the model axis where it divides (a device-local
+    # recurrence); otherwise the size-aware resolver leaves model free and
+    # seq_act claims it (the JAX package's state-passing context parallelism)
+    sharding_overrides={
+        "train": {
+            "batch": ("pod", "data", "model"),
+            "seq_act": ("model",),
+            "seq": ("model",),
+        },
+    },
     notes="Attention-free; MegaScope attention views replaced by WKV state probes.",
 )
 

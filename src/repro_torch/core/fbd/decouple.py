@@ -16,6 +16,18 @@ its index.  ``bwd`` runs ``torch.autograd.grad`` through unpack hooks that
 read ``residuals.tensors`` as they are then: moved to the host and back,
 or to another device, the backward reads the moved copies.
 
+A backward instance in another process gets ``(params, batch, residuals,
+ct)`` over the group, ``residuals`` holding only the tensors: its ``bwd``
+rebuilds the graph, as JAX's ``bwd`` re-derives the vjp and applies the
+residuals.  It reruns the forward under the same hooks (the saves come in
+the same order, each once) and the unpack hooks read the received
+tensors in place of the recomputed ones, so the gradients are the
+in-process ``bwd``'s, bit for bit, also where the forward is not
+deterministic.  Where it is, the rerun's own residuals already equal the
+forward instance's: the pipeline executor (``core.dpp.executor``) sends
+the backward instance only a cell's input and calls ``fwd`` then ``bwd``
+there, with no residual transfer.
+
 Under remat (``torch.utils.checkpoint``) a checkpointed layer's own saves
 go to checkpoint's inner hooks and are recomputed in the backward; what
 the layer keeps for that recompute, its inputs, checkpoint saves through
@@ -99,15 +111,23 @@ def make_decoupled_step(
         return res._loss.detach(), res
 
     def bwd(params, batch, residuals: Residuals, ct):
-        """``params`` are the leaves ``fwd`` ran on: on one device the
-        backward instance's weights are the forward's.  ``params`` only
-        orders the gradient leaves and ``batch`` is not read: the backward
-        is the forward's own autograd graph, carried in ``residuals``.  Its
-        place is the pipelined train step (``parallel.fbd_backward`` at pp
-        > 1, ``train.train_step``), where it runs in the process that ran
-        ``fwd``.  Only the saved tensors move; a backward instance on
-        another stage's process needs the graph rebuilt there from the
-        residuals (ROADMAP item 8b)."""
+        """The gradients of ``params``.  ``residuals`` from this process's
+        ``fwd`` carry its graph: ``batch`` is not read and ``params`` only
+        orders the leaves (the weights ``fwd`` ran on).  ``residuals``
+        received from another process carry only their tensors: the graph
+        is rebuilt here from this process's ``params`` and ``batch`` (the
+        forward instance's values), reading those tensors."""
+        if residuals._loss is None:
+            received = residuals.tensors
+            residuals = fwd(params, batch)[1]
+            mine = residuals.tensors
+            if [(t.shape, t.dtype) for t in mine] != [(t.shape, t.dtype) for t in received]:
+                raise ValueError(
+                    f"{len(received)} residuals received do not match the "
+                    f"{len(mine)} this forward saves")
+            with torch.no_grad():
+                for t, r in zip(mine, received):  # in place: the saves' strides
+                    t.copy_(r)
         flat = [p for _, p in leaves(params)]
         loss, residuals._loss = residuals._loss, None
         grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, ct)))

@@ -49,10 +49,10 @@ from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
 
 def cross_attn_init(b: L.ParamBuilder, cfg: ModelConfig) -> None:
     D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b.param("wq", (D, H, dh), fan_in=D)
-    b.param("wk", (D, K, dh), fan_in=D)
-    b.param("wv", (D, K, dh), fan_in=D)
-    b.param("wo", (H, dh, D), fan_in=H * dh,
+    b.param("wq", (D, H, dh), ("embed_w", "heads_w", "head_dim_w"), fan_in=D)
+    b.param("wk", (D, K, dh), ("embed_w", "kv_heads_w", "head_dim_w"), fan_in=D)
+    b.param("wv", (D, K, dh), ("embed_w", "kv_heads_w", "head_dim_w"), fan_in=D)
+    b.param("wo", (H, dh, D), ("heads_w", "head_dim_w", "embed_w"), fan_in=H * dh,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
 
 
@@ -146,12 +146,24 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     b = L.ParamBuilder(gen, dev, cast=lm.cast_as_drawn(dtype))
+    _build(b, cfg)
+    return b.params
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axis names of every leaf of :func:`init`'s tree (JAX
+    ``encdec.param_axes``), built on the ``meta`` device."""
+    b = L.ParamBuilder(None, torch.device("meta"))
+    _build(b, cfg)
+    return b.axes
+
+
+def _build(b: L.ParamBuilder, cfg: ModelConfig) -> None:
     L.embed_init(b, cfg)
     L.norm_init(b, "enc_final_norm", cfg.d_model, cfg.norm_kind)
     L.norm_init(b, "final_norm", cfg.d_model, cfg.norm_kind)
     enc_block_init(b.sub("encoder", lead=(cfg.num_encoder_layers,)), cfg)
     dec_block_init(b.sub("decoder", lead=(cfg.num_layers,)), cfg)
-    return b.params
 
 
 def _stack(stacked: dict, x: torch.Tensor, body, site: str, collector: Collector,

@@ -50,12 +50,12 @@ from repro_torch.models.scan_utils import causal_conv1d, lru_scan
 
 def rglru_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     W = cfg.lru_width
-    b.param("w_a", (W, W), fan_in=W)
-    b.param("b_a", (W,), init="zeros")
-    b.param("w_i", (W, W), fan_in=W)
-    b.param("b_i", (W,), init="zeros")
+    b.param("w_a", (W, W), ("embed_w", "qkv"), fan_in=W)
+    b.param("b_a", (W,), ("qkv",), init="zeros")
+    b.param("w_i", (W, W), ("embed_w", "qkv"), fan_in=W)
+    b.param("b_i", (W,), ("qkv",), init="zeros")
     # Lambda init so that softplus gives decay in a useful range (Griffin A.2)
-    b.param("lam", (W,), init="uniform", scale=1.0)
+    b.param("lam", (W,), ("qkv",), init="uniform", scale=1.0)
 
 
 def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -85,12 +85,13 @@ def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def recurrent_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     D, W = cfg.d_model, cfg.lru_width
-    b.param("w_gate", (D, W), fan_in=D)
-    b.param("w_x", (D, W), fan_in=D)
-    b.param("conv_w", (cfg.griffin.conv_width, W), fan_in=cfg.griffin.conv_width)
-    b.param("conv_b", (W,), init="zeros")
+    b.param("w_gate", (D, W), ("embed_w", "qkv"), fan_in=D)
+    b.param("w_x", (D, W), ("embed_w", "qkv"), fan_in=D)
+    b.param("conv_w", (cfg.griffin.conv_width, W), ("conv", "qkv"), fan_in=cfg.griffin.conv_width)
+    b.param("conv_b", (W,), ("qkv",), init="zeros")
     rglru_init(b.sub("rglru"), cfg)
-    b.param("w_out", (W, D), fan_in=W, scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    b.param("w_out", (W, D), ("qkv", "embed_w"),
+            fan_in=W, scale=1.0 / math.sqrt(2 * cfg.num_layers))
 
 
 def recurrent_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

@@ -81,21 +81,34 @@ class ParamBuilder:
     drawn, so a cast tree is built without the float32 one beside it.
     The values differ from JAX's for the same seed; tests hand both sides the
     same weights through :mod:`repro_torch.models.weights`.
+
+    ``axes`` mirrors ``params`` with each leaf's logical axis names (JAX's
+    ``ParamBuilder.axes``; a stacked leaf leads with ``"layers"``), which
+    ``parallel.sharding`` resolves onto a mesh.  On the ``meta`` device
+    (``gen`` None) nothing is drawn: ``lm.param_axes`` builds the tree of
+    axes that way.
     """
 
-    def __init__(self, gen: torch.Generator, device: torch.device,
+    def __init__(self, gen: torch.Generator | None, device: torch.device,
                  lead: tuple[int, ...] = (), cast=None):
         self.gen = gen
         self.device = device
         self.lead = lead
         self.cast = cast  # (name, float32 leaf) -> the leaf kept, or None
         self.params: dict = {}
+        self.axes: dict = {}
 
-    def param(self, name: str, shape: tuple[int, ...], init: str = "normal",
+    def param(self, name: str, shape: tuple[int, ...],
+              axes: tuple[str | None, ...], init: str = "normal",
               fan_in: int | None = None, scale: float = 1.0,
               fill: float = 0.0) -> None:
+        assert len(shape) == len(axes), (name, shape, axes)
+        self.axes[name] = ("layers",) * len(self.lead) + tuple(axes)
         full = (*self.lead, *shape)
         kw = dict(dtype=torch.float32, device=self.device)
+        if self.gen is None:
+            self.params[name] = torch.empty(full, **kw)
+            return
         if init == "normal":
             fi = fan_in if fan_in is not None else shape[0]
             std = scale / math.sqrt(max(fi, 1))
@@ -115,6 +128,7 @@ class ParamBuilder:
     def sub(self, name: str, lead: tuple[int, ...] = ()) -> "ParamBuilder":
         child = ParamBuilder(self.gen, self.device, self.lead + lead, self.cast)
         self.params[name] = child.params
+        self.axes[name] = child.axes
         return child
 
 
@@ -127,9 +141,9 @@ def norm_init(b: ParamBuilder, name: str, dim: int, kind: str) -> None:
     if kind not in ("rmsnorm", "layernorm"):
         raise ValueError(f"unknown norm kind {kind!r}")
     s = b.sub(name)
-    s.param("scale", (dim,), init="ones")
+    s.param("scale", (dim,), ("embed_w",), init="ones")
     if kind == "layernorm":
-        s.param("bias", (dim,), init="zeros")
+        s.param("bias", (dim,), ("embed_w",), init="zeros")
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float, *,
@@ -195,18 +209,18 @@ def apply_mrope(x: torch.Tensor, position_ids: torch.Tensor,
 
 def gqa_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b.param("wq", (D, H, dh), fan_in=D)
-    b.param("wk", (D, K, dh), fan_in=D)
-    b.param("wv", (D, K, dh), fan_in=D)
-    b.param("wo", (H, dh, D), fan_in=H * dh,
+    b.param("wq", (D, H, dh), ("embed_w", "heads_w", "head_dim_w"), fan_in=D)
+    b.param("wk", (D, K, dh), ("embed_w", "kv_heads_w", "head_dim_w"), fan_in=D)
+    b.param("wv", (D, K, dh), ("embed_w", "kv_heads_w", "head_dim_w"), fan_in=D)
+    b.param("wo", (H, dh, D), ("heads_w", "head_dim_w", "embed_w"), fan_in=H * dh,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
     if cfg.qkv_bias:
-        b.param("bq", (H, dh), init="zeros")
-        b.param("bk", (K, dh), init="zeros")
-        b.param("bv", (K, dh), init="zeros")
+        b.param("bq", (H, dh), ("heads_w", "head_dim_w"), init="zeros")
+        b.param("bk", (K, dh), ("kv_heads_w", "head_dim_w"), init="zeros")
+        b.param("bv", (K, dh), ("kv_heads_w", "head_dim_w"), init="zeros")
     if cfg.qk_norm:
-        b.param("q_norm", (dh,), init="ones")
-        b.param("k_norm", (dh,), init="ones")
+        b.param("q_norm", (dh,), ("head_dim_w",), init="ones")
+        b.param("k_norm", (dh,), ("head_dim_w",), init="ones")
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -388,6 +402,7 @@ def gqa_apply(
     cache: dict | None = None,   # {"k", "v"}: [B, T, K, dh] bf16, in place
     cache_pos: int | None = None,
     mrope_position_ids: torch.Tensor | None = None,  # [3, B, S]
+    out_float32: bool = False,
 ) -> torch.Tensor:
     """The attention block.
 
@@ -447,7 +462,37 @@ def gqa_apply(
         o = _paged_attention_block(q, kk, vv, cfg, positions, pool, paged,
                                    scale, q_norm, k_norm, window, collector)
     wo = p["wo"].to(dt)
+    if out_float32:  # a tensor rank's part of the product (models.pipeline)
+        return matmul_float32(o.to(dt).reshape(B * S, H * dh),
+                              wo.reshape(H * dh, D)).reshape(B, S, D)
     return o.to(dt).reshape(B, S, H * dh) @ wo.reshape(H * dh, D)
+
+
+class _MatmulFloat32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dtype == torch.float32:
+            return a @ b
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b.T, a.T @ g
+
+
+def matmul_float32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` in ``a``'s dtype with a float32 result (the
+    product's float32 sums, not rounded to bf16).  Under tensor
+    parallelism each rank holds a part of K: the ranks' float32 parts sum to
+    what the whole product rounds once, as the fused step's bf16 product
+    does, where bf16 parts would be rounded twice.  The backward is the
+    bf16 product's, its cotangent in ``a``'s dtype."""
+    return _MatmulFloat32.apply(a, b)
 
 
 def _paged_attention_block(q, kk, vv, cfg, positions, pool, paged, scale,
@@ -501,13 +546,16 @@ def mla_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     m = cfg.mla
     D, H = cfg.d_model, cfg.num_heads
     dq = m.qk_nope_head_dim + m.qk_rope_head_dim
-    b.param("wq", (D, H, dq), fan_in=D)
-    b.param("wdkv", (D, m.kv_lora_rank), fan_in=D)
-    b.param("wkr", (D, m.qk_rope_head_dim), fan_in=D)
-    b.param("kv_norm", (m.kv_lora_rank,), init="ones")
-    b.param("wuk", (m.kv_lora_rank, H, m.qk_nope_head_dim), fan_in=m.kv_lora_rank)
-    b.param("wuv", (m.kv_lora_rank, H, m.v_head_dim), fan_in=m.kv_lora_rank)
-    b.param("wo", (H, m.v_head_dim, D), fan_in=H * m.v_head_dim,
+    b.param("wq", (D, H, dq), ("embed_w", "heads_w", "head_dim_w"), fan_in=D)
+    b.param("wdkv", (D, m.kv_lora_rank), ("embed_w", "kv_lora_w"), fan_in=D)
+    b.param("wkr", (D, m.qk_rope_head_dim), ("embed_w", "head_dim_w"), fan_in=D)
+    b.param("kv_norm", (m.kv_lora_rank,), ("kv_lora_w",), init="ones")
+    b.param("wuk", (m.kv_lora_rank, H, m.qk_nope_head_dim), ("kv_lora_w", "heads_w", "head_dim_w"),
+            fan_in=m.kv_lora_rank)
+    b.param("wuv", (m.kv_lora_rank, H, m.v_head_dim), ("kv_lora_w", "heads_w", "head_dim_w"),
+            fan_in=m.kv_lora_rank)
+    b.param("wo", (H, m.v_head_dim, D), ("heads_w", "head_dim_w", "embed_w"),
+            fan_in=H * m.v_head_dim,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
 
 
@@ -605,17 +653,19 @@ def mla_apply(
 def mlp_init(b: ParamBuilder, cfg: ModelConfig, d_ff: int | None = None) -> None:
     D, Fd = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        b.param("w_gate", (D, Fd), fan_in=D)
-    b.param("w_up", (D, Fd), fan_in=D)
-    b.param("w_down", (Fd, D), fan_in=Fd,
+        b.param("w_gate", (D, Fd), ("embed_w", "mlp_w"), fan_in=D)
+    b.param("w_up", (D, Fd), ("embed_w", "mlp_w"), fan_in=D)
+    b.param("w_down", (Fd, D), ("mlp_w", "embed_w"), fan_in=Fd,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
 
 
 def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
+              collector: Collector = NULL_COLLECTOR, *,
+              out_float32: bool = False) -> torch.Tensor:
     """SwiGLU, GeGLU (the tanh form of gelu, which ``jax.nn.gelu``
     computes by default) or the non-gated squared ReLU.  Tags the hidden
-    ``mlp_hidden``."""
+    ``mlp_hidden``.  ``out_float32``: the down product's float32 result
+    (:func:`matmul_float32`), a tensor rank's part of it."""
     dt = x.dtype
     h = x @ p["w_up"].to(dt)
     if cfg.mlp_kind == "relu2":
@@ -626,7 +676,12 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
         h = act * h
     else:
         raise ValueError(cfg.mlp_kind)
-    return collector.tag("mlp_hidden", h) @ p["w_down"].to(dt)
+    h = collector.tag("mlp_hidden", h)
+    if out_float32:
+        F_ = h.shape[-1]
+        return matmul_float32(h.reshape(-1, F_), p["w_down"].to(dt)).reshape(
+            *h.shape[:-1], -1)
+    return h @ p["w_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -637,10 +692,10 @@ def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def moe_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     D, mo = cfg.d_model, cfg.moe
     E, Fd = mo.num_experts, mo.expert_d_ff
-    b.param("router", (D, E), fan_in=D)
-    b.param("w_gate", (E, D, Fd), fan_in=D)
-    b.param("w_up", (E, D, Fd), fan_in=D)
-    b.param("w_down", (E, Fd, D), fan_in=Fd,
+    b.param("router", (D, E), ("embed_w", None), fan_in=D)
+    b.param("w_gate", (E, D, Fd), ("expert_w", "embed_w", "expert_mlp"), fan_in=D)
+    b.param("w_up", (E, D, Fd), ("expert_w", "embed_w", "expert_mlp"), fan_in=D)
+    b.param("w_down", (E, Fd, D), ("expert_w", "expert_mlp", "embed_w"), fan_in=Fd,
             scale=1.0 / math.sqrt(2 * cfg.num_layers))
     if mo.num_shared_experts:
         mlp_init(b.sub("shared"), cfg.replace(mlp_kind="swiglu"),
@@ -758,9 +813,11 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def embed_init(b: ParamBuilder, cfg: ModelConfig) -> None:
-    b.param("embedding", (cfg.padded_vocab, cfg.d_model), fan_in=cfg.d_model)
+    b.param("embedding", (cfg.padded_vocab, cfg.d_model), ("vocab_w", "embed_w"),
+            fan_in=cfg.d_model)
     if not cfg.tie_embeddings:
-        b.param("unembed", (cfg.d_model, cfg.padded_vocab), fan_in=cfg.d_model)
+        b.param("unembed", (cfg.d_model, cfg.padded_vocab), ("embed_w", "vocab_w"),
+                 fan_in=cfg.d_model)
 
 
 def embed_apply(p: dict, cfg: ModelConfig, tokens: torch.Tensor,

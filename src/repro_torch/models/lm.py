@@ -88,6 +88,20 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     b = L.ParamBuilder(gen, dev, cast=cast_as_drawn(dtype))
+    _build(b, cfg)
+    return b.params
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axis names of every leaf of :func:`init`'s tree (JAX
+    ``lm.param_axes``): stacked leaves lead with ``"layers"``.  Built on
+    the ``meta`` device, so nothing is drawn."""
+    b = L.ParamBuilder(None, torch.device("meta"))
+    _build(b, cfg)
+    return b.axes
+
+
+def _build(b: L.ParamBuilder, cfg: ModelConfig) -> None:
     L.embed_init(b, cfg)
     L.norm_init(b, "final_norm", cfg.d_model, cfg.norm_kind)
     for i, (kinds, n) in enumerate(segment_layout(cfg)):
@@ -104,7 +118,6 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
             L.norm_init(blk, "ln2", cfg.d_model, cfg.norm_kind)
             (L.mla_init if cfg.use_mla else L.gqa_init)(blk.sub("attn"), cfg)
             (L.moe_init if kind == "moe" else L.mlp_init)(blk.sub("mlp"), cfg)
-    return b.params
 
 
 def cast_as_drawn(dtype: torch.dtype | None):

@@ -4,6 +4,7 @@ families) and ``encdec.py`` (the encoder-decoder family).
 
     m = get_model(cfg)
     params = m.init(cfg, seed=0, device=..., dtype=...)
+    axes = m.param_axes(cfg)     # logical axis names, leaf by leaf
     loss, metrics = m.loss_fn(cfg, params, batch)
     cache = m.init_cache(cfg, batch_size, cache_len[, src_len], device=...)
     logits, captures = m.prefill(cfg, params, batch, cache)
@@ -31,12 +32,15 @@ class Model:
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
+    param_axes: Callable
 
 
 LM = Model(init=lm.init, loss_fn=lm.loss_fn, init_cache=lm.init_cache,
-           prefill=lm.prefill, decode_step=lm.decode_step)
+           prefill=lm.prefill, decode_step=lm.decode_step,
+           param_axes=lm.param_axes)
 ENCDEC = Model(init=encdec.init, loss_fn=encdec.loss_fn, init_cache=encdec.init_cache,
-               prefill=encdec.prefill, decode_step=encdec.decode_step)
+               prefill=encdec.prefill, decode_step=encdec.decode_step,
+               param_axes=encdec.param_axes)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -41,19 +41,19 @@ def time_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     dr = cfg.rwkv.decay_rank
     H = cfg.num_heads
     hs = cfg.rwkv.head_size
-    b.param("mu_x", (D,), init="zeros")
-    b.param("mu", (5, D), init="zeros")
-    b.param("w_mix1", (D, 5, r), fan_in=D)
-    b.param("w_mix2", (5, r, D), fan_in=r)
-    b.param("w_r", (D, D), fan_in=D)
-    b.param("w_k", (D, D), fan_in=D)
-    b.param("w_v", (D, D), fan_in=D)
-    b.param("w_g", (D, D), fan_in=D)
-    b.param("w_o", (D, D), fan_in=D, scale=1.0 / math.sqrt(2 * cfg.num_layers))
-    b.param("w0", (D,), init="const", fill=-5.0)
-    b.param("w_decay1", (D, dr), fan_in=D)
-    b.param("w_decay2", (dr, D), fan_in=dr)
-    b.param("u", (H, hs), init="normal", fan_in=hs)
+    b.param("mu_x", (D,), ("embed_w",), init="zeros")
+    b.param("mu", (5, D), (None, "embed_w"), init="zeros")
+    b.param("w_mix1", (D, 5, r), ("embed_w", None, None), fan_in=D)
+    b.param("w_mix2", (5, r, D), (None, None, "embed_w"), fan_in=r)
+    b.param("w_r", (D, D), ("embed_w", "qkv"), fan_in=D)
+    b.param("w_k", (D, D), ("embed_w", "qkv"), fan_in=D)
+    b.param("w_v", (D, D), ("embed_w", "qkv"), fan_in=D)
+    b.param("w_g", (D, D), ("embed_w", "qkv"), fan_in=D)
+    b.param("w_o", (D, D), ("qkv", "embed_w"), fan_in=D, scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    b.param("w0", (D,), ("embed_w",), init="const", fill=-5.0)
+    b.param("w_decay1", (D, dr), ("embed_w", None), fan_in=D)
+    b.param("w_decay2", (dr, D), (None, "embed_w"), fan_in=dr)
+    b.param("u", (H, hs), (None, None), init="normal", fan_in=hs)
     norm_init(b, "ln_x", D, "layernorm")  # per-head group norm scales
 
 
@@ -103,11 +103,12 @@ def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def channel_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
     D, Fd = cfg.d_model, cfg.d_ff
-    b.param("mu_k", (D,), init="zeros")
-    b.param("mu_r", (D,), init="zeros")
-    b.param("w_k", (D, Fd), fan_in=D)
-    b.param("w_v", (Fd, D), fan_in=Fd, scale=1.0 / math.sqrt(2 * cfg.num_layers))
-    b.param("w_r", (D, D), fan_in=D)
+    b.param("mu_k", (D,), ("embed_w",), init="zeros")
+    b.param("mu_r", (D,), ("embed_w",), init="zeros")
+    b.param("w_k", (D, Fd), ("embed_w", "mlp_w"), fan_in=D)
+    b.param("w_v", (Fd, D), ("mlp_w", "embed_w"),
+            fan_in=Fd, scale=1.0 / math.sqrt(2 * cfg.num_layers))
+    b.param("w_r", (D, D), ("embed_w", "qkv"), fan_in=D)
 
 
 def channel_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

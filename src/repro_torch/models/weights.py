@@ -3,8 +3,11 @@ the port's.
 
 Both sides keep the same nested-dict tree with the same leaf names, shapes
 and layouts (``lm.init`` or ``encdec.init`` in either package), so
-conversion is a copy of each leaf.  The JAX side's leaves cross as numpy arrays: this module imports
-neither JAX nor anything of ``repro``.
+conversion is a copy of each leaf.  The JAX side's leaves cross as numpy
+arrays: this module imports neither JAX nor anything of ``repro``.  Under
+tensor parallelism each rank holds its slice of that tree
+(:func:`shard_params`), and :func:`unshard_params` puts the whole tree back
+together.
 """
 
 from __future__ import annotations
@@ -97,3 +100,52 @@ def to_jax_train_state(state) -> dict:
     return {"params": np_tree(state.params), "master": np_tree(state.master),
             "opt": {"m": np_tree(state.opt["m"]), "v": np_tree(state.opt["v"]),
                     "step": np.int32(state.opt["step"])}}
+
+
+def shard_params(params: dict, layout, tp_rank: int, *, axes: dict) -> dict:
+    """Tensor rank ``tp_rank``'s part of the whole tree ``params`` under
+    ``layout.tp``: each leaf the Megatron split slices (``axes``:
+    ``lm.param_axes``; ``models.pipeline.tp_slices``) cut to its ``tp_rank``-th
+    of ``tp`` equal pieces along that dim, as a contiguous copy; every other
+    leaf shared as it is.  Each rank cuts the same ``from_jax_params`` (or
+    seeded) tree."""
+    from repro_torch.models.pipeline import tp_slices
+
+    dims = tp_slices(axes, layout)
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            p = (*path, k)
+            if isinstance(v, dict):
+                out[k] = walk(v, p)
+            elif p in dims:
+                out[k] = v.detach().chunk(layout.tp, dim=dims[p])[tp_rank].contiguous()
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, ())
+
+
+def unshard_params(shards: list[dict], layout, *, axes: dict) -> dict:
+    """The inverse of :func:`shard_params`: the whole tree from every tensor
+    rank's part (rank order); the leaves that are not sliced come from
+    rank 0's."""
+    from repro_torch.models.pipeline import tp_slices
+
+    dims = tp_slices(axes, layout)
+
+    def walk(trees, path):
+        out = {}
+        for k, v in trees[0].items():
+            p = (*path, k)
+            if isinstance(v, dict):
+                out[k] = walk([t[k] for t in trees], p)
+            elif p in dims:
+                out[k] = torch.cat([t[k] for t in trees], dim=dims[p])
+            else:
+                out[k] = v
+        return out
+
+    return walk(shards, ())

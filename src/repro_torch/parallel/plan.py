@@ -3,10 +3,11 @@ app, copied from ``repro.parallel.plan``.
 
 One frozen dataclass describes how a training run parallelizes:
 
-* ``dp`` / ``tp`` — the data / tensor degrees.  The port runs ``dp = tp =
-  1`` so far: ``Session`` and the pipeline train step refuse more, naming
-  ROADMAP item 8b (a torch ``DeviceMesh``, the logical-axis sharding rules
-  and tp inside each stage);
+* ``dp`` / ``tp`` — the data / tensor degrees: ``Session`` runs a plan in
+  a world of ``world = pp * dp * tp`` ranks on a (stage, data, model)
+  ``DeviceMesh`` (``launch.mesh.make_pipeline_mesh``), the batch split over
+  ``data`` and Megatron's tensor split of dense GQA blocks over ``model``
+  (``train.train_step``);
 * ``pp`` / ``n_micro`` / ``n_chunks`` / ``schedule`` / ``wave`` — the MegaDPP
   pipeline axis: how many stages, how the (microbatch, chunk) task matrix is
   traversed (``core.dpp.schedule``), and the wave width when the traversal is

@@ -141,6 +141,7 @@ def train(
     device: str | torch.device = "cuda",
     hooks: StepHooks | None = None,
     plan=None,
+    mesh=None,
     registry=None,
     obs=None,
     controller=None,
@@ -154,35 +155,56 @@ def train(
     before the first step.  ``collector`` (MegaScope) rides every step's
     loss; its captures reach ``hooks.on_step`` in the step's metrics.
     ``plan`` (a ``ParallelPlan``) with pp > 1 trains through the pipeline
-    step; each step's trace then holds its ``pp_F``/``pp_B`` events."""
+    step; each step's trace then holds its ``pp_F``/``pp_B`` events.
+    ``mesh`` (``launch.mesh.make_pipeline_mesh``) runs the plan on this
+    rank of a world (``train_step.make_train_step``): every rank draws the
+    whole master (or restores the whole state) and keeps the part it owns;
+    rank 0 alone logs and writes checkpoints, the whole tree gathered from
+    the ranks' parts; the step's flops are not counted (its work is
+    spread over the ranks)."""
     _refuse(compile_cache=(compile_cache, "item 12b"),
             obs=(obs, "item 9"), controller=(controller, "item 9"))
     refuse_embeds(cfg)
     dev = resolve_device(device)
     tracer = tracer or Tracer(rank=0, enabled=True)
     ds = SyntheticTokens(data_cfg)
-    if state is None:
-        with tracer.scope("init", op="init"):
-            state = init_train_state(cfg, seed=loop.seed, device=dev)
     step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum,
-                              collector=collector, plan=plan)
+                              collector=collector, plan=plan, mesh=mesh)
     pp_info = getattr(step_fn, "pipeline", None)
+    par_info = getattr(step_fn, "parallel", None)
+    lead = par_info is None or par_info.mesh.get_rank() == 0
     if hooks is not None and hooks.wrap_step is not None:
         step_fn = hooks.wrap_step(step_fn)
 
     start = 0
     ckpt = None
+    last = latest_step(loop.ckpt_dir) if loop.ckpt_dir else None
+    whole = True
+    if state is None:
+        with tracer.scope("init", op="init"):
+            if par_info is not None and last is None:
+                # this rank's part only, cut from the whole master
+                state = par_info.local_state(
+                    get_model(cfg).init(cfg, seed=loop.seed, device=dev))
+                whole = False
+            else:
+                state = init_train_state(cfg, seed=loop.seed, device=dev)
     if loop.ckpt_dir:
-        ckpt = Checkpointer(loop.ckpt_dir)
-        last = latest_step(loop.ckpt_dir)
+        ckpt = Checkpointer(loop.ckpt_dir) if lead else None
         if last is not None:
             state, _ = restore(loop.ckpt_dir, state)
             start = last
-            log.info("restored checkpoint at step %d", start)
+            if lead:
+                log.info("restored checkpoint at step %d", start)
+    if par_info is not None and whole:
+        state = par_info.shard_state(state)
 
     # the MFU numerator, once, only when someone will read the series
     flops = 0.0
-    if registry is not None:
+    if registry is not None and par_info is not None:
+        log.info("train.model_flops_per_s is not published across %d ranks",
+                 par_info.plan.world)
+    elif registry is not None:
         flops = step_flops(cfg, state, ds.batch_at(start),
                            pp_info.loss_fn if pp_info is not None else None)
         # the count imports and allocates a great many Python objects: a
@@ -214,10 +236,15 @@ def train(
                                   flops=flops, device=dev)
         if hooks is not None and hooks.on_step is not None:
             hooks.on_step(tracer.events[n_ev:], metrics)
-        if (step + 1) % max(loop.log_every, 1) == 0 or step == loop.n_steps - 1:
+        if lead and ((step + 1) % max(loop.log_every, 1) == 0
+                     or step == loop.n_steps - 1):
             log.info("step %d: loss=%.4f lr=%.2e", step + 1, loss, row["lr"])
-        if ckpt and (step + 1) % loop.ckpt_every == 0:
-            ckpt.save_async(state, step + 1, metadata={"arch": cfg.name})
+        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
+            # in a world, every rank sends its part and rank 0 saves the
+            # whole tree in the one-process format
+            saved = state if par_info is None else par_info.gather_state(state)
+            if ckpt:
+                ckpt.save_async(saved, step + 1, metadata={"arch": cfg.name})
     if ckpt:
         ckpt.wait()
     return state, history

@@ -91,10 +91,30 @@ def _square_sum(g: torch.Tensor) -> torch.Tensor:
     return sq.mul_(sq).sum()
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, *, sliced=frozenset(), reduce=None,
+                total=None) -> torch.Tensor:
     """sqrt of the float32 sums of squares, leaf by leaf in ``leaves`` order;
-    one leaf's float32 copy at a time."""
-    return torch.sqrt(sum(_square_sum(g) for _, g in leaves(tree)))
+    one leaf's float32 copy at a time.
+
+    In a world of ranks a rank holds a part of the model.  Under tensor
+    parallelism it holds a slice of the leaves whose paths are in
+    ``sliced`` and the whole of every other one: ``reduce`` (a sum over the
+    tensor ranks) adds the sliced leaves' squares of every rank, and the
+    replicated leaves, the same on every rank, count once.  ``total`` (a
+    sum over the pipeline stages) then adds the stages' disjoint parts.
+    So the norm is the whole model's and ``clip_norm`` clips as the fused
+    step does."""
+    if reduce is None and total is None:
+        return torch.sqrt(sum(_square_sum(g) for _, g in leaves(tree)))
+    dev = next(iter(leaves(tree)))[1].device
+    whole, part = [], []
+    for path, g in leaves(tree):
+        (part if path in sliced else whole).append(_square_sum(g))
+    zero = torch.zeros((), device=dev)
+    s = sum(whole) if whole else zero
+    if reduce is not None:
+        s = s + reduce(sum(part) if part else zero)
+    return torch.sqrt(s if total is None else total(s))
 
 
 def parent(tree: dict, path: tuple[str, ...]) -> dict:
@@ -106,8 +126,8 @@ def parent(tree: dict, path: tuple[str, ...]) -> dict:
 
 @torch.no_grad()
 def adamw_update(ocfg: OptimizerConfig, grads: dict, master: dict, opt: dict,
-                 on_leaf: Callable[[tuple[str, ...], torch.Tensor], None] | None = None
-                 ) -> dict:
+                 on_leaf: Callable[[tuple[str, ...], torch.Tensor], None] | None = None,
+                 norm: Callable[[dict], torch.Tensor] = global_norm) -> dict:
     """AdamW in place, leaf by leaf; returns ``stats``.
 
     ``master``, ``opt["m"]`` and ``opt["v"]`` are updated in place and
@@ -117,9 +137,11 @@ def adamw_update(ocfg: OptimizerConfig, grads: dict, master: dict, opt: dict,
     inside its own update and dropped from the tree once applied, so at
     most a few float32 temporaries of one leaf exist at a time; the JAX
     step gets the same effect by donating the state.  ``on_leaf(path,
-    master_leaf)`` runs after each leaf's update."""
+    master_leaf)`` runs after each leaf's update; ``norm`` is the clip's
+    global norm (:func:`global_norm` of the whole model under tensor
+    parallelism)."""
     step = opt["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = norm(grads)
     scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = ocfg.betas
     lr = schedule_lr(ocfg, step)

@@ -195,11 +195,8 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
 
 @pytest.mark.parametrize("argv,item", [
     (["train", "--modules", "scan,ft"], "item 9"),
-    (["train", "--pp", "2", "--set", "parallel.dp=2"], "item 8b"),
     (["train", "--detect-online"], "item 9"),
     (["train", "--compile-cache", "cc"], "item 12b"),
-    (["train", "--pp", "2", "--set", "parallel.tp=2"], "item 8b"),
-    (["train", "--multi-pod"], "item 8b"),
     (["train", "--set", "obs.rank_events=true"], "item 9"),
     (["dryrun"], "item 14b"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
@@ -207,6 +204,28 @@ def test_later_slices_are_refused_with_their_item(argv, item):
     with pytest.raises(SystemExit, match=re.escape(item)):
         cli.main([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
                   *argv[1:]])
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--pp", "2", "--set", "parallel.dp=2"],
+    ["train", "--pp", "2", "--set", "parallel.tp=2"],
+    ["train", "--multi-pod"],
+], ids=lambda v: "-".join(v))
+def test_item_8b_argv_train_or_name_the_missing_ranks(argv):
+    """What item 8b refused runs now: the composed plans train in their
+    spawned ranks and report ``results["parallel"]``; ``--multi-pod`` asks
+    for the 2 x 16 x 16 mesh, which a one-rank world cannot hold."""
+    argv = [argv[0], "--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
+            "--set", "train.seq_len=32", "--set", "train.global_batch=8",
+            "--modules", "none", *argv[1:]]
+    if "--multi-pod" in argv:
+        with pytest.raises(SystemExit, match=re.escape(
+                "needs 512 ranks, the world has 1")):
+            cli.main(argv)
+        return
+    par = cli.run(argv)["session"].results["parallel"]
+    assert par["pp"] == 2 and par["world"] == 4 == len(par["ranks"])
+    assert par["backend"] == "gloo"
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -134,3 +134,22 @@ def test_the_mla_modules_are_guarded():
               "repro_torch.serve.engine", "repro_torch.serve.server"):
         assert m in mods, m
         assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES
+
+
+def test_the_parallel_modules_are_guarded():
+    """The modules of data and tensor parallelism and stage processes (the
+    sharding rules and profiles, the meshes, the worlds of ranks, the
+    tensor split, the sliced weights, the world's step, the executor's
+    stage processes, MegaFBD's rebuilt backward) are among those imported
+    and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.parallel.sharding", "repro_torch.parallel.profiles",
+              "repro_torch.parallel.dist", "repro_torch.launch",
+              "repro_torch.launch.mesh", "repro_torch.models.pipeline",
+              "repro_torch.models.weights", "repro_torch.train.train_step",
+              "repro_torch.train.optim", "repro_torch.core.dpp.executor",
+              "repro_torch.core.fbd.decouple", "repro_torch.checkpoint.checkpointer"):
+        assert m in mods, m
+        path = PORT.parent.joinpath(*m.split("."))
+        assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+                else path / "__init__.py") in SOURCES

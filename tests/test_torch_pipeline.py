@@ -113,8 +113,13 @@ def test_pipeline_layout_refusals_equal_jax():
         ref = _refusal(lambda: jpl.pipeline_layout(
             jax_get_config("recurrentgemma-9b", smoke=smoke), pp=2))
         assert ours == ref and "single uniform layer segment" in ours
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        pl.pipeline_layout(TINY, pp=2, tp=2)
+    # the tensor split inside the stages: JAX's layout, and JAX's refusals
+    # of other families and of widths tp does not divide
+    assert pl.pipeline_layout(TINY, pp=2, tp=2).__dict__ == \
+        jpl.pipeline_layout(JTINY, pp=2, tp=2).__dict__
+    for edit in (lambda m: m.replace(num_kv_heads=1), lambda m: m.replace(use_mla=True)):
+        assert _refusal(lambda: pl.pipeline_layout(edit(TINY), pp=2, tp=2)) == \
+            _refusal(lambda: jpl.pipeline_layout(edit(JTINY), pp=2, tp=2))
     # qwen2-0.5b's 24 layers split in 2 stages x 2 chunks of 6
     layout = pl.pipeline_layout(get_config(ARCH), pp=2, n_chunks=2)
     assert layout.groups_per_cell == 6 and layout.kinds == ("dense",)
@@ -266,9 +271,12 @@ def test_fbd_backward_attach_is_bitwise_the_fused_pipelined_step(jax_fused, rema
 
 
 def test_pipeline_step_refuses_dp_tp_and_warns_on_probes(caplog):
+    """A dp or tp plan needs the mesh of its ranks: without one the step is
+    refused with JAX's message (``tests/test_torch_parallel.py`` runs it in
+    its world); probes warn that pipelined blocks are not observed."""
     ocfg = optim.OptimizerConfig(**OCFG)
     for kw in (dict(dp=2), dict(tp=2)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
+        with pytest.raises(ValueError, match="needs a mesh shaped"):
             make_train_step(TINY, ocfg, plan=resolve_plan(ParallelPlan(pp=2, **kw)))
     with caplog.at_level(logging.WARNING, logger="repro_torch.train"):
         make_train_step(TINY, ocfg, plan=resolve_plan(ParallelPlan(pp=2)),
@@ -318,7 +326,12 @@ def test_cli_train_pp2_smoke_with_the_dpp_module():
                   sets=["parallel.pp=2", "parallel.n_micro=2", "parallel.schedule=wave"])
     jplan_ = JSession(jcfg).parallel_plan()
     assert plan_summary(out["session"].parallel_plan()) == jplan.plan_summary(jplan_)
-    assert res["parallel"] == {**jplan.plan_summary(jplan_), "stages": ["cpu", "cpu"]}
+    # the plan, and the mesh of its two ranks (one stage each) on gloo
+    assert {k: res["parallel"][k] for k in jplan.plan_summary(jplan_)} == \
+        jplan.plan_summary(jplan_)
+    assert res["parallel"]["mesh"] == {"stage": 2, "data": 1, "model": 1}
+    assert res["parallel"]["stages"] == [0, 1] and res["parallel"]["backend"] == "gloo"
+    assert [r["coords"]["stage"] for r in res["parallel"]["ranks"]] == [0, 1]
     assert res["parallel"]["wave"] >= 1  # the planner filled the wave in
     assert len(out["history"]) == 2
     assert all(np.isfinite(h["loss"]) for h in out["history"])
@@ -360,12 +373,22 @@ def test_session_rejects_indivisible_micro_with_jax_message():
                                   ["parallel.pp=2", "parallel.dp=2"],
                                   ["parallel.pp=2", "parallel.tp=2"]],
                          ids=lambda s: "-".join(s))
-def test_dp_tp_are_refused_naming_item_8b(sets):
-    argv = ["train", "--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1"]
+def test_dp_tp_train_on_the_cpu_in_their_ranks(sets):
+    """The argv once refused naming item 8b train: the CLI spawns pp x dp x
+    tp ranks on the CPU (gloo) and reports the plan, mesh and backend."""
+    argv = ["train", "--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
+            "--set", "train.seq_len=32", "--set", "train.global_batch=8",
+            "--modules", "none"]
     for s in sets:
         argv += ["--set", s]
-    with pytest.raises(SystemExit, match=re.escape("item 8b")):
-        cli.main(argv)
+    out = cli.run(argv)
+    par = out["session"].results["parallel"]
+    want = {k: int(v) for k, v in (s.split(".")[1].split("=") for s in sets)}
+    assert {k: par[k] for k in want} == want
+    assert par["backend"] == "gloo" and par["world"] == len(par["ranks"])
+    assert par["mesh"] == {"stage": want.get("pp", 1), "data": want.get("dp", 1),
+                           "model": want.get("tp", 1)}
+    assert len(out["history"]) == 1 and np.isfinite(out["history"][0]["loss"])
 
 
 def test_python_m_repro_torch_train_pp2_on_the_cpu():
