@@ -114,15 +114,14 @@ Phases, each of which fails the run (non-zero exit) on error:
              lanes 0, 1 and 2 in its trace; tokens/s, TTFT, queue wait,
              placement, load skew, the router tick median and the
              kv_export/kv_import ms and GB/s logged for each run;
-   serve-rwkv6, serve-griffin — rwkv6-3b (32 layers) and
-             recurrentgemma-9b (all 38 layers; the float32 init and its
-             bf16 copy peak near 70 GB, then the float32 tree is freed)
-             served by MegaServe, seed-0 weights, bf16, 8 slots: 16 and 12
+   serve-rwkv6, serve-griffin — rwkv6-3b (8 of its 32 layers) and
+             recurrentgemma-9b (12 of its 38, 4 of them attention) at full
+             width served by MegaServe, seed-0 weights, bf16, 8 slots: 16 and 12
              Poisson requests (prompts 127/1000/2047 and 100/2048/3000, the
              latter decoding past Griffin's window of 2048) prefilled in
              pow2 segments; every request finished with a valid stream, K1
              launched exactly (2L + 1) x (decode ticks + the prompts' pow2
-             segments) times, K3 exactly ticks x 12 (Griffin), no K4, K5,
+             segments) times, K3 exactly ticks x 4 (Griffin), no K4, K5,
              K6 or K1 backward; teacher-forced logits through the kernels
              and the plain versions within ``LOGIT_TOL`` in float32, the
              bf16 replays and a noise probe logged (see ``LOGIT_TOL``);
@@ -191,6 +190,28 @@ Phases, each of which fails the run (non-zero exit) on error:
              equal the uninterrupted run's bit for bit; one ``save_async``
              timed (stall and background write); and ``python -m
              repro_torch trace --slow-rank 5 --iters 2`` must detect rank 5;
+   ft      — MegaFT through ``python -m repro_torch train --modules
+             scan,metrics,ft`` at the runtime phase's depth cut (2 layers),
+             seq 2048 x batch 8, 14 steps: the chaos run of JAX's
+             TestChaosAcceptance (``--detect-online``, a checkpoint every 3
+             steps, a crash at step 5, rank 1 at half speed) ends on every
+             loss of the fault-free run bit for bit, with two restarts (the
+             crash, the exclusion), rank 1 excluded, detected before step
+             8; a degraded link 0-1 switches int8 compression on once
+             (wire bytes below bf16's; the step medians without and with
+             it, the compressor's ms a step); a NaN batch rolled back ends
+             on the fault-free losses, and skipped trips one guard with no
+             restart; K1 and K2 launched exactly for the steps each run
+             ran, replays included; save_async stall and restore ms;
+   ft-world — in the pipeline phase's world of 2 ranks, 10 steps: dp 2
+             with a crash and a degraded link (a restart on both ranks,
+             compression on at the same step on both) and pp 2 with rank
+             1 slow and ``ft.slow_frac_hard=1.1`` (replanned to a wave on
+             both stages, rank 0's detector deciding); per-rank launches
+             exact for the steps run, every step run held to the fused
+             one-process step from the same parameters and each history
+             to a one-process supervised run of the same plan and chaos,
+             within ``STEP_LOSS_TOL``;
    scope   — ``stats_of`` on one layer's bf16 ``mlp_hidden`` against
              float64, with its time and the memory above its input (under a
              float32 copy's); then MegaScope through the qwen2 train step:
@@ -371,7 +392,7 @@ STATIC = dict(batch=4, prompt_len=128, max_new=16)
 # slot 3 positions past its 132-entry table (its pad rows)
 VERIFY_PAD_KV_LENS = [2115, 544, 160, 2080, 530, 140, 2100, 600]
 # the recurrent families served: rwkv6-3b and recurrentgemma-9b at full width
-# and depth, seed-0 weights, bf16, 8 slots of block 16.  rwkv6's prompts run
+# (depths below), seed-0 weights, bf16, 8 slots of block 16.  rwkv6's prompts run
 # pow2 segments of both WKV forms (127 = 64 + 32 + 16 + ... + 1, 2047 all
 # eleven widths); Griffin's decode passes position 2048, where its window
 # masks, and its table width is 192 (3000 + 64 tokens)
@@ -379,6 +400,12 @@ RWKV_SERVE = dict(n=16, rate=40.0, prompt_lens=(127, 1000, 2047),
                   max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
 GRIFFIN_SERVE = dict(n=12, rate=40.0, prompt_lens=(100, 2048, 3000),
                      max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
+# the depths served (full width): rwkv6-3b at 8 of its 32 layers,
+# recurrentgemma-9b at 12 of its 38 (4 attention layers), so that the ft
+# phase's ~100 s fit in the run's time limit on a slow host; PR 22 served
+# both at full depth (PERF.md)
+RWKV_SERVE_LAYERS = 8
+GRIFFIN_SERVE_LAYERS = 12
 # one Griffin decode tick: 8 slots at kv_len 2100-3064, table width 192
 GRIFFIN_TICK_KV_LENS = [2100, 2238, 2376, 2514, 2652, 2790, 2928, 3064]
 GRIFFIN_TICK_M = 192
@@ -2897,9 +2924,10 @@ def profile_decode_tick(torch, cfg, params, ticks: int = 5, kv_lens=TICK_KV_LENS
 
 
 def serve_recurrent(torch, dev, arch: str, shape: dict, smi: str,
-                    min_table: int = 0) -> dict:
-    """MegaServe on a recurrent family at full width and depth (seed-0
-    weights, bf16): ``shape``'s Poisson workload, every request finished
+                    min_table: int = 0, layers: int | None = None) -> dict:
+    """MegaServe on a recurrent family at full width, its depth cut to
+    ``layers`` when given (seed-0 weights, bf16): ``shape``'s Poisson
+    workload, every request finished
     with a valid stream; K1 launched exactly once a norm a forward, each
     decode tick one forward and each prefill one a pow2 segment of its
     tokens (``(2L + 1) x (ticks + sum of popcount(tokens))``); K3 once an
@@ -2921,6 +2949,9 @@ def serve_recurrent(torch, dev, arch: str, shape: dict, smi: str,
 
     cfg = get_config(arch)
     tag = f"serve-{cfg.family}"
+    if layers is not None:
+        log(f"[{tag}] depth cut: {layers} of {cfg.num_layers} layers, full width")
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = lm.init(cfg, seed=0, device="cuda")
@@ -4027,6 +4058,395 @@ def runtime_phase(torch, dev, smi: str, tag: str = "runtime") -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- MegaFT
+
+# the ft phase: qwen2-0.5b at full width cut to RUNTIME_LAYERS layers (each
+# checkpoint ~2.3 GB), at the train shape, 14 steps, as the JAX package's
+# TestChaosAcceptance runs; the world jobs 10 steps, on the pipeline
+# phase's world of 2 ranks
+FT = dict(seq_len=2048, global_batch=8, steps=14, seed=0)
+FT_SKIP_STEPS = 6
+FT_WORLD = dict(seq_len=2048, global_batch=8, steps=10, seed=0)
+FT_DETECT = ["--detect-online", "--set", "scan.detect_every=4"]
+FT_PIPE = ["--pp", "2", "--n-micro", "2", "--set", "parallel.n_chunks=1",
+           "--pp-schedule", "1f1b"]
+FT_SLOW_STAGE = ["--set", "obs.rank_events=true", "--set", "obs.slow_rank=1",
+                 "--set", "obs.slow_factor=0.5", "--set", "ft.slow_frac_hard=1.1"]
+
+
+def _ft_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen2-0.5b").replace(num_layers=RUNTIME_LAYERS)
+
+
+def _ft_steps_run(n_steps: int, report: dict | None, spans: int) -> int:
+    """The train steps a supervised run actually ran, two ways that must
+    agree: from its mitigation timeline (the ``n_steps`` kept, plus the
+    steps replayed after each restart, a failed step counted where it ran:
+    a guard's, and a skipped one) and from its ``train_step`` spans (a
+    skipped step's span is dropped with its events)."""
+    ran = n_steps
+    for t in (report or {}).get("timeline", []):
+        d = t.get("details", {})
+        if t["event"] == "restart":      # raised at the step's top
+            ran += t["step"] - d["resumed_step"]
+        elif t["event"] == "rollback":   # the failing step ran
+            ran += t["step"] - d["to_step"] + 1
+        elif t["event"] == "guard:skip":
+            ran += 1
+    skipped = sum(t["event"] == "guard:skip" for t in (report or {}).get("timeline", []))
+    if spans + skipped != ran:
+        raise AssertionError(f"steps run: {spans} spans + {skipped} skipped, "
+                             f"timeline says {ran}")
+    return ran
+
+
+class _FtTimers:
+    """While entered, the train loop's checkpoint costs on the host clock:
+    each ``save_async``'s synchronous stall (the copy to the host) and each
+    ``restore`` (every leaf read back onto the card)."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import checkpointer
+        from repro_torch.train import loop
+
+        self.stalls, self.restores = [], []
+        real_save, real_restore = checkpointer.Checkpointer.save_async, loop.restore
+
+        def save_async(ck, *a, **kw):
+            t0 = time.perf_counter()
+            real_save(ck, *a, **kw)
+            self.stalls.append(time.perf_counter() - t0)
+
+        def restore(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_restore(*a, **kw)
+            import torch
+
+            torch.cuda.synchronize()
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+        self._undo = [(checkpointer.Checkpointer, "save_async", real_save),
+                      (loop, "restore", real_restore)]
+        checkpointer.Checkpointer.save_async = save_async
+        loop.restore = restore
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in self._undo:
+            setattr(obj, name, old)
+
+    def __str__(self):
+        ms = lambda xs: ", ".join(f"{1e3 * x:.1f}" for x in xs) or "none"  # noqa: E731
+        return f"save_async stalls {ms(self.stalls)} ms; restores {ms(self.restores)} ms"
+
+
+def _ft_session(torch, argv: list[str], cfg, tag: str):
+    """One supervised run through ``Session`` (one process), K1 and K2
+    counted from 0, checkpoint costs timed: ``(session, state, history,
+    counts, spans, timers)``; logs its timeline."""
+    from repro_torch.kernels import flash_attention, rmsnorm
+
+    log(f"[{tag}] python -m repro_torch {' '.join(argv)}")
+    with _FtTimers() as timers:
+        session, state, history, counts, _ = _counted_session(
+            torch, argv, (flash_attention, rmsnorm), model_cfg=cfg)
+    spans = sum(e.name == "train_step" for e in session.tracer.events)
+    rep = session.results.get("ft")
+    if rep is not None:
+        log(f"[{tag}] timeline {json.dumps(rep['timeline'])}; restarts {rep['restarts']} "
+            f"rollbacks {rep['rollbacks']} replans {rep['replans']} guard_trips "
+            f"{rep['guard_trips']} detections {rep['detections']} excluded "
+            f"{rep['excluded_ranks']} compression_on {rep['compression_on']}")
+    log(f"[{tag}] {timers}")
+    return session, state, history, counts, spans, timers
+
+
+def _ft_launches(tag: str, cfg, counts: dict, passes: int) -> None:
+    want = {k: passes * v for k, v in per_step_launches(cfg).items()
+            if k.split("_")[0] in ("flash", "rmsnorm")}
+    log(f"[{tag}] launches {counts}, expected {want} ({passes} forward-and-backward "
+        "passes)")
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+
+
+def _ft_medians(history: list[dict], split: int | None = None) -> str:
+    """Median steps (host clock), the first step left out, and split at the
+    1-based step ``split`` when given."""
+    ms = lambda hs: statistics.median(1e3 * h["step_s"] for h in hs)  # noqa: E731
+    if split is None:
+        return f"median step {ms(history[1:]):.1f} ms"
+    before = [h for h in history[1:] if h["step"] < split]
+    after = [h for h in history if h["step"] >= split]
+    return (f"median step without compression (steps 2-{split - 1}) {ms(before):.1f} ms, "
+            f"with it (steps {split}-{history[-1]['step']}) {ms(after):.1f} ms")
+
+
+def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
+    """MegaFT through ``python -m repro_torch train --modules
+    scan,metrics,ft`` on the card, one process: qwen2-0.5b at full width cut
+    to :data:`RUNTIME_LAYERS` layers, at :data:`FT`.  (a) The fault-free run
+    (``--modules none``).  (b) The chaos run of JAX's TestChaosAcceptance
+    (``--detect-online``, a checkpoint every 3 steps, a crash at step 5, rank
+    1 at half speed from step 0): all 14 steps, every loss equal to the
+    fault-free run's (bit for bit, as the runtime phase's resume), at least
+    two restarts (the crash, the exclusion), ``decide:exclude`` and
+    ``mitigate:exclude`` in the timeline, rank 1 excluded, the first
+    detection before step 8.  (c) A degraded link 0-1: compression on once,
+    its wire bytes below the baseline, losses finite; the step medians
+    without and with it, and the compressor's ms a step (CUDA events).  (d)
+    A NaN batch at step 4 rolled back: every loss equal to the fault-free
+    run's.  (e) The same NaN skipped: one guard trip, no restart, the last
+    loss finite.  K1 and K2 launch exactly as counted for the steps each run
+    ran (:func:`_ft_steps_run`), the flop count's pass included.  Returns
+    the fault-free losses."""
+    import shutil
+
+    from repro_torch.ft import GradCompressor
+    from repro_torch.train.optim import leaves
+
+    cfg = _ft_cfg()
+    root = RUNTIME_DIR / "ft"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = FT["steps"]
+    base = _train_argv(FT)
+    log(f"[{tag}] depth cut: {RUNTIME_LAYERS} of 24 layers, full width, seq "
+        f"{FT['seq_len']} x batch {FT['global_batch']}, {steps} steps")
+
+    # (a) fault-free
+    _, state, clean, counts, _, _ = _ft_session(
+        torch, [*base, "--modules", "none"], cfg, f"{tag}-clean")
+    del state
+    _ft_launches(f"{tag}-clean", cfg, counts, steps)
+    ref = [h["loss"] for h in clean]
+    log(f"[{tag}-clean] losses {ref}; {_ft_medians(clean)} ({smi})")
+
+    # (b) the chaos run
+    argv = [*base, "--modules", "scan,metrics,ft", *FT_DETECT,
+            "--ckpt-dir", str(root / "chaos"), "--ckpt-every", "3",
+            "--set", "ft.chaos.crash_at_step=5", "--set", "ft.chaos.slow_rank_from=0",
+            "--set", "ft.chaos.slow_rank=1", "--set", "ft.chaos.slow_factor=0.5"]
+    session, state, hist, counts, spans, timers = _ft_session(
+        torch, argv, cfg, f"{tag}-chaos")
+    del state
+    rep = session.results["ft"]
+    online = session.results["scan"]["online"]
+    ran = _ft_steps_run(steps, rep, spans)
+    _ft_launches(f"{tag}-chaos", cfg, counts, ran + 1)
+    events = [t["event"] for t in rep["timeline"]]
+    losses = [h["loss"] for h in hist]
+    log(f"[{tag}-chaos] steps run {ran}; online {online}; losses {losses}; "
+        f"{_ft_medians(hist)} (rank 1 at half speed until excluded) ({smi})")
+    if [h["step"] for h in hist] != list(range(1, steps + 1)) or losses != ref:
+        raise AssertionError(f"{tag}-chaos: losses {losses} != fault-free {ref}")
+    if (rep["restarts"] < 2 or rep["excluded_ranks"] != [1]
+            or any(e not in events for e in ("restart", "decide:exclude",
+                                             "mitigate:exclude"))
+            or not online["first_detect_step"] or online["first_detect_step"] > 8):
+        raise AssertionError(f"{tag}-chaos: report {rep}, online {online}")
+    if session.results["metrics"]["series"]["ft.restarts"] != rep["restarts"]:
+        raise AssertionError(f"{tag}-chaos: the ft.restarts counter")
+    stall_ms = statistics.median(timers.stalls) * 1e3
+    restore_ms = statistics.median(timers.restores) * 1e3
+
+    # (c) a degraded data link: int8 gradient sync with error feedback
+    argv = [*base, "--modules", "scan,metrics,ft", *FT_DETECT,
+            "--set", "ft.chaos.degrade_link=0-1"]
+    session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-link")
+    rep = session.results["ft"]
+    _ft_launches(f"{tag}-link", cfg, counts, _ft_steps_run(steps, rep, spans) + 1)
+    on = [t for t in rep["timeline"] if t["event"] == "mitigate:compress_on"]
+    losses = [h["loss"] for h in hist]
+    if (len(on) != 1 or not rep["compression_on"]
+            or not 0 < on[0]["details"]["wire_bytes_per_sync"]
+            < on[0]["details"]["baseline_bytes_per_sync"]
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"{tag}-link: report {rep}, losses {losses}")
+    comp = GradCompressor()
+    err = comp.init(state.master)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    comp.apply(state.params, err)  # warm
+    ev[0].record()
+    for _ in range(5):
+        comp.apply(state.params, err)
+    ev[1].record()
+    torch.cuda.synchronize()
+    comp_ms = ev[0].elapsed_time(ev[1]) / 5
+    n = sum(t.numel() for _, t in leaves(state.params))
+    del state, err
+    _free(torch)
+    log(f"[{tag}-link] compression on at step {on[0]['step']} (details "
+        f"{on[0]['details']}); losses {losses}; {_ft_medians(hist, on[0]['step'] + 1)}; "
+        f"GradCompressor.apply on the {n} bf16 gradients {comp_ms:.3f} ms (CUDA events) "
+        f"({smi})")
+
+    # (d) a NaN batch, rolled back
+    argv = [*base, "--modules", "scan,metrics,ft", "--ckpt-dir", str(root / "nan"),
+            "--ckpt-every", "3", "--set", "ft.chaos.nan_at_step=4"]
+    session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-nan")
+    del state
+    rep = session.results["ft"]
+    _ft_launches(f"{tag}-nan", cfg, counts, _ft_steps_run(steps, rep, spans) + 1)
+    losses = [h["loss"] for h in hist]
+    if (losses != ref or rep["guard_trips"] != 1 or rep["rollbacks"] != 1
+            or [t["event"] for t in rep["timeline"]] != ["guard:rollback", "rollback"]):
+        raise AssertionError(f"{tag}-nan: report {rep}, losses {losses} vs {ref}")
+
+    # (e) the same NaN skipped
+    argv = [*_train_argv(dict(FT, steps=FT_SKIP_STEPS)), "--modules", "scan,metrics,ft",
+            "--set", "ft.chaos.nan_at_step=3", "--set", "ft.guard_action=skip"]
+    session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-skip")
+    del state
+    rep = session.results["ft"]
+    _ft_launches(f"{tag}-skip", cfg, counts, _ft_steps_run(FT_SKIP_STEPS - 1, rep, spans) + 1)
+    if (rep["guard_trips"] != 1 or rep["restarts"] or rep["rollbacks"]
+            or [h["step"] for h in hist] != [1, 2, 3, 5, 6]
+            or not math.isfinite(hist[-1]["loss"])):
+        raise AssertionError(f"{tag}-skip: report {rep}, history {hist}")
+    _free(torch)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[{tag}] checkpoint costs in the chaos run: save_async stall median "
+        f"{stall_ms:.1f} ms, restore median {restore_ms:.1f} ms ({smi})")
+    return {"clean": ref}
+
+
+def _ft_world_argv(job: str) -> list[str]:
+    """The command lines of the ft world jobs: ``dp2`` (a crash and a
+    degraded link at dp 2), ``one`` (the same chaos in one process),
+    ``pp2`` (rank 1 slow at pp 2)."""
+    base = [*_train_argv(FT_WORLD), "--modules", "scan,metrics,ft", *FT_DETECT]
+    if job == "pp2":
+        return [*base, *FT_PIPE, *FT_SLOW_STAGE]
+    return [*base, "--ckpt-dir", str(RUNTIME_DIR / "ft-world" / job), "--ckpt-every",
+            "3", "--set", "ft.chaos.crash_at_step=5", "--set", "ft.chaos.degrade_link=0-1",
+            *(["--set", "parallel.dp=2"] if job == "dp2" else [])]
+
+
+def ft_world_jobs() -> list[dict]:
+    """The ft phase's jobs for the pipeline phase's world of 2 ranks: dp 2
+    with a crash and a degraded link, and pp 2 with rank 1 slow, which
+    replans to a wave schedule."""
+    import shutil
+
+    shutil.rmtree(RUNTIME_DIR / "ft-world", ignore_errors=True)
+    return [dict(argv=_ft_world_argv(job), kernels=("flash_attention", "rmsnorm"),
+                 model_cfg=_ft_cfg(), check=True) for job in ("dp2", "pp2")]
+
+
+def _ft_pipeline_reference(torch, dev, cfg):
+    """A one-process supervised run of the pp 2 job's plan and chaos: the
+    loop with the pipelined step, the same per-rank events (rank 1 at half
+    speed), the scan plugin's detector and a controller with
+    ``slow_frac_hard=1.1``: ``(history, report)``."""
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.ft import FtController, MitigationPolicy
+    from repro_torch.obs import OnlineDetector, RankEventSpec
+    from repro_torch.train.loop import LoopConfig, StepHooks, train
+
+    plan = _plan_of([*_train_argv(FT_WORLD), *FT_PIPE])
+    data, ocfg = _train_setup(cfg, FT_WORLD)
+    ctl = FtController(policy=MitigationPolicy(slow_frac_hard=1.1))
+    det = OnlineDetector(plan.topology(), every=4, window=64, align=False)
+
+    def on_step(events, metrics):
+        update = det.push(events)
+        if update is not None:
+            ctl.on_detection(update)
+
+    state, hist = train(cfg, ocfg, data, LoopConfig(n_steps=FT_WORLD["steps"], seed=0),
+                        plan=plan, device=dev, tracer=Tracer(rank=0, enabled=True),
+                        obs=RankEventSpec(dp=1, pp=2, tp=1, slow_rank=1, slow_factor=0.5),
+                        controller=ctl, hooks=StepHooks(on_step=on_step))
+    del state
+    _free(torch)
+    return hist, ctl.report()
+
+
+def ft_world_check(torch, dev, smi: str, rows: list[list[dict]],
+                   tag: str = "ft-world") -> None:
+    """The ft world jobs (:func:`ft_world_jobs`), each rank's row: dp 2
+    restarts on both ranks at the crash and switches compression on at the
+    same step on both; pp 2 replans to a wave on both stages, rank 0
+    having decided; every rank's K1 and K2 launches exact for the steps it
+    ran (:func:`_par_expected`); the ranks' losses equal; every step run,
+    replays included, within ``STEP_LOSS_TOL`` of the fused one-process
+    step from the same parameters (:class:`_StepRecorder`'s check), and
+    each step of the history within it of a one-process supervised run of
+    the same plan and chaos (dp 2: the plain step, whose sum over the
+    batch the data ranks split; pp 2: the pipelined step in one
+    process)."""
+    import shutil
+
+    cfg = _ft_cfg()
+    steps = FT_WORLD["steps"]
+    dp_rows, pp_rows = rows
+    for name, ranks, cell in (("dp2", dp_rows, dict(dp=2)),
+                              ("pp2", pp_rows, dict(pp=2, n_micro=2))):
+        for r in ranks:
+            ran = _ft_steps_run(steps, r["ft"], r["spans"])
+            want = _par_expected(cfg, cell, r["coords"]["stage"], ran)
+            log(f"[{tag}-{name}] rank {r['coords']}: steps run {ran}; launches "
+                f"{r['launches']} expected {want}; timeline {json.dumps(r['ft']['timeline'])}; "
+                f"online {r['online']}; losses {[h['loss'] for h in r['history']]}; "
+                f"{_ft_medians(r['history'])} ({smi})")
+            if r["launches"] != want:
+                raise AssertionError(f"{tag}-{name} rank {r['coords']}: launches")
+            if [h["step"] for h in r["history"]] != list(range(1, steps + 1)):
+                raise AssertionError(f"{tag}-{name}: history steps")
+
+    # dp 2: both ranks restart at the crash, compression on at the same step
+    for r in dp_rows:
+        rep = r["ft"]
+        restarts = [t for t in rep["timeline"] if t["event"] == "restart"]
+        if [t["details"]["reason"] for t in restarts] != ["InjectedCrash"]:
+            raise AssertionError(f"{tag}-dp2: restarts {restarts}")
+    on = [[t for t in r["ft"]["timeline"] if t["event"] == "mitigate:compress_on"]
+          for r in dp_rows]
+    if len(on[0]) != 1 or on[0] != on[1]:
+        raise AssertionError(f"{tag}-dp2: compression on {on}")
+    first = on[0][0]["step"] + 1
+    log(f"[{tag}-dp2] rank 0: {_ft_medians(dp_rows[0]['history'], first)} ({smi})")
+    _, state, one, _, _, _ = _ft_session(torch, _ft_world_argv("one"), cfg,
+                                         f"{tag}-dp2-one-process")
+    del state
+    _free(torch)
+    refs = {"dp2": [h["loss"] for h in one]}
+    hist, rep = _ft_pipeline_reference(torch, dev, cfg)
+    refs["pp2"] = [h["loss"] for h in hist]
+    log(f"[{tag}-pp2-one-process] timeline {json.dumps(rep['timeline'])}; losses "
+        f"{refs['pp2']}")
+
+    # pp 2: the wave replan on both stages
+    for r in pp_rows:
+        rp = [t for t in r["ft"]["timeline"] if t["event"] == "mitigate:replan_schedule"]
+        if (len(rp) != 1 or rp[0]["details"]["slow_ranks"] != [1]
+                or rp[0]["details"]["wave"] < 1 or r["ft"]["restarts"]):
+            raise AssertionError(f"{tag}-pp2 rank {r['coords']}: {r['ft']}")
+    if pp_rows[0]["online"]["slow_ranks"] != [1] or pp_rows[1]["online"] is not None:
+        raise AssertionError(f"{tag}-pp2: the detector's owner")
+    for name, ranks in (("dp2", dp_rows), ("pp2", pp_rows)):
+        r = ranks[0]
+        # every step run, replays included, against the fused one-process
+        # step from the same parameters (the parallel phase's check)
+        each = [abs(x - ref[0][0]) for x, ref in zip(r["step_losses"], r["refs"])]
+        traj = [abs(h["loss"] - x) for h, x in zip(r["history"], refs[name])]
+        log(f"[{tag}-{name}] |dloss| a step run ({len(each)}) against the fused "
+            f"one-process step from the same parameters: {[f'{x:.2e}' for x in each]} "
+            f"(tol {STEP_LOSS_TOL}); trajectory against the one-process supervised "
+            f"run: {[f'{x:.2e}' for x in traj]}")
+        if (len(each) != _ft_steps_run(steps, r["ft"], r["spans"])
+                or max(each) > STEP_LOSS_TOL or len(traj) != steps
+                or max(traj) > STEP_LOSS_TOL):
+            raise AssertionError(f"{tag}-{name}: losses off the one-process run")
+        for other in ranks[1:]:
+            if [h["loss"] for h in other["history"]] != [h["loss"] for h in r["history"]]:
+                raise AssertionError(f"{tag}-{name}: the ranks' losses differ")
+    shutil.rmtree(RUNTIME_DIR / "ft-world", ignore_errors=True)
+
+
 # ------------------------------------------------ phases 10-13: MegaScope, MegaFBD
 
 # probes of the scope phase: the widest tag (mlp_hidden, [8, 2048, 4864] a
@@ -4825,12 +5245,17 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
                "peak": rec.peak if job.get("check") else torch.cuda.max_memory_allocated(),
                "sync_s": rec.sync_s,
                "check_s": rec.check_s, "norms": rec.norms, "refs": rec.refs,
+               "step_losses": rec.losses,
                "first_calls": warm, "first_profile": rec.first_profile,
                "digest": {".".join(p): (t.double().sum().item(),
                                         t.double().square().sum().item())
                           for p, t in leaves(state.master)}}
         if not any(row["coords"].values()):
             row["results"] = {k: res[k] for k in ("parallel", "dpp") if k in res}
+        if "ft" in res:  # the ft phase's jobs
+            row["ft"] = res["ft"]
+            row["online"] = res["scan"].get("online")
+            row["spans"] = sum(e.name == "train_step" for e in session.tracer.events)
         if job.get("compare"):
             row["differing"] = [".".join(p) for p, t in leaves(state.master)
                                 if not torch.equal(t, kept[p])]
@@ -5236,6 +5661,7 @@ class _StepRecorder:
         from repro_torch.train import train_step as ts
 
         self.norms, self.refs, self.check_s, self.sync_s, self.peak = [], [], [], 0.0, 0
+        self.losses = []  # with check: each step's own loss, beside its reference
         self.first_profile = None if self.first else ""
         self._undo = []
 
@@ -5277,7 +5703,8 @@ class _StepRecorder:
         def make(cfg, *a, _real=loop.make_train_step, **kw):
             step = _real(cfg, *a, **kw)
 
-            def checked(state, batch):
+            def checked(state, *rest):  # (batch) or, compressed, (err, batch)
+                batch = rest[-1]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if self.check:
@@ -5291,15 +5718,17 @@ class _StepRecorder:
                     torch.cuda.reset_peak_memory_stats()
                 self.check_s.append(time.perf_counter() - t0)
                 if self.first_profile is not None:
-                    out = step(state, batch)
+                    out = step(state, *rest)
                 else:  # a new rank's first step, under the Python profiler
                     prof = cProfile.Profile()
-                    out = prof.runcall(step, state, batch)
+                    out = prof.runcall(step, state, *rest)
                     torch.cuda.synchronize()
                     text = io.StringIO()
                     for key in ("tottime", "cumulative"):
                         pstats.Stats(prof, stream=text).sort_stats(key).print_stats(10)
                     self.first_profile = text.getvalue()
+                if self.check:
+                    self.losses.append(float(out[-1]["loss"]))
                 self.peak = max(self.peak, torch.cuda.max_memory_allocated())
                 return out
 
@@ -5632,10 +6061,11 @@ def main() -> int:
     phase("serve paths: chunked, speculative, gathered with scope, static")
     route_phase(torch, smi, cfg, specs, prompts, streams, serve_events)
     phase("route: MegaRoute colocated, disaggregated and through the Session")
-    serve_recurrent(torch, dev, "rwkv6-3b", RWKV_SERVE, smi)
+    serve_recurrent(torch, dev, "rwkv6-3b", RWKV_SERVE, smi, layers=RWKV_SERVE_LAYERS)
     phase("rwkv6 serve and teacher-forced check")
     griffin_serve_counts = serve_recurrent(torch, dev, "recurrentgemma-9b", GRIFFIN_SERVE,
-                                           smi, min_table=GRIFFIN_TABLE)
+                                           smi, min_table=GRIFFIN_TABLE,
+                                           layers=GRIFFIN_SERVE_LAYERS)
     phase("griffin serve and teacher-forced check")
     recurrent_generate_phase(torch, smi)
     phase("generate_with_scope on rwkv6 and griffin")
@@ -5669,15 +6099,20 @@ def main() -> int:
     if not truth["detected"]:
         raise AssertionError("the trace workload did not detect rank 5")
     phase("runtime: checkpoints, resume and the trace workload")
+    ft_phase(torch, dev, smi)
+    phase("ft: the supervised loop, chaos, guards and compression in one process")
     scope_phase(torch, smi)
     phase("scope: probes and perturbations through the qwen2 train step")
     fbd_phase(torch, dev, smi)
     phase("fbd: the decoupled forward and backward")
     cells2 = _parallel_jobs()[2]
-    rows2 = pipeline_phase(torch, dev, smi, also=tuple(j for _, _, j in cells2))
+    rows2 = pipeline_phase(torch, dev, smi,
+                           also=(*(j for _, _, j in cells2), *ft_world_jobs()))
     phase("pipeline: MegaDPP's pp = 2 step, MegaFBD attached, the schedules; its "
-          "world also runs the parallel phase's 2-rank cells")
-    parallel_phase(torch, smi, done={2: rows2})
+          "world also runs the parallel phase's 2-rank cells and the ft world jobs")
+    ft_world_check(torch, dev, smi, rows2[len(cells2):])
+    phase("ft-world: dp 2 with a crash and a degraded link, pp 2 replanned to a wave")
+    parallel_phase(torch, smi, done={2: rows2[:len(cells2)]})
     phase("parallel: dp 2, tp 2, pp 2 in two processes with MegaFBD, pp 2 x dp 2")
     # rwkv6-3b: ln1 and ln2 a layer (ln_x is a group norm in the time mix)
     # and one WKV recurrence, so wkv6_fwd 2L = 64, wkv6_bwd L = 32,

@@ -52,8 +52,8 @@ _SHARED = [
         help="cuda (default; raises without a card) or cpu")),
     ("--modules", "modules", dict(
         type=str, metavar="M1,M2",
-        help="module plugins to attach (scan,metrics,scope,fbd,dpp; ft is "
-             "a later slice; 'none' = off)")),
+        help="module plugins to attach (scan,metrics,scope,fbd,dpp,ft; "
+             "'none' = off)")),
     ("--mesh", "mesh", dict(
         choices=("auto", "auto-mp", "host", "pod1", "pod2"))),
     ("--trace-out", "trace_out", dict(
@@ -67,7 +67,8 @@ _SHARED = [
         help="persistent executable cache (ROADMAP item 12b; refused)")),
     ("--detect-online", "scan.detect_online", dict(
         action="store_true",
-        help="online straggler detection (ROADMAP item 9; refused)")),
+        help="run MegaScan's straggler detector over a sliding window of "
+             "TraceEvents during the run (see --set scan.* thresholds)")),
 ]
 
 _TRAIN = [
@@ -93,8 +94,13 @@ _TRAIN = [
         type=str, help="checkpoint every --ckpt-every steps; resume from "
                        "the latest checkpoint found there")),
     ("--ckpt-every", "train.ckpt_every", dict(type=int)),
-    ("--max-restarts", "ft.max_restarts", dict(type=int)),
-    ("--chaos-crash-at", "ft.chaos.crash_at_step", dict(type=int, metavar="STEP")),
+    ("--max-restarts", "ft.max_restarts", dict(
+        type=int, help="bounded restarts for the supervised loop "
+                       "(the ft module; see --set ft.* / ft.chaos.*)")),
+    ("--chaos-crash-at", "ft.chaos.crash_at_step", dict(
+        type=int, metavar="STEP",
+        help="chaos: inject a real crash at this step (needs --ckpt-dir "
+             "and the ft module; one of the --set ft.chaos.* knobs)")),
     ("--multi-pod", "mesh", dict(action="store_const", const="auto-mp")),
 ]
 
@@ -163,7 +169,7 @@ _DRYRUN = [
 _WORKLOAD_FLAGS = {"train": _TRAIN, "serve": _SERVE, "trace": _TRACE,
                    "dryrun": _DRYRUN}
 
-_REPORTS = ("scan", "metrics", "scope", "fbd", "dpp", "parallel", "trace_out")
+_REPORTS = ("scan", "metrics", "scope", "fbd", "dpp", "ft", "parallel", "trace_out")
 
 
 def _add_flags(ap: argparse.ArgumentParser, flags) -> None:

@@ -17,9 +17,9 @@ Every section and field of the JAX package's ``RunConfig`` is here with the
 same defaults, so the same layering gives the same configuration.  One
 field is the port's own: ``runtime.device`` (the CLI's ``--device``), the
 device the workload runs on — ``cuda`` by default, ``cpu`` when asked for.
-Sections of modules the port does not run yet (``ft``, ``parallel``'s
-dp and tp) are kept so a config file written for the JAX package parses;
-the workloads refuse them.
+Fields of paths the port does not run yet (``runtime.compile_cache``, the
+``dryrun`` section) are kept so a config file written for the JAX package
+parses; the workloads refuse them.
 """
 
 from __future__ import annotations

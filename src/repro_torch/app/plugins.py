@@ -11,11 +11,10 @@ Every module attaches through the same four hooks:
 * ``finalize(session)`` — return a JSON-able report (merged into
   ``session.results``) and release anything held.
 
-The port runs MegaScan (``scan``), the metrics registry (``metrics``),
-MegaScope (``scope``), MegaFBD (``fbd``) and MegaDPP (``dpp``).  ``ft`` is
-registered, so ``--modules`` validates as in the JAX package, and its
-``setup`` raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+The port runs every module of the JAX package: MegaScan (``scan``, with
+the online straggler detector under ``--detect-online``), the metrics
+registry (``metrics``), MegaScope (``scope``), MegaFBD (``fbd``), MegaDPP
+(``dpp``) and MegaFT (``ft``).
 """
 
 from __future__ import annotations
@@ -81,8 +80,15 @@ class ScanPlugin(ModulePlugin):
     every event through an ``AsyncTraceWriter`` to a ``.jsonl`` sidecar as
     the run progresses, so a mid-run crash leaves a usable trace (a
     ``.jsonl`` trace_out IS the stream — Session then skips the end-of-run
-    chrome export).  ``--detect-online`` (the online straggler detector) is
-    ported with MegaFT (ROADMAP queue 1, item 9).
+    chrome export).
+
+    ``--detect-online`` runs a :class:`repro_torch.obs.OnlineDetector` over
+    the step event stream (topology from the ``ParallelPlan`` when one
+    resolves, else the ``obs`` section); every pass goes to
+    ``session.notify_detection`` (the ft controller listens there), verdict
+    deltas are stamped into the trace as ``diagnosis`` instant events, and
+    the last diagnosis lands in the ``scan.online`` report.  In a world of
+    ranks, rank 0 alone owns the detector.
     """
 
     name = "scan"
@@ -91,11 +97,29 @@ class ScanPlugin(ModulePlugin):
         from repro_torch.core.tracing.tracer import AsyncTraceWriter, Tracer
 
         sc = self._scan_cfg = self.run_cfg.scan
-        if sc.detect_online:
-            raise NotImplementedError(
-                "--detect-online (the online straggler detector) is ported "
-                "with MegaFT (ROADMAP queue 1, item 9)")
         session.tracer = Tracer(rank=sc.rank, enabled=True)
+        self._detector = None
+        self._first_detect: int | None = None
+        if sc.detect_online and session.rank == 0:
+            from repro_torch.core.simkit.workload import Topology
+            from repro_torch.obs import OnlineDetector
+
+            # a ParallelPlan wins over the obs section's synthetic dims:
+            # detector rank coordinates must match the plan actually
+            # training, or the ft mitigation routes links to the wrong axis
+            plan = session.parallel_plan()
+            o = self.run_cfg.obs
+            topo = (plan.topology() if plan is not None
+                    else Topology(dp=o.dp, pp=o.pp, tp=o.tp))
+            self._detector = OnlineDetector(
+                topo, every=sc.detect_every, window=sc.detect_window,
+                align=sc.detect_align,
+                thresholds=dict(
+                    slow_ratio=sc.slow_ratio, candidate_frac=sc.candidate_frac,
+                    skew_margin=sc.skew_margin, late_frac=sc.late_frac,
+                    degrade_ratio=sc.degrade_ratio,
+                ),
+            )
         self._sync = sc.sync and session.device.type == "cuda"
         self._writer = None
         self._streamed = 0
@@ -121,6 +145,22 @@ class ScanPlugin(ModulePlugin):
         self._streamed = len(evs)
 
     def on_step(self, session, events, metrics) -> None:
+        if self._detector is not None and events:
+            update = self._detector.push(events)
+            if update is not None:
+                if update.diagnosis.slow_ranks and self._first_detect is None:
+                    self._first_detect = update.step
+                # every completed pass flows to the detection listeners (the
+                # ft controller): they decide on the full diagnosis
+                session.notify_detection(update)
+                if update.changed:
+                    session.tracer.instant(
+                        "diagnosis",
+                        slow_ranks=list(update.diagnosis.slow_ranks),
+                        new=update.new_slow_ranks,
+                        cleared=update.cleared_slow_ranks,
+                        degraded_links=[list(l) for l in update.new_degraded_links],
+                    )
         if self._writer is not None:
             self._stream(session)
 
@@ -136,6 +176,14 @@ class ScanPlugin(ModulePlugin):
             self._stream(session)
             self._writer.close()
             out["stream"] = str(self._stream_path)
+        if self._detector is not None:
+            last = self._detector.history[-1] if self._detector.history else {}
+            out["online"] = {
+                "passes": len(self._detector.history),
+                "first_detect_step": self._first_detect,
+                "slow_ranks": last.get("slow_ranks", []),
+                "degraded_links": last.get("degraded_links", []),
+            }
         return out
 
 
@@ -397,20 +445,87 @@ class DppPlugin(ModulePlugin):
 
 
 # ---------------------------------------------------------------------------
-# Modules of later slices: registered so --modules validates, refused at setup
+# Fault tolerance — the detect -> decide -> mitigate -> recover controller
 # ---------------------------------------------------------------------------
 
 
-class _LaterPlugin(ModulePlugin):
-    module = ""
-    item = ""
+def chaos_spec(run_cfg):
+    """The ``ft`` section's :class:`repro_torch.ft.ChaosSpec`, checked as
+    the JAX plugin checks it: ``guard_action`` is rollback or skip, and a
+    crash or a NaN rolled back needs ``train.ckpt_dir`` for a restore
+    target.  ``Session`` also calls it before spawning a world's ranks."""
+    from repro_torch.ft import ChaosSpec
 
-    def setup(self, session) -> None:
-        raise NotImplementedError(
-            f"the {self.name!r} module ({self.module}) is ported in a later "
-            f"slice (ROADMAP queue 1, {self.item})")
+    sec = run_cfg.ft
+    c = sec.chaos
+    spec = ChaosSpec(
+        crash_at_step=c.crash_at_step, nan_at_step=c.nan_at_step,
+        slow_rank_from=c.slow_rank_from, slow_rank=c.slow_rank,
+        slow_factor=c.slow_factor, degrade_link=c.degrade_link,
+        degrade_factor=c.degrade_factor,
+    )
+    if sec.guard_action not in ("rollback", "skip"):
+        raise ValueError(
+            f"ft.guard_action must be rollback|skip, got {sec.guard_action!r}")
+    needs_ckpt = spec.crash_at_step >= 0 or (
+        spec.nan_at_step >= 0 and sec.guard_action == "rollback")
+    if needs_ckpt and not run_cfg.train.ckpt_dir:
+        raise ValueError(
+            "ft.chaos crash/NaN-rollback recovery needs train.ckpt_dir "
+            "(--ckpt-dir) for a restore target")
+    return spec
 
 
 @register_plugin
-class FtPlugin(_LaterPlugin):
-    name, module, item = "ft", "MegaFT", "item 9"
+class FtPlugin(ModulePlugin):
+    """Owns the session :class:`repro_torch.ft.FtController`.
+
+    Closes the loop the scan plugin's ``--detect-online`` opens: every
+    online ``DetectionUpdate`` runs through ``MitigationPolicy.decide``, and
+    the decisions execute in the train loop — gradient compression for a
+    degraded DP link, a MegaDPP schedule replan around a slow stage, or a
+    rank exclusion + checkpoint rollback.  The same controller supervises
+    the loop (crash -> restore-latest -> resume, NaN/grad-spike guards) and
+    drives the declarative chaos spec (``--set ft.chaos.*``) that proves the
+    recovery end to end.  ``finalize`` reports the mitigation timeline,
+    restart/rollback counters, and exclusions as ``results["ft"]``.
+    """
+
+    name = "ft"
+
+    def setup(self, session) -> None:
+        from repro_torch.ft import (
+            ChaosInjector,
+            FtController,
+            FtOptions,
+            MitigationPolicy,
+        )
+
+        sec = self.run_cfg.ft
+        spec = chaos_spec(self.run_cfg)
+        if ((spec.slow_rank_from >= 0 or spec.degrade_link)
+                and not self.run_cfg.scan.detect_online):
+            import logging
+
+            logging.getLogger("repro_torch.ft").warning(
+                "ft.chaos injects a straggler/degraded link but "
+                "scan.detect_online is off — nothing will detect or "
+                "mitigate it (add --detect-online)")
+        self.controller = FtController(
+            policy=MitigationPolicy(
+                slow_frac_soft=sec.slow_frac_soft,
+                slow_frac_hard=sec.slow_frac_hard,
+                min_evidence=sec.min_evidence,
+            ),
+            chaos=ChaosInjector(spec) if spec.active else None,
+            options=FtOptions(
+                max_restarts=sec.max_restarts, backoff_s=sec.backoff_s,
+                guard_nan=sec.guard_nan, guard_spike=sec.guard_spike,
+                guard_action=sec.guard_action,
+            ),
+        )
+        session.ft_controller = self.controller
+        session.detection_listeners.append(self.controller.on_detection)
+
+    def finalize(self, session) -> dict:
+        return self.controller.report()

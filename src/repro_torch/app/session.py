@@ -6,7 +6,7 @@ A Session owns the pieces every entry point shares:
 * the **model config** (``get_config(arch, smoke=...)``, or one given),
 * the **device** (``runtime.device``: the card unless ``cpu`` is asked),
 * the **module plugins** (MegaScan, the metrics registry, MegaScope,
-  MegaFBD and MegaDPP), each attached through the uniform
+  MegaFBD, MegaDPP and MegaFT), each attached through the uniform
   :class:`repro_torch.app.plugins.ModulePlugin` surface,
 * the shared **trace export** (``run_cfg.trace_out``: a chrome trace, or
   the JSONL stream for a ``.jsonl`` path) for every workload.
@@ -21,10 +21,12 @@ process, MegaFBD's decoupled backward on the next stage's process under
 probes included, behind MegaRoute's router for several replicas, a
 disaggregated fleet, SLO admission or a placement policy, under Poisson,
 bursty or diurnal traffic; or the static lockstep baseline), ``trace``
-(offline MegaScan: simulate/load -> align -> detect, host only).  What the
-port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: the compile cache (item 12b), online detection and rank events
-(item 9) and ``dryrun`` (item 14b).
+(offline MegaScan: simulate/load -> align -> detect, host only).  The
+``ft`` plugin's controller supervises the train loop, and the ``scan``
+plugin's online detector feeds it through ``notify_detection``; in a world
+of ranks both act from rank 0.  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: the compile cache (item
+12b) and ``dryrun`` (item 14b).
 """
 
 from __future__ import annotations
@@ -111,9 +113,11 @@ class Session:
         from repro_torch.core.tracing.tracer import Tracer
         from repro_torch.parallel import dist as pdist
 
-        if pdist.world() is not None and pdist.world().rank or (
-                pdist.world() is None and pdist.under_torchrun()
-                and int(os.environ["RANK"])):
+        #: this process's rank in its world (0 outside one); a torchrun
+        #: rank knows it before it joins
+        self.rank = (pdist.world().rank if pdist.world() is not None else
+                     int(os.environ["RANK"]) if pdist.under_torchrun() else 0)
+        if self.rank:
             # in a world, rank 0 alone writes the run's files
             run_cfg = copy.deepcopy(run_cfg)
             run_cfg.trace_out = run_cfg.obs.metrics_out = run_cfg.obs.prom_out = ""
@@ -145,6 +149,11 @@ class Session:
         self.tracer = Tracer(rank=0, enabled=False)
         self.collector = NULL_COLLECTOR
         self.metrics_registry = None
+        # no ft plugin -> no controller (the train loop runs unsupervised);
+        # detection listeners receive every online DetectionUpdate the scan
+        # plugin's detector produces
+        self.ft_controller = None
+        self.detection_listeners: list[Callable] = []
         self.results: dict[str, Any] = {}
         self.plugins = (
             [] if self.spawns else plugins if plugins is not None
@@ -163,6 +172,12 @@ class Session:
     def notify_step(self, events, metrics) -> None:
         for p in self.plugins:
             p.on_step(self, events, metrics)
+
+    def notify_detection(self, update) -> None:
+        """Fan one online ``DetectionUpdate`` out to detection listeners
+        (the ft controller registers here) — called by the scan plugin."""
+        for listener in self.detection_listeners:
+            listener(update)
 
     def step_hooks(self):
         from repro_torch.train.loop import StepHooks
@@ -258,9 +273,31 @@ class Session:
             log.info("parallel.fbd_backward: the decoupled backward attaches "
                      "to the pipeline step (pp > 1); at pp=1 it changes "
                      "nothing")
-        if rc.obs.rank_events or rc.obs.slow_rank >= 0:
-            raise _later("per-rank event synthesis (obs.rank_events, "
-                         "obs.slow_rank)", "item 9")
+        if "ft" in rc.modules:
+            from repro_torch.app.plugins import chaos_spec
+
+            chaos_spec(rc)  # its checks, before a world's ranks start
+
+    def _rank_event_spec(self, plan=None):
+        """Resolve the ``obs`` section into a per-rank event synthesis spec
+        (``None`` unless rank events or straggler induction are asked for),
+        as the JAX session does.  With a ``ParallelPlan`` the synthesized
+        topology follows the plan's (dp, pp, tp), so detector rank
+        coordinates and the ft mitigation's link-axis routing agree with
+        the ranks actually training; the ``obs`` section's dims apply to
+        plan-less runs only."""
+        o = self.run_cfg.obs
+        ch = self.run_cfg.ft.chaos
+        chaos_needs = self.ft_controller is not None and (
+            ch.slow_rank_from >= 0 or bool(ch.degrade_link))
+        if not (o.rank_events or o.slow_rank >= 0 or chaos_needs):
+            return None
+        from repro_torch.obs import RankEventSpec
+
+        dims = ({"dp": plan.dp, "pp": plan.pp, "tp": plan.tp} if plan is not None
+                else {"dp": o.dp, "pp": o.pp, "tp": o.tp})
+        return RankEventSpec(**dims, slow_rank=o.slow_rank,
+                             slow_factor=o.slow_factor)
 
     def parallel_plan(self):
         """Resolve the ``parallel`` section into a ``ParallelPlan`` (pp, dp
@@ -378,6 +415,7 @@ class Session:
             cfg, ocfg, data, loop, collector=self.collector, tracer=self.tracer,
             hooks=self.step_hooks(), registry=self.metrics_registry,
             device=self.device, plan=plan, mesh=mesh,
+            obs=self._rank_event_spec(plan), controller=self.ft_controller,
         )
         self.results["train_config"] = {
             "seq_len": seq, "global_batch": batch, "grad_accum": t.grad_accum,

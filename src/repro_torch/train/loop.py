@@ -12,9 +12,21 @@ holds a checkpoint resumes from its latest step and replays
 ``SyntheticTokens.batch_at(step)`` from there, so it continues the
 trajectory of an uninterrupted run.  A pipelined step (a ``plan`` with pp >
 1, MegaDPP) adds MegaScan's per-(microbatch, stage, F/B) events to each
-step's trace, scaled into its ``train_step`` span.  The fault-tolerance
-controller and rank-event injection (MegaFT, ROADMAP queue 1, item 9) and
-the compile cache (item 12b) are later slices; asking for them raises.
+step's trace, scaled into its ``train_step`` span.  The compile cache
+(ROADMAP queue 1, item 12b) is a later slice; asking for it raises.
+
+With a :class:`repro_torch.ft.FtController` (the ``ft`` module plugin) the
+loop is supervised, as the JAX loop is: a chaos-injected crash, a
+mitigation-requested exclusion restart or a guard rollback restores the
+latest checkpoint and resumes, bounded by ``ft.max_restarts`` with
+exponential backoff, and step-indexed batches make the replayed trajectory
+the fault-free one.  The controller's pending actions execute at a step's
+top: int8 gradient sync (``GradCompressor``) for a degraded data link, a
+MegaDPP wave replan around a slow stage at pp > 1, or an exclusion
+restart.  ``obs`` (a ``repro_torch.obs.RankEventSpec``) adds per-rank
+events to each step's trace and can induce a straggler, a sleep inside the
+step's span.  In a world of ranks, rank 0 decides and sends every rank the
+actions at each step's top, so all of them act at the same step.
 """
 
 from __future__ import annotations
@@ -22,22 +34,30 @@ from __future__ import annotations
 import gc
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from types import SimpleNamespace
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dpp.executor import emit_pipeline_events
+from repro_torch.core.dpp.planner import Planner
 from repro_torch.core.flops import count_flops
+from repro_torch.core.simkit.workload import ModelProfile
 from repro_torch.core.tracing.tracer import Tracer
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.ft.chaos import InjectedCrash
+from repro_torch.ft.compress import GradCompressor
 from repro_torch.models.hooks import NULL_COLLECTOR
 from repro_torch.models.model import get_model
-from repro_torch.train.optim import OptimizerConfig, leaves
+from repro_torch.obs.inject import emit_rank_events
+from repro_torch.train.optim import OptimizerConfig, leaves, tree_map
 from repro_torch.train.train_step import (
+    copy_state,
     init_train_state,
     make_train_step,
     to_device_batch,
@@ -83,11 +103,29 @@ def refuse_embeds(cfg: ModelConfig) -> None:
             "models.model.make_batch batches")
 
 
-def _refuse(**later: tuple[Any, str]) -> None:
-    for name, (value, item) in later.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is ported in a later slice (ROADMAP queue 1, {item})")
+class _MitigationRestart(RuntimeError):
+    """The controller decided EXCLUDE_RESTART: roll back and resume."""
+
+
+class _GuardRollback(RuntimeError):
+    """An in-band guard tripped with guard_action=rollback."""
+
+
+def _route_links(plan, links) -> tuple[list, list]:
+    """Split detected degraded links by the mesh axis they live on, as the
+    JAX loop does: without a plan every link is a data link; with one, both
+    endpoints map through the plan's topology (``parallel.plan.link_axis``)
+    and links across ``data`` carry the gradient sync (compressible), links
+    across ``stage`` the pipeline's hand-offs (replannable); anything else
+    mitigates as neither."""
+    links = [tuple(l) for l in (links or [])]
+    if plan is None:
+        return links, []
+    from repro_torch.parallel.plan import link_axis
+
+    data = [l for l in links if link_axis(plan, l) == "data"]
+    stage = [l for l in links if link_axis(plan, l) == "stage"]
+    return data, stage
 
 
 def step_flops(cfg: ModelConfig, state, batch: dict,
@@ -161,20 +199,42 @@ def train(
     whole master (or restores the whole state) and keeps the part it owns;
     rank 0 alone logs and writes checkpoints, the whole tree gathered from
     the ranks' parts; the step's flops are not counted (its work is
-    spread over the ranks)."""
-    _refuse(compile_cache=(compile_cache, "item 12b"),
-            obs=(obs, "item 9"), controller=(controller, "item 9"))
+    spread over the ranks).
+
+    ``obs`` and ``controller`` (MegaFT) are as in the JAX loop.  A failure
+    is recovered only under a controller with a ``ckpt_dir`` and within
+    ``max_restarts``; otherwise it re-raises.  A refusal
+    (``NotImplementedError``) is never recovered, and in a world only the
+    failures that fire on every rank at once are: an injected crash, a
+    guard rollback, an exclusion restart.  Recovery drains the background
+    save (rank 0), waits for every rank, restores the whole tree from the
+    latest checkpoint (each rank keeps its part), zeroes the compression
+    error buffers and cuts the history at the restored step."""
+    if compile_cache is not None:
+        raise NotImplementedError(
+            "compile_cache is ported in a later slice (ROADMAP queue 1, item 12b)")
     refuse_embeds(cfg)
     dev = resolve_device(device)
     tracer = tracer or Tracer(rank=0, enabled=True)
     ds = SyntheticTokens(data_cfg)
-    step_fn = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum,
-                              collector=collector, plan=plan, mesh=mesh)
-    pp_info = getattr(step_fn, "pipeline", None)
-    par_info = getattr(step_fn, "parallel", None)
+    if controller is not None:
+        controller.registry = registry
+
+    def build(plan_, compressor=None):
+        """(Re)build the wrapped step: also the mitigation rebuild path
+        (compression on, schedule replanned)."""
+        raw = make_train_step(cfg, ocfg, grad_accum=loop.grad_accum,
+                              collector=collector, plan=plan_, mesh=mesh,
+                              compressor=compressor)
+        fn = raw
+        if hooks is not None and hooks.wrap_step is not None:
+            fn = hooks.wrap_step(raw)
+        return fn, raw
+
+    step_fn, raw = build(plan)
+    pp_info = getattr(raw, "pipeline", None)
+    par_info = getattr(raw, "parallel", None)
     lead = par_info is None or par_info.mesh.get_rank() == 0
-    if hooks is not None and hooks.wrap_step is not None:
-        step_fn = hooks.wrap_step(step_fn)
 
     start = 0
     ckpt = None
@@ -199,6 +259,20 @@ def train(
     if par_info is not None and whole:
         state = par_info.shard_state(state)
 
+    def save(state, step: int) -> None:
+        # in a world, every rank sends its part and rank 0 saves the whole
+        # tree in the one-process format
+        saved = state if par_info is None else par_info.gather_state(state)
+        if ckpt:
+            ckpt.save_async(saved, step, metadata={"arch": cfg.name})
+
+    if controller is not None and loop.ckpt_dir and last is None:
+        if par_info is not None:
+            dist.barrier()  # every rank has looked for a checkpoint first
+        # supervised runs always have a rollback target, even before the
+        # first periodic save lands
+        save(state, 0)
+
     # the MFU numerator, once, only when someone will read the series
     flops = 0.0
     if registry is not None and par_info is not None:
@@ -212,39 +286,212 @@ def train(
         gc.collect()
     tokens_per_step = data_cfg.global_batch * data_cfg.seq_len
 
+    opts = controller.options if controller is not None else None
+    guards_on = opts is not None and (opts.guard_nan or opts.guard_spike > 0)
+    skip_guard = guards_on and opts.guard_action == "skip"
+    max_restarts = opts.max_restarts if opts is not None else 0
+    backoff_s = opts.backoff_s if opts is not None else 0.0
+    comp = None            # GradCompressor once the mitigation activates
+    comp_err = None        # its error-feedback buffers
+    comp_wire = (0, 0)     # (compressed, bf16-baseline) bytes per step
+
     history: list[dict] = []
-    for step in range(start, loop.n_steps):
-        batch = ds.batch_at(step)
-        n_ev = len(tracer.events)
-        t_step = time.perf_counter()
-        with tracer.scope("train_step", op="train_step", mb=step):
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])  # waits for the card
-        step_s = time.perf_counter() - t_step
-        if pp_info is not None and tracer.enabled:
-            # the train_step scope just closed; fold its wall into
-            # per-(microbatch, stage, F/B) pipeline events
-            anchor = tracer.events[-1]
-            emit_pipeline_events(tracer.events, pp_info.table, ts=anchor.ts,
-                                 wall=anchor.dur, step_idx=step)
-        row = {"step": step + 1, "loss": loss, "lr": float(metrics["lr"]),
-               "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
-               "tokens_per_s": tokens_per_step / max(step_s, 1e-9)}
-        history.append(row)
-        if registry is not None:
-            _publish_step_metrics(registry, row, tokens=tokens_per_step,
-                                  flops=flops, device=dev)
-        if hooks is not None and hooks.on_step is not None:
-            hooks.on_step(tracer.events[n_ev:], metrics)
-        if lead and ((step + 1) % max(loop.log_every, 1) == 0
-                     or step == loop.n_steps - 1):
-            log.info("step %d: loss=%.4f lr=%.2e", step + 1, loss, row["lr"])
-        if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
-            # in a world, every rank sends its part and rank 0 saves the
-            # whole tree in the one-process format
-            saved = state if par_info is None else par_info.gather_state(state)
+    step = start
+    attempts = 0
+    while step < loop.n_steps:
+        try:
+            if controller is not None:
+                acts = controller.poll()
+                if par_info is not None:
+                    # rank 0 decides; every rank acts on its decisions
+                    box = [acts]
+                    dist.broadcast_object_list(box, src=0)
+                    acts = box[0]
+                for act in acts:
+                    data_links, stage_links = _route_links(plan, act.degraded_links)
+                    if act.kind == "exclude":
+                        controller.excluded.update(act.slow_ranks)
+                        controller.record(step, "mitigate:exclude", {
+                            "ranks": sorted(act.slow_ranks),
+                            "detect_step": act.detect_step,
+                            "restart": bool(loop.ckpt_dir),
+                        })
+                        if loop.ckpt_dir:
+                            raise _MitigationRestart(
+                                f"excluding ranks {sorted(act.slow_ranks)}")
+                        log.warning("ft: excluding %s without restart "
+                                    "(no ckpt_dir)", sorted(act.slow_ranks))
+                    elif data_links and comp is None and (
+                            plan is None or plan.pp <= 1 or plan.dp > 1):
+                        # a data-axis link has a gradient sync to compress
+                        comp = GradCompressor()
+                        step_fn, raw = build(plan, compressor=comp)
+                        comp_err = comp.init(state.master)
+                        comp_wire = comp.wire_bytes(state.master)
+                        controller.replans += 1
+                        controller.compression_on = True
+                        controller.record(step, "mitigate:compress_on", {
+                            "links": [list(l) for l in data_links],
+                            "detect_step": act.detect_step,
+                            "wire_bytes_per_sync": comp_wire[0],
+                            "baseline_bytes_per_sync": comp_wire[1],
+                        })
+                        log.warning(
+                            "ft: int8 gradient sync ON (%.2fx wire bytes) "
+                            "for degraded links %s",
+                            comp_wire[0] / max(comp_wire[1], 1),
+                            [list(l) for l in data_links])
+                    elif (act.slow_ranks or stage_links) and plan is not None \
+                            and plan.pp > 1:
+                        # slow ranks or degraded stage-axis links: route
+                        # around them with a MegaDPP wave re-plan
+                        planner = Planner(plan.topology(),
+                                          ModelProfile(n_chunks=plan.n_chunks),
+                                          n_micro=plan.n_micro_local)
+                        res = planner.replan(SimpleNamespace(
+                            slow_ranks=list(act.slow_ranks),
+                            degraded_links=stage_links))
+                        plan = replace(plan, schedule="wave", wave=res.wave)
+                        step_fn, raw = build(plan, compressor=comp)
+                        pp_info = raw.pipeline
+                        controller.replans += 1
+                        controller.record(step, "mitigate:replan_schedule", {
+                            "slow_ranks": sorted(act.slow_ranks),
+                            "detect_step": act.detect_step,
+                            "wave": res.wave,
+                            "makespan_ms": round(res.makespan * 1e3, 3),
+                        })
+                        log.warning("ft: replanned pipeline schedule -> "
+                                    "wave=%d around slow ranks %s",
+                                    res.wave, sorted(act.slow_ranks))
+                    else:
+                        controller.record(step, "mitigate:replan_noop", {
+                            "slow_ranks": sorted(act.slow_ranks),
+                            "detect_step": act.detect_step,
+                        })
+                if controller.crash_due(step):
+                    raise InjectedCrash(f"chaos: injected crash at step {step}")
+
+            batch = ds.batch_at(step)
+            eff_obs = obs
+            if controller is not None:
+                eff_obs = controller.effective_obs(obs, step)
+                batch = controller.poison_batch(batch, step)
+            # the step updates the state in place: a skip guard keeps a
+            # copy of the pre-step state (and error buffers) to fall back on
+            prev = None
+            if skip_guard:
+                prev = (copy_state(state), None if comp_err is None
+                        else tree_map(torch.clone, comp_err))
+            n_ev = len(tracer.events)
+            t_step = time.perf_counter()
+            with tracer.scope("train_step", op="train_step", mb=step):
+                if comp is None:
+                    state, metrics = step_fn(state, batch)
+                else:
+                    state, comp_err, metrics = step_fn(state, comp_err, batch)
+                loss = float(metrics["loss"])  # waits for the card
+                extra = 0.0
+                if eff_obs is not None and eff_obs.slow_rank >= 0:
+                    # induce the straggler inside the scope, after the
+                    # card's work: the step's window stretches as a slow
+                    # rank's would
+                    extra = eff_obs.extra_seconds(time.perf_counter() - t_step)
+                    if extra > 0:
+                        time.sleep(extra)
+            step_s = time.perf_counter() - t_step
+            grad_norm = float(metrics["grad_norm"])
+            if guards_on:
+                verdict = controller.check_guards(step, loss, grad_norm)
+                if verdict == "rollback":
+                    raise _GuardRollback(f"guard tripped at step {step}")
+                if verdict == "skip":
+                    # discard the poisoned update and move on: cheaper than
+                    # a rollback, at the cost of diverging from the
+                    # fault-free trajectory by one skipped batch
+                    state, comp_err = prev
+                    del tracer.events[n_ev:]
+                    step += 1
+                    continue
+            anchor = tracer.events[-1] if tracer.enabled else None
+            if pp_info is not None and anchor is not None:
+                # the train_step scope just closed; fold its wall into
+                # per-(microbatch, stage, F/B) pipeline events
+                emit_pipeline_events(tracer.events, pp_info.table, ts=anchor.ts,
+                                     wall=anchor.dur, step_idx=step)
+            if eff_obs is not None and anchor is not None:
+                emit_rank_events(tracer.events, eff_obs, ts=anchor.ts,
+                                 wall=anchor.dur, extra=extra, step=step)
+            row = {"step": step + 1, "loss": loss, "lr": float(metrics["lr"]),
+                   "grad_norm": grad_norm, "step_s": step_s,
+                   "tokens_per_s": tokens_per_step / max(step_s, 1e-9)}
+            history.append(row)
+            if registry is not None:
+                _publish_step_metrics(registry, row, tokens=tokens_per_step,
+                                      flops=flops, device=dev)
+                if comp is not None:
+                    registry.counter("ft.wire_bytes_compressed").inc(comp_wire[0])
+                    registry.counter("ft.wire_bytes_baseline").inc(comp_wire[1])
+            if hooks is not None and hooks.on_step is not None:
+                hooks.on_step(tracer.events[n_ev:], metrics)
+            if lead and ((step + 1) % max(loop.log_every, 1) == 0
+                         or step == loop.n_steps - 1):
+                log.info("step %d: loss=%.4f lr=%.2e", step + 1, loss, row["lr"])
+            step += 1
+            if loop.ckpt_dir and step % loop.ckpt_every == 0:
+                save(state, step)
+        except Exception as e:  # noqa: BLE001 — the supervised recovery path
+            attempts += 1
+            recover = (controller is not None and bool(loop.ckpt_dir)
+                       and attempts <= max_restarts
+                       and not isinstance(e, NotImplementedError))
+            if par_info is not None:
+                recover = recover and isinstance(
+                    e, (InjectedCrash, _GuardRollback, _MitigationRestart))
+            if not recover:
+                raise
+            log.warning("step %d failed (%s: %s); recovery %d/%d",
+                        step, type(e).__name__, e, attempts, max_restarts)
             if ckpt:
-                ckpt.save_async(saved, step + 1, metadata={"arch": cfg.name})
+                # drain (not wait): a background save error here must not
+                # mask the failure being recovered from
+                bg = ckpt.drain()
+                if bg is not None:
+                    log.warning("background checkpoint save failed (%s); "
+                                "restoring from the previous one", bg)
+            if par_info is not None:
+                dist.barrier()  # rank 0's save is on disk for every rank
+            last = latest_step(loop.ckpt_dir)
+            if last is None:
+                raise
+            if backoff_s > 0:
+                time.sleep(min(backoff_s * 2 ** (attempts - 1), 30.0))
+            # every leaf comes from the checkpoint; the live state only
+            # gives the tree (or, for a rank's part, the whole state does)
+            if par_info is not None and par_info.layout is not None:
+                state = None
+                state, _ = restore(loop.ckpt_dir, init_train_state(
+                    cfg, seed=loop.seed, device=dev))
+                state = par_info.shard_state(state)
+            else:
+                state, _ = restore(loop.ckpt_dir, state)
+            if comp is not None:
+                # error-feedback buffers are step-local state, not part of
+                # the checkpoint contract: restart them at zero
+                comp_err = comp.init(state.master)
+            # drop history rows past the restored step — the replayed steps
+            # re-append them; keeping both double-counts
+            history[:] = [h for h in history if h["step"] <= last]
+            if isinstance(e, _GuardRollback):
+                controller.record_rollback(step, last)
+            else:
+                reason = ("exclude" if isinstance(e, _MitigationRestart)
+                          else type(e).__name__)
+                controller.record_restart(step, last, reason)
+            if lead:
+                log.info("restored checkpoint at step %d; resuming", last)
+            step = last
     if ckpt:
         ckpt.wait()
     return state, history
+

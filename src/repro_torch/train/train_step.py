@@ -23,7 +23,8 @@ one rank of a world (:func:`_make_world_train_step`): the batch split
 over ``data``, Megatron's tensor split over ``model``, each stage a
 process.  At ``pp == 1`` without a mesh a plan is plain gradient
 accumulation over ``plan.n_micro`` microbatches, bit for bit the plain
-step.  int8 gradient compression is a later slice.
+step.  A ``compressor`` (MegaFT's int8 gradient sync with error feedback)
+quantize-dequantizes the whole gradient just before AdamW.
 """
 
 from __future__ import annotations
@@ -153,15 +154,19 @@ def _accumulate(grads_once: Callable, grad_accum: int) -> Callable:
 
 def _updater(cfg: ModelConfig, ocfg: OptimizerConfig, compute_grads: Callable,
              grad_transform: Callable | None, *, sync: Callable | None = None,
-             norm: Callable = global_norm) -> Callable:
+             norm: Callable = global_norm, compressor=None) -> Callable:
     """``step(state, batch)``: the gradients of ``compute_grads``, then
     AdamW on the float32 master, refreshing each compute-dtype leaf as its
     update lands.  In a world, ``sync(loss, grads) -> (loss, grads)`` sums
     the ranks' shares of the gradients and of the (last accumulation
-    slice's) loss first, and ``norm`` is the whole model's."""
+    slice's) loss first, and ``norm`` is the whole model's.  With a
+    ``compressor`` the step is ``step(state, err, batch) -> (state, err,
+    metrics)``: the whole gradient (summed, in a world) is
+    quantize-dequantized in its own dtype, just before AdamW's float32
+    cast, and the residual carried in the error buffers ``err``."""
     dtype = getattr(torch, cfg.compute_dtype)
 
-    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def update(state: TrainState, err, batch: dict):
         dev = next(iter(leaves(state.master)))[1].device
         batch = to_device_batch(batch, dev)
         _, metrics, grads = compute_grads(state.params, batch)
@@ -170,6 +175,8 @@ def _updater(cfg: ModelConfig, ocfg: OptimizerConfig, compute_grads: Callable,
             metrics = {**metrics, "loss": loss, "ce": loss}
         if grad_transform is not None:
             grads = grad_transform(grads)
+        if compressor is not None:
+            grads, err = compressor.apply(grads, err)
 
         def refresh(path, master_leaf):
             parent(state.params, path)[path[-1]] = (
@@ -177,7 +184,14 @@ def _updater(cfg: ModelConfig, ocfg: OptimizerConfig, compute_grads: Callable,
 
         stats = adamw_update(ocfg, grads, state.master, state.opt, on_leaf=refresh,
                              norm=norm)
-        return state, {**metrics, **stats}
+        return state, err, {**metrics, **stats}
+
+    if compressor is not None:
+        return update
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        state, _, metrics = update(state, None, batch)
+        return state, metrics
 
     return step
 
@@ -208,7 +222,14 @@ def make_train_step(
     compressor=None,
     plain: bool = False,
 ) -> Callable:
-    """Returns ``step(state, batch) -> (state, metrics)``.
+    """Returns ``step(state, batch) -> (state, metrics)``, or with a
+    ``compressor`` (a ``repro_torch.ft.GradCompressor``: int8 gradient sync
+    with error feedback, the ft controller's mitigation of a degraded data
+    link) ``step(state, err, batch) -> (state, err, metrics)``, ``err`` the
+    float32 error buffers (``compressor.init(state.master)``); the
+    ``TrainState`` and so the checkpoint format are unchanged.  A pp > 1
+    plan with dp = 1 has no data axis to compress over and raises, as in
+    JAX; in a world, compression runs at pp = tp = 1 (ROADMAP item 8c).
 
     A ``plan`` with dp or tp > 1, or any plan given a ``mesh`` (default: the
     one ``parallel.sharding.axis_rules`` installed), runs in the world of
@@ -226,10 +247,12 @@ def make_train_step(
     ``plain=True`` runs the plain PyTorch versions of the kernels on any
     device.
     """
-    if compressor is not None:
-        raise NotImplementedError(
-            "int8 gradient compression is ported with MegaFT (ROADMAP queue "
-            "1, item 9)")
+    if compressor is not None and plan is not None and plan.pp > 1 and plan.dp <= 1:
+        raise ValueError(
+            "gradient compression targets the DP gradient sync; a "
+            f"pp={plan.pp} plan with dp=1 has no data axis to compress "
+            "over — set parallel.dp > 1 to compose them"
+        )
     if mesh is None:
         from repro_torch.parallel.sharding import current_mesh_and_rules
 
@@ -248,7 +271,8 @@ def make_train_step(
             )
         return _make_world_train_step(
             cfg, ocfg, plan, mesh, grad_accum=grad_accum,
-            grad_transform=grad_transform, collector=collector, plain=plain)
+            grad_transform=grad_transform, collector=collector, plain=plain,
+            compressor=compressor)
     if plan is not None and plan.pp > 1:
         return _make_pipeline_train_step(
             cfg, ocfg, plan, grad_accum=grad_accum,
@@ -263,7 +287,8 @@ def make_train_step(
         return (loss.detach(), tree_map(torch.Tensor.detach, metrics),
                 grad_tree(params, loss, unused))
 
-    return _updater(cfg, ocfg, _accumulate(grads_of, grad_accum), grad_transform)
+    return _updater(cfg, ocfg, _accumulate(grads_of, grad_accum), grad_transform,
+                    compressor=compressor)
 
 
 def _make_pipeline_train_step(
@@ -471,6 +496,7 @@ def _make_world_train_step(
     grad_transform: Callable[[Any], Any] | None = None,
     collector: Collector = NULL_COLLECTOR,
     plain: bool = False,
+    compressor=None,
 ) -> Callable:
     """The train step of one rank of a (stage, data, model) mesh.
 
@@ -512,6 +538,11 @@ def _make_world_train_step(
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism at pp=1 runs dense GQA blocks "
             "only; other families are ROADMAP queue 1, item 8c")
+    if compressor is not None and (plan.pp > 1 or plan.tp > 1):
+        raise NotImplementedError(
+            f"int8 gradient compression in a world runs at pp = tp = 1 (this "
+            f"plan: pp={plan.pp}, tp={plan.tp}): its 256-element blocks would "
+            "span the ranks' parts of a leaf (ROADMAP queue 1, item 8c)")
     group = lambda ax, n: mesh.get_group(ax) if n > 1 else None  # noqa: E731
     data_group = group("data", plan.dp)
     model_group = group("model", plan.tp)
@@ -577,7 +608,8 @@ def _make_world_train_step(
                            total=over(stage_group))
 
     step = _updater(cfg, ocfg, _accumulate(grads_once, grad_accum), grad_transform,
-                    sync=sync, norm=norm if layout is not None else global_norm)
+                    sync=sync, norm=norm if layout is not None else global_norm,
+                    compressor=compressor)
     if plan.pp > 1:
         step.pipeline = PipelineStepInfo(plan=plan, table=table, layout=layout,
                                          loss_fn=None)

@@ -6,8 +6,8 @@ the same diagnosis as JAX's, continuous serving with the ``scan`` and
 JAX ``MegaServe``'s series names, training with the ``scope`` and ``fbd``
 modules reports what JAX's plugins report, every single-engine serving path
 (static, gathered, MegaScope probes, chunked prefill, speculation with either
-drafter) runs to the end through the CLI, and what later slices port is
-refused with its ROADMAP item."""
+drafter) runs to the end through the CLI, what later slices port is refused
+with its ROADMAP item, and MegaFT's command lines run."""
 
 import json
 import re
@@ -201,9 +201,26 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
     (["dryrun"], "item 14b"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
 def test_later_slices_are_refused_with_their_item(argv, item):
-    with pytest.raises(SystemExit, match=re.escape(item)):
-        cli.main([argv[0], "--arch", ARCH, "--smoke", "--device", "cpu",
-                  *argv[1:]])
+    """What a later slice ports is refused naming its ROADMAP item.  Item 9
+    (MegaFT and live detection) is ported: its command lines run (two short
+    steps) and report ``results["ft"]``, ``results["scan"]["online"]`` or
+    the per-rank events in the trace."""
+    full = [argv[0], "--arch", ARCH, "--smoke", "--device", "cpu", *argv[1:]]
+    if item != "item 9":
+        with pytest.raises(SystemExit, match=re.escape(item)):
+            cli.main(full)
+        return
+    res = cli.run([*full, "--steps", "2", "--seq-len", "32", "--global-batch", "2"])
+    results = res["session"].results
+    assert [h["step"] for h in res["history"]] == [1, 2]
+    if "--modules" in argv:
+        assert results["ft"]["restarts"] == 0 and results["ft"]["timeline"] == []
+    elif argv[1] == "--detect-online":
+        assert results["scan"]["online"] == {"passes": 0, "first_detect_step": None,
+                                             "slow_ranks": [], "degraded_links": []}
+    else:
+        ranks = {e.rank for e in res["session"].tracer.events if e.name == "fwd"}
+        assert ranks == {0, 1}
 
 
 @pytest.mark.parametrize("argv", [

@@ -153,3 +153,21 @@ def test_the_parallel_modules_are_guarded():
         path = PORT.parent.joinpath(*m.split("."))
         assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
                 else path / "__init__.py") in SOURCES
+
+
+def test_the_ft_and_detector_modules_are_guarded():
+    """MegaFT's modules (chaos, compression, the controller, failover, the
+    mitigation policy) and live detection's (the online detector, rank
+    event synthesis), with the loop, plugins and session that run them, are
+    among those imported and scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.ft", "repro_torch.ft.chaos", "repro_torch.ft.compress",
+              "repro_torch.ft.controller", "repro_torch.ft.failover",
+              "repro_torch.ft.mitigation", "repro_torch.obs",
+              "repro_torch.obs.detector", "repro_torch.obs.inject",
+              "repro_torch.train.loop", "repro_torch.app.plugins",
+              "repro_torch.app.session"):
+        assert m in mods, m
+        path = PORT.parent.joinpath(*m.split("."))
+        assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+                else path / "__init__.py") in SOURCES

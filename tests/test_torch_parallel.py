@@ -399,16 +399,23 @@ def test_refusals_carry_jax_messages():
 
 def test_refusals_of_the_port():
     """What the port does not run yet names its ROADMAP item: tp at pp = 1
-    over other families and dp over MoE (item 8c), int8 compression (item
-    9); a mesh larger than the world names both counts."""
+    over other families and dp over MoE (item 8c); int8 compression over a
+    pp > 1 plan with dp = 1 raises JAX's ``ValueError`` (no data axis); a
+    mesh larger than the world names both counts."""
     from repro_torch.launch.mesh import make_pipeline_mesh, make_production_mesh
 
     with pytest.raises(SystemExit, match="item 8c"):
         cli.main(["train", "--smoke", "--device", "cpu", "--steps", "1",
                   "--arch", "rwkv6-3b", "--set", "parallel.tp=2"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(TINY, optim.OptimizerConfig(), plan=resolve_plan(
-            ParallelPlan(pp=2)), compressor=object())
+    from repro.ft import GradCompressor as JGradCompressor
+    from repro_torch.ft import GradCompressor
+
+    ours = _message(lambda: make_train_step(TINY, optim.OptimizerConfig(), plan=resolve_plan(
+        ParallelPlan(pp=2)), compressor=GradCompressor()))
+    theirs = _message(lambda: jmake_train_step(JTINY, joptim.OptimizerConfig(),
+                                               plan=jplan.resolve_plan(jplan.ParallelPlan(pp=2)),
+                                               compressor=JGradCompressor()))
+    assert ours == theirs and "dp=1 has no data axis to compress" in ours
     with pytest.raises(ValueError, match="needs 512 ranks, the world has 1"):
         make_production_mesh(multi_pod=True)
     with pytest.raises(ValueError, match="needs 8 ranks, the world has 1"):

@@ -234,7 +234,8 @@ def test_cli_trains_on_the_cpu_and_refuses_without_a_card():
 def test_remat_dots_and_later_slices_raise():
     """remat "dots" runs (its loss equals "full"'s; the gradients are held
     in tests/test_torch_runtime.py); what later slices port still raises,
-    naming its ROADMAP item."""
+    naming its ROADMAP item; MegaFT's ``obs`` and ``controller`` run (held
+    to JAX in tests/test_torch_ft.py)."""
     _, cfg = _cfgs("qwen2-0.5b", remat="dots")
     params = lm.init(cfg, seed=0, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 1, 8, 0).items()}
@@ -243,9 +244,21 @@ def test_remat_dots_and_later_slices_raise():
     assert loss.item() == full.item()
     from repro_torch.train.loop import LoopConfig, train
 
-    for kw, item in ((dict(obs=object()), "item 9"),
-                     (dict(controller=object()), "item 9"),
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.ft import FtController
+    from repro_torch.obs import RankEventSpec
+
+    for kw, item in ((dict(obs=RankEventSpec(dp=2)), "item 9"),
+                     (dict(controller=FtController()), "item 9"),
                      (dict(compile_cache="cc"), "item 12b")):
+        if item == "item 9":
+            tracer = Tracer(rank=0)
+            _, hist = train(cfg, optim.OptimizerConfig(), DataConfig(256, 8, 1),
+                            LoopConfig(n_steps=1), device="cpu", tracer=tracer, **kw)
+            assert [h["step"] for h in hist] == [1] and np.isfinite(hist[0]["loss"])
+            fwd = sorted(e.rank for e in tracer.events if e.name == "fwd")
+            assert fwd == ([0, 1] if "obs" in kw else [])
+            continue
         with pytest.raises(NotImplementedError, match=item):
             train(cfg, optim.OptimizerConfig(), DataConfig(256, 8, 1),
                   LoopConfig(n_steps=1), device="cpu", **kw)
