@@ -48,9 +48,19 @@ Phases, each of which fails the run (non-zero exit) on error:
              ``is_causal=False``), and splits K2's backward into its
              kernels under ``torch.profiler``;
 4. serve   — full-width qwen2-0.5b (24 layers, random weights from a seed)
-             served by MegaServe on 32 Poisson requests; every decode tick and
-             every prompt must launch each paged kernel once per layer and
-             the RMSNorm kernel once per norm;
+             served by MegaServe on 32 Poisson requests after
+             ``precompile()`` (every bucket warmed, the launch counts left
+             at 0); every decode tick and every prompt must launch each
+             paged kernel once per layer and the RMSNorm kernel once per
+             norm (the check phase's Session runs, which do not
+             precompile, must stream the same tokens);
+   precompile — two fresh ``python -m repro_torch serve --arch qwen2-0.5b
+             --continuous`` processes through one ``--compile-cache``
+             directory, empty the first time: the cold one runs nvcc for
+             the libraries its buckets launch (misses and puts), the warm
+             one runs none (hits equal to the cold one's puts, no miss, no
+             new file in the cache, Triton's included); both report per-path
+             ``{count, ms}`` and stream the same tokens;
    generate — ``generate_with_scope`` (MegaScope) on the serve phase's
              weights: a 128-token prompt of seed 1, 32 greedy steps over the
              dense KV cache with probes on the final hidden state and the
@@ -94,7 +104,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    route   — MegaRoute: the serve phase's model and workload through a
              ``Router`` over two MegaServe replicas (8 slots each) that
              share one cast of the weights (resident and peak memory of
-             one replica and of two, against one pool): colocated under
+             one replica and of two, against one pool), ``precompile()``
+             over both replicas' ladders (the launch counts unmoved):
+             colocated under
              jsq and under round_robin, then disaggregated (replica 0
              prefill-only, every request migrating its slot to replica
              1); every request finished, K4, K3 and K1 launched exactly
@@ -114,15 +126,16 @@ Phases, each of which fails the run (non-zero exit) on error:
              lanes 0, 1 and 2 in its trace; tokens/s, TTFT, queue wait,
              placement, load skew, the router tick median and the
              kv_export/kv_import ms and GB/s logged for each run;
-   serve-rwkv6, serve-griffin — rwkv6-3b (8 of its 32 layers) and
-             recurrentgemma-9b (12 of its 38, 4 of them attention) at full
+   serve-rwkv6, serve-griffin — rwkv6-3b (4 of its 32 layers) and
+             recurrentgemma-9b (6 of its 38, 2 of them attention) at full
              width served by MegaServe, seed-0 weights, bf16, 8 slots: 16 and 12
              Poisson requests (prompts 127/1000/2047 and 100/2048/3000, the
              latter decoding past Griffin's window of 2048) prefilled in
              pow2 segments; every request finished with a valid stream, K1
              launched exactly (2L + 1) x (decode ticks + the prompts' pow2
-             segments) times, K3 exactly ticks x 4 (Griffin), no K4, K5,
-             K6 or K1 backward; teacher-forced logits through the kernels
+             segments) times, K3 exactly ticks x its attention layers
+             (Griffin), no K4, K5, K6 or K1 backward; teacher-forced
+             logits through the kernels
              and the plain versions within ``LOGIT_TOL`` in float32, the
              bf16 replays and a noise probe logged (see ``LOGIT_TOL``);
              tokens/s, TTFT, prefill ms by prompt length, the median tick,
@@ -130,8 +143,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    generate-recurrent — ``generate_with_scope`` on rwkv6-3b (2 layers)
              and recurrentgemma-9b (3), full width, over the carried state,
              held as the generate phase holds qwen2's;
-   serve-dense, serve-moe — minitron-4b (32 layers) and minicpm-2b (40)
-             at full width and depth, and phi3.5-moe at full width cut to
+   serve-dense, serve-moe — minitron-4b (16 of its 32 layers) and
+             minicpm-2b (20 of 40) at full width, and phi3.5-moe at full
+             width cut to
              8 of its 32 layers (its float32 init freed once the server
              holds the bf16 copy), seed-0 weights, bf16, 8 slots, 12
              Poisson requests at 40/s (prompts 128/512/2048, 16-32 new
@@ -144,7 +158,7 @@ Phases, each of which fails the run (non-zero exit) on error:
              routing and a noise probe logged); tokens/s, TTFT, the tick median, one tick's
              host and device time, peak memory, phi3.5-moe's
              ``moe_drop_frac`` by path;
-   serve-mla — deepseek-v2-lite-16b (MLA over 64 routed experts) at 9
+   serve-mla — deepseek-v2-lite-16b (MLA over 64 routed experts) at 5
              of its 27 layers, its seed-0 weights drawn in bf16 leaf by leaf,
              the same 12 requests on the gathered path (the latent cache
              has no kv-head axis for K3 or K4; the dense prefill): every
@@ -170,8 +184,9 @@ Phases, each of which fails the run (non-zero exit) on error:
              through ``Session`` (``python -m repro_torch train --modules
              scan,metrics --trace-out ... --metrics-out ... --set
              obs.peak_tflops=989``); launches must equal the counts worked
-             out from the depth and full remat for 9 forward-and-backward
-             passes (the 8 steps and the flop count's), every loss must be
+             out from the depth and full remat for the 8 steps' forward-and-
+             backward passes (the flop count runs on the meta device and
+             launches nothing), every loss must be
              finite and the last below the first; one more step under
              ``torch.profiler`` splits its device time by kernel family
              (also in phases 8 and 9); the chrome trace, its ``.jsonl``
@@ -304,7 +319,7 @@ Phases, each of which fails the run (non-zero exit) on error:
    train-mla — deepseek-v2-lite at full width cut to 4 of 27 layers
              through the loop with a metrics registry, 2048 x 2, 4 steps,
              data seed 2: parameter count, K2 (q/k 192, v 128) 2L / L and
-             K1 (6L + 1) / (3L + 1) a pass (the flop count's pass too),
+             K1 (6L + 1) / (3L + 1) a pass (the flop count launches none),
              losses falling, the profiler's split, ``mfu_est``; its step
              check, pinned;
    train-encdec — seamless-m4t-large-v2 at full width and depth (2.04 B
@@ -314,7 +329,18 @@ Phases, each of which fails the run (non-zero exit) on error:
              backwards a step (the encoder's, the cross-attention's, the
              decoder's), losses falling, the profiler's split,
              ``mfu_est``, peak memory; its step check;
-10. summary — a ``{"kernels": [...]}`` line, then the last line
+10. dryrun  — ``python -m repro_torch dryrun --all`` over the full
+             configs on the meta device, started in the background (at a
+             lower priority) when the training phases begin: a line a
+             cell with its seconds, each cell flops
+             and a peak or a reasoned ``FAIL``; the wrappers' meta-device
+             sizes against their libraries'; qwen2-0.5b's cell at 2048 x 8
+             (full depth, remat full): ``peak_est_bytes`` within
+             ``PEAK_RTOL`` of ``max_memory_allocated`` over one real step
+             (seamless-m4t's, at the train-encdec phase's shape, is held
+             the same way there), and its flops, the loop's meta count and
+             a real pass's count one integer;
+11. summary — a ``{"kernels": [...]}`` line, then the last line
              ``{"ok": true, "device": {...}}``.
 
 Needs the CUDA toolkit (nvcc) and PyTorch built for CUDA; imports no JAX.
@@ -400,12 +426,12 @@ RWKV_SERVE = dict(n=16, rate=40.0, prompt_lens=(127, 1000, 2047),
                   max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
 GRIFFIN_SERVE = dict(n=12, rate=40.0, prompt_lens=(100, 2048, 3000),
                      max_new_range=(16, 64), num_slots=8, block_size=BS, seed=0)
-# the depths served (full width): rwkv6-3b at 8 of its 32 layers,
-# recurrentgemma-9b at 12 of its 38 (4 attention layers), so that the ft
-# phase's ~100 s fit in the run's time limit on a slow host; PR 22 served
-# both at full depth (PERF.md)
-RWKV_SERVE_LAYERS = 8
-GRIFFIN_SERVE_LAYERS = 12
+# the depths served (full width): rwkv6-3b at 4 of its 32 layers,
+# recurrentgemma-9b at 6 of its 38 (2 attention layers), so that the ft,
+# precompile and dryrun phases fit in the run's time limit on a slow host;
+# PERF.md has both served at full depth
+RWKV_SERVE_LAYERS = 4
+GRIFFIN_SERVE_LAYERS = 6
 # one Griffin decode tick: 8 slots at kv_len 2100-3064, table width 192
 GRIFFIN_TICK_KV_LENS = [2100, 2238, 2376, 2514, 2652, 2790, 2928, 3064]
 GRIFFIN_TICK_M = 192
@@ -545,11 +571,14 @@ MINICPM_HEADS, MINICPM_D = (36, 36, 64), 2304
 PHI_HEADS, PHI_D = (32, 8, 128), 4096
 QWEN2VL_HEADS, QWEN2VL_D = (28, 4, 128), 3584
 # serve-dense and serve-moe: 12 Poisson requests at 40/s, 8 slots;
-# minitron-4b and minicpm-2b at full depth, phi3.5-moe cut to 8 of its 32
-# layers (10.7 B parameters: 21.3 GB in bf16 beside the 42.6 GB float32
-# init at the peak; all 32 would be 84 GB in bf16)
+# minitron-4b and minicpm-2b at half depth (16 of 32, 20 of 40 layers:
+# the precompile and dryrun phases' time comes out of their host-paced
+# ticks), phi3.5-moe cut to 8 of its 32 layers
+# (10.7 B parameters: 21.3 GB in bf16 beside the 42.6 GB float32 init at
+# the peak; all 32 would be 84 GB in bf16)
 CONFIG_SERVE = dict(n=12, rate=40.0, prompt_lens=(128, 512, 2048),
                     max_new_range=(16, 32), num_slots=8, block_size=BS, seed=0)
+DENSE_SERVE_LAYERS = {"minitron-4b": 16, "minicpm-2b": 20}
 PHI_SERVE_LAYERS = 8
 # train-configs: qwen2-vl-7b cut to 4 of 28 layers (2.02 B parameters, ~32
 # GB of train state at 16 B a parameter; all 28 would be ~122 GB) through
@@ -592,11 +621,12 @@ MOE_FLIP_SHARE = 0.05
 # 2^12 5^2, so it runs into a fixed point, as at Griffin's V below)
 MLA_HEADS = (16, 16, 192, 128)         # H, K, q/k head dim, v head dim
 MLA_RANK = 512
-# serve-mla at 9 of 27 layers (the dense first layer and 8 MoE layers):
-# the parallel phase's time comes out of the gathered path's host-paced
-# ticks, which scale with depth (all 27 fit the card: 31.4 GB in bf16)
-MLA_SERVE_LAYERS = 9
-MLA_SERVE_PARAMS = 5_179_222_528
+# serve-mla at 5 of 27 layers (the dense first layer and 4 MoE layers):
+# the parallel, precompile and dryrun phases' time comes out of the
+# gathered path's host-paced ticks, which scale with depth (all 27 fit
+# the card: 31.4 GB in bf16)
+MLA_SERVE_LAYERS = 5
+MLA_SERVE_PARAMS = 2_839_831_040
 MLA_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=2)
 MLA_TRAIN_LAYERS = 4
 MLA_TRAIN_PARAMS = 2_254_983_168
@@ -1766,15 +1796,20 @@ def serve(torch, dev):
         f"{scfg.num_slots} slots, {scfg.num_blocks} blocks x {scfg.block_size}, "
         f"table width {scfg.max_blocks_per_slot}; set-up "
         f"{time.perf_counter() - t0:.2f} s")
-    # warm-up (cuBLAS handles, allocator), then time the workload afresh
-    for n in sorted({s.prompt_len for s in specs}):
-        srv.submit(prompts[0][:1] * n, 2, arrival=0.0)
-    srv.drain()
+    # warm-up: MegaServe.precompile() runs every bucket's step once (K1's
+    # Triton specialisations, the kernels' first launches, cuBLAS, the
+    # allocator) and leaves the pool, the scheduler and the launch counts
+    # as they were; then time the workload afresh
+    reset_launches()
+    rmsnorm.reset_launches()
+    rep = srv.precompile()
+    log(f"[serve] precompile: {_precompiled(rep)}")
+    if any({**launches, **rmsnorm.launches}.values()) or not rep["total"]:
+        raise AssertionError(f"[serve] precompile left launch counts "
+                             f"{ {**launches, **rmsnorm.launches} } or warmed nothing")
     srv.reset()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
-    rmsnorm.reset_launches()
     for s in specs:
         srv.submit(prompts[s.rid], s.max_new, arrival=s.arrival, rid=s.rid)
     streams = srv.drain()
@@ -1815,6 +1850,82 @@ def serve(torch, dev):
         if len(toks) != s.max_new or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {s.rid}: bad stream {toks[:8]}...")
     return cfg, srv, specs, prompts, streams, counts
+
+
+PRECOMPILE_ARGV = ["serve", "--arch", "qwen2-0.5b", "--continuous", "--requests", "2",
+                   "--max-new", "12", "--modules", "none"]
+PRECOMPILE_PATHS = ("decode", "prefill", "chunk", "verify")
+
+
+def _precompiled(rep: dict) -> str:
+    """A precompile report's per-path counts and ms, and its total."""
+    return ", ".join(f"{p} {rep[p]['count']} in {rep[p]['ms']:.1f} ms"
+                     for p in PRECOMPILE_PATHS) + f"; total {rep['total']}"
+
+
+def _cache_files(root: Path) -> dict:
+    """Every file under ``root`` (Triton's cache included): path -> (size,
+    mtime)."""
+    return {str(f.relative_to(root)): (f.stat().st_size, f.stat().st_mtime_ns)
+            for f in root.rglob("*") if f.is_file()}
+
+
+def precompile_phase(smi: str, tag: str = "precompile") -> None:
+    """Two fresh ``python -m repro_torch serve --arch qwen2-0.5b
+    --continuous`` processes at full width, 2 requests of up to 12 tokens,
+    through one ``--compile-cache`` directory (emptied first): each
+    precompiles its buckets before the first request.  The cold one builds
+    the libraries its buckets launch into the cache (K3's and K4's: a miss
+    and a put each, beside a record a bucket) and K1's Triton binaries
+    under it; the warm one hits every entry the cold one put, misses none
+    and writes no file there (so ran no nvcc and no Triton compile).  Both
+    report per-path ``{count, ms}`` and stream the same tokens."""
+    import shutil
+
+    root = RUNTIME_DIR / "compile_cache"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = [sys.executable, "-m", "repro_torch", *PRECOMPILE_ARGV, "--compile-cache",
+            str(root)]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    log(f"[{tag}] python -m repro_torch {' '.join(argv[3:])}, twice")
+    out = {}
+    for run in ("cold", "warm"):
+        before = _cache_files(root) if root.exists() else {}
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{tag} {run}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        rep = next(json.loads(ln) for ln in lines if ln.startswith("{") and "precompile" in ln)
+        rep = rep["precompile"]
+        streams = [ln.strip() for ln in lines if ln.strip().startswith("req ")]
+        files = _cache_files(root)
+        new = sorted(set(files) - set(before))
+        changed = sorted(k for k in before if files.get(k) != before[k])
+        out[run] = dict(rep=rep, streams=streams, new=new, changed=changed)
+        log(f"[{tag}] {run}: process {wall:.1f} s; precompile {_precompiled(rep)}; "
+            f"cache {rep['cache']}; new files {len(new)} "
+            f"(libraries {[f for f in new if f.endswith('.so')]}, Triton "
+            f"{sum(f.startswith('triton') or '/triton/' in f for f in new)}), changed "
+            f"{len(changed)}; streams {streams} ({smi})")
+    cold, warm = out["cold"], out["warm"]
+    libs = [f for f in cold["new"] if f.endswith(".so")]
+    if (not libs or cold["rep"]["cache"]["hits"] or not cold["rep"]["total"]
+            or cold["rep"]["cache"]["puts"] != cold["rep"]["cache"]["misses"]):
+        raise AssertionError(f"{tag}: the cold process built no library into the cache "
+                             f"or hit an entry: {cold['rep']}")
+    if (warm["rep"]["cache"] != {"hits": cold["rep"]["cache"]["puts"], "misses": 0,
+                                 "puts": 0, "errors": 0}
+            or warm["new"] or warm["changed"]):
+        raise AssertionError(f"{tag}: the warm process built again: {warm['rep']}, new "
+                             f"{warm['new']}, changed {warm['changed']}")
+    counts = [[r["rep"][p]["count"] for p in PRECOMPILE_PATHS] for r in (cold, warm)]
+    if warm["streams"] != cold["streams"] or len(cold["streams"]) != 2 or \
+            counts[0] != counts[1]:
+        raise AssertionError(f"{tag}: cold and warm differ: {cold['streams']} / "
+                             f"{warm['streams']}")
 
 
 def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
@@ -2506,6 +2617,19 @@ def route_phase(torch, smi: str, cfg, specs, prompts, single: dict, single_event
             or peak2 - peak1 > pool_bytes + weight_bytes // 2):
         raise AssertionError(f"{tag}: two replicas hold more than one pool beyond one "
                              "replica: the weights are not shared")
+    # Router.precompile(): every replica's ladders (decode and prefill, one
+    # variant a table-width bucket each), the launch counts left as they were
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.paged_attention import launches
+
+    before = {**launches, **rmsnorm.launches}
+    rep = router.precompile()
+    ladder = len(router.replicas[0]._width_ladder(M))
+    log(f"[{tag}] Router.precompile: {_precompiled(rep)}")
+    if (rep["total"] != ROUTE_REPLICAS * 2 * ladder
+            or {**launches, **rmsnorm.launches} != before):
+        raise AssertionError(f"{tag}: Router.precompile walked {rep['total']} variants, "
+                             f"not {ROUTE_REPLICAS} x 2 x {ladder}, or moved the counts")
 
     def run(name, router):
         ticks = _timed_steps(router)
@@ -3541,7 +3665,7 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=No
     times a step, and every loss must be finite and the last below the
     first.  ``hooks`` (the loop's ``StepHooks``) observe each step; with a
     ``registry`` the loop publishes its train series there, counting the
-    step's flops in one more forward and backward (counted as a pass).
+    step's flops on the meta device (no launch).
     Returns the config (remat full), the data config, the launch counts and
     the step's numbers."""
     from repro_torch.models.model import count_params
@@ -3569,7 +3693,7 @@ def train_phase(torch, dev, cfg, shape: dict, modules: tuple, tag: str, hooks=No
     profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
     del state
     torch.cuda.empty_cache()
-    stats = _check_train(tag, cfg, data, history, counts, steps + (registry is not None),
+    stats = _check_train(tag, cfg, data, history, counts, steps,
                          torch.cuda.max_memory_allocated())
     return cfg, data, counts, dict(stats, params=n_params)
 
@@ -3657,7 +3781,7 @@ def train_configs_phase(torch, dev, smi: str) -> None:
     schedule = session._train_derived()[2]
     data, ocfg = _train_setup(cfg, MINICPM_TRAIN)
     ocfg = replace(ocfg, schedule=schedule)
-    passes = MINICPM_TRAIN["steps"] + ("metrics" in session.run_cfg.modules)
+    passes = MINICPM_TRAIN["steps"]
     log(f"[{tag}] python -m repro_torch {' '.join(argv)}: {cfg.num_layers} layers "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} vocab="
         f"{cfg.padded_vocab} params={count_params(state.master)} schedule={schedule} "
@@ -3706,7 +3830,8 @@ def train_mla_phase(torch, dev, smi: str) -> dict:
     targets run into a fixed point, and its losses swing): the train state
     estimated before the run, the parameter count, K2 (q/k at 192, v at
     128) and K1 (three norms a layer) launched exactly
-    :func:`per_step_launches` times a pass (the flop count's pass too),
+    :func:`per_step_launches` times a step (the flop count, on the meta
+    device, launches none),
     losses finite and falling, the profiler's split
     of one more step, peak memory and ``mfu_est`` (the p50 of the loop's
     ``train.model_flops_per_s`` over the H100's 989 TFLOP/s, as the
@@ -3757,13 +3882,20 @@ def train_encdec_phase(torch, dev, smi: str) -> dict:
     48 / 24 each in the encoder, the cross-attention and the decoder),
     losses finite and falling, the profiler's split of one more step, peak
     memory and ``mfu_est`` (the step's products, ``step_flops``, over the
-    median step and the H100's 989 TFLOP/s); then the step check at the
-    qwen2 check's limits, the decoder's cross-attention leaves beside the
-    attention's.  Returns the launch counts of the run."""
+    median step and the H100's 989 TFLOP/s; counted on the meta device,
+    and held equal to a real pass's count on the card); the dryrun's cell
+    of the same step (meta device) estimated first, its ``peak_est_bytes``
+    held within ``PEAK_RTOL`` of the steps' peak above what was allocated
+    before the state; then the step check at the qwen2 check's limits, the
+    decoder's cross-attention leaves beside the attention's.  Returns the
+    launch counts of the run."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.specs import input_specs
     from repro_torch.models.model import count_params, make_batch
     from repro_torch.train.loop import step_flops
     from repro_torch.train.train_step import init_train_state, make_train_step
@@ -3777,6 +3909,11 @@ def train_encdec_phase(torch, dev, smi: str) -> dict:
         f"{ENCDEC_PARAMS * 18 / 1e9:.1f} GB (float32 master, AdamW m and v, bf16 "
         f"params and grads)")
     data, ocfg = _train_setup(cfg, ENCDEC_TRAIN)
+    est = estimate(input_specs(cfg, ShapeConfig("train_2048x4", data.seq_len,
+                                                data.global_batch, "train"), ocfg=ocfg))
+    _free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     state = init_train_state(cfg, seed=0, device=dev)
     n_params = count_params(state.master)
     if n_params != ENCDEC_PARAMS:
@@ -3790,10 +3927,16 @@ def train_encdec_phase(torch, dev, smi: str) -> dict:
     step = make_train_step(cfg, ocfg)
     state, history, counts, peak = _steps_on_batch(torch, step, state, batch, data,
                                                    steps, mods)
+    dryrun_peak(torch, dev, cfg, ENCDEC_TRAIN, tag, smi, base=base, peak=peak, est=est)
     steady = sorted(h["step_s"] for h in history[1:])
     step_s = steady[len(steady) // 2]
     profile_train_step(torch, cfg, ocfg, data, state, tag, step_s, batch=batch)
     flops = step_flops(cfg, state, batch)
+    real = step_flops(cfg, state, batch, meta=False)
+    log(f"[{tag}] flops a step: the cell's {est['flops']}, the meta count {int(flops)}, "
+        f"a real pass on the card {int(real)}")
+    if not est["flops"] == flops == real > 0:
+        raise AssertionError(f"{tag}: flop counts differ: {est['flops']}, {flops}, {real}")
     mfu = flops / step_s / BF16_FLOPS_PER_S
     del state, step
     torch.cuda.empty_cache()
@@ -3883,8 +4026,9 @@ def train_session_phase(torch, dev, modules: tuple, smi: str, tag: str = "train"
     """Full-width qwen2-0.5b trained through ``Session`` as ``python -m
     repro_torch train`` runs it, with ``--modules scan,metrics``, a chrome
     trace, a metrics file and ``obs.peak_tflops=989`` (the H100 SXM's dense
-    bf16 peak): the launch counts (one more forward and backward than steps,
-    the flop count's), finite and falling losses and the profiler split as
+    bf16 peak): the launch counts (a forward and backward a step: the flop
+    count runs on the meta device), finite and falling losses and the
+    profiler split as
     :func:`train_phase` checks them; then the trace (``init``, a
     ``train_step`` a step, counter events; its ``.jsonl`` sidecar the same
     spans), the metrics file (a row a step, ``train.loss`` equal to the
@@ -3916,7 +4060,7 @@ def train_session_phase(torch, dev, modules: tuple, smi: str, tag: str = "train"
     profile_train_step(torch, cfg, ocfg, data, state, tag, steady[len(steady) // 2])
     del state
     torch.cuda.empty_cache()
-    stats = _check_train(tag, cfg, data, history, counts, steps + 1,
+    stats = _check_train(tag, cfg, data, history, counts, steps,
                          torch.cuda.max_memory_allocated())
 
     spans = _spans(from_chrome(json.loads((out_dir / "train.json").read_text())))
@@ -4201,7 +4345,7 @@ def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
     A NaN batch at step 4 rolled back: every loss equal to the fault-free
     run's.  (e) The same NaN skipped: one guard trip, no restart, the last
     loss finite.  K1 and K2 launch exactly as counted for the steps each run
-    ran (:func:`_ft_steps_run`), the flop count's pass included.  Returns
+    ran (:func:`_ft_steps_run`; the flop count launches none).  Returns
     the fault-free losses."""
     import shutil
 
@@ -4235,7 +4379,7 @@ def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
     rep = session.results["ft"]
     online = session.results["scan"]["online"]
     ran = _ft_steps_run(steps, rep, spans)
-    _ft_launches(f"{tag}-chaos", cfg, counts, ran + 1)
+    _ft_launches(f"{tag}-chaos", cfg, counts, ran)
     events = [t["event"] for t in rep["timeline"]]
     losses = [h["loss"] for h in hist]
     log(f"[{tag}-chaos] steps run {ran}; online {online}; losses {losses}; "
@@ -4257,7 +4401,7 @@ def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
             "--set", "ft.chaos.degrade_link=0-1"]
     session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-link")
     rep = session.results["ft"]
-    _ft_launches(f"{tag}-link", cfg, counts, _ft_steps_run(steps, rep, spans) + 1)
+    _ft_launches(f"{tag}-link", cfg, counts, _ft_steps_run(steps, rep, spans))
     on = [t for t in rep["timeline"] if t["event"] == "mitigate:compress_on"]
     losses = [h["loss"] for h in hist]
     if (len(on) != 1 or not rep["compression_on"]
@@ -4289,7 +4433,7 @@ def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
     session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-nan")
     del state
     rep = session.results["ft"]
-    _ft_launches(f"{tag}-nan", cfg, counts, _ft_steps_run(steps, rep, spans) + 1)
+    _ft_launches(f"{tag}-nan", cfg, counts, _ft_steps_run(steps, rep, spans))
     losses = [h["loss"] for h in hist]
     if (losses != ref or rep["guard_trips"] != 1 or rep["rollbacks"] != 1
             or [t["event"] for t in rep["timeline"]] != ["guard:rollback", "rollback"]):
@@ -4301,7 +4445,7 @@ def ft_phase(torch, dev, smi: str, tag: str = "ft") -> dict:
     session, state, hist, counts, spans, _ = _ft_session(torch, argv, cfg, f"{tag}-skip")
     del state
     rep = session.results["ft"]
-    _ft_launches(f"{tag}-skip", cfg, counts, _ft_steps_run(FT_SKIP_STEPS - 1, rep, spans) + 1)
+    _ft_launches(f"{tag}-skip", cfg, counts, _ft_steps_run(FT_SKIP_STEPS - 1, rep, spans))
     if (rep["guard_trips"] != 1 or rep["restarts"] or rep["rollbacks"]
             or [h["step"] for h in hist] != [1, 2, 3, 5, 6]
             or not math.isfinite(hist[-1]["loss"])):
@@ -5963,6 +6107,151 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
             raise AssertionError(f"{tag} {name}: the parallel step disagrees with the fused one")
 
 
+# --------------------------------------------- phase 11: the dryrun on meta
+
+DRYRUN_DIR = RUNTIME_DIR / "dryrun"
+PEAK_RTOL = 0.10                       # peak_est_bytes against the card's peak
+DRYRUN_TRAIN = dict(seq_len=2048, global_batch=8)
+
+
+def start_dryrun_all():
+    """``python -m repro_torch dryrun --all`` over the full configs, on the
+    meta device (the CPU: nothing reaches the card), started in the
+    background at a lower priority (``nice`` 19) when the training phases
+    begin, and read by :func:`dryrun_phase`; stopped at exit if still
+    running."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    out = open(DRYRUN_DIR / "stdout.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "dryrun", "--all", "--out", str(DRYRUN_DIR)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO / "src")), stdout=out,
+        stderr=subprocess.STDOUT, text=True)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+    atexit.register(stop)
+    return proc, time.perf_counter(), stop
+
+
+def dryrun_peak(torch, dev, cfg, shape: dict, tag: str, smi: str, *, base: int,
+                peak: int, est: dict) -> None:
+    """``est``'s ``peak_est_bytes`` (the cell on the meta device) against
+    ``peak - base``, the card's ``max_memory_allocated`` over a real step of
+    the same cell above what was allocated before its state: within
+    :data:`PEAK_RTOL`."""
+    got = peak - base
+    mem = est["memory"]
+    ratio = mem["peak_est_bytes"] / got
+    log(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, remat {cfg.remat}) at "
+        f"{shape['seq_len']} x {shape['global_batch']}: peak_est_bytes "
+        f"{mem['peak_est_bytes']} (arguments {mem['argument_bytes']}, temp "
+        f"{mem['temp_bytes']}, output {mem['output_bytes']}, alias {mem['alias_bytes']}; "
+        f"estimated in {est['estimate_s']:.1f} s on the meta device) against "
+        f"max_memory_allocated over a real step {got}: ratio {ratio:.4f} ({smi})")
+    if abs(ratio - 1) > PEAK_RTOL:
+        raise AssertionError(f"{tag}: peak_est_bytes {mem['peak_est_bytes']} is not "
+                             f"within {PEAK_RTOL:.0%} of the card's {got}")
+
+
+def dryrun_phase(torch, dev, smi: str, background, tag: str = "dryrun") -> None:
+    """The dryrun on the card's side.  (a) The wrappers' meta-device sizes
+    (K2's backward scratch, K3's split scratch, K5's chunk) equal their
+    libraries'.  (b) qwen2-0.5b at full width and depth, remat full, 2048 x
+    8: ``peak_est_bytes`` of its cell within :data:`PEAK_RTOL` of the
+    card's peak over one real step from the same state; the cell's flops,
+    the train loop's meta count and a real pass's count on the card one
+    integer.  (c) ``dryrun --all`` (started in the background by
+    :func:`start_dryrun_all`): a line a cell with its seconds, each cell a
+    number (flops and a peak) or a reasoned ``FAIL``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as k2
+    from repro_torch.kernels.paged_attention import ops as k34
+    from repro_torch.kernels.wkv6 import ops as k5
+    from repro_torch.launch.dryrun import all_cells, estimate
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models.model import make_batch
+    from repro_torch.train.loop import step_flops
+    from repro_torch.train.optim import OptimizerConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    sizes = {
+        "flash_bwd scratch floats at B 8, S 2048, H 14": (
+            k2.meta_scratch_floats(8, 2048, 14), k2._scratch_floats(8, 2048, 14)),
+        "paged_decode scratch bytes at 8 slots, Q 5, H 14, K 2, dh 64, M 128": (
+            k34.meta_scratch_bytes(8, 5, 14, 2, 64, BS, 128),
+            k34._c_size("paged_decode", "paged_decode_scratch_bytes", 7)(
+                8, 5, 14, 2, 64, BS, 128)),
+        "wkv6 chunk": (k5.META_CHUNK, k5._c_fn("wkv6_fwd", "wkv6_fwd_chunk", [],
+                                                 __import__("ctypes").c_int)()),
+    }
+    log(f"[{tag}] meta sizes against the libraries: " + "; ".join(
+        f"{k} {a} / {b}" for k, (a, b) in sizes.items()))
+    if any(a != b for a, b in sizes.values()):
+        raise AssertionError(f"{tag}: a meta-device size differs from its library's")
+
+    cfg = get_config("qwen2-0.5b").replace(remat="full")
+    shape = ShapeConfig("train_2048x8", DRYRUN_TRAIN["seq_len"],
+                        DRYRUN_TRAIN["global_batch"], "train")
+    est = estimate(input_specs(cfg, shape))
+    _free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, seed=0, device=dev)
+    batch = make_batch(cfg, shape.global_batch, shape.seq_len, np.random.default_rng(0),
+                       device=dev)
+    step = make_train_step(cfg, OptimizerConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, met = step(state, batch)
+    float(met["loss"])
+    torch.cuda.synchronize()
+    dryrun_peak(torch, dev, cfg, DRYRUN_TRAIN, tag, smi, base=base,
+                peak=torch.cuda.max_memory_allocated(), est=est)
+    meta, real = step_flops(cfg, state, batch), step_flops(cfg, state, batch, meta=False)
+    log(f"[{tag}] flops a step: the cell's {est['flops']}, the loop's count on the meta "
+        f"device {int(meta)}, a real pass on the card {int(real)}")
+    if not est["flops"] == meta == real > 0:
+        raise AssertionError(f"{tag}: flop counts differ: {est['flops']}, {meta}, {real}")
+    del state, batch, met, step
+    _free(torch)
+
+    proc, t0, stop = background
+    try:
+        proc.wait(timeout=max(60.0, 900 - (time.perf_counter() - t0)))
+    finally:
+        stop()
+    lines = (DRYRUN_DIR / "stdout.txt").read_text().splitlines()
+    cells = [f"{a}__{s}__pod1" for a, s in all_cells()]
+    log(f"[{tag}] python -m repro_torch dryrun --all: exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s in the background, {len(cells)} cells")
+    for ln in lines:
+        if ln.startswith(("OK", "FAIL")):
+            log(f"[{tag}] {ln}")
+    for cell in cells:
+        ok = [ln for ln in lines if ln.startswith(f"OK   {cell}:")]
+        fail = [ln for ln in lines if ln.startswith(f"FAIL {cell}:")]
+        if ok:
+            res = json.loads((DRYRUN_DIR / f"{cell}.json").read_text())
+            if not (res["flops"] > 0 and res["memory"]["peak_est_bytes"] > 0
+                    and res["model_flops"] > 0):
+                raise AssertionError(f"{tag}: {cell} has no estimate: {res}")
+        elif not fail or len(fail[0].split(": ", 1)[1]) < 10:
+            raise AssertionError(f"{tag}: {cell} has neither a number nor a reasoned "
+                                 "FAIL")
+
+
 def main() -> int:
     # where the environment turns bytecode caches off (PYTHONDONTWRITEBYTECODE),
     # every spawned rank would compile its imports from source again: keep
@@ -6049,6 +6338,8 @@ def main() -> int:
     teacher_forced(torch, cfg, srv, specs, prompts, streams)
     profile_decode_tick(torch, cfg, srv.params)
     phase("serve and teacher-forced check")
+    precompile_phase(smi)
+    phase("precompile: two processes through one compile cache, cold then warm")
     RUNTIME_DIR.mkdir(parents=True, exist_ok=True)
     generate_phase(torch, cfg, srv, smi)
     del srv
@@ -6069,9 +6360,9 @@ def main() -> int:
     phase("griffin serve and teacher-forced check")
     recurrent_generate_phase(torch, smi)
     phase("generate_with_scope on rwkv6 and griffin")
-    for arch in ("minitron-4b", "minicpm-2b"):
-        serve_config(torch, arch, smi)
-    phase("serve-dense: minitron-4b and minicpm-2b at full depth")
+    for arch, layers in DENSE_SERVE_LAYERS.items():
+        serve_config(torch, arch, smi, layers=layers)
+    phase("serve-dense: minitron-4b and minicpm-2b at 16 of 32 and 20 of 40 layers")
     serve_config(torch, "phi3.5-moe-42b-a6.6b", smi, layers=PHI_SERVE_LAYERS)
     phase("serve-moe: phi3.5-moe at 8 of 32 layers")
     serve_mla(torch, smi)
@@ -6082,8 +6373,11 @@ def main() -> int:
     # launches per pass (per_step_launches): qwen2-0.5b's one attention a
     # layer is above attn_kv_chunk (2048 > 1024: the flash branch), so
     # flash_fwd 2L = 48, flash_bwd L = 24, rmsnorm_fwd 2*2L + 1 = 97,
-    # rmsnorm_bwd 2L + 1 = 49; with the metrics module the flop count adds
-    # one forward and backward to the 8 steps
+    # rmsnorm_bwd 2L + 1 = 49; the metrics module's flop count runs on the
+    # meta device and adds no launch to the 8 steps
+    # the dryrun's --all sweep runs on the CPU beside the training phases,
+    # which keep the card busy; the serving phases before them are the host's
+    background = start_dryrun_all()
     tcfg, data, train_counts, _ = train_session_phase(
         torch, dev, (flash_attention, rmsnorm), smi)
     step_check(torch, dev, tcfg, data, mixer="attn", tag="step",
@@ -6160,6 +6454,8 @@ def main() -> int:
     phase("train-encdec: seamless-m4t at all 48 layers and its step check")
     recurrent_scope_phase(torch, smi)
     phase("scope on rwkv6 and griffin")
+    dryrun_phase(torch, dev, smi, background)
+    phase("dryrun: the meta device's peak and flops against the card's, dryrun --all")
 
     # launches: the paged kernels' from the serve phase (K4 at the verify
     # and chunk shapes: the serve-paths phase's verify steps and chunks x

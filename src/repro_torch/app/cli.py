@@ -17,7 +17,10 @@
                                  # --decode-path gathered, --modules scope
     python -m repro_torch serve --arch qwen2-0.5b --continuous --replicas 2 \
         --router-policy jsq [--prefill-replicas 1] [--slo-ttft S] [--traffic bursty]
+    python -m repro_torch serve --arch qwen2-0.5b --continuous --compile-cache cc
     python -m repro_torch trace --slow-rank 5 --iters 2 --out artifacts/megascan
+    python -m repro_torch dryrun --arch qwen2-0.5b --shape train_4k
+    python -m repro_torch dryrun --all --host-mesh --out artifacts/dryrun
 
 The flag table is the JAX CLI's, with the same layering (most specific
 last): dataclass defaults -> workload defaults -> ``--config`` JSON ->
@@ -29,7 +32,9 @@ events as a chrome trace (streaming a ``.jsonl`` sidecar while it runs) and
 ``--metrics-out`` streams the metrics registry as JSONL.  The port's own
 flag is ``--device``: the workloads run on the card unless ``--device cpu``
 is given.  Flags that select a later slice's path are accepted and refused
-with ``NotImplementedError``'s message, naming the ROADMAP item.
+with ``NotImplementedError``'s message, naming the ROADMAP item; the
+dryrun's ``--multi-pod on|both`` and ``--save-hlo`` are refused with the
+reason (no TPU pod mesh, no HLO text on the card).
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ _SHARED = [
         type=str, help="stream the metrics registry as JSONL time series")),
     ("--compile-cache", "runtime.compile_cache", dict(
         type=str, metavar="DIR",
-        help="persistent executable cache (ROADMAP item 12b; refused)")),
+        help="persistent compile cache: the kernels' builds and the warm-up "
+             "records; a continuous server precompiles its buckets through it")),
     ("--detect-online", "scan.detect_online", dict(
         action="store_true",
         help="run MegaScan's straggler detector over a sliding window of "
@@ -169,7 +175,8 @@ _DRYRUN = [
 _WORKLOAD_FLAGS = {"train": _TRAIN, "serve": _SERVE, "trace": _TRACE,
                    "dryrun": _DRYRUN}
 
-_REPORTS = ("scan", "metrics", "scope", "fbd", "dpp", "ft", "parallel", "trace_out")
+_REPORTS = ("scan", "metrics", "scope", "fbd", "dpp", "ft", "parallel", "precompile",
+            "trace_out")
 
 
 def _add_flags(ap: argparse.ArgumentParser, flags) -> None:
@@ -217,7 +224,9 @@ def run(argv: list[str], *, model_cfg=None) -> dict:
     the workload's own keys: train's ``history``; serve's ``metrics`` and,
     continuous, ``streams`` and ``serve_config`` or, static, ``outputs``
     and ``prompts``; trace's ``diagnosis`` (and ``truth``
-    when simulated).  ``model_cfg`` overrides the ``--arch`` lookup."""
+    when simulated); dryrun's ``cells`` (``{tag: result or {"error"}}``,
+    exiting with the failed tags when any cell failed).  ``model_cfg``
+    overrides the ``--arch`` lookup."""
     from repro_torch.app.session import Session
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -286,6 +295,11 @@ def run(argv: list[str], *, model_cfg=None) -> dict:
         print(json.dumps({"serve_config": sc}))
         return {"session": session, "metrics": met, "streams": outs,
                 "serve_config": sc}
+    if workload == "dryrun":
+        failed = [t for t, v in out.items() if "error" in v]
+        if failed:
+            raise SystemExit(f"{len(failed)} cell(s) failed: {failed}")
+        return {"session": session, "cells": out}
     # trace
     print(json.dumps(res["diagnosis"], indent=1))
     if "truth" in res:

@@ -17,9 +17,6 @@ Every section and field of the JAX package's ``RunConfig`` is here with the
 same defaults, so the same layering gives the same configuration.  One
 field is the port's own: ``runtime.device`` (the CLI's ``--device``), the
 device the workload runs on — ``cuda`` by default, ``cpu`` when asked for.
-Fields of paths the port does not run yet (``runtime.compile_cache``, the
-``dryrun`` section) are kept so a config file written for the JAX package
-parses; the workloads refuse them.
 """
 
 from __future__ import annotations
@@ -270,12 +267,13 @@ class TraceSection:
 class RuntimeSection:
     """Cross-workload runtime plumbing (``runtime.*``).
 
-    ``compile_cache`` names a directory for a persistent executable cache
-    (the JAX package's ``CompileCache``; the port refuses it until ROADMAP
-    item 12b).  Empty = no persistence.  ``device`` is the port's own.
+    ``compile_cache`` names a directory for the persistent compile cache
+    (``repro_torch.core.compile_cache``: the kernels' builds and the
+    warm-up records of the train step and of every serving bucket).  Empty
+    = no persistence.  ``device`` is the port's own.
     """
 
-    compile_cache: str = ""        # "" = no on-disk executable cache
+    compile_cache: str = ""        # "" = no on-disk compile cache
     # the port's own field (the JAX package has no --device): where the
     # workload runs; "cuda" raises where there is no card
     device: str = "cuda"           # cuda | cpu
@@ -283,7 +281,10 @@ class RuntimeSection:
 
 @dataclass
 class DryrunSection:
-    """Compile-analysis workload (lower/compile cells on production meshes)."""
+    """Dryrun workload: FLOP and memory estimates per (arch, shape) cell on
+    the meta device (``repro_torch.launch.dryrun``).  ``multi_pod`` on or
+    both and ``save_hlo`` are refused: the TPU pod meshes and the HLO text
+    have no counterpart on the card."""
 
     shape: str = ""
     all: bool = False

@@ -21,12 +21,16 @@ process, MegaFBD's decoupled backward on the next stage's process under
 probes included, behind MegaRoute's router for several replicas, a
 disaggregated fleet, SLO admission or a placement policy, under Poisson,
 bursty or diurnal traffic; or the static lockstep baseline), ``trace``
-(offline MegaScan: simulate/load -> align -> detect, host only).  The
-``ft`` plugin's controller supervises the train loop, and the ``scan``
-plugin's online detector feeds it through ``notify_detection``; in a world
-of ranks both act from rank 0.  What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: the compile cache (item
-12b) and ``dryrun`` (item 14b).
+(offline MegaScan: simulate/load -> align -> detect, host only) and
+``dryrun`` (FLOP and memory estimates per (arch, shape) cell on the meta
+device, ``launch.dryrun``).  The ``ft`` plugin's controller supervises the
+train loop, and the ``scan`` plugin's online detector feeds it through
+``notify_detection``; in a world of ranks both act from rank 0.
+``runtime.compile_cache`` names the persistent compile cache the train
+loop and the serving engines build their kernels through; a server with
+one precompiles its bucket ladders before the first request.  What the
+port does not run yet (the rest of the sharding, ROADMAP item 8c) raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -128,9 +132,13 @@ class Session:
             from repro_torch.configs import get_config
 
             self.model_cfg = get_config(run_cfg.arch, smoke=run_cfg.smoke)
+        # runtime.compile_cache -> the persistent build cache shared by the
+        # train loop's warm-up and the serving engines' precompile ladders
+        self.compile_cache = None
         if run_cfg.runtime.compile_cache:
-            raise _later("the persistent compile cache (--compile-cache)",
-                         "item 12b")
+            from repro_torch.core.compile_cache import CompileCache
+
+            self.compile_cache = CompileCache(run_cfg.runtime.compile_cache)
         # resolved (and checked for a card) when a workload runs on it; the
         # trace workload runs on the host only
         self.device = torch.device(run_cfg.runtime.device)
@@ -416,6 +424,7 @@ class Session:
             hooks=self.step_hooks(), registry=self.metrics_registry,
             device=self.device, plan=plan, mesh=mesh,
             obs=self._rank_event_spec(plan), controller=self.ft_controller,
+            compile_cache=self.compile_cache,
         )
         self.results["train_config"] = {
             "seq_len": seq, "global_batch": batch, "grad_accum": t.grad_accum,
@@ -503,6 +512,11 @@ class Session:
             replica_streams = [srv.streams]
             engine = srv
         del params  # the servers hold the compute-dtype copy
+        if self.compile_cache is not None:
+            # warm every bucket ladder up front: with a populated cache the
+            # kernels load instead of building, so restart-to-first-token is
+            # the weights' and the warm-up steps'
+            self.results["precompile"] = srv.precompile()
         for spec in specs:
             srv.submit(prompts[spec.rid], spec.max_new, arrival=spec.arrival)
         outs = srv.drain(on_step=self.notify_step)
@@ -675,5 +689,23 @@ class Session:
 
     # ------------------------------------------------------------- dryrun
     def dryrun(self):
-        raise _later("the dryrun workload (FLOP and memory estimates per "
-                     "cell)", "item 14b")
+        """FLOP and memory estimates per (arch, shape) cell on the meta
+        device (``repro_torch.launch.dryrun.run_cells``): ``{tag: result or
+        {"error": ...}}``."""
+        from repro_torch.launch.dryrun import run_cells
+
+        d = self.run_cfg.dryrun
+        result = run_cells(
+            arch=self.run_cfg.arch or None,
+            shape=d.shape or None,
+            run_all=d.all,
+            multi_pod=d.multi_pod,
+            profile=d.profile or None,
+            grad_accum=d.grad_accum,
+            out=d.out,
+            save_hlo=d.save_hlo,
+            smoke=self.run_cfg.smoke,
+            host_mesh=d.host_mesh,
+        )
+        self.results["dryrun"] = result
+        return result

@@ -114,6 +114,23 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dryrun's cells (JAX ``ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, "ArchEntry"] = {}
 
 
@@ -133,6 +150,18 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if entry is None:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return entry.smoke_config if smoke else entry.config
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The shapes of ``cfg``'s dryrun cells: ``long_500k`` only for the
+    sub-quadratic archs."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.supports_long_context]
 
 
 _LOADED = False

@@ -12,7 +12,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     the CPU.  On the card this also turns off the reduced-precision matmul
     shortcuts (TF32 for float32 products, reduced-precision reductions for
     bfloat16 ones) process-wide, so a float32 product is float32 as on the
-    JAX side and a bfloat16 product accumulates in float32.
+    JAX side and a bfloat16 product accumulates in float32.  ``"meta"``
+    (the dryrun's device) holds shapes and dtypes only: every kernel wrapper
+    returns what its kernel would, and nothing runs.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -23,6 +25,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev

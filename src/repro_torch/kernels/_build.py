@@ -11,6 +11,15 @@ The build runs at the first CUDA call of a kernel, never at import; each
 ``nvcc`` run starts before any is waited on, so sources compile in parallel.
 ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (:func:`ptxas_report`).
+
+With a :class:`repro_torch.core.compile_cache.CompileCache` attached
+(:func:`use_cache`, or the ``cache`` argument) the libraries live under the
+cache's versioned directory instead, keyed by the same hash and the cache's
+key parts, and every load is counted in its stats: a library found is a
+hit, one compiled a miss and a put.  With or without a cache a library
+that ``ctypes`` refuses (truncated, another architecture) is unlinked and
+built again (with a cache, counted in ``stats.errors``); a failed ``nvcc``
+still raises, and no wrapper gives way to its plain version.
 """
 
 from __future__ import annotations
@@ -40,7 +49,14 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}   # (name, cache) -> library
+_built: set[Path] = set()   # compiled by this process
+_cache = None               # the attached CompileCache
+#: ``nvcc`` processes this process has started
+nvcc_runs = 0
+#: libraries whose kernels a call on the meta device stood in for: which
+#: libraries a step needs, read from a meta pass of it
+meta_calls: set[str] = set()
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
@@ -74,30 +90,53 @@ def included_headers(src: Path) -> list[Path]:
     return sorted(found)
 
 
-def library_path(name: str) -> Path:
-    """Keyed by the source, the headers it includes and the flags."""
+def use_cache(cache) -> None:
+    """Attach a ``CompileCache`` (None detaches): later builds and loads go
+    through it."""
+    global _cache
+    _cache = cache
+
+
+def attached():
+    """The attached ``CompileCache``, or None."""
+    return _cache
+
+
+def library_path(name: str, cache=None) -> Path:
+    """Keyed by the source, the headers it includes and the flags; under
+    the attached (or given) cache, by that hash and the cache's key."""
     src = SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
     for header in included_headers(src):
         digest.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    cache = cache or _cache
+    if cache is None:
+        return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    key = cache.key(library=name, source=digest.hexdigest())
+    return cache.path(f"{name}-{key}", ".so")
 
 
-def build(names: list[str] | None = None) -> None:
+def build(names: list[str] | None = None, cache=None) -> None:
     """Compile every named library that is not built yet (all by default)."""
-    todo = [n for n in (names or list(SOURCES)) if not library_path(n).exists()]
+    global nvcc_runs
+    cache = cache or _cache
+    todo = [n for n in (list(SOURCES) if names is None else names)
+            if not library_path(n, cache).exists()]
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    library_path(todo[0], cache).parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     running = []
     for name in todo:
-        out = library_path(name)
+        out = library_path(name, cache)
+        if cache is not None:
+            cache.miss()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [nvcc, *FLAGS, "-o", str(tmp), str(SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        nvcc_runs += 1
         running.append((name, proc, tmp, out))
     failed = []
     for name, proc, tmp, out in running:
@@ -108,17 +147,41 @@ def build(names: list[str] | None = None) -> None:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+        _built.add(out)
+        if cache is not None:
+            cache.stored()
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+def load(name: str, cache=None) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if needed.  A
+    library on disk that ``ctypes`` refuses is unlinked and built again;
+    one this process has just built and ``ctypes`` refuses raises.  A
+    loaded library is found by name, without hashing its sources again:
+    wrappers ask for it at every call."""
+    cache = cache or _cache
+    lib = _loaded.get((name, cache))
+    if lib is not None:
+        return lib
+    path = library_path(name, cache)
+    build([name], cache)
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError:
+        if path in _built:
+            raise
+        # fail open: a truncated or alien library costs one rebuild
+        if cache is not None:
+            cache.drop(path)
+        else:
+            path.unlink(missing_ok=True)
+        build([name], cache)
+        lib = ctypes.CDLL(str(path))
+    else:
+        if cache is not None and path not in _built:
+            cache.hit()
+    _loaded[(name, cache)] = lib
     return lib
 
 

@@ -4,7 +4,10 @@
 
 The device of the tensors decides otherwise: a CUDA tensor launches its
 kernel or raises (wrong dtype, layout, head dim, failed build or launch); it
-never falls back to the plain version.  Each kernel wrapper adds one to
+never falls back to the plain version.  A tensor on the ``meta`` device (the
+dryrun) passes the same checks and gets what the kernel would return (o,
+lse; dq, dk, dv), allocated as the wrapper allocates it, the backward's
+scratch included, with nothing launched.  Each kernel wrapper adds one to
 ``launches[name]`` where it launches its kernel.  :class:`FlashAttention`
 is the ``autograd.Function`` the model calls: its forward keeps ``lse`` for
 its backward, as ``_make_flash``'s fwd keeps its residuals.  Each call
@@ -63,6 +66,13 @@ def shared_memory_bytes(name: str, D: int, Dv: int | None = None) -> int:
     return fn(D, D if Dv is None else Dv)
 
 
+def meta_scratch_floats(B: int, S: int, H: int) -> int:
+    """``flash_bwd_scratch_floats`` without the library, for the meta
+    device: two float32 rows of S rounded up to the kernels' 64-query
+    step for each (batch, head)."""
+    return 2 * B * H * (-(-S // 64) * 64)
+
+
 def _scratch_floats(B: int, S: int, H: int) -> int:
     """Float32 scratch of the backward: lse * log2(e) and delta, rows padded."""
     fn = getattr(_build.load("flash_bwd"), "flash_bwd_scratch_floats")
@@ -108,7 +118,7 @@ def _geometry(q, k, v, **more):
     _require(v, "v", bf16, (B, T, K, Dv), q.device)
     for what, t in more.items():
         _require(t, what, bf16, (B, S, H, Dv), q.device)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"the kernel runs on the card, q is on {q.device}")
     return B, S, T, H, K, D, Dv
 
@@ -126,6 +136,9 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, T, H, K, D, Dv = _geometry(q, k, v)
     o = q.new_empty((B, S, H, Dv))
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        _build.meta_calls.add("flash_fwd")
+        return o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -145,9 +158,13 @@ def flash_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and dO ``[B, S, H, Dv]``)."""
     B, S, T, H, K, D, Dv = _geometry(q, k, v, o=o, do=do)
     _require(lse, "lse", torch.float32, (B * H, S), q.device)
-    scratch = torch.empty(_scratch_floats(B, S, H), dtype=torch.float32,
-                          device=q.device)
+    scratch = torch.empty(
+        meta_scratch_floats(B, S, H) if q.is_meta else _scratch_floats(B, S, H),
+        dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        _build.meta_calls.add("flash_bwd")
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("flash_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -161,7 +178,7 @@ def flash_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _use_plain(q: torch.Tensor, plain: bool) -> bool:
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no flash-attention path for device {q.device}")
     return plain or q.device.type == "cpu"
 

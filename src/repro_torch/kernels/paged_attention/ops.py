@@ -3,9 +3,12 @@ plain versions (``ref.py``) for tensors on the CPU.
 
 The device of the tensors decides, and nothing else: a CUDA tensor always
 launches its kernel or raises (wrong dtype, layout or shape, failed build or
-launch); it never falls back to the plain version.  Each kernel wrapper adds
-one to ``launches[name]`` where it launches its kernel, so a run can show that
-the main path went through the kernels.
+launch); it never falls back to the plain version.  A tensor on the ``meta``
+device (the dryrun) passes the same checks and gets what the kernel would
+return, allocated as the wrapper allocates it (K3's split scratch
+included), with nothing launched.  Each kernel wrapper adds one to
+``launches[name]`` where it launches its kernel, so a run can show that the
+main path went through the kernels.
 
 ``PagedInfo`` is the small descriptor the serving engine threads through
 ``lm.forward`` down to ``layers.gqa_apply`` to put an attention block onto
@@ -96,6 +99,15 @@ def _c_size(name: str, symbol: str, n_ints: int):
     return fn
 
 
+def meta_scratch_bytes(S: int, Q: int, H: int, K: int, dh: int, bs: int,
+                       M: int) -> int:
+    """``paged_decode_scratch_bytes`` without the library, for the meta
+    device: a float32 partial (dh values, the max and the sum) of each
+    query row of every 128-position split of each slot and kv head."""
+    splits = -(-(M * bs) // 128)
+    return 4 * S * K * splits * Q * (H // K) * (dh + 2)
+
+
 def shared_memory_bytes(name: str, *, H: int, K: int, dh: int, Q: int = 1) -> int:
     """Dynamic shared memory one block of kernel ``name`` takes (ptxas
     reports static shared memory only): a decode split block holds the
@@ -166,7 +178,7 @@ def _pool_geometry(name, q, k_pool, v_pool, tables, kv_len, layer):
     for t, what in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool")):
         if t.data_ptr() % 16:
             raise ValueError(f"{what} must start 16-byte aligned (16-byte copies)")
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on the card; the operands are on {dev}")
     return S, Q, H, K, dh, bs, M, NB, layer * NB * bs * K * dh
 
@@ -188,6 +200,13 @@ def paged_decode_kernel(
     output takes q's dtype."""
     S, Q, H, K, dh, bs, M, NB, off = _pool_geometry(
         "paged_decode", q, k_pool, v_pool, tables, kv_len, layer)
+    if q.is_meta:
+        _build.meta_calls.add("paged_decode")
+        out = torch.empty_like(q)
+        scratch = torch.empty(meta_scratch_bytes(S, Q, H, K, dh, bs, M) // 4,
+                              dtype=torch.float32, device=q.device)
+        del scratch  # freed when the call returns, as on the card
+        return out
     smem = shared_memory_bytes("paged_decode", H=H, K=K, dh=dh, Q=Q)
     limit = shared_memory_limit(q.device)
     if smem > limit:
@@ -233,6 +252,9 @@ def paged_prefill_kernel(
         _require(q_norm, "q_norm", torch.float32, (dh,), q.device)
         qn_ptr = q_norm.data_ptr()
     out = torch.empty_like(q)
+    if q.is_meta:
+        _build.meta_calls.add("paged_prefill")
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel("paged_prefill")(
         q.data_ptr(), qn_ptr, k_pool.data_ptr(), v_pool.data_ptr(),
@@ -248,7 +270,7 @@ def paged_prefill_kernel(
 
 
 def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cuda", "cpu"):
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no paged-attention path for device {t.device}")
     return t.device.type
 
@@ -371,7 +393,7 @@ def paged_prefill(
         block_size=block_size, layer=layer, k_norm=k_norm, eps=eps,
         rope_theta=rope_theta,
     )
-    if _device_kind(q) == "cuda":
+    if _device_kind(q) != "cpu":
         return paged_prefill_kernel(
             q.contiguous(), k_pool, v_pool, tables, kv_len, scale=scale,
             window=window, layer=layer, q_norm=q_norm, eps=eps,

@@ -5,7 +5,9 @@
 The device of the tensors decides otherwise: a CUDA tensor launches its
 kernel or raises (a or b not float32, not contiguous, not ``[B, T, W]``,
 on two devices, a failed build or launch); it never falls back to the
-plain version.  A call launches one kernel, a windowed chunk scan with one
+plain version.  A tensor on the ``meta`` device (the dryrun) passes the
+same checks and gets what the kernel would return, with nothing launched.
+A call launches one kernel, a windowed chunk scan with one
 block per (batch row, 32 channels) and no scratch; each kernel wrapper adds
 one to ``launches[name]`` where it launches its kernel.  :class:`RGLRUScan`
 is the ``autograd.Function`` the model calls: it saves a and its output y,
@@ -63,7 +65,7 @@ def _require(t: torch.Tensor, what: str, shape: tuple[int, ...],
 def _geometry(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
     if a.dim() != 3:
         raise ValueError(f"a must be [B, T, W], got {tuple(a.shape)}")
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"the kernel runs on the card, a is on {a.device}")
     _require(a, "a", tuple(a.shape), a.device)
     _require(b, "b", tuple(a.shape), a.device)
@@ -80,6 +82,9 @@ def rglru_fwd_kernel(a: torch.Tensor, b: torch.Tensor
     B, T, W = _geometry(a, b)
     y = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
+    if a.is_meta:
+        _build.meta_calls.add("rglru_fwd")
+        return y, h_last
     err = _kernel("rglru_fwd")(a.data_ptr(), b.data_ptr(), y.data_ptr(),
                                h_last.data_ptr(), B, T, W, _stream(a))
     if err:
@@ -98,6 +103,9 @@ def rglru_bwd_kernel(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     if dh_last is not None:
         _require(dh_last, "dh_last", (B, W), a.device)
     da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.is_meta:
+        _build.meta_calls.add("rglru_bwd")
+        return da, db
     err = _kernel("rglru_bwd")(
         a.data_ptr(), y.data_ptr(), dy.data_ptr(),
         None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
@@ -109,7 +117,7 @@ def rglru_bwd_kernel(a: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
 
 
 def _use_plain(a: torch.Tensor, plain: bool) -> bool:
-    if a.device.type not in ("cuda", "cpu"):
+    if a.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no rglru path for device {a.device}")
     return plain or a.device.type == "cpu"
 

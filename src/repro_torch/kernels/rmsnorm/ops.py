@@ -3,8 +3,11 @@ on the card, the plain versions (``ref.py``) for tensors on the CPU.
 
 The device of the tensors decides, and ``plain=True`` (the card's reference
 runs) nothing else: a CUDA tensor launches its kernel or raises (wrong dtype,
-shape or layout); it never falls back to the plain version.  Each kernel
-wrapper adds one to ``launches[name]`` where it launches its kernel.
+shape or layout); it never falls back to the plain version.  A tensor on the
+``meta`` device (the dryrun) passes the same checks and gets what the kernel
+would return, allocated as the wrapper allocates it, with nothing launched.
+Each kernel wrapper adds one to ``launches[name]`` where it launches its
+kernel.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def _tiling(D: int) -> tuple[int, int, int]:
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, what: str = "x") -> int:
-    if x.device.type != "cuda" or scale.device != x.device:
+    if x.device.type not in ("cuda", "meta") or scale.device != x.device:
         raise ValueError(f"{what} and scale must be on one CUDA device, got "
                          f"{x.device} and {scale.device}")
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
@@ -63,6 +66,8 @@ def rmsnorm_fwd_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float
     n = x.shape[0]
     y = torch.empty_like(x)
     rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        return y, rstd
     block_d, rows, warps = _tiling(D)
     fwd, _ = kernels()
     fwd[(max(1, -(-n // rows)),)](x, scale, y, rstd, n, D, float(eps),
@@ -89,6 +94,8 @@ def rmsnorm_bwd_kernel(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
     n_prog = max(1, min(_BWD_PROGRAMS, -(-n // rows)))
     dx = torch.empty_like(x)
     part = torch.empty((n_prog, D), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        return dx, part.sum(0).to(scale.dtype)
     _, bwd = kernels()
     bwd[(n_prog,)](x, scale, dy, rstd, dx, part, n, D,
                    ROWS=rows, BLOCK_D=block_d, num_warps=warps)
@@ -116,7 +123,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
     ``x [..., D]``, float32 inside, x's dtype out; differentiable in both."""
     if plain or x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no rmsnorm path for device {x.device}")
     D = x.shape[-1]
     y = _RMSNorm.apply(x.contiguous().view(-1, D), scale.contiguous(), float(eps))

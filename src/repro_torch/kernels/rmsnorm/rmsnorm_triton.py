@@ -21,7 +21,9 @@ atomics, so the result is the same from run to run.
 ``triton`` is imported inside :func:`kernels`, at the first launch: importing
 this module needs no Triton.  Unless ``TRITON_CACHE_DIR`` is set, Triton's
 compile cache goes to ``build/triton/`` beside the CUDA libraries
-(``kernels/_build.py``), inside the checkout.
+(``kernels/_build.py``), inside the checkout; with a compile cache attached
+(``_build.use_cache``) it goes under that cache (``CompileCache.triton_dir``),
+so a warm process loads K1's binaries instead of compiling them.
 """
 
 from __future__ import annotations
@@ -29,16 +31,32 @@ from __future__ import annotations
 import os
 
 _KERNELS = None
+_POINTED: list = []   # the compile cache TRITON_CACHE_DIR points under
+
+
+def _point_triton_cache() -> None:
+    """Triton reads ``TRITON_CACHE_DIR`` when it compiles a specialisation:
+    point it under the attached compile cache, else (unless the caller set
+    it) at ``build/triton``; once a cache, not at every launch."""
+    from repro_torch.kernels import _build
+
+    cache = _build.attached()
+    if _POINTED and _POINTED[0] is cache:
+        return
+    _POINTED[:] = [cache]
+    if cache is not None:
+        os.environ["TRITON_CACHE_DIR"] = str(cache.triton_dir())
+    else:
+        os.environ.setdefault("TRITON_CACHE_DIR",
+                              str(_build.BUILD_DIR.parent / "triton"))
 
 
 def kernels():
     """The jitted ``(forward, backward)`` Triton kernels, built on first use."""
     global _KERNELS
+    _point_triton_cache()
     if _KERNELS is not None:
         return _KERNELS
-    from repro_torch.kernels._build import BUILD_DIR
-
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR.parent / "triton"))
     import triton
     import triton.language as tl
 

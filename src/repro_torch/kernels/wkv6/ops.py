@@ -5,10 +5,15 @@
 The device of the tensors decides otherwise: a CUDA tensor launches its
 kernel or raises (r, k, v not bfloat16, w or u not float32, a head size the
 kernels do not take, a layout they cannot read, a failed build or launch);
-it never falls back to the plain version.  Each kernel wrapper adds one to
+it never falls back to the plain version.  A tensor on the ``meta`` device
+(the dryrun) passes the same checks and gets what the kernels would return,
+allocated as the wrapper allocates it (the chunk states and their scratch),
+with nothing launched.  Each kernel wrapper adds one to
 ``launches[name]`` per call, however many kernels the call launches.
-:class:`WKV6` is the ``autograd.Function`` the model calls: it saves its
-inputs, and its backward recomputes the chunk states.
+:class:`WKV6` is the ``autograd.Function`` the model calls, on every
+device: it saves its inputs, its backward recomputes the chunk states (the
+plain backward, the plain forward's graph), and each call reports its
+products to ``core.flops`` by formula.
 
 The kernels read r, k, v, w and dy where they lie, through their strides:
 ``[B*H, T, N]`` rows (the tests' and ``repro.kernels.wkv6``'s layout) or the
@@ -21,8 +26,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core import flops
 from repro_torch.kernels import _build
-from repro_torch.kernels.wkv6.ref import wkv6_plain
+from repro_torch.kernels.wkv6.ref import wkv6_bwd_plain, wkv6_plain
 
 launches = {"wkv6_fwd": 0, "wkv6_bwd": 0}
 HEAD_SIZES = (16, 64)  # the smoke configs' and rwkv6-3b's
@@ -70,10 +76,16 @@ def shared_memory_bytes(name: str, N: int) -> dict[str, int]:
     return {kern: fn(N, part) for part, kern in enumerate(PARTS[name])}
 
 
-def _chunks(name: str, BH: int, T: int) -> int:
+#: tokens a chunk (``CHUNK`` of ``csrc/wkv6_common.cuh``): the meta
+#: device's chunk count, where no library is loaded
+META_CHUNK = 64
+
+
+def _chunks(name: str, BH: int, T: int, meta: bool = False) -> int:
     """Chunks a row of T tokens: the grid of a chunk kernel has one block
     per (row, chunk), on gridDim.x, which holds at most 2^31 - 1."""
-    nc = -(-T // _c_fn(name, f"{name}_chunk", [], ctypes.c_int)())
+    chunk = META_CHUNK if meta else _c_fn(name, f"{name}_chunk", [], ctypes.c_int)()
+    nc = -(-T // chunk)
     if nc * BH > 2**31 - 1:
         raise ValueError(f"{BH} rows of {nc} chunks exceed a grid of 2^31 - 1 blocks")
     return nc
@@ -110,7 +122,7 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype,
 def _geometry(r, k, v, w, u) -> tuple[int, int, int, int]:
     """(B*H, T, H, N) of ``[B*H, T, N]`` or ``[B, T, H, N]`` inputs; r, k,
     v and w must share one layout."""
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"the kernel runs on the card, r is on {r.device}")
     if r.dim() not in (3, 4) or u.dim() != 2:
         raise ValueError(f"r must be [B*H, T, N] or [B, T, H, N] and u [H, N], got "
@@ -147,13 +159,16 @@ def wkv6_fwd_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the forward: -> (y float32 in r's shape, final state float32
     ``[B*H, N, N]``, or ``[B, H, N, N]`` for ``[B, T, H, N]`` inputs)."""
     BH, T, H, N = _geometry(r, k, v, w, u)
-    nc = _chunks("wkv6_fwd", BH, T)
+    nc = _chunks("wkv6_fwd", BH, T, r.is_meta)
     dev = r.device
     y = torch.empty(r.shape, dtype=torch.float32, device=dev)
     s = torch.empty((BH, N, N) if r.dim() == 3 else (BH // H, H, N, N),
                     dtype=torch.float32, device=dev)
     states = torch.empty((BH, nc, N, N), dtype=torch.float32, device=dev)
     a = torch.empty((BH, nc, N), dtype=torch.float32, device=dev)
+    if r.is_meta:
+        _build.meta_calls.add("wkv6_fwd")
+        return y, s
     err = _kernel("wkv6_fwd")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         y.data_ptr(), s.data_ptr(), states.data_ptr(), a.data_ptr(), BH, T, H, N,
@@ -172,13 +187,16 @@ def wkv6_bwd_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[H, N]``, summed over chunks and the batch in a fixed order)."""
     BH, T, H, N = _geometry(r, k, v, w, u)
     _require(dy, "dy", torch.float32, tuple(r.shape), r.device)
-    nc = _chunks("wkv6_bwd", BH, T)
+    nc = _chunks("wkv6_bwd", BH, T, r.is_meta)
     dev = r.device
     dr, dk, dv = (torch.empty(r.shape, dtype=torch.bfloat16, device=dev) for _ in range(3))
     dw = torch.empty(r.shape, dtype=torch.float32, device=dev)
     du_part = torch.empty((BH, nc, N), dtype=torch.float32, device=dev)
     S, D = (torch.empty((BH, nc, N, N), dtype=torch.float32, device=dev) for _ in range(2))
     a = torch.empty((BH, nc, N), dtype=torch.float32, device=dev)
+    if r.is_meta:
+        _build.meta_calls.add("wkv6_bwd")
+        return dr, dk, dv, dw, du_part.sum(1).view(BH // H, H, N).sum(0)
     err = _kernel("wkv6_bwd")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         dy.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
@@ -190,15 +208,43 @@ def wkv6_bwd_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dw, du_part.sum(1).view(BH // H, H, N).sum(0)
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, N]`` -> the plain version's ``[B*H, T, N]`` rows."""
+    B, T, H, N = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, T, N)
+
+
+def _model(x: torch.Tensor, B: int) -> torch.Tensor:
+    """``[B*H, T, N]`` rows -> ``[B, T, H, N]``."""
+    BH, T, N = x.shape
+    return x.view(B, BH // B, T, N).permute(0, 2, 1, 3)
+
+
+def _flops(r: torch.Tensor, v: torch.Tensor, backward: bool):
+    B, T, H, K = r.shape
+    return flops.kernel_call(lambda: flops.wkv6_flops(B, T, H, K, v.shape[-1],
+                                                      backward=backward))
+
+
 class WKV6(torch.autograd.Function):
-    """(y, final state) = wkv6(r, k, v, w, u) on the card; the backward
-    kernel recomputes the chunk states from the saved inputs.  The final
-    state takes no gradient (the training path discards it)."""
+    """(y, final state) = wkv6(r, k, v, w, u) in the model layout: the
+    kernels on the card (the backward recomputes the chunk states from the
+    saved inputs), the plain versions on the CPU or under ``plain``.  Each
+    call reports its products to :mod:`repro_torch.core.flops`, as no flop
+    counter can see inside the kernel.  The final state takes no gradient
+    (the training path discards it)."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u):
-        y, s = wkv6_fwd_kernel(r, k, v, w, u)
+    def forward(ctx, r, k, v, w, u, plain):
+        with _flops(r, v, backward=False):
+            if plain or r.device.type == "cpu":
+                B, _, H, K = r.shape
+                y, s = wkv6_plain(_rows(r), _rows(k), _rows(v), _rows(w), u)
+                y, s = _model(y, B), s.view(B, H, K, v.shape[-1])
+            else:
+                y, s = wkv6_fwd_kernel(r, k, v, w, u)
         ctx.save_for_backward(r, k, v, w, u)
+        ctx.plain = plain
         ctx.set_materialize_grads(False)
         return y, s
 
@@ -211,10 +257,18 @@ class WKV6(torch.autograd.Function):
                 "models.scan_utils.wkv6_chunked without gradients")
         r, k, v, w, u = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
-        elif not _rows_aligned(dy):  # a layout the kernel cannot read (not the model's)
-            dy = dy.contiguous()
-        return wkv6_bwd_kernel(r, k, v, w, u, dy)
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=r.device)
+        with _flops(r, v, backward=True):
+            if ctx.plain or r.device.type == "cpu":
+                B = r.shape[0]
+                grads = wkv6_bwd_plain(_rows(r), _rows(k), _rows(v), _rows(w), u,
+                                       _rows(dy))
+                grads = (*(_model(g, B) for g in grads[:4]), grads[4])
+            else:
+                if not _rows_aligned(dy):  # a layout the kernel cannot read
+                    dy = dy.contiguous()
+                grads = wkv6_bwd_kernel(r, k, v, w, u, dy)
+        return (*grads, None)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -225,15 +279,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     V]`` float32, final state ``[B, H, K, V]`` float32).  The kernels read
     the model layout in place; the plain version takes the ``[B*H, T, K]``
     rows of ``repro.kernels.wkv6.ops.wkv6``."""
-    if r.device.type not in ("cuda", "cpu"):
+    if r.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no wkv6 path for device {r.device}")
-    if not plain and r.device.type == "cuda":
-        return WKV6.apply(r, k, v, w, u)
-    B, T, H, K = r.shape
-    V = v.shape[-1]
-
-    def to_bh(x: torch.Tensor) -> torch.Tensor:
-        return x.permute(0, 2, 1, 3).reshape(B * H, T, x.shape[-1])
-
-    y, s = wkv6_plain(to_bh(r), to_bh(k), to_bh(v), to_bh(w), u)
-    return y.view(B, H, T, V).permute(0, 2, 1, 3), s.view(B, H, K, V)
+    return WKV6.apply(r, k, v, w, u, bool(plain))

@@ -144,7 +144,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
     ``encdec.init``'s tree; with ``dtype``, each leaf cast as it is drawn,
     as ``lm.init`` does (norm scales and biases stay float32)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"  # shapes and dtypes only
+           else torch.Generator(device=dev).manual_seed(seed))
     b = L.ParamBuilder(gen, dev, cast=lm.cast_as_drawn(dtype))
     _build(b, cfg)
     return b.params

@@ -86,7 +86,7 @@ class ParamBuilder:
     ``ParamBuilder.axes``; a stacked leaf leads with ``"layers"``), which
     ``parallel.sharding`` resolves onto a mesh.  On the ``meta`` device
     (``gen`` None) nothing is drawn: ``lm.param_axes`` builds the tree of
-    axes that way.
+    axes that way, and the dryrun its parameters.
     """
 
     def __init__(self, gen: torch.Generator | None, device: torch.device,
@@ -107,7 +107,8 @@ class ParamBuilder:
         full = (*self.lead, *shape)
         kw = dict(dtype=torch.float32, device=self.device)
         if self.gen is None:
-            self.params[name] = torch.empty(full, **kw)
+            val = torch.empty(full, **kw)
+            self.params[name] = val if self.cast is None else self.cast(name, val)
             return
         if init == "normal":
             fi = fan_in if fan_in is not None else shape[0]
@@ -474,7 +475,7 @@ class _MatmulFloat32(torch.autograd.Function):
         ctx.save_for_backward(a, b)
         if a.dtype == torch.float32:
             return a @ b
-        if a.is_cuda:
+        if not a.is_cpu:  # the card, or the meta device standing in for it
             return torch.mm(a, b, out_dtype=torch.float32)
         return a.float() @ b.float()
 
@@ -641,7 +642,7 @@ def mla_apply(
     if cache is not None:  # prefill fills the compressed cache, zeros past S
         for name, new in (("ckv", ckv), ("kpe", kpe)):
             cache[name][:, :S] = new.to(cache[name].dtype)
-            cache[name][:, S:] = 0
+            cache[name][:, S:].zero_()
     return out
 
 
@@ -755,7 +756,10 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     # aux losses (Switch-style load balance + z-loss)
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (G * N)
+    # each expert's entry count (``bincount``, which the meta device lacks)
+    flat = eidx.reshape(-1)
+    ce = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat)).float() / (G * N)
     aux_lb = (me * ce).sum() * E * mo.router_aux_coef
     aux_z = torch.square(torch.logsumexp(logits, dim=-1)).mean() * mo.router_z_coef
 
@@ -856,7 +860,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return in float32 (on the CPU through float32 copies of the operands)."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if not a.is_cpu:  # the card, or the meta device standing in for it
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

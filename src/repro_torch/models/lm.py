@@ -86,7 +86,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str = "cuda",
     model whose float32 tree and cast would not fit on the card together,
     deepseek-v2-lite's 62.8 GB beside 31.4 GB)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"  # shapes and dtypes only
+           else torch.Generator(device=dev).manual_seed(seed))
     b = L.ParamBuilder(gen, dev, cast=cast_as_drawn(dtype))
     _build(b, cfg)
     return b.params
@@ -414,7 +415,7 @@ def forward(
         if cache is not None:
             cache_pos = int(cache_pos)
         start = cache_pos or 0
-        positions = (L.arange_positions(S, x.device) if cache is None
+        positions = (L.arange_positions(S, x.device) if start == 0
                      else torch.arange(start, start + S, device=x.device))
         remat = cfg.remat if cache is None and torch.is_grad_enabled() else "none"
     x = collector.tag("embeddings", x)

@@ -74,3 +74,27 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator,
 def count_params(params: dict) -> int:
     return sum(v.numel() if isinstance(v, torch.Tensor) else count_params(v)
                for v in params.values())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters a token (the ``6 * N_active * tokens`` model-flops
+    numerator), JAX ``active_param_count``: MoE layers count ``top_k`` of
+    their ``num_experts`` experts."""
+    total = _dense_param_count(cfg)
+    if cfg.family == "moe":
+        mo = cfg.moe
+        expert_p = 3 * cfg.d_model * mo.expert_d_ff
+        n_moe_layers = cfg.num_layers - mo.first_k_dense
+        total -= n_moe_layers * mo.num_experts * expert_p
+        total += n_moe_layers * mo.top_k * expert_p
+    return total
+
+
+def _dense_param_count(cfg: ModelConfig) -> int:
+    """Parameters from the shapes of ``init`` on the meta device, less the
+    input embedding (a gather, not a product) unless it is tied, where the
+    one table is also the unembedding's product."""
+    n = count_params(get_model(cfg).init(cfg, device="meta"))
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model
+    return n

@@ -24,8 +24,9 @@ The replicas are real engines, not simulations: policies are compared on
 actual prefill/decode wall time, and the chunked-prefill and speculative
 paths run unchanged underneath the router.  On the card every replica
 launches the same kernels a single engine does (K4 for its prompts, K3 for
-its decode ticks, K1 for every norm).  Precompilation and a compile cache
-(ROADMAP queue 1, item 12b) are refused.
+its decode ticks, K1 for every norm).  ``precompile()`` warms every
+replica's bucket ladders, through the compile cache when one is attached
+(``compile_cache=`` reaches every replica).
 """
 
 from __future__ import annotations
@@ -52,12 +53,6 @@ from repro_torch.serve.request import aggregate_metrics
 from repro_torch.serve.scheduler import ServeConfig
 from repro_torch.serve.server import MegaServe
 from repro_torch.serve.spec import Drafter
-
-
-def _no_precompile() -> NotImplementedError:
-    return NotImplementedError(
-        "MegaServe precompilation and the compile cache are not ported yet "
-        "(ROADMAP queue 1, item 12b)")
 
 
 @dataclass(frozen=True)
@@ -147,8 +142,6 @@ class Router:
         profile: ServeProfile = ServeProfile(),
         compile_cache=None,
     ):
-        if compile_cache is not None:
-            raise _no_precompile()
         self.router_cfg = router_cfg
         self.registry = registry
         self.profile = profile
@@ -208,6 +201,7 @@ class Router:
                 prefill_only=(
                     router_cfg.disaggregated and i < router_cfg.prefill_replicas
                 ),
+                compile_cache=compile_cache,
             )
             # share the router's epoch: every replica clock reads t=0 at
             # router construction (the _clock lambda reads _base at call
@@ -233,10 +227,12 @@ class Router:
         router_cfg: RouterConfig, **kw,
     ):
         """Router wired to a ``repro_torch.app.Session``: replicas share the
-        session's MegaScope collector, metrics registry and device, and
-        every replica's engine steps run through the plugins' ``wrap_step``."""
+        session's MegaScope collector, metrics registry, device and compile
+        cache, and every replica's engine steps run through the plugins'
+        ``wrap_step``."""
         kw.setdefault("registry", getattr(session, "metrics_registry", None))
         kw.setdefault("device", session.device)
+        kw.setdefault("compile_cache", getattr(session, "compile_cache", None))
         return cls(
             session.model_cfg, params, serve_cfg, router_cfg,
             collector=session.collector, wrap_step=session.wrap_step, **kw,
@@ -480,9 +476,22 @@ class Router:
         return self.streams()
 
     def precompile(self) -> dict:
-        """Refused: MegaServe has no precompilation yet (ROADMAP queue 1,
-        item 12b)."""
-        raise _no_precompile()
+        """Warm every replica's bucketed step variants (see
+        ``MegaServe.precompile``), so no replica pays a kernel build or a
+        first launch inside the serving loop.  Returns the per-path counts
+        and milliseconds summed over the fleet (prefill / chunk / verify /
+        decode, plus ``total``)."""
+        agg: dict[str, Any] = {}
+        for srv in self.replicas:
+            rep = srv.precompile()
+            for k, v in rep.items():
+                if not isinstance(v, dict) or k == "cache":
+                    continue
+                a = agg.setdefault(k, {"count": 0, "ms": 0.0})
+                a["count"] += v["count"]
+                a["ms"] += v["ms"]
+        agg["total"] = sum(v["count"] for v in agg.values())
+        return agg
 
     # ------------------------------------------------------------- output
     def streams(self) -> dict[int, list[int]]:

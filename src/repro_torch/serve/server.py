@@ -36,12 +36,14 @@ Serving is greedy: every token is the argmax, as the JAX package's keyless
 ``sample`` makes it (ROADMAP R7).  ``StaticRunner`` is the lockstep
 baseline.  For MegaRoute (``repro_torch.serve.router``) a server can run
 prefill-only and hand a prefilled slot to another server
-(``export_request`` / ``adopt_request``); precompilation (ROADMAP queue 1,
-item 12b) arrives with a later slice.
+(``export_request`` / ``adopt_request``).  ``precompile()`` warms every
+bucketed step variant before the first request, through the persistent
+compile cache when one is attached (``compile_cache=``).
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compile_cache import mesh_descriptor
 from repro_torch.core.simkit.workload import (
     bursty_requests,
     diurnal_requests,
@@ -81,6 +84,20 @@ from repro_torch.serve.request import Request, RequestStatus, aggregate_metrics
 from repro_torch.serve.sampler import greedy_verify, sample
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
 from repro_torch.serve.spec import Drafter, NGramDrafter
+
+
+_PRECOMPILE_PATHS = ("decode", "prefill", "chunk", "verify")
+
+
+def _launch_counters() -> list[dict]:
+    """Every kernel wrapper's ``launches`` dict."""
+    from repro_torch.kernels.flash_attention import ops as k2
+    from repro_torch.kernels.paged_attention import ops as k34
+    from repro_torch.kernels.rglru import ops as k6
+    from repro_torch.kernels.rmsnorm import ops as k1
+    from repro_torch.kernels.wkv6 import ops as k5
+
+    return [k1.launches, k2.launches, k34.launches, k5.launches, k6.launches]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -125,6 +142,9 @@ class MegaServe:
     is updated in place every step.  Greedy streams are token-identical
     across the engine paths: paged and gathered, flash, dense and chunked
     prefill, speculative and plain, and through preemption round trips.
+    ``compile_cache`` (a ``repro_torch.core.compile_cache.CompileCache``)
+    is where :meth:`precompile` keeps its warm-up records and the kernels'
+    builds.
     """
 
     def __init__(
@@ -142,7 +162,9 @@ class MegaServe:
         registry=None,
         metrics_prefix: str = "serve.",
         prefill_only: bool = False,
+        compile_cache=None,
     ):
+        self.compile_cache = compile_cache
         self.collector = collector
         self._capture = collector is not NULL_COLLECTOR
         # decode path: the paged kernels need K/V leaves with a head axis
@@ -287,11 +309,12 @@ class MegaServe:
     @classmethod
     def from_session(cls, session, params: Any, serve_cfg: ServeConfig, **kw):
         """A server wired to a ``repro_torch.app.Session``: the session's
-        MegaScan tracer, MegaScope collector, metrics registry and device
-        become this server's, and its steps run through the plugins'
-        ``wrap_step`` chain."""
+        MegaScan tracer, MegaScope collector, metrics registry, device and
+        compile cache become this server's, and its steps run through the
+        plugins' ``wrap_step`` chain."""
         kw.setdefault("registry", session.metrics_registry)
         kw.setdefault("device", session.device)
+        kw.setdefault("compile_cache", getattr(session, "compile_cache", None))
         return cls(session.model_cfg, params, serve_cfg,
                    collector=session.collector, tracer=session.tracer,
                    wrap_step=session.wrap_step, **kw)
@@ -797,6 +820,160 @@ class MegaServe:
         self.streams[req.rid] = package["stream"]
         self._next_rid = max(self._next_rid, req.rid + 1)
         return True
+
+    # --------------------------------------------------------- precompile
+    def _width_ladder(self, hi: int) -> list[int]:
+        """The pow2 bucket ladder 1, 2, 4, ... capped at ``hi``: exactly
+        the static widths the tick paths can request."""
+        ws, w = [], 1
+        while True:
+            ws.append(w)
+            if w >= hi:
+                return ws
+            w = min(2 * w, hi)
+
+    def _pool_snapshot(self) -> dict:
+        """What a warm-up step can write: the null block of every paged
+        leaf and every slot-state leaf."""
+        return lm.tree_map(lambda p, paged: (p[:, 0] if paged else p).clone(),
+                           self.pool, self.kv.paged)
+
+    def _pool_restore(self, snap: dict) -> None:
+        lm.tree_map(lambda p, paged, saved: (p[:, 0] if paged else p).copy_(saved),
+                    self.pool, self.kv.paged, snap)
+
+    def _warm(self, path: str, run: Callable[[], Any], parts: dict,
+              out: dict) -> None:
+        """One bucket (its cache key ``parts``): its record looked up in the
+        compile cache (a hit loads the libraries it names first), its step
+        run once on throwaway inputs, the record put on a miss."""
+        from repro_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        cache, blob = self.compile_cache, None
+        if cache is not None:
+            key = cache.key(step=path, **parts)
+            blob = cache.load(key)
+            if blob is not None:
+                for name in json.loads(blob)["libraries"]:
+                    _build.load(name)
+        before = [dict(c) for c in _launch_counters()]
+        run()
+        self._sync()
+        if cache is not None and blob is None:
+            used = sorted(n for c, b in zip(_launch_counters(), before)
+                          for n in c if c[n] > b[n] and n in _build.SOURCES)
+            cache.put(key, json.dumps({"libraries": used}).encode())
+        out[path]["count"] += 1
+        out[path]["ms"] += (time.perf_counter() - t0) * 1e3
+
+    def precompile(self) -> dict:
+        """Warm every bucketed step variant before serving.
+
+        Each engine step runs at one of a ladder of pow2 static widths
+        (decode and verify table widths, chunk widths, prefill prompt
+        buckets, recurrent segment widths x cache buckets), and the first
+        run of each pays the kernels' builds (``nvcc`` of its libraries,
+        K1's Triton compile), the kernels' first launches, cuBLAS's handle
+        and workspace and the allocator's segments inside the serving loop.
+        This walks every ladder as the JAX package's ``precompile`` does,
+        running each variant once on throwaway inputs whose K/V writes land
+        in the null block; the null block, the slot states, the RNG, the
+        scheduler, the streams and the kernels' launch counters are left as
+        they were.  With a ``compile_cache`` attached it becomes the
+        process's kernel build cache (``kernels._build.use_cache``, which
+        also moves Triton's cache under it), and each variant keeps a record
+        there of the libraries it launched, which a restarted process loads
+        before the variant runs.
+
+        Returns per-path counts and wall-clock milliseconds::
+
+            {"decode": {"count", "ms"}, "prefill": {...}, "chunk": {...},
+             "verify": {...}, "total": n[, "cache": CacheStats dict]}
+
+        and publishes each path's ms as a ``precompile_ms.<path>`` gauge.
+        """
+        from repro_torch.kernels import _build
+
+        out: dict[str, Any] = {p: {"count": 0, "ms": 0.0} for p in _PRECOMPILE_PATHS}
+        scfg = self.serve_cfg
+        n_slots, max_w, bs = scfg.num_slots, scfg.max_blocks_per_slot, scfg.block_size
+        if self.compile_cache is not None:
+            _build.use_cache(self.compile_cache)
+        base = dict(model=self.cfg, serve=self.serve_cfg, mesh=mesh_descriptor(None),
+                    device=self.device.type, capture=self._capture,
+                    params=[f"{tuple(t.shape)}/{t.dtype}"
+                            for t in lm.tree_leaves(self.params)])
+        counters = _launch_counters()
+        saved = [dict(c) for c in counters]
+        rng = (torch.random.get_rng_state(),
+               torch.cuda.get_rng_state(self.device)
+               if self.device.type == "cuda" else None)
+        snap = self._pool_snapshot()
+        i32, i64 = torch.int32, torch.int64
+        zeros = lambda *shape, dtype=i32: torch.zeros(  # noqa: E731
+            shape, dtype=dtype, device=self.device)
+        try:
+            # ---- decode: one variant per live-table width bucket
+            widths = (self._width_ladder(max_w)
+                      if self.decode_path == "paged" else [max_w])
+            toks, pos = zeros(n_slots, dtype=i64), zeros(n_slots)
+            for w in widths:
+                self._warm("decode", lambda w=w: self._decode(
+                    self.params, self.pool, zeros(n_slots, w), toks, pos, [0]),
+                    base | {"width": w}, out)
+            # ---- speculative verify: same width ladder, Q = spec_k + 1 rows
+            if self._spec_step is not None:
+                vt = zeros(n_slots, scfg.spec_k + 1, dtype=i64)
+                for w in widths:
+                    self._warm("verify", lambda w=w: self._spec_step(
+                        self.params, self.pool, zeros(n_slots, w), vt, pos),
+                        base | {"width": w}, out)
+            # ---- chunked prefill: the chunk-tick table widths reachable
+            if self._chunk_step is not None:
+                C = scfg.resolved_chunk_len
+                cws = sorted({min(pow2_bucket(blocks_for(off + C, bs)), max_w)
+                              for off in range(0, scfg.max_len, C)})
+                for w in cws:
+                    self._warm("chunk", lambda w=w: self._chunk_step(
+                        self.params, self.pool, zeros(1, w),
+                        zeros(1, C, dtype=i64), zeros(1), C - 1),
+                        base | {"width": w}, out)
+            # ---- prefill: the prompt block-bucket ladder (padded families)
+            # or the pow2 segment-width x cache-bucket grid (recurrent ones)
+            if self._pad_prefill:
+                for n_blk in self._width_ladder(max_w):
+                    self._warm("prefill", lambda n=n_blk: self._prefill(
+                        self.params, self.pool, zeros(1, n),
+                        zeros(1, n * bs, dtype=i64), n * bs, 0),
+                        base | {"n_blk": n_blk, "prefill_impl": self.prefill_path}, out)
+            elif self._seg_ok:
+                for n_blk in self._width_ladder(max_w):
+                    L = n_blk * bs
+                    cache = lm.init_cache(self.cfg, 1, L, device=self.device)
+                    for w in self._width_ladder(L):
+                        self._warm("prefill", lambda w=w, c=cache: self._seg(
+                            self.params, c, zeros(1, w, dtype=i64), 0),
+                            base | {"seg_w": w, "cache_len": L}, out)
+                    self._warm("prefill", lambda n=n_blk, c=cache: (
+                        self.kv.scatter_prefill(self.pool, c, 0, zeros(n))),
+                        base | {"fin_blk": n_blk}, out)
+        finally:
+            self._pool_restore(snap)
+            for c, before in zip(counters, saved):
+                c.update(before)
+            torch.random.set_rng_state(rng[0])
+            if rng[1] is not None:
+                torch.cuda.set_rng_state(rng[1], self.device)
+
+        out["total"] = sum(out[p]["count"] for p in _PRECOMPILE_PATHS)
+        if self.compile_cache is not None:
+            out["cache"] = self.compile_cache.stats.as_dict()
+        if self.registry is not None:
+            for p in _PRECOMPILE_PATHS:
+                self.registry.gauge(
+                    self._m(f"precompile_ms.{p}")).set(out[p]["ms"])
+        return out
 
     # -------------------------------------------------------------- drain
     def drain(

@@ -12,8 +12,9 @@ holds a checkpoint resumes from its latest step and replays
 ``SyntheticTokens.batch_at(step)`` from there, so it continues the
 trajectory of an uninterrupted run.  A pipelined step (a ``plan`` with pp >
 1, MegaDPP) adds MegaScan's per-(microbatch, stage, F/B) events to each
-step's trace, scaled into its ``train_step`` span.  The compile cache
-(ROADMAP queue 1, item 12b) is a later slice; asking for it raises.
+step's trace, scaled into its ``train_step`` span.  With a compile cache
+(``compile_cache=``) the step's kernel libraries are built or loaded
+through it before step 0 (:func:`_warm_train_step`).
 
 With a :class:`repro_torch.ft.FtController` (the ``ft`` module plugin) the
 loop is supervised, as the JAX loop is: a chaos-injected crash, a
@@ -32,6 +33,7 @@ actions at each step's top, so all of them act at the same step.
 from __future__ import annotations
 
 import gc
+import json
 import logging
 import time
 from dataclasses import dataclass, replace
@@ -129,23 +131,69 @@ def _route_links(plan, links) -> tuple[list, list]:
 
 
 def step_flops(cfg: ModelConfig, state, batch: dict,
-               loss_fn: Callable | None = None) -> float:
+               loss_fn: Callable | None = None, *,
+               meta: bool | None = None) -> float:
     """Model flops of one step on ``batch``: the products of one forward and
-    backward of the loss (:func:`repro_torch.core.flops.count_flops`),
-    taken outside the timed steps; the state is not updated.  ``loss_fn
-    (params, batch) -> (loss, metrics)`` defaults to the model's fused loss;
-    a pipelined step passes its own."""
+    backward of the loss (:func:`repro_torch.core.flops.count_flops`); the
+    state is not updated.  With ``meta`` (the default for a state on the
+    card) the pass runs on the meta device over stand-ins of the
+    parameters and the batch, so nothing runs on the card and the count is
+    the same integer as a real pass's; otherwise it runs where the state
+    lies.  ``loss_fn (params, batch) -> (loss, metrics)`` defaults to the
+    model's fused loss; a pipelined step passes its own."""
     if loss_fn is None:
         model = get_model(cfg)
         loss_fn = lambda p, b: model.loss_fn(cfg, p, b)  # noqa: E731
-    params = [leaf for _, leaf in leaves(state.params)]
-    dev = params[0].device
+    params = state.params
+    dev = next(leaves(params))[1].device
+    if dev.type == "cuda" if meta is None else meta:
+        dev = torch.device("meta")
+        params = tree_map(lambda p: torch.empty_like(p, device=dev)
+                          .requires_grad_(True), params)
+    flat = [leaf for _, leaf in leaves(params)]
 
     def fwd_bwd():
-        loss, _ = loss_fn(state.params, to_device_batch(batch, dev))
-        torch.autograd.grad(loss, params)
+        loss, _ = loss_fn(params, to_device_batch(batch, dev))
+        torch.autograd.grad(loss, flat, allow_unused=True)
 
     return float(count_flops(fwd_bwd))
+
+
+def _warm_train_step(cfg: ModelConfig, state, batch: dict, cache, *,
+                     loss_fn: Callable | None, key_parts: dict,
+                     registry) -> None:
+    """The train step's kernels through the persistent compile cache
+    before step 0, the JAX loop's ``_aot_train_step``: the cache becomes
+    the process's kernel build cache (``kernels._build.use_cache``, Triton's
+    cache under it too) and the step's entry records the libraries it
+    launches, read from a pass of its loss on the meta device; a hit loads
+    them straight from the cache, a miss builds them (in parallel) and puts
+    the record.  A step on the CPU launches no kernel.  Logs "cache hit" or
+    "compiled" and sets the ``train.precompile_ms`` gauge."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.use_cache(cache)
+    key = cache.key(**key_parts)
+    blob = cache.load(key)
+    if blob is not None:
+        libs = json.loads(blob)["libraries"]
+    elif next(leaves(state.params))[1].device.type == "cuda":
+        _build.meta_calls.clear()
+        step_flops(cfg, state, batch, loss_fn, meta=True)
+        libs = sorted(_build.meta_calls)
+    else:
+        libs = []
+    _build.build(libs)
+    for name in libs:
+        _build.load(name)
+    if blob is None:
+        cache.put(key, json.dumps({"libraries": libs}).encode())
+    ms = (time.perf_counter() - t0) * 1e3
+    log.info("train step kernels %s in %.0f ms",
+             "cache hit" if blob is not None else "compiled", ms)
+    if registry is not None:
+        registry.gauge("train.precompile_ms").set(ms)
 
 
 def _publish_step_metrics(registry, row: dict, *, tokens: int, flops: float,
@@ -209,10 +257,12 @@ def train(
     guard rollback, an exclusion restart.  Recovery drains the background
     save (rank 0), waits for every rank, restores the whole tree from the
     latest checkpoint (each rank keeps its part), zeroes the compression
-    error buffers and cuts the history at the restored step."""
-    if compile_cache is not None:
-        raise NotImplementedError(
-            "compile_cache is ported in a later slice (ROADMAP queue 1, item 12b)")
+    error buffers and cuts the history at the restored step.
+
+    ``compile_cache`` (a ``repro_torch.core.compile_cache.CompileCache``)
+    builds or loads the step's kernels through it before step 0
+    (:func:`_warm_train_step`); in a world of ranks it only holds each
+    rank's builds."""
     refuse_embeds(cfg)
     dev = resolve_device(device)
     tracer = tracer or Tracer(rank=0, enabled=True)
@@ -273,7 +323,29 @@ def train(
         # first periodic save lands
         save(state, 0)
 
-    # the MFU numerator, once, only when someone will read the series
+    if compile_cache is not None and par_info is not None:
+        # a rank holds a part of the model: its step's kernels build into
+        # the cache at their first launch, with no record of the step
+        from repro_torch.kernels import _build
+
+        _build.use_cache(compile_cache)
+    elif compile_cache is not None:
+        from repro_torch.core.compile_cache import mesh_descriptor
+
+        _warm_train_step(
+            cfg, state, ds.batch_at(start), compile_cache,
+            loss_fn=pp_info.loss_fn if pp_info is not None else None,
+            registry=registry,
+            key_parts={
+                "model": cfg, "opt": ocfg, "data": data_cfg,
+                "grad_accum": loop.grad_accum, "plan": plan,
+                "mesh": mesh_descriptor(mesh),
+                "state": [f"{tuple(t.shape)}/{t.dtype}/{t.device.type}"
+                          for _, t in leaves(state.params)],
+            })
+
+    # the MFU numerator, once, only when someone will read the series:
+    # counted on the meta device, so nothing runs on the card for it
     flops = 0.0
     if registry is not None and par_info is not None:
         log.info("train.model_flops_per_s is not published across %d ranks",

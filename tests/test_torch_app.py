@@ -6,8 +6,8 @@ the same diagnosis as JAX's, continuous serving with the ``scan`` and
 JAX ``MegaServe``'s series names, training with the ``scope`` and ``fbd``
 modules reports what JAX's plugins report, every single-engine serving path
 (static, gathered, MegaScope probes, chunked prefill, speculation with either
-drafter) runs to the end through the CLI, what later slices port is refused
-with its ROADMAP item, and MegaFT's command lines run."""
+drafter) runs to the end through the CLI, and the command lines of items
+once refused (MegaFT, the compile cache, the dryrun) run."""
 
 import json
 import re
@@ -200,15 +200,35 @@ def test_scope_and_fbd_modules_report_what_jax_plugins_report():
     (["train", "--set", "obs.rank_events=true"], "item 9"),
     (["dryrun"], "item 14b"),
 ], ids=lambda v: "-".join(v) if isinstance(v, list) else v)
-def test_later_slices_are_refused_with_their_item(argv, item):
-    """What a later slice ports is refused naming its ROADMAP item.  Item 9
-    (MegaFT and live detection) is ported: its command lines run (two short
-    steps) and report ``results["ft"]``, ``results["scan"]["online"]`` or
-    the per-rank events in the trace."""
+def test_later_slices_are_refused_with_their_item(argv, item, tmp_path):
+    """The items these command lines once were refused for are ported, and
+    each runs.  Item 9 (MegaFT and live detection): two short steps that
+    report ``results["ft"]``, ``results["scan"]["online"]`` or the per-rank
+    events in the trace.  Item 12b: two runs through one compile cache,
+    the second a hit of the first's train-step record.  Item 14b: a dryrun
+    cell of the smoke config on the host mesh."""
     full = [argv[0], "--arch", ARCH, "--smoke", "--device", "cpu", *argv[1:]]
-    if item != "item 9":
-        with pytest.raises(SystemExit, match=re.escape(item)):
-            cli.main(full)
+    if item == "item 14b":
+        res = cli.run([*full, "--shape", "decode_32k", "--host-mesh",
+                       "--out", str(tmp_path)])
+        (cell,) = res["cells"].values()
+        assert cell["flops"] > 0 and cell["memory"]["peak_est_bytes"] > 0
+        return
+    if item == "item 12b":
+        from repro_torch.kernels import _build
+
+        full[full.index("cc")] = str(tmp_path / "cc")
+        stats = []
+        try:
+            for _ in range(2):
+                res = cli.run([*full, "--steps", "2", "--seq-len", "32",
+                               "--global-batch", "2"])
+                stats.append(res["session"].compile_cache.stats.as_dict())
+                assert [h["step"] for h in res["history"]] == [1, 2]
+        finally:
+            _build.use_cache(None)
+        assert stats == [{"hits": 0, "misses": 1, "puts": 1, "errors": 0},
+                         {"hits": 1, "misses": 0, "puts": 0, "errors": 0}]
         return
     res = cli.run([*full, "--steps", "2", "--seq-len", "32", "--global-batch", "2"])
     results = res["session"].results

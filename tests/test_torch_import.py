@@ -171,3 +171,17 @@ def test_the_ft_and_detector_modules_are_guarded():
         path = PORT.parent.joinpath(*m.split("."))
         assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
                 else path / "__init__.py") in SOURCES
+
+
+def test_the_compile_cache_and_dryrun_modules_are_guarded():
+    """The compile cache, the dryrun's specs and cells, and the modules
+    they reach into (the kernel build, the server's precompile, the train
+    loop's warm-up, the configs' shapes) are among those imported and
+    scanned above."""
+    mods = set(_modules())
+    for m in ("repro_torch.core.compile_cache", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun", "repro_torch.kernels._build",
+              "repro_torch.serve.server", "repro_torch.train.loop",
+              "repro_torch.configs.base", "repro_torch.models.model"):
+        assert m in mods, m
+        assert PORT.parent.joinpath(*m.split(".")).with_suffix(".py") in SOURCES

@@ -52,7 +52,7 @@ from repro_torch.serve import (  # noqa: E402
     Scheduler,
     ServeConfig,
 )
-from repro_torch.serve.server import make_poisson_workload  # noqa: E402
+from repro_torch.serve.server import MegaServe, make_poisson_workload  # noqa: E402
 
 FLOAT_TOL = 1e-12
 GEOM = dict(num_slots=3, block_size=8, num_blocks=40, max_blocks_per_slot=8)
@@ -537,7 +537,16 @@ def test_router_replicas_share_one_cast_of_the_weights(qwen):
                                                           "serve.r1.tokens"]
 
 
-def test_router_refuses_bad_replica_lists_and_precompile(qwen):
+def test_router_refuses_bad_replica_lists_and_precompile(qwen, single, tmp_path):
+    """Bad replica lists are refused; ``compile_cache=`` reaches every
+    replica and ``precompile()`` (no longer refused) sums their ladders,
+    as JAX's ``Router.precompile`` does: each replica's, a single
+    ``MegaServe``'s, held to JAX's in tests/test_torch_precompile.py.  The
+    precompiled fleet, and a precompiled single engine, then serve JAX's
+    streams."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels import _build
+
     _, cfg, params = qwen
     p = from_jax_params(params, device="cpu")
     scfg = ServeConfig(**GEOM)
@@ -545,12 +554,27 @@ def test_router_refuses_bad_replica_lists_and_precompile(qwen):
                dict(replica_wrap_steps=[None])):
         with pytest.raises(ValueError):
             Router(cfg, p, scfg, RouterConfig(replicas=2), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Router(cfg, p, scfg, RouterConfig(replicas=2), device="cpu",
-               compile_cache=object())
+    cache = CompileCache(tmp_path)
+    cached = Router(cfg, p, scfg, RouterConfig(replicas=2), device="cpu",
+                    compile_cache=cache)
+    assert all(r.compile_cache is cache for r in cached.replicas)
+    try:
+        rep = cached.precompile()
+    finally:
+        _build.use_cache(None)
+    one = MegaServe(cfg, p, scfg, device="cpu").precompile()
+    assert {k: v["count"] for k, v in rep.items() if k != "total"} == {
+        k: 2 * v["count"] for k, v in one.items() if k != "total"}
+    assert rep["total"] == 2 * one["total"] == 16
+    # the second replica's buckets hit the first's records
+    assert cache.stats.as_dict() == {"hits": 8, "misses": 8, "puts": 8, "errors": 0}
+    engine = MegaServe(cfg, p, scfg, device="cpu")
+    engine.precompile()
+    for srv in (cached, engine):
+        for prompt, mn, a in _requests(0, 8, cfg.vocab_size):
+            srv.submit(prompt, mn, arrival=a)
+        assert srv.drain() == single[0]
     router = Router(cfg, p, scfg, RouterConfig(replicas=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        router.precompile()
     # reset() refuses in-flight work, then restarts a drained fleet
     router.submit([5, 6, 7], 3, arrival=0.0)
     with pytest.raises(RuntimeError):

@@ -231,11 +231,13 @@ def test_cli_trains_on_the_cpu_and_refuses_without_a_card():
         assert "no CUDA device" in out.stderr
 
 
-def test_remat_dots_and_later_slices_raise():
+def test_remat_dots_and_later_slices_raise(tmp_path):
     """remat "dots" runs (its loss equals "full"'s; the gradients are held
-    in tests/test_torch_runtime.py); what later slices port still raises,
-    naming its ROADMAP item; MegaFT's ``obs`` and ``controller`` run (held
-    to JAX in tests/test_torch_ft.py)."""
+    in tests/test_torch_runtime.py); the arguments of items once refused
+    run: MegaFT's ``obs`` and ``controller`` (held to JAX in
+    tests/test_torch_ft.py) and ``compile_cache`` (item 12b), whose second
+    run hits the first's record of the step, sets ``train.precompile_ms``
+    and takes the same step."""
     _, cfg = _cfgs("qwen2-0.5b", remat="dots")
     params = lm.init(cfg, seed=0, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 1, 8, 0).items()}
@@ -248,6 +250,10 @@ def test_remat_dots_and_later_slices_raise():
     from repro_torch.ft import FtController
     from repro_torch.obs import RankEventSpec
 
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MetricsRegistry
+
     for kw, item in ((dict(obs=RankEventSpec(dp=2)), "item 9"),
                      (dict(controller=FtController()), "item 9"),
                      (dict(compile_cache="cc"), "item 12b")):
@@ -259,9 +265,21 @@ def test_remat_dots_and_later_slices_raise():
             fwd = sorted(e.rank for e in tracer.events if e.name == "fwd")
             assert fwd == ([0, 1] if "obs" in kw else [])
             continue
-        with pytest.raises(NotImplementedError, match=item):
-            train(cfg, optim.OptimizerConfig(), DataConfig(256, 8, 1),
-                  LoopConfig(n_steps=1), device="cpu", **kw)
+        # item 12b: the step's record put cold, hit warm, the same losses
+        root = tmp_path / kw["compile_cache"]
+        losses = []
+        try:
+            for hits in (0, 1):
+                cache, reg = CompileCache(root), MetricsRegistry()
+                _, hist = train(cfg, optim.OptimizerConfig(), DataConfig(256, 8, 1),
+                                LoopConfig(n_steps=1), device="cpu",
+                                compile_cache=cache, registry=reg)
+                assert cache.stats.hits == hits and cache.stats.puts == 1 - hits
+                assert reg.snapshot()["train.precompile_ms"] > 0
+                losses.append(hist[0]["loss"])
+        finally:
+            _build.use_cache(None)
+        assert losses[0] == losses[1]
 
 
 def test_make_batch_and_count_params():
