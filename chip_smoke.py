@@ -20,9 +20,10 @@ Phases, each of which fails the run (non-zero exit) on error:
              (Q=32 and 256 over a cached prefix), K3 and K4 also at
              minitron-4b's heads (24 / 8 / 128, G = 3), minicpm-2b's (36 /
              36 / 64, MHA) and phi3.5-moe's (32 / 8 / 128, G = 4), held row by
-             row; RMSNorm forward and backward (K1, Triton;
-             also at rwkv6-3b's width 2560, recurrentgemma-9b's 4096 and
-             the widths 2304, 3072 and 3584, none a power of two) and
+             row; RMSNorm forward and backward (K1, the forward Triton, the
+             backward CUDA C++, bit-identical on a second run; also at
+             rwkv6-3b's width 2560, recurrentgemma-9b's 4096 and the widths
+             2304, 3072 and 3584, none a power of two) and
              flash attention forward and backward (K2) at the training
              path's shapes (qwen2-vl-7b's 28 / 4 / 128, minicpm-2b's and
              phi3.5-moe's too), at small ragged ones and across its tiles'
@@ -41,9 +42,10 @@ Phases, each of which fails the run (non-zero exit) on error:
              shapes (K3 also at one Griffin decode tick, dh 256; K4 also
              at one verify step and one 32-token chunk; K3 and K4 at
              minitron's and minicpm's heads, K2 at qwen2-vl's and minicpm's
-             training shapes, K1 at 2304, 3072 and 3584, logged; K2 at
-             deepseek-v2-lite's training shape, with the SDPA backends
-             that take v's width apart, and K1 at [4096, 512]; K2
+             training shapes, K1 at [8192, {2048, 2304, 3072, 3584}],
+             logged; K2 at deepseek-v2-lite's training shape, with the SDPA
+             backends that take v's width apart, and K1 at [4096, 512] and
+             deepseek's [4096, 2048]; K2
              bidirectional at seamless-m4t's training shape, SDPA with
              ``is_causal=False``), and splits K2's backward into its
              kernels under ``torch.profiler``;
@@ -329,11 +331,16 @@ Phases, each of which fails the run (non-zero exit) on error:
              backwards a step (the encoder's, the cross-attention's, the
              decoder's), losses falling, the profiler's split,
              ``mfu_est``, peak memory; its step check;
+   decode-qwen2-vl — qwen2-vl-7b at full width, its 4 training layers,
+             decoding from input embeddings: a 128-position prefill over a
+             patch grid's M-RoPE ids, then 8 ``lm.decode_step``s on
+             ``[B, 1, d_model]`` rows, kernels against plain within
+             ``LOGIT_TOL``, K1 once a norm a forward;
 10. dryrun  — ``python -m repro_torch dryrun --all`` over the full
              configs on the meta device, started in the background (at a
              lower priority) when the training phases begin: a line a
-             cell with its seconds, each cell flops
-             and a peak or a reasoned ``FAIL``; the wrappers' meta-device
+             cell with its seconds, each cell flops and a peak (a ``FAIL``
+             line fails the run); the wrappers' meta-device
              sizes against their libraries'; qwen2-0.5b's cell at 2048 x 8
              (full depth, remat full): ``peak_est_bytes`` within
              ``PEAK_RTOL`` of ``max_memory_allocated`` over one real step
@@ -587,6 +594,8 @@ PHI_SERVE_LAYERS = 8
 # Session (~44 GB); phi3.5-moe cut to 2 of 32 layers (2.86 B, ~46 GB)
 QWEN2VL_TRAIN = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
 QWEN2VL_LAYERS = 4
+# decode-qwen2-vl: a prefill of 128 positions, then 8 embedding rows a sequence
+QWEN2VL_DECODE = dict(batch=4, prompt_len=128, steps=8)
 MINICPM_TRAIN = dict(seq_len=2048, global_batch=4, steps=4, seed=0)
 PHI_TRAIN = dict(seq_len=2048, global_batch=2, steps=4, seed=0)
 PHI_TRAIN_LAYERS = 2
@@ -621,6 +630,7 @@ MOE_FLIP_SHARE = 0.05
 # 2^12 5^2, so it runs into a fixed point, as at Griffin's V below)
 MLA_HEADS = (16, 16, 192, 128)         # H, K, q/k head dim, v head dim
 MLA_RANK = 512
+MLA_D = 2048                           # deepseek-v2-lite's d_model
 # serve-mla at 5 of 27 layers (the dense first layer and 4 MoE layers):
 # the parallel, precompile and dryrun phases' time comes out of the
 # gathered path's host-paced ticks, which scale with depth (all 27 fit
@@ -1073,7 +1083,7 @@ def time_config_kernels(torch, dev, worst: dict) -> None:
     """The kernels at the shapes the dense configs give them: K3 and K4 at
     minitron-4b's and minicpm-2b's heads over 8-layer pools, K2 forward and
     backward at qwen2-vl-7b's and minicpm-2b's training shapes, K1 forward
-    and backward at widths 2304, 3072 and 3584; each beside its plain
+    and backward at widths 2048, 2304, 3072 and 3584; each beside its plain
     version, its library yardstick and its bound.  Logged only (the summary
     line keeps one row a kernel, at qwen2-0.5b's shapes)."""
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1083,7 +1093,7 @@ def time_config_kernels(torch, dev, worst: dict) -> None:
         _time_prompt(torch, gen, dev, heads=heads, n_layers=8, rope_theta=1e4, iters=16,
                      graph=True, label=f"{name} ")
         torch.cuda.empty_cache()
-    for D in (MINICPM_D, MINITRON_D, QWEN2VL_D):
+    for D in (MLA_D, MINICPM_D, MINITRON_D, QWEN2VL_D):
         _time_norm(torch, gen, dev, 8192, D)
     _time_flash(torch, gen, dev, worst, 4, 2048, *QWEN2VL_HEADS, None, "_qwen2vl")
     _time_flash(torch, gen, dev, worst, 4, 2048, *MINICPM_HEADS, None, "_minicpm")
@@ -1093,11 +1103,12 @@ def time_config_kernels(torch, dev, worst: dict) -> None:
 def time_mla_kernels(torch, dev, worst: dict) -> dict:
     """K2 at deepseek-v2-lite's training shape (B 2, S 2048, H = K = 16, q/k
     at 192, v at 128; rows ``flash_fwd_mla`` and ``flash_bwd_mla``) and K1
-    at the latent's width 512 (logged): kernel, plain version, library
-    yardstick and bound."""
+    at the latent's width 512 and the model's 2048 (logged): kernel, plain
+    version, library yardstick and bound."""
     gen = torch.Generator(device=dev).manual_seed(5)
     B, S = MLA_TRAIN["global_batch"], MLA_TRAIN["seq_len"]
     _time_norm(torch, gen, dev, B * S, MLA_RANK)
+    _time_norm(torch, gen, dev, B * S, MLA_D)
     Hm, Km, Dm, Dvm = MLA_HEADS
     out = _time_flash(torch, gen, dev, worst, B, S, Hm, Km, Dm, None, "_mla", Dv=Dvm)
     torch.cuda.empty_cache()
@@ -1166,12 +1177,18 @@ def check_training_kernels(torch, dev) -> dict:
     def record_flash(name, abs_err, row_err):
         worst[name] = tuple(map(max, worst[name], (abs_err, row_err)))
 
-    def norm(rows, D, sdtype, what):
+    def norm(rows, D, sdtype, what, twice=False):
         x = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
         sc = (1 + 0.3 * torch.randn((D,), generator=gen, device=dev)).to(sdtype)
         dy = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
         y, rstd = rmsnorm_fwd_kernel(x, sc, 1e-6)
         dx, ds = rmsnorm_bwd_kernel(x, sc, rstd, dy)
+        if twice:  # no float atomics: a second run is bit-identical
+            again = rmsnorm_bwd_kernel(x, sc, rstd, dy)
+            if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
+                raise AssertionError(f"rmsnorm backward differs between runs: {what}")
+            log(f"[kernels] rmsnorm       {what:50s} backward bit-identical on a second run")
+            del again
         torch.cuda.synchronize()
         ry = rmsnorm_plain(x, sc, 1e-6)
         a_y, m_y = _err(y, ry), ry.float().abs().max().item()
@@ -1216,7 +1233,8 @@ def check_training_kernels(torch, dev) -> dict:
         record_flash(f"flash_fwd{key}", a_o, r_o)
         record_flash(f"flash_bwd{key}", a_g, max(r_g.values()))
 
-    norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale")
+    norm(NORM_ROWS, D_MODEL, torch.bfloat16, f"[{NORM_ROWS}, {D_MODEL}] bf16, bf16 scale",
+         twice=True)
     norm(8 * 2048 * 40, 128, torch.bfloat16, "[B*S*H=655360, 128] qwen3 qk_norm shape")
     norm(16383, D_MODEL, torch.float32, f"[16383, {D_MODEL}] odd rows, f32 scale")
     norm(RWKV_TRAIN["seq_len"] * RWKV_TRAIN["global_batch"], RWKV_D, torch.bfloat16,
@@ -1250,7 +1268,7 @@ def check_training_kernels(torch, dev) -> dict:
     # the dense configs' and phi3.5-moe's training shapes (qwen2-vl G = 7 at
     # dh 128, minicpm MHA at dh 64, phi3.5-moe G = 4) and K1 at their widths
     for D in (MINICPM_D, MINITRON_D, QWEN2VL_D):
-        norm(8192, D, torch.bfloat16, f"[8192, {D}] bf16 scale (BLOCK_D 4096 masked)")
+        norm(8192, D, torch.bfloat16, f"[8192, {D}] bf16 scale", twice=D == MINICPM_D)
     flash(4, 2048, 2048, *QWEN2VL_HEADS, True, None,
           "B=4 S=T=2048 H=28 K=4 dh=128 causal (qwen2-vl)", "_qwen2vl")
     flash(4, 2048, 2048, *MINICPM_HEADS, True, None,
@@ -1281,7 +1299,9 @@ def check_training_kernels(torch, dev) -> dict:
           twice=True, Dv=16)
     flash(1, 129, 127, 4, 2, 24, True, None, "B=1 S=129 T=127 dh=24/16 (tile edges)", Dv=16)
     flash(1, 300, 300, 4, 1, 24, True, 40, "B=1 S=T=300 dh=24/16 window 40", Dv=16)
-    norm(S * B, MLA_RANK, torch.bfloat16, f"[{S * B}, {MLA_RANK}] MLA latent, bf16 scale")
+    norm(S * B, MLA_RANK, torch.bfloat16, f"[{S * B}, {MLA_RANK}] MLA latent, bf16 scale",
+         twice=True)
+    norm(S * B, MLA_D, torch.bfloat16, f"[{S * B}, {MLA_D}] deepseek-v2-lite width")
     norm(2048, MLA_RANK, torch.float32, f"[2048, {MLA_RANK}] MLA latent, f32 scale")
     # seamless-m4t: bidirectional at MHA 16 x 64, the encoder's
     # self-attention at its training shape (every kv tile whole, taken
@@ -1320,9 +1340,9 @@ def _time_norm(torch, gen, dev, N: int, D: int) -> dict:
     (``F.rms_norm``; its backward alone for the backward row: ``autograd.grad``
     from one kept forward) times and bounds, rows ``rmsnorm_fwd`` and
     ``rmsnorm_bwd``.  Kernel and library are timed on the device, through a
-    CUDA graph: back to back, a Triton launch costs the host more than the
-    kernel takes the card, so those times are the host's (logged beside,
-    labelled host-paced, with ``F.rms_norm``'s forward plus backward)."""
+    CUDA graph: back to back, a launch costs the host more than the kernel
+    takes the card, so those times are the host's (logged beside, labelled
+    host-paced, with ``F.rms_norm``'s forward plus backward)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import (
@@ -3717,6 +3737,66 @@ def _patch_grid_batch(torch, cfg, B: int, S: int, seed: int, dev) -> dict:
     batch["mrope_position_ids"] = (torch.tensor(ids, dtype=torch.int32, device=dev)
                                    .T[:, None].expand(3, B, S).contiguous())
     return batch
+
+
+def decode_qwen2_vl(torch, dev, smi: str) -> None:
+    """qwen2-vl-7b decoding from input embeddings, at full width and its 4
+    training layers, seed-0 weights drawn in bf16: ``lm.prefill`` over
+    128 positions of a patch grid's M-RoPE ids, then 8 ``lm.decode_step``s
+    on ``[B, 1, d_model]`` bf16 rows (their ids built from ``pos``), through
+    the kernels and through the plain versions on the same inputs: finite
+    ``[B, V]`` logits at every step, within ``LOGIT_TOL`` of each other,
+    K1 launched once a norm a forward (2L + 1) and never backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models import lm
+
+    tag = "decode-qwen2-vl"
+    cfg = get_config("qwen2-vl-7b").replace(num_layers=QWEN2VL_LAYERS)
+    B, P, steps = (QWEN2VL_DECODE[k] for k in ("batch", "prompt_len", "steps"))
+    params = lm.init(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    batch = _patch_grid_batch(torch, cfg, B, P, 3, dev)
+    batch = {"embeds": batch["embeds"].to(torch.bfloat16),
+             "mrope_position_ids": batch["mrope_position_ids"]}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = torch.randn((B, steps, cfg.d_model), generator=gen, device=dev).bfloat16()
+    out, counts = {}, {}
+    for plain in (False, True):
+        for m in (flash_attention, rmsnorm):
+            m.reset_launches()
+        cache = lm.init_cache(cfg, B, P + steps, device=dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = lm.prefill(cfg, params, batch, cache, plain=plain)
+            got = [logits]
+            for i in range(steps):
+                logits, _ = lm.decode_step(cfg, params, cache, rows[:, i:i + 1], P + i,
+                                           plain=plain)
+                got.append(logits)
+        torch.cuda.synchronize()
+        out[plain] = torch.stack(got, 1).float()[..., :cfg.vocab_size]
+        counts[plain] = {**flash_attention.launches, **rmsnorm.launches}
+        log(f"[{tag}] {'plain' if plain else 'kernels'}: prefill {B} x {P} and {steps} "
+            f"decode steps in {time.perf_counter() - t0:.2f} s, launches {counts[plain]}")
+        del cache
+    diff = (out[False] - out[True]).abs().amax(-1)        # [B, steps + 1]
+    want = (2 * cfg.num_layers + 1) * (1 + steps)
+    agree = float((out[False].argmax(-1) == out[True].argmax(-1)).float().mean())
+    log(f"[{tag}] {cfg.name} at {cfg.num_layers} layers d_model={cfg.d_model}: logits "
+        f"{tuple(out[False].shape)}, kernels vs plain max |dlogit| per step "
+        f"{[round(v, 4) for v in diff.amax(0).tolist()]} (tol {LOGIT_TOL}), argmax agree "
+        f"{agree:.3f}; rmsnorm_fwd {counts[False]['rmsnorm_fwd']} expected (2x"
+        f"{cfg.num_layers}+1)x{1 + steps}={want} ({smi})")
+    del params, batch, rows
+    _free(torch)
+    if tuple(out[False].shape) != (B, steps + 1, cfg.vocab_size) or not all(
+            bool(torch.isfinite(o).all()) for o in out.values()):
+        raise AssertionError(f"{tag}: logits not finite or not [B, V] a step")
+    if not diff.max().item() <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: kernels against plain differ by {diff.max().item()}")
+    if counts[False]["rmsnorm_fwd"] != want or counts[False]["rmsnorm_bwd"] != 0 or any(
+            counts[True].values()):
+        raise AssertionError(f"{tag}: launches {counts}, K1 forward expected {want}")
 
 
 def train_configs_phase(torch, dev, smi: str) -> None:
@@ -6247,9 +6327,10 @@ def dryrun_phase(torch, dev, smi: str, background, tag: str = "dryrun") -> None:
             if not (res["flops"] > 0 and res["memory"]["peak_est_bytes"] > 0
                     and res["model_flops"] > 0):
                 raise AssertionError(f"{tag}: {cell} has no estimate: {res}")
-        elif not fail or len(fail[0].split(": ", 1)[1]) < 10:
-            raise AssertionError(f"{tag}: {cell} has neither a number nor a reasoned "
-                                 "FAIL")
+        elif fail:
+            raise AssertionError(f"{tag}: {fail[0]}")
+        else:
+            raise AssertionError(f"{tag}: {cell} has no line")
 
 
 def main() -> int:
@@ -6275,6 +6356,7 @@ def main() -> int:
     from repro_torch.models import griffin as griffin_model
     from repro_torch.models import rwkv as rwkv_model
     from repro_torch.kernels.paged_attention.ops import shared_memory_bytes
+    from repro_torch.kernels.rmsnorm.ops import shared_memory_bytes as norm_smem
     from repro_torch.kernels.wkv6.ops import shared_memory_bytes as wkv6_smem
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns off TF32 / reduced-precision bf16 sums
@@ -6303,6 +6385,9 @@ def main() -> int:
             smem, at = (f"{flash_smem(name, DH)} / {flash_smem(name, GRIFFIN_DH)} / "
                         f"{flash_smem(name, MLA_HEADS[2], MLA_HEADS[3])}",
                         f"dh={DH} / {GRIFFIN_DH} / {MLA_HEADS[2]} (v {MLA_HEADS[3]})")
+        elif name == "rmsnorm_bwd":
+            smem, at = (" / ".join(str(norm_smem(D)) for D in (D_MODEL, MINICPM_D, GRIFFIN_W)),
+                        f"D={D_MODEL} / {MINICPM_D} / {GRIFFIN_W} bf16 (the staged rows)")
         elif name.startswith("wkv6"):
             smem, at = (", ".join(f"{kn} {b}" for kn, b in wkv6_smem(name, RWKV_N).items()),
                         f"N={RWKV_N}")
@@ -6444,6 +6529,8 @@ def main() -> int:
     phase("griffin step check")
     train_configs_phase(torch, dev, smi)
     phase("train-configs: qwen2-vl-7b, minicpm-2b and phi3.5-moe, and their step checks")
+    decode_qwen2_vl(torch, dev, smi)
+    phase("decode-qwen2-vl: a prefill and decode steps from input embeddings")
     # deepseek-v2-lite at 4 layers: flash_fwd 2L = 8, flash_bwd L = 4,
     # rmsnorm_fwd 2*3L + 1 = 25, rmsnorm_bwd 3L + 1 = 13 a pass
     mla_counts = train_mla_phase(torch, dev, smi)
@@ -6478,7 +6565,7 @@ def main() -> int:
     wkv6_src = "src/repro/kernels/wkv6/kernel.py:79"
     rglru_src = "src/repro/kernels/rglru/kernel.py:49"
     norm_src = "src/repro/kernels/rmsnorm/kernel.py:26"
-    norm_path = REPO / "src/repro_torch/kernels/rmsnorm/rmsnorm_triton.py"
+    norm_path = REPO / "src/repro_torch/kernels/rmsnorm/rmsnorm_triton.py"  # K1 fwd: Triton
     rows = [
         ("paged_decode", "cuda", _build.SOURCES["paged_decode"],
          "src/repro/kernels/paged_attention/kernel.py:139", None),
@@ -6491,7 +6578,7 @@ def main() -> int:
         ("paged_prefill_chunk", "cuda", _build.SOURCES["paged_prefill"],
          "src/repro/kernels/paged_attention/prefill_kernel.py:176", None),
         ("rmsnorm_fwd", "triton", norm_path, norm_src, None),
-        ("rmsnorm_bwd", "triton", norm_path, norm_src, None),
+        ("rmsnorm_bwd", "cuda", _build.SOURCES["rmsnorm_bwd"], norm_src, None),  # K1 bwd: CUDA C++
         ("flash_fwd", "cuda", _build.SOURCES["flash_fwd"], flash_src, None),
         ("flash_bwd", "cuda", _build.SOURCES["flash_bwd"], flash_src, None),
         ("wkv6_fwd", "cuda", _build.SOURCES["wkv6_fwd"], wkv6_src, None),

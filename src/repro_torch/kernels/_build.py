@@ -42,6 +42,7 @@ SOURCES = {
     "wkv6_bwd": _KERNELS / "wkv6" / "csrc" / "wkv6_bwd.cu",
     "rglru_fwd": _KERNELS / "rglru" / "csrc" / "rglru_fwd.cu",
     "rglru_bwd": _KERNELS / "rglru" / "csrc" / "rglru_bwd.cu",
+    "rmsnorm_bwd": _KERNELS / "rmsnorm" / "csrc" / "rmsnorm_bwd.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 FLAGS = (

@@ -6,7 +6,7 @@ operation: float32 inside, ``y = x * rsqrt(mean(x^2) + eps) * scale``, the
 result in x's dtype.  Built from differentiable ops, so autograd gives the
 gradient ``jax.grad`` gives.  ``rmsnorm_bwd_plain`` writes that gradient out
 (``dx = rstd * (dy*s - xhat * mean(dy*s*xhat))``, ``dscale = sum(dy*xhat)``
-in float32): what the Triton backward is held to on the card.
+in float32): what the CUDA backward is held to on the card.
 """
 
 from __future__ import annotations

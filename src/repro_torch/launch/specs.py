@@ -212,19 +212,19 @@ def input_specs(
             meta={"tokens": B * S, "rules": rules, "mesh": mesh},
         )
 
-    if cfg.input_kind != "tokens" and cfg.family != "encdec":
-        raise ValueError(
-            f"{cfg.name}: the port's decode step takes token ids; an "
-            f"{cfg.input_kind} arch decodes from embeddings ([B, 1, d_model], "
-            "the JAX cell's input), which models.lm.decode_step does not take")
+    # one new token a row, or for an embeds arch one embedding row
+    if cfg.input_kind == "tokens" or cfg.family == "encdec":
+        tokens, t_axes = _sds((B,), torch.int32), ("batch",)
+    else:
+        tokens, t_axes = _sds((B, 1, cfg.d_model), torch.bfloat16), ("batch", None, None)
 
     @torch.inference_mode()
     def decode(params, cache, tokens, pos):
         return m.decode_step(cfg, params, cache, tokens, pos)
 
     return Cell(
-        step=decode, args=(params, cache, _sds((B,), torch.int32), S - 1),
-        axes=(p_axes, c_axes, ("batch",), None),
+        step=decode, args=(params, cache, tokens, S - 1),
+        axes=(p_axes, c_axes, t_axes, None),
         donate_argnums=(1,), kind="decode",
         meta={"tokens": B, "rules": rules, "mesh": mesh},
     )

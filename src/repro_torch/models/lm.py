@@ -491,10 +491,22 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
                 pos: int, collector: Collector = NULL_COLLECTOR, *,
                 plain: bool = False) -> tuple[torch.Tensor, dict]:
-    """JAX ``lm.decode_step`` for token ids ``[B]`` at the shared ``pos``
-    over the dense cache (in place): (logits ``[B, V]``, captures)."""
-    hidden, aux = forward(cfg, params, tokens.reshape(-1, 1), cache=cache,
-                          cache_pos=int(pos), plain=plain, collector=collector)
+    """JAX ``lm.decode_step`` at the shared ``pos`` over the dense cache (in
+    place): token ids ``[B]`` (or ``[B, 1]``), or for an embeds arch one
+    embedding row a sequence, ``[B, 1, D]`` (or ``[B, D]``), whose M-RoPE
+    ids are ``pos`` in all three streams.  Returns (logits ``[B, V]``,
+    captures)."""
+    pos = int(pos)
+    tok, embeds, ids = None, None, None
+    if cfg.input_kind == "tokens":
+        tok = tokens.reshape(-1, 1)
+    else:
+        embeds = tokens.reshape(tokens.shape[0], 1, -1)
+        if cfg.input_kind == "embeds_mrope":
+            ids = torch.full((3, embeds.shape[0], 1), pos, dtype=torch.int32,
+                             device=embeds.device)
+    hidden, aux = forward(cfg, params, tok, embeds=embeds, mrope_position_ids=ids,
+                          cache=cache, cache_pos=pos, plain=plain, collector=collector)
     return L.logits_fn(params, cfg, hidden)[:, 0], aux.get("captures", {})
 
 

@@ -113,3 +113,12 @@ def test_the_wkv6_sources_are_keyed_by_their_header_and_the_mma_helpers():
     for name in ("wkv6_fwd", "wkv6_bwd"):
         names = {h.name for h in _build.included_headers(_build.SOURCES[name])}
         assert names == {"wkv6_common.cuh", "flash_common.cuh"}
+
+
+def test_the_rmsnorm_backward_is_a_library_of_its_own():
+    """K1's backward is CUDA C++ (its forward stays Triton): one source with
+    no header of the repository, so its key is that source and the flags."""
+    src = _build.SOURCES["rmsnorm_bwd"]
+    assert src.parts[-3:] == ("rmsnorm", "csrc", "rmsnorm_bwd.cu") and src.is_file()
+    assert _build.included_headers(src) == []
+    assert 'extern "C" int rmsnorm_bwd(' in src.read_text()

@@ -314,6 +314,46 @@ def test_qwen2_vl_prefill_and_decode_match_jax():
         assert err <= CACHED_LOGIT_RTOL * np.abs(w).max(), (i, err)
 
 
+def test_qwen2_vl_decode_step_from_embeddings_matches_jax():
+    """The entry points end to end: JAX ``lm.prefill`` and 3 ``decode_step``s
+    on one embedding row a step against the port's ``lm.prefill`` and
+    ``lm.decode_step`` (which build the M-RoPE ids from ``pos`` as JAX
+    does), the rows given as ``[B, 1, D]`` and, at the last step, ``[B, D]``."""
+    jcfg, cfg = _cfgs("qwen2-vl-7b")
+    params = _jax_params(jcfg, seed=1)
+    B, P, steps = 2, 21, 3
+    rng = np.random.default_rng(12)
+    emb = rng.standard_normal((B, P + steps, cfg.d_model)).astype(np.float32)
+    ids = patch_grid_ids(B, 2, (3, 4), P - 14)
+    T = P + steps
+    jp = jax.tree.map(jnp.asarray, params)
+    jcache = jlm.init_cache(jcfg, B, T)
+    jcache, jlog = jlm.prefill(jcfg, jp, {"embeds": jnp.asarray(emb[:, :P]),
+                                          "mrope_position_ids": jnp.asarray(ids)},
+                               jcache)
+    want = [np.asarray(jlog)]
+    for i in range(steps):
+        jcache, jlog = jlm.decode_step(jcfg, jp, jcache, jnp.asarray(emb[:, P + i:P + i + 1]),
+                                       jnp.int32(P + i))
+        want.append(np.asarray(jlog))
+    tp = from_jax_params(params, device="cpu")
+    cache = lm.init_cache(cfg, B, T, device="cpu")
+    with torch.no_grad():
+        first, _ = lm.prefill(cfg, tp, {"embeds": torch.from_numpy(emb[:, :P]),
+                                        "mrope_position_ids": torch.from_numpy(ids)},
+                              cache)
+        got = [first]
+        for i in range(steps):
+            row = torch.from_numpy(emb[:, P + i:P + i + 1])
+            logits, _ = lm.decode_step(cfg, tp, cache,
+                                       row[:, 0] if i == steps - 1 else row, P + i)
+            got.append(logits)
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w[:, :cfg.vocab_size]
+        err = np.abs(g.numpy()[:, :cfg.vocab_size] - w).max()
+        assert err <= CACHED_LOGIT_RTOL * np.abs(w).max(), (i, err)
+
+
 def test_qwen2_vl_trajectory_matches_jax_with_grad_accum():
     """Three ``make_train_step`` steps at ``grad_accum=2`` on patch-grid
     batches: each microbatch takes its rows of the ``[3, B, S]`` ids."""

@@ -99,11 +99,6 @@ def test_input_specs_and_shard_bytes_equal_jaxs(arch):
                       if s.name != "long_500k" or jcfg.supports_long_context]
     for name in shapes:
         jcell = jax_input_specs(jcfg, JSHAPES[name], mesh)
-        if cfg.input_kind != "tokens" and cfg.family != "encdec" and \
-                SHAPES[name].kind == "decode":
-            with pytest.raises(ValueError, match="decodes from embeddings"):
-                input_specs(cfg, SHAPES[name], HOST)
-            continue
         cell = input_specs(cfg, SHAPES[name], HOST)
         assert (cell.kind, cell.meta["tokens"], cell.donate_argnums) == (
             jcell.kind, jcell.meta["tokens"], jcell.donate_argnums)
@@ -140,6 +135,20 @@ def test_active_params_and_model_flops_equal_jaxs():
     assert res["n_active_params"] == jax_active(jcfg)
     assert res["model_flops"] == 2 * jax_active(jcfg) * 128
     assert res["devices"] == 8 and res["tokens"] == 128
+
+
+def test_an_embeds_arch_decode_cell_takes_embedding_rows():
+    """qwen2-vl-7b's decode cell is built from ``[B, 1, d_model]`` bfloat16
+    embeddings, as JAX's is, and its step runs on the meta device."""
+    cfg = get_config("qwen2-vl-7b", smoke=True)
+    cell = input_specs(cfg, SHAPES["decode_32k"], HOST)
+    emb = cell.args[2]
+    assert emb.is_meta and emb.dtype == torch.bfloat16
+    assert tuple(emb.shape) == (SHAPES["decode_32k"].global_batch, 1, cfg.d_model)
+    assert cell.axes[2] == ("batch", None, None)
+    res = dryrun.run_cell("qwen2-vl-7b", "decode_32k", smoke=True, host_mesh=True)
+    assert res["flops"] > 0 and res["memory"]["peak_est_bytes"] > 0
+    assert res["tokens"] == SHAPES["decode_32k"].global_batch
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "phi3.5-moe-42b-a6.6b",
@@ -210,7 +219,7 @@ def test_the_kernel_wrappers_return_on_meta_what_the_kernels_return():
                                 scale=0.25, layer=1)
     assert got.is_meta and (got.shape, got.dtype) == (want.shape, want.dtype)
     assert _build.meta_calls == {"flash_fwd", "flash_bwd", "wkv6_fwd", "wkv6_bwd",
-                                 "rglru_fwd", "rglru_bwd", "paged_decode"}
+                                 "rglru_fwd", "rglru_bwd", "paged_decode", "rmsnorm_bwd"}
     assert paged.meta_scratch_bytes(2, 1, 4, 2, 16, 4, 2) == 4 * 2 * 2 * 1 * 1 * 2 * 18
 
 

@@ -243,24 +243,58 @@ K1_RTOL = 2.0 ** -7
 K1_DSCALE_RTOL = 1e-2
 
 
+def _k1_case(cuda, rows, D, xdtype, sdtype, seed=0, offset=0):
+    """x, scale and dy; ``offset`` elements into a larger buffer moves x and
+    dy off 16-byte alignment (the backward's scalar path)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rows_of(t):
+        buf = torch.empty(rows * D + offset, dtype=xdtype, device=cuda)
+        buf[offset:] = t.reshape(-1).to(xdtype)
+        return buf[offset:].view(rows, D)
+
+    x = rows_of(torch.randn((rows, D), generator=g, device=cuda))
+    s = (1 + 0.3 * torch.randn((D,), generator=g, device=cuda)).to(sdtype)
+    dy = rows_of(torch.randn((rows, D), generator=g, device=cuda))
+    return x, s, dy
+
+
+# every width a training path runs (the backward is CUDA C++ since its
+# redesign: 512, 896, 2048, 2304, 2560, 3072, 3584, 4096) and the edges of
+# its plan: one row, fewer rows than CTAs, a width that is not a multiple of
+# 8 (scalar loads), rows off 16-byte alignment, the widest D, float32 x and
+# float32 scale
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,D,sdtype", [(512, 896, torch.bfloat16),
-                                          (1001, 128, torch.float32),
-                                          (37, 64, torch.bfloat16),
-                                          (8192, 2560, torch.bfloat16),
-                                          # widths below BLOCK_D 4096
-                                          (8192, 2304, torch.bfloat16),
-                                          (1000, 3072, torch.bfloat16),
-                                          (513, 3584, torch.bfloat16)])
-def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
+@pytest.mark.parametrize("rows,D,xdtype,sdtype,offset", [
+    (512, 896, torch.bfloat16, torch.bfloat16, 0),
+    (1001, 128, torch.bfloat16, torch.float32, 0),
+    (37, 64, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 2560, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 2304, torch.bfloat16, torch.bfloat16, 0),
+    (1000, 3072, torch.bfloat16, torch.bfloat16, 0),
+    (513, 3584, torch.bfloat16, torch.bfloat16, 0),
+    (4096, 512, torch.bfloat16, torch.bfloat16, 0),
+    (16384, 896, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 2048, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 3072, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 3584, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 4096, torch.bfloat16, torch.bfloat16, 0),
+    (1, 896, torch.bfloat16, torch.bfloat16, 0),
+    (7, 2304, torch.bfloat16, torch.float32, 0),
+    (300, 100, torch.bfloat16, torch.bfloat16, 0),
+    (333, 896, torch.bfloat16, torch.bfloat16, 1),
+    (64, 16384, torch.bfloat16, torch.bfloat16, 0),
+    (1000, 896, torch.float32, torch.bfloat16, 0),
+    (513, 3584, torch.float32, torch.float32, 0),
+    (100, 16384, torch.float32, torch.float32, 0),
+    (2048, 512, torch.bfloat16, torch.float32, 0),
+])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, D, xdtype, sdtype, offset):
     from repro_torch.kernels.rmsnorm import (
         launches as k1, reset_launches as reset_k1, rmsnorm_bwd_kernel,
         rmsnorm_bwd_plain, rmsnorm_fwd_kernel, rmsnorm_plain)
 
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((rows, D), generator=g, device=cuda).bfloat16()
-    s = (1 + 0.3 * torch.randn((D,), generator=g, device=cuda)).to(sdtype)
-    dy = torch.randn((rows, D), generator=g, device=cuda).bfloat16()
+    x, s, dy = _k1_case(cuda, rows, D, xdtype, sdtype, offset=offset)
     reset_k1()
     y, rstd = rmsnorm_fwd_kernel(x, s, 1e-6)
     dx, ds = rmsnorm_bwd_kernel(x, s, rstd, dy)
@@ -271,9 +305,55 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, D, sdtype):
     rdx, rds = rmsnorm_bwd_plain(x, s, dy, 1e-6)
     rdx = rdx.float()
     assert (dx.float() - rdx).abs().max() <= K1_RTOL * rdx.abs().max()
-    assert ds.dtype == sdtype
+    assert dx.dtype == xdtype and ds.dtype == sdtype
     assert ((ds.float() - rds.float()).abs().max()
             <= K1_DSCALE_RTOL * rds.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,D", [(4096, 512), (8192, 2304), (37, 100)])
+def test_rmsnorm_bwd_is_bit_identical_again_and_in_a_graph_replay(cuda, rows, D):
+    """No float atomics, and the grid barrier's counters are left at zero:
+    a second launch and the replays of a captured one give the same bits."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_kernel, rmsnorm_fwd_kernel
+
+    x, s, dy = _k1_case(cuda, rows, D, torch.bfloat16, torch.bfloat16, seed=3)
+    _, rstd = rmsnorm_fwd_kernel(x, s, 1e-6)
+    first = rmsnorm_bwd_kernel(x, s, rstd, dy)
+    again = rmsnorm_bwd_kernel(x, s, rstd, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rmsnorm_bwd_kernel(x, s, rstd, dy)   # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = rmsnorm_bwd_kernel(x, s, rstd, dy)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, captured))
+    assert all(torch.equal(a, b) for a, b in zip(first, rmsnorm_bwd_kernel(x, s, rstd, dy)))
+
+
+@pytest.mark.gpu
+def test_rmsnorm_bwd_is_one_launch(cuda):
+    """dx and dscale come out of one kernel: no reduction or cast after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_kernel, rmsnorm_fwd_kernel
+
+    x, s, dy = _k1_case(cuda, 4096, 512, torch.bfloat16, torch.bfloat16)
+    _, rstd = rmsnorm_fwd_kernel(x, s, 1e-6)
+    rmsnorm_bwd_kernel(x, s, rstd, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rmsnorm_bwd_kernel(x, s, rstd, dy)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "rmsnorm_bwd_kernel" in names[0], names
 
 
 # K2 on bfloat16, held row by row (one (batch, position, head) vector): both
