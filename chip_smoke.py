@@ -1263,6 +1263,10 @@ def check_training_kernels(torch, dev) -> dict:
           f"B={B} S=T={S} H=16 K=1 dh=256 window {W}", "_dh256")
     flash(1, 1000, 1000, GRIFFIN_H, 1, GRIFFIN_DH, True, W,
           f"B=1 S=T=1000 H=16 K=1 dh=256 window {W} > S", "_dh256")
+    B2, S2 = FAMILY_SHAPE["global_batch"], FAMILY_SHAPE["seq_len"]
+    flash(B2, S2, S2, GRIFFIN_H // 2, 1, GRIFFIN_DH, True, W,
+          f"B={B2} S=T={S2} H={GRIFFIN_H // 2} K=1 dh=256 window {W} (a tp 2 rank's "
+          "heads)", "_dh256")
     flash(1, 193, 193, GRIFFIN_H, 1, GRIFFIN_DH, True, 40,
           "B=1 S=T=193 H=16 K=1 dh=256 window 40 (tile edges)", "_dh256", twice=True)
     # the dense configs' and phi3.5-moe's training shapes (qwen2-vl G = 7 at
@@ -1509,14 +1513,16 @@ def _kernel_split(torch, fn) -> list[tuple[str, float]]:
     return list(split.items())
 
 
-def _wkv6_inputs(torch, gen, dev, B, T, kind):
+def _wkv6_inputs(torch, gen, dev, B, T, kind, H=None):
     """r, k, v ~ N(0, 1) bfloat16, u ~ N(0, 0.25) and w float32: ``model``
     w = exp(-exp(U(-6, -1))) (log w from -0.0025 to -0.37, the spread a
     trained decay LoRA gives around w0), ``brutal`` 1e-4, ``long``
     exp(-exp(-8)) = 0.99966, ``clamp`` model decays with every third
     token's even channels at 1 - 1e-8 (1.0 in float32) and the next
-    token's every fourth at 0.9999999, where the log clamp holds."""
-    BH, N = B * RWKV_H, RWKV_N
+    token's every fourth at 0.9999999, where the log clamp holds.  ``H``
+    heads (rwkv6-3b's 40 by default)."""
+    H = H or RWKV_H
+    BH, N = B * H, RWKV_N
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -1532,12 +1538,12 @@ def _wkv6_inputs(torch, gen, dev, B, T, kind):
         if kind == "clamp":
             w[:, ::3, ::2] = 1 - 1e-8
             w[:, 1::3, 1::4] = 0.9999999
-    return r, k, v, w, 0.5 * rn(RWKV_H, N), rn(BH, T, N)
+    return r, k, v, w, 0.5 * rn(H, N), rn(BH, T, N)
 
 
 def _to_model(t, B: int):
     """``[B*H, T, N]`` rows as the model's ``[B, T, H, N]`` (a strided view)."""
-    return t.view(B, RWKV_H, t.shape[1], -1).permute(0, 2, 1, 3)
+    return t.view(B, t.shape[0] // B, t.shape[1], -1).permute(0, 2, 1, 3)
 
 
 def _to_rows(t):
@@ -1560,8 +1566,8 @@ def check_wkv6_kernels(torch, dev) -> dict:
     # bfloat16 outputs)
     worst = {"wkv6_fwd": (0.0, 0.0, 0.0), "wkv6_bwd": (0.0, 0.0, 0.0)}
 
-    def case(B, T, kind, what, layout="rows"):
-        r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, kind)
+    def case(B, T, kind, what, layout="rows", H=None):
+        r, k, v, w, u, dy = _wkv6_inputs(torch, gen, dev, B, T, kind, H)
         ins, dy_in = (r, k, v, w), dy
         if layout != "rows":
             ins = [_to_model(t, B).contiguous() for t in ins]
@@ -1601,6 +1607,9 @@ def check_wkv6_kernels(torch, dev) -> dict:
 
     B, T = RWKV_TRAIN["global_batch"], RWKV_TRAIN["seq_len"]
     case(B, T, "model", f"[B, T, H, N] B={B} T={T} H=40 N=64 (main shape)", "model")
+    B2, T2 = FAMILY_SHAPE["global_batch"], FAMILY_SHAPE["seq_len"]
+    case(B2, T2, "model", f"[B, T, H, N] B={B2} T={T2} H={RWKV_H // 2} N=64 (a tp 2 "
+         "rank's heads)", "model", H=RWKV_H // 2)
     case(B, 100, "model", "rows B=4 T=100 H=40 ragged")
     case(1, 512, "brutal", "rows B=1 T=512 brutal decay w=1e-4")
     case(1, T, "long", f"rows B=1 T={T} long memory w=0.99966")
@@ -1736,6 +1745,9 @@ def check_rglru_kernels(torch, dev) -> dict:
     B, T, W = GRIFFIN_TRAIN["global_batch"], GRIFFIN_TRAIN["seq_len"], GRIFFIN_W
     case(B, T, W, "model", False, f"[{B}, {T}, {W}] Griffin decays (main shape)",
          twice=True)
+    B2, T2 = FAMILY_SHAPE["global_batch"], FAMILY_SHAPE["seq_len"]
+    case(B2, T2, W // 2, "model", False,
+         f"[{B2}, {T2}, {W // 2}] a tp 2 rank's channels")
     case(1, 1000, 1000, "model", True, "[1, 1000, 1000] ragged T and W, dh_last")
     case(1, 512, W, "brutal", True, f"[1, 512, {W}] brutal decay log a in [-12, 0]")
     # the windows: T = 15 x 64 + 43 ends part way through a window's sixth
@@ -1952,7 +1964,7 @@ def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
                   smi: str, tag: str = "serve-session") -> dict:
     """The serve phase's workload again, through ``Session`` as ``python -m
     repro_torch serve --continuous`` runs it, with ``--modules
-    scan,metrics`` and a chrome trace, then in turns with ``scan`` (four
+    scan,metrics`` and a chrome trace, then in turns with ``scan`` (two
     runs each), then ``none``: the streams of all must be
     token-identical to the direct run's (no plugins, its own tracer, which
     times its ticks: ``streams_off``, ``ticks_off``), every decode tick and
@@ -2008,13 +2020,13 @@ def serve_session(torch, cfg, specs, streams_off: dict, ticks_off: list,
                              f"{snap['serve.ttft_s']['count']} of {len(specs)} requests")
     # --modules scan (the tracer alone: no registry, no trace file, so no
     # writer thread) still times its ticks; --modules none does not.  In
-    # turns with the first run, four of each (on, scan, scan, on, on, scan,
-    # scan, on), so neither side holds one place in the order, as a run's
-    # median moves by several ms from run to run; then none
+    # turns with the first run, two of each (on, scan, scan, on), so neither
+    # side holds one place in the order, as a run's median moves by several
+    # ms from run to run; then none.  (Four of each until PR 32, cut to fit
+    # the run's time limit: ROADMAP P16.)
     pooled = {"scan,metrics": list(ticks), "scan": []}
     medians = {"scan,metrics": [statistics.median(ticks)], "scan": []}
-    for modules in ("scan", "scan", "scan,metrics", "scan,metrics", "scan", "scan",
-                    "scan,metrics", "none"):
+    for modules in ("scan", "scan", "scan,metrics", "none"):
         extra = (["--trace-out", str(out_dir / "serve.json")]
                  if modules == "scan,metrics" else [])
         sess, (streams_m, met_m) = _session([*base, "--modules", modules, *extra])
@@ -5420,9 +5432,22 @@ def _world(jobs: list[dict], nprocs: int, tag: str) -> list[list[dict]]:
     from repro_torch.parallel import dist as pdist
 
     t0 = time.perf_counter()
-    per_rank = pdist.spawn(_world_rank, (jobs,), nprocs, device="cuda")
+    # the ranks share the card: expandable segments let a rank hand back
+    # what its step freed (torch.cuda.empty_cache) for rank 0's reference,
+    # where fixed segments keep blocks that a live tensor pins
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        per_rank = pdist.spawn(_world_rank, (jobs,), nprocs, device="cuda")
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     log(f"[{tag}] a world of {nprocs} ranks: {len(jobs)} runs in "
-        f"{time.perf_counter() - t0:.1f} s, spawning included")
+        f"{time.perf_counter() - t0:.1f} s, spawning included; rank 0's runs: " + ", ".join(
+            f"{' '.join(j['argv'][1:3])} {' '.join(j['argv'][11:])} {r['wall_s']:.1f} s"
+            for j, r in zip(jobs, per_rank[0])))
     for rank, r in enumerate(per_rank):
         log(f"[{tag}] rank {rank}'s first calls: " + ", ".join(
             f"{k} {1e3 * v:.1f} ms" for k, v in r[0]["first_calls"].items())
@@ -5453,12 +5478,14 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
     out, kept = [], None
     warm = _first_calls(torch)
     for job in jobs:
+        t_job = time.perf_counter()
         mods = [importlib.import_module(f"repro_torch.kernels.{k}") for k in job["kernels"]]
         for m in mods:
             m.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         _, rc = parse(job["argv"])
-        with _StepRecorder(check=job.get("check", False), first=not out) as rec:
+        with _StepRecorder(check=job.get("check", False), first=not out,
+                           mixer=job.get("mixer", "attn"), pin=job.get("pin", False)) as rec:
             session = Session(rc, model_cfg=job.get("model_cfg"))
             state, history = session.run()
         torch.cuda.synchronize()
@@ -5469,6 +5496,7 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
                "peak": rec.peak if job.get("check") else torch.cuda.max_memory_allocated(),
                "sync_s": rec.sync_s,
                "check_s": rec.check_s, "norms": rec.norms, "refs": rec.refs,
+               "flips": rec.flips,
                "step_losses": rec.losses,
                "first_calls": warm, "first_profile": rec.first_profile,
                "digest": {".".join(p): (t.double().sum().item(),
@@ -5485,6 +5513,7 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
                                 if not torch.equal(t, kept[p])]
         kept = ({p: t.clone() for p, t in leaves(state.master)}
                 if job.get("keep") else None)
+        row["wall_s"] = time.perf_counter() - t_job
         out.append(row)
         del state, session, res
         _free(torch)
@@ -5850,7 +5879,62 @@ PAR_CELLS = (
 )
 
 
+# the other families in the same 2-rank world (item 8c): tp 2 over RWKV-6,
+# Griffin and MoE blocks and dp 2 over MoE layers, at full width with the
+# depth cut, 2 steps at seq 2048 x batch 2 (one row a data rank), bf16,
+# remat full, seed 0.  Two ranks share the card beside rank 0's reference,
+# and the split keeps the embedding and the head whole on every rank
+# (ROADMAP P19); train state is 14 bytes a parameter (bf16 copy, float32
+# master and moments): rwkv6-3b at 4 of 32 layers (~7 GB a rank: its 335M
+# embedding and head, half of 4 layers); phi3.5-moe at 1 of 32 (~13 GB a
+# rank at tp 2; ~22 GB a rank at dp 2, whose ranks hold all 1.56B
+# parameters, ~33 GB at the float32 sum of their gradient); Griffin at 3
+# of 38, one (rec, rec, attn) group, with its vocabulary cut from 256000
+# to 32768: its untied embedding and head are 2.1B parameters at full
+# vocabulary, 34.6 GB a rank before the first step (measured), which two
+# ranks and their steps' cross-entropy and AdamW buffers overrun 80 GB at
+# any depth; at 32768 a rank holds ~8 GB.  That is a cut of width, not of
+# depth: it goes when the split slices the vocabulary over ``model`` as
+# JAX does (ROADMAP item 8c).  Every block runs at full width.
+FAMILY_SHAPE = dict(seq_len=2048, global_batch=2, steps=2, seed=0)
+GRIFFIN_WORLD_VOCAB = 32768
+FAMILY_CELLS = (
+    ("tp2-rwkv6", dict(tp=2, arch="rwkv6-3b", layers=4), ["--set", "parallel.tp=2"]),
+    ("tp2-griffin", dict(tp=2, arch="recurrentgemma-9b", layers=3,
+                         vocab=GRIFFIN_WORLD_VOCAB), ["--set", "parallel.tp=2"]),
+    ("tp2-phi35moe", dict(tp=2, arch="phi3.5-moe-42b-a6.6b", layers=1),
+     ["--set", "parallel.tp=2"]),
+    ("dp2-phi35moe", dict(dp=2, arch="phi3.5-moe-42b-a6.6b", layers=1),
+     ["--set", "parallel.dp=2"]),
+)
+# each family's kernels, the token mixer its leaf norms read, and the step
+# check's limits
+FAMILY = {
+    "dense": (("flash_attention", "rmsnorm"), "attn",
+              (STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL)),
+    "moe": (("flash_attention", "rmsnorm"), "attn",
+            (STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL)),
+    "rwkv6": (("wkv6", "rmsnorm"), "att",
+              (RWKV_STEP_LOSS_TOL, RWKV_STEP_GNORM_RTOL, RWKV_STEP_LEAF_RTOL)),
+    "griffin": (("rglru", "flash_attention", "rmsnorm"), "mix",
+                (GRIFFIN_STEP_LOSS_TOL, GRIFFIN_STEP_GNORM_RTOL, GRIFFIN_STEP_LEAF_RTOL)),
+}
+
+
+def _cell_cfg(cell: dict):
+    """A cell's model: qwen2-0.5b whole, or its ``arch`` cut to its
+    ``layers`` (and its ``vocab`` where the cell names one)."""
+    from repro_torch.configs import get_config
+
+    if "arch" not in cell:
+        return get_config("qwen2-0.5b")
+    cfg = get_config(cell["arch"]).replace(num_layers=cell["layers"])
+    return cfg.replace(vocab_size=cell["vocab"]) if "vocab" in cell else cfg
+
+
 def _par_shape(cell: dict) -> dict:
+    if "arch" in cell:
+        return FAMILY_SHAPE
     return (dict(PAR_SHAPE, global_batch=PAR_PIPE_BATCH) if cell.get("pp", 1) > 1
             else PAR_SHAPE)
 
@@ -5859,39 +5943,46 @@ class _StepRecorder:
     """On a rank of a world: the time of the world's all-reduces (between two
     synchronisations of the card, which the tensor split's many small ones
     slow a little), and each step's per-layer leaf gradient norms, squared
-    (:func:`_leaf_norms`' leaves, at AdamW's entry, after the sums over the
-    data ranks), of this rank's part.  With ``check``, each step's
-    reference: before the step every rank sends rank 0 its part of the
-    compute-dtype parameters (the step info's ``gather``), rank 0 takes the
-    fused one-process loss and gradients of the step's whole batch from
+    (:func:`_leaf_norms`' leaves of ``mixer``, at AdamW's entry, after the
+    sums over the data ranks), of this rank's part.  With ``check``, each
+    step's reference: before the step every rank sends rank 0 its part of
+    the compute-dtype parameters (the step info's ``gather``), rank 0 takes
+    the fused one-process loss and gradients of the step's whole batch from
     them through the kernels (their launches kept out of the counts), and
     the ranks meet at a barrier; ``check_s`` is the time that took on this
     rank, inside the step's time, and ``peak`` the rank's peak memory over
-    its steps, the reference's left out.  With ``first``, the rank's first step
+    its steps, the reference's left out.  With ``pin`` (MoE) the reference
+    comes after the step, from the parameters gathered before it (kept in
+    host memory meanwhile), routed as the step routed (the data ranks'
+    picks sent to rank 0: :class:`_PinnedRouting`), and each of its runs'
+    flips is kept.  With ``first``, the rank's first step
     runs under Python's profiler (``first_profile``: the 10 functions that
     took the most time of their own, and the 10 that took the most in all)."""
 
-    def __init__(self, check: bool = False, first: bool = False):
-        self.check, self.first = check, first
+    def __init__(self, check: bool = False, first: bool = False, mixer: str = "attn",
+                 pin: bool = False):
+        self.check, self.first, self.mixer, self.pin = check, first, mixer, pin
 
     def __enter__(self):
         import torch
         import torch.distributed as dist
 
-        from repro_torch.kernels import flash_attention, rmsnorm
+        from repro_torch.kernels import flash_attention, rglru, rmsnorm, wkv6
         from repro_torch.models.model import get_model
+        from repro_torch.models.split import make_split
         from repro_torch.parallel import dist as pdist
         from repro_torch.train import loop
         from repro_torch.train import train_step as ts
 
         self.norms, self.refs, self.check_s, self.sync_s, self.peak = [], [], [], 0.0, 0
         self.losses = []  # with check: each step's own loss, beside its reference
+        self.flips = []   # with pin: each reference run's (flips, routings) a step
         self.first_profile = None if self.first else ""
         self._undo = []
 
         def adamw(ocfg, grads, *a, _real=ts.adamw_update, **kw):
             self.norms.append({k: v.double().square().cpu()
-                               for k, v in _leaf_norms(grads, "attn").items()})
+                               for k, v in _leaf_norms(grads, self.mixer).items()})
             return _real(ocfg, grads, *a, **kw)
 
         def timed(fn):
@@ -5904,56 +5995,114 @@ class _StepRecorder:
                 return out
             return call
 
-        def reference(cfg, params: dict, batch: dict, tp: int) -> tuple:
-            saved = [(m, dict(m.launches)) for m in (flash_attention, rmsnorm)]
+        def reference(cfg, params: dict, batch: dict, tp: int, picks=None) -> tuple:
+            # the fused step through the kernels; under tp also the plain
+            # versions, and the package's split run in one process (every
+            # slice here, its float32 parts summed: the fused arithmetic
+            # with the split's order of sums); at the first step under tp
+            # also the fused and the split steps in float32 (the plain
+            # versions: the kernels take bf16), which tell a leaf whose
+            # bf16 gradient is rounding noise
+            saved = [(m, dict(m.launches)) for m in (flash_attention, rglru, rmsnorm, wkv6)]
             params = ts.tree_map(lambda t: t.detach().requires_grad_(True), params)
             dev = next(iter(ts.leaves(params)))[1].device
             batch = ts.to_device_batch(batch, dev)
-            out = []
-            for run in ("kernels",) + (("plain", "split") if tp > 1 else ()):
-                if run == "split":
-                    loss = _split_loss(torch, cfg, params, batch, tp)
-                else:
-                    loss, _ = get_model(cfg).loss_fn(cfg, params, batch,
-                                                     plain=run == "plain")
-                grads = ts.grad_tree(params, loss, ts.unused_leaves(cfg))
+            out, flips = [], []
+            runs = ("kernels",) + (("plain", "split") if tp > 1 else ())
+            if tp > 1 and not self.refs:
+                runs += ("plain32", "split32")
+            for run in runs:
+                f32 = run.endswith("32")
+                c = cfg.replace(compute_dtype="float32") if f32 else cfg
+                ps = (ts.tree_map(lambda t: t.detach().float().requires_grad_(True), params)
+                      if f32 else params)
+                pin = _PinnedRouting() if picks is not None else contextlib.nullcontext()
+                with pin:
+                    if picks is not None:
+                        pin.picks = picks
+                        pin.replay()
+                    kw = {"split": make_split(c, tp)} if run.startswith("split") else {}
+                    loss, _ = get_model(c).loss_fn(c, ps, batch,
+                                                   plain=run not in ("kernels", "split"), **kw)
+                    grads = ts.grad_tree(ps, loss, ts.unused_leaves(c))
+                if picks is not None:
+                    flips.append((pin.flips, pin.routings))
                 out.append((loss.item(), ts.global_norm(grads).item(),
-                            {k: v.cpu() for k, v in _leaf_norms(grads, "attn").items()}))
-                del loss, grads
+                            {k: v.cpu() for k, v in _leaf_norms(grads, self.mixer).items()}))
+                del loss, grads, ps
             for m, counts in saved:
                 m.launches.update(counts)
+            if picks is not None:
+                self.flips.append(flips)
             return tuple(out)
+
+        def picks_on_rank0(picks: list, info) -> list | None:
+            # the step's routing of the whole batch: at tp every rank routes
+            # all of it alike; over data ranks each its rows, sent to rank 0
+            if info.plan.dp == 1:
+                return picks if info.mesh.get_rank() == 0 else None
+            if info.coords["model"]:
+                return None
+            rows = info.mesh.mesh.movedim(list(info.mesh.mesh_dim_names).index("data"),
+                                          0)[:, 0, 0]
+            if info.mesh.get_rank() != 0:
+                pdist.exchange([(t, 0) for t in picks], [])
+                return None
+            got = [[torch.empty_like(t) for t in picks] for _ in rows[1:]]
+            pdist.exchange([], [(b, int(r)) for r, bs in zip(rows[1:], got) for b in bs])
+            return [torch.cat(parts) for parts in zip(picks, *got)]
 
         def make(cfg, *a, _real=loop.make_train_step, **kw):
             step = _real(cfg, *a, **kw)
 
             def checked(state, *rest):  # (batch) or, compressed, (err, batch)
                 batch = rest[-1]
+                info = step.parallel
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                whole = None
                 if self.check:
-                    whole = step.parallel.gather(state.params)
-                    if whole is not None:
-                        self.refs.append(reference(cfg, whole, batch,
-                                                   step.parallel.plan.tp))
-                    del whole
+                    # every rank hands back the blocks its last step freed,
+                    # which rank 0's reference takes
+                    torch.cuda.empty_cache()
+                    whole = info.gather(state.params)
+                    if whole is not None and self.pin:  # host memory, during the step
+                        whole = ts.tree_map(lambda t: t.detach().cpu(), whole)
+                    elif whole is not None:
+                        self.refs.append(reference(cfg, whole, batch, info.plan.tp))
+                        whole = None
+                        torch.cuda.empty_cache()
                     dist.barrier()
                     # the rank's own peak, without the reference's
                     torch.cuda.reset_peak_memory_stats()
                 self.check_s.append(time.perf_counter() - t0)
-                if self.first_profile is not None:
-                    out = step(state, *rest)
-                else:  # a new rank's first step, under the Python profiler
-                    prof = cProfile.Profile()
-                    out = prof.runcall(step, state, *rest)
-                    torch.cuda.synchronize()
-                    text = io.StringIO()
-                    for key in ("tottime", "cumulative"):
-                        pstats.Stats(prof, stream=text).sort_stats(key).print_stats(10)
-                    self.first_profile = text.getvalue()
+                pin = _PinnedRouting() if self.pin else contextlib.nullcontext()
+                with pin:
+                    if self.first_profile is not None:
+                        out = step(state, *rest)
+                    else:  # a new rank's first step, under the Python profiler
+                        prof = cProfile.Profile()
+                        out = prof.runcall(step, state, *rest)
+                        torch.cuda.synchronize()
+                        text = io.StringIO()
+                        for key in ("tottime", "cumulative"):
+                            pstats.Stats(prof, stream=text).sort_stats(key).print_stats(10)
+                        self.first_profile = text.getvalue()
                 if self.check:
                     self.losses.append(float(out[-1]["loss"]))
                 self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+                if self.check and self.pin:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    t0 = time.perf_counter()
+                    picks = picks_on_rank0(pin.picks, info)
+                    if whole is not None:
+                        whole = ts.tree_map(lambda t: t.to(pdist.world().device), whole)
+                        self.refs.append(reference(cfg, whole, batch, info.plan.tp, picks))
+                    del whole, picks
+                    torch.cuda.empty_cache()
+                    dist.barrier()
+                    self.check_s[-1] += time.perf_counter() - t0
                 return out
 
             checked.parallel = step.parallel
@@ -5974,56 +6123,19 @@ class _StepRecorder:
             setattr(mod, name, old)
 
 
-def _split_loss(torch, cfg, params: dict, batch: dict, tp: int) -> "torch.Tensor":
-    """The loss of ``cfg`` (dense GQA blocks) with Megatron's tensor split
-    over ``tp`` ranks done in one process, as ``models.pipeline``'s tp block
-    sums it: each block's attention and MLP run once per tensor slice of
-    their weights (the slices ``weights.shard_params`` gives tensor rank
-    ``t``), their float32 output products summed over the slices and
-    rounded once; each slice reads the norm's output through a view of its
-    own, so its input gradient sums within the slice first, as on its
-    rank.  The fused step's arithmetic with the tensor split's order of
-    sums: what a tp run should reproduce."""
-    from repro_torch.models import layers as L
-    from repro_torch.models import lm
-    from repro_torch.models.pipeline import _tp_local_cfg, head_loss, pipeline_layout, tp_slices
-    from repro_torch.train.optim import tree_map
-
-    layout = pipeline_layout(cfg, 1, 1, tp=tp)
-    dims = {path[2:]: d - 1 for path, d in tp_slices(lm.param_axes(cfg), layout).items()}
-    local = _tp_local_cfg(cfg, tp)
-    x = L.embed_apply(params, cfg, batch["tokens"], getattr(torch, cfg.compute_dtype))
-    positions = L.arange_positions(x.shape[1], x.device)
-
-    def part(p: dict, sub: str, t: int) -> dict:
-        return {k: v.chunk(tp, dims[(sub, k)])[t].contiguous() if (sub, k) in dims else v
-                for k, v in p[sub].items()}
-
-    for i in range(cfg.num_layers):
-        bp = tree_map(lambda a: a[i], params[layout.seg_key])["b0"]
-        h = L.norm_apply(bp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-        a = sum(L.gqa_apply(part(bp, "attn", t), local, h.view_as(h), positions=positions,
-                            out_float32=True) for t in range(tp))
-        x = lm._resid(cfg, x, a.to(x.dtype))
-        h = L.norm_apply(bp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-        f = sum(L.mlp_apply(part(bp, "mlp", t), local, h.view_as(h), out_float32=True)
-                for t in range(tp))
-        x = lm._resid(cfg, x, f.to(x.dtype))
-    return head_loss(cfg, params, x, batch)[0]
-
-
 def _whole_norms(torch, cfg, cell: dict, ranks: list[dict], k: int) -> dict:
     """Step ``k``'s per-layer leaf gradient norms of the whole model from
     the squared norms of the ranks' parts: the ranks of data 0; a stage's
     rows of a layer-stacked leaf at its cells' layers; a tensor-sliced leaf
     summed over the tensor ranks, any other from tensor rank 0."""
-    from repro_torch.models import lm
-    from repro_torch.models.pipeline import pipeline_layout, tp_slices
+    from repro_torch.models.pipeline import pipeline_layout
+    from repro_torch.models.split import tp_slices
 
     pp, tp = cell.get("pp", 1), cell.get("tp", 1)
-    layout = pipeline_layout(cfg, pp, 1, tp=tp)
-    sliced = {".".join(p) for p in tp_slices(lm.param_axes(cfg), layout)} if tp > 1 else set()
-    g = layout.groups_per_cell
+    sliced = {".".join(p) for p in tp_slices(cfg, tp)}
+    if pp > 1:
+        layout = pipeline_layout(cfg, pp, 1, tp=tp)
+        g = layout.groups_per_cell
     sq: dict = {}
     for r in ranks:
         at = r["coords"]
@@ -6047,14 +6159,65 @@ def _size(cell: dict) -> int:
 
 
 def _parallel_jobs() -> dict[int, list]:
-    """``{world size: [(name, cell, job)]}`` of :data:`PAR_CELLS`, the jobs
-    :func:`_world_rank` runs, each step checked."""
+    """``{world size: [(name, cell, job)]}`` of :data:`PAR_CELLS` and
+    :data:`FAMILY_CELLS`, the jobs :func:`_world_rank` runs, each step
+    checked (MoE's routing pinned: ``pin``)."""
     out: dict[int, list] = {}
-    for name, cell, extra in PAR_CELLS:
-        job = dict(argv=[*_train_argv(_par_shape(cell)), "--modules", "none", *extra],
-                   kernels=("flash_attention", "rmsnorm"), check=True)
+    for name, cell, extra in (*PAR_CELLS, *FAMILY_CELLS):
+        cfg = _cell_cfg(cell)
+        kernels, mixer, _ = FAMILY[cfg.family]
+        argv = [*_train_argv(_par_shape(cell)), "--modules", "none", *extra]
+        job = dict(argv=argv, kernels=kernels, mixer=mixer, check=True,
+                   pin=cfg.family == "moe")
+        if "arch" in cell:
+            argv[2] = cell["arch"]
+            job["model_cfg"] = cfg
         out.setdefault(_size(cell), []).append((name, cell, job))
     return dict(sorted(out.items()))
+
+
+# A tp cell's first step is held to the unsplit fused kernel step at its
+# family's step limits.  One leaf is excused past the leaf limit: RWKV-6's
+# bonus ``u`` (``du = sum_t r_t k_t (v_t . dy_t)`` over 4096 tokens whose
+# terms nearly cancel), whose bf16 gradient any change of the products'
+# shapes redraws.  On an H100 80GB HBM3 at 700 W, rwkv6-3b at 4 layers:
+# its layer-0 gradient norm 3.52 fused and 2.66 split, against 1.38 with
+# both in float32 (the split in float32 within 2.8e-4 of the fused step in
+# float32).  It passes only where the fused bf16 gradient is itself past
+# the limit from its float32 value, and the split's is no further from the
+# fused one than that (NOISE_BOUND times the fused gap); the float32 split
+# is held to the float32 fused step beside it as a gate of its own.
+NOISY_LEAVES = {"rwkv6": (".att.u",)}
+NOISE_BOUND = 1.0
+
+
+def _unsplit_held(what: str, got: tuple, ref: tuple, ref32: tuple, tols: tuple,
+                  noisy: tuple) -> bool:
+    """A tp cell's first step (``got``) against the unsplit fused kernel
+    step (``ref``) at the step limits ``tols``.  A leaf past the leaf limit
+    whose name ends with one of ``noisy`` is excused only where the fused
+    bf16 gradient is itself further than the limit from its float32 value
+    (``ref32``) and the split's gap to the fused one is at most
+    ``NOISE_BOUND`` times that; each excused leaf is logged."""
+    (lg, gg, ng), (lr, gr, nr), (_, _, n32) = got, ref, ref32
+    loss_tol, gnorm_rtol, leaf_rtol = tols
+    rel = lambda a, b: ((a - b).abs() / b).max().item()  # noqa: E731
+    over = {n: rel(ng[n], v) for n, v in nr.items() if rel(ng[n], v) > leaf_rtol}
+    noise = {n: rel(nr[n], n32[n]) for n in over}
+    excused = {n for n in over if n.endswith(noisy) and noise[n] > leaf_rtol
+               and over[n] <= NOISE_BOUND * noise[n]}
+    worst = max(nr, key=lambda n: rel(ng[n], nr[n]))
+    d_loss, d_gn = abs(lg - lr), abs(gg - gr) / gr
+    good = d_loss <= loss_tol and d_gn <= gnorm_rtol and excused == set(over)
+    log(f"{what}, against the fused kernel step: |dloss|={d_loss:.2e} (tol {loss_tol}) "
+        f"rel dgrad_norm={d_gn:.2e} (tol {gnorm_rtol}) largest leaf {worst}="
+        f"{rel(ng[worst], nr[worst]):.2e} (tol {leaf_rtol}); leaves past it "
+        + (", ".join(f"{n} {over[n]:.2e} (the fused bf16 gradient {noise[n]:.2e} from its "
+                     f"float32 value, bound {NOISE_BOUND * noise[n]:.2e}: "
+                     f"{'excused' if n in excused else 'not excused'})" for n in over)
+           or "none")
+        + f" {'ok' if good else 'FAIL'}")
+    return good
 
 
 def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = None) -> None:
@@ -6062,53 +6225,68 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
     own entry point, each cell's ranks spawned on the one card: (a) dp 2,
     (b) tp 2 (K2 at H 7, K 1 a rank), (c) pp 2 with each stage a process,
     1f1b, MegaFBD's backward on the other stage's process, (d) pp 2 x dp
-    2.  Every step is held at the qwen2 step limits to the fused
-    one-process step from the same parameters (:class:`_StepRecorder`'s
-    reference): loss, gradient norm and per-layer leaf gradient norms.
-    Each rank's K1 and K2 launches must be exact, and ranks that hold the
-    same part of the model (data replicas) must end with the same master
-    weights.  Logs the backend, each cell's step median beside the fused
-    step's at its batch (a fused run of one process through the
-    ``Session``, whose trajectory the cell's is logged against) and the
-    share of its steps spent in all-reduces.  ``done``: ``{world size: the
-    rows of its cells}`` of worlds already run (:func:`pipeline_phase`'s
-    world runs the 2-rank cells)."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, rmsnorm
+    2, on qwen2-0.5b; then the other families (:data:`FAMILY_CELLS`): tp 2
+    over rwkv6-3b (K5 at H 20 a rank), recurrentgemma-9b (K6 at W 2048, K2
+    at H 8, K 1, dh 256 a rank) and phi3.5-moe (8 experts a rank), and dp 2
+    over phi3.5-moe.  Every step is held at its family's step limits to the
+    fused one-process step from the same parameters
+    (:class:`_StepRecorder`'s reference): loss, gradient norm and
+    per-layer leaf gradient norms; a tp cell's against the fused step with
+    the split's order of sums at every step and the unsplit one at the
+    first; a MoE cell's reference routed as its step (flips held to
+    ``MOE_FLIP_SHARE``).  Each rank's kernel launches must be exact, and
+    ranks that hold the same part of the model (data replicas) must end
+    with the same master weights.  Logs the backend, each cell's step
+    median beside the fused step's at its model and batch (a fused run of
+    one process through the ``Session``, whose trajectory the cell's is
+    logged against), the share of its steps spent in all-reduces and each
+    rank's peak memory.  ``done``: ``{world size: the rows of its cells}``
+    of worlds already run (:func:`pipeline_phase`'s world runs the 2-rank
+    cells)."""
+    import importlib
 
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     log(f"[{tag}] {smi}; compute mode {mode}; ranks spawned on cuda:0 share it")
-    cfg = get_config("qwen2-0.5b")
-    steps = PAR_SHAPE["steps"]
     done = done or {}
+    cells = (*PAR_CELLS, *FAMILY_CELLS)
     fused = {}
-    for batch in sorted({_par_shape(c)["global_batch"] for _, c, _ in PAR_CELLS}):
+    for cell in {(c.get("arch"), c.get("layers"), _par_shape(c)["global_batch"]): c
+                 for _, c, _ in cells}.values():
+        cfg, shape = _cell_cfg(cell), _par_shape(cell)
+        key = (cell.get("arch"), shape["global_batch"])
+        mods = [importlib.import_module(f"repro_torch.kernels.{k}")
+                for k in FAMILY[cfg.family][0]]
         _free(torch)
-        for m in (flash_attention, rmsnorm):
+        for m in mods:
             m.reset_launches()
-        argv = [*_train_argv(dict(PAR_SHAPE, global_batch=batch)), "--modules", "none"]
-        _, (state, hist) = _session(argv)
+        torch.cuda.reset_peak_memory_stats()
+        argv = [*_train_argv(shape), "--modules", "none"]
+        argv[2] = cfg.name
+        _, (state, hist) = _session(argv, cfg if "arch" in cell else None)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         del state
         _free(torch)
-        counts = {**flash_attention.launches, **rmsnorm.launches}
-        if counts != _par_expected(cfg, {}, 0, steps):
-            raise AssertionError(f"{tag} fused launches {counts}")
-        fused[batch] = hist
-        log(f"[{tag}] fused (one process) at batch {batch}: losses "
-            + " ".join(f"{h['loss']:.5f}" for h in hist)
+        counts = {k: v for m in mods for k, v in m.launches.items()}
+        if counts != _par_expected(cfg, {}, 0, shape["steps"]):
+            raise AssertionError(f"{tag} fused {cfg.name} launches {counts}")
+        fused[key] = hist
+        log(f"[{tag}] fused (one process) {cfg.name} at {cfg.num_layers} layers, batch "
+            f"{shape['global_batch']}: losses " + " ".join(f"{h['loss']:.5f}" for h in hist)
             + " grad_norms " + " ".join(f"{h['grad_norm']:.5f}" for h in hist)
-            + f"; step median {_median_ms(hist):.1f} ms")
+            + f"; step median {_median_ms(hist):.1f} ms; max_memory_allocated {peak} B")
     runs = {}
-    for world, cells in _parallel_jobs().items():
-        for n, _, job in cells:
+    for world, jobs in _parallel_jobs().items():
+        for n, _, job in jobs:
             log(f"[{tag}] {n}: python -m repro_torch {' '.join(job['argv'])}")
-        rows = done[world] if world in done else _world([j for _, _, j in cells], world, tag)
-        for (n, _, _), ranks in zip(cells, rows):
+        rows = done[world] if world in done else _world([j for _, _, j in jobs], world, tag)
+        for (n, _, _), ranks in zip(jobs, rows):
             runs[n] = ranks
-    loss_tol, gnorm_rtol, leaf_rtol = STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL
-    for name, cell, _ in PAR_CELLS:
+    for name, cell, _ in cells:
+        cfg = _cell_cfg(cell)
+        steps = _par_shape(cell)["steps"]
+        loss_tol, gnorm_rtol, leaf_rtol = FAMILY[cfg.family][2]
         ranks = runs[name]
         hist, refs = ranks[0]["history"], ranks[0]["refs"]
         backends = {r["backend"] for r in ranks}
@@ -6118,6 +6296,7 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
         if len(refs) != steps or any(len(r["norms"]) != steps for r in ranks):
             raise AssertionError(f"{tag} {name}: {len(refs)} references for {steps} steps")
         ok = all(math.isfinite(h["loss"]) for h in hist)
+
         def gaps(a, b):
             (la, ga, na), (lb, gb, nb) = a, b
             d = {n: ((na[n] - v).abs() / v).max().item() for n, v in nb.items()}
@@ -6140,13 +6319,22 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
             got = (h["loss"], h["grad_norm"], norms)
             log(f"[{tag}] {name} step {k + 1}: loss {h['loss']:.5f}, the fused kernel "
                 f"step's from the same parameters {ref_k[0]:.5f}")
+            for run, (flips, routings) in zip(("kernels", "plain", "split", "plain32",
+                                               "split32"),
+                                              ranks[0]["flips"][k] if ranks[0]["flips"]
+                                              else ()):
+                share = flips / max(routings, 1)
+                log(f"[{tag}] {name} step {k + 1}, the {run} reference routed as the "
+                    f"step: {flips} of {routings} token routings would flip ({share:.4f}, "
+                    f"limit {MOE_FLIP_SHARE})")
+                ok = ok and share <= MOE_FLIP_SHARE
             if tp_refs:
                 # tp: held to the fused step with the split's order of sums
                 # at every step, to the unsplit one at the first (the
                 # parameters every run starts from); later steps' gaps to
                 # the unsplit one logged beside the fused plain step's, a
                 # change of rounding of the same size
-                ref_p, split = tp_refs
+                ref_p, split, *f32 = tp_refs
                 c_loss, c_gn, c_worst, c_d = gaps(ref_p, ref_k)
                 log(f"[{tag}] {name} step {k + 1}, the fused plain step against the "
                     f"fused kernel step (logged): |dloss|={c_loss:.2e} rel dgrad_norm="
@@ -6154,7 +6342,14 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
                 ok = held("against the fused kernel step with the tensor split's "
                           "sums (one process)", got, split) and ok
                 if k == 0:
-                    ok = held("against the fused kernel step", got, ref_k) and ok
+                    ok = held("the split against the fused step, both in float32 (one "
+                              "process, the plain versions)", f32[1], f32[0]) and ok
+                    if cfg.family in NOISY_LEAVES:
+                        ok = _unsplit_held(f"[{tag}] {name} step 1", got, ref_k, f32[0],
+                                           (loss_tol, gnorm_rtol, leaf_rtol),
+                                           NOISY_LEAVES[cfg.family]) and ok
+                    else:
+                        ok = held("against the fused kernel step", got, ref_k) and ok
                 else:
                     d_loss, d_gn, worst, d_worst = gaps(got, ref_k)
                     log(f"[{tag}] {name} step {k + 1}, against the fused kernel step "
@@ -6168,7 +6363,7 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
                 r["digest"])
         apart = [k for k, ds in replicas.items() if any(d != ds[0] for d in ds[1:])]
         ok = ok and not apart
-        ref = fused[_par_shape(cell)["global_batch"]]
+        ref = fused[(cell.get("arch"), _par_shape(cell)["global_batch"])]
         step_ms = [1e3 * (h["step_s"] - c) for h, c in zip(hist, ranks[0]["check_s"])]
         busy = sum(step_ms) / 1e3
         log(f"[{tag}] {name}: {_size(cell)} ranks, backend gloo; data replicas "
@@ -6176,13 +6371,14 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
             "run's trajectory (parameters that moved apart after step 1) |dloss| "
             + " ".join(f"{abs(a['loss'] - b['loss']):.2e}" for a, b in zip(hist, ref)))
         log(f"[{tag}] {name}: step median {statistics.median(step_ms[1:]):.1f} ms (fused "
-            f"{_median_ms(ref):.1f} ms at batch {_par_shape(cell)['global_batch']}), "
+            f"{_median_ms(ref):.1f} ms, {cfg.name} at {cfg.num_layers} layers, batch "
+            f"{_par_shape(cell)['global_batch']}), "
             "steps " + " ".join(f"{t:.1f}" for t in step_ms)
             + f" ms (the reference's {1e3 * sum(ranks[0]['check_s']):.1f} ms taken out); "
             f"rank 0 all-reduce share {ranks[0]['sync_s'] / busy:.3f} "
             f"({1e3 * ranks[0]['sync_s']:.1f} of {1e3 * busy:.1f} ms); launches per rank "
             + "; ".join(f"{r['coords']}: {r['launches']}" for r in ranks)
-            + f"; peak per rank {[r['peak'] for r in ranks]} B")
+            + f"; peak per rank {[r['peak'] for r in ranks]} B ({smi})")
         if not ok:
             raise AssertionError(f"{tag} {name}: the parallel step disagrees with the fused one")
 

@@ -358,17 +358,14 @@ class Session:
                 raise ValueError(
                     f"per-accumulation batch {batch // ga} (global {batch} "
                     f"/ grad_accum {ga}) not divisible by parallel.dp={plan.dp}")
-            if plan.pp > 1 or plan.tp > 1:
+            if plan.pp > 1:
                 from repro_torch.models.pipeline import pipeline_layout
 
-                if plan.pp == 1 and plan.tp > 1:
-                    from repro_torch.train.train_step import _dense_gqa
+                pipeline_layout(cfg, plan.pp, plan.n_chunks, tp=plan.tp)
+            elif plan.tp > 1:
+                from repro_torch.models.split import validate
 
-                    if not _dense_gqa(cfg):
-                        raise _later(f"{cfg.name}: tensor parallelism at pp=1 "
-                                     "over other than dense GQA blocks", "item 8c")
-                pipeline_layout(cfg, plan.pp, plan.n_chunks if plan.pp > 1 else 1,
-                                tp=plan.tp)
+                validate(cfg, plan.tp)
         return seq, batch, schedule, plan
 
     def train(self):

@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.kernels.paged_attention.ops import PagedInfo
 from repro_torch.models.scan_utils import causal_conv1d, lru_scan
+from repro_torch.models.split import WHOLE, Split
 
 
 def rglru_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -60,16 +61,20 @@ def rglru_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 def rglru_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 h0: torch.Tensor | None = None, *, plain: bool = False,
-                collector: Collector = NULL_COLLECTOR
+                collector: Collector = NULL_COLLECTOR,
+                gates_in: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, W]`` -> ``(h [B, S, W]`` in x's dtype, ``h_last [B, W]``
     float32); ``plain`` runs K6's plain version on any device.  Tags the
     decay ``rglru_decay`` (the scan's a; beta keeps the untagged log a, as
     in JAX).  K6 takes the state-free scans of more than one token; ``h0``
-    or one token goes to ``lru_scan``."""
+    or one token goes to ``lru_scan``.  ``gates_in``: the gates' input
+    where it is wider than ``x`` (under the tensor split, the whole conv
+    output while ``x`` is a slice's channels of it)."""
     dt = x.dtype
-    r = torch.sigmoid(x @ p["w_a"].to(dt) + p["b_a"].to(dt)).float()
-    i = torch.sigmoid(x @ p["w_i"].to(dt) + p["b_i"].to(dt))
+    g_in = x if gates_in is None else gates_in
+    r = torch.sigmoid(g_in @ p["w_a"].to(dt) + p["b_a"].to(dt)).float()
+    i = torch.sigmoid(g_in @ p["w_i"].to(dt) + p["b_i"].to(dt))
     lam = p["lam"].float()
     log_a = -cfg.griffin.c * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = collector.tag("rglru_decay", torch.exp(log_a))
@@ -96,18 +101,40 @@ def recurrent_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 def recurrent_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                           state: dict | None = None, plain: bool = False,
-                          collector: Collector = NULL_COLLECTOR
+                          collector: Collector = NULL_COLLECTOR,
+                          split: Split | None = None
                           ) -> tuple[torch.Tensor, dict | None]:
+    """Under a tensor ``split`` (training) ``w_x`` and the conv run whole
+    on every rank (ROADMAP P19); the block's input and the conv output
+    enter the slices, each slice runs :func:`_recurrent_channels` on its
+    ``W / tp`` channels, and the slices' float32 products are summed."""
     dt = x.dtype
-    gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
     y, conv_new = causal_conv1d(x @ p["w_x"].to(dt), p["conv_w"], p["conv_b"],
                                 None if state is None else state["conv"])
-    y, h_last = rglru_apply(p["rglru"], cfg, y,
-                            None if state is None else state["h"],
-                            plain=plain, collector=collector)
-    y = collector.tag("rglru_out", y)
-    out = (gate * y) @ p["w_out"].to(dt)
+    if split is not None and split.tensor:
+        return split.sum(lambda t: _recurrent_channels(
+            p, cfg, split.enter(x), split.enter(y), split, t, plain)[0]).to(dt), None
+    out, h_last = _recurrent_channels(p, cfg, x, y, WHOLE, 0, plain,
+                                      None if state is None else state["h"], collector)
     return out, None if state is None else {"conv": conv_new, "h": h_last}
+
+
+def _recurrent_channels(p: dict, cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
+                        split: Split, t: int, plain: bool, h0: torch.Tensor | None = None,
+                        collector: Collector = NULL_COLLECTOR
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent block after its conv (``y``, every channel) on slice
+    ``t``'s channels: ``(out, h_last)``.  The output gate (``w_gate`` by
+    columns), the RG-LRU gates (read every channel of ``y``) and K6 on
+    those channels, ``w_out`` by rows (``split.out``: float32 under the
+    split).  With :data:`WHOLE` this is the fused block, ``h0`` carried."""
+    dt = x.dtype
+    gate = F.gelu(x @ split.cut(p["w_gate"], 1, t).to(dt), approximate="tanh")
+    h, h_last = rglru_apply(split.take(p["rglru"], "rec", ("mix", "rglru"), t), cfg,
+                            split.narrow(y, -1, t), h0, plain=plain, collector=collector,
+                            gates_in=y if split.tensor else None)
+    h = collector.tag("rglru_out", h)
+    return split.out(gate * h, split.cut(p["w_out"], 0, t)), h_last
 
 
 def griffin_block_init(b: ParamBuilder, cfg: ModelConfig, kind: str) -> None:
@@ -124,29 +151,38 @@ def griffin_block_apply(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                         *, positions: torch.Tensor, state: dict | None = None,
                         cache_pos: int | None = None,
                         paged: PagedInfo | None = None, plain: bool = False,
-                        collector: Collector = NULL_COLLECTOR
+                        collector: Collector = NULL_COLLECTOR,
+                        split: Split | None = None
                         ) -> tuple[torch.Tensor, dict | None]:
     """One Griffin layer: ln1/ln2 through K1; a recurrent block's scan
     through K6 (training) or ``lru_scan`` (a carried state); the windowed
     attention through K2 (training), the dense cache's attention
     (``state`` a dense cache written at ``cache_pos``) or K3 (``paged``:
     ``state`` is the pool's ``{"k", "v"}``).  Returns ``(x, the recurrent
-    block's new state or None)``."""
+    block's new state or None)``.  Under a tensor ``split`` (training) the
+    recurrent block, the attention (local query heads, the single kv head
+    whole on every rank) and the MLP run their slices."""
+    split = WHOLE if split is None else split
+    local = split.cfg(cfg)
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     new_state = None
     if kind == "rec":
         a, new_state = recurrent_block_apply(p["mix"], cfg, h, state=state,
-                                             plain=plain, collector=collector)
+                                             plain=plain, collector=collector,
+                                             split=split)
     else:
         paged_pool = state if paged is not None else None
-        a = gqa_apply(p["mix"], cfg, h, positions=positions,
-                      window=cfg.griffin.window, pool=paged_pool, paged=paged,
-                      plain=plain, collector=collector,
-                      cache=None if paged is not None else state,
-                      cache_pos=cache_pos)
+        a = split.sum(lambda t: gqa_apply(
+            split.take(p["mix"], kind, ("mix",), t), local, split.enter(h),
+            positions=positions, window=cfg.griffin.window, pool=paged_pool,
+            paged=paged, plain=plain, collector=collector,
+            cache=None if paged is not None else state, cache_pos=cache_pos,
+            out_float32=split.tensor)).to(x.dtype)
     x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    f = mlp_apply(p["mlp"], cfg, h, collector)
+    f = split.sum(lambda t: mlp_apply(
+        split.take(p["mlp"], kind, ("mlp",), t), local, split.enter(h), collector,
+        out_float32=split.tensor)).to(x.dtype)
     return x + collector.tag("ffn_resid", f), new_state
 
 

@@ -62,6 +62,7 @@ from repro_torch.kernels.paged_attention.ref import (
 )
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector
+from repro_torch.models.split import WHOLE
 
 BIG_NEG = -1e30
 
@@ -719,7 +720,8 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               n_seq_groups: int = 1,
-              collector: Collector = NULL_COLLECTOR
+              collector: Collector = NULL_COLLECTOR,
+              split=None,
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Top-k routed SwiGLU experts with a capacity, JAX ``moe_apply``.
 
@@ -737,7 +739,18 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     holds ``moe_aux_loss`` (the Switch load-balance loss and the z-loss,
     scaled by their coefficients) and ``moe_drop_frac`` (the share of
     entries dropped, no gradient).  The expert products are plain batched
-    products, as in JAX, where no Pallas kernel computes them."""
+    products, as in JAX, where no Pallas kernel computes them.
+
+    Under a tensor ``split`` (``models.split``) the router, the aux losses
+    and the dispatch tables are computed whole, the same on every rank;
+    the token rows and the gates enter the slices' experts (``E / tp``
+    each, ``expert_w`` sliced), each slice combines only its experts'
+    outputs in float32, and the slices' parts are summed.  Over ``split.dp``
+    data ranks (a routing group is a row's, so a rank's rows route as in
+    the whole batch) the expert counts are summed over the data ranks and
+    the load-balance and z-loss terms are this rank's partial sums over
+    its rows divided by the whole batch's counts: the data ranks' terms sum
+    to the whole batch's aux loss."""
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.num_experts, mo.top_k
@@ -755,13 +768,22 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     gate = collector.tag("router_gate", gate)
 
     # aux losses (Switch-style load balance + z-loss)
-    me = probs.mean(dim=(0, 1))
     # each expert's entry count (``bincount``, which the meta device lacks)
     flat = eidx.reshape(-1)
-    ce = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(
-        0, flat, torch.ones_like(flat)).float() / (G * N)
+    counts = torch.zeros(E, dtype=flat.dtype, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
+    if split is not None and split.dp > 1:
+        # this rank's part of the whole batch's terms
+        G_all = G * split.dp
+        me = probs.sum(dim=(0, 1)) / (G_all * Cg)
+        ce = split.data_sum(counts) / (G_all * N)
+        aux_z = torch.square(torch.logsumexp(logits, dim=-1)).sum() / (G_all * Cg)
+    else:
+        me = probs.mean(dim=(0, 1))
+        ce = counts / (G * N)
+        aux_z = torch.square(torch.logsumexp(logits, dim=-1)).mean()
     aux_lb = (me * ce).sum() * E * mo.router_aux_coef
-    aux_z = torch.square(torch.logsumexp(logits, dim=-1)).mean() * mo.router_z_coef
+    aux_z = aux_z * mo.router_z_coef
 
     cap = max(int(math.ceil(Cg * K / E * mo.capacity_factor)), 1)
 
@@ -775,30 +797,21 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     j = first[:, :E, None] + torch.arange(cap, device=dev)
     valid = j < first[:, 1:, None]
     tok_sorted = order // K                             # token of each entry
+    # each entry's slot, E * cap where it is dropped
+    inv = torch.argsort(order, dim=-1, stable=True)     # entry -> sorted position
+    slot_sorted = (torch.arange(N, device=dev)[None, :]
+                   - torch.gather(first[:, :E], 1, sorted_e))
+    dest_sorted = torch.where(slot_sorted < cap, sorted_e * cap + slot_sorted, E * cap)
+    slot_entry = torch.gather(dest_sorted, 1, inv)      # [G, N]
     tok_for_slot = torch.where(
         valid,
         torch.gather(tok_sorted, 1, torch.clamp(j, max=N - 1).reshape(G, E * cap)
                      ).reshape(G, E, cap),
         Cg)                                             # -> the zero pad row
     xt_pad = F.pad(xt, (0, 0, 0, 1))
-    expert_in = _rows(xt_pad, tok_for_slot.reshape(G, E * cap)).reshape(G, E, cap, D)
-
-    h_up = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
-    h_g = torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"].to(dt))
-    expert_out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_up,
-                              p["w_down"].to(dt))
-    flat_out = F.pad(expert_out.reshape(G, E * cap, D), (0, 0, 0, 1))
-
-    # combine: per top-k choice, gather the slot output and weight it
-    inv = torch.argsort(order, dim=-1, stable=True)     # entry -> sorted position
-    slot_sorted = (torch.arange(N, device=dev)[None, :]
-                   - torch.gather(first[:, :E], 1, sorted_e))
-    dest_sorted = torch.where(slot_sorted < cap, sorted_e * cap + slot_sorted, E * cap)
-    slot_entry = torch.gather(dest_sorted, 1, inv)      # [G, N]
-    y = torch.zeros((G, Cg, D), dtype=dt, device=dev)
-    for k in range(K):
-        out_k = _rows(flat_out, slot_entry[:, k::K])    # entries (t, k) at t*K + k
-        y = y + out_k * gate[:, :, k, None].to(dt)
+    split = WHOLE if split is None else split
+    y = split.sum(lambda t: _moe_experts(p, cfg, split, t, xt_pad, gate, tok_for_slot,
+                                         slot_entry, cap)).to(dt)
 
     if mo.num_shared_experts:
         sp = p["shared"]
@@ -809,6 +822,39 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     aux = {"moe_aux_loss": aux_lb + aux_z,
            "moe_drop_frac": (slot_entry == E * cap).float().mean()}
     return y.reshape(B, S, D), aux
+
+
+def _moe_experts(p: dict, cfg: ModelConfig, split, t: int, xt_pad: torch.Tensor,
+                 gate: torch.Tensor, tok_for_slot: torch.Tensor,
+                 slot_entry: torch.Tensor, cap: int) -> torch.Tensor:
+    """Slice ``t``'s experts (``E / tp``, ``expert_w`` sliced; all of them
+    under :data:`models.split.WHOLE`) on their capacity slots, and the
+    combine: per top-k choice, each entry routed to one of them adds its
+    gate-weighted slot output (``[G, Cg, D]``).  The token rows and the
+    gates enter the slice; under the split its part is added in float32
+    (the product in the compute dtype, as the fused combine takes it), the
+    fused combine adds in the compute dtype."""
+    G, Cg, K = gate.shape
+    D, dt = xt_pad.shape[-1], xt_pad.dtype
+    E_t = cfg.moe.num_experts // split.tp
+    rows = E_t * cap
+    xe, ge = split.enter(xt_pad), split.enter(gate)
+    tok = tok_for_slot[:, t * E_t:(t + 1) * E_t].reshape(G, rows)
+    expert_in = _rows(xe, tok).reshape(G, E_t, cap, D)
+    w = {k: split.cut(p[k], 0, t).to(dt) for k in ("w_up", "w_gate", "w_down")}
+    h_up = torch.einsum("gecd,edf->gecf", expert_in, w["w_up"])
+    h_g = torch.einsum("gecd,edf->gecf", expert_in, w["w_gate"])
+    expert_out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_up, w["w_down"])
+    flat_out = F.pad(expert_out.reshape(G, rows, D), (0, 0, 0, 1))
+    local = slot_entry
+    if split.tensor:  # another slice's entries -> the zero row
+        local = slot_entry - t * rows
+        local = torch.where((local >= 0) & (local < rows), local, rows)
+    acc = torch.float32 if split.tensor else dt
+    y = torch.zeros((G, Cg, D), dtype=acc, device=xt_pad.device)
+    for k in range(K):                                  # entries (t, k) at t*K + k
+        y = y + (_rows(flat_out, local[:, k::K]) * ge[:, :, k, None].to(dt)).to(acc)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -902,7 +948,11 @@ class _ChunkedCE(torch.autograd.Function):
             dlog2 = dlog.reshape(-1, dlog.shape[-1])
             dy_chunks.append(_mm_f32(dlog2, w.t()).reshape(B, -1, D).to(y.dtype))
             dw_c = _mm_f32(yc.reshape(-1, D).t(), dlog2)
-            dw = dw_c if dw is None else dw + dw_c
+            if dw is None:
+                dw = dw_c
+            else:  # in place: two float32 [D, V] buffers alive, not three
+                dw.add_(dw_c)
+            del dw_c
         return (torch.cat(dy_chunks, dim=1), dw.to(w.dtype), None, None, None,
                 None, None)
 

@@ -47,6 +47,7 @@ from repro_torch.models import griffin as gf
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as rk
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
+from repro_torch.models.split import WHOLE, Split
 
 # leaves that enter float32 math uncast in the JAX package: norm scales and
 # layernorm biases, qk_norm, MLA's latent norm, RWKV-6's decay base, decay
@@ -248,7 +249,8 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
            positions: torch.Tensor, paged: PagedInfo | None, plain: bool,
            collector: Collector = NULL_COLLECTOR, state: dict | None = None,
            cache_pos: int | None = None,
-           mrope_position_ids: torch.Tensor | None = None
+           mrope_position_ids: torch.Tensor | None = None,
+           split: Split | None = None
            ) -> tuple[torch.Tensor, dict]:
     """One decoder layer (``_block_apply``'s rwkv, griffin, dense and moe
     branches, attention by MLA where the config says so): ``(x, aux)``,
@@ -259,15 +261,17 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     block's is the pool's stacked ``{"k", "v"}`` (its layer is
     ``paged.layer``); otherwise views of this layer's dense cache rows, or a
     recurrent block's slot rows of the pool.  Attention writes its K/V in
-    place; a recurrent block's new state is copied over its views."""
+    place; a recurrent block's new state is copied over its views.
+    ``split`` (training only): the block runs its tensor slices
+    (``models.split``)."""
     if kind in ("rwkv", "rec"):
         if kind == "rwkv":
             x, new = rk.rwkv_block_apply(p, cfg, x, state=state, plain=plain,
-                                         collector=collector)
+                                         collector=collector, split=split)
         else:
             x, new = gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
                                             state=state, plain=plain,
-                                            collector=collector)
+                                            collector=collector, split=split)
         if state is not None:
             _store(state, new)
         return x, {}
@@ -275,7 +279,12 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         return gf.griffin_block_apply(p, cfg, kind, x, positions=positions,
                                       state=state, cache_pos=cache_pos,
                                       paged=paged, plain=plain,
-                                      collector=collector)[0], {}
+                                      collector=collector, split=split)[0], {}
+    # dense and MoE layers: under a tensor split each norm's output enters
+    # the slices' attention heads and ffn width (or experts: moe_apply),
+    # whose float32 products are summed and rounded once into the residual
+    split = WHOLE if split is None else split
+    local = split.cfg(cfg)
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     if cfg.use_mla:
         a = L.mla_apply(p["attn"], cfg, h, positions=positions,
@@ -283,19 +292,22 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                         cache_pos=cache_pos, paged=paged, plain=plain,
                         collector=collector)
     else:
-        a = L.gqa_apply(p["attn"], cfg, h, positions=positions,
-                        pool=state if paged is not None else None, paged=paged,
-                        plain=plain, collector=collector,
-                        cache=None if paged is not None else state,
-                        cache_pos=cache_pos, mrope_position_ids=mrope_position_ids)
-    x = _resid(cfg, x, collector.tag("att_resid", a))
+        a = split.sum(lambda t: L.gqa_apply(
+            split.take(p["attn"], kind, ("attn",), t), local, split.enter(h),
+            positions=positions, pool=state if paged is not None else None,
+            paged=paged, plain=plain, collector=collector,
+            cache=None if paged is not None else state, cache_pos=cache_pos,
+            mrope_position_ids=mrope_position_ids, out_float32=split.tensor))
+    x = _resid(cfg, x, collector.tag("att_resid", a.to(x.dtype)))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     aux: dict = {}
     if kind == "moe":
         f, aux = L.moe_apply(p["mlp"], cfg, h, n_seq_groups=cfg.moe.seq_groups,
-                             collector=collector)
+                             collector=collector, split=split)
     else:
-        f = L.mlp_apply(p["mlp"], cfg, h, collector)
+        f = split.sum(lambda t: L.mlp_apply(
+            split.take(p["mlp"], kind, ("mlp",), t), local, split.enter(h), collector,
+            out_float32=split.tensor)).to(x.dtype)
     return _resid(cfg, x, collector.tag("ffn_resid", f)), aux
 
 
@@ -363,6 +375,7 @@ def forward(
     paged: PagedInfo | None = None,
     plain: bool = False,
     collector: Collector = NULL_COLLECTOR,
+    split: Split | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Returns ``(hidden [B, S, D], aux)``.
 
@@ -386,7 +399,9 @@ def forward(
     the layer in the backward (``jax.checkpoint`` with
     ``nothing_saveable``), ``"dots"`` keeps the outputs of its products
     without batch dimensions and recomputes the rest (:func:`dots_policy`),
-    ``"none"`` keeps everything.
+    ``"none"`` keeps everything.  With a ``split`` (``models.split``;
+    training only) each layer runs its tensor slices, or its MoE router
+    statistics over the data ranks.
 
     ``collector`` sees every tag of every forward (on the pool, an attention
     block with a live collector leaves the fused flash-prefill branch for
@@ -438,7 +453,7 @@ def forward(
         else:
             blk_cache = None if cache is None else _layer(cache[f"seg{i}"][f"b{j}"], g)
         args = (p, cfg, kind, x, positions, blk_paged, plain, col, blk_cache,
-                cache_pos, mrope_position_ids)
+                cache_pos, mrope_position_ids, split)
         if remat == "full":
             x, blk_aux = checkpoint(_block, *args, use_reentrant=False)
         elif remat == "dots":
@@ -512,18 +527,22 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tenso
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             collector: Collector = NULL_COLLECTOR, *,
-            plain: bool = False) -> tuple[torch.Tensor, dict]:
+            plain: bool = False, split: Split | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``lm.loss_fn``: the mean masked next-token
     cross entropy of ``batch`` (``tokens``, or ``embeds`` and
     ``mrope_position_ids`` for an embeds arch; ``targets``, optional
     ``loss_mask``) plus the MoE layers' auxiliary loss (zero for the other
     families); the metrics hold both, each MoE segment's
     ``seg{i}_moe_drop_frac`` and, with a live ``collector``, its
-    ``captures`` (see :func:`forward`), on the device."""
+    ``captures`` (see :func:`forward`), on the device.  Under a ``split``
+    the blocks run their tensor slices (the loss is the whole one on every
+    tensor rank); over data ranks each MoE layer's auxiliary loss is this
+    rank's part of the whole batch's (the data ranks' parts sum to it)."""
     hidden, extra = forward(cfg, params, batch.get("tokens"),
                             embeds=batch.get("embeds"),
                             mrope_position_ids=batch.get("mrope_position_ids"),
-                            plain=plain, collector=collector)
+                            plain=plain, collector=collector, split=split)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
                                   batch.get("loss_mask"))
     ce = total / torch.clamp(count, min=1.0)

@@ -22,16 +22,15 @@ index cell ``(s, c)``.  Three pieces live here:
 Restrictions (raise up front): families whose layer stack is a single
 uniform segment only (MoE's aux losses cannot ride the activation wire;
 mrope archs need per-block position ids the pipelined apply does not
-thread).  With ``tp > 1`` the blocks run Megatron's tensor split
-(:func:`_validate_tp`: dense GQA blocks whose heads, kv heads and ffn
-width divide ``tp``): each tensor rank holds its slice of the
-``_TP_SLICED`` weight dims (``weights.shard_params``), runs the block over
-its local heads and ffn width through :func:`_tp_local_cfg`, and the
-conjugate pair of ``parallel.dist`` all-reduces after the attention-out
-and MLP-down products (each rank's part of them kept in float32 up to
-the sum).  A layout with ``pp == 1`` is one stage holding
-every group: the tensor-parallel step without a pipeline
-(``train.train_step``).
+thread).  With ``tp > 1`` inside the pipeline the blocks run Megatron's
+tensor split (:func:`_validate_tp`: dense GQA blocks whose heads, kv heads
+and ffn width divide ``tp``) through ``models.split``: each tensor rank
+holds its slice of the weights (``weights.shard_params``), runs the block
+over its local heads and ffn width, and the conjugate pair of
+``parallel.dist`` all-reduces after the attention-out and MLP-down
+products (each rank's part of them kept in float32 up to the sum).  At
+``pp == 1`` the tensor split needs no layout: the families' own forwards
+run it (``lm.loss_fn`` with a split).
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ from repro_torch.core.dpp.executor import TimeTable, pipeline_apply
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.hooks import NULL_COLLECTOR
+from repro_torch.models.split import Split, tp_slices
 from repro_torch.train.optim import tree_map
 
 
@@ -128,10 +128,6 @@ def restack_params(seg_params: dict, layout: PipelineLayout) -> dict:
         lambda a: a.view(C, S, g, *a.shape[1:]).transpose(0, 1), seg_params)
 
 
-# weight logical axes the in-stage tensor split slices over the model axis
-_TP_SLICED = ("heads_w", "kv_heads_w", "mlp_w")
-
-
 def _is_axes(t) -> bool:
     return isinstance(t, tuple) and all(isinstance(a, (str, type(None))) for a in t)
 
@@ -140,50 +136,23 @@ def pipeline_param_specs(cfg: ModelConfig, layout: PipelineLayout) -> dict:
     """Per-leaf spec tree (``parallel.sharding``'s tuples) of the restacked
     segment params: every leaf leads with the stage axis over its ``[S, C,
     g, ...]`` stacking; with ``layout.tp > 1`` the Megatron-sliced weight
-    dims (heads / kv-heads / ffn width) also shard over ``model``.  Norm
-    scales and biases on replicated dims carry no model entry: their
-    gradients are whole on every tensor rank (a norm before the split, its
-    output through ``copy_to_tp``) or are summed there (a replicated leaf
-    inside the split enters through ``copy_to_tp`` itself)."""
-    def one(t):
-        rest = t[1:]  # drop the "layers" axis: restacked to [S, C, g]
-        parts = ["model" if (layout.tp > 1 and a in _TP_SLICED) else None
-                 for a in rest]
-        return ("stage", None, None, *parts)
-
-    def walk(tree):
-        return one(tree) if _is_axes(tree) else {k: walk(v) for k, v in tree.items()}
-
-    return walk(lm.param_axes(cfg)[layout.seg_key])
-
-
-def tp_slices(axes: dict, layout: PipelineLayout) -> dict[tuple[str, ...], int]:
-    """``{leaf path: dim}`` of every leaf of the canonical tree (``axes``:
-    ``lm.param_axes``) whose dim ``dim`` the tensor split slices: the
-    ``_TP_SLICED`` axes of the segment's leaves (at most one a leaf)."""
-    out: dict[tuple[str, ...], int] = {}
+    dims (``models.split.tp_slices``: heads / kv-heads / ffn width) also
+    shard over ``model``.  Norm scales and biases on replicated dims carry
+    no model entry: their gradients are whole on every tensor rank (a norm
+    before the split, its output through ``copy_to_tp``) or are summed
+    there (a replicated leaf inside the split enters through
+    ``copy_to_tp`` itself)."""
+    dims = tp_slices(cfg, layout.tp)
 
     def walk(tree, path):
-        if _is_axes(tree):
-            dims = [d for d, a in enumerate(tree) if a in _TP_SLICED]
-            if dims:
-                out[path] = dims[0]
-            return
-        for k, v in tree.items():
-            walk(v, (*path, k))
+        if not _is_axes(tree):
+            return {k: walk(v, (*path, k)) for k, v in tree.items()}
+        rest = [None] * (len(tree) - 1)  # the "layers" axis: restacked to [S, C, g]
+        if path in dims:
+            rest[dims[path] - 1] = "model"
+        return ("stage", None, None, *rest)
 
-    walk(axes[layout.seg_key], (layout.seg_key,))
-    return out
-
-
-def _tp_local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The per-tensor-rank view of a dense config: H/K/F divided by tp (the
-    grouping ratio G = H/K is preserved, so GQA head-grouping is unchanged)."""
-    return cfg.replace(
-        num_heads=cfg.num_heads // tp,
-        num_kv_heads=cfg.num_kv_heads // tp,
-        d_ff=cfg.d_ff // tp,
-    )
+    return walk(lm.param_axes(cfg)[layout.seg_key], (layout.seg_key,))
 
 
 def make_block_fn(
@@ -191,7 +160,7 @@ def make_block_fn(
     layout: PipelineLayout,
     *,
     plain: bool = False,
-    tp_group=None,
+    split: Split | None = None,
 ) -> Callable[[Any, torch.Tensor], torch.Tensor]:
     """Per-cell apply: runs the cell's ``groups_per_cell`` stacked groups of
     the model's blocks (``lm._block``) over one microbatch activation
@@ -205,57 +174,21 @@ def make_block_fn(
     the fused forward checkpoints each layer, the same thing for one block
     a group.  ``plain=True`` runs the kernels' plain versions.
 
-    With ``layout.tp > 1`` each block runs the Megatron tensor split over
-    the process group ``tp_group`` (the mesh's ``model`` axis): the cell's
-    weights arrive sliced (``weights.shard_params``), each norm's output
-    enters the attention and the MLP through ``copy_to_tp``, they run on
-    the local heads and ffn width (:func:`_tp_local_cfg`), and
-    ``reduce_from_tp`` sums their outputs into the replicated residual
-    stream.  A leaf of the attention or MLP that is not sliced (qk_norm's
-    scales) enters through ``copy_to_tp`` too, so its gradient sums over
-    the tensor ranks.
+    With ``layout.tp > 1`` each block runs the Megatron tensor split of
+    ``split`` (``models.split``: the mesh's ``model`` axis): the cell's
+    weights arrive sliced (``weights.shard_params``) and ``lm._block``
+    runs them as the fused forward's blocks run under a split.
     """
-    if layout.tp > 1:
-        from repro_torch.parallel.dist import copy_to_tp, reduce_from_tp
+    if layout.tp > 1 and (split is None or split.tp != layout.tp):
+        raise ValueError(f"tp={layout.tp} blocks need the model axis' split "
+                         "(models.split.make_split)")
 
-        if tp_group is None:
-            raise ValueError(f"tp={layout.tp} blocks need the model axis' "
-                             "process group (tp_group)")
-        cfg_local = _tp_local_cfg(cfg, layout.tp)
-        blk_axes = lm.param_axes(cfg)[layout.seg_key]
-        whole = {sub: {k for k, ax in blk_axes["b0"][sub].items()
-                       if not any(a in _TP_SLICED for a in ax)}
-                 for sub in ("attn", "mlp")}
-
-        def enter(p: dict, sub: str) -> dict:
-            return {k: copy_to_tp(v, tp_group) if k in whole[sub] else v
-                    for k, v in p.items()}
-
-        def apply_block(bp: dict, x: torch.Tensor, positions) -> torch.Tensor:
-            # the two products' parts stay float32 up to their sum over the
-            # tensor ranks, rounded once to x's dtype as the whole product
-            h = L.norm_apply(bp["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-            a = L.gqa_apply(enter(bp["attn"], "attn"), cfg_local,
-                            copy_to_tp(h, tp_group), positions=positions,
-                            plain=plain, out_float32=True)
-            x = lm._resid(cfg, x, reduce_from_tp(a, tp_group).to(x.dtype))
-            h = L.norm_apply(bp["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-            f = L.mlp_apply(enter(bp["mlp"], "mlp"), cfg_local, copy_to_tp(h, tp_group),
-                            out_float32=True)
-            return lm._resid(cfg, x, reduce_from_tp(f, tp_group).to(x.dtype))
-
-        def apply_group(gp: dict, x: torch.Tensor) -> torch.Tensor:
-            positions = L.arange_positions(x.shape[1], x.device)
-            for j, _ in enumerate(layout.kinds):
-                x = apply_block(gp[f"b{j}"], x, positions)
-            return x
-    else:
-        def apply_group(gp: dict, x: torch.Tensor) -> torch.Tensor:
-            positions = L.arange_positions(x.shape[1], x.device)
-            for j, kind in enumerate(layout.kinds):
-                x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, plain,
-                              NULL_COLLECTOR)[0]
-            return x
+    def apply_group(gp: dict, x: torch.Tensor) -> torch.Tensor:
+        positions = L.arange_positions(x.shape[1], x.device)
+        for j, kind in enumerate(layout.kinds):
+            x = lm._block(gp[f"b{j}"], cfg, kind, x, positions, None, plain,
+                          NULL_COLLECTOR, split=split if layout.tp > 1 else None)[0]
+        return x
 
     if cfg.remat not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
@@ -317,11 +250,6 @@ def pipeline_loss(
     """
     block_fn = block_fn or make_block_fn(cfg, layout, plain=plain)
     x = L.embed_apply(params, cfg, batch["tokens"], getattr(torch, cfg.compute_dtype))
-    if layout.pp == 1:
-        # one stage holding every group (tensor parallelism without a
-        # pipeline): the whole batch through its one cell
-        cell = tree_map(lambda a: a[0, 0], restack_params(params[layout.seg_key], layout))
-        return head_loss(cfg, params, block_fn(cell, x), batch, plain=plain)
     B, S, D = x.shape
     if B % n_micro != 0:
         raise ValueError(f"global batch {B} not divisible by n_micro={n_micro}")

@@ -31,6 +31,7 @@ from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector
 from repro_torch.models.layers import ParamBuilder, norm_apply, norm_init
 from repro_torch.models.scan_utils import shift_tokens, wkv6_chunked, wkv6_sequential
+from repro_torch.models.split import WHOLE, Split
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
 
@@ -59,46 +60,72 @@ def time_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 def time_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                    state: dict | None = None, plain: bool = False,
-                   collector: Collector = NULL_COLLECTOR
+                   collector: Collector = NULL_COLLECTOR, split: Split | None = None
                    ) -> tuple[torch.Tensor, dict | None]:
     """``x [B, S, D]`` -> ``(out [B, S, D], new state or None)``; ``plain``
     runs K5's plain version on any device.  Tags the decay ``wkv_decay``
-    just before the recurrence and its output ``wkv_out`` just after."""
-    B, S, D = x.shape
-    H, hs = cfg.num_heads, cfg.rwkv.head_size
+    just before the recurrence and its output ``wkv_out`` just after.
+    Under a tensor ``split`` (training: no state, no tags) the token shift
+    and the five mixes run whole, enter the slices together, and each slice
+    runs :func:`_time_mix_heads` on its heads."""
     dt = x.dtype
     xx = shift_tokens(x, None if state is None else state["x_prev"]) - x
     xxx = x + xx * p["mu_x"].to(dt)
     lora = torch.tanh(torch.einsum("bsd,dnr->bsnr", xxx, p["w_mix1"].to(dt)))
     mm = torch.einsum("bsnr,nrd->nbsd", lora, p["w_mix2"].to(dt))
-    mixed = {name: x + xx * (p["mu"][i].to(dt) + mm[i])
-             for i, name in enumerate(MIX_NAMES)}
-    r = mixed["r"] @ p["w_r"].to(dt)
-    k = mixed["k"] @ p["w_k"].to(dt)
-    v = mixed["v"] @ p["w_v"].to(dt)
-    g = F.silu(mixed["g"] @ p["w_g"].to(dt))
-    ww = p["w0"].float() + (mixed["w"] @ p["w_decay1"].to(dt)).float() @ (
-        p["w_decay2"].float())
+    if split is not None and split.tensor:
+        # the boundary: the five mixes, whole, enter the slices together
+        mixed = x + xx * (p["mu"].to(dt)[:, None, None] + mm)
+        return split.sum(lambda t: _time_mix_heads(
+            p, cfg, split.enter(mixed).unbind(0), split, t, plain)[0]).to(dt), None
+    mixed = [x + xx * (p["mu"][i].to(dt) + mm[i]) for i in range(len(MIX_NAMES))]
+    out, s_new = _time_mix_heads(p, cfg, mixed, WHOLE, 0, plain,
+                                 None if state is None else state["wkv"], collector)
+    return out, None if state is None else {"x_prev": x[:, -1], "wkv": s_new}
+
+
+def _time_mix_heads(p: dict, cfg: ModelConfig, mixed, split: Split, t: int,
+                    plain: bool, s0: torch.Tensor | None = None,
+                    collector: Collector = NULL_COLLECTOR
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The time mix from its five mixes (``mixed``, ``[B, S, D]`` each in
+    ``MIX_NAMES``' order) on slice ``t``'s heads: ``(out, new WKV state)``.
+    r, k, v and g on the ``H / tp`` heads (``w_r``, ``w_k``, ``w_v``, ``w_g``
+    sliced by output columns), the decay, the bonus ``u`` and ``ln_x`` on
+    their channels (kept whole, entered: their gradients sum over the
+    slices), K5 and the per-head group norm on those heads, ``w_o`` sliced
+    by rows (``split.out``: float32 under the split).  With :data:`WHOLE`
+    this is the fused time mix: all heads, ``s0`` carried."""
+    B, S, D = mixed[0].shape
+    H, hs = cfg.num_heads // split.tp, cfg.rwkv.head_size
+    dt = mixed[0].dtype
+    mx = dict(zip(MIX_NAMES, mixed))
+    proj = lambda name, w: mx[name] @ w.to(dt)  # noqa: E731
+    r, k, v = (proj(n, split.cut(p[f"w_{n}"], 1, t)) for n in ("r", "k", "v"))
+    g = F.silu(proj("g", split.cut(p["w_g"], 1, t)))
+    whole = lambda leaf, dim: split.narrow(split.enter(leaf), dim, t)  # noqa: E731
+    ww = whole(p["w0"], 0).float() + proj("w", split.enter(p["w_decay1"])).float() @ (
+        whole(p["w_decay2"], 1).float())
     w = collector.tag("wkv_decay", torch.exp(-torch.exp(ww)))  # [B,S,D] in (0,1)
 
-    rh, kh, vh, wh = (t.view(B, S, H, hs) for t in (r, k, v, w))
-    s0 = None if state is None else state["wkv"]
+    rh, kh, vh, wh = (u.view(B, S, H, hs) for u in (r, k, v, w))
+    u = whole(p["u"], 0).float()
     if S == 1:
-        y, s_new = wkv6_sequential(rh, kh, vh, wh, p["u"].float(), s0)
+        y, s_new = wkv6_sequential(rh, kh, vh, wh, u, s0)
     elif s0 is None:
-        y, s_new = wkv6(rh, kh, vh, wh, p["u"].float(), plain=plain)
+        y, s_new = wkv6(rh, kh, vh, wh, u, plain=plain)
     else:
-        y, s_new = wkv6_chunked(rh, kh, vh, wh, p["u"].float(), s0)
+        y, s_new = wkv6_chunked(rh, kh, vh, wh, u, s0)
     y = collector.tag("wkv_out", y)
 
     # per-head group norm, then gate and project
     yf = y.float()
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
-    yf = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, D)
-    yf = yf * p["ln_x"]["scale"].float() + p["ln_x"]["bias"].float()
-    out = (yf.to(dt) * g) @ p["w_o"].to(dt)
-    return out, None if state is None else {"x_prev": x[:, -1], "wkv": s_new}
+    yf = ((yf - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, H * hs)
+    ln = p["ln_x"]
+    yf = yf * whole(ln["scale"], 0).float() + whole(ln["bias"], 0).float()
+    return split.out(yf.to(dt) * g, split.cut(p["w_o"], 0, t)), s_new
 
 
 def channel_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
@@ -112,14 +139,23 @@ def channel_mix_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def channel_mix_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      state: dict | None = None
+                      state: dict | None = None, split: Split | None = None
                       ) -> tuple[torch.Tensor, dict | None]:
+    """Under a tensor ``split`` the key mix enters the slices (``w_k`` by
+    columns, ``w_v`` by rows) and their float32 ``kv`` parts are summed;
+    the gate ``sigmoid(xr w_r)``, which multiplies the summed ``kv``, runs
+    whole on every rank (``w_r`` kept whole: ROADMAP P19)."""
+    split = WHOLE if split is None else split
     dt = x.dtype
     xx = shift_tokens(x, None if state is None else state["x_prev"]) - x
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
-    k = torch.square(F.relu(xk @ p["w_k"].to(dt)))
-    kv = k @ p["w_v"].to(dt)
+
+    def part(t: int) -> torch.Tensor:
+        k = torch.square(F.relu(split.enter(xk) @ split.cut(p["w_k"], 1, t).to(dt)))
+        return split.out(k, split.cut(p["w_v"], 0, t))
+
+    kv = split.sum(part).to(dt)
     out = torch.sigmoid(xr @ p["w_r"].to(dt)) * kv
     return out, None if state is None else {"x_prev": x[:, -1]}
 
@@ -133,18 +169,19 @@ def rwkv_block_init(b: ParamBuilder, cfg: ModelConfig) -> None:
 
 def rwkv_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                      state: dict | None = None, plain: bool = False,
-                     collector: Collector = NULL_COLLECTOR
+                     collector: Collector = NULL_COLLECTOR, split: Split | None = None
                      ) -> tuple[torch.Tensor, dict | None]:
     """One RWKV-6 layer; ln1/ln2 go through K1, a state-free recurrence
-    through K5.  Returns ``(x, new state or None)``."""
+    through K5 (on each tensor slice's heads under a ``split``).  Returns
+    ``(x, new state or None)``."""
     h = norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     a, att_new = time_mix_apply(
         p["att"], cfg, h, state=None if state is None else state["att"],
-        plain=plain, collector=collector)
+        plain=plain, collector=collector, split=split)
     x = x + collector.tag("att_resid", a)
     h = norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     f, ffn_new = channel_mix_apply(
-        p["ffn"], cfg, h, state=None if state is None else state["ffn"])
+        p["ffn"], cfg, h, state=None if state is None else state["ffn"], split=split)
     x = x + collector.tag("ffn_resid", f)
     return x, None if state is None else {"att": att_new, "ffn": ffn_new}
 

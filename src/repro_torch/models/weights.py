@@ -102,17 +102,12 @@ def to_jax_train_state(state) -> dict:
                     "step": np.int32(state.opt["step"])}}
 
 
-def shard_params(params: dict, layout, tp_rank: int, *, axes: dict) -> dict:
-    """Tensor rank ``tp_rank``'s part of the whole tree ``params`` under
-    ``layout.tp``: each leaf the Megatron split slices (``axes``:
-    ``lm.param_axes``; ``models.pipeline.tp_slices``) cut to its ``tp_rank``-th
-    of ``tp`` equal pieces along that dim, as a contiguous copy; every other
-    leaf shared as it is.  Each rank cuts the same ``from_jax_params`` (or
-    seeded) tree."""
-    from repro_torch.models.pipeline import tp_slices
-
-    dims = tp_slices(axes, layout)
-
+def shard_params(params: dict, dims: dict, tp: int, tp_rank: int) -> dict:
+    """Tensor rank ``tp_rank``'s part of the whole tree ``params`` under a
+    split over ``tp`` ranks: each leaf in ``dims`` (``{path: dim}``,
+    ``models.split.tp_slices``) cut to its ``tp_rank``-th of ``tp`` equal
+    pieces along that dim, as a contiguous copy; every other leaf shared as
+    it is.  Each rank cuts the same ``from_jax_params`` (or seeded) tree."""
     def walk(tree, path):
         out = {}
         for k, v in tree.items():
@@ -120,7 +115,7 @@ def shard_params(params: dict, layout, tp_rank: int, *, axes: dict) -> dict:
             if isinstance(v, dict):
                 out[k] = walk(v, p)
             elif p in dims:
-                out[k] = v.detach().chunk(layout.tp, dim=dims[p])[tp_rank].contiguous()
+                out[k] = v.detach().chunk(tp, dim=dims[p])[tp_rank].contiguous()
             else:
                 out[k] = v
         return out
@@ -128,14 +123,10 @@ def shard_params(params: dict, layout, tp_rank: int, *, axes: dict) -> dict:
     return walk(params, ())
 
 
-def unshard_params(shards: list[dict], layout, *, axes: dict) -> dict:
+def unshard_params(shards: list[dict], dims: dict) -> dict:
     """The inverse of :func:`shard_params`: the whole tree from every tensor
     rank's part (rank order); the leaves that are not sliced come from
     rank 0's."""
-    from repro_torch.models.pipeline import tp_slices
-
-    dims = tp_slices(axes, layout)
-
     def walk(trees, path):
         out = {}
         for k, v in trees[0].items():

@@ -241,7 +241,13 @@ def all_reduce_tree(tree: dict, group) -> dict:
     out = tree_map(lambda g: g, tree)
     for dtype in sorted({g.dtype for _, g in flat}, key=str):
         part = [(p, g) for p, g in flat if g.dtype == dtype]
-        buf = torch.cat([g.reshape(-1).to(torch.float32) for _, g in part])
+        # packed in place: no float32 copy of each leaf beside the buffer
+        buf = torch.empty(sum(g.numel() for _, g in part), dtype=torch.float32,
+                          device=part[0][1].device)
+        at = 0
+        for _, g in part:
+            buf[at:at + g.numel()].copy_(g.reshape(-1))
+            at += g.numel()
         dist.all_reduce(buf, group=group)
         at = 0
         for path, g in part:

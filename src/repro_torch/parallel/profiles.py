@@ -16,10 +16,10 @@ copied from ``repro.parallel.profiles``.
   afford per-token param gathers), KV-cache time dim sharded over model,
   everything else replicated (S=1 activations are tiny).
 
-The port trains under the Megatron split of ``models.pipeline`` (``_TP_SLICED``
-over ``model``, everything else replicated, the batch over ``data``); FSDP
-weight storage under ``embed_w -> data`` and sharded serving under
-``decode`` are ROADMAP item 8c.
+The port trains under the Megatron split of ``models.split`` (each family's
+sliced axes over ``model``, the leaves of ``KEPT_WHOLE`` and everything else
+replicated, the batch over ``data``); FSDP weight storage under ``embed_w ->
+data`` and sharded serving under ``decode`` are ROADMAP item 8c.
 """
 
 from __future__ import annotations

@@ -540,7 +540,8 @@ def train(
                 time.sleep(min(backoff_s * 2 ** (attempts - 1), 30.0))
             # every leaf comes from the checkpoint; the live state only
             # gives the tree (or, for a rank's part, the whole state does)
-            if par_info is not None and par_info.layout is not None:
+            if par_info is not None and (par_info.layout is not None
+                                         or par_info.plan.tp > 1):
                 state = None
                 state, _ = restore(loop.ckpt_dir, init_train_state(
                     cfg, seed=loop.seed, device=dev))

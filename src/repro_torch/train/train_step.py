@@ -157,9 +157,9 @@ def _updater(cfg: ModelConfig, ocfg: OptimizerConfig, compute_grads: Callable,
              norm: Callable = global_norm, compressor=None) -> Callable:
     """``step(state, batch)``: the gradients of ``compute_grads``, then
     AdamW on the float32 master, refreshing each compute-dtype leaf as its
-    update lands.  In a world, ``sync(loss, grads) -> (loss, grads)`` sums
-    the ranks' shares of the gradients and of the (last accumulation
-    slice's) loss first, and ``norm`` is the whole model's.  With a
+    update lands.  In a world, ``sync(metrics, grads) -> (metrics, grads)``
+    sums the ranks' shares of the gradients and of the (last accumulation
+    slice's) loss and its terms first, and ``norm`` is the whole model's.  With a
     ``compressor`` the step is ``step(state, err, batch) -> (state, err,
     metrics)``: the whole gradient (summed, in a world) is
     quantize-dequantized in its own dtype, just before AdamW's float32
@@ -171,8 +171,7 @@ def _updater(cfg: ModelConfig, ocfg: OptimizerConfig, compute_grads: Callable,
         batch = to_device_batch(batch, dev)
         _, metrics, grads = compute_grads(state.params, batch)
         if sync is not None:
-            loss, grads = sync(metrics["loss"], grads)
-            metrics = {**metrics, "loss": loss, "ce": loss}
+            metrics, grads = sync(metrics, grads)
         if grad_transform is not None:
             grads = grad_transform(grads)
         if compressor is not None:
@@ -415,75 +414,68 @@ def _share(local: dict, whole: dict) -> torch.Tensor:
     return (torch.clamp(_count(local), min=1.0) / torch.clamp(_count(whole), min=1.0))
 
 
-def _dense_gqa(cfg: ModelConfig) -> bool:
-    from repro_torch.models.lm import segment_layout
-
-    return (cfg.family == "dense" and not cfg.use_mla and cfg.input_kind == "tokens"
-            and {k for ks, _ in segment_layout(cfg) for k in ks} == {"dense"})
-
-
-def own_part(tree: dict, layout, coords: dict, axes: dict) -> dict:
+def own_part(tree: dict, layout, coords: dict, dims: dict, tp: int) -> dict:
     """The part of a whole tree the rank at ``coords`` owns: its stage's
     (``models.pipeline.stage_part``: the segment's groups of its cells, and
     on stage 0 the embedding and the head), cut to its tensor slice
-    (``weights.shard_params``).  The whole tree at pp = tp = 1."""
+    (``weights.shard_params`` of the leaves in ``dims``).  The whole tree at
+    pp = tp = 1."""
     from repro_torch.models.pipeline import stage_part
     from repro_torch.models.weights import shard_params
 
-    if layout is None:
-        return tree
-    if layout.pp > 1:
+    if layout is not None:
         tree = stage_part(tree, layout, coords["stage"])
-    if layout.tp > 1:
-        tree = shard_params(tree, layout, coords["model"], axes=axes)
+    if tp > 1:
+        tree = shard_params(tree, dims, tp, coords["model"])
     return tree
 
 
-def _gather_parts(tree: dict, layout, mesh, coords: dict, axes: dict) -> dict | None:
+def _gather_parts(tree: dict, layout, mesh, coords: dict, dims: dict,
+                  tp: int) -> dict | None:
     """The whole tree on rank 0 from the parts of the ranks of data
-    coordinate 0 (the others hold copies of them): the segment's leaves of
-    every (stage, model) rank sent to rank 0, whose own part gives their
-    shapes (every such part has the same); None off rank 0."""
+    coordinate 0 (the others hold copies of them): each (stage, model)
+    rank sends rank 0 the leaves of its part no other rank holds (a
+    stage's segment; at pp = 1 its tensor slices), and rank 0's own part
+    gives their shapes (every such part has the same); None off rank 0."""
     from repro_torch.models.pipeline import merge_stages
     from repro_torch.models.weights import unshard_params
     from repro_torch.parallel.dist import exchange
 
-    if layout is None:
+    if layout is None and tp == 1:
         return tree if mesh.get_rank() == 0 else None
     if coords["data"]:
         return None
+    pp = 1 if layout is None else layout.pp
     names = list(mesh.mesh_dim_names)
     grid = mesh.mesh.movedim(names.index("data"), 0)[0]  # [stage, model]
-    seg = [t for _, t in leaves(tree[layout.seg_key])]
+    own = [(p, t) for p, t in leaves(tree)
+           if (p[0] == layout.seg_key if layout is not None else p in dims)]
     if mesh.get_rank() != 0:
-        exchange([(t, 0) for t in seg], [])
+        exchange([(t, 0) for _, t in own], [])
         return None
     got = {}
     recvs = []
-    for s in range(layout.pp):
-        for m in range(layout.tp):
+    for s in range(pp):
+        for m in range(tp):
             if (s, m) == (0, 0):
                 continue
-            got[(s, m)] = [torch.empty_like(t) for t in seg]
+            got[(s, m)] = [torch.empty_like(t) for _, t in own]
             recvs += [(b, int(grid[s, m])) for b in got[(s, m)]]
     exchange([], recvs)
-    paths = [p for p, _ in leaves(tree[layout.seg_key])]
 
     def part(s: int, m: int) -> dict:
         if (s, m) == (0, 0):
             return tree
-        out = {k: v for k, v in tree.items() if k != layout.seg_key}
-        out[layout.seg_key] = segment = {}
-        for path, t in zip(paths, got[(s, m)]):
-            node = segment
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = t
+        out = tree_map(lambda t: t, tree)
+        if s > 0:  # a later stage holds only its segment
+            out = {layout.seg_key: out[layout.seg_key]}
+        for (path, _), t in zip(own, got[(s, m)]):
+            parent(out, path)[path[-1]] = t
         return out
 
-    slices = [merge_stages([part(s, m) for s in range(layout.pp)], layout)
-              if layout.pp > 1 else part(0, m) for m in range(layout.tp)]
-    return slices[0] if layout.tp == 1 else unshard_params(slices, layout, axes=axes)
+    slices = [merge_stages([part(s, m) for s in range(pp)], layout)
+              if layout is not None else part(0, m) for m in range(tp)]
+    return slices[0] if tp == 1 else unshard_params(slices, dims)
 
 
 def _make_world_train_step(
@@ -502,13 +494,18 @@ def _make_world_train_step(
 
     * ``data``: each rank takes its contiguous ``batch / dp`` rows (JAX's
       ``batch -> ("pod", "data")``; under ``grad_accum`` of each
-      accumulation slice) and weighs its loss by its share of the mask
-      count (:func:`_share`), so the gradients summed over the data ranks
-      are the whole batch's; the loss in the metrics is the global one.
-    * ``model``: dense GQA blocks run Megatron's split
-      (``models.pipeline.make_block_fn``) over this rank's slices of the
-      weights.  Other families are refused at pp = 1 (ROADMAP item 8c), as
-      inside a pipeline.
+      accumulation slice) and weighs its cross entropy by its share of the
+      mask count (:func:`_share`), so the gradients summed over the data
+      ranks are the whole batch's; the loss in the metrics is the global
+      one.  Over MoE layers the router's counts are summed over the data
+      ranks and each rank's aux loss is its part of the whole batch's
+      (``models.split``), not weighed by the share.
+    * ``model``: at pp = 1 the family's own forward runs Megatron's split
+      over this rank's slices of the weights (``lm.loss_fn`` with a
+      ``models.split.Split``: dense GQA, MoE, RWKV-6 and Griffin blocks);
+      MLA, the encoder-decoder and M-RoPE are refused (ROADMAP item 8c).
+      Inside a pipeline the split runs dense GQA blocks only
+      (``models.pipeline.make_block_fn``).
     * ``stage``: each stage is a process (``models.pipeline
       .pipeline_ranks_grads``); dp groups each pipeline
       ``plan.n_micro_local`` microbatches; ``plan.fbd_backward`` runs a
@@ -523,21 +520,13 @@ def _make_world_train_step(
     """
     from repro_torch.core.dpp.executor import build_time_table, make_pipeline_stages
     from repro_torch.models import pipeline as pl
+    from repro_torch.models.split import make_split, tp_slices
     from repro_torch.parallel import dist as pdist
     from repro_torch.parallel.plan import forward_order
 
     names = list(mesh.mesh_dim_names)
     coords = {ax: 0 for ax in ("stage", "data", "model")}
     coords.update(zip(names, mesh.get_coordinate()))
-    if plan.dp > 1 and cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: data parallelism over MoE layers (router aux loss "
-            "and routing groups over each rank's rows) is ROADMAP queue 1, "
-            "item 8c")
-    if plan.tp > 1 and plan.pp == 1 and not _dense_gqa(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism at pp=1 runs dense GQA blocks "
-            "only; other families are ROADMAP queue 1, item 8c")
     if compressor is not None and (plan.pp > 1 or plan.tp > 1):
         raise NotImplementedError(
             f"int8 gradient compression in a world runs at pp = tp = 1 (this "
@@ -549,16 +538,22 @@ def _make_world_train_step(
     stage_group = group("stage", plan.pp)
     model = get_model(cfg)
     unused = unused_leaves(cfg)
-    axes = model.param_axes(cfg)
+    split = None
+    if plan.tp > 1 or (plan.dp > 1 and cfg.family == "moe"):
+        moe_dp = cfg.family == "moe" and plan.dp > 1
+        split = make_split(cfg, plan.tp, group=model_group, rank=coords["model"],
+                           data_group=data_group if moe_dp else None,
+                           dp=plan.dp if moe_dp else 1)
+    dims = tp_slices(cfg, plan.tp)
     layout = None
-    if plan.pp > 1 or plan.tp > 1:
-        layout = pl.pipeline_layout(cfg, plan.pp, plan.n_chunks if plan.pp > 1 else 1,
-                                    tp=plan.tp)
-        block_fn = pl.make_block_fn(cfg, layout, plain=plain, tp_group=model_group)
-    if collector is not NULL_COLLECTOR and plan.pp > 1:
+    if plan.pp > 1:
+        layout = pl.pipeline_layout(cfg, plan.pp, plan.n_chunks, tp=plan.tp)
+        block_fn = pl.make_block_fn(cfg, layout, plain=plain, split=split)
+    if collector is not NULL_COLLECTOR and (plan.pp > 1 or plan.tp > 1):
         logging.getLogger("repro_torch.train").warning(
-            "MegaScope probes do not observe pipelined blocks (pp=%d): "
-            "captures cannot ride the pipeline's activation wire", plan.pp)
+            "MegaScope probes do not observe split or pipelined blocks (pp=%d, "
+            "tp=%d): captures cannot ride the activation wire", plan.pp, plan.tp)
+        collector = NULL_COLLECTOR
 
     if plan.pp > 1:
         table = build_time_table(forward_order(plan), plan.pp, plan.n_chunks,
@@ -573,32 +568,36 @@ def _make_world_train_step(
                 block_fn=block_fn, weight=_share(local, batch),
                 fbd=plan.fbd_backward, plain=plain)
     else:
-        if layout is not None:
-            def loss_of(params, batch):
-                return pl.pipeline_loss(cfg, params, batch, layout=layout, table=None,
-                                        stages=None, n_micro=1, block_fn=block_fn,
-                                        plain=plain)
-        else:
-            def loss_of(params, batch):
-                return model.loss_fn(cfg, params, batch, collector, plain=plain)
-
         def grads_once(params: dict, batch: dict):
             local = _rows(batch, coords["data"], plan.dp)
-            loss, metrics = loss_of(params, local)
-            loss = loss * _share(local, batch)
-            metrics = {**tree_map(torch.Tensor.detach, metrics), "loss": loss.detach()}
+            kw = {} if split is None else {"split": split}
+            _, metrics = model.loss_fn(cfg, params, local, collector, plain=plain, **kw)
+            # the cross entropy weighed by this rank's share; an aux loss is
+            # already this rank's part of the whole batch's (or the whole
+            # one, the same on every tensor rank, at dp = 1)
+            ce = metrics["ce"] * _share(local, batch)
+            loss = ce + metrics["aux_loss"]
+            metrics = {**tree_map(torch.Tensor.detach, metrics), "loss": loss.detach(),
+                       "ce": ce.detach()}
             return loss.detach(), metrics, grad_tree(params, loss, unused)
 
-    def sync(loss, grads):
-        # the loss: the data ranks' shares, held by stage 0
+    summed = ("loss", "ce", "aux_loss")
+
+    def sync(metrics, grads):
+        # the loss and its terms: the data ranks' shares, held by stage 0;
+        # a MoE segment's drop fraction: the mean over the data ranks
+        keys = [k for k in metrics if k in summed or k.endswith("_moe_drop_frac")]
+        vec = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
         for g in (data_group, stage_group):
             if g is not None:
-                loss = pdist.all_reduce_scalar(loss, g)
+                torch.distributed.all_reduce(vec, group=g)
+        metrics = {**metrics, **{k: v if k in summed else v / plan.dp
+                                 for k, v in zip(keys, vec)}}
         if data_group is not None:
             grads = pdist.all_reduce_tree(grads, data_group)
-        return loss, grads
+        return metrics, grads
 
-    sliced = frozenset(pl.tp_slices(axes, layout)) if model_group is not None else ()
+    sliced = frozenset(dims)
 
     def over(g):
         return None if g is None else (lambda x: pdist.all_reduce_scalar(x, g))
@@ -608,13 +607,13 @@ def _make_world_train_step(
                            total=over(stage_group))
 
     step = _updater(cfg, ocfg, _accumulate(grads_once, grad_accum), grad_transform,
-                    sync=sync, norm=norm if layout is not None else global_norm,
-                    compressor=compressor)
+                    sync=sync, norm=norm if layout is not None or plan.tp > 1
+                    else global_norm, compressor=compressor)
     if plan.pp > 1:
         step.pipeline = PipelineStepInfo(plan=plan, table=table, layout=layout,
                                          loss_fn=None)
     dtype = getattr(torch, cfg.compute_dtype)
-    own = lambda tree: own_part(tree, layout, coords, axes)  # noqa: E731
+    own = lambda tree: own_part(tree, layout, coords, dims, plan.tp)  # noqa: E731
 
     def local_state(master: dict) -> TrainState:
         master = own(master)
@@ -622,7 +621,7 @@ def _make_world_train_step(
                           opt=init_opt_state(master))
 
     def shard_state(state: TrainState) -> TrainState:
-        if layout is None:
+        if layout is None and plan.tp == 1:
             return state
         master = own(state.master)
         return TrainState(params=compute_params(master, dtype), master=master,
@@ -630,7 +629,7 @@ def _make_world_train_step(
                                "step": state.opt["step"]})
 
     def gather(tree: dict) -> dict | None:
-        return _gather_parts(tree, layout, mesh, coords, axes)
+        return _gather_parts(tree, layout, mesh, coords, dims, plan.tp)
 
     def gather_state(state: TrainState) -> TrainState | None:
         whole = [gather(t) for t in (state.master, state.opt["m"], state.opt["v"])]

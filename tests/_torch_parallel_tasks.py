@@ -130,14 +130,32 @@ def train_cell(cfg, plan_kw: dict, state_np: dict, batches: list, ocfg_kw: dict,
     step = make_train_step(cfg, optim.OptimizerConfig(**ocfg_kw), grad_accum=grad_accum,
                            plan=plan, mesh=mesh, grad_transform=capture)
     state = step.parallel.shard_state(from_jax_train_state(state_np, device="cpu"))
-    losses = []
+    losses, metrics = [], []
     for b in batches:
         state, m = step(state, b)
         losses.append(float(m["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()
+                        if isinstance(v, torch.Tensor) and v.dim() == 0})
     whole = step.parallel.gather_state(state)
-    return {"losses": losses, "grads": grads[0], "master": _np_tree(state.master),
+    return {"losses": losses, "metrics": metrics, "grads": grads[0],
+            "master": _np_tree(state.master),
             "whole": None if whole is None else _np_tree(whole.master),
             "coords": step.parallel.coords}
+
+
+def refusal(cfg, plan_kw: dict, compress: bool = False) -> str:
+    """The message ``make_train_step`` raises for ``cfg`` under ``plan_kw``
+    on this rank's mesh (with int8 compression if ``compress``)."""
+    from repro_torch.ft import GradCompressor
+
+    plan = resolve_plan(ParallelPlan(**plan_kw))
+    mesh = make_pipeline_mesh(plan.pp, plan.dp, plan.tp)
+    try:
+        make_train_step(cfg, optim.OptimizerConfig(), plan=plan, mesh=mesh,
+                        compressor=GradCompressor() if compress else None)
+    except NotImplementedError as e:
+        return str(e)
+    return ""
 
 
 def placements(cfg, shape: tuple, axes: tuple) -> dict:
@@ -194,3 +212,14 @@ def bwd_elsewhere(cfg, params_np: dict, batch_np: dict) -> dict:
     res = Residuals(tensors=got[len(paths) + len(keys):-1])
     grads = step.bwd(params, batch, res, got[-1])
     return {"grads": _np_tree(grads), "residuals": len(res.tensors)}
+
+
+def run_cli(argv: list[str]) -> dict:
+    """``python -m repro_torch`` with ``argv`` on this rank, in the world the
+    pool joined (the ``Session`` runs in place): its history and the size
+    of its world."""
+    from repro_torch.app import cli
+
+    out = cli.run(argv)
+    return {"history": out["history"],
+            "world": out["session"].results["parallel"]["world"]}

@@ -404,6 +404,10 @@ K2_LSE_TOL = 1e-5
     (1, 512, 512, 16, 16, 64, False, None),
     (1, 300, 750, 16, 16, 64, False, None),
     (1, 129, 2047, 16, 16, 64, False, None),
+    # a tensor rank's heads at tp 2: recurrentgemma-9b's (H 8, one kv head,
+    # dh 256, window 2048) at its world cell's 2048 x 2, phi3.5-moe's (G 4)
+    (2, 2048, 2048, 8, 1, 256, True, 2048),
+    (1, 300, 300, 16, 4, 128, True, None),
 ])
 def test_flash_kernels_match_plain(cuda, B, S, T, H, K, D, causal, window):
     from repro_torch.kernels.flash_attention import (
@@ -504,6 +508,7 @@ K5_BF16_ROW_RTOL = 2.0 ** -7
     (1, 2048, 4, 64, "long"),       # w = exp(-exp(-8)) = 0.99966
     (2, 90, 4, 64, "near1"),        # w >= 1 - 1e-7: the clamp holds
     (1, 77, 3, 16, "model"),        # the smoke configs' head size
+    (2, 2048, 20, 64, "model"),     # a tp 2 rank's heads of rwkv6-3b
 ])
 def test_wkv6_kernels_match_plain(cuda, B, T, H, N, kind):
     import math
@@ -735,6 +740,7 @@ def _rglru_card_inputs(g, dev, B, T, W, kind):
     (1, 4096, 64, "model", True),      # 2 blocks for 132 SMs
     (1, 1, 33, "model", True),         # one token: the top window is the first
     (1, 2048, 512, "long", True),      # long memory: the carries dominate
+    (2, 2048, 2048, "model", False),   # a tp 2 rank's channels of recurrentgemma-9b
 ])
 def test_rglru_kernels_match_plain(cuda, B, T, W, kind, with_dh):
     from repro_torch.kernels.rglru import (

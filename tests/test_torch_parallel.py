@@ -39,6 +39,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import pipeline as pl  # noqa: E402
 from repro_torch.models.model import get_model  # noqa: E402
+from repro_torch.models.split import tp_slices  # noqa: E402
 from repro_torch.models.weights import shard_params, unshard_params  # noqa: E402
 from repro_torch.parallel import dist as pdist  # noqa: E402
 from repro_torch.parallel import profiles, sharding  # noqa: E402
@@ -188,17 +189,16 @@ def test_shard_params_round_trip_and_slices():
 
 
     tree = lm.init(TINY, seed=0, device="cpu")
-    layout = pl.pipeline_layout(TINY, 2, 1, tp=2)
-    axes = lm.param_axes(TINY)
-    shards = [shard_params(tree, layout, r, axes=axes) for r in range(2)]
+    dims = tp_slices(TINY, 2)
+    shards = [shard_params(tree, dims, 2, r) for r in range(2)]
     assert shards[0]["seg0"]["b0"]["attn"]["wq"].shape == (4, 32, 2, 8)
     assert shards[1]["seg0"]["b0"]["attn"]["wo"].shape == (4, 2, 8, 32)
     assert shards[0]["seg0"]["b0"]["mlp"]["w_down"].shape == (4, 32, 32)
     assert shards[0]["embedding"] is tree["embedding"]
-    back = unshard_params(shards, layout, axes=axes)
+    back = unshard_params(shards, dims)
     for (pa, a), (pb, b) in zip(optim.leaves(back), optim.leaves(tree)):
         assert pa == pb and torch.equal(a, b)
-    assert set(pl.tp_slices(axes, layout)) == {
+    assert set(dims) == {
         ("seg0", "b0", "attn", k) for k in ("wq", "wk", "wv", "wo")} | {
         ("seg0", "b0", "mlp", k) for k in ("w_gate", "w_up", "w_down")}
 
@@ -254,8 +254,6 @@ def _cell_params():
 def _unshard_grads(results, layout):
     """The whole gradient tree from the parts of the ranks of data 0: each
     stage's part (``stage_part``) of each tensor slice."""
-    from repro_torch.models import lm
-
     parts = {(r["coords"]["stage"], r["coords"]["model"]):
              optim.tree_map(torch.from_numpy, r["grads"])
              for r in results if r["coords"]["data"] == 0}
@@ -263,7 +261,7 @@ def _unshard_grads(results, layout):
               for t in range(layout.tp)]
     if layout.tp == 1:
         return shards[0]
-    return unshard_params(shards, layout, axes=lm.param_axes(TINY))
+    return unshard_params(shards, tp_slices(TINY, layout.tp))
 
 
 @pytest.mark.parametrize("dp,tp,pp,ga,sched", _cell_params())
@@ -399,14 +397,14 @@ def test_refusals_carry_jax_messages():
 
 def test_refusals_of_the_port():
     """What the port does not run yet names its ROADMAP item: tp at pp = 1
-    over other families and dp over MoE (item 8c); int8 compression over a
+    over MLA (item 8c); int8 compression over a
     pp > 1 plan with dp = 1 raises JAX's ``ValueError`` (no data axis); a
     mesh larger than the world names both counts."""
     from repro_torch.launch.mesh import make_pipeline_mesh, make_production_mesh
 
     with pytest.raises(SystemExit, match="item 8c"):
         cli.main(["train", "--smoke", "--device", "cpu", "--steps", "1",
-                  "--arch", "rwkv6-3b", "--set", "parallel.tp=2"])
+                  "--arch", "deepseek-v2-lite-16b", "--set", "parallel.tp=2"])
     from repro.ft import GradCompressor as JGradCompressor
     from repro_torch.ft import GradCompressor
 

@@ -1,0 +1,305 @@
+"""Tensor parallelism over RWKV-6, Griffin and MoE blocks, and data
+parallelism over MoE layers, on the CPU with gloo: the smoke configs of
+rwkv6-3b, recurrentgemma-9b (rec, rec, attn, rec) and phi3.5-moe at tp 2,
+phi3.5-moe at dp 2 and dp 2 x tp 2, each held to the JAX package's fused
+single-device step (``make_train_step`` without a plan; losses within rtol
+2e-5 over 2 steps), each rank's synced gradients to the port's fused step
+(rtol 5e-4, atol 1e-5), MoE's aux loss and drop fraction at dp 2 to the
+whole batch's from JAX's ``lm.loss_fn``, the slice table against JAX's
+``logical_to_spec`` under ``fsdp_cp`` (the leaves kept whole named in
+``models.split.KEPT_WHOLE``: ROADMAP P19), the one-process split against
+the fused loss, the refusals (ROADMAP item 8c) and a tp 2 run's checkpoint
+resumed in one process.  The ranks are ``tasks.Pool`` worlds, spawned once
+for the module; their tasks live in ``tests/_torch_parallel_tasks.py``."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+from jax.sharding import AbstractMesh  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
+from repro.data.pipeline import SyntheticTokens as JSyntheticTokens  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.parallel import profiles as jprofiles  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
+from repro.train import optim as joptim  # noqa: E402
+from repro.train.train_step import init_train_state as jinit_train_state  # noqa: E402
+from repro.train.train_step import make_train_step as jmake_train_step  # noqa: E402
+from repro_torch.app import cli  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import split as sp  # noqa: E402
+from repro_torch.models.weights import (  # noqa: E402
+    from_jax_params,
+    shard_params,
+    unshard_params,
+)
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.train_step import grad_tree  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(__file__))
+import _torch_parallel_tasks as tasks  # noqa: E402
+
+ARCHS = ("rwkv6-3b", "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b")
+MOE = "phi3.5-moe-42b-a6.6b"
+OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+BATCH, SEQ, N_STEPS = 4, 32, 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def pools():
+    """One world a size, spawned on first use and kept for the module."""
+    made: dict[int, tasks.Pool] = {}
+
+    def get(n: int) -> tasks.Pool:
+        if n not in made:
+            made[n] = tasks.Pool(n, device="cpu", timeout=300)
+        return made[n]
+
+    yield get
+    for p in made.values():
+        p.close()
+
+
+def _cfgs(arch: str):
+    kw = dict(param_dtype="float32", compute_dtype="float32", remat="none")
+    return get_config(arch, smoke=True).replace(**kw), \
+        jax_get_config(arch, smoke=True).replace(**kw)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _batches(jcfg):
+    ds = JSyntheticTokens(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
+                                      global_batch=BATCH))
+    return [ds.batch_at(i) for i in range(N_STEPS)]
+
+
+_STATE: dict = {}
+
+
+def _jstate(jcfg):
+    """The JAX package's seed-0 ``TrainState`` (its init jitted: eager, it
+    draws leaf by leaf for seconds a config), and the same state as numpy
+    trees for the port (``models.weights``)."""
+    if jcfg.name not in _STATE:
+        st = jax.jit(lambda k: jinit_train_state(jcfg, k))(jax.random.PRNGKey(0))
+        _STATE[jcfg.name] = (st, {
+            "params": _np(st.params), "master": _np(st.master),
+            "opt": {"m": _np(st.opt["m"]), "v": _np(st.opt["v"]),
+                    "step": np.asarray(st.opt["step"])}})
+    return _STATE[jcfg.name]
+
+
+def _state_np(jcfg):
+    return _jstate(jcfg)[1]
+
+
+_REF: dict = {}
+
+
+def _jax_losses(jcfg):
+    """The JAX package's fused single-device trajectory (once an arch)."""
+    if jcfg.name not in _REF:
+        step = jax.jit(jmake_train_step(jcfg, joptim.OptimizerConfig(**OCFG)))
+        state = _jstate(jcfg)[0]
+        losses = []
+        for b in _batches(jcfg):
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        _REF[jcfg.name] = losses
+    return _REF[jcfg.name]
+
+
+def _fused_grads(cfg, jcfg) -> dict:
+    """The port's fused gradient of the first batch at the JAX init's
+    parameters."""
+    params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
+    for _, leaf in optim.leaves(params):
+        leaf.requires_grad_(True)
+    b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
+    return grad_tree(params, lm.loss_fn(cfg, params, b)[0])
+
+
+_CELLS = [pytest.param(a, dict(tp=2), id=f"tp2-{a}") for a in ARCHS] + [
+    pytest.param(MOE, dict(dp=2), id=f"dp2-{MOE}"),
+    pytest.param(MOE, dict(dp=2, tp=2), id=f"dp2-tp2-{MOE}")]
+
+
+@pytest.mark.parametrize("arch,plan_kw", _CELLS)
+def test_world_cell_matches_the_fused_steps(pools, arch, plan_kw):
+    """(a) Each cell's 2-step losses within rtol 2e-5 of the JAX package's
+    fused step; (b) each rank's synced first-step gradient (its slice)
+    within rtol 5e-4 / atol 1e-5 of the port's fused one; the whole master
+    gathered on rank 0 only; every rank reports the same loss."""
+    cfg, jcfg = _cfgs(arch)
+    world = plan_kw.get("dp", 1) * plan_kw.get("tp", 1)
+    res = pools(world).run(tasks.train_cell, cfg, plan_kw, _state_np(jcfg),
+                           _batches(jcfg), OCFG, 1)
+    np.testing.assert_allclose(res[0]["losses"], _jax_losses(jcfg), rtol=2e-5)
+    for r in res[1:]:
+        np.testing.assert_allclose(r["losses"], res[0]["losses"], rtol=1e-6)
+    assert res[0]["whole"] is not None and all(r["whole"] is None for r in res[1:])
+    tp = plan_kw.get("tp", 1)
+    dims = sp.tp_slices(cfg, tp)
+    fused = _fused_grads(cfg, jcfg)
+    for r in res:
+        want = dict(optim.leaves(shard_params(fused, dims, tp, r["coords"]["model"])))
+        got = dict(optim.leaves(r["grads"]))
+        assert set(got) == set(want)
+        for path, g in got.items():
+            np.testing.assert_allclose(g, want[path].numpy(), rtol=5e-4, atol=1e-5,
+                                       err_msg=f"{r['coords']} {path}")
+
+
+def test_moe_dp2_aux_terms_are_the_whole_batchs(pools):
+    """(c) At dp 2 phi3.5-moe's aux loss and drop fraction are the whole
+    batch's, from JAX's ``lm.loss_fn`` at the init parameters, on every
+    rank; the data ranks' cross entropy shares sum to the whole one."""
+    cfg, jcfg = _cfgs(MOE)
+    res = pools(2).run(tasks.train_cell, cfg, dict(dp=2), _state_np(jcfg),
+                       _batches(jcfg)[:1], OCFG, 1)
+    _, m = jlm.loss_fn(jcfg, _jstate(jcfg)[0].params, _batches(jcfg)[0])
+    for r in res:
+        got = r["metrics"][0]
+        np.testing.assert_allclose(got["aux_loss"], float(m["aux_loss"]), rtol=1e-5)
+        np.testing.assert_allclose(got["seg0_moe_drop_frac"],
+                                   float(m["seg0_moe_drop_frac"]), rtol=1e-6)
+        np.testing.assert_allclose(got["ce"], float(m["ce"]), rtol=2e-5)
+        np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_process_split_equals_the_fused_loss(arch):
+    """The split run in one process (every slice here, from the whole tree:
+    the reference the card's world cells are held to) gives the fused loss
+    and gradients (rtol 5e-5 / atol 1e-6)."""
+    cfg, jcfg = _cfgs(arch)
+    params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
+    for _, leaf in optim.leaves(params):
+        leaf.requires_grad_(True)
+    b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
+    loss, _ = lm.loss_fn(cfg, params, b, split=sp.make_split(cfg, 2))
+    got = grad_tree(params, loss)
+    np.testing.assert_allclose(float(loss), float(lm.loss_fn(cfg, params, b)[0]),
+                               rtol=5e-6)
+    want = dict(optim.leaves(_fused_grads(cfg, jcfg)))
+    for path, g in optim.leaves(got):
+        np.testing.assert_allclose(g.numpy(), want[path].numpy(), rtol=5e-5, atol=1e-6,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_shard_unshard_round_trips_bit_for_bit(arch):
+    """(d) ``shard_params`` then ``unshard_params`` give back the whole
+    tree, every leaf bit for bit; each slice is its share of the leaf."""
+    cfg, _ = _cfgs(arch)
+    tree = lm.init(cfg, seed=0, device="cpu")
+    dims = sp.tp_slices(cfg, 2)
+    shards = [shard_params(tree, dims, 2, r) for r in range(2)]
+    for path, d in dims.items():
+        whole = dict(optim.leaves(tree))[path]
+        for r, s in enumerate(shards):
+            part = dict(optim.leaves(s))[path]
+            assert part.shape[d] * 2 == whole.shape[d]
+            assert torch.equal(part, whole.chunk(2, d)[r])
+    back = unshard_params(shards, dims)
+    for (pa, a), (pb, b) in zip(optim.leaves(back), optim.leaves(tree)):
+        assert pa == pb and torch.equal(a, b)
+
+
+def _jax_shapes(jcfg) -> dict:
+    from repro.models.model import get_model as jget_model
+
+    tree = jax.eval_shape(lambda: jget_model(jcfg).init(jcfg, jax.random.PRNGKey(0)))
+    return {tuple(k.key for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_slices_follow_jax_model_axis_or_are_named(arch, smoke):
+    """(e) For every leaf the dim the port slices is the one JAX's
+    ``logical_to_spec`` puts on ``model`` under ``fsdp_cp`` on a
+    ``{data: 1, model: 2}`` mesh, or the leaf is kept whole and named in
+    ``KEPT_WHOLE`` (P19); the table names no leaf JAX keeps whole."""
+    cfg, jcfg = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
+    dims = sp.tp_slices(cfg, 2)
+    shapes = _jax_shapes(jcfg)
+    amesh = AbstractMesh((1, 2), ("data", "model"))
+    named = set()
+    for path, ax in sp._flat(jlm.param_axes(jcfg)):
+        spec = tuple(jsharding.logical_to_spec(ax, shapes[path], amesh, jprofiles.FSDP_CP))
+        theirs = [d for d, part in enumerate(spec)
+                  if part == "model" or (isinstance(part, tuple) and "model" in part)]
+        ours = [dims[path]] if path in dims else []
+        if ours == theirs:
+            continue
+        assert not ours, (path, ours, theirs)
+        keys = [k for k in sp.KEPT_WHOLE if path[-len(k):] == k]
+        assert keys, f"{path}: JAX slices dim {theirs}, the port keeps it whole unnamed"
+        named.update(keys)
+    assert named  # every family keeps at least its embedding whole
+    assert set(dims) <= set(shapes)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-7b",
+                                  "deepseek-v2-lite-16b"])
+def test_later_families_refuse_tp_naming_item_8c(arch):
+    """The encoder-decoder, M-RoPE and MLA at tp 2 raise naming ROADMAP item
+    8c, in the split and in the CLI's checks."""
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        sp.make_split(cfg, 2)
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        sp.validate(cfg, 2)
+    assert sp.unsupported(cfg, 1) is None
+
+
+def test_world_refusals_name_item_8c(pools):
+    """In a world of two ranks: tp 2 over the encoder-decoder and over
+    qwen2-vl, and int8 compression at tp 2, raise naming item 8c; a width
+    that does not divide raises a ``ValueError`` naming it."""
+    for arch, compress in (("seamless-m4t-large-v2", False), ("qwen2-vl-7b", False),
+                           ("qwen2-0.5b", True)):
+        msgs = pools(2).run(tasks.refusal, get_config(arch, smoke=True), dict(tp=2),
+                            compress)
+        assert all("item 8c" in m for m in msgs), (arch, msgs)
+    with pytest.raises(ValueError, match="experts=3 must divide by tp=2"):
+        cfg = get_config(MOE, smoke=True)
+        sp.validate(cfg.replace(moe=cfg.moe.__class__(**{
+            **cfg.moe.__dict__, "num_experts": 3})), 2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp2_checkpoint_resumes_in_one_process(pools, tmp_path, arch):
+    """``python -m repro_torch train --smoke --device cpu --set
+    parallel.tp=2`` runs (here on the pool's ranks, as under ``torchrun``);
+    its checkpoint is the whole tree in the single-process format, and one
+    process resumes from it."""
+    base = ["train", "--arch", arch, "--smoke", "--device", "cpu",
+            "--set", "train.seq_len=32", "--set", "train.global_batch=2",
+            "--modules", "none", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    two = pools(2).run(tasks.run_cli, [*base, "--steps", "2", "--set", "parallel.tp=2"])
+    assert [r["world"] for r in two] == [2, 2]
+    assert all(np.isfinite(h["loss"]) for h in two[0]["history"])
+    three = cli.run([*base, "--steps", "3"])
+    assert [h["step"] for h in three["history"]] == [3]
+    assert np.isfinite(three["history"][0]["loss"])
