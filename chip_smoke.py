@@ -271,7 +271,7 @@ Phases, each of which fails the run (non-zero exit) on error:
              median step, the peak memory per rank;
    parallel — data, tensor and stage parallelism through ``python -m
              repro_torch``'s entry point at qwen2-0.5b's full width and
-             depth, seq 2048, 3 steps, ranks spawned on the one card
+             depth, seq 2048, 2 steps, ranks spawned on the one card
              (gloo; one world of 2 ranks for dp 2 and tp 2 at batch 2 and
              pp 2 with each stage a process and MegaFBD's backward on the
              other stage's at batch 4 in 4 microbatches, one of 4 for pp 2
@@ -281,7 +281,14 @@ Phases, each of which fails the run (non-zero exit) on error:
              step limits, data replicas ending on the same weights, each
              rank's K1 and K2 launches exact, the backend gloo; the step
              medians beside the fused step's and the share of a step in
-             all-reduces;
+             all-reduces; then in the 2-rank world tp 2 over rwkv6-3b,
+             recurrentgemma-9b at its vocabulary of 256000, phi3.5-moe
+             and qwen2-vl-7b (through ``make_train_step`` on patch-grid
+             batches), and dp 2 over phi3.5-moe, at full width with the
+             depth cut, each held the same way; at tp 2 every rank holds
+             half of the vocabulary (the embedding's rows, the head's
+             columns); rank 0's peak and the card's used memory logged at
+             each reference;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -5241,12 +5248,12 @@ def _in_float64(fn):
     return call
 
 
-def _leaf_norms(grads: dict, mixer: str | tuple[str, ...]) -> dict:
+def _leaf_norms(grads: dict, mixer: str | tuple[str, ...], also: tuple = ()) -> dict:
     """Per layer, the gradient norm of every leaf of the token mixer
     (``mixer``: attention, time mix or Griffin's mix; several names, as the
-    encoder-decoder's ``attn`` and ``cross``) and of every norm scale;
-    layer-stacked leaves (segments, the encoder's and decoder's) carry the
-    layer on axis 0."""
+    encoder-decoder's ``attn`` and ``cross``), of every norm scale and of
+    the top-level leaves named in ``also``; layer-stacked leaves (segments,
+    the encoder's and decoder's) carry the layer on axis 0."""
     from repro_torch.train.optim import leaves
 
     mixers = (mixer,) if isinstance(mixer, str) else mixer
@@ -5254,7 +5261,7 @@ def _leaf_norms(grads: dict, mixer: str | tuple[str, ...]) -> dict:
     return {".".join(path): (g.float().flatten(1).norm(dim=1)
                              if stacked(path[0]) else g.float().norm())
             for path, g in leaves(grads)
-            if any(m in path for m in mixers) or path[-1] == "scale"}
+            if any(m in path for m in mixers) or path[-1] == "scale" or path in also}
 
 
 def _loss_split(torch, dev, cfg, params, batch, base: float, probe: tuple, tag: str,
@@ -5426,6 +5433,12 @@ def _counted_session(torch, argv: list[str], modules: tuple, model_cfg=None):
             torch.cuda.max_memory_allocated())
 
 
+def _what(job: dict) -> str:
+    """A world job, for the log: its ``what``, or its command line's arch
+    and the arguments past the shape."""
+    return job.get("what") or f"{' '.join(job['argv'][1:3])} {' '.join(job['argv'][11:])}"
+
+
 def _world(jobs: list[dict], nprocs: int, tag: str) -> list[list[dict]]:
     """Spawn ``nprocs`` ranks on the card that run ``jobs`` in turn
     (:func:`_world_rank`); for each job, every rank's row in rank order."""
@@ -5446,8 +5459,7 @@ def _world(jobs: list[dict], nprocs: int, tag: str) -> list[list[dict]]:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     log(f"[{tag}] a world of {nprocs} ranks: {len(jobs)} runs in "
         f"{time.perf_counter() - t0:.1f} s, spawning included; rank 0's runs: " + ", ".join(
-            f"{' '.join(j['argv'][1:3])} {' '.join(j['argv'][11:])} {r['wall_s']:.1f} s"
-            for j, r in zip(jobs, per_rank[0])))
+            f"{_what(j)} {r['wall_s']:.1f} s" for j, r in zip(jobs, per_rank[0])))
     for rank, r in enumerate(per_rank):
         log(f"[{tag}] rank {rank}'s first calls: " + ", ".join(
             f"{k} {1e3 * v:.1f} ms" for k, v in r[0]["first_calls"].items())
@@ -5462,7 +5474,8 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
     """One rank of a world spawned for ``jobs``: each job's command line
     (``argv``, with ``model_cfg`` if given) through a ``Session`` in this
     rank's world, as ``python -m repro_torch`` runs it under ``torchrun``,
-    with the kernels of ``kernels`` counted from 0 and
+    or a job's ``plan`` through :func:`_embeds_steps` (``model_cfg`` at
+    ``shape``), with the kernels of ``kernels`` counted from 0 and
     :class:`_StepRecorder` on (``check``: each step's reference).  The
     master of a job with ``keep`` is kept for the next job with
     ``compare``, which lists the leaves of its own master that differ."""
@@ -5473,6 +5486,7 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.app.cli import parse
     from repro_torch.app.session import Session
+    from repro_torch.parallel import dist as pdist
     from repro_torch.train.optim import leaves
 
     out, kept = [], None
@@ -5483,20 +5497,25 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
         for m in mods:
             m.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        _, rc = parse(job["argv"])
         with _StepRecorder(check=job.get("check", False), first=not out,
                            mixer=job.get("mixer", "attn"), pin=job.get("pin", False)) as rec:
-            session = Session(rc, model_cfg=job.get("model_cfg"))
-            state, history = session.run()
+            if "plan" in job:
+                state, history, info = _embeds_steps(torch, job["model_cfg"], job["shape"],
+                                                     job["plan"])
+                session, res = None, {"parallel": {"coords": info.coords,
+                                                   "backend": pdist.world().backend}}
+            else:
+                session = Session(parse(job["argv"])[1], model_cfg=job.get("model_cfg"))
+                state, history = session.run()
+                res = session.results
         torch.cuda.synchronize()
-        res = session.results
         row = {"history": history, "coords": res["parallel"]["coords"],
                "backend": res["parallel"]["backend"],
                "launches": {k: v for m in mods for k, v in m.launches.items()},
                "peak": rec.peak if job.get("check") else torch.cuda.max_memory_allocated(),
                "sync_s": rec.sync_s,
                "check_s": rec.check_s, "norms": rec.norms, "refs": rec.refs,
-               "flips": rec.flips,
+               "flips": rec.flips, "ref_mem": rec.ref_mem,
                "step_losses": rec.losses,
                "first_calls": warm, "first_profile": rec.first_profile,
                "digest": {".".join(p): (t.double().sum().item(),
@@ -5862,11 +5881,14 @@ def pipeline_phase(torch, dev, smi: str, tag: str = "pipeline", also: tuple = ()
 # ------------------------------- data, tensor and stage parallelism (item 8b)
 
 # qwen2-0.5b at full width and all 24 layers in worlds of ranks spawned on
-# the one card (gloo: the ranks share it), 3 steps at seq 2048 (past
+# the one card (gloo: the ranks share it), 2 steps at seq 2048 (past
 # attn_kv_chunk: K2 runs) from the parameters of seed 0: dp 2 and tp 2 at
 # batch 2, the pipelines at batch 4 in 4 microbatches of a row (two a dp
-# group in pp 2 x dp 2), so that 1f1b reaches its steady state
-PAR_SHAPE = dict(seq_len=2048, global_batch=2, steps=3, seed=0)
+# group in pp 2 x dp 2), so that 1f1b reaches its steady state.  3 steps
+# until the vocabulary split's two world cells took their time back
+# (ROADMAP P16): the second step still runs the optimizer's update and
+# its reference
+PAR_SHAPE = dict(seq_len=2048, global_batch=2, steps=2, seed=0)
 PAR_PIPE_BATCH = 4
 PAR_CELLS = (
     ("dp2", dict(dp=2), ["--set", "parallel.dp=2"]),
@@ -5880,32 +5902,32 @@ PAR_CELLS = (
 
 
 # the other families in the same 2-rank world (item 8c): tp 2 over RWKV-6,
-# Griffin and MoE blocks and dp 2 over MoE layers, at full width with the
-# depth cut, 2 steps at seq 2048 x batch 2 (one row a data rank), bf16,
-# remat full, seed 0.  Two ranks share the card beside rank 0's reference,
-# and the split keeps the embedding and the head whole on every rank
-# (ROADMAP P19); train state is 14 bytes a parameter (bf16 copy, float32
-# master and moments): rwkv6-3b at 4 of 32 layers (~7 GB a rank: its 335M
-# embedding and head, half of 4 layers); phi3.5-moe at 1 of 32 (~13 GB a
-# rank at tp 2; ~22 GB a rank at dp 2, whose ranks hold all 1.56B
-# parameters, ~33 GB at the float32 sum of their gradient); Griffin at 3
-# of 38, one (rec, rec, attn) group, with its vocabulary cut from 256000
-# to 32768: its untied embedding and head are 2.1B parameters at full
-# vocabulary, 34.6 GB a rank before the first step (measured), which two
-# ranks and their steps' cross-entropy and AdamW buffers overrun 80 GB at
-# any depth; at 32768 a rank holds ~8 GB.  That is a cut of width, not of
-# depth: it goes when the split slices the vocabulary over ``model`` as
-# JAX does (ROADMAP item 8c).  Every block runs at full width.
+# Griffin, MoE and M-RoPE blocks and dp 2 over MoE layers, at full width
+# with the depth cut, 2 steps at seq 2048 x batch 2 (one row a data rank),
+# bf16, remat full, seed 0.  Two ranks share the card beside rank 0's
+# reference; at tp 2 each rank holds half of the vocabulary's rows (the
+# embedding) and columns (the head).  Train state is 14 bytes a parameter
+# (bf16 copy, float32 master and moments): rwkv6-3b at 4 of 32 layers
+# (~5 GB a rank: half of its 335M embedding and head, half of 4
+# layers); phi3.5-moe at 1 of 32 (~11 GB a rank at tp 2; ~22 GB a rank at
+# dp 2, whose ranks hold all 1.56B parameters, ~33 GB at the float32 sum
+# of their gradient); Griffin at 3 of 38, one (rec, rec, attn) group, at
+# its full vocabulary of 256000 (an untied embedding and head of 2.1B
+# parameters, 1.05B a rank: ~18.5 GB a rank with half of the 3 layers);
+# qwen2-vl-7b at 2 of 28 layers on patch-grid batches through
+# ``make_train_step`` (the loop refuses an embeds arch: ROADMAP R8; ~11 GB
+# a rank).  Every block and the vocabulary run at full width.
 FAMILY_SHAPE = dict(seq_len=2048, global_batch=2, steps=2, seed=0)
-GRIFFIN_WORLD_VOCAB = 32768
 FAMILY_CELLS = (
     ("tp2-rwkv6", dict(tp=2, arch="rwkv6-3b", layers=4), ["--set", "parallel.tp=2"]),
-    ("tp2-griffin", dict(tp=2, arch="recurrentgemma-9b", layers=3,
-                         vocab=GRIFFIN_WORLD_VOCAB), ["--set", "parallel.tp=2"]),
+    ("tp2-griffin", dict(tp=2, arch="recurrentgemma-9b", layers=3),
+     ["--set", "parallel.tp=2"]),
     ("tp2-phi35moe", dict(tp=2, arch="phi3.5-moe-42b-a6.6b", layers=1),
      ["--set", "parallel.tp=2"]),
     ("dp2-phi35moe", dict(dp=2, arch="phi3.5-moe-42b-a6.6b", layers=1),
      ["--set", "parallel.dp=2"]),
+    # no command line: make_train_step on patch-grid batches (_embeds_steps)
+    ("tp2-qwen2vl", dict(tp=2, arch="qwen2-vl-7b", layers=2), None),
 )
 # each family's kernels, the token mixer its leaf norms read, and the step
 # check's limits
@@ -5923,13 +5945,55 @@ FAMILY = {
 
 def _cell_cfg(cell: dict):
     """A cell's model: qwen2-0.5b whole, or its ``arch`` cut to its
-    ``layers`` (and its ``vocab`` where the cell names one)."""
+    ``layers``."""
     from repro_torch.configs import get_config
 
     if "arch" not in cell:
         return get_config("qwen2-0.5b")
-    cfg = get_config(cell["arch"]).replace(num_layers=cell["layers"])
-    return cfg.replace(vocab_size=cell["vocab"]) if "vocab" in cell else cfg
+    return get_config(cell["arch"]).replace(num_layers=cell["layers"])
+
+
+def _embeds_steps(torch, cfg, shape: dict, plan_kw: dict | None = None,
+                  device: str = "cuda") -> tuple:
+    """``shape["steps"]`` steps of ``make_train_step`` on
+    :func:`_patch_grid_batch` batches (seed ``shape["seed"]`` plus the
+    step's index) from the seed-0 master at the CLI's optimizer defaults:
+    an embeds arch, which the loop refuses (ROADMAP R8).  With ``plan_kw``
+    the step of that plan on this rank's world, its part of the state cut
+    from the whole master as the loop cuts it; else the fused step on
+    ``device``.
+    Returns ``(state, history, the step's parallel info or None)``, history
+    rows as the loop's."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models.model import get_model
+    from repro_torch.parallel import dist as pdist
+    from repro_torch.parallel.plan import ParallelPlan, resolve_plan
+    from repro_torch.train import loop
+    from repro_torch.train.train_step import init_train_state
+
+    _, ocfg = _train_setup(cfg, shape)
+    if plan_kw:
+        plan = resolve_plan(ParallelPlan(**plan_kw))
+        step = loop.make_train_step(cfg, ocfg, plan=plan,
+                                    mesh=make_pipeline_mesh(plan.pp, plan.dp, plan.tp))
+        dev = pdist.world().device
+        state = step.parallel.local_state(get_model(cfg).init(cfg, seed=0, device=dev))
+    else:
+        step = loop.make_train_step(cfg, ocfg)
+        dev = torch.device(device)
+        state = init_train_state(cfg, seed=0, device=dev)
+    history = []
+    for i in range(shape["steps"]):
+        batch = _patch_grid_batch(torch, cfg, shape["global_batch"], shape["seq_len"],
+                                  shape["seed"] + i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        history.append(dict(step=i + 1, loss=loss, lr=float(met["lr"]),
+                            grad_norm=float(met["grad_norm"]),
+                            step_s=time.perf_counter() - t0))
+    return state, history, getattr(step, "parallel", None)
 
 
 def _par_shape(cell: dict) -> dict:
@@ -5943,15 +6007,19 @@ class _StepRecorder:
     """On a rank of a world: the time of the world's all-reduces (between two
     synchronisations of the card, which the tensor split's many small ones
     slow a little), and each step's per-layer leaf gradient norms, squared
-    (:func:`_leaf_norms`' leaves of ``mixer``, at AdamW's entry, after the
-    sums over the data ranks), of this rank's part.  With ``check``, each
+    (:func:`_leaf_norms`' leaves of ``mixer``, and the embedding and the
+    head that reach the loss, at AdamW's entry, after the sums over the
+    data ranks), of this rank's part.  With ``check``, each
     step's reference: before the step every rank sends rank 0 its part of
     the compute-dtype parameters (the step info's ``gather``), rank 0 takes
     the fused one-process loss and gradients of the step's whole batch from
     them through the kernels (their launches kept out of the counts), and
     the ranks meet at a barrier; ``check_s`` is the time that took on this
     rank, inside the step's time, and ``peak`` the rank's peak memory over
-    its steps, the reference's left out.  With ``pin`` (MoE) the reference
+    its steps, the reference's left out (``ref_mem``: rank 0's peak over
+    each reference, beside the card's used memory as ``nvidia-smi`` reads
+    it just after, before the ranks hand back what they freed).  With
+    ``pin`` (MoE) the reference
     comes after the step, from the parameters gathered before it (kept in
     host memory meanwhile), routed as the step routed (the data ranks'
     picks sent to rank 0: :class:`_PinnedRouting`), and each of its runs'
@@ -5975,14 +6043,16 @@ class _StepRecorder:
         from repro_torch.train import train_step as ts
 
         self.norms, self.refs, self.check_s, self.sync_s, self.peak = [], [], [], 0.0, 0
+        self.ref_mem = []  # rank 0's (peak over a reference, the card's used memory)
+        self.vocab = ()    # the top-level leaves whose norms are held beside the mixer's
         self.losses = []  # with check: each step's own loss, beside its reference
         self.flips = []   # with pin: each reference run's (flips, routings) a step
         self.first_profile = None if self.first else ""
         self._undo = []
 
         def adamw(ocfg, grads, *a, _real=ts.adamw_update, **kw):
-            self.norms.append({k: v.double().square().cpu()
-                               for k, v in _leaf_norms(grads, self.mixer).items()})
+            self.norms.append({k: v.double().square().cpu() for k, v in
+                               _leaf_norms(grads, self.mixer, self.vocab).items()})
             return _real(ocfg, grads, *a, **kw)
 
         def timed(fn):
@@ -5995,16 +6065,19 @@ class _StepRecorder:
                 return out
             return call
 
-        def reference(cfg, params: dict, batch: dict, tp: int, picks=None) -> tuple:
+        def reference(cfg, box: list, batch: dict, tp: int, picks=None) -> tuple:
             # the fused step through the kernels; under tp also the plain
             # versions, and the package's split run in one process (every
             # slice here, its float32 parts summed: the fused arithmetic
-            # with the split's order of sums); at the first step under tp
+            # with the split's order of sums, but for the cross entropy's
+            # dy, one product over the slices); at the first step under tp
             # also the fused and the split steps in float32 (the plain
             # versions: the kernels take bf16), which tell a leaf whose
-            # bf16 gradient is rounding noise
+            # bf16 gradient is rounding noise.  ``box`` holds the gathered
+            # parameters, dropped once the float32 runs have their copy
             saved = [(m, dict(m.launches)) for m in (flash_attention, rglru, rmsnorm, wkv6)]
-            params = ts.tree_map(lambda t: t.detach().requires_grad_(True), params)
+            torch.cuda.reset_peak_memory_stats()
+            params = ts.tree_map(lambda t: t.detach().requires_grad_(True), box.pop())
             dev = next(iter(ts.leaves(params)))[1].device
             batch = ts.to_device_batch(batch, dev)
             out, flips = [], []
@@ -6014,8 +6087,11 @@ class _StepRecorder:
             for run in runs:
                 f32 = run.endswith("32")
                 c = cfg.replace(compute_dtype="float32") if f32 else cfg
-                ps = (ts.tree_map(lambda t: t.detach().float().requires_grad_(True), params)
-                      if f32 else params)
+                if f32 and next(iter(ts.leaves(params)))[1].dtype != torch.float32:
+                    # one float32 copy for both float32 runs, the bf16 one dropped
+                    params = ts.tree_map(
+                        lambda t: t.detach().float().requires_grad_(True), params)
+                ps = params
                 pin = _PinnedRouting() if picks is not None else contextlib.nullcontext()
                 with pin:
                     if picks is not None:
@@ -6028,10 +6104,15 @@ class _StepRecorder:
                 if picks is not None:
                     flips.append((pin.flips, pin.routings))
                 out.append((loss.item(), ts.global_norm(grads).item(),
-                            {k: v.cpu() for k, v in _leaf_norms(grads, self.mixer).items()}))
+                            {k: v.cpu() for k, v in
+                             _leaf_norms(grads, self.mixer, self.vocab).items()}))
                 del loss, grads, ps
             for m, counts in saved:
                 m.launches.update(counts)
+            used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout.strip()
+            self.ref_mem.append((torch.cuda.max_memory_allocated(), used))
             if picks is not None:
                 self.flips.append(flips)
             return tuple(out)
@@ -6054,6 +6135,8 @@ class _StepRecorder:
 
         def make(cfg, *a, _real=loop.make_train_step, **kw):
             step = _real(cfg, *a, **kw)
+            self.vocab = tuple(k for k in (("embedding",), ("unembed",))
+                               if k not in ts.unused_leaves(cfg))
 
             def checked(state, *rest):  # (batch) or, compressed, (err, batch)
                 batch = rest[-1]
@@ -6069,7 +6152,8 @@ class _StepRecorder:
                     if whole is not None and self.pin:  # host memory, during the step
                         whole = ts.tree_map(lambda t: t.detach().cpu(), whole)
                     elif whole is not None:
-                        self.refs.append(reference(cfg, whole, batch, info.plan.tp))
+                        box, whole = [whole], None
+                        self.refs.append(reference(cfg, box, batch, info.plan.tp))
                         whole = None
                         torch.cuda.empty_cache()
                     dist.barrier()
@@ -6098,7 +6182,8 @@ class _StepRecorder:
                     picks = picks_on_rank0(pin.picks, info)
                     if whole is not None:
                         whole = ts.tree_map(lambda t: t.to(pdist.world().device), whole)
-                        self.refs.append(reference(cfg, whole, batch, info.plan.tp, picks))
+                        box, whole = [whole], None
+                        self.refs.append(reference(cfg, box, batch, info.plan.tp, picks))
                     del whole, picks
                     torch.cuda.empty_cache()
                     dist.barrier()
@@ -6132,7 +6217,7 @@ def _whole_norms(torch, cfg, cell: dict, ranks: list[dict], k: int) -> dict:
     from repro_torch.models.split import tp_slices
 
     pp, tp = cell.get("pp", 1), cell.get("tp", 1)
-    sliced = {".".join(p) for p in tp_slices(cfg, tp)}
+    sliced = {".".join(p) for p in tp_slices(cfg, tp, pp)}
     if pp > 1:
         layout = pipeline_layout(cfg, pp, 1, tp=tp)
         g = layout.groups_per_cell
@@ -6161,17 +6246,24 @@ def _size(cell: dict) -> int:
 def _parallel_jobs() -> dict[int, list]:
     """``{world size: [(name, cell, job)]}`` of :data:`PAR_CELLS` and
     :data:`FAMILY_CELLS`, the jobs :func:`_world_rank` runs, each step
-    checked (MoE's routing pinned: ``pin``)."""
+    checked (MoE's routing pinned: ``pin``); a cell without a command line
+    runs :func:`_embeds_steps` with its plan (``plan``)."""
     out: dict[int, list] = {}
     for name, cell, extra in (*PAR_CELLS, *FAMILY_CELLS):
         cfg = _cell_cfg(cell)
         kernels, mixer, _ = FAMILY[cfg.family]
-        argv = [*_train_argv(_par_shape(cell)), "--modules", "none", *extra]
-        job = dict(argv=argv, kernels=kernels, mixer=mixer, check=True,
-                   pin=cfg.family == "moe")
-        if "arch" in cell:
-            argv[2] = cell["arch"]
-            job["model_cfg"] = cfg
+        job = dict(kernels=kernels, mixer=mixer, check=True, pin=cfg.family == "moe")
+        if extra is None:
+            plan = {k: cell[k] for k in ("dp", "tp") if k in cell}
+            job.update(plan=plan, shape=_par_shape(cell), model_cfg=cfg,
+                       what=f"make_train_step {cfg.name} at {cfg.num_layers} layers, "
+                            f"{plan}, patch-grid batches")
+        else:
+            argv = [*_train_argv(_par_shape(cell)), "--modules", "none", *extra]
+            job["argv"] = argv
+            if "arch" in cell:
+                argv[2] = cell["arch"]
+                job["model_cfg"] = cfg
         out.setdefault(_size(cell), []).append((name, cell, job))
     return dict(sorted(out.items()))
 
@@ -6226,12 +6318,15 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
     (b) tp 2 (K2 at H 7, K 1 a rank), (c) pp 2 with each stage a process,
     1f1b, MegaFBD's backward on the other stage's process, (d) pp 2 x dp
     2, on qwen2-0.5b; then the other families (:data:`FAMILY_CELLS`): tp 2
-    over rwkv6-3b (K5 at H 20 a rank), recurrentgemma-9b (K6 at W 2048, K2
-    at H 8, K 1, dh 256 a rank) and phi3.5-moe (8 experts a rank), and dp 2
-    over phi3.5-moe.  Every step is held at its family's step limits to the
-    fused one-process step from the same parameters
-    (:class:`_StepRecorder`'s reference): loss, gradient norm and
-    per-layer leaf gradient norms; a tp cell's against the fused step with
+    over rwkv6-3b (K5 at H 20 a rank), recurrentgemma-9b at its vocabulary
+    of 256000 (K6 at W 2048, K2 at H 8, K 1, dh 256 a rank), phi3.5-moe (8
+    experts a rank) and qwen2-vl-7b (M-RoPE on patch-grid batches, through
+    ``make_train_step``: K2 at H 14, K 2, dh 128 a rank), and dp 2 over
+    phi3.5-moe.  At tp 2 each rank holds its half of the vocabulary.
+    Every step is held at its family's step limits to the fused
+    one-process step from the same parameters (:class:`_StepRecorder`'s
+    reference): loss, gradient norm, per-layer leaf gradient norms and
+    those of the embedding and the head; a tp cell's against the fused step with
     the split's order of sums at every step and the unsplit one at the
     first; a MoE cell's reference routed as its step (flips held to
     ``MOE_FLIP_SHARE``).  Each rank's kernel launches must be exact, and
@@ -6251,8 +6346,8 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
     done = done or {}
     cells = (*PAR_CELLS, *FAMILY_CELLS)
     fused = {}
-    for cell in {(c.get("arch"), c.get("layers"), _par_shape(c)["global_batch"]): c
-                 for _, c, _ in cells}.values():
+    for cell, extra in {(c.get("arch"), c.get("layers"), _par_shape(c)["global_batch"]):
+                        (c, x) for _, c, x in cells}.values():
         cfg, shape = _cell_cfg(cell), _par_shape(cell)
         key = (cell.get("arch"), shape["global_batch"])
         mods = [importlib.import_module(f"repro_torch.kernels.{k}")
@@ -6261,9 +6356,12 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
         for m in mods:
             m.reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        argv = [*_train_argv(shape), "--modules", "none"]
-        argv[2] = cfg.name
-        _, (state, hist) = _session(argv, cfg if "arch" in cell else None)
+        if extra is None:  # an embeds arch: make_train_step, as its world cell
+            state, hist, _ = _embeds_steps(torch, cfg, shape)
+        else:
+            argv = [*_train_argv(shape), "--modules", "none"]
+            argv[2] = cfg.name
+            _, (state, hist) = _session(argv, cfg if "arch" in cell else None)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         del state
@@ -6279,7 +6377,8 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
     runs = {}
     for world, jobs in _parallel_jobs().items():
         for n, _, job in jobs:
-            log(f"[{tag}] {n}: python -m repro_torch {' '.join(job['argv'])}")
+            log(f"[{tag}] {n}: " + (f"python -m repro_torch {' '.join(job['argv'])}"
+                                    if "argv" in job else job["what"]))
         rows = done[world] if world in done else _world([j for _, _, j in jobs], world, tag)
         for (n, _, _), ranks in zip(jobs, rows):
             runs[n] = ranks
@@ -6379,6 +6478,9 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
             f"({1e3 * ranks[0]['sync_s']:.1f} of {1e3 * busy:.1f} ms); launches per rank "
             + "; ".join(f"{r['coords']}: {r['launches']}" for r in ranks)
             + f"; peak per rank {[r['peak'] for r in ranks]} B ({smi})")
+        log(f"[{tag}] {name}: wall {ranks[0]['wall_s']:.1f} s on rank 0; rank 0's peak over "
+            "each step's reference, the card's memory used (nvidia-smi) just after: "
+            + "; ".join(f"{p} B, {used}" for p, used in ranks[0]["ref_mem"]))
         if not ok:
             raise AssertionError(f"{tag} {name}: the parallel step disagrees with the fused one")
 

@@ -52,7 +52,8 @@ class ParallelSection:
 
     ``pp * dp * tp > 1`` trains in a world of that many ranks (spawned by
     ``Session``, or ``torchrun``'s): ``dp`` splits the batch, ``tp`` runs
-    Megatron's split of dense GQA blocks, and ``pp > 1`` routes the block
+    Megatron's tensor split (``models.split``: the blocks and, at pp = 1,
+    the vocabulary of the embedding and the head), and ``pp > 1`` routes the block
     stack through the MegaDPP pipeline executor, each stage a process
     (on the card, or the CPU with ``--device cpu``); ``schedule`` picks the traversal
     (``1f1b``/``dfc``/``bfc``/``wave``), ``n_micro`` the microbatches a step

@@ -870,9 +870,27 @@ def embed_init(b: ParamBuilder, cfg: ModelConfig) -> None:
                  fan_in=cfg.d_model)
 
 
+def _in_slice(ids: torch.Tensor, lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ids``' places in the vocabulary slice ``[lo, hi)``: the local index
+    (0 outside the slice) and whether each id falls in it."""
+    ok = (ids >= lo) & (ids < hi)
+    return torch.where(ok, ids - lo, 0), ok
+
+
 def embed_apply(p: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    x = p["embedding"][tokens].to(dtype)
+                dtype: torch.dtype, split=WHOLE) -> torch.Tensor:
+    """The token embeddings, scaled by ``scale_emb``.  Under a tensor
+    ``split`` each slice gathers the rows of the tokens in its vocabulary
+    range and zeros for the rest, and the slices' parts are summed (one is
+    nonzero: exact); a slice's gradient is its own tokens' rows."""
+    def rows(t: int) -> torch.Tensor:
+        w = split.cut(p["embedding"], 0, t)
+        if not split.tensor:
+            return w[tokens]
+        local, ok = _in_slice(tokens, *split.vocab_range(cfg, t))
+        return w[local].masked_fill(~ok[..., None], 0)
+
+    x = split.sum(rows).to(dtype)
     if cfg.scale_emb != 1.0:
         x = x * cfg.scale_emb
     return x
@@ -916,61 +934,103 @@ class _ChunkedCE(torch.autograd.Function):
     mask`` chunk by chunk over the sequence; the backward recomputes each
     chunk's logits, takes the analytic softmax gradient and rounds ``dlog``
     to the weight dtype before its two products, so ``dy`` and ``dw`` leave
-    in the model dtype.  Never materialises ``[B, S, V]``."""
+    in the model dtype.  Never materialises ``[B, S, V]``.
+
+    Under a tensor ``split`` (Megatron's vocab-parallel cross entropy) ``w``
+    is this rank's columns (the whole matrix without a group: every slice
+    here) and each slice's logits stay local: a row's ``lse`` is the max
+    over the slices (:meth:`Split.max`) plus the log of the summed
+    exponentials, its target logit the owning slice's; the forward keeps
+    each chunk's ``lse``, so the backward's ``prob = exp(l - lse)`` is
+    local, the ``-1`` goes on the owning slice and ``dw`` stays the
+    slice's.  In a world each rank's float32 partial product of ``dy`` is
+    summed over the ranks and rounded once; without a group the slices'
+    ``dlog`` lie side by side and ``dy`` is one product, rounded once, as
+    the fused step's (a float32 sum of the slices' products moves a
+    gradient by its own rounding noise, which the one-process split is held
+    below).  At tp 1 this is the fused arithmetic."""
 
     @staticmethod
-    def forward(ctx, y, w, t, m, nchunks, c, vocab_real):
-        ctx.save_for_backward(y, w, t, m)
-        ctx.shape = (nchunks, c, vocab_real)
+    def forward(ctx, y, w, t, m, nchunks, c, cfg, split):
+        ctx.shape = (nchunks, c, cfg, split)
         total = torch.zeros((), dtype=torch.float32, device=y.device)
+        lses = []
         for i in range(nchunks):
             sl = slice(i * c, (i + 1) * c)
-            logits = _ce_logits(y[:, sl], w, vocab_real)
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1, t[:, sl, None].long())[..., 0]
+            logits = {s: _ce_logits(y[:, sl], w, cfg, split, s) for s in split.slices}
+            if split.tensor:
+                mx = split.max(lambda s: logits[s].amax(-1))
+                lse = mx + torch.log(split.sum(
+                    lambda s: torch.exp(logits[s] - mx[..., None]).sum(-1)))
+                lses.append(lse)
+            else:
+                lse = torch.logsumexp(logits[0], dim=-1)
+
+            def target(s: int) -> torch.Tensor:
+                local, ok = _in_slice(t[:, sl].long(), *split.vocab_range(cfg, s))
+                return torch.where(ok, torch.gather(logits[s], -1, local[..., None])[..., 0],
+                                   0.0)
+
+            tgt = split.sum(target)
             total = total + ((lse - tgt) * m[:, sl]).sum()
+        ctx.save_for_backward(y, w, t, m, *lses)
         return total, m.sum()
 
     @staticmethod
     def backward(ctx, g_total, _g_count):
-        y, w, t, m = ctx.saved_tensors
-        nchunks, c, vocab_real = ctx.shape
+        y, w, t, m, *lses = ctx.saved_tensors
+        nchunks, c, cfg, split = ctx.shape
         g = g_total.float()
         B, _, D = y.shape
-        dy_chunks, dw = [], None
+        dy_chunks, dw = [], {}
         for i in range(nchunks):
             sl = slice(i * c, (i + 1) * c)
             yc = y[:, sl]
-            prob = torch.softmax(_ce_logits(yc, w, vocab_real), dim=-1)
-            prob.scatter_add_(-1, t[:, sl, None].long(),
-                              torch.full_like(prob[..., :1], -1.0))
-            dlog = (prob * (m[:, sl] * g)[..., None]).to(w.dtype)
-            dlog2 = dlog.reshape(-1, dlog.shape[-1])
-            dy_chunks.append(_mm_f32(dlog2, w.t()).reshape(B, -1, D).to(y.dtype))
-            dw_c = _mm_f32(yc.reshape(-1, D).t(), dlog2)
-            if dw is None:
-                dw = dw_c
-            else:  # in place: two float32 [D, V] buffers alive, not three
-                dw.add_(dw_c)
-            del dw_c
-        return (torch.cat(dy_chunks, dim=1), dw.to(w.dtype), None, None, None,
-                None, None)
+            dlogs = {}
+            for s in split.slices:
+                logits = _ce_logits(yc, w, cfg, split, s)
+                prob = (torch.exp(logits - lses[i][..., None]) if split.tensor
+                        else torch.softmax(logits, dim=-1))
+                local, ok = _in_slice(t[:, sl].long(), *split.vocab_range(cfg, s))
+                prob.scatter_add_(-1, local[..., None], -ok[..., None].float())
+                dlog = (prob * (m[:, sl] * g)[..., None]).to(w.dtype)
+                dlogs[s] = dlog.reshape(-1, dlog.shape[-1])
+                dw_c = _mm_f32(yc.reshape(-1, D).t(), dlogs[s])
+                if s not in dw:
+                    dw[s] = dw_c
+                else:  # in place: two float32 [D, V] buffers alive, not three
+                    dw[s].add_(dw_c)
+                del dw_c
+            if split.group is None:  # every slice here: one product over them all
+                dy = _mm_f32(torch.cat([dlogs[s] for s in split.slices], 1)
+                             if split.tensor else dlogs[0], w.t())
+            else:  # this rank's float32 partial product, summed over the ranks
+                dy = split.sum(lambda s: _mm_f32(dlogs[s], w.t()))
+            dy_chunks.append(dy.reshape(B, -1, D).to(y.dtype))
+        dw = [dw.pop(s).to(w.dtype) for s in split.slices]
+        return (torch.cat(dy_chunks, dim=1), dw[0] if len(dw) == 1 else torch.cat(dw, 1),
+                None, None, None, None, None, None)
 
 
-def _ce_logits(yc: torch.Tensor, w: torch.Tensor, vocab_real: int) -> torch.Tensor:
+def _ce_logits(yc: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, split,
+               s: int) -> torch.Tensor:
+    """Slice ``s``'s float32 logits of the chunk ``yc``, the padded columns
+    (by their index in the whole vocabulary) masked to ``BIG_NEG``."""
     B, c, D = yc.shape
-    logits = _mm_f32(yc.reshape(B * c, D), w).reshape(B, c, -1)
-    if logits.shape[-1] != vocab_real:
-        col = torch.arange(logits.shape[-1], device=logits.device)
-        logits = logits.masked_fill(col >= vocab_real, BIG_NEG)
+    logits = _mm_f32(yc.reshape(B * c, D), split.cut(w, 1, s)).reshape(B, c, -1)
+    lo, hi = split.vocab_range(cfg, s)
+    if hi > cfg.vocab_size:
+        col = torch.arange(lo, hi, device=logits.device)
+        logits = logits.masked_fill(col >= cfg.vocab_size, BIG_NEG)
     return logits
 
 
 def chunked_xent(p: dict, cfg: ModelConfig, y: torch.Tensor,
-                 targets: torch.Tensor, loss_mask: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 targets: torch.Tensor, loss_mask: torch.Tensor | None = None,
+                 split=WHOLE) -> tuple[torch.Tensor, torch.Tensor]:
     """Sequence-chunked cross entropy over the (tied or separate) unembed;
-    returns ``(sum_loss, sum_count)`` in float32."""
+    returns ``(sum_loss, sum_count)`` in float32.  Under a tensor ``split``
+    the vocabulary is sliced over the tensor ranks (:class:`_ChunkedCE`)."""
     B, S, _ = y.shape
     w = _unembed_matrix(p, cfg, y.dtype)
     if cfg.dim_model_base:
@@ -980,4 +1040,4 @@ def chunked_xent(p: dict, cfg: ModelConfig, y: torch.Tensor,
     c = S // nchunks
     mask = (loss_mask.float() if loss_mask is not None
             else torch.ones((B, S), dtype=torch.float32, device=y.device))
-    return _ChunkedCE.apply(y, w, targets, mask, nchunks, c, cfg.vocab_size)
+    return _ChunkedCE.apply(y, w, targets, mask, nchunks, c, cfg, split)

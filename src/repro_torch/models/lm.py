@@ -349,13 +349,15 @@ def _dots_contexts():
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor | None,
-                  embeds: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
-    """The token embeddings, or for an embeds arch the given ``embeds`` in
-    the compute dtype, scaled by ``scale_emb`` (JAX ``_embed_inputs``)."""
+                  embeds: torch.Tensor | None, dtype: torch.dtype,
+                  split: Split | None = None) -> torch.Tensor:
+    """The token embeddings (over the vocabulary slices of a tensor
+    ``split``), or for an embeds arch the given ``embeds`` in the compute
+    dtype, whole, scaled by ``scale_emb`` (JAX ``_embed_inputs``)."""
     if cfg.input_kind == "tokens":
         if tokens is None:
             raise ValueError(f"{cfg.name} takes token ids")
-        return L.embed_apply(params, cfg, tokens, dtype)
+        return L.embed_apply(params, cfg, tokens, dtype, WHOLE if split is None else split)
     if embeds is None:
         raise ValueError(f"{cfg.name} takes input embeddings ({cfg.input_kind})")
     x = embeds.to(dtype)
@@ -400,8 +402,9 @@ def forward(
     ``nothing_saveable``), ``"dots"`` keeps the outputs of its products
     without batch dimensions and recomputes the rest (:func:`dots_policy`),
     ``"none"`` keeps everything.  With a ``split`` (``models.split``;
-    training only) each layer runs its tensor slices, or its MoE router
-    statistics over the data ranks.
+    training only) the embedding gathers over its vocabulary slices and
+    each layer runs its tensor slices, or its MoE router statistics over
+    the data ranks.
 
     ``collector`` sees every tag of every forward (on the pool, an attention
     block with a live collector leaves the fused flash-prefill branch for
@@ -417,7 +420,7 @@ def forward(
     when nothing was captured.
     """
     dtype = getattr(torch, cfg.compute_dtype)
-    x = _embed_inputs(cfg, params, tokens, embeds, dtype)
+    x = _embed_inputs(cfg, params, tokens, embeds, dtype, split)
     B, S, _ = x.shape
     if pool is not None:
         plain = paged.plain
@@ -536,15 +539,17 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     families); the metrics hold both, each MoE segment's
     ``seg{i}_moe_drop_frac`` and, with a live ``collector``, its
     ``captures`` (see :func:`forward`), on the device.  Under a ``split``
-    the blocks run their tensor slices (the loss is the whole one on every
-    tensor rank); over data ranks each MoE layer's auxiliary loss is this
-    rank's part of the whole batch's (the data ranks' parts sum to it)."""
+    the embedding, the blocks and the cross entropy run their tensor
+    slices (the loss is the whole one on every tensor rank); over data
+    ranks each MoE layer's auxiliary loss is this rank's part of the whole
+    batch's (the data ranks' parts sum to it)."""
+    split = WHOLE if split is None else split
     hidden, extra = forward(cfg, params, batch.get("tokens"),
                             embeds=batch.get("embeds"),
                             mrope_position_ids=batch.get("mrope_position_ids"),
                             plain=plain, collector=collector, split=split)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
-                                  batch.get("loss_mask"))
+                                  batch.get("loss_mask"), split)
     ce = total / torch.clamp(count, min=1.0)
     aux = extra.pop("aux_loss", None)
     if aux is None:

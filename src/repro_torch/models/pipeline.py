@@ -142,7 +142,7 @@ def pipeline_param_specs(cfg: ModelConfig, layout: PipelineLayout) -> dict:
     before the split, its output through ``copy_to_tp``) or are summed
     there (a replicated leaf inside the split enters through
     ``copy_to_tp`` itself)."""
-    dims = tp_slices(cfg, layout.tp)
+    dims = tp_slices(cfg, layout.tp, layout.pp)
 
     def walk(tree, path):
         if not _is_axes(tree):

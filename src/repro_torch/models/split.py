@@ -3,9 +3,9 @@ router statistics: the object the forward carries and the table of the
 leaves the split slices.
 
 The JAX package reaches the same cells through GSPMD: its weight axes
-``heads_w``, ``kv_heads_w``, ``mlp_w``, ``qkv`` and ``expert_w`` go to the
-``model`` axis (``parallel.profiles``).  The port slices those dims on each
-tensor rank (:func:`tp_slices`, ``weights.shard_params``) and runs each
+``heads_w``, ``kv_heads_w``, ``mlp_w``, ``qkv``, ``expert_w`` and
+``vocab_w`` go to the ``model`` axis (``parallel.profiles``).  The port
+slices those dims on each tensor rank (:func:`tp_slices`, ``weights.shard_params``) and runs each
 block over its rank's slices, with Megatron's conjugate pair on the
 activations at the boundary between the whole region and the sliced one:
 ``copy_to_tp`` where a replicated tensor enters rank-local work,
@@ -23,6 +23,17 @@ the replicated residual stream.  The leaves then fall into three cases:
 The leaves the JAX rules put on ``model`` that the split keeps whole are
 :data:`KEPT_WHOLE`, each with its reason (ROADMAP's known difference P19).
 
+The vocabulary is Megatron's vocab-parallel pair: tensor rank ``r`` of
+``tp`` owns rows ``[r Vp/tp, (r+1) Vp/tp)`` of the padded vocabulary ``Vp``,
+of the embedding and of the head's columns (tied, the one slice serves
+both).  The embedding gathers its rows and zeros for the other tokens, and
+the ranks' parts are summed (:meth:`Split.sum`: one term is nonzero, so
+the sum is exact); the cross entropy (``layers.chunked_xent``) takes each
+row's max over the ranks (:meth:`Split.max`), then the sum of its
+exponentials and the target's logit.  Inside a pipeline (pp > 1) the
+embedding and the head run whole on stage 0, as JAX's pipeline runs them
+outside its stages (:data:`PIPELINE_WHOLE`).
+
 A :class:`Split` rides ``lm.loss_fn`` / ``lm.forward`` down to the blocks
 as MegaScope's collector does; None is the fused path.  In a world it
 holds the ``model`` axis' process group, and each rank computes its own
@@ -36,6 +47,7 @@ partial sums over its rows that add up to the whole batch's.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -45,18 +57,15 @@ from repro_torch.configs.base import ModelConfig
 
 # the weight axes the split slices, by family (at most one a leaf)
 _SLICED = {
-    "dense": ("heads_w", "kv_heads_w", "mlp_w"),
-    "moe": ("heads_w", "kv_heads_w", "mlp_w", "expert_w"),
-    "rwkv6": ("qkv", "mlp_w"),
-    "griffin": ("heads_w", "kv_heads_w", "qkv", "mlp_w"),
+    "dense": ("heads_w", "kv_heads_w", "mlp_w", "vocab_w"),
+    "moe": ("heads_w", "kv_heads_w", "mlp_w", "expert_w", "vocab_w"),
+    "rwkv6": ("qkv", "mlp_w", "vocab_w"),
+    "griffin": ("heads_w", "kv_heads_w", "qkv", "mlp_w", "vocab_w"),
 }
 
 # leaves the JAX package's rules put on ``model`` (under ``fsdp_cp``) that
 # the split keeps whole on every rank, matched on the end of their path
 KEPT_WHOLE = {
-    ("embedding",): "vocab_w: the embedding gather and the chunked cross "
-                    "entropy run whole on every rank, as in the dense split",
-    ("unembed",): "vocab_w: the chunked cross entropy runs whole on every rank",
     ("q_norm",): "head_dim_w: a per-head-dim scale every local head uses; it "
                  "enters through copy_to_tp and its gradient is summed",
     ("k_norm",): "head_dim_w: as q_norm",
@@ -72,6 +81,14 @@ KEPT_WHOLE = {
                     "every channel of it, which enters through copy_to_tp",
     ("mix", "conv_w"): "as w_x",
     ("mix", "conv_b"): "as w_x",
+}
+
+# leaves the split slices at pp = 1 that a pipeline keeps whole: JAX's
+# pipeline embeds and takes the loss outside its stages, replicated
+# (``repro.models.pipeline``, under ``axis_rules(None)``); here stage 0
+PIPELINE_WHOLE = {
+    ("embedding",): "vocab_w: stage 0 embeds the whole batch, whole",
+    ("unembed",): "vocab_w: stage 0's cross entropy runs whole",
 }
 
 
@@ -96,8 +113,6 @@ def unsupported(cfg: ModelConfig, tp: int) -> str | None:
         return f"{cfg.name}: tensor parallelism over the encoder-decoder"
     if cfg.use_mla:
         return f"{cfg.name}: tensor parallelism over MLA attention"
-    if cfg.input_kind != "tokens":
-        return f"{cfg.name}: tensor parallelism over an embeds arch (M-RoPE)"
     if cfg.family == "moe" and cfg.moe.num_shared_experts:
         return f"{cfg.name}: tensor parallelism over shared experts"
     if cfg.family not in _SLICED:
@@ -105,12 +120,13 @@ def unsupported(cfg: ModelConfig, tp: int) -> str | None:
     return None
 
 
-def validate(cfg: ModelConfig, tp: int) -> None:
+def validate(cfg: ModelConfig, tp: int, pp: int = 1) -> None:
     """Raise unless ``cfg``'s blocks split over ``tp`` tensor ranks:
     ``NotImplementedError`` naming ROADMAP item 8c for what is not ported
     (:func:`unsupported`), ``ValueError`` for a width that does not divide:
     the heads (RWKV-6's WKV heads), Griffin's recurrent width, the ffn
-    width, the experts, and the kv heads unless there is one (kept whole)."""
+    width, the experts, the kv heads unless there is one (kept whole), and
+    at ``pp = 1`` the padded vocabulary."""
     why = unsupported(cfg, tp)
     if why is not None:
         raise NotImplementedError(f"{why} is ported in a later slice "
@@ -124,17 +140,20 @@ def validate(cfg: ModelConfig, tp: int) -> None:
         widths["lru_width"] = cfg.lru_width
     if cfg.family == "moe":
         widths["experts"] = cfg.moe.num_experts
+    if pp == 1:
+        widths["padded_vocab"] = cfg.padded_vocab
     bad = {k: v for k, v in widths.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: " + "/".join(f"{k}={v}" for k, v in bad.items())
                          + f" must divide by tp={tp} for the tensor split")
 
 
-def tp_slices(cfg: ModelConfig, tp: int) -> dict[tuple[str, ...], int]:
+def tp_slices(cfg: ModelConfig, tp: int, pp: int = 1) -> dict[tuple[str, ...], int]:
     """``{leaf path: dim}`` of every leaf of ``cfg``'s tree (``lm.param_axes``)
-    whose dim the tensor split over ``tp`` slices: every segment's leaves
-    and those outside the segments, on the family's sliced axes, less
-    :data:`KEPT_WHOLE`'s."""
+    whose dim the tensor split over ``tp`` slices in a run of ``pp``
+    pipeline stages: every segment's leaves and those outside the segments
+    (the embedding and the head), on the family's sliced axes, less
+    :data:`KEPT_WHOLE`'s and, at ``pp > 1``, :data:`PIPELINE_WHOLE`'s."""
     if tp <= 1:
         return {}
     from repro_torch.models import lm
@@ -143,9 +162,10 @@ def tp_slices(cfg: ModelConfig, tp: int) -> dict[tuple[str, ...], int]:
     sliced = set(_SLICED[cfg.family])
     if cfg.num_kv_heads == 1:
         sliced.discard("kv_heads_w")
+    whole = {**KEPT_WHOLE, **(PIPELINE_WHOLE if pp > 1 else {})}
     out = {}
     for path, ax in _flat(axes):
-        if any(path[-len(k):] == k for k in KEPT_WHOLE):
+        if any(path[-len(k):] == k for k in whole):
             continue
         dims = [d for d, a in enumerate(ax) if a in sliced]
         if dims:
@@ -177,7 +197,9 @@ class Split:
     sliced leaves; ``local``: :func:`local_cfg`.  At ``tp = 1`` (:data:`WHOLE`)
     every method is the identity, so a block's one body runs fused:
     ``cut``, ``narrow``, ``enter`` and ``take`` return what they are given,
-    ``sum`` is ``part(0)`` and ``out`` the product in the compute dtype."""
+    ``sum`` and ``max`` are ``part(0)``, ``slices`` is ``(0,)``,
+    ``vocab_range`` the whole padded vocabulary and ``out`` the product in
+    the compute dtype."""
 
     tp: int = 1
     group: Any = None
@@ -190,6 +212,17 @@ class Split:
     @property
     def tensor(self) -> bool:
         return self.tp > 1
+
+    @property
+    def slices(self) -> tuple[int, ...]:
+        """The slices this process computes: its rank's in a world, every
+        one without a group."""
+        return tuple(range(self.tp)) if self.group is None else (self.rank,)
+
+    def vocab_range(self, cfg: ModelConfig, t: int) -> tuple[int, int]:
+        """Slice ``t``'s rows ``[lo, hi)`` of the padded vocabulary."""
+        n = cfg.padded_vocab // self.tp
+        return t * n, (t + 1) * n
 
     def cfg(self, cfg: ModelConfig) -> ModelConfig:
         """A slice's view of ``cfg`` (:func:`local_cfg`), ``cfg`` at tp 1."""
@@ -230,6 +263,18 @@ class Split:
         from repro_torch.parallel.dist import reduce_from_tp
 
         return reduce_from_tp(part(self.rank), self.group)
+
+    def max(self, part: Callable[[int], torch.Tensor]) -> torch.Tensor:
+        """The elementwise maximum of ``part(t)`` over the slices (no
+        gradient): a float32 all-reduce MAX of this rank's in a world."""
+        if not self.tensor:
+            return part(0)
+        if self.group is None:
+            parts = [part(t) for t in range(self.tp)]
+            return functools.reduce(torch.maximum, parts[1:], parts[0])
+        from repro_torch.parallel.dist import all_reduce_max
+
+        return all_reduce_max(part(self.rank), self.group)
 
     def out(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """A slice's product returning to the residual stream, ``a [..., K]
@@ -274,10 +319,10 @@ WHOLE = Split()
 
 
 def make_split(cfg: ModelConfig, tp: int, *, group=None, rank: int = 0,
-               data_group=None, dp: int = 1) -> Split:
-    """The :class:`Split` of ``cfg`` over ``tp`` tensor slices (validated)
-    and ``dp`` data ranks."""
-    validate(cfg, tp)
+               data_group=None, dp: int = 1, pp: int = 1) -> Split:
+    """The :class:`Split` of ``cfg`` over ``tp`` tensor slices (validated;
+    in a run of ``pp`` pipeline stages) and ``dp`` data ranks."""
+    validate(cfg, tp, pp)
     dims: dict = {}
     if tp > 1:
         from repro_torch.models import lm

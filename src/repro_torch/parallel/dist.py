@@ -15,6 +15,8 @@ module, with no JAX counterpart (GSPMD does this for the JAX package).
   all-reduce backward) at a tensor-parallel block's input and
   :func:`reduce_from_tp` (all-reduce forward, identity backward) after the
   attention-out and MLP-down products.  Both sum in float32.
+  :func:`all_reduce_max` (no gradient) takes the vocabulary-parallel cross
+  entropy's row maxima over the tensor ranks.
 * **Gradient sums** (:func:`all_reduce_tree`): one flat float32 buffer a
   gradient dtype, all-reduced over a group.
 * **Pipeline hand-offs** (:func:`exchange`): posted sends and receives,
@@ -195,6 +197,14 @@ def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
     """The float32 sum of ``x`` over ``group``, in ``x``'s dtype."""
     buf = x.to(torch.float32, copy=True)
     dist.all_reduce(buf, group=group)
+    return buf.to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The float32 elementwise maximum of ``x`` over ``group`` (no
+    gradient), in ``x``'s dtype."""
+    buf = x.detach().to(torch.float32, copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
     return buf.to(x.dtype)
 
 

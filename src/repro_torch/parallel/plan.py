@@ -6,8 +6,8 @@ One frozen dataclass describes how a training run parallelizes:
 * ``dp`` / ``tp`` — the data / tensor degrees: ``Session`` runs a plan in
   a world of ``world = pp * dp * tp`` ranks on a (stage, data, model)
   ``DeviceMesh`` (``launch.mesh.make_pipeline_mesh``), the batch split over
-  ``data`` and Megatron's tensor split of dense GQA blocks over ``model``
-  (``train.train_step``);
+  ``data`` and Megatron's tensor split over ``model`` (``models.split``:
+  the blocks and, at pp = 1, the vocabulary; ``train.train_step``);
 * ``pp`` / ``n_micro`` / ``n_chunks`` / ``schedule`` / ``wave`` — the MegaDPP
   pipeline axis: how many stages, how the (microbatch, chunk) task matrix is
   traversed (``core.dpp.schedule``), and the wave width when the traversal is

@@ -17,8 +17,9 @@ copied from ``repro.parallel.profiles``.
   everything else replicated (S=1 activations are tiny).
 
 The port trains under the Megatron split of ``models.split`` (each family's
-sliced axes over ``model``, the leaves of ``KEPT_WHOLE`` and everything else
-replicated, the batch over ``data``); FSDP weight storage under ``embed_w ->
+sliced axes over ``model``, the vocabulary among them at pp = 1, the
+leaves of ``KEPT_WHOLE`` and everything else replicated, the batch over
+``data``); FSDP weight storage under ``embed_w ->
 data`` and sharded serving under ``decode`` are ROADMAP item 8c.
 """
 

@@ -502,10 +502,12 @@ def _make_world_train_step(
       (``models.split``), not weighed by the share.
     * ``model``: at pp = 1 the family's own forward runs Megatron's split
       over this rank's slices of the weights (``lm.loss_fn`` with a
-      ``models.split.Split``: dense GQA, MoE, RWKV-6 and Griffin blocks);
-      MLA, the encoder-decoder and M-RoPE are refused (ROADMAP item 8c).
-      Inside a pipeline the split runs dense GQA blocks only
-      (``models.pipeline.make_block_fn``).
+      ``models.split.Split``: the vocabulary of the embedding and the
+      cross entropy, dense GQA blocks, M-RoPE's among them, and MoE,
+      RWKV-6 and Griffin blocks); MLA and the encoder-decoder are refused
+      (ROADMAP item 8c).  Inside a pipeline the split runs dense GQA
+      blocks only (``models.pipeline.make_block_fn``), and stage 0's
+      embedding and head run whole.
     * ``stage``: each stage is a process (``models.pipeline
       .pipeline_ranks_grads``); dp groups each pipeline
       ``plan.n_micro_local`` microbatches; ``plan.fbd_backward`` runs a
@@ -543,8 +545,8 @@ def _make_world_train_step(
         moe_dp = cfg.family == "moe" and plan.dp > 1
         split = make_split(cfg, plan.tp, group=model_group, rank=coords["model"],
                            data_group=data_group if moe_dp else None,
-                           dp=plan.dp if moe_dp else 1)
-    dims = tp_slices(cfg, plan.tp)
+                           dp=plan.dp if moe_dp else 1, pp=plan.pp)
+    dims = tp_slices(cfg, plan.tp, plan.pp)
     layout = None
     if plan.pp > 1:
         layout = pl.pipeline_layout(cfg, plan.pp, plan.n_chunks, tp=plan.tp)

@@ -144,8 +144,9 @@ def train_cell(cfg, plan_kw: dict, state_np: dict, batches: list, ocfg_kw: dict,
 
 
 def refusal(cfg, plan_kw: dict, compress: bool = False) -> str:
-    """The message ``make_train_step`` raises for ``cfg`` under ``plan_kw``
-    on this rank's mesh (with int8 compression if ``compress``)."""
+    """The message of the ``NotImplementedError`` or ``ValueError``
+    ``make_train_step`` raises for ``cfg`` under ``plan_kw`` on this rank's
+    mesh (with int8 compression if ``compress``), or ``""``."""
     from repro_torch.ft import GradCompressor
 
     plan = resolve_plan(ParallelPlan(**plan_kw))
@@ -153,7 +154,7 @@ def refusal(cfg, plan_kw: dict, compress: bool = False) -> str:
     try:
         make_train_step(cfg, optim.OptimizerConfig(), plan=plan, mesh=mesh,
                         compressor=GradCompressor() if compress else None)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         return str(e)
     return ""
 
@@ -215,11 +216,15 @@ def bwd_elsewhere(cfg, params_np: dict, batch_np: dict) -> dict:
 
 
 def run_cli(argv: list[str]) -> dict:
-    """``python -m repro_torch`` with ``argv`` on this rank, in the world the
-    pool joined (the ``Session`` runs in place): its history and the size
-    of its world."""
-    from repro_torch.app import cli
+    """``python -m repro_torch train`` with ``argv`` on this rank, in the
+    world the pool joined (its ``Session`` runs in place, as ``cli.run``
+    runs it): its history, the size of its world and the final train state
+    of this rank's part."""
+    from repro_torch.app.cli import parse
+    from repro_torch.app.session import Session
 
-    out = cli.run(argv)
-    return {"history": out["history"],
-            "world": out["session"].results["parallel"]["world"]}
+    session = Session(parse(argv)[1])
+    state, history = session.run()
+    return {"history": history, "world": session.results["parallel"]["world"],
+            "state": {"master": _np_tree(state.master), "m": _np_tree(state.opt["m"]),
+                      "v": _np_tree(state.opt["v"])}}

@@ -1316,3 +1316,48 @@ def test_slot_export_import_round_trip_on_the_card(cuda, arch, smoke):
         if paged:
             x, y = x[:, :3], y[:, :3]
         assert torch.equal(x, y)
+
+
+# ------------------------------- card: the vocabulary split, one process ---
+
+
+@pytest.mark.gpu
+def test_vocab_parallel_cross_entropy_equals_the_fused_one_on_the_card(cuda):
+    """phi3.5-moe's head at full width on the card (d_model 4096, vocabulary
+    32064 padded to 32256: the 192 masked columns in the second slice), in
+    bf16: the cross entropy and the embedding split over two vocabulary
+    slices in one process (``models.split.make_split``, no group) against
+    the fused ones on the same inputs.  The loss within rtol 1e-5, ``dy``
+    and the head's gradient row by row within 2^-6 of the fused (both
+    round to bf16 once, from a ``dlog`` each rounds to bf16 from its own
+    float32 softmax), the embedding and its gradient bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.split import WHOLE, make_split
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    split = make_split(cfg, 2)
+    assert cfg.padded_vocab - cfg.vocab_size == 192
+    assert split.vocab_range(cfg, 1) == (cfg.padded_vocab // 2, cfg.padded_vocab)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, D = 2, 1024, cfg.d_model
+    y = torch.randn(B, S, D, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(D, cfg.padded_vocab, device=cuda, generator=g) * D ** -0.5).to(torch.bfloat16)
+    emb = torch.randn(cfg.padded_vocab, D, device=cuda, generator=g).to(torch.bfloat16)
+    t = torch.randint(0, cfg.vocab_size, (B, S), device=cuda, generator=g, dtype=torch.int32)
+    t[0, :4] = torch.tensor([0, cfg.padded_vocab // 2 - 1, cfg.padded_vocab // 2,
+                             cfg.vocab_size - 1], device=cuda, dtype=torch.int32)
+    mask = (torch.rand(B, S, device=cuda, generator=g) > 0.1).float()
+    out = {}
+    for name, sp in (("fused", WHOLE), ("split", split)):
+        yy, ww, ee = (a.detach().requires_grad_(True) for a in (y, w, emb))
+        total, count = L.chunked_xent({"unembed": ww}, cfg, yy, t, mask, sp)
+        x = L.embed_apply({"embedding": ee}, cfg, t, torch.bfloat16, sp)
+        dy, dw = torch.autograd.grad(total / count, (yy, ww))
+        (de,) = torch.autograd.grad(x.float().square().sum(), (ee,))
+        out[name] = (total / count, dy, dw, x, de)
+    (lf, dyf, dwf, xf, def_), (ls, dys, dws, xs, des) = out["fused"], out["split"]
+    torch.testing.assert_close(ls, lf, rtol=1e-5, atol=0)
+    assert _row_err(dys, dyf) <= 2.0 ** -6
+    assert _row_err(dws, dwf) <= 2.0 ** -6
+    assert torch.equal(xs, xf) and torch.equal(des, def_)

@@ -194,13 +194,16 @@ def test_shard_params_round_trip_and_slices():
     assert shards[0]["seg0"]["b0"]["attn"]["wq"].shape == (4, 32, 2, 8)
     assert shards[1]["seg0"]["b0"]["attn"]["wo"].shape == (4, 2, 8, 32)
     assert shards[0]["seg0"]["b0"]["mlp"]["w_down"].shape == (4, 32, 32)
-    assert shards[0]["embedding"] is tree["embedding"]
+    for r in range(2):  # the vocabulary: rank r's rows of 128 (columns of the head)
+        assert torch.equal(shards[r]["embedding"], tree["embedding"][r * 64:(r + 1) * 64])
+        assert torch.equal(shards[r]["unembed"], tree["unembed"][:, r * 64:(r + 1) * 64])
     back = unshard_params(shards, dims)
     for (pa, a), (pb, b) in zip(optim.leaves(back), optim.leaves(tree)):
         assert pa == pb and torch.equal(a, b)
     assert set(dims) == {
         ("seg0", "b0", "attn", k) for k in ("wq", "wk", "wv", "wo")} | {
-        ("seg0", "b0", "mlp", k) for k in ("w_gate", "w_up", "w_down")}
+        ("seg0", "b0", "mlp", k) for k in ("w_gate", "w_up", "w_down")} | {
+        ("embedding",), ("unembed",)}
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2])
@@ -251,17 +254,20 @@ def _cell_params():
     return out
 
 
-def _unshard_grads(results, layout):
+def _unshard_grads(results, tp: int, layout=None):
     """The whole gradient tree from the parts of the ranks of data 0: each
-    stage's part (``stage_part``) of each tensor slice."""
+    stage's part (``stage_part``) of each tensor slice (at pp = 1, with
+    no ``layout``, each slice)."""
     parts = {(r["coords"]["stage"], r["coords"]["model"]):
              optim.tree_map(torch.from_numpy, r["grads"])
              for r in results if r["coords"]["data"] == 0}
-    shards = [pl.merge_stages([parts[(s, t)] for s in range(layout.pp)], layout)
-              for t in range(layout.tp)]
-    if layout.tp == 1:
+    pp = 1 if layout is None else layout.pp
+    shards = [parts[(0, t)] if layout is None else
+              pl.merge_stages([parts[(s, t)] for s in range(pp)], layout)
+              for t in range(tp)]
+    if tp == 1:
         return shards[0]
-    return unshard_params(shards, tp_slices(TINY, layout.tp))
+    return unshard_params(shards, tp_slices(TINY, tp, pp))
 
 
 @pytest.mark.parametrize("dp,tp,pp,ga,sched", _cell_params())
@@ -269,9 +275,10 @@ def test_matrix_cell_loss_parity(pools, dp, tp, pp, ga, sched):
     """Each cell's 2-step losses equal the fused single-device step's at the
     same grad_accum (rtol 2e-5), and the whole master gathered on rank 0
     from the ranks' parts equals the fused step's (rtol 1e-4, atol 1e-5);
-    the composed pp = 2 cells at ga 1 also hold their first step's
-    gradient to ``jax.grad`` of the fused loss, leaf by leaf (rtol 5e-4,
-    atol 1e-5)."""
+    the composed pp = 2 cells and the tp 2 cells at ga 1 also hold their
+    first step's gradient to ``jax.grad`` of the fused loss, leaf by leaf
+    (rtol 5e-4, atol 1e-5): at pp = 1 each rank's vocabulary slice of the
+    embedding and the head, at pp = 2 stage 0's whole ones."""
     plan_kw = dict(dp=dp, tp=tp, pp=pp, schedule=sched,
                    n_micro=2 * dp if pp > 1 else 0)
     res = pools(dp * tp * pp).run(tasks.train_cell, TINY, plan_kw, _state_np(),
@@ -286,9 +293,12 @@ def test_matrix_cell_loss_parity(pools, dp, tp, pp, ga, sched):
     # every rank reports the same global loss
     for r in res[1:]:
         np.testing.assert_allclose(r["losses"], res[0]["losses"], rtol=1e-6)
-    if pp > 1 and ga == 1 and sched == "1f1b" and (dp > 1 or tp > 1):
-        layout = pl.pipeline_layout(TINY, pp, 1, tp=tp)
-        got = _unshard_grads(res, layout)
+    if ga == 1 and sched == "1f1b" and (pp > 1 and dp > 1 or tp > 1):
+        layout = pl.pipeline_layout(TINY, pp, 1, tp=tp) if pp > 1 else None
+        if tp > 1:  # the rank's gradient of its vocabulary slice, or the whole
+            assert all(r["grads"]["embedding"].shape[0] == 128 // (2 if pp == 1 else 1)
+                       for r in res if "embedding" in r["grads"])
+        got = _unshard_grads(res, tp, layout)
         params = jlm.init(JTINY, jax.random.PRNGKey(0))
         b0 = _batches()[0]
         g_ref = jax.grad(lambda p: jlm.loss_fn(JTINY, p, b0)[0])(params)
@@ -397,7 +407,8 @@ def test_refusals_carry_jax_messages():
 
 def test_refusals_of_the_port():
     """What the port does not run yet names its ROADMAP item: tp at pp = 1
-    over MLA (item 8c); int8 compression over a
+    over MLA (item 8c), and qwen2-vl's token loop at tp 2 (R8); int8
+    compression over a
     pp > 1 plan with dp = 1 raises JAX's ``ValueError`` (no data axis); a
     mesh larger than the world names both counts."""
     from repro_torch.launch.mesh import make_pipeline_mesh, make_production_mesh
@@ -405,6 +416,9 @@ def test_refusals_of_the_port():
     with pytest.raises(SystemExit, match="item 8c"):
         cli.main(["train", "--smoke", "--device", "cpu", "--steps", "1",
                   "--arch", "deepseek-v2-lite-16b", "--set", "parallel.tp=2"])
+    with pytest.raises(SystemExit, match="R8"):
+        cli.main(["train", "--smoke", "--device", "cpu", "--steps", "1",
+                  "--arch", "qwen2-vl-7b", "--set", "parallel.tp=2"])
     from repro.ft import GradCompressor as JGradCompressor
     from repro_torch.ft import GradCompressor
 

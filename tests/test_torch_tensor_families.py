@@ -1,15 +1,20 @@
-"""Tensor parallelism over RWKV-6, Griffin and MoE blocks, and data
-parallelism over MoE layers, on the CPU with gloo: the smoke configs of
-rwkv6-3b, recurrentgemma-9b (rec, rec, attn, rec) and phi3.5-moe at tp 2,
-phi3.5-moe at dp 2 and dp 2 x tp 2, each held to the JAX package's fused
-single-device step (``make_train_step`` without a plan; losses within rtol
-2e-5 over 2 steps), each rank's synced gradients to the port's fused step
-(rtol 5e-4, atol 1e-5), MoE's aux loss and drop fraction at dp 2 to the
-whole batch's from JAX's ``lm.loss_fn``, the slice table against JAX's
+"""Tensor parallelism over RWKV-6, Griffin, MoE and M-RoPE blocks, with
+the vocabulary of the embedding and the cross entropy sliced over the
+tensor ranks, and data parallelism over MoE layers, on the CPU with gloo:
+the smoke configs of rwkv6-3b, recurrentgemma-9b (rec, rec, attn, rec),
+phi3.5-moe and qwen2-vl-7b (embeddings and M-RoPE ids on a patch grid) at
+tp 2, phi3.5-moe at dp 2 and dp 2 x tp 2, each held to the JAX package's
+fused single-device step (``make_train_step`` without a plan; losses
+within rtol 2e-5 over 2 steps), each rank's synced gradients (its slices
+of the embedding and the head included) to the port's fused step (rtol
+5e-4, atol 1e-5), MoE's aux loss and drop fraction at dp 2 to the whole
+batch's from JAX's ``lm.loss_fn``, the slice table against JAX's
 ``logical_to_spec`` under ``fsdp_cp`` (the leaves kept whole named in
-``models.split.KEPT_WHOLE``: ROADMAP P19), the one-process split against
-the fused loss, the refusals (ROADMAP item 8c) and a tp 2 run's checkpoint
-resumed in one process.  The ranks are ``tasks.Pool`` worlds, spawned once
+``models.split.KEPT_WHOLE``: ROADMAP P19; the vocabulary whole inside a
+pipeline), the one-process split against the fused loss (a padded
+vocabulary, tied embeddings, minicpm's scales, a masked row), the
+refusals (ROADMAP item 8c) and a tp 2 run's checkpoint resumed in one
+process bit for bit.  The ranks are ``tasks.Pool`` worlds, spawned once
 for the module; their tasks live in ``tests/_torch_parallel_tasks.py``."""
 
 import os
@@ -40,14 +45,16 @@ from repro_torch.models.weights import (  # noqa: E402
     shard_params,
     unshard_params,
 )
+from repro_torch.models.model import make_batch  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
-from repro_torch.train.train_step import grad_tree  # noqa: E402
+from repro_torch.train.train_step import grad_tree, unused_leaves  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
 import _torch_parallel_tasks as tasks  # noqa: E402
 
 ARCHS = ("rwkv6-3b", "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b")
 MOE = "phi3.5-moe-42b-a6.6b"
+VL = "qwen2-vl-7b"
 OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 BATCH, SEQ, N_STEPS = 4, 32, 2
 
@@ -86,7 +93,29 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _patch_grid(B: int, S: int, side: int = 4) -> np.ndarray:
+    """M-RoPE ids ``[3, B, S]`` of a ``side x side`` image at time 0 (rows
+    and columns in the h and w streams), then text continuing from ``side``
+    in all three streams."""
+    i = np.arange(S)
+    n = side * side
+    text = i - n + side
+    ids = np.stack([np.where(i < n, 0, text), np.where(i < n, i // side, text),
+                    np.where(i < n, i % side, text)])
+    return np.ascontiguousarray(np.broadcast_to(ids[:, None], (3, B, S)), dtype=np.int32)
+
+
 def _batches(jcfg):
+    """The steps' numpy batches: ``SyntheticTokens``' for a token arch; for
+    an embeds arch ``make_batch``'s embeddings and targets with M-RoPE ids
+    on a patch grid."""
+    if jcfg.input_kind != "tokens":
+        out = []
+        for i in range(N_STEPS):
+            b = {k: v.numpy() for k, v in make_batch(
+                jcfg, BATCH, SEQ, np.random.default_rng(i)).items()}
+            out.append({**b, "mrope_position_ids": _patch_grid(BATCH, SEQ)})
+        return out
     ds = JSyntheticTokens(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
                                       global_batch=BATCH))
     return [ds.batch_at(i) for i in range(N_STEPS)]
@@ -130,15 +159,18 @@ def _jax_losses(jcfg):
 
 def _fused_grads(cfg, jcfg) -> dict:
     """The port's fused gradient of the first batch at the JAX init's
-    parameters."""
-    params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
-    for _, leaf in optim.leaves(params):
-        leaf.requires_grad_(True)
-    b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
-    return grad_tree(params, lm.loss_fn(cfg, params, b)[0])
+    parameters (once an arch)."""
+    if ("grads", cfg.name) not in _STATE:
+        params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
+        for _, leaf in optim.leaves(params):
+            leaf.requires_grad_(True)
+        b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
+        _STATE[("grads", cfg.name)] = grad_tree(params, lm.loss_fn(cfg, params, b)[0],
+                                                unused_leaves(cfg))
+    return _STATE[("grads", cfg.name)]
 
 
-_CELLS = [pytest.param(a, dict(tp=2), id=f"tp2-{a}") for a in ARCHS] + [
+_CELLS = [pytest.param(a, dict(tp=2), id=f"tp2-{a}") for a in (*ARCHS, VL)] + [
     pytest.param(MOE, dict(dp=2), id=f"dp2-{MOE}"),
     pytest.param(MOE, dict(dp=2, tp=2), id=f"dp2-tp2-{MOE}")]
 
@@ -147,8 +179,10 @@ _CELLS = [pytest.param(a, dict(tp=2), id=f"tp2-{a}") for a in ARCHS] + [
 def test_world_cell_matches_the_fused_steps(pools, arch, plan_kw):
     """(a) Each cell's 2-step losses within rtol 2e-5 of the JAX package's
     fused step; (b) each rank's synced first-step gradient (its slice)
-    within rtol 5e-4 / atol 1e-5 of the port's fused one; the whole master
-    gathered on rank 0 only; every rank reports the same loss."""
+    within rtol 5e-4 / atol 1e-5 of the port's fused one, the embedding's
+    rows and the head's columns of its vocabulary slice among them; the
+    whole master gathered on rank 0 only; every rank reports the same
+    loss."""
     cfg, jcfg = _cfgs(arch)
     world = plan_kw.get("dp", 1) * plan_kw.get("tp", 1)
     res = pools(world).run(tasks.train_cell, cfg, plan_kw, _state_np(jcfg),
@@ -159,6 +193,7 @@ def test_world_cell_matches_the_fused_steps(pools, arch, plan_kw):
     assert res[0]["whole"] is not None and all(r["whole"] is None for r in res[1:])
     tp = plan_kw.get("tp", 1)
     dims = sp.tp_slices(cfg, tp)
+    assert tp == 1 or ("embedding",) in dims
     fused = _fused_grads(cfg, jcfg)
     for r in res:
         want = dict(optim.leaves(shard_params(fused, dims, tp, r["coords"]["model"])))
@@ -186,21 +221,60 @@ def test_moe_dp2_aux_terms_are_the_whole_batchs(pools):
         np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_one_process_split_equals_the_fused_loss(arch):
+def _token_batch(cfg, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, SEQ + 1)))
+    return {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+def _masked_row_batch(cfg) -> dict:
+    """Targets at both ends of each vocabulary slice, and a loss mask that
+    zeros row 0 and scattered tokens of the others."""
+    b = _token_batch(cfg, 1)
+    half = cfg.padded_vocab // 2
+    b["targets"][1, :4] = torch.tensor([0, half - 1, half, cfg.vocab_size - 1])
+    mask = torch.from_numpy((np.random.default_rng(2).random((BATCH, SEQ)) > 0.2)
+                            .astype(np.float32))
+    mask[0] = 0.0
+    return {**b, "loss_mask": mask}
+
+
+# (arch, config changes, batch): the JAX init's parameters and the cells'
+# first batch, or the port's seed-0 parameters on a batch of its own
+_SPLIT_CASES = [pytest.param(a, {}, None, id=a) for a in (*ARCHS, VL)] + [
+    pytest.param(MOE, dict(vocab_size=250), _token_batch, id="padded-vocab-250"),
+    pytest.param("minicpm-2b", {}, _token_batch, id="minicpm-2b"),
+    pytest.param("qwen2-0.5b", {}, _token_batch, id="qwen2-0.5b-tied"),
+    pytest.param("qwen2-0.5b", dict(vocab_size=250), _masked_row_batch, id="masked-row"),
+]
+
+
+@pytest.mark.parametrize("arch,change,batch", _SPLIT_CASES)
+def test_one_process_split_equals_the_fused_loss(arch, change, batch):
     """The split run in one process (every slice here, from the whole tree:
     the reference the card's world cells are held to) gives the fused loss
-    and gradients (rtol 5e-5 / atol 1e-6)."""
-    cfg, jcfg = _cfgs(arch)
-    params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
+    (rtol 5e-6) and gradients (rtol 5e-5 / atol 1e-6): over the vocabulary
+    slices of the embedding and the cross entropy too, where the padded
+    columns land in the last slice (phi3.5-moe's smoke config at vocab 250,
+    padded to 256), the embedding is tied (qwen2-0.5b), minicpm scales the
+    embeddings and the head's input, and the mask zeros a row."""
+    if batch is None:
+        cfg, jcfg = _cfgs(arch)
+        params = from_jax_params(_state_np(jcfg)["params"], device="cpu")
+        b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
+        want = dict(optim.leaves(_fused_grads(cfg, jcfg)))
+    else:
+        cfg = _cfgs(arch)[0].replace(**change)
+        params, b, want = lm.init(cfg, seed=0, device="cpu"), batch(cfg), None
+    assert cfg.padded_vocab % 2 == 0 and ("embedding",) in sp.tp_slices(cfg, 2)
     for _, leaf in optim.leaves(params):
         leaf.requires_grad_(True)
-    b = {k: torch.from_numpy(v) for k, v in _batches(jcfg)[0].items()}
     loss, _ = lm.loss_fn(cfg, params, b, split=sp.make_split(cfg, 2))
-    got = grad_tree(params, loss)
-    np.testing.assert_allclose(float(loss), float(lm.loss_fn(cfg, params, b)[0]),
-                               rtol=5e-6)
-    want = dict(optim.leaves(_fused_grads(cfg, jcfg)))
+    got = grad_tree(params, loss, unused_leaves(cfg))
+    fused = lm.loss_fn(cfg, params, b)[0]
+    np.testing.assert_allclose(loss.item(), fused.item(), rtol=5e-6)
+    if want is None:
+        want = dict(optim.leaves(grad_tree(params, fused, unused_leaves(cfg))))
     for path, g in optim.leaves(got):
         np.testing.assert_allclose(g.numpy(), want[path].numpy(), rtol=5e-5, atol=1e-6,
                                    err_msg=str(path))
@@ -234,12 +308,13 @@ def _jax_shapes(jcfg) -> dict:
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", (*ARCHS, "qwen2-0.5b", VL))
 def test_slices_follow_jax_model_axis_or_are_named(arch, smoke):
     """(e) For every leaf the dim the port slices is the one JAX's
     ``logical_to_spec`` puts on ``model`` under ``fsdp_cp`` on a
     ``{data: 1, model: 2}`` mesh, or the leaf is kept whole and named in
-    ``KEPT_WHOLE`` (P19); the table names no leaf JAX keeps whole."""
+    ``KEPT_WHOLE`` (P19); the table names no leaf JAX keeps whole, and
+    slices the embedding and an untied head on their vocabulary dim."""
     cfg, jcfg = get_config(arch, smoke=smoke), jax_get_config(arch, smoke=smoke)
     dims = sp.tp_slices(cfg, 2)
     shapes = _jax_shapes(jcfg)
@@ -256,15 +331,33 @@ def test_slices_follow_jax_model_axis_or_are_named(arch, smoke):
         keys = [k for k in sp.KEPT_WHOLE if path[-len(k):] == k]
         assert keys, f"{path}: JAX slices dim {theirs}, the port keeps it whole unnamed"
         named.update(keys)
-    assert named  # every family keeps at least its embedding whole
+    assert not named & {("embedding",), ("unembed",)}
+    assert dims[("embedding",)] == 0
+    assert dims.get(("unembed",)) == (None if cfg.tie_embeddings else 1)
     assert set(dims) <= set(shapes)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-7b",
-                                  "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", (*ARCHS, "qwen2-0.5b", VL))
+def test_pipeline_keeps_the_vocabulary_whole(arch):
+    """At pp > 1 the table keeps the embedding and the head whole (stage 0
+    runs them, as JAX's pipeline runs them outside its stages) and slices
+    every other leaf as at pp = 1; a vocabulary that does not divide tp
+    is then no reason to refuse."""
+    cfg = get_config(arch, smoke=True)
+    whole = {("embedding",), ("unembed",)}
+    flat = sp.tp_slices(cfg, 2)
+    assert sp.tp_slices(cfg, 2, pp=2) == {k: v for k, v in flat.items() if k not in whole}
+    assert set(sp.PIPELINE_WHOLE) == whole and ("embedding",) in flat
+    odd = cfg.replace(vocab_size=251, vocab_pad_to=1)
+    sp.validate(odd, 2, pp=2)
+    with pytest.raises(ValueError, match="padded_vocab=251 must divide by tp=2"):
+        sp.validate(odd, 2)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "deepseek-v2-lite-16b"])
 def test_later_families_refuse_tp_naming_item_8c(arch):
-    """The encoder-decoder, M-RoPE and MLA at tp 2 raise naming ROADMAP item
-    8c, in the split and in the CLI's checks."""
+    """The encoder-decoder and MLA at tp 2 raise naming ROADMAP item 8c, in
+    the split and in the CLI's checks."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="item 8c"):
         sp.make_split(cfg, 2)
@@ -274,10 +367,10 @@ def test_later_families_refuse_tp_naming_item_8c(arch):
 
 
 def test_world_refusals_name_item_8c(pools):
-    """In a world of two ranks: tp 2 over the encoder-decoder and over
-    qwen2-vl, and int8 compression at tp 2, raise naming item 8c; a width
-    that does not divide raises a ``ValueError`` naming it."""
-    for arch, compress in (("seamless-m4t-large-v2", False), ("qwen2-vl-7b", False),
+    """In a world of two ranks: tp 2 over the encoder-decoder and MLA, and
+    int8 compression at tp 2, raise naming item 8c; a width that does not
+    divide raises a ``ValueError`` naming it."""
+    for arch, compress in (("seamless-m4t-large-v2", False), ("deepseek-v2-lite-16b", False),
                            ("qwen2-0.5b", True)):
         msgs = pools(2).run(tasks.refusal, get_config(arch, smoke=True), dict(tp=2),
                             compress)
@@ -288,18 +381,56 @@ def test_world_refusals_name_item_8c(pools):
             **cfg.moe.__dict__, "num_experts": 3})), 2)
 
 
+def test_a_vocabulary_that_does_not_divide_is_refused(pools):
+    """A padded vocabulary that does not divide tp raises a ``ValueError``
+    naming it, in a world's step and in the split; nothing pads it."""
+    cfg = get_config("qwen2-0.5b", smoke=True).replace(vocab_size=251, vocab_pad_to=1)
+    msgs = pools(2).run(tasks.refusal, cfg, dict(tp=2))
+    assert all("padded_vocab=251 must divide by tp=2" in m for m in msgs), msgs
+    with pytest.raises(ValueError, match="padded_vocab=251 must divide by tp=2"):
+        sp.make_split(cfg, 2)
+
+
+def test_qwen2_vl_at_tp2_is_refused_by_the_loop_naming_r8():
+    """``python -m repro_torch train --arch qwen2-vl-7b --set parallel.tp=2``
+    still refuses: the loop feeds token batches (ROADMAP R8); the split
+    itself takes qwen2-vl (``make_train_step``)."""
+    with pytest.raises(SystemExit, match="R8"):
+        cli.main(["train", "--smoke", "--device", "cpu", "--steps", "1",
+                  "--arch", VL, "--set", "parallel.tp=2"])
+    assert sp.unsupported(get_config(VL, smoke=True), 2) is None
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp2_checkpoint_resumes_in_one_process(pools, tmp_path, arch):
     """``python -m repro_torch train --smoke --device cpu --set
     parallel.tp=2`` runs (here on the pool's ranks, as under ``torchrun``);
-    its checkpoint is the whole tree in the single-process format, and one
-    process resumes from it."""
+    its checkpoint is the whole tree in the single-process format (the
+    ranks' vocabulary slices regathered: cut again, each rank's part of the
+    final master and moments bit for bit), and one process resumes from
+    it."""
+    from repro_torch.checkpoint.checkpointer import restore
+    from repro_torch.train.train_step import init_train_state
+
     base = ["train", "--arch", arch, "--smoke", "--device", "cpu",
             "--set", "train.seq_len=32", "--set", "train.global_batch=2",
             "--modules", "none", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
     two = pools(2).run(tasks.run_cli, [*base, "--steps", "2", "--set", "parallel.tp=2"])
     assert [r["world"] for r in two] == [2, 2]
     assert all(np.isfinite(h["loss"]) for h in two[0]["history"])
+    cfg = get_config(arch, smoke=True)
+    saved, _ = restore(tmp_path, init_train_state(cfg, seed=0, device="cpu"))
+    dims = sp.tp_slices(cfg, 2)
+    assert ("embedding",) in dims
+    for r, rank in enumerate(two):
+        for key, tree in (("master", saved.master), ("m", saved.opt["m"]),
+                          ("v", saved.opt["v"])):
+            want = dict(optim.leaves(shard_params(tree, dims, 2, r)))
+            got = dict(optim.leaves(rank["state"][key]))
+            assert set(got) == set(want)
+            for path, leaf in got.items():
+                np.testing.assert_array_equal(leaf, want[path].numpy(),
+                                              err_msg=f"rank {r} {key} {path}")
     three = cli.run([*base, "--steps", "3"])
     assert [h["step"] for h in three["history"]] == [3]
     assert np.isfinite(three["history"][0]["loss"])
