@@ -282,13 +282,18 @@ Phases, each of which fails the run (non-zero exit) on error:
              rank's K1 and K2 launches exact, the backend gloo; the step
              medians beside the fused step's and the share of a step in
              all-reduces; then in the 2-rank world tp 2 over rwkv6-3b,
-             recurrentgemma-9b at its vocabulary of 256000, phi3.5-moe
-             and qwen2-vl-7b (through ``make_train_step`` on patch-grid
-             batches), and dp 2 over phi3.5-moe, at full width with the
-             depth cut, each held the same way; at tp 2 every rank holds
-             half of the vocabulary (the embedding's rows, the head's
-             columns); rank 0's peak and the card's used memory logged at
-             each reference;
+             recurrentgemma-9b at its vocabulary of 256000, phi3.5-moe,
+             qwen2-vl-7b (through ``make_train_step`` on patch-grid
+             batches), deepseek-v2-lite at 2 of 27 layers (MLA's heads,
+             the shared and routed experts, the dense first layer; data
+             seed 2, its routing flips held above the noise probe's) and
+             seamless-m4t at 2 + 2 layers (through ``make_train_step`` on
+             ``make_batch`` frames and target tokens: the encoder, the
+             decoder and the cross attention), and dp 2 over phi3.5-moe,
+             at full width with the depth cut, each held the same way; at
+             tp 2 every rank holds half of the vocabulary (the
+             embedding's rows, the head's columns); rank 0's peak and the
+             card's used memory logged at each reference;
 8. rwkv    — the WKV6 kernels (K5, forward and backward) held row by row to
              their plain version in float64 at the rwkv6-3b training shape
              and at ragged, brutal-decay, long-memory, clamped-decay and
@@ -5498,7 +5503,8 @@ def _world_rank(jobs: list[dict]) -> list[dict]:
             m.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         with _StepRecorder(check=job.get("check", False), first=not out,
-                           mixer=job.get("mixer", "attn"), pin=job.get("pin", False)) as rec:
+                           mixer=job.get("mixer", "attn"), pin=job.get("pin", False),
+                           noise=job.get("noise", False)) as rec:
             if "plan" in job:
                 state, history, info = _embeds_steps(torch, job["model_cfg"], job["shape"],
                                                      job["plan"])
@@ -5916,7 +5922,16 @@ PAR_CELLS = (
 # parameters, 1.05B a rank: ~18.5 GB a rank with half of the 3 layers);
 # qwen2-vl-7b at 2 of 28 layers on patch-grid batches through
 # ``make_train_step`` (the loop refuses an embeds arch: ROADMAP R8; ~11 GB
-# a rank).  Every block and the vocabulary run at full width.
+# a rank); deepseek-v2-lite at 2 of 27 layers, the dense first layer and
+# one MoE layer (1,085,287,424 parameters, 2,501,632 of them whole on each
+# rank: wdkv, wkr, kv_norm, the norms, the router; 543,894,528 a rank,
+# ~7.6 GB), 8 of 16 heads, 32 of 64 experts and half of the shared
+# experts' and the dense layer's widths a rank; seamless-m4t at 2 encoder
+# and 2 decoder layers at its vocabulary of 256206 (650,665,984
+# parameters, ~325M a rank, ~4.6 GB) through ``make_train_step`` on
+# ``make_batch`` frames and target tokens (R8 again).  Every block and the
+# vocabulary run at full width.  A cell's ``seed`` replaces the shape's
+# data seed.
 FAMILY_SHAPE = dict(seq_len=2048, global_batch=2, steps=2, seed=0)
 FAMILY_CELLS = (
     ("tp2-rwkv6", dict(tp=2, arch="rwkv6-3b", layers=4), ["--set", "parallel.tp=2"]),
@@ -5928,9 +5943,16 @@ FAMILY_CELLS = (
      ["--set", "parallel.dp=2"]),
     # no command line: make_train_step on patch-grid batches (_embeds_steps)
     ("tp2-qwen2vl", dict(tp=2, arch="qwen2-vl-7b", layers=2), None),
+    # data seed 2, as train-mla (MLA_TRAIN): seed 0's synthetic rule runs
+    # into a fixed point at V = 102400
+    ("tp2-deepseek", dict(tp=2, arch="deepseek-v2-lite-16b", layers=2, seed=2),
+     ["--set", "parallel.tp=2"]),
+    # no command line: make_train_step on make_batch batches (_embeds_steps)
+    ("tp2-seamless", dict(tp=2, arch="seamless-m4t-large-v2", layers=2), None),
 )
-# each family's kernels, the token mixer its leaf norms read, and the step
-# check's limits
+# each family's kernels (the encoder-decoder's K1 counted to hold it at 0:
+# its layernorms are plain), the token mixers its leaf norms read, and the
+# step check's limits
 FAMILY = {
     "dense": (("flash_attention", "rmsnorm"), "attn",
               (STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL)),
@@ -5940,32 +5962,41 @@ FAMILY = {
               (RWKV_STEP_LOSS_TOL, RWKV_STEP_GNORM_RTOL, RWKV_STEP_LEAF_RTOL)),
     "griffin": (("rglru", "flash_attention", "rmsnorm"), "mix",
                 (GRIFFIN_STEP_LOSS_TOL, GRIFFIN_STEP_GNORM_RTOL, GRIFFIN_STEP_LEAF_RTOL)),
+    "encdec": (("flash_attention", "rmsnorm"), ("attn", "cross"),
+               (STEP_LOSS_TOL, STEP_GNORM_RTOL, STEP_LEAF_RTOL)),
 }
 
 
 def _cell_cfg(cell: dict):
     """A cell's model: qwen2-0.5b whole, or its ``arch`` cut to its
-    ``layers``."""
+    ``layers`` (the encoder-decoder's encoder and decoder each)."""
     from repro_torch.configs import get_config
 
     if "arch" not in cell:
         return get_config("qwen2-0.5b")
-    return get_config(cell["arch"]).replace(num_layers=cell["layers"])
+    cfg = get_config(cell["arch"])
+    if cfg.family == "encdec":
+        return cfg.replace(num_layers=cell["layers"], num_encoder_layers=cell["layers"])
+    return cfg.replace(num_layers=cell["layers"])
 
 
 def _embeds_steps(torch, cfg, shape: dict, plan_kw: dict | None = None,
                   device: str = "cuda") -> tuple:
     """``shape["steps"]`` steps of ``make_train_step`` on
-    :func:`_patch_grid_batch` batches (seed ``shape["seed"]`` plus the
-    step's index) from the seed-0 master at the CLI's optimizer defaults:
-    an embeds arch, which the loop refuses (ROADMAP R8).  With ``plan_kw``
+    :func:`_patch_grid_batch` batches, or the encoder-decoder's
+    ``make_batch`` batches (frames and target tokens), of seed
+    ``shape["seed"]`` plus the step's index, from the seed-0 master at the
+    CLI's optimizer defaults: an embeds arch, which the loop refuses
+    (ROADMAP R8).  With ``plan_kw``
     the step of that plan on this rank's world, its part of the state cut
     from the whole master as the loop cuts it; else the fused step on
     ``device``.
     Returns ``(state, history, the step's parallel info or None)``, history
     rows as the loop's."""
     from repro_torch.launch.mesh import make_pipeline_mesh
-    from repro_torch.models.model import get_model
+    import numpy as np
+
+    from repro_torch.models.model import get_model, make_batch
     from repro_torch.parallel import dist as pdist
     from repro_torch.parallel.plan import ParallelPlan, resolve_plan
     from repro_torch.train import loop
@@ -5983,9 +6014,11 @@ def _embeds_steps(torch, cfg, shape: dict, plan_kw: dict | None = None,
         dev = torch.device(device)
         state = init_train_state(cfg, seed=0, device=dev)
     history = []
+    B, S = shape["global_batch"], shape["seq_len"]
     for i in range(shape["steps"]):
-        batch = _patch_grid_batch(torch, cfg, shape["global_batch"], shape["seq_len"],
-                                  shape["seed"] + i, dev)
+        batch = (make_batch(cfg, B, S, np.random.default_rng(shape["seed"] + i), device=dev)
+                 if cfg.family == "encdec" else
+                 _patch_grid_batch(torch, cfg, B, S, shape["seed"] + i, dev))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, batch)
@@ -5998,7 +6031,7 @@ def _embeds_steps(torch, cfg, shape: dict, plan_kw: dict | None = None,
 
 def _par_shape(cell: dict) -> dict:
     if "arch" in cell:
-        return FAMILY_SHAPE
+        return dict(FAMILY_SHAPE, seed=cell.get("seed", FAMILY_SHAPE["seed"]))
     return (dict(PAR_SHAPE, global_batch=PAR_PIPE_BATCH) if cell.get("pp", 1) > 1
             else PAR_SHAPE)
 
@@ -6023,13 +6056,18 @@ class _StepRecorder:
     comes after the step, from the parameters gathered before it (kept in
     host memory meanwhile), routed as the step routed (the data ranks'
     picks sent to rank 0: :class:`_PinnedRouting`), and each of its runs'
-    flips is kept.  With ``first``, the rank's first step
+    flips is kept; with ``noise`` too (deepseek-v2-lite's 64-expert router,
+    see ``MOE_FLIP_SHARE``) each reference first runs the noise probe, the
+    plain path under :class:`_Float64Norms` pinned to the plain path's own
+    routing (no gradient), whose (flips, routings) come last among its
+    runs'.  With ``first``, the rank's first step
     runs under Python's profiler (``first_profile``: the 10 functions that
     took the most time of their own, and the 10 that took the most in all)."""
 
     def __init__(self, check: bool = False, first: bool = False, mixer: str = "attn",
-                 pin: bool = False):
+                 pin: bool = False, noise: bool = False):
         self.check, self.first, self.mixer, self.pin = check, first, mixer, pin
+        self.noise = noise
 
     def __enter__(self):
         import torch
@@ -6080,7 +6118,14 @@ class _StepRecorder:
             params = ts.tree_map(lambda t: t.detach().requires_grad_(True), box.pop())
             dev = next(iter(ts.leaves(params)))[1].device
             batch = ts.to_device_batch(batch, dev)
-            out, flips = [], []
+            out, flips, probe = [], [], None
+            if picks is not None and self.noise:
+                with torch.no_grad(), _PinnedRouting() as noise:
+                    get_model(cfg).loss_fn(cfg, params, batch, plain=True)
+                    noise.replay()
+                    with _Float64Norms():
+                        get_model(cfg).loss_fn(cfg, params, batch, plain=True)
+                probe = (noise.flips, noise.routings)
             runs = ("kernels",) + (("plain", "split") if tp > 1 else ())
             if tp > 1 and not self.refs:
                 runs += ("plain32", "split32")
@@ -6114,7 +6159,7 @@ class _StepRecorder:
                 capture_output=True, text=True, timeout=60).stdout.strip()
             self.ref_mem.append((torch.cuda.max_memory_allocated(), used))
             if picks is not None:
-                self.flips.append(flips)
+                self.flips.append(flips + ([probe] if probe else []))
             return tuple(out)
 
         def picks_on_rank0(picks: list, info) -> list | None:
@@ -6247,17 +6292,20 @@ def _parallel_jobs() -> dict[int, list]:
     """``{world size: [(name, cell, job)]}`` of :data:`PAR_CELLS` and
     :data:`FAMILY_CELLS`, the jobs :func:`_world_rank` runs, each step
     checked (MoE's routing pinned: ``pin``); a cell without a command line
-    runs :func:`_embeds_steps` with its plan (``plan``)."""
+    runs :func:`_embeds_steps` with its plan (``plan``); MLA's references
+    run the routing's noise probe (``noise``)."""
     out: dict[int, list] = {}
     for name, cell, extra in (*PAR_CELLS, *FAMILY_CELLS):
         cfg = _cell_cfg(cell)
         kernels, mixer, _ = FAMILY[cfg.family]
-        job = dict(kernels=kernels, mixer=mixer, check=True, pin=cfg.family == "moe")
+        job = dict(kernels=kernels, mixer=mixer, check=True, pin=cfg.family == "moe",
+                   noise=cfg.use_mla)
         if extra is None:
             plan = {k: cell[k] for k in ("dp", "tp") if k in cell}
             job.update(plan=plan, shape=_par_shape(cell), model_cfg=cfg,
                        what=f"make_train_step {cfg.name} at {cfg.num_layers} layers, "
-                            f"{plan}, patch-grid batches")
+                            f"{plan}, " + ("make_batch batches" if cfg.family == "encdec"
+                                           else "patch-grid batches"))
         else:
             argv = [*_train_argv(_par_shape(cell)), "--modules", "none", *extra]
             job["argv"] = argv
@@ -6320,16 +6368,21 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
     2, on qwen2-0.5b; then the other families (:data:`FAMILY_CELLS`): tp 2
     over rwkv6-3b (K5 at H 20 a rank), recurrentgemma-9b at its vocabulary
     of 256000 (K6 at W 2048, K2 at H 8, K 1, dh 256 a rank), phi3.5-moe (8
-    experts a rank) and qwen2-vl-7b (M-RoPE on patch-grid batches, through
-    ``make_train_step``: K2 at H 14, K 2, dh 128 a rank), and dp 2 over
-    phi3.5-moe.  At tp 2 each rank holds its half of the vocabulary.
+    experts a rank), qwen2-vl-7b (M-RoPE on patch-grid batches, through
+    ``make_train_step``: K2 at H 14, K 2, dh 128 a rank), deepseek-v2-lite
+    (K2 at H = K = 8, q/k 192, v 128 a rank; K1 on the whole latent, 512)
+    and seamless-m4t (``make_batch`` frames and target tokens through
+    ``make_train_step``: K2 at H = K = 8, dh 64 a rank, bidirectional in
+    the encoder and the cross attention), and dp 2 over phi3.5-moe.  At
+    tp 2 each rank holds its half of the vocabulary.
     Every step is held at its family's step limits to the fused
     one-process step from the same parameters (:class:`_StepRecorder`'s
     reference): loss, gradient norm, per-layer leaf gradient norms and
     those of the embedding and the head; a tp cell's against the fused step with
     the split's order of sums at every step and the unsplit one at the
     first; a MoE cell's reference routed as its step (flips held to
-    ``MOE_FLIP_SHARE``).  Each rank's kernel launches must be exact, and
+    ``MOE_FLIP_SHARE``; deepseek-v2-lite's above its noise probe's).  Each
+    rank's kernel launches must be exact, and
     ranks that hold the same part of the model (data replicas) must end
     with the same master weights.  Logs the backend, each cell's step
     median beside the fused step's at its model and batch (a fused run of
@@ -6418,15 +6471,23 @@ def parallel_phase(torch, smi: str, tag: str = "parallel", done: dict | None = N
             got = (h["loss"], h["grad_norm"], norms)
             log(f"[{tag}] {name} step {k + 1}: loss {h['loss']:.5f}, the fused kernel "
                 f"step's from the same parameters {ref_k[0]:.5f}")
+            runs_k = list(ranks[0]["flips"][k]) if ranks[0]["flips"] else []
+            floor = 0.0
+            if cfg.use_mla and runs_k:
+                # deepseek-v2-lite: each run's share above the noise probe's
+                noise_f, noise_r = runs_k.pop()
+                floor = noise_f / max(noise_r, 1)
+                log(f"[{tag}] {name} step {k + 1}, the noise probe (plain with float64 "
+                    f"norms against the plain path's own routing): {noise_f} of {noise_r} "
+                    f"token routings would flip ({floor:.4f}); each run held above it")
             for run, (flips, routings) in zip(("kernels", "plain", "split", "plain32",
-                                               "split32"),
-                                              ranks[0]["flips"][k] if ranks[0]["flips"]
-                                              else ()):
+                                               "split32"), runs_k):
                 share = flips / max(routings, 1)
                 log(f"[{tag}] {name} step {k + 1}, the {run} reference routed as the "
-                    f"step: {flips} of {routings} token routings would flip ({share:.4f}, "
-                    f"limit {MOE_FLIP_SHARE})")
-                ok = ok and share <= MOE_FLIP_SHARE
+                    f"step: {flips} of {routings} token routings would flip ({share:.4f}"
+                    + (f", {share - floor:.4f} above the noise probe's" if floor else "")
+                    + f", limit {MOE_FLIP_SHARE})")
+                ok = ok and share - floor <= MOE_FLIP_SHARE
             if tp_refs:
                 # tp: held to the fused step with the split's order of sums
                 # at every step, to the unsplit one at the first (the

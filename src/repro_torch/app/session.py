@@ -14,7 +14,9 @@ A Session owns the pieces every entry point shares:
 Workloads: ``train`` (the train loop; with ``parallel.pp``, ``dp`` or
 ``tp`` > 1 in a world of ``pp * dp * tp`` ranks, spawned here unless this
 process already joined one (``torchrun``): the batch split over ``data``,
-Megatron's tensor split over ``model``, each MegaDPP pipeline stage a
+Megatron's tensor split over ``model`` (every token arch; the loop refuses
+the embeds archs, which split only through ``make_train_step``: ROADMAP
+R8), each MegaDPP pipeline stage a
 process, MegaFBD's decoupled backward on the next stage's process under
 ``parallel.fbd_backward``), ``serve``
 (MegaServe continuous batching, every single-engine path and MegaScope

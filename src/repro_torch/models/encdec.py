@@ -13,6 +13,14 @@ growing self-attention K/V and the cross-attention K/V, computed once from
 the memory at :func:`prefill`; both are bfloat16 ``[L, B, T, K, dh]`` and
 updated in place.
 
+Under a tensor split (``models.split``; training only) every layer runs
+Megatron's split as ``lm``'s dense blocks do: the layernorms whole, each
+slice its heads of the self-attention, its kv heads and heads of the cross
+attention (the memory, whole on every rank, entering each decoder layer's
+slices) and its part of the GeGLU's width, the float32 parts summed and
+rounded once; the decoder's embedding and the cross entropy over the
+vocabulary slices.
+
 Kernels: the three attentions take :func:`layers.attention`'s branches.
 Past ``attn_kv_chunk`` keys, the encoder's self-attention (S = T, causal
 off), the cross-attention (S queries over the T frames of the memory) and
@@ -41,6 +49,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.hooks import NULL_COLLECTOR, Collector, LayerScoped
+from repro_torch.models.split import WHOLE, Split
 
 # ---------------------------------------------------------------------------
 # cross attention
@@ -64,10 +73,13 @@ def cross_kv(p: dict, cfg: ModelConfig, memory: torch.Tensor
 
 def cross_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      kv: tuple[torch.Tensor, torch.Tensor], *, plain: bool = False,
-                     collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
+                     collector: Collector = NULL_COLLECTOR,
+                     out_float32: bool = False) -> torch.Tensor:
     """The decoder stream ``x [B, S, D]`` attends over the memory's K/V
     ``[B, T, K, dh]``, bidirectionally: no rope, the queries at position 0
-    as JAX places them (a bidirectional call reads no positions)."""
+    as JAX places them (a bidirectional call reads no positions).
+    ``out_float32``: the output product's float32 result, a tensor slice's
+    part of it (``layers.matmul_float32``)."""
     B, S, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
     q = L._proj(x, p["wq"])
@@ -77,7 +89,10 @@ def cross_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     causal=False, impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
                     plain=plain, collector=collector)
     o = collector.tag("cross_attn_out", o)
-    return o.reshape(B, S, H * dh) @ p["wo"].to(x.dtype).reshape(H * dh, D)
+    wo = p["wo"].to(x.dtype).reshape(H * dh, D)
+    if out_float32:
+        return L.matmul_float32(o.reshape(B * S, H * dh), wo).reshape(B, S, D)
+    return o.reshape(B, S, H * dh) @ wo
 
 
 # ---------------------------------------------------------------------------
@@ -94,13 +109,29 @@ def enc_block_init(b: L.ParamBuilder, cfg: ModelConfig) -> None:
 
 def enc_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, plain: bool = False,
-                    collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
+                    collector: Collector = NULL_COLLECTOR,
+                    split: Split = WHOLE) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, then the MLP.
+    Under a tensor ``split`` each norm's output enters the slices' heads
+    and ffn width, whose float32 parts are summed and rounded once into the
+    residual, as ``lm``'s dense blocks run (the norms stay whole)."""
+    local = split.cfg(cfg)
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    a = L.gqa_apply(p["attn"], cfg, h, positions=positions, causal=False,
-                    plain=plain, collector=collector)
-    x = x + collector.tag("att_resid", a)
+    a = split.sum(lambda t: L.gqa_apply(
+        split.take(p["attn"], "encoder", ("attn",), t), local, split.enter(h),
+        positions=positions, causal=False, plain=plain, collector=collector,
+        out_float32=split.tensor))
+    x = x + collector.tag("att_resid", a.to(x.dtype))
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    return x + collector.tag("ffn_resid", L.mlp_apply(p["mlp"], cfg, h, collector))
+    return x + collector.tag("ffn_resid", _mlp(p, local, "encoder", h, collector, split))
+
+
+def _mlp(p: dict, local: ModelConfig, kind: str, h: torch.Tensor,
+         collector: Collector, split: Split) -> torch.Tensor:
+    """A layer's MLP over the split's slices of its width, rounded once."""
+    return split.sum(lambda t: L.mlp_apply(
+        split.take(p["mlp"], kind, ("mlp",), t), local, split.enter(h), collector,
+        out_float32=split.tensor)).to(h.dtype)
 
 
 def dec_block_init(b: L.ParamBuilder, cfg: ModelConfig) -> None:
@@ -113,24 +144,38 @@ def dec_block_init(b: L.ParamBuilder, cfg: ModelConfig) -> None:
 
 
 def dec_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                    positions: torch.Tensor, mem_kv: tuple[torch.Tensor, torch.Tensor],
+                    positions: torch.Tensor, memory: torch.Tensor | None = None,
+                    mem_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
                     cache: dict | None = None, cache_pos: int | None = None,
-                    plain: bool = False,
-                    collector: Collector = NULL_COLLECTOR) -> torch.Tensor:
+                    plain: bool = False, collector: Collector = NULL_COLLECTOR,
+                    split: Split = WHOLE) -> torch.Tensor:
     """One decoder layer.  With ``cache`` (this layer's views), the new
     self-attention K/V are written at ``cache_pos`` in place and attention
-    reads the whole cache; ``mem_kv`` is the memory's K/V (the cache's
-    ``ck``/``cv`` when serving)."""
+    reads the whole cache.  The cross attention reads ``mem_kv`` (the
+    cache's ``ck``/``cv`` when serving) or computes the K/V of ``memory``
+    itself (training).  Under a tensor ``split`` (training only) each
+    sub-block runs over the slices of its heads or width as
+    :func:`enc_block_apply`'s do, the memory whole on every rank entering
+    each slice's kv heads of the cross attention."""
+    local = split.cfg(cfg)
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
     self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-    a = L.gqa_apply(p["attn"], cfg, h, positions=positions, cache=self_cache,
-                    cache_pos=cache_pos, plain=plain, collector=collector)
-    x = x + collector.tag("att_resid", a)
+    a = split.sum(lambda t: L.gqa_apply(
+        split.take(p["attn"], "decoder", ("attn",), t), local, split.enter(h),
+        positions=positions, cache=self_cache, cache_pos=cache_pos, plain=plain,
+        collector=collector, out_float32=split.tensor))
+    x = x + collector.tag("att_resid", a.to(x.dtype))
     h = L.norm_apply(p["ln_cross"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    x = x + cross_attn_apply(p["cross"], cfg, h, mem_kv, plain=plain,
-                             collector=collector)
+
+    def cross(t: int) -> torch.Tensor:
+        w = split.take(p["cross"], "decoder", ("cross",), t)
+        kv = mem_kv if memory is None else cross_kv(w, local, split.enter(memory))
+        return cross_attn_apply(w, local, split.enter(h), kv, plain=plain,
+                                collector=collector, out_float32=split.tensor)
+
+    x = x + split.sum(cross).to(x.dtype)
     h = L.norm_apply(p["ln2"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
-    return x + collector.tag("ffn_resid", L.mlp_apply(p["mlp"], cfg, h, collector))
+    return x + collector.tag("ffn_resid", _mlp(p, local, "decoder", h, collector, split))
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +246,17 @@ def _remat(cfg: ModelConfig, cached: bool) -> str:
 
 
 def encode(cfg: ModelConfig, params: dict, embeds: torch.Tensor, *,
-           plain: bool = False, collector: Collector = NULL_COLLECTOR
-           ) -> tuple[torch.Tensor, dict]:
+           plain: bool = False, collector: Collector = NULL_COLLECTOR,
+           split: Split = WHOLE) -> tuple[torch.Tensor, dict]:
     """The memory ``[B, T, D]`` of the frame embeddings ``[B, T, D]`` (in
-    the compute dtype), and the encoder's captures."""
+    the compute dtype), and the encoder's captures; under a tensor
+    ``split`` each layer runs its slices and the memory is whole."""
     x = embeds.to(getattr(torch, cfg.compute_dtype))
     positions = L.arange_positions(x.shape[1], x.device)
 
     def body(p, x, col, _):
         return enc_block_apply(p, cfg, x, positions=positions, plain=plain,
-                               collector=col)
+                               collector=col, split=split)
 
     x, captures = _stack(params["encoder"], x, body, "encoder", collector,
                          _remat(cfg, False))
@@ -221,22 +267,27 @@ def encode(cfg: ModelConfig, params: dict, embeds: torch.Tensor, *,
 def _decode_stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
                   memory: torch.Tensor | None, *, cache: dict | None = None,
                   cache_pos: int | None = None, plain: bool = False,
-                  collector: Collector = NULL_COLLECTOR) -> tuple[torch.Tensor, dict]:
+                  collector: Collector = NULL_COLLECTOR,
+                  split: Split = WHOLE) -> tuple[torch.Tensor, dict]:
     """The decoder over ``x [B, S, D]``: without ``cache`` (training) each
-    layer computes the memory's K/V itself, within its remat; with it, the
-    layers read the cache's ``ck``/``cv`` and write their self-attention
-    K/V at ``cache_pos``.  Returns (hidden after ``final_norm``, the
-    decoder's captures)."""
+    layer computes the memory's K/V itself, within its remat (under a
+    tensor ``split``, each slice its kv heads); with it, the layers read
+    the cache's ``ck``/``cv`` and write their self-attention K/V at
+    ``cache_pos``, and a split is refused (serving is not split).  Returns
+    (hidden after ``final_norm``, the decoder's captures)."""
+    if split.tensor and cache is not None:
+        raise NotImplementedError("the encoder-decoder's cache is not split over "
+                                  "tensor ranks (sharded serving: ROADMAP queue 1, "
+                                  "item 8c)")
     S = x.shape[1]
     positions = (L.arange_positions(S, x.device) if cache_pos is None
                  else torch.arange(cache_pos, cache_pos + S, device=x.device))
 
     def body(p, x, col, layer_cache):
-        mem_kv = (cross_kv(p["cross"], cfg, memory) if layer_cache is None
-                  else (layer_cache["ck"], layer_cache["cv"]))
-        return dec_block_apply(p, cfg, x, positions=positions, mem_kv=mem_kv,
-                               cache=layer_cache, cache_pos=cache_pos, plain=plain,
-                               collector=col)
+        mem_kv = None if layer_cache is None else (layer_cache["ck"], layer_cache["cv"])
+        return dec_block_apply(p, cfg, x, positions=positions, memory=memory,
+                               mem_kv=mem_kv, cache=layer_cache, cache_pos=cache_pos,
+                               plain=plain, collector=col, split=split)
 
     x, captures = _stack(params["decoder"], x, body, "decoder", collector,
                          _remat(cfg, cache is not None), caches=cache)
@@ -250,19 +301,25 @@ def _captures(enc: dict, dec: dict) -> dict:
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             collector: Collector = NULL_COLLECTOR, *,
-            plain: bool = False) -> tuple[torch.Tensor, dict]:
+            plain: bool = False, split: Split | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` as JAX ``encdec.loss_fn``: the source ``embeds``
     encoded, the target ``tokens`` decoded over the memory, the mean masked
     cross entropy against ``targets`` (optional ``loss_mask``); the metrics
     hold ``loss``, ``ce``, a zero ``aux_loss`` and, with a live
-    ``collector``, its ``captures`` (``{"encoder": ..., "decoder": ...}``)."""
+    ``collector``, its ``captures`` (``{"encoder": ..., "decoder": ...}``).
+    Under a tensor ``split`` (``models.split``) the encoder's and the
+    decoder's layers run their slices and the decoder's embedding and the
+    cross entropy their vocabulary slices, as ``lm.loss_fn``'s do."""
+    split = WHOLE if split is None else split
     memory, enc = encode(cfg, params, batch["embeds"], plain=plain,
-                         collector=collector)
-    x = L.embed_apply(params, cfg, batch["tokens"], getattr(torch, cfg.compute_dtype))
+                         collector=collector, split=split)
+    x = L.embed_apply(params, cfg, batch["tokens"], getattr(torch, cfg.compute_dtype),
+                      split)
     hidden, dec = _decode_stack(cfg, params, x, memory, plain=plain,
-                                collector=collector)
+                                collector=collector, split=split)
     total, count = L.chunked_xent(params, cfg, hidden, batch["targets"],
-                                  batch.get("loss_mask"))
+                                  batch.get("loss_mask"), split)
     ce = total / torch.clamp(count, min=1.0)
     metrics = {"loss": ce, "ce": ce,
                "aux_loss": torch.zeros((), dtype=torch.float32, device=ce.device)}

@@ -583,6 +583,8 @@ def mla_apply(
     paged: PagedInfo | None = None,
     plain: bool = False,
     collector: Collector = NULL_COLLECTOR,
+    split=WHOLE,
+    kind: str = "dense",
 ) -> torch.Tensor:
     """JAX ``mla_apply``: queries ``wq`` (no query compression) split into a
     no-rope and a roped part; the latent ``ckv = kv_norm(x wdkv)`` (K1) and
@@ -601,20 +603,35 @@ def mla_apply(
     flash branch, at (192, 128) for deepseek-v2-lite); a prefill with a
     cache writes the padded latent and ``kpe`` into it.  The paged pool is
     refused: the latent cache has no kv-head axis for the paged kernels to
-    walk (MLA serves on the gathered path)."""
+    walk (MLA serves on the gathered path).
+
+    Under a tensor ``split`` (training only; ``kind`` is the block's, the
+    slice table's key) ``ckv`` and ``kpe`` are computed whole before the
+    boundary and enter the slices with ``x``; each slice takes its heads of
+    ``wq``, ``wuk``, ``wuv`` and ``wo`` and returns its float32 part of the
+    output product, and the parts are summed (Megatron's MLA: the down
+    projections replicated, the up projections split by heads)."""
     if paged is not None:
         raise NotImplementedError("paged decode does not support MLA")
+    if split.tensor and cache is not None:
+        raise NotImplementedError("MLA's latent cache is not split over tensor ranks "
+                                  "(sharded serving: ROADMAP queue 1, item 8c)")
     m = cfg.mla
     B, S, D = x.shape
-    H = cfg.num_heads
     dt = x.dtype
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    qn, qr = _mla_qkr(p, cfg, x, positions)
+    local = split.cfg(cfg)
+    w = {t: split.take({k: p[k] for k in ("wq", "wuk", "wuv", "wo")}, kind, ("attn",), t)
+         for t in split.slices}
+    # the queries first: x's gradient then sums its uses in the order it
+    # always has, so the fused path stays bit for bit what it was
+    q = {t: _mla_qkr(w[t], local, split.enter(x), positions) for t in split.slices}
     ckv = rmsnorm(x @ p["wdkv"].to(dt), p["kv_norm"], cfg.norm_eps, plain=plain)
     kpe = apply_rope(x @ p["wkr"].to(dt), positions, cfg.rope_theta)
 
     if cache is not None and S == 1:
         # absorbed decode: attend in the latent space (compressed KV cache)
+        qn, qr = q[0]
         cache["ckv"][:, cache_pos:cache_pos + 1] = ckv.to(cache["ckv"].dtype)
         cache["kpe"][:, cache_pos:cache_pos + 1] = kpe.to(cache["kpe"].dtype)
         ckv_c, kpe_c = cache["ckv"].to(dt), cache["kpe"].to(dt)
@@ -629,17 +646,24 @@ def mla_apply(
         o = torch.einsum("bshr,rhv->bshv", ctx, p["wuv"].to(dt))
         return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(dt))
 
-    # full (training / prefill) path
+    # full (training / prefill) path, over the split's head slices
     r = m.kv_lora_rank
-    kn = (ckv @ p["wuk"].to(dt).reshape(r, -1)).view(B, S, H, m.qk_nope_head_dim)
-    vv = (ckv @ p["wuv"].to(dt).reshape(r, -1)).view(B, S, H, m.v_head_dim)
-    k_full = torch.cat(
-        [kn, kpe[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
-    q_full = torch.cat([qn, qr], dim=-1)
-    o = attention(q_full, k_full, vv, scale=scale, positions_q=positions,
-                  causal=True, impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
-                  plain=plain, collector=collector)
-    out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(dt).reshape(H * m.v_head_dim, D)
+    H = local.num_heads
+
+    def part(t: int) -> torch.Tensor:
+        (qn, qr), c, kp = q[t], split.enter(ckv), split.enter(kpe)
+        kn = (c @ w[t]["wuk"].to(dt).reshape(r, -1)).view(B, S, H, m.qk_nope_head_dim)
+        vv = (c @ w[t]["wuv"].to(dt).reshape(r, -1)).view(B, S, H, m.v_head_dim)
+        k_full = torch.cat(
+            [kn, kp[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+        q_full = torch.cat([qn, qr], dim=-1)
+        o = attention(q_full, k_full, vv, scale=scale, positions_q=positions,
+                      causal=True, impl=cfg.attn_impl, kv_chunk=cfg.attn_kv_chunk,
+                      plain=plain, collector=collector)
+        return split.out(o.reshape(B, S, H * m.v_head_dim),
+                         w[t]["wo"].reshape(H * m.v_head_dim, D))
+
+    out = split.sum(part)
     if cache is not None:  # prefill fills the compressed cache, zeros past S
         for name, new in (("ckv", ckv), ("kpe", kpe)):
             cache[name][:, :S] = new.to(cache[name].dtype)
@@ -745,7 +769,10 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     and the dispatch tables are computed whole, the same on every rank;
     the token rows and the gates enter the slices' experts (``E / tp``
     each, ``expert_w`` sliced), each slice combines only its experts'
-    outputs in float32, and the slices' parts are summed.  Over ``split.dp``
+    outputs in float32, and the slices' parts are summed; the shared
+    experts' SwiGLU runs over the slices of its width (``mlp_w``), its
+    float32 parts summed and rounded once, and is added to the rounded
+    routed output as the fused path adds the two.  Over ``split.dp``
     data ranks (a routing group is a row's, so a rank's rows route as in
     the whole batch) the expert counts are summed over the data ranks and
     the load-balance and z-loss terms are this rank's partial sums over
@@ -813,11 +840,11 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     y = split.sum(lambda t: _moe_experts(p, cfg, split, t, xt_pad, gate, tok_for_slot,
                                          slot_entry, cap)).to(dt)
 
-    if mo.num_shared_experts:
-        sp = p["shared"]
-        hs = xt @ sp["w_up"].to(dt)
-        gs = xt @ sp["w_gate"].to(dt)
-        y = y + (F.silu(gs) * hs) @ sp["w_down"].to(dt)
+    if mo.num_shared_experts:  # a SwiGLU over the split's mlp_w slices
+        swiglu = cfg.replace(mlp_kind="swiglu")
+        y = y + split.sum(lambda t: mlp_apply(
+            split.take(p["shared"], "moe", ("mlp", "shared"), t), swiglu,
+            split.enter(xt), out_float32=split.tensor)).to(dt)
 
     aux = {"moe_aux_loss": aux_lb + aux_z,
            "moe_drop_frac": (slot_entry == E * cap).float().mean()}

@@ -281,8 +281,9 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
                                       paged=paged, plain=plain,
                                       collector=collector, split=split)[0], {}
     # dense and MoE layers: under a tensor split each norm's output enters
-    # the slices' attention heads and ffn width (or experts: moe_apply),
-    # whose float32 products are summed and rounded once into the residual
+    # the slices' attention heads (MLA's: mla_apply) and ffn width (or
+    # experts: moe_apply), whose float32 products are summed and rounded
+    # once into the residual
     split = WHOLE if split is None else split
     local = split.cfg(cfg)
     h = L.norm_apply(p["ln1"], x, cfg.norm_kind, cfg.norm_eps, plain=plain)
@@ -290,7 +291,7 @@ def _block(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         a = L.mla_apply(p["attn"], cfg, h, positions=positions,
                         cache=None if paged is not None else state,
                         cache_pos=cache_pos, paged=paged, plain=plain,
-                        collector=collector)
+                        collector=collector, split=split, kind=kind)
     else:
         a = split.sum(lambda t: L.gqa_apply(
             split.take(p["attn"], kind, ("attn",), t), local, split.enter(h),

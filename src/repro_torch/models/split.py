@@ -13,8 +13,9 @@ activations at the boundary between the whole region and the sliced one:
 the replicated residual stream.  The leaves then fall into three cases:
 
 * a leaf used only before the boundary (a norm, MoE's router, RWKV-6's
-  token-shift mix) gets a whole gradient, the same on every rank, and is
-  not summed;
+  token-shift mix, MLA's latent ``wdkv`` and ``kv_norm`` and its roped key
+  ``wkr``, whose outputs enter the slices) gets a whole gradient, the same
+  on every rank, and is not summed;
 * a sliced leaf gets its own slice's gradient;
 * a leaf kept whole but used inside the sliced region (qk_norm's scales,
   RWKV-6's decay and bonus, Griffin's single kv head) enters through
@@ -61,6 +62,7 @@ _SLICED = {
     "moe": ("heads_w", "kv_heads_w", "mlp_w", "expert_w", "vocab_w"),
     "rwkv6": ("qkv", "mlp_w", "vocab_w"),
     "griffin": ("heads_w", "kv_heads_w", "qkv", "mlp_w", "vocab_w"),
+    "encdec": ("heads_w", "kv_heads_w", "mlp_w", "vocab_w"),
 }
 
 # leaves the JAX package's rules put on ``model`` (under ``fsdp_cp``) that
@@ -81,6 +83,9 @@ KEPT_WHOLE = {
                     "every channel of it, which enters through copy_to_tp",
     ("mix", "conv_w"): "as w_x",
     ("mix", "conv_b"): "as w_x",
+    ("attn", "wkr"): "head_dim_w: the one roped key every local head reads "
+                     "(MLA's kpe, broadcast over the heads); computed whole "
+                     "before the boundary and entered",
 }
 
 # leaves the split slices at pp = 1 that a pipeline keeps whole: JAX's
@@ -105,17 +110,9 @@ def _flat(tree: dict, path: tuple = ()):
 
 
 def unsupported(cfg: ModelConfig, tp: int) -> str | None:
-    """What of ``cfg`` the tensor split at pp = 1 does not run yet (ROADMAP
+    """What of ``cfg`` the tensor split at pp = 1 does not run (ROADMAP
     item 8c), or None."""
-    if tp <= 1:
-        return None
-    if cfg.family == "encdec":
-        return f"{cfg.name}: tensor parallelism over the encoder-decoder"
-    if cfg.use_mla:
-        return f"{cfg.name}: tensor parallelism over MLA attention"
-    if cfg.family == "moe" and cfg.moe.num_shared_experts:
-        return f"{cfg.name}: tensor parallelism over shared experts"
-    if cfg.family not in _SLICED:
+    if tp > 1 and cfg.family not in _SLICED:
         return f"{cfg.name}: tensor parallelism over family {cfg.family!r}"
     return None
 
@@ -125,8 +122,8 @@ def validate(cfg: ModelConfig, tp: int, pp: int = 1) -> None:
     ``NotImplementedError`` naming ROADMAP item 8c for what is not ported
     (:func:`unsupported`), ``ValueError`` for a width that does not divide:
     the heads (RWKV-6's WKV heads), Griffin's recurrent width, the ffn
-    width, the experts, the kv heads unless there is one (kept whole), and
-    at ``pp = 1`` the padded vocabulary."""
+    width, the experts and the shared experts' width, the kv heads unless
+    there is one (kept whole), and at ``pp = 1`` the padded vocabulary."""
     why = unsupported(cfg, tp)
     if why is not None:
         raise NotImplementedError(f"{why} is ported in a later slice "
@@ -134,12 +131,14 @@ def validate(cfg: ModelConfig, tp: int, pp: int = 1) -> None:
     if tp <= 1:
         return
     widths = {"heads": cfg.num_heads, "d_ff": cfg.d_ff}
-    if cfg.family in ("dense", "moe", "griffin") and cfg.num_kv_heads != 1:
+    if cfg.family in ("dense", "moe", "griffin", "encdec") and cfg.num_kv_heads != 1:
         widths["kv_heads"] = cfg.num_kv_heads
     if cfg.family == "griffin":
         widths["lru_width"] = cfg.lru_width
     if cfg.family == "moe":
         widths["experts"] = cfg.moe.num_experts
+        if cfg.moe.num_shared_experts:
+            widths["shared_d_ff"] = cfg.moe.num_shared_experts * cfg.moe.expert_d_ff
     if pp == 1:
         widths["padded_vocab"] = cfg.padded_vocab
     bad = {k: v for k, v in widths.items() if v % tp}
@@ -149,16 +148,17 @@ def validate(cfg: ModelConfig, tp: int, pp: int = 1) -> None:
 
 
 def tp_slices(cfg: ModelConfig, tp: int, pp: int = 1) -> dict[tuple[str, ...], int]:
-    """``{leaf path: dim}`` of every leaf of ``cfg``'s tree (``lm.param_axes``)
-    whose dim the tensor split over ``tp`` slices in a run of ``pp``
-    pipeline stages: every segment's leaves and those outside the segments
-    (the embedding and the head), on the family's sliced axes, less
-    :data:`KEPT_WHOLE`'s and, at ``pp > 1``, :data:`PIPELINE_WHOLE`'s."""
+    """``{leaf path: dim}`` of every leaf of ``cfg``'s tree (the family's
+    ``param_axes``) whose dim the tensor split over ``tp`` slices in a run
+    of ``pp`` pipeline stages: every segment's leaves (the encoder's and
+    the decoder's) and those outside them (the embedding and the head), on
+    the family's sliced axes, less :data:`KEPT_WHOLE`'s and, at ``pp > 1``,
+    :data:`PIPELINE_WHOLE`'s."""
     if tp <= 1:
         return {}
-    from repro_torch.models import lm
+    from repro_torch.models.model import get_model
 
-    axes = lm.param_axes(cfg)
+    axes = get_model(cfg).param_axes(cfg)
     sliced = set(_SLICED[cfg.family])
     if cfg.num_kv_heads == 1:
         sliced.discard("kv_heads_w")
@@ -174,9 +174,10 @@ def tp_slices(cfg: ModelConfig, tp: int, pp: int = 1) -> dict[tuple[str, ...], i
 
 
 def local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """A tensor rank's view of ``cfg``: heads, kv heads (one is kept), the
-    ffn width and Griffin's recurrent width divided by ``tp`` (GQA's
-    grouping ratio is kept, so each local q head reads its kv head)."""
+    """A tensor rank's view of ``cfg``: heads (MLA's too), kv heads (one is
+    kept), the ffn width and Griffin's recurrent width divided by ``tp``
+    (GQA's grouping ratio is kept, so each local q head reads its kv
+    head)."""
     kw = dict(num_heads=cfg.num_heads // tp, d_ff=cfg.d_ff // tp)
     if cfg.num_kv_heads != 1:
         kw["num_kv_heads"] = cfg.num_kv_heads // tp
@@ -194,7 +195,8 @@ class Split:
     process's slice, or no group: every slice here, from the whole tree.
     ``data_group`` and ``dp``: MoE's router statistics summed over the data
     ranks.  ``dims``: ``{(block kind, *path in the block): dim}`` of the
-    sliced leaves; ``local``: :func:`local_cfg`.  At ``tp = 1`` (:data:`WHOLE`)
+    sliced leaves, the encoder-decoder's layers of kind ``"encoder"`` and
+    ``"decoder"``; ``local``: :func:`local_cfg`.  At ``tp = 1`` (:data:`WHOLE`)
     every method is the identity, so a block's one body runs fused:
     ``cut``, ``narrow``, ``enter`` and ``take`` return what they are given,
     ``sum`` and ``max`` are ``part(0)``, ``slices`` is ``(0,)``,
@@ -324,7 +326,11 @@ def make_split(cfg: ModelConfig, tp: int, *, group=None, rank: int = 0,
     in a run of ``pp`` pipeline stages) and ``dp`` data ranks."""
     validate(cfg, tp, pp)
     dims: dict = {}
-    if tp > 1:
+    if tp > 1 and cfg.family == "encdec":
+        for path, d in tp_slices(cfg, tp).items():
+            if path[0] in ("encoder", "decoder"):  # the layer axis dropped
+                dims[path] = d - 1
+    elif tp > 1:
         from repro_torch.models import lm
 
         kinds = {f"seg{i}": ks for i, (ks, _) in enumerate(lm.segment_layout(cfg))}

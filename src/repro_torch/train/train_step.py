@@ -503,10 +503,10 @@ def _make_world_train_step(
     * ``model``: at pp = 1 the family's own forward runs Megatron's split
       over this rank's slices of the weights (``lm.loss_fn`` with a
       ``models.split.Split``: the vocabulary of the embedding and the
-      cross entropy, dense GQA blocks, M-RoPE's among them, and MoE,
-      RWKV-6 and Griffin blocks); MLA and the encoder-decoder are refused
-      (ROADMAP item 8c).  Inside a pipeline the split runs dense GQA
-      blocks only (``models.pipeline.make_block_fn``), and stage 0's
+      cross entropy, dense GQA blocks, M-RoPE's among them, MLA, MoE with
+      its shared experts, RWKV-6 and Griffin blocks, and the
+      encoder-decoder's layers).  Inside a pipeline the split runs dense
+      GQA blocks only (``models.pipeline.make_block_fn``), and stage 0's
       embedding and head run whole.
     * ``stage``: each stage is a process (``models.pipeline
       .pipeline_ranks_grads``); dp groups each pipeline

@@ -113,11 +113,18 @@ def _np_tree(tree: dict) -> dict:
 
 
 def train_cell(cfg, plan_kw: dict, state_np: dict, batches: list, ocfg_kw: dict,
-               grad_accum: int = 1) -> dict:
+               grad_accum: int = 1, ckpt: tuple[str, int] | None = None) -> dict:
     """Steps of ``make_train_step`` on this rank of a (stage, data, model)
-    mesh from the whole ``state_np``: the losses, the first step's synced
-    gradients and the final master of this rank's part, and on rank 0 the
-    whole final master gathered from the parts (``gather_state``)."""
+    mesh from the whole ``state_np`` over ``batches`` (numpy: token
+    batches, or ``make_batch``'s for an embeds arch, the encoder-decoder's
+    frames and target tokens among them): the losses, the first step's
+    synced gradients and the final master of this rank's part, and on rank
+    0 the whole final master gathered from the parts (``gather_state``).
+    ``ckpt = (directory, step)``: after that step the whole state gathered
+    from the parts is saved there on rank 0, as the train loop saves it,
+    and this rank's part of it is returned as ``saved``."""
+    from repro_torch.checkpoint.checkpointer import save
+
     plan = resolve_plan(ParallelPlan(**plan_kw))
     mesh = make_pipeline_mesh(plan.pp, plan.dp, plan.tp)
     grads = []
@@ -130,17 +137,24 @@ def train_cell(cfg, plan_kw: dict, state_np: dict, batches: list, ocfg_kw: dict,
     step = make_train_step(cfg, optim.OptimizerConfig(**ocfg_kw), grad_accum=grad_accum,
                            plan=plan, mesh=mesh, grad_transform=capture)
     state = step.parallel.shard_state(from_jax_train_state(state_np, device="cpu"))
-    losses, metrics = [], []
-    for b in batches:
+    losses, metrics, saved = [], [], None
+    for i, b in enumerate(batches, 1):
         state, m = step(state, b)
         losses.append(float(m["loss"]))
         metrics.append({k: float(v) for k, v in m.items()
                         if isinstance(v, torch.Tensor) and v.dim() == 0})
+        if ckpt is not None and i == ckpt[1]:
+            # copies: the next step updates the state in place
+            saved = {k: _np_tree(optim.tree_map(torch.clone, t)) for k, t in (
+                ("master", state.master), ("m", state.opt["m"]), ("v", state.opt["v"]))}
+            whole_state = step.parallel.gather_state(state)
+            if whole_state is not None:
+                save(whole_state, i, ckpt[0])
     whole = step.parallel.gather_state(state)
     return {"losses": losses, "metrics": metrics, "grads": grads[0],
             "master": _np_tree(state.master),
             "whole": None if whole is None else _np_tree(whole.master),
-            "coords": step.parallel.coords}
+            "coords": step.parallel.coords, "saved": saved}
 
 
 def refusal(cfg, plan_kw: dict, compress: bool = False) -> str:

@@ -1361,3 +1361,67 @@ def test_vocab_parallel_cross_entropy_equals_the_fused_one_on_the_card(cuda):
     assert _row_err(dys, dyf) <= 2.0 ** -6
     assert _row_err(dws, dwf) <= 2.0 ** -6
     assert torch.equal(xs, xf) and torch.equal(des, def_)
+
+
+# ---------------- card: the tensor split over MLA and the encoder-decoder ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2"])
+def test_one_process_split_equals_the_fused_kernel_step_on_the_card(cuda, arch):
+    """The smoke config's loss and gradients on the card through the kernels
+    (K2 past ``attn_kv_chunk`` at seq 64; K1 on deepseek's norms and MLA's
+    latent), split over two tensor slices in one process
+    (``models.split.make_split``, no group: MLA's heads, the shared and
+    routed experts, the dense first layer; the encoder's, the decoder's and
+    the cross attention's heads), against the fused ones from the same
+    bf16 parameters and batch, MoE's routing pinned to the fused run's:
+    the loss within 1e-3, the global gradient norm within 1e-3 and every
+    leaf's within 1e-2 of the fused (``chip_smoke.py``'s step limits); each
+    slice launches K2 for its heads, so the split launches it twice as
+    often."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import get_model, make_batch
+    from repro_torch.models.split import make_split
+    from repro_torch.train.optim import global_norm, leaves
+    from repro_torch.train.train_step import compute_params, grad_tree, unused_leaves
+
+    cfg = get_config(arch, smoke=True).replace(remat="none")
+    model = get_model(cfg)
+    params = compute_params(model.init(cfg, seed=0, device=cuda), torch.bfloat16)
+    for _, leaf in leaves(params):
+        leaf.requires_grad_(True)
+    batch = make_batch(cfg, 2, 64, np.random.default_rng(0), device=cuda)
+    picks, real = [], L._top_k
+
+    def record(probs, k):
+        vals, idx = real(probs, k)
+        picks.append(idx)
+        return vals, idx
+
+    def replay(probs, k):
+        idx = picks.pop(0)
+        return probs.gather(-1, idx), idx
+
+    out = {}
+    for name, split, top_k in (("fused", None, record), ("split", make_split(cfg, 2), replay)):
+        flash_attention.reset_launches()
+        L._top_k = top_k
+        try:
+            loss, _ = model.loss_fn(cfg, params, batch, split=split)
+            grads = grad_tree(params, loss, unused_leaves(cfg))
+        finally:
+            L._top_k = real
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), global_norm(grads).item(),
+                     {p: g.float().norm().item() for p, g in leaves(grads)},
+                     flash_attention.launches["flash_fwd"])
+    assert not picks
+    (lf, gf, nf, kf), (ls, gs, ns, ks) = out["fused"], out["split"]
+    assert kf > 0 and ks == 2 * kf
+    assert np.isfinite(ls) and abs(ls - lf) <= 1e-3
+    assert abs(gs - gf) <= 1e-3 * gf
+    for path, v in nf.items():
+        assert abs(ns[path] - v) <= 1e-2 * v + 1e-6, (path, ns[path], v)
